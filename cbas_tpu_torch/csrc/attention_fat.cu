@@ -1,466 +1,39 @@
-// Fused attention forward over the flat (B, N, H*64) layout, for Hopper (sm_90a).
+// K1: fused attention forward over the flat (B, N, H*64) layout, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_fat_kernel (entry
-// fused_attention_fat). Same function, not the same blocking: per head,
-// optional rotate-half RoPE on q and k from fp32 (N, 64) tables, the softmax
-// scale folded into the q side, s = q.k^T in fp32, keys at or beyond n_valid
-// masked by select and their V rows zeroed (NaN/Inf bits in dead rows cannot
-// leak), an exact fp32 softmax, o = p.V / rowsum written in the input dtype.
+// fused_attention_fat). Same function, not the same blocking; the body, its
+// two dtype instantiations and the rounding points are in
+// attention_common.cuh, which K2 and K3 share.
 //
 // Layout: q, k, v and o are read and written at [b, n, h*64 + d], the layout
 // the 2-D projection matmuls produce and the out-projection consumes, so no
-// transpose surrounds the kernel.
+// transpose surrounds the kernel. Row stride H*64, head offset h*64.
 //
 // What bounds it on this card: at N = 261 and d = 64 attention is a small
 // share of a ViT-B forward's FLOPs (the projections and the MLP dominate) and
 // a (64-query tile, head, image) block holds little work, so the kernel is
-// bound by instruction issue and on-chip data movement, not by device memory:
+// bound by instruction throughput and on-chip data movement, not by device memory:
 // each block reads its Q tile once and each K/V tile once, and the (N, N)
 // scores never reach device memory. One block per (64-query tile, head,
 // image) gives thousands of blocks at production batch sizes, which fills the
-// 132 SMs; a loop over 64-key tiles with an online softmax (running max and
-// sum, fp32 accumulator in registers) replaces the TPU kernel's whole-row
-// softmax. Tiles load in 16-byte chunks and are not yet double-buffered, and
-// RoPE on K is recomputed by every query tile: those, wgmma, TMA and warp
-// specialisation are later work.
-//
-// Two instantiations, chosen by dtype:
-// - bfloat16 (production): 4 warps, 16 query rows each, tensor-core mma.sync
-//   m16n8k16 (bf16 in, fp32 accumulate) for q.k^T and p.V, fragments read
-//   from shared memory with ldmatrix. Roped and scaled q and k are rounded to
-//   bf16 once (in fp32 before that), and p is rounded to bf16 before p.V, as
-//   the TPU kernel does; the score and probability tiles stay in registers
-//   (the C fragment of q.k^T is the A fragment of p.V).
-// - float32 (parity): scalar fp32 FMAs, so it can be compared tightly; each
-//   of 256 threads owns a 4 x 4 micro-tile of the scores and the output.
+// 132 SMs; a loop over 64-key tiles with an online softmax replaces the TPU
+// kernel's whole-row softmax. Tiles load in 16-byte chunks and are not yet
+// double-buffered, and RoPE on K is recomputed by every query tile: those,
+// wgmma, TMA and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kHeadDim = 64;
-constexpr int kTile = 64;          // query rows per block, keys per loop step
-constexpr float kMasked = -1e30f;  // the TPU kernel's masked-score value
-
-// Rotate-half RoPE on one element: x * cos + rot(x) * sin with
-// rot(x)[d] = -x[d + 32] for d < 32 and x[d - 32] above. Each product and the
-// sum round separately (no FMA contraction), as the plain PyTorch version
-// computes them, so both round the same roped values to bf16.
-__device__ __forceinline__ float rope(float x, float partner, bool first_half, float c,
-                                      float s) {
-  const float rot = first_half ? -partner : partner;
-  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(rot, s));
-}
-
-// ---------------------------------------------------------------------------
-// float32: scalar FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Threads = 256;  // 16 x 16 threads, 4 x 4 micro-tile each
-constexpr int kF32Ld = kHeadDim + 1;  // padded row stride: column walks hit distinct banks
-constexpr size_t kF32SmemBytes = 3 * kTile * kF32Ld * sizeof(float);
-
-// Copy rows [row0, row0 + 64) of one head into shared memory. Rows at or
-// beyond `live_rows` load as 0, whatever bits they hold. With tables, RoPE is
-// applied as the row loads; `scale` multiplies the result.
-__device__ __forceinline__ void load_tile_f32(float* __restrict__ dst, const float* __restrict__ head,
-                                              int row0, int live_rows, int row_stride,
-                                              const float* __restrict__ cos_t,
-                                              const float* __restrict__ sin_t, float scale) {
-  for (int i = threadIdx.x; i < kTile * kHeadDim; i += kF32Threads) {
-    const int r = i / kHeadDim;
-    const int d = i % kHeadDim;
-    const int n = row0 + r;
-    float x = 0.f;
-    if (n < live_rows) {
-      const float* row = head + static_cast<size_t>(n) * row_stride;
-      x = row[d];
-      if (cos_t != nullptr)
-        x = rope(x, row[d ^ (kHeadDim / 2)], d < kHeadDim / 2, cos_t[n * kHeadDim + d],
-                 sin_t[n * kHeadDim + d]);
-      x *= scale;
-    }
-    dst[r * kF32Ld + d] = x;
-  }
-}
-
-__device__ __forceinline__ float reduce16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float reduce16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y of image
-// blockIdx.z. Thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j, so a
-// row's 16 owners sit in one half-warp and reduce with shuffles.
-__global__ void __launch_bounds__(kF32Threads)
-attention_fat_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o,
-                  const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N, int D,
-                  int n_valid, float scale) {
-  extern __shared__ float smem[];
-  float* sq = smem;                  // Q tile, roped and scaled
-  float* sk = sq + kTile * kF32Ld;   // K tile, then the probability tile P
-  float* sv = sk + kTile * kF32Ld;   // V tile
-
-  const int q0 = blockIdx.x * kTile;
-  const size_t head_off =
-      static_cast<size_t>(blockIdx.z) * N * D + static_cast<size_t>(blockIdx.y) * kHeadDim;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  load_tile_f32(sq, q + head_off, q0, N, D, cos_t, sin_t, scale);
-
-  float acc[4][4], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  // Key tiles wholly beyond n_valid would add exact zeros: they are skipped.
-  const int n_key_tiles = (n_valid + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_key_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous step has finished reading P and V
-    load_tile_f32(sk, k + head_off, k0, n_valid, D, cos_t, sin_t, 1.f);
-    load_tile_f32(sv, v + head_off, k0, n_valid, D, nullptr, nullptr, 1.f);
-    __syncthreads();
-
-    float s[4][4] = {};
-#pragma unroll 8
-    for (int d = 0; d < kHeadDim; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sq[(ty + 16 * i) * kF32Ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sk[(tx + 16 * j) * kF32Ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= n_valid) s[i][j] = kMasked;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = reduce16_max(mx);
-      const float alpha = expf(m[i] - mx);  // 0 on the first tile (m = -inf)
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx + 16 * j < n_valid ? expf(s[i][j] - mx) : 0.f;
-        s[i][j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + reduce16_sum(rs);
-      m[i] = mx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-    }
-
-    __syncthreads();  // every thread is done reading K: its buffer takes P
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sk[(ty + 16 * i) * kF32Ld + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float p[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sk[(ty + 16 * i) * kF32Ld + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = sv[c * kF32Ld + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= N) continue;
-    const float inv = 1.f / l[i];
-    float* row = o + head_off + static_cast<size_t>(r) * D;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) row[tx + 16 * j] = acc[i][j] * inv;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor-core mma.sync
-// ---------------------------------------------------------------------------
-
-constexpr int kBf16Threads = 128;      // 4 warps x 16 query rows
-constexpr int kBf16Ld = kHeadDim + 8;  // row stride, 144 B: 8 rows' 16-byte chunks hit distinct banks
-constexpr int kChunk = 8;              // bf16 values per 16-byte load
-
-// d = a * b + d for one m16n8k16 tile: bf16 A (4 regs) and B (2 regs), fp32 D.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory: lane i gives the address of row
-// i % 8 of matrix i / 8 and receives, of matrix j, row i / 4, columns
-// 2 (i % 4) and 2 (i % 4) + 1 (with .trans: that column pair of the transpose).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// Copy rows [row0, row0 + 64) of one head into shared memory as bf16, in
-// 16-byte chunks of 8 values. Rows at or beyond `live_rows` load as 0. With
-// tables, RoPE is applied in fp32 as the row loads, then `scale`, then one
-// rounding to bf16. Needs 16-byte aligned rows (checked by the wrapper).
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* __restrict__ dst,
-                                               const __nv_bfloat16* __restrict__ head, int row0,
-                                               int live_rows, int row_stride,
-                                               const float* __restrict__ cos_t,
-                                               const float* __restrict__ sin_t, float scale) {
-  constexpr int kChunksPerRow = kHeadDim / kChunk;
-  for (int i = threadIdx.x; i < kTile * kChunksPerRow; i += kBf16Threads) {
-    const int r = i / kChunksPerRow;
-    const int d = (i % kChunksPerRow) * kChunk;
-    const int n = row0 + r;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (n < live_rows) {
-      const __nv_bfloat16* row = head + static_cast<size_t>(n) * row_stride;
-      out = *reinterpret_cast<const uint4*>(row + d);
-      if (cos_t != nullptr || scale != 1.f) {
-        const auto* x2 = reinterpret_cast<const __nv_bfloat162*>(&out);
-        float x[kChunk];
-#pragma unroll
-        for (int e = 0; e < kChunk / 2; ++e) {
-          x[2 * e] = __low2float(x2[e]);
-          x[2 * e + 1] = __high2float(x2[e]);
-        }
-        if (cos_t != nullptr) {
-          const uint4 partner = *reinterpret_cast<const uint4*>(row + (d ^ (kHeadDim / 2)));
-          const auto* p2 = reinterpret_cast<const __nv_bfloat162*>(&partner);
-          const float4* c4 = reinterpret_cast<const float4*>(cos_t + n * kHeadDim + d);
-          const float4* s4 = reinterpret_cast<const float4*>(sin_t + n * kHeadDim + d);
-          const float4 ca = c4[0], cb = c4[1], sa = s4[0], sb = s4[1];
-          const float c[kChunk] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
-          const float s[kChunk] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-#pragma unroll
-          for (int e = 0; e < kChunk; ++e) {
-            const float pe = e % 2 ? __high2float(p2[e / 2]) : __low2float(p2[e / 2]);
-            x[e] = rope(x[e], pe, d < kHeadDim / 2, c[e], s[e]);
-          }
-        }
-        auto* o32 = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-        for (int e = 0; e < kChunk / 2; ++e)
-          o32[e] = pack_bf16(x[2 * e] * scale, x[2 * e + 1] * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * kBf16Ld + d) = out;
-  }
-}
-
-// One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y of image
-// blockIdx.z. Warp w owns query rows 16 w .. 16 w + 15 of the tile. In the
-// mma fragments, lane = 4 g + t holds rows g and g + 8 and columns 2 t, 2 t + 1
-// of each 8-wide tile.
-__global__ void __launch_bounds__(kBf16Threads)
-attention_fat_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                   const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
-                   int D, int n_valid, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sq[kTile * kBf16Ld];
-  __shared__ __align__(16) __nv_bfloat16 sk[kTile * kBf16Ld];
-  __shared__ __align__(16) __nv_bfloat16 sv[kTile * kBf16Ld];
-
-  const int q0 = blockIdx.x * kTile;
-  const size_t head_off =
-      static_cast<size_t>(blockIdx.z) * N * D + static_cast<size_t>(blockIdx.y) * kHeadDim;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int mi = lane / 8;  // the 8x8 matrix this lane addresses in ldmatrix
-  const int mr = lane % 8;  // and its row
-
-  load_tile_bf16(sq, q + head_off, q0, N, D, cos_t, sin_t, scale);
-  __syncthreads();
-
-  // This warp's 16 x 64 Q slice as A fragments, one per 16-wide k step:
-  // matrices (rows 0-7, cols +0), (rows 8-15, +0), (rows 0-7, +8), (rows 8-15, +8).
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(qa[kk], sq + (16 * warp + 8 * (mi % 2) + mr) * kBf16Ld + 16 * kk + 8 * (mi / 2));
-
-  float acc[8][4] = {};                 // O: 8 tiles of 8 output dims
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
-  float l[2] = {0.f, 0.f};              // running sum
-
-  const int n_key_tiles = (n_valid + kTile - 1) / kTile;  // tiles past n_valid add zeros
-  for (int kt = 0; kt < n_key_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp has finished with the previous K and V
-    load_tile_bf16(sk, k + head_off, k0, n_valid, D, cos_t, sin_t, 1.f);
-    load_tile_bf16(sv, v + head_off, k0, n_valid, D, nullptr, nullptr, 1.f);
-    __syncthreads();
-
-    // S = Q K^T over 8 tiles of 8 keys. B[kd][key] = K[key][kd]: one x4 load
-    // gives the B fragments of two 16-wide k steps.
-    float s[8][4] = {};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int kp = 0; kp < 2; ++kp) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sk + (8 * j + mr) * kBf16Ld + 32 * kp + 8 * mi);
-        mma_bf16(s[j], qa[2 * kp], b[0], b[1]);
-        mma_bf16(s[j], qa[2 * kp + 1], b[2], b[3]);
-      }
-
-    // Only the last tile can hold dead keys: mask them by select. Their p is
-    // then exactly 0 (every row has a live key, so its max is finite).
-    if (k0 + kTile > n_valid) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * j + 2 * t + (e & 1) >= n_valid) s[j][e] = kMasked;
-    }
-
-    // Online softmax over rows g (s[j][0..1]) and g + 8 (s[j][2..3]); a row's
-    // 64 scores are spread over the 4 lanes t = 0..3 of one quad.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = __expf(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - mx[e / 2]);
-        rs[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V: the C fragments of score tiles 2 kk and 2 kk + 1 are the A
-    // fragment of key step kk. B[key][dim] = V[key][dim]: one transposing x4
-    // load gives the B fragments of two 8-wide dim tiles.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sv + (16 * kk + 8 * (mi % 2) + mr) * kBf16Ld + 16 * jp + 8 * (mi / 2));
-        mma_bf16(acc[2 * jp], pa, b[0], b[1]);
-        mma_bf16(acc[2 * jp + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * warp + g + 8 * r;
-    if (row >= N) continue;
-    __nv_bfloat16* out = o + head_off + static_cast<size_t>(row) * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          pack_bf16(acc[j][2 * r] * inv[r], acc[j][2 * r + 1] * inv[r]);
-  }
-}
-
-}  // namespace
+#include "attention_common.cuh"
 
 // C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t
-// are (N, 64) fp32 tables or both null (no RoPE). Returns the CUDA error code
-// of the launch (0 on success); the caller raises on anything else.
+// are (N, 64) fp32 tables or both null (no RoPE). head_dim must be 64.
+// Returns the CUDA error code of the launch (0 on success); the caller
+// raises on anything else.
 extern "C" int cbas_attention_fat(const void* q, const void* k, const void* v, void* o,
                                   const void* cos_t, const void* sin_t, int B, int N, int H,
-                                  int n_valid, float scale, int dtype, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || n_valid <= 0 || n_valid > N || B > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto* c = static_cast<const float*>(cos_t);
-  const auto* s = static_cast<const float*>(sin_t);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kTile - 1) / kTile, H, B);
-  const int D = H * kHeadDim;
-  if (dtype == 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_fat_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kF32SmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attention_fat_f32<<<grid, kF32Threads, kF32SmemBytes, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), c, s, N, D, n_valid, scale);
-  } else if (dtype == 1) {
-    attention_fat_bf16<<<grid, kBf16Threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), c, s, N, D,
-        n_valid, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                  int head_dim, int n_valid, float scale, int dtype,
+                                  void* stream) {
+  using namespace cbas_attention;
+  if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<64>(q, k, v, o, cos_t, sin_t, B, N, H, flat_layout(N, H, 64),
+                                     n_valid, scale, dtype, stream));
 }

@@ -10,9 +10,14 @@ is a copy: the JAX module imports jax at the top.
 
 What differs from the JAX forward:
 
-- Every full block's attention runs in the flat (B, N, H*64) layout only,
-  through :func:`cbas_tpu_torch.ops.flash_attention.fused_attention_fat`: the
-  hand-written kernel on a CUDA tensor, its plain version on a CPU tensor.
+- Every full block's attention runs through one of the fused kernels of
+  :mod:`cbas_tpu_torch.ops.flash_attention`, routed by the JAX package's
+  rule (see :func:`_attention`): the hand-written kernel on a CUDA tensor,
+  its plain version on a CPU tensor. There is no unfused path to switch to:
+  the JAX package's ``set_fused_attention`` has no counterpart.
+- The head-pair packed and head-major layouts come from the flat
+  projections by a transpose: one copy each of q, k, v and the context, as
+  XLA makes for the JAX package's projection einsums into those layouts.
 - No token padding (the TPU's sublane granule), so no key masking inside the
   model, and no tensor-parallel reduction hooks.
 """
@@ -292,19 +297,40 @@ def _attn_param_table(cfg: ViTConfig, prefix: str):
 def _attention(
     params: Params, prefix: str, x: torch.Tensor, cfg: ViTConfig, rope: Optional[Rope]
 ) -> torch.Tensor:
-    """Full attention in the flat layout: projection matmuls feed the fused
-    attention directly and its output feeds the out-projection. ``rope`` is
-    the full-length (N, 64) table pair or None."""
-    if cfg.head_dim != fa.HEAD_DIM:
-        raise NotImplementedError(
-            f"head_dim {cfg.head_dim}: only 64-wide heads have a kernel "
-            "(the head-major kernel K3 is not ported yet; see ROADMAP.md)"
-        )
+    """Full attention, routed as the JAX package routes it
+    (``cbas_tpu/models/vit.py::_attention``):
+
+    - 64-wide heads, an even head count and :func:`fa.use_fat_attention`: the
+      flat projections feed K1 directly and its output feeds the
+      out-projection;
+    - 64-wide heads and an even head count otherwise: projections into the
+      head-pair packed (B, H/2, N, 128) layout, K2;
+    - any other head dim, or an odd head count: projections into the
+      head-major (B, H, N, d) layout, K3.
+
+    No route falls back to another. ``rope`` is the full-length
+    (N, head_dim) table pair or None."""
+    B, N, D = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
     names, biases, out_name, out_bias = _attn_param_table(cfg, prefix)
     q, k, v = (_dense(params, n, x, b) for n, b in zip(names, biases))
     cos, sin = rope if rope is not None else (None, None)
-    ctx = fa.fused_attention_fat(q, k, v, cfg.head_dim ** -0.5, rope_cos=cos, rope_sin=sin)
-    return _dense(params, out_name, ctx, out_bias)
+    scale = hd ** -0.5
+    packed = hd == fa.HEAD_DIM and H % 2 == 0
+    if packed and fa.use_fat_attention():
+        ctx = fa.fused_attention_fat(q, k, v, scale, rope_cos=cos, rope_sin=sin)
+        return _dense(params, out_name, ctx, out_bias)
+
+    pack = 2 if packed else 1
+
+    def heads(t):  # (B, N, H*hd) -> (B, H/pack, N, pack*hd)
+        return t.view(B, N, H // pack, pack * hd).transpose(1, 2).contiguous()
+
+    attend = fa.fused_attention_packed if packed else fa.fused_attention
+    ctx = attend(heads(q), heads(k), heads(v), scale, rope_cos=cos, rope_sin=sin)
+    # The out-projection contracts over (heads, head dim) in the order the
+    # flat layout holds them, so the context goes back to (B, N, H*hd).
+    return _dense(params, out_name, ctx.transpose(1, 2).reshape(B, N, D), out_bias)
 
 
 def _attention_cls(

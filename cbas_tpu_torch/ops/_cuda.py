@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 into a shared library at first use and loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds). Libraries land in ``_build/`` beside the
-package, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. A failed build raises.
+package, named by a hash of the source, the headers beside it and the flags,
+so an edited source is rebuilt and an unchanged one is reused. A failed build
+raises.
 
 Nothing here runs at import: the CPU tests import every module, and a CPU-only
 machine has no ``nvcc``.
@@ -49,10 +50,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source bytes and flags."""
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed by the bytes of the source,
+    of every header in ``csrc/`` (an edited shared body rebuilds each kernel
+    that includes it) and of the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

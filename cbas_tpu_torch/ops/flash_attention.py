@@ -1,37 +1,119 @@
-"""Fused attention over the flat (B, N, H*64) layout.
+"""Fused attention in the three layouts of the JAX package.
 
-Port of ``cbas_tpu/ops/flash_attention.py::fused_attention_fat``. The layout is
-the JAX package's: q, k and v come straight out of the 2-D projection matmuls
-as (B, N, num_heads * 64) row-major tensors and the output goes straight into
-the out-projection, so no transpose surrounds the call.
+Port of ``cbas_tpu/ops/flash_attention.py``'s three Pallas entries, with
+their names and argument order (the TPU-only ``block_q``, ``interpret`` and
+``pvt`` arguments dropped):
 
-- On a CUDA tensor the wrapper launches the hand-written kernel
-  (``csrc/attention_fat.cu``) or raises. It never falls back.
-- On a CPU tensor it runs :func:`attention_fat_reference`, the plain PyTorch
-  version of the same function.
+- :func:`fused_attention_fat` (K1): flat (B, N, H*64), straight out of the
+  2-D projection matmuls and into the out-projection, so no transpose
+  surrounds the call.
+- :func:`fused_attention_packed` (K2): head-pair packed (B, H/2, N, 128),
+  two 64-wide heads side by side on the last dim.
+- :func:`fused_attention` (K3): head-major (B, H, N, d), d any multiple of 8
+  up to 128.
 
-``launches`` counts kernel launches (and nothing else), so a run can show
-that its main path went through the kernel.
+All three compute one function per head: optional rotate-half RoPE from fp32
+(N, d) tables, the scale on the q side, keys at or beyond ``n_valid`` masked,
+exact fp32 softmax, output in q's dtype.
+
+- On a CUDA tensor each wrapper launches its hand-written kernel
+  (``csrc/attention_{fat,packed,headmajor}.cu``) or raises. None falls back.
+- On a CPU tensor it runs its plain PyTorch version
+  (``attention_{fat,packed,headmajor}_reference``).
+
+``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
+count kernel launches and nothing else, so a run can show which kernels its
+main path went through.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import torch
 
-HEAD_DIM = 64
+HEAD_DIM = 64       # K1's and K2's head width
+MAX_HEAD_DIM = 128  # the widest head K3 takes (no public DINO checkpoint is wider)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
+launches = 0            # K1, fused_attention_fat
+launches_packed = 0     # K2, fused_attention_packed
+launches_headmajor = 0  # K3, fused_attention
+
+
+def use_fat_attention() -> bool:
+    """Whether 64-wide heads take the flat layout (K1): yes unless
+    ``CBAS_ATTN_FAT`` is set to one of the JAX package's falsy spellings."""
+    env = os.environ.get("CBAS_ATTN_FAT")
+    if env is not None:
+        return env.lower() not in ("", "0", "false", "no", "off")
+    return True
 
 
 def rotate_half(t: torch.Tensor) -> torch.Tensor:
     """RoPE's partner term: (-x2, x1) for x = (x1, x2) split in halves."""
     h = t.shape[-1] // 2
     return torch.cat([-t[..., h:], t[..., :h]], dim=-1)
+
+
+def _attend(q, k, v, scale, nv, rope_cos, rope_sin, dtype) -> torch.Tensor:
+    """The kernels' function on head-major (B, H, N, d) tensors, in fp32.
+
+    Values are rounded to ``dtype`` where the kernels round them: roped and
+    scaled q, roped k, and p before p.V (the row sum stays fp32). For fp32
+    that rounding is a no-op. Returns fp32."""
+    N = q.shape[2]
+    qh, kh, vh = q.float(), k.float(), v.float()
+    if rope_cos is not None:
+        cos, sin = rope_cos.float(), rope_sin.float()
+        qh = qh * cos + rotate_half(qh) * sin
+        kh = kh * cos + rotate_half(kh) * sin
+    qh = (qh * scale).to(dtype).float()
+    kh = kh.to(dtype).float()
+    live = torch.arange(N, device=q.device) < nv
+    kh = torch.where(live[:, None], kh, 0.0)  # dead rows' NaN/Inf bits cannot leak
+    vh = torch.where(live[:, None], vh, 0.0)
+    s = torch.where(live, qh @ kh.transpose(-1, -2), -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return (p.to(dtype).float() @ vh) / p.sum(dim=-1, keepdim=True)
+
+
+def attention_headmajor_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3 on head-major (B, H, N, d) tensors."""
+    nv = q.shape[2] if n_valid is None else n_valid
+    return _attend(q, k, v, scale, nv, rope_cos, rope_sin, q.dtype).to(q.dtype)
+
+
+def attention_packed_reference(
+    q2: torch.Tensor,
+    k2: torch.Tensor,
+    v2: torch.Tensor,
+    scale: float,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2 on head-pair packed (B, G, N, 2d) tensors."""
+    B, G, N, dd = q2.shape
+    d = dd // 2
+
+    def heads(t):  # (B, G, N, 2d) -> (B, 2G, N, d)
+        return t.reshape(B, G, N, 2, d).transpose(2, 3).reshape(B, 2 * G, N, d)
+
+    nv = N if n_valid is None else n_valid
+    out = _attend(heads(q2), heads(k2), heads(v2), scale, nv, rope_cos, rope_sin, q2.dtype)
+    return out.reshape(B, G, 2, N, d).transpose(2, 3).reshape(B, G, N, dd).to(q2.dtype)
 
 
 def attention_fat_reference(
@@ -43,57 +125,35 @@ def attention_fat_reference(
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel.
-
-    Rotate-half RoPE from the (N, 64) tables, scale on the q side, keys at or
-    beyond ``n_valid`` masked by select and their V rows zeroed (so NaN/Inf
-    bits in dead rows cannot leak), exact fp32 softmax, output in q's dtype.
-    Arithmetic is fp32; values are rounded to the input dtype where the TPU
-    kernel rounds them: roped q and k, and p before p.V (the row sum stays
-    fp32). For fp32 inputs those roundings are no-ops.
-    """
+    """Plain PyTorch version of K1 on flat (B, N, H*64) tensors."""
     B, N, D = q.shape
     H = D // HEAD_DIM
+
+    def heads(t):  # (B, N, H*64) -> (B, H, N, 64)
+        return t.reshape(B, N, H, HEAD_DIM).transpose(1, 2)
+
     nv = N if n_valid is None else n_valid
-
-    def heads(t):
-        return t.float().reshape(B, N, H, HEAD_DIM).transpose(1, 2)  # (B, H, N, 64)
-
-    qh, kh, vh = heads(q), heads(k), heads(v)
-    if rope_cos is not None:
-        cos, sin = rope_cos.float(), rope_sin.float()
-        qh = qh * cos + rotate_half(qh) * sin
-        kh = kh * cos + rotate_half(kh) * sin
-    qh = (qh * scale).to(q.dtype).float()
-    kh = kh.to(q.dtype).float()
-    live = torch.arange(N, device=q.device) < nv
-    kh = torch.where(live[:, None], kh, 0.0)
-    vh = torch.where(live[:, None], vh, 0.0)
-    s = torch.where(live, qh @ kh.transpose(-1, -2), -1e30)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    out = (p.to(q.dtype).float() @ vh) / p.sum(dim=-1, keepdim=True)  # (B, H, N, 64)
+    out = _attend(heads(q), heads(k), heads(v), scale, nv, rope_cos, rope_sin, q.dtype)
     return out.transpose(1, 2).reshape(B, N, D).to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry of ``csrc/attention_fat.cu``, built at first use."""
+def _kernel(name: str):
+    """The C entry ``cbas_<name>`` of ``csrc/<name>.cu``, built at first use.
+    All three share one signature."""
     from cbas_tpu_torch.ops import _cuda
 
-    fn = _cuda.load("attention_fat").cbas_attention_fat
+    fn = getattr(_cuda.load(name), f"cbas_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
 
 
-def _check(q, k, v, n_valid, rope_cos, rope_sin) -> int:
-    if q.dim() != 3:
-        raise ValueError(f"expected flat (B, N, H*64) tensors, got q of shape {tuple(q.shape)}")
-    B, N, D = q.shape
-    if D % HEAD_DIM:
-        raise ValueError(f"last dim {D} is not a multiple of the head dim {HEAD_DIM}")
+def _check(q, k, v, N, head_dim, n_valid, rope_cos, rope_sin) -> int:
+    """What every layout checks: k and v like q, ``n_valid`` in [1, N], and
+    (N, head_dim) tables on q's device. Returns the live key count."""
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(
@@ -107,12 +167,40 @@ def _check(q, k, v, n_valid, rope_cos, rope_sin) -> int:
         raise ValueError("rope_cos and rope_sin go together")
     if rope_cos is not None:
         for name, t in (("rope_cos", rope_cos), ("rope_sin", rope_sin)):
-            if t.shape != (N, HEAD_DIM) or t.device != q.device:
+            if t.shape != (N, head_dim) or t.device != q.device:
                 raise ValueError(
-                    f"{name} must be ({N}, {HEAD_DIM}) on {q.device}, got "
+                    f"{name} must be ({N}, {head_dim}) on {q.device}, got "
                     f"{tuple(t.shape)} on {t.device}"
                 )
     return nv
+
+
+def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu``'s kernel on a CUDA tensor, or raise."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the kernel takes float32 or bfloat16, not {q.dtype}")
+    cos = sin = None
+    if rope_cos is not None:
+        cos = rope_cos.to(torch.float32).contiguous()
+        sin = rope_sin.to(torch.float32).contiguous()
+    # The kernels read rows in 16-byte chunks.
+    for arg, t in (("q", q), ("k", k), ("v", v), ("rope_cos", cos), ("rope_sin", sin)):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{arg} must be contiguous and 16-byte aligned")
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        err = _kernel(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            cos.data_ptr() if cos is not None else None,
+            sin.data_ptr() if sin is not None else None,
+            B, N, H, d, nv, float(scale), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    return out
 
 
 def fused_attention_fat(
@@ -124,41 +212,84 @@ def fused_attention_fat(
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Attention over flat (B, N, H*64) q, k, v; returns (B, N, H*64) in q's dtype.
+    """K1: attention over flat (B, N, H*64) q, k, v; returns (B, N, H*64) in
+    q's dtype.
 
     ``rope_cos``/``rope_sin`` are full-length (N, 64) tables (identity rows for
     prefix tokens). Keys at or beyond ``n_valid`` are masked.
     """
-    nv = _check(q, k, v, n_valid, rope_cos, rope_sin)
+    if q.dim() != 3:
+        raise ValueError(f"expected flat (B, N, H*64) tensors, got q of shape {tuple(q.shape)}")
+    B, N, D = q.shape
+    if D % HEAD_DIM:
+        raise ValueError(f"last dim {D} is not a multiple of the head dim {HEAD_DIM}")
+    nv = _check(q, k, v, N, HEAD_DIM, n_valid, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return attention_fat_reference(q, k, v, scale, nv, rope_cos, rope_sin)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention_fat runs on cpu or cuda, not {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the kernel takes float32 or bfloat16, not {q.dtype}")
-    cos = sin = None
-    if rope_cos is not None:
-        cos = rope_cos.to(torch.float32).contiguous()
-        sin = rope_sin.to(torch.float32).contiguous()
-    # The kernel reads rows in 16-byte chunks.
-    for name, t in (("q", q), ("k", k), ("v", v), ("rope_cos", cos), ("rope_sin", sin)):
-        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-    B, N, D = q.shape
-    with torch.cuda.device(q.device):
-        out = torch.empty_like(q)
-        err = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            cos.data_ptr() if cos is not None else None,
-            sin.data_ptr() if sin is not None else None,
-            B, N, D // HEAD_DIM, nv, float(scale), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"attention_fat kernel launch failed with CUDA error {err}")
+    out = _launch("attention_fat", q, k, v, scale, nv, rope_cos, rope_sin, B, N, D // HEAD_DIM,
+                  HEAD_DIM)
     global launches
     launches += 1
+    return out
+
+
+def fused_attention_packed(
+    q2: torch.Tensor,
+    k2: torch.Tensor,
+    v2: torch.Tensor,
+    scale: float,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K2: attention over head-pair packed (B, G, N, 128) tensors, two 64-wide
+    heads side by side on the last dim; returns the same packed layout.
+
+    ``rope_cos``/``rope_sin`` are (N, 64): both heads of a pair share them.
+    """
+    if q2.dim() != 4 or q2.shape[-1] != 2 * HEAD_DIM:
+        raise ValueError(
+            f"expected packed (B, H/2, N, {2 * HEAD_DIM}) tensors (two {HEAD_DIM}-wide heads "
+            f"a row), got q2 of shape {tuple(q2.shape)}"
+        )
+    B, G, N, _ = q2.shape
+    nv = _check(q2, k2, v2, N, HEAD_DIM, n_valid, rope_cos, rope_sin)
+    if q2.device.type == "cpu":
+        return attention_packed_reference(q2, k2, v2, scale, nv, rope_cos, rope_sin)
+    out = _launch("attention_packed", q2, k2, v2, scale, nv, rope_cos, rope_sin, B, N, 2 * G,
+                  HEAD_DIM)
+    global launches_packed
+    launches_packed += 1
+    return out
+
+
+def fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K3: attention over head-major (B, H, N, d) tensors, d a multiple of 8
+    up to 128; returns (B, H, N, d) in q's dtype.
+
+    ``rope_cos``/``rope_sin`` are full-length (N, d) tables.
+    """
+    if q.dim() != 4:
+        raise ValueError(f"expected head-major (B, H, N, d) tensors, got q of shape {tuple(q.shape)}")
+    B, H, N, d = q.shape
+    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d}: the kernel takes multiples of 8 up to {MAX_HEAD_DIM}"
+        )
+    nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
+    if q.device.type == "cpu":
+        return attention_headmajor_reference(q, k, v, scale, nv, rope_cos, rope_sin)
+    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d)
+    global launches_headmajor
+    launches_headmajor += 1
     return out
 
 

@@ -1,0 +1,258 @@
+"""cbas_tpu_torch's packed (K2) and head-major (K3) fused attention against
+the JAX package's.
+
+The JAX kernels run as their own tests run them on the CPU (Pallas interpret
+mode); the port's wrappers, given CPU tensors, run their plain versions.
+Inputs come from one numpy seed, at the JAX suite's own shapes
+(``tests/test_flash_attention.py``). Tolerance: atol/rtol 2e-5 in fp32, 3e-5
+with RoPE, the JAX suite's bounds (both sides compute in fp32; only
+summation order differs, and RoPE adds two roundings).
+
+The ``cuda`` tests hold each CUDA kernel against its plain version and skip
+without a card. This file imports jax only inside the JAX-parity tests, so on
+a card's machine without jax the ``cuda`` tests run on their own:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_attention_layouts.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cbas_tpu_torch.ops import flash_attention as fa
+
+TOL, TOL_ROPE = 2e-5, 3e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode (run on the card)")
+    return torch.device("cuda")
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def _rope(N, d, seed):
+    """(N, d) tables with tiled halves, as the JAX suite builds them."""
+    ang = np.random.default_rng(seed).standard_normal((N, d // 2)).astype(np.float32)
+    return (np.concatenate([np.cos(ang)] * 2, axis=-1),
+            np.concatenate([np.sin(ang)] * 2, axis=-1))
+
+
+def _both(jax_entry, port_entry, q, k, v, n_valid=None, rope=None, **jax_kw):
+    """One case through the JAX kernel (interpret mode) and the port's
+    wrapper on CPU tensors; returns (port, jax) as numpy."""
+    jnp = pytest.importorskip("jax.numpy")
+    from cbas_tpu.ops import flash_attention as jfa
+
+    d = q.shape[-1] if port_entry is fa.fused_attention else fa.HEAD_DIM
+    scale = d ** -0.5
+    cos, sin = rope if rope is not None else (None, None)
+    want = getattr(jfa, jax_entry)(
+        *(jnp.asarray(t) for t in (q, k, v)), scale, n_valid=n_valid,
+        rope_cos=None if cos is None else jnp.asarray(cos),
+        rope_sin=None if sin is None else jnp.asarray(sin),
+        interpret=True, **jax_kw,
+    )
+    got = port_entry(
+        *(torch.from_numpy(t) for t in (q, k, v)), scale, n_valid=n_valid,
+        rope_cos=None if cos is None else torch.from_numpy(cos),
+        rope_sin=None if sin is None else torch.from_numpy(sin),
+    )
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize(
+    "B,H,N,d,n_valid",
+    [
+        (2, 2, 128, 64, None),   # aligned
+        (1, 3, 261, 64, None),   # ViT-ish N, an odd head count
+        (2, 1, 37, 32, None),    # tiny N below one tile
+        (1, 2, 140, 128, None),  # DINOv3 ViT-7B's head width
+        (1, 2, 272, 64, 261),    # the 256x256 token count padded, pad keys masked
+        (1, 2, 272, 128, 261),
+        (2, 2, 48, 32, 40),
+    ],
+)
+def test_headmajor_reference_matches_jax(B, H, N, d, n_valid, rope):
+    q, k, v = _inputs((B, H, N, d), seed=20)
+    got, want = _both(
+        "fused_attention", fa.fused_attention, q, k, v, n_valid,
+        _rope(N, d, seed=21) if rope else None,
+    )
+    assert got.shape == (B, H, N, d)
+    tol = TOL_ROPE if rope else TOL
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("pvt", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize(
+    "B,G,N,n_valid",
+    [
+        (2, 2, 128, None),  # aligned, two pairs
+        (1, 1, 261, None),  # N not a tile multiple
+        (2, 1, 200, 190),   # model-level padding masked as keys
+    ],
+)
+def test_packed_reference_matches_jax(B, G, N, n_valid, rope, pvt):
+    """Against both of the JAX kernel's score orientations: the port has one."""
+    q, k, v = _inputs((B, G, N, 2 * fa.HEAD_DIM), seed=22)
+    got, want = _both(
+        "fused_attention_packed", fa.fused_attention_packed, q, k, v, n_valid,
+        _rope(N, fa.HEAD_DIM, seed=23) if rope else None, pvt=pvt,
+    )
+    assert got.shape == (B, G, N, 2 * fa.HEAD_DIM)
+    tol = TOL_ROPE if rope else TOL
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize(
+    "entry,jax_entry,shape",
+    [
+        (fa.fused_attention, "fused_attention", (2, 2, 80, 128)),
+        (fa.fused_attention, "fused_attention", (2, 3, 80, 40)),
+        (fa.fused_attention_packed, "fused_attention_packed", (2, 2, 80, 128)),
+    ],
+)
+def test_dead_rows_cannot_leak(entry, jax_entry, shape):
+    """NaN in K/V rows at or beyond n_valid leaves every output finite, equal
+    to attention over the live rows alone and to the JAX kernel's output."""
+    q, k, v = _inputs(shape, seed=24)
+    k[:, :, 70:] = np.nan
+    v[:, :, 70:] = np.nan
+    d = shape[-1] if entry is fa.fused_attention else fa.HEAD_DIM
+    rope = _rope(shape[2], d, seed=25)
+    got, want = _both(jax_entry, entry, q, k, v, 70, rope)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=TOL_ROPE, atol=TOL_ROPE)
+    # The first 70 query rows against attention over the first 70 tokens.
+    t = [torch.from_numpy(np.ascontiguousarray(x[:, :, :70])) for x in (q, k, v)]
+    cos, sin = (torch.from_numpy(np.ascontiguousarray(x[:70])) for x in rope)
+    only_live = entry(*t, d ** -0.5, None, cos, sin)
+    np.testing.assert_allclose(got[:, :, :70], only_live.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_three_plain_versions_compute_one_function(dtype):
+    """The packed and head-major plain versions over the same heads equal the
+    flat one exactly, in fp32 and in bf16 (same rounding points)."""
+    B, H, N = 2, 4, 70
+    gen = torch.Generator().manual_seed(0)
+    flat = [torch.randn(B, N, H * 64, generator=gen).to(dtype) for _ in range(3)]
+    cos, sin = (torch.from_numpy(t) for t in _rope(N, 64, seed=26))
+    want = fa.attention_fat_reference(*flat, 0.125, 60, cos, sin)
+
+    def headmajor(t):
+        return t.reshape(B, N, H, 64).transpose(1, 2).contiguous()
+
+    def packed(t):
+        return t.reshape(B, N, H // 2, 128).transpose(1, 2).contiguous()
+
+    hm = fa.fused_attention(*(headmajor(t) for t in flat), 0.125, 60, cos, sin)
+    pk = fa.fused_attention_packed(*(packed(t) for t in flat), 0.125, 60, cos, sin)
+    assert torch.equal(hm.transpose(1, 2).reshape(B, N, H * 64), want)
+    assert torch.equal(pk.transpose(1, 2).reshape(B, N, H * 64), want)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 2, 16, 136)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.fused_attention(q, q, q, 0.1)
+    q = torch.zeros(1, 2, 16, 12)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.fused_attention(q, q, q, 0.1)
+    q = torch.zeros(1, 2, 16, 96)
+    with pytest.raises(ValueError, match=r"rope_cos must be \(16, 96\)"):
+        fa.fused_attention(q, q, q, 0.1, rope_cos=torch.ones(16, 64), rope_sin=torch.ones(16, 64))
+    with pytest.raises(ValueError, match="head-major"):
+        fa.fused_attention(q[0], q[0], q[0], 0.1)
+    q = torch.zeros(1, 2, 16, 64)
+    with pytest.raises(ValueError, match="packed"):
+        fa.fused_attention_packed(q, q, q, 0.1)
+    q = torch.zeros(1, 2, 16, 128)
+    with pytest.raises(ValueError, match="n_valid"):
+        fa.fused_attention_packed(q, q, q, 0.1, n_valid=17)
+    with pytest.raises(ValueError, match="does not match"):
+        fa.fused_attention_packed(q, q[:, :1], q, 0.1)
+
+
+def test_cpu_tensors_never_count_as_launches():
+    before = (fa.launches, fa.launches_packed, fa.launches_headmajor)
+    q = torch.zeros(1, 2, 16, 128)
+    fa.fused_attention(q, q, q, 0.1)
+    fa.fused_attention_packed(q, q, q, 0.1)
+    assert (fa.launches, fa.launches_packed, fa.launches_headmajor) == before
+
+
+@pytest.mark.parametrize("value", [None, "", "0", "false", "no", "off", "OFF", "1", "yes"])
+def test_use_fat_attention_reads_the_jax_switch(value, monkeypatch):
+    from cbas_tpu.ops import flash_attention as jfa
+
+    if value is None:
+        monkeypatch.delenv("CBAS_ATTN_FAT", raising=False)
+    else:
+        monkeypatch.setenv("CBAS_ATTN_FAT", value)
+    assert fa.use_fat_attention() == jfa.use_fat_attention()
+
+
+def _card_tolerance(got, want, v, n_valid, N):
+    """fp32: 2e-5 abs+rel (summation order). bf16: both round at the same
+    points, but the kernel rounds p against a running max, so 2^-8 of the
+    largest |v| plus one bf16 ulp (2^-7 relative) plus 1e-5."""
+    if got.dtype == torch.float32:
+        return TOL * (1 + want.float().abs())
+    vmax = v[..., : n_valid or N, :].float().abs().max()
+    return want.float().abs() * 2.0 ** -7 + 2.0 ** -8 * vmax + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,N,d,n_valid",
+    [
+        (2, 32, 261, 128, None),  # ViT-7B's heads at 256x256
+        (1, 32, 1205, 128, None),  # and at 640x480
+        (4, 3, 261, 64, None),     # an odd head count
+        (2, 4, 272, 96, 261),      # a half not a power of two, pad keys masked
+        (2, 4, 200, 40, 190),      # a head dim not a multiple of 16
+    ],
+)
+def test_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, cuda_device):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(t).to(cuda_device, dt) for t in _inputs((B, H, N, d), seed=27))
+    if n_valid is not None:
+        k[:, :, n_valid:] = float("nan")
+        v[:, :, n_valid:] = float("nan")
+    cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=28))
+    before = fa.launches_headmajor
+    got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
+    assert fa.launches_headmajor == before + 1
+    want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,G,N,n_valid", [(4, 6, 261, None), (2, 6, 1205, None), (4, 6, 272, 261)])
+def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, cuda_device):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(t).to(cuda_device, dt) for t in _inputs((B, G, N, 128), seed=29))
+    if n_valid is not None:
+        k[:, :, n_valid:] = float("nan")
+        v[:, :, n_valid:] = float("nan")
+    cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, 64, seed=30))
+    before = fa.launches_packed
+    got = fa.fused_attention_packed(q, k, v, 0.125, n_valid, cos, sin)
+    assert fa.launches_packed == before + 1
+    want = fa.attention_packed_reference(q, k, v, 0.125, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())

@@ -7,6 +7,7 @@ order can round one step apart. Near zero the fp16 ulp falls below the fp32
 error of the O(1) terms the value is summed from, so 1e-6 is allowed on top.
 """
 
+import dataclasses
 import os
 
 import h5py
@@ -84,6 +85,30 @@ def test_bf16_tracks_fp32(encoders):
     b = fp32.encode_planes(planes).astype(np.float32)
     cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
     assert cos.min() >= 0.99, cos
+
+
+def test_head_dim_128_checkpoint_dir_matches_jax(tmp_path):
+    """A local checkpoint directory whose config.json has 128-wide heads and a
+    gated MLP (DINOv3 ViT-7B's shape at a small width) resolves, initialises
+    and encodes through the head-major route, as the JAX package's does."""
+    import json
+
+    from cbas_tpu_torch.models.vit import init_vit_params
+
+    (tmp_path / "config.json").write_text(json.dumps({
+        "model_type": "dinov3_vit", "hidden_size": 256, "num_hidden_layers": 2,
+        "num_attention_heads": 2, "intermediate_size": 512, "use_gated_mlp": True,
+        "patch_size": 16, "num_register_tokens": 4, "rope_theta": 100.0,
+        "layer_norm_eps": 1e-5,
+    }))
+    ours = FrameEncoder(str(tmp_path), random_init=True, compute_dtype=torch.float32,
+                        device="cpu")
+    assert ours.cfg.head_dim == 128 and ours.cfg.use_gated_mlp
+    params = init_vit_params(0, ours.cfg)
+    ref = JaxFrameEncoder(str(tmp_path), params=params, compute_dtype=jnp.float32)
+    assert dataclasses.asdict(ref.cfg) == dataclasses.asdict(ours.cfg)
+    planes = np.random.default_rng(4).integers(0, 256, (3, 48, 80), np.uint8)
+    assert_within_fp16_ulp(ours.encode_planes(planes, batch=4), ref.encode_planes(planes, batch=4))
 
 
 def test_cuda_device_without_a_card_raises():

@@ -100,7 +100,7 @@ def test_sources_use_no_jax_and_no_library_attention():
     pkg = os.path.join(ROOT, "cbas_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
         for f in files:
-            if f.endswith((".py", ".cu")):
+            if f.endswith((".py", ".cu", ".cuh")):
                 with open(os.path.join(dirpath, f)) as fh:
                     assert not banned.search(fh.read()), os.path.join(dirpath, f)
 

@@ -160,9 +160,82 @@ def test_resample_pos_embed_equals_jax():
     )
 
 
-def test_head_dim_other_than_64_raises():
-    cfg = tvit.ViTConfig(**{**SMALL["dinov3"], "num_heads": 4})  # head_dim 32
-    params = vit_params_from_numpy(tvit.init_vit_params(0, cfg), cfg)
-    rope = tuple(torch.from_numpy(t) for t in tvit.rope_tables(cfg, 2, 2))
-    with pytest.raises(NotImplementedError, match="head_dim 32"):
-        tvit.vit_forward_from_tokens(params, torch.zeros(1, 4, 128), cfg, rope=rope)
+# Configurations for each attention route, as (config, CBAS_ATTN_FAT, the
+# entry both packages' _attention call). dinov3 with RoPE throughout.
+ROUTES = {
+    "hd32": (dict(SMALL["dinov3"], num_heads=4), None, "fused_attention"),
+    "hd128-gated": (
+        dict(SMALL["dinov3-gated"], hidden_size=256, num_register_tokens=4), None,
+        "fused_attention",
+    ),
+    "hd64-3heads": (dict(SMALL["dinov3"], hidden_size=192, num_heads=3), None, "fused_attention"),
+    "hd64-packed": (SMALL["dinov3"], "0", "fused_attention_packed"),
+    "hd64-flat": (SMALL["dinov3"], None, "fused_attention_fat"),
+}
+
+
+@pytest.fixture
+def restore_fused_flag():
+    yield
+    jvit.set_fused_attention(None)
+
+
+def _route_forward(name, monkeypatch, fused):
+    """Both packages' forward over one route's config, from the same numpy
+    weights and tokens; the JAX side with its fused path on (its Pallas
+    kernels in interpret mode) or off (its unfused jnp path)."""
+    kwargs, fat_env, _ = ROUTES[name]
+    if fat_env is None:
+        monkeypatch.delenv("CBAS_ATTN_FAT", raising=False)
+    else:
+        monkeypatch.setenv("CBAS_ATTN_FAT", fat_env)
+    jvit.set_fused_attention(fused)
+    jcfg, tcfg = jvit.ViTConfig(**kwargs), tvit.ViTConfig(**kwargs)
+    jparams = jax.device_get(jvit.init_vit_params(jax.random.key(2), jcfg))
+    rng = np.random.default_rng(6)
+    grid = (2, 3)
+    tokens = rng.standard_normal((2, 6, tcfg.hidden_size)).astype(np.float32)
+    rope_np = tvit.rope_tables(tcfg, *grid)
+    want = jvit.vit_forward_from_tokens(
+        {k: jnp.asarray(v) for k, v in jparams.items()}, jnp.asarray(tokens), jcfg,
+        rope=tuple(jnp.asarray(t) for t in rope_np),
+    )
+    got = tvit.vit_forward_from_tokens(
+        vit_params_from_numpy(jparams, tcfg), torch.from_numpy(tokens), tcfg,
+        rope=tuple(torch.from_numpy(t) for t in rope_np),
+    )
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("name", ["hd32", "hd128-gated", "hd64-3heads", "hd64-packed"])
+def test_forward_matches_jax_on_every_route(name, fused, monkeypatch, restore_fused_flag):
+    """Head dims 32 and 128 and an odd head count run through K3, and 64-wide
+    pairs with CBAS_ATTN_FAT=0 through K2, matching the JAX forward with its
+    fused kernels (K3 or K2 in interpret mode) and without them."""
+    got, want = _route_forward(name, monkeypatch, fused)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_attention_route_matches_jax_rule(name, monkeypatch, restore_fused_flag):
+    """The port's _attention calls the same kernel entry as the JAX
+    package's, for each head width, head count and CBAS_ATTN_FAT setting."""
+    from cbas_tpu.ops import flash_attention as jfa
+    from cbas_tpu_torch.ops import flash_attention as tfa
+
+    entries = ("fused_attention_fat", "fused_attention_packed", "fused_attention")
+    calls = {"jax": [], "torch": []}
+    for who, mod in (("jax", jfa), ("torch", tfa)):
+        for entry in entries:
+            def spy(*a, _entry=entry, _fn=getattr(mod, entry), _who=who, **kw):
+                calls[_who].append(_entry)
+                return _fn(*a, **kw)
+
+            monkeypatch.setattr(mod, entry, spy)
+    got, want = _route_forward(name, monkeypatch, fused=True)
+    expected = ROUTES[name][2]
+    layers = SMALL["dinov3"]["num_layers"]
+    assert calls["torch"] == calls["jax"] == [expected] * layers
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)

@@ -10,8 +10,8 @@ self-describing directories, written in the same order:
                        a fresh npz also sees the matching metadata)
 
 so either package loads the other's bundles. Loading trusts weight shapes
-over metadata and refuses a bundle trained on another encoder. The legacy v2
-head is not ported yet: running one raises ``NotImplementedError``.
+over metadata and refuses a bundle trained on another encoder. Legacy v2
+bundles (``ClassifierLegacyLSTM``) run their head for inference.
 
 The file formats are ``cbas_tpu``'s (yaml, torch checkpoint I/O, encoder
 identities), imported inside :meth:`ClassifierBundle.save` and
@@ -24,13 +24,20 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from cbas_tpu_torch.models.convert import deltas_params_from_numpy
-from cbas_tpu_torch.models.heads import DeltasHead, DeltasHeadConfig, infer_deltas_hparams
+from cbas_tpu_torch.models.convert import deltas_params_from_numpy, legacy_params_from_numpy
+from cbas_tpu_torch.models.heads import (
+    DeltasHead,
+    DeltasHeadConfig,
+    LegacyHead,
+    LegacyHeadConfig,
+    infer_deltas_hparams,
+    legacy_forward_nodrop,
+)
 
 DELTAS_ARCH = "ClassifierLSTMDeltas"
 LEGACY_ARCH = "ClassifierLegacyLSTM"
@@ -200,29 +207,35 @@ class ClassifierBundle:
 
     # -- running the head ----------------------------------------------------
 
-    def head_config(self) -> DeltasHeadConfig:
-        if self.architecture != DELTAS_ARCH:
-            raise NotImplementedError(
-                f"'{self.architecture}' bundles do not run in cbas_tpu_torch yet "
-                "(the legacy v2 head is not ported; see ROADMAP.md)"
+    def head_config(self) -> Union[DeltasHeadConfig, LegacyHeadConfig]:
+        if self.architecture == DELTAS_ARCH:
+            return DeltasHeadConfig(
+                in_features=int(self.params["lin1.weight"].shape[1]),
+                out_features=len(self.behaviors),
+                seq_len=self.seq_len,
+                lstm_hidden_size=self.lstm_hidden_size,
+                lstm_layers=self.lstm_layers,
+                use_acceleration=self.use_acceleration,
             )
-        return DeltasHeadConfig(
+        return LegacyHeadConfig(
             in_features=int(self.params["lin1.weight"].shape[1]),
             out_features=len(self.behaviors),
             seq_len=self.seq_len,
-            lstm_hidden_size=self.lstm_hidden_size,
-            lstm_layers=self.lstm_layers,
-            use_acceleration=self.use_acceleration,
+            lstm_input=int(self.params["lin0.weight"].shape[0]),
         )
 
-    def head(self, device="cpu") -> DeltasHead:
+    def head(self, device="cpu") -> Union[DeltasHead, LegacyHead]:
         """The head as an eval-mode module on ``device``."""
-        return deltas_params_from_numpy(self.params, self.head_config(), device)
+        if self.architecture == DELTAS_ARCH:
+            return deltas_params_from_numpy(self.params, self.head_config(), device)
+        return legacy_params_from_numpy(self.params, self.head_config(), device)
 
     def logits_fn(self, device="cpu") -> Callable[[torch.Tensor], torch.Tensor]:
         """fn(windows (B, T, D) f32) -> logits (B, C), head built once on ``device``."""
         head = self.head(device)
-        return lambda x: head(x)[0]
+        if self.architecture == DELTAS_ARCH:
+            return lambda x: head(x)[0]
+        return lambda x: legacy_forward_nodrop(head, x)
 
     def probs_fn(self, device="cpu") -> Callable[[torch.Tensor], torch.Tensor]:
         """fn(windows) -> calibrated (temperature) softmax probabilities."""

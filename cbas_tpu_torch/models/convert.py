@@ -14,7 +14,12 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from cbas_tpu_torch.models.heads import DeltasHead, DeltasHeadConfig
+from cbas_tpu_torch.models.heads import (
+    DeltasHead,
+    DeltasHeadConfig,
+    LegacyHead,
+    LegacyHeadConfig,
+)
 from cbas_tpu_torch.models.vit import ViTConfig, vit_param_shapes
 
 
@@ -56,4 +61,19 @@ def deltas_params_from_numpy(
     head.load_state_dict(
         {k: torch.from_numpy(np.array(v, np.float32)) for k, v in params_np.items()}
     )
+    return head.to(device).eval()
+
+
+def legacy_params_from_numpy(
+    params_np: Mapping[str, np.ndarray],
+    cfg: LegacyHeadConfig,
+    device="cpu",
+) -> LegacyHead:
+    """Numpy v2-head params -> a float32 :class:`LegacyHead` in eval mode on
+    ``device``. Strict like the deltas load, except BatchNorm's
+    ``num_batches_tracked``, which bundles do not store (eval never reads it)."""
+    head = LegacyHead(cfg)
+    state = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in params_np.items()}
+    state.setdefault("batch_norm.num_batches_tracked", torch.tensor(0))
+    head.load_state_dict(state)
     return head.to(device).eval()

@@ -8,14 +8,19 @@ learnable sigmoid gate fusing the two.
 
 :class:`DeltasHead` is an ``nn.Module`` whose ``state_dict`` names are the
 JAX package's parameter names (the reference torch head's), so a bundle's
-numpy params load with a strict ``load_state_dict``. Inference only: dropout
-is not applied (eval semantics). The legacy v2 head is not ported yet.
+numpy params load with a strict ``load_state_dict``. Dropout fires only
+when the module is in training mode and a ``torch.Generator`` is passed (the
+JAX rule: ``train`` set and an rng given), so train mode without a generator
+computes the eval forward.
+
+:class:`LegacyHead` is the v2 ``ClassifierLegacyLSTM``, kept for running old
+bundles: inference only, BatchNorm on its running statistics.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +31,7 @@ from cbas_tpu_torch.models.lstm import init_lstm_params, lstm_forward, make_lstm
 from cbas_tpu_torch.ops.ema import robust_deltas
 
 LSTM_IN = 256  # width of lin0, the LSTM's input
+BOTTLENECK_DROPOUT = 0.1  # after each bottleneck's GELU, before its LayerNorm
 
 
 @dataclass(frozen=True)
@@ -52,6 +58,17 @@ def _center_bounds(hsl: int, sw: int, length: int) -> Tuple[int, int]:
     return max(0, hsl - sw), min(length, hsl + sw + 1)
 
 
+def _dropout(
+    x: torch.Tensor, p: float, train: bool, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (never the
+    global RNG); identity unless ``train`` and a generator are both given."""
+    if not train or p <= 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
 def _streams(cfg: DeltasHeadConfig):
     return ("cls", "delta", "acc") if cfg.use_acceleration else ("cls", "delta")
 
@@ -72,13 +89,22 @@ class DeltasHead(nn.Module):
         self.lin1 = nn.Linear(cfg.in_features, cfg.out_features)
         self.lin2 = nn.Linear(cfg.lstm_hidden_size * 2, cfg.out_features)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return deltas_forward(self, x)
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return deltas_forward(self, x, generator)
 
 
-def deltas_forward(head: DeltasHead, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference forward: (B, T, in_features) -> (logits (B, out), latent (B, 2H))."""
+def deltas_forward(
+    head: DeltasHead, x: torch.Tensor, generator: Optional[torch.Generator] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, in_features) -> (logits (B, out), latent (B, 2H)).
+
+    Dropout masks are drawn from ``generator`` in the JAX order (cls, delta,
+    acc bottlenecks, then lin0) when ``head.training``.
+    """
     cfg = head.cfg
+    train = head.training
     T = x.shape[1]
     smooth, delta, acc = robust_deltas(x, cfg.ema_alpha)
 
@@ -93,12 +119,15 @@ def deltas_forward(head: DeltasHead, x: torch.Tensor) -> Tuple[torch.Tensor, tor
     streams = {"cls": smooth, "delta": delta, "acc": acc}
     x_aug = torch.cat(
         [
-            getattr(head, f"{s}_ln")(F.gelu(getattr(head, f"{s}_bottleneck")(streams[s])))
+            getattr(head, f"{s}_ln")(_dropout(
+                F.gelu(getattr(head, f"{s}_bottleneck")(streams[s])),
+                BOTTLENECK_DROPOUT, train, generator,
+            ))
             for s in _streams(cfg)
         ],
         dim=-1,
     )
-    x_lstm = F.gelu(head.lin0(x_aug))
+    x_lstm = _dropout(F.gelu(head.lin0(x_aug)), cfg.dropout_p, train, generator)
     # Mean-centre over time in fp32.
     x_lstm = (x_lstm - x_lstm.float().mean(dim=1, keepdim=True)).to(x_lstm.dtype)
 
@@ -118,6 +147,73 @@ def deltas_forward(head: DeltasHead, x: torch.Tensor) -> Tuple[torch.Tensor, tor
     lstm_logits = head.lin2(attended)
     gate = torch.sigmoid(head.gate)
     return linear_logits + gate * (lstm_logits - linear_logits), attended
+
+
+@dataclass(frozen=True)
+class LegacyHeadConfig:
+    """Hyperparameters of the v2 head (as ``cbas_tpu.models.heads``), plus
+    ``lstm_input``, lin0's width, which a bundle's weights give."""
+
+    in_features: int = 768
+    out_features: int = 2
+    seq_len: int = 31
+    lstm_hidden_size: int = 64  # fixed at 64 in the reference
+    center_window_size: int = 5
+    lstm_input: int = LSTM_IN
+
+    @property
+    def hsl(self) -> int:
+        return self.seq_len // 2
+
+
+class LegacyHead(nn.Module):
+    """The v2 ``ClassifierLegacyLSTM``: BatchNorm over features, a linear
+    branch on the centre window, lin0 -> mean-centre -> biLSTM -> centre
+    mean -> lin2."""
+
+    def __init__(self, cfg: LegacyHeadConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.batch_norm = nn.BatchNorm1d(cfg.in_features)
+        self.lin0 = nn.Linear(cfg.in_features, cfg.lstm_input)
+        self.lstm = make_lstm(cfg.lstm_input, cfg.lstm_hidden_size, 1)
+        self.lin1 = nn.Linear(cfg.in_features, cfg.out_features)
+        self.lin2 = nn.Linear(cfg.lstm_hidden_size * 2, cfg.out_features)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return legacy_forward(self, x)
+
+
+def legacy_forward(
+    head: LegacyHead, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lstm_logits, linear_logits, latent); the inference output is their
+    sum (:func:`legacy_forward_nodrop`).
+
+    Inference only, as in the JAX package: train-mode BatchNorm (batch
+    statistics, running-stat updates) is not implemented, so a module in
+    training mode raises.
+    """
+    if head.training:
+        raise NotImplementedError(
+            "legacy_forward is inference-only: train-mode BatchNorm is not "
+            "implemented for the v2 legacy head (train the deltas head instead)."
+        )
+    cfg = head.cfg
+    bn = head.batch_norm
+    xn = (x - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps) * bn.weight + bn.bias
+    l, r = _center_bounds(cfg.hsl, cfg.center_window_size, xn.shape[1])
+    linear_logits = head.lin1(xn[:, l:r, :]).mean(dim=1)
+    x_lstm = head.lin0(xn)
+    x_lstm = x_lstm - x_lstm.mean(dim=1, keepdim=True)
+    lstm_out = lstm_forward(head.lstm, x_lstm)
+    latent = lstm_out[:, l:r, :].mean(dim=1)
+    return head.lin2(latent), linear_logits, latent
+
+
+def legacy_forward_nodrop(head: LegacyHead, x: torch.Tensor) -> torch.Tensor:
+    lstm_logits, linear_logits, _ = legacy_forward(head, x)
+    return lstm_logits + linear_logits
 
 
 def init_deltas_params(seed: int, cfg: DeltasHeadConfig) -> Dict[str, np.ndarray]:

@@ -30,8 +30,17 @@ non-zero and prints no final line):
    DINOv3 ViT-7B/16's published shape with the depth cut, opened through
    ``FrameEncoder``: 256x256 in a full batch and a partial one, 640x480 in
    one batch: K3 only. Warm frames/s, and accuracy against the CPU fp32 run;
-7. files: ``encode_file`` -> ``infer_h5`` on a synthetic clip, where h5py,
-   pandas and OpenCV are installed (otherwise a line says what is missing).
+7. files: ``encode_file`` -> ``infer_h5`` on a synthetic clip, then
+   ``run_training_job`` on a two-subject project built from encoded clips
+   and ``infer_h5`` with the bundle it wrote, where h5py, pandas, OpenCV,
+   yaml, matplotlib and scikit-learn are installed (otherwise a line says
+   what is missing);
+8. train: the deltas head at the app's default width on synthetic
+   embeddings served from memory through ``WindowSource``: one train step
+   on the card against the CPU (TF32 off), ``train_head`` on the
+   device-resident store (torch's TF32 defaults, as a user runs it), warm
+   steps/s and epoch seconds, then the trained params as a bundle saved,
+   loaded and run by ``InferenceSession``, and ``fit_temperature``.
 
 The line before the last lists each kernel with its launches on its route,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -105,6 +114,40 @@ ENCODE_FP32_FLOOR = 1e-4
 ENCODE_BF16_MIN_COS = 0.99
 # - classify: fp32 on both devices (TF32 off), summation order only.
 CLASSIFY_TOL = 1e-4
+
+# 8. Training at the app's defaults (cbas_tpu/core/config.py:132-156):
+# dinov3-vitb16 embeddings (768), seq_len 31, biLSTM hidden 64, batch 512,
+# the three-stream head. 16 synthetic recordings, each one 30-minute segment
+# at 10 fps (18,000 frames x 768 fp16, 442 MB in all), laid out as
+# contiguous bouts of 4 behaviours; 12 train and 4 held out for validation,
+# 5,000 labelled centres each (60,000 for training).
+TRAIN_RECORDINGS, TRAIN_VAL_RECORDINGS, TRAIN_FRAMES = 16, 4, 18_000
+TRAIN_LABELLED = 5_000
+TRAIN_BEHAVIORS = ["rear", "groom", "walk", "rest"]
+TRAIN_BOUTS = (50, 400)   # bout lengths in frames, uniform
+TRAIN_CLASS_SPREAD = 0.08  # each class mean is N(0, spread^2) a dim; noise N(0, 1)
+TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_LR = 512, 3, 1e-3
+TRAIN_TIMED_STEPS = 50
+# - one train step, card vs CPU, fp32 with TF32 off: summation order only,
+#   through cuDNN's LSTM and cuBLAS against the CPU's kernels. The loss
+#   within 1e-5 relative. Each gradient within 1e-4 of its tensor's largest
+#   |g| (ten times the CPU tests' bound against JAX: the card may split the
+#   15,872-row weight reductions differently), plus 1e-6 of the largest |g|
+#   in the head: attention_head.bias has no gradient (the softmax over the
+#   centre window ignores a shift of every score), so both devices give
+#   rounding noise there. Each updated weight within 1e-6 plus
+#   lr (|dg| + u) / (min |g + wd p| + eps): Adam's first step moves a weight
+#   by lr g' / (|g'| + eps), g' the decayed gradient g + wd p, which changes
+#   by at most that much when g' moves by |dg| plus u, one fp32 ulp of
+#   |g| + |wd p| for the rounding of the sum on each device.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_FLOOR = 1e-5, 1e-4, 1e-6
+STEP_WEIGHT_DECAY, GATE_DECAY = 1e-2, 1e-3
+# - learning: validation weighted F1 after TRAIN_EPOCHS epochs. The same
+#   phase on the CPU clears it with margin (PERF.md, training).
+TRAIN_MIN_F1 = 0.9
+# - the trained bundle through InferenceSession against build_logits_program
+#   on the same windows, both fp32 on the card with TF32 off.
+SERVE_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -379,6 +422,8 @@ def main() -> int:
     from cbas_tpu_torch.ops import flash_attention as fa
 
     # fp32 references run in full fp32: cuDNN (the LSTM) defaults to TF32.
+    # Training runs as a user runs it, with torch's defaults.
+    user_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -508,9 +553,9 @@ def main() -> int:
     # 6. the ViT-7B-width encode through K3
     vit7b_launches, vit7b_line = vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card)
 
-    # 7. files end to end, where the host has what the file path needs
+    # 7. files end to end, where the host has what the file paths need
     missing = []
-    for mod in ("h5py", "pandas", "cv2", "yaml"):
+    for mod in ("h5py", "pandas", "cv2", "yaml", "matplotlib", "sklearn"):
         try:
             __import__(mod)
         except ImportError:
@@ -519,6 +564,9 @@ def main() -> int:
         emit({"phase": "files", "skipped": f"not installed: {', '.join(missing)}"})
     else:
         emit(files_phase(enc, bundle))
+
+    # 8. head training at full width, then its bundle through the serving path
+    train_phase(torch, card, user_tf32, cfg.hidden_size)
 
     route_launches = {
         "attention_fat": flat_launches, "attention_packed": packed_launches,
@@ -599,41 +647,358 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
     return launches, line
 
 
-def files_phase(enc, bundle) -> dict:
-    """encode_file -> infer_h5 on a synthetic 256x256 clip (moving gradient
-    plus noise), checked by row counts, stamp and probability sums."""
+def write_clip(path, n_frames, seed, size=256) -> None:
+    """A synthetic 10 fps clip: a moving gradient plus noise."""
     import cv2
+
+    rng = np.random.default_rng(seed)
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (size, size))
+    yy, xx = np.mgrid[0:size, 0:size]
+    for t in range(n_frames):
+        frame = (((xx + 2 * t) % 256 + (yy + t) % 128) % 256).astype(np.uint8)
+        noise = rng.integers(0, 30, (size, size), np.uint8)
+        w.write(cv2.merge([frame, cv2.add(frame, noise), frame]))
+    w.release()
+
+
+def files_phase(enc, bundle, device="cuda") -> dict:
+    """A project of two subjects with one synthetic 256x256 clip each:
+    encode_file -> infer_h5, checked by row counts, stamp and probability
+    sums; then run_training_job on labelled bouts of both clips, and
+    infer_h5 with the bundle it wrote."""
     import h5py
     import pandas as pd
 
+    from cbas_tpu.core.config import TrainingConfig
+    from cbas_tpu.core.project import Project
+    from cbas_tpu_torch.engine.classifier import ClassifierBundle
     from cbas_tpu_torch.engine.encode import EncodeConfig, EncodeStats, encode_file
     from cbas_tpu_torch.engine.infer import InferenceSession
+    from cbas_tpu_torch.engine.orchestrator import run_training_job
 
-    n_frames, size = 200, 256
+    n_frames, behaviors = 200, ["a", "b"]
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "cam_00001.mp4")
-        rng = np.random.default_rng(SEED)
-        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (size, size))
-        yy, xx = np.mgrid[0:size, 0:size]
-        for t in range(n_frames):
-            frame = (((xx + 2 * t) % 256 + (yy + t) % 128) % 256).astype(np.uint8)
-            noise = rng.integers(0, 30, (size, size), np.uint8)
-            w.write(cv2.merge([frame, cv2.add(frame, noise), frame]))
-        w.release()
-        stats = EncodeStats()
-        h5 = encode_file(enc, path, config=EncodeConfig(chunk_frames=BATCH_256), stats=stats)
-        with h5py.File(h5, "r") as f:
+        project = Project.create_project(d, "smoke")
+        h5s, labels = [], {b: [] for b in behaviors}
+        for s in range(2):
+            video = os.path.join(project.recordings_dir, "day1", f"m{s}", f"m{s}_00001.mp4")
+            os.makedirs(os.path.dirname(video))
+            write_clip(video, n_frames, SEED + s)
+            stats = EncodeStats()
+            h5s.append(encode_file(enc, video, config=EncodeConfig(chunk_frames=BATCH_256),
+                                   stats=stats))
+            rel = os.path.relpath(video, project.path)
+            labels["a"].append({"video": rel, "start": 20, "end": 90, "label": "a"})
+            labels["b"].append({"video": rel, "start": 110, "end": 180, "label": "b"})
+        with h5py.File(h5s[0], "r") as f:
             rows = f["cls"].shape[0]
             stamp = f.attrs.get("encoder_model_identifier")
-        csv = InferenceSession(bundle, device="cuda").infer_h5(h5)
-        probs = pd.read_csv(csv).to_numpy()
+        probs = pd.read_csv(InferenceSession(bundle, device=device).infer_h5(h5s[0])).to_numpy()
+        ok = (
+            rows == stats.frames and probs.shape == (rows, len(bundle.behaviors))
+            and stamp == enc.identifier and float(np.abs(probs.sum(1) - 1).max()) <= 1e-5
+        )
+        if not ok:
+            raise AssertionError(f"files phase: rows={rows} stamp={stamp} probs={probs.shape}")
+
+        dataset = project.create_dataset("smoke", behaviors, [])
+        dataset.labels["labels"] = labels
+        dataset.save_labels()
+        project.reload()
+        task = TrainingConfig(name="smoke", behaviors=behaviors, batch_size=64, epochs=2,
+                              learning_rate=1e-3, use_test=False)
+        t = time.perf_counter()
+        model_dir = run_training_job(project, task, seed=SEED, device=device)
+        job_s = time.perf_counter() - t
+        if model_dir is None:
+            raise AssertionError("files phase: run_training_job wrote no bundle")
+        trained = ClassifierBundle.load(model_dir, expected_encoder=project.encoder_model_identifier)
+        trained_probs = pd.read_csv(
+            InferenceSession(trained, device=device).infer_h5(h5s[1])
+        ).to_numpy()
     ok = (
-        rows == stats.frames and probs.shape == (rows, len(bundle.behaviors))
-        and stamp == enc.identifier and float(np.abs(probs.sum(1) - 1).max()) <= 1e-5
+        trained.behaviors == behaviors and trained_probs.shape == (n_frames, len(behaviors))
+        and float(np.abs(trained_probs.sum(1) - 1).max()) <= 1e-5
     )
     if not ok:
-        raise AssertionError(f"files phase: rows={rows} stamp={stamp} probs={probs.shape}")
-    return {"phase": "files", "frames": rows, "encode_fps": stats.fps, "ok": True}
+        raise AssertionError(f"files phase: the trained bundle gave {trained_probs.shape}")
+    return {"phase": "files", "frames": rows, "encode_fps": stats.fps,
+            "training_job_s": job_s, "trained_bundle": os.path.basename(model_dir),
+            "temperature": trained.temperature, "ok": True}
+
+
+class MemoryCache:
+    """Embeddings held in memory, served in the HDF5 handle cache's
+    interface (``get(path)["cls"]`` and ``read_window``)."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+
+    def get(self, path):
+        return {"cls": self.arrays[path]}
+
+    def read_window(self, path, start, stop):
+        return self.arrays[path][start:stop]
+
+
+def training_data(dim):
+    """The TRAIN_* recordings: ({name: (TRAIN_FRAMES, dim) fp16}, one
+    manifest of labelled centres per recording). Whole bouts are labelled,
+    in random order, up to TRAIN_LABELLED centres, so windows at a bout's
+    edges reach into its neighbours."""
+    rng = np.random.default_rng(SEED + 8)
+    half = SEQ_LEN // 2
+    means = rng.normal(0.0, TRAIN_CLASS_SPREAD, (len(TRAIN_BEHAVIORS), dim)).astype(np.float32)
+    arrays, manifests = {}, []
+    for r in range(TRAIN_RECORDINGS):
+        name = f"rec{r:02d}"
+        lengths = rng.integers(*TRAIN_BOUTS, TRAIN_FRAMES // TRAIN_BOUTS[0])
+        starts = np.concatenate([[0], np.cumsum(lengths)])
+        starts = starts[starts < TRAIN_FRAMES]
+        ends = np.append(starts[1:], TRAIN_FRAMES)
+        classes = rng.integers(0, len(TRAIN_BEHAVIORS), len(starts))
+        x = rng.standard_normal((TRAIN_FRAMES, dim), np.float32)
+        x += means[np.repeat(classes, ends - starts)]
+        arrays[name] = x.astype(np.float16)
+        entries = []
+        for b in rng.permutation(len(starts)):
+            lo, hi = max(starts[b], half), min(ends[b], TRAIN_FRAMES - half)
+            entries += [(name, c, int(classes[b])) for c in range(lo, hi)]
+            if len(entries) >= TRAIN_LABELLED:
+                break
+        manifests.append(entries[:TRAIN_LABELLED])
+    return arrays, manifests
+
+
+@contextlib.contextmanager
+def tf32(torch, matmul, cudnn):
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def train_step_parity(torch, train_mod, cfg, params, source, device="cuda") -> dict:
+    """One train step on the device-gather path, dropout off (no generator),
+    class weights, label smoothing and weight decay on, from the same numpy
+    params and TRAIN_BATCH windows, on ``device`` and on the CPU."""
+    from cbas_tpu_torch.engine.data import BalancedSampler, DeviceWindowStore
+    from cbas_tpu_torch.models.convert import deltas_params_from_numpy
+
+    idx = BalancedSampler(source.manifest, cfg.out_features, seed=SEED).epoch_indices()
+    weights = np.linspace(0.5, 2.0, cfg.out_features).astype(np.float32)
+    runs = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        store = DeviceWindowStore(source.manifest, SEQ_LEN, dev, ram=source._ram)
+        centers, labels = store.batch_indices(idx[:TRAIN_BATCH], TRAIN_BATCH)
+        head = deltas_params_from_numpy(params, cfg, dev)
+        head.lstm.flatten_parameters()
+        opt = train_mod.make_optimizer(head, TRAIN_LR, STEP_WEIGHT_DECAY, GATE_DECAY)
+        step = train_mod.build_train_step(head, opt, weights, 0.1, gather_seq_len=SEQ_LEN)
+        t = time.perf_counter()
+        loss = float(step(store.features, centers, labels))
+        runs[name] = (
+            loss, time.perf_counter() - t,
+            {n: p.grad.cpu().numpy() for n, p in head.named_parameters()},
+            {n: p.detach().cpu().numpy() for n, p in head.named_parameters()},
+        )
+        del store, head, opt
+    (loss_g, s_g, grads_g, new_g), (loss_c, s_c, grads_c, new_c) = runs["card"], runs["cpu"]
+    # the share of each bound that the difference uses (<= 1 passes)
+    g_max = max(float(np.abs(g).max()) for g in grads_c.values())
+    grad_use, weight_use = {}, {}
+    for n, g in grads_c.items():
+        dg = np.abs(grads_g[n] - g)
+        grad_use[n] = float(dg.max() / (STEP_GRAD_RTOL * np.abs(g).max()
+                                        + STEP_GRAD_FLOOR * g_max))
+        wd = GATE_DECAY if n == "gate" else STEP_WEIGHT_DECAY
+        decayed = np.minimum(np.abs(grads_g[n] + wd * params[n]), np.abs(g + wd * params[n]))
+        u = np.spacing(np.abs(g) + np.abs(wd * params[n]))
+        bound = 1e-6 + TRAIN_LR * (dg + u) / (decayed + 1e-8)
+        weight_use[n] = float((np.abs(new_g[n] - new_c[n]) / bound).max())
+    grad_err = {n: float(np.abs(grads_g[n] - g).max() / np.abs(g).max())
+                for n, g in grads_c.items()}
+    line = {
+        "phase": "train_step_parity", "path": "device gather, dropout off, TF32 off",
+        "batch": TRAIN_BATCH, "loss_cuda": loss_g, "loss_cpu": loss_c,
+        "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c), "loss_rtol": STEP_LOSS_RTOL,
+        "grad_err_of_max": grad_err, "grad_tol": f"{STEP_GRAD_RTOL} of the tensor's max |g| "
+        f"+ {STEP_GRAD_FLOOR} of the head's ({g_max:.3g})",
+        "max_grad_bound_use": max(grad_use.values()),
+        "worst_grad": max(grad_use, key=grad_use.get),
+        "max_weight_err": max(float(np.abs(new_g[n] - new_c[n]).max()) for n in new_c),
+        "max_weight_bound_use": max(weight_use.values()),
+        "worst_weight": max(weight_use, key=weight_use.get),
+        "weight_tol": "1e-6 + lr (|dg| + u) / (min |g + wd p| + 1e-8)",
+        "step_s_cuda_cold": s_g, "step_s_cpu": s_c,
+    }
+    line["ok"] = bool(
+        line["loss_rel_err"] <= STEP_LOSS_RTOL and line["max_grad_bound_use"] <= 1.0
+        and line["max_weight_bound_use"] <= 1.0 and np.isfinite(loss_g)
+    )
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError("a train step on the card disagrees with the CPU's")
+    return line
+
+
+def train_phase(torch, card, user_tf32, dim=768, device="cuda") -> dict:
+    """Phase 8: head training at full width on the card, then its bundle
+    through the serving path; returns the train line. (``device`` is "cpu"
+    only in the CPU test of this function, at a cut size.)"""
+    from cbas_tpu_torch.engine import train as train_mod
+    from cbas_tpu_torch.engine.calibrate import fit_temperature
+    from cbas_tpu_torch.engine.classifier import ClassifierBundle
+    from cbas_tpu_torch.engine.data import (
+        BalancedSampler, DeviceWindowStore, SequentialSampler, WindowSource,
+    )
+    from cbas_tpu_torch.engine.infer import InferenceSession
+    from cbas_tpu_torch.engine.metrics import f1_of
+    from cbas_tpu_torch.models.convert import deltas_params_from_numpy
+    from cbas_tpu_torch.models.heads import DeltasHeadConfig, init_deltas_params
+
+    t = time.perf_counter()
+    arrays, manifests = training_data(dim)
+    n_train = TRAIN_RECORDINGS - TRAIN_VAL_RECORDINGS
+    cache = MemoryCache(arrays)
+    train_src = WindowSource([e for m in manifests[:n_train] for e in m], SEQ_LEN,
+                             cache=cache, preload=True)
+    val_src = WindowSource([e for m in manifests[n_train:] for e in m], SEQ_LEN,
+                           cache=cache, preload=True)
+    data_s = time.perf_counter() - t
+    behaviors, half = TRAIN_BEHAVIORS, SEQ_LEN // 2
+    cfg = DeltasHeadConfig(in_features=dim, out_features=len(behaviors), seq_len=SEQ_LEN,
+                           lstm_hidden_size=HIDDEN)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    train_step_parity(torch, train_mod, cfg, init_deltas_params(SEED, cfg), train_src, device)
+
+    # train_head as a user calls it. It builds its stores through the
+    # module's name: a recording subclass shows which data path it took.
+    stores, marks = [], []
+
+    class RecordingStore(DeviceWindowStore):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            stores.append(self)
+
+    def progress(message):
+        sync()
+        marks.append(time.perf_counter())
+
+    train_mod.DeviceWindowStore = RecordingStore
+    try:
+        with tf32(torch, *user_tf32):
+            t = time.perf_counter()
+            params, reports, best = train_mod.train_head(
+                train_src, val_src, SEQ_LEN, behaviors, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                epochs=TRAIN_EPOCHS, lstm_hidden_size=HIDDEN, seed=SEED,
+                progress_callback=progress, device=device,
+            )
+            train_head_s = time.perf_counter() - t
+    finally:
+        train_mod.DeviceWindowStore = DeviceWindowStore
+    if len(stores) != 2 or any(s.features.device.type != torch.device(device).type for s in stores):
+        raise AssertionError(f"train_head did not take the device-resident path ({len(stores)} stores)")
+    val_f1 = f1_of(reports[best].val_report, "weighted avg")
+
+    # Epoch seconds from the progress messages (start, then validation F1);
+    # the evaluation's share by timing one epoch's evaluation again.
+    head = deltas_params_from_numpy(params, cfg, device)
+    head.lstm.flatten_parameters()
+    logits_prog = train_mod.build_logits_program(head, gather_seq_len=SEQ_LEN)
+    with tf32(torch, *user_tf32):
+        sync()
+        t = time.perf_counter()
+        train_mod.predict_store(logits_prog, stores[0],
+                                BalancedSampler(train_src.manifest, len(behaviors), seed=SEED),
+                                TRAIN_BATCH)
+        train_mod.predict_store(logits_prog, stores[1], SequentialSampler(len(val_src)),
+                                TRAIN_BATCH)
+        eval_s = time.perf_counter() - t
+
+        # Warm steps/s on the device-gather path, dropout on, on a copy of
+        # the head (logits_prog keeps the trained one).
+        timed = deltas_params_from_numpy(params, cfg, device)
+        timed.lstm.flatten_parameters()
+        opt = train_mod.make_optimizer(timed, TRAIN_LR, 0.0)
+        step = train_mod.build_train_step(timed, opt, None, 0.0, gather_seq_len=SEQ_LEN)
+        generator = torch.Generator(device=device).manual_seed(SEED)
+        idx = BalancedSampler(train_src.manifest, len(behaviors), seed=SEED).epoch_indices()
+        batches = [stores[0].batch_indices(idx[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], TRAIN_BATCH)
+                   for i in range(TRAIN_TIMED_STEPS + 5)]
+        for centers, labels in batches[:5]:
+            step(stores[0].features, centers, labels, generator)
+        sync()
+        t = time.perf_counter()
+        for centers, labels in batches[5:]:
+            step(stores[0].features, centers, labels, generator)
+        sync()
+        steps_per_s = TRAIN_TIMED_STEPS / (time.perf_counter() - t)
+    epoch_s = [b - a for a, b in zip(marks[0::2], marks[1::2])]
+    line = {
+        "phase": "train", "head": "deltas, 3 streams, bottleneck 128, LSTM in 256, "
+        f"biLSTM hidden {HIDDEN}, seq_len {SEQ_LEN}", "embed_dim": dim,
+        "behaviors": len(behaviors), "recordings": f"{n_train} train + {TRAIN_VAL_RECORDINGS} "
+        f"validation, {TRAIN_FRAMES} frames each", "train_centres": len(train_src),
+        "val_centres": len(val_src), "batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS,
+        "lr": TRAIN_LR, "tf32": {"matmul": user_tf32[0], "cudnn": user_tf32[1]},
+        "data_s": data_s, "device_path": True,
+        "store_bytes_on_device": sum(s.features.numel() * s.features.element_size()
+                                     for s in stores),
+        "train_head_s": train_head_s, "epoch_s": epoch_s, "eval_s_per_epoch": eval_s,
+        "train_s_per_epoch": [s - eval_s for s in epoch_s],
+        "warm_steps_per_s": steps_per_s, "steps_per_epoch": -(-len(idx) // TRAIN_BATCH),
+        "best_epoch": best, "val_weighted_f1": val_f1,
+        "val_f1_by_epoch": [f1_of(r.val_report, "weighted avg") for r in reports],
+        "min_val_f1": TRAIN_MIN_F1, "card": card,
+    }
+    line["ok"] = bool(val_f1 >= TRAIN_MIN_F1 and len(reports) == TRAIN_EPOCHS)
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"train_head reached validation F1 {val_f1} < {TRAIN_MIN_F1}")
+
+    # The trained params as a bundle on disk, loaded back and served (TF32 off).
+    with tempfile.TemporaryDirectory() as d:
+        ClassifierBundle(name="smoke_trained", behaviors=behaviors, seq_len=SEQ_LEN,
+                         params=params, lstm_hidden_size=HIDDEN).save(d)
+        bundle = ClassifierBundle.load(d)
+    recording = arrays[f"rec{n_train:02d}"]  # a validation recording
+    probs = InferenceSession(bundle, device=device).predict_frames(recording, half, half)
+    feats = torch.from_numpy(recording).to(device)
+    windows = feats.unfold(0, SEQ_LEN, 1).transpose(1, 2)  # centres half .. frames-half-1
+    bundle_logits = bundle.logits_fn(device)
+    centers = np.arange(half, TRAIN_FRAMES - half)
+    want, got = [], []
+    with torch.inference_mode():
+        for i in range(0, len(centers), TRAIN_BATCH):
+            want.append(logits_prog(feats, centers[i:i + TRAIN_BATCH]))
+            got.append(bundle_logits(windows[i:i + TRAIN_BATCH].float()))
+    want, got = torch.cat(want), torch.cat(got)
+    logits_err = float((got - want).abs().max())
+    probs_err = float(np.abs(
+        probs[half:TRAIN_FRAMES - half]
+        - torch.softmax(want / bundle.temperature, -1).cpu().numpy()).max())
+    row_sum_err = float(np.abs(probs.sum(1) - 1).max())
+    t = time.perf_counter()
+    temperature = fit_temperature(params, cfg, val_src, batch_size=TRAIN_BATCH, device=device)
+    calibrate_s = time.perf_counter() - t
+    serve = {
+        "phase": "train_serve", "frames": TRAIN_FRAMES, "shape": list(probs.shape),
+        "max_row_sum_err": row_sum_err, "max_logits_err_vs_logits_program": logits_err,
+        "max_probs_err_vs_logits_program": probs_err, "tol": SERVE_TOL,
+        "temperature": temperature, "calibrate_s": calibrate_s,
+    }
+    serve["ok"] = bool(
+        probs.shape == (TRAIN_FRAMES, len(behaviors)) and np.isfinite(probs).all()
+        and row_sum_err <= SERVE_TOL and logits_err <= SERVE_TOL and probs_err <= SERVE_TOL
+        and 1e-3 < temperature <= 10.0
+    )
+    emit(serve)
+    if not serve["ok"]:
+        raise AssertionError("the trained bundle's serving path disagrees with build_logits_program")
+    return line
 
 
 if __name__ == "__main__":

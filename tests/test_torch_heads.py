@@ -137,11 +137,70 @@ def test_bundle_roundtrip_and_guard(bundle_dir, tmp_path):
     assert ClassifierBundle.load(d).lstm_hidden_size == 16
 
 
+def _legacy_params(seed=0, in_features=D, out_features=3, lstm_input=48):
+    """A v2 head's numpy params (torch's own init) with non-trivial
+    BatchNorm running statistics."""
+    torch.manual_seed(seed)
+    cfg = theads.LegacyHeadConfig(in_features=in_features, out_features=out_features,
+                                  lstm_input=lstm_input)
+    sd = theads.LegacyHead(cfg).state_dict()
+    rng = np.random.default_rng(seed)
+    sd["batch_norm.running_mean"] = torch.from_numpy(rng.uniform(-0.2, 0.2, in_features))
+    sd["batch_norm.running_var"] = torch.from_numpy(rng.uniform(0.8, 1.2, in_features))
+    sd["batch_norm.weight"] = torch.from_numpy(rng.uniform(0.5, 1.5, in_features))
+    return {k: v.numpy().astype(np.float32) for k, v in sd.items() if "num_batches" not in k}
+
+
 def test_legacy_bundle_does_not_run_yet(bundle_dir):
-    b = ClassifierBundle.load(bundle_dir)
-    b.architecture = "ClassifierLegacyLSTM"
+    """A legacy head runs for inference only: in training mode it raises, as
+    the JAX package's ``legacy_forward(train=True)`` does."""
+    b = ClassifierBundle(name="legacy", behaviors=["walk", "rest", "groom"], seq_len=7,
+                         params=_legacy_params(), architecture="ClassifierLegacyLSTM")
+    head = b.head()
+    assert isinstance(head, theads.LegacyHead) and not head.training
     with pytest.raises(NotImplementedError, match="legacy"):
-        b.logits_fn()
+        head.train()(torch.zeros(2, 7, D))
+
+
+@pytest.mark.parametrize("seq_len", [31, 7])
+def test_legacy_forward_matches_jax(seq_len):
+    params = _legacy_params(seed=1)
+    x = np.random.default_rng(2).standard_normal((5, seq_len, D)).astype(np.float32)
+    jcfg = jheads.LegacyHeadConfig(in_features=D, out_features=3, seq_len=seq_len)
+    want = jax.jit(lambda p, a: jheads.legacy_forward_nodrop(p, a, jcfg))(_j(params), x)
+    want_parts = jax.jit(lambda p, a: jheads.legacy_forward(p, a, jcfg))(_j(params), x)
+    head = theads.LegacyHead(theads.LegacyHeadConfig(
+        in_features=D, out_features=3, seq_len=seq_len, lstm_input=48))
+    from cbas_tpu_torch.models.convert import legacy_params_from_numpy
+
+    head = legacy_params_from_numpy(params, head.cfg)
+    with torch.no_grad():
+        got = theads.legacy_forward_nodrop(head, torch.from_numpy(x))
+        parts = theads.legacy_forward(head, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+    for a, b in zip(parts, want_parts):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=TOL)
+
+
+def test_legacy_bundle_loads_and_runs(tmp_path):
+    """A v2 bundle as the reference left it (model.pth + config.yaml, no
+    model_meta.json) loads through ClassifierBundle.load and runs in
+    InferenceSession, with the JAX package's probabilities."""
+    from cbas_tpu.core.config import dump_yaml
+    from cbas_tpu.models.torch_port import save_pth
+
+    d = str(tmp_path / "JonesLabModel")
+    os.makedirs(d)
+    save_pth(_legacy_params(seed=3), os.path.join(d, "model.pth"))
+    dump_yaml({"name": "JonesLabModel", "behaviors": ["walk", "rest", "groom"], "seq_len": 7},
+              os.path.join(d, "config.yaml"))
+    b = ClassifierBundle.load(d)
+    assert b.architecture == "ClassifierLegacyLSTM" and b.behaviors == ["walk", "rest", "groom"]
+    features = np.random.default_rng(4).standard_normal((40, D)).astype(np.float16)
+    got = InferenceSession(b, device="cpu").predict_frames(features, 3, 3)
+    want = JaxSession(JaxBundle.load(d)).predict_frames(features, 3, 3)
+    assert got.shape == (40, 3)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("total", [130, 40, 3])

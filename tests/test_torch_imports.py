@@ -1,5 +1,6 @@
 """cbas_tpu_torch never imports jax, its device path imports nothing of
-cbas_tpu, and chip_smoke.py refuses to run without a CUDA device.
+cbas_tpu, its training path runs without jax and h5py, and chip_smoke.py
+refuses to run without a CUDA device.
 
 conftest imports jax into every test process, so the import checks run in a
 fresh interpreter.
@@ -76,6 +77,44 @@ def test_device_path_imports_nothing_of_cbas_tpu():
         "                     params=init_deltas_params(0, hc), lstm_hidden_size=8)\n"
         "assert InferenceSession(b, device='cpu').predict_frames(emb, 2, 2).shape == (3, 2)\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'cbas_tpu')))\n"
+    )
+    proc = _fresh_python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_training_path_runs_without_jax_and_h5py():
+    """With jax and h5py blocked, as on the card's machine: train_head for
+    one epoch on in-memory embeddings, a bundle built in memory from its
+    params, and predict_frames."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['h5py'] = None\n"
+        "import numpy as np\n"
+        "from cbas_tpu_torch.engine.classifier import ClassifierBundle\n"
+        "from cbas_tpu_torch.engine.data import WindowSource\n"
+        "from cbas_tpu_torch.engine.infer import InferenceSession\n"
+        "from cbas_tpu_torch.engine.train import train_head\n"
+        "class Cache:\n"
+        "    def __init__(self, arrays): self.arrays = arrays\n"
+        "    def get(self, path): return {'cls': self.arrays[path]}\n"
+        "    def read_window(self, path, a, b): return self.arrays[path][a:b]\n"
+        "rng = np.random.default_rng(0)\n"
+        "arrays = {f'r{i}': np.concatenate([rng.normal(2, 1, (60, 16)), rng.normal(-2, 1, (60, 16))])\n"
+        "          .astype(np.float16) for i in range(2)}\n"
+        "manifest = lambda p: [(p, c, 0) for c in range(5, 50)] + [(p, c, 1) for c in range(70, 110)]\n"
+        "cache = Cache(arrays)\n"
+        "train = WindowSource(manifest('r0'), 7, cache=cache, preload=True)\n"
+        "val = WindowSource(manifest('r1'), 7, cache=cache, preload=True)\n"
+        "params, reports, best = train_head(train, val, 7, ['a', 'b'], batch_size=32, lr=5e-3,\n"
+        "                                   epochs=1, lstm_hidden_size=8, device='cpu')\n"
+        "assert best == 0 and len(reports) == 1 and reports[0].val_report\n"
+        "b = ClassifierBundle(name='m', behaviors=['a', 'b'], seq_len=7, params=params,\n"
+        "                     lstm_hidden_size=8)\n"
+        "probs = InferenceSession(b, device='cpu').predict_frames(arrays['r1'], 3, 3)\n"
+        "assert probs.shape == (120, 2) and np.allclose(probs.sum(1), 1, atol=1e-5)\n"
+        "print(sorted(m for m, v in sys.modules.items()\n"
+        "             if m.split('.')[0] in ('jax', 'h5py') and v is not None))\n"
     )
     proc = _fresh_python(code)
     assert proc.returncode == 0, proc.stderr

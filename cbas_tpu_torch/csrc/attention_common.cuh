@@ -330,11 +330,49 @@ __device__ __forceinline__ float bf16_at(const uint4& chunk, int e) {
   return e % 2 ? __high2float(x2[e / 2]) : __low2float(x2[e / 2]);
 }
 
+// Columns [c, c + 8) of token n of one head (`row` points at the token's
+// column 0) as 8 bf16 values in one 16-byte chunk. With tables, RoPE is
+// applied in fp32, then `scale`, then one rounding to bf16; with neither,
+// the bits pass through. Needs 16-byte aligned rows (checked by the wrapper;
+// HD % 8 == 0 keeps every row aligned).
+template <int HD>
+__device__ __forceinline__ uint4 rope_chunk(const __nv_bfloat16* __restrict__ row, int c, int n,
+                                            const float* __restrict__ cos_t,
+                                            const float* __restrict__ sin_t, float scale) {
+  uint4 out = *reinterpret_cast<const uint4*>(row + c);
+  if (cos_t == nullptr && scale == 1.f) return out;
+  float x[kChunk];
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) x[e] = bf16_at(out, e);
+  if (cos_t != nullptr) {
+    const float4* c4 = reinterpret_cast<const float4*>(cos_t + n * HD + c);
+    const float4* s4 = reinterpret_cast<const float4*>(sin_t + n * HD + c);
+    const float4 ca = c4[0], cb = c4[1], sa = s4[0], sb = s4[1];
+    const float cs[kChunk] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+    const float sn[kChunk] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+    if constexpr ((HD / 2) % kChunk == 0) {
+      // The chunk's partners are one chunk, all in the other half.
+      const uint4 partner = *reinterpret_cast<const uint4*>(row + rope_partner<HD>(c));
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e)
+        x[e] = rope(x[e], bf16_at(partner, e), c < HD / 2, cs[e], sn[e]);
+    } else {
+      // The chunk straddles the half: gather each partner.
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e)
+        x[e] = rope(x[e], __bfloat162float(row[rope_partner<HD>(c + e)]), c + e < HD / 2, cs[e],
+                    sn[e]);
+    }
+  }
+  auto* o32 = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int e = 0; e < kChunk / 2; ++e) o32[e] = pack_bf16(x[2 * e] * scale, x[2 * e + 1] * scale);
+  return out;
+}
+
 // Copy rows [row0, row0 + 64) of one head into shared memory as bf16, in
-// 16-byte chunks of 8 values. Rows at or beyond `live_rows`, and the pad
-// columns [HD, kPad), load as 0. With tables, RoPE is applied in fp32 as the
-// row loads, then `scale`, then one rounding to bf16. Needs 16-byte aligned
-// rows (checked by the wrapper; HD % 8 == 0 keeps every row aligned).
+// 16-byte chunks of 8 values (rope_chunk). Rows at or beyond `live_rows`, and
+// the pad columns [HD, kPad), load as 0.
 template <int HD>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* __restrict__ dst,
                                                const __nv_bfloat16* __restrict__ head, int row0,
@@ -348,39 +386,8 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* __restrict__ dst,
     const int c = (i % kChunksPerRow) * kChunk;
     const int n = row0 + r;
     uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (n < live_rows && c < HD) {
-      const __nv_bfloat16* row = head + static_cast<size_t>(n) * row_stride;
-      out = *reinterpret_cast<const uint4*>(row + c);
-      if (cos_t != nullptr || scale != 1.f) {
-        float x[kChunk];
-#pragma unroll
-        for (int e = 0; e < kChunk; ++e) x[e] = bf16_at(out, e);
-        if (cos_t != nullptr) {
-          const float4* c4 = reinterpret_cast<const float4*>(cos_t + n * HD + c);
-          const float4* s4 = reinterpret_cast<const float4*>(sin_t + n * HD + c);
-          const float4 ca = c4[0], cb = c4[1], sa = s4[0], sb = s4[1];
-          const float cs[kChunk] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
-          const float sn[kChunk] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-          if constexpr ((HD / 2) % kChunk == 0) {
-            // The chunk's partners are one chunk, all in the other half.
-            const uint4 partner = *reinterpret_cast<const uint4*>(row + rope_partner<HD>(c));
-#pragma unroll
-            for (int e = 0; e < kChunk; ++e)
-              x[e] = rope(x[e], bf16_at(partner, e), c < HD / 2, cs[e], sn[e]);
-          } else {
-            // The chunk straddles the half: gather each partner.
-#pragma unroll
-            for (int e = 0; e < kChunk; ++e)
-              x[e] = rope(x[e], __bfloat162float(row[rope_partner<HD>(c + e)]), c + e < HD / 2,
-                          cs[e], sn[e]);
-          }
-        }
-        auto* o32 = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-        for (int e = 0; e < kChunk / 2; ++e)
-          o32[e] = pack_bf16(x[2 * e] * scale, x[2 * e + 1] * scale);
-      }
-    }
+    if (n < live_rows && c < HD)
+      out = rope_chunk<HD>(head + static_cast<size_t>(n) * row_stride, c, n, cos_t, sin_t, scale);
     *reinterpret_cast<uint4*>(dst + r * T::kLd + c) = out;
   }
 }

@@ -3,31 +3,35 @@
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention): the JAX package's route for every head dim other
-// than 64 and for odd head counts. Same function as K1 and K2; the body is
-// attention_common.cuh's, instantiated once per head dim, read at row stride
-// d with head h at h * N * d of its image.
+// than 64 and for odd head counts. Same function as K1 and K2, read at row
+// stride d with head h at h * N * d of its image.
 //
-// What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) each
-// block does twice K1's q.k^T and p.V work per tile, with the same softmax,
-// so the tensor-core share grows; the O accumulator doubles to 64 fp32
-// registers a thread (beside 32 of Q fragments and 32 of scores), which
-// bounds how many blocks share an SM: left alone, ptxas takes 172 registers
-// and fits 2 blocks; the body caps it at 168 for 3 (a few bytes of spills,
-// about 28% faster on an H100). The tiles outgrow static shared memory
-// (52 KB in bf16, 99 KB in fp32), so they are dynamic. Head dims that are
-// not a multiple of 16 are zero-filled to one in shared memory, and those
-// whose half is not a multiple of 8 gather RoPE partners one element at a
-// time: both cost only such rare widths.
+// What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
+// bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
+// cores at N = 1205. bfloat16 at d = 64 and 128 takes the Hopper body
+// (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head). The
+// other head dims, and float32 at every head dim, keep attention_common.cuh's
+// body: its tiles outgrow static shared memory above d = 64 (dynamic, 52 KB
+// in bf16 at d = 128), head dims that are not a multiple of 16 are
+// zero-filled to one in shared memory, and those whose half is not a
+// multiple of 8 gather RoPE partners one element at a time: both cost only
+// such rare widths.
 
-#include "attention_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
 template <int HD>
 int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-        const void* sin_t, int B, int N, int H, int n_valid, float scale, int dtype,
-        void* stream) {
+        const void* sin_t, void* k_scratch, int B, int N, int H, int n_valid, float scale,
+        int dtype, void* stream, int* body) {
   using namespace cbas_attention;
+  *body = sm90_route(dtype, HD);
+  if constexpr (HD == 64 || HD == 128) {
+    if (*body)
+      return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H,
+                                               false, n_valid, scale, stream));
+  }
   return static_cast<int>(launch<HD>(q, k, v, o, cos_t, sin_t, B, N, H,
                                      headmajor_layout(N, H, HD), n_valid, scale, dtype, stream));
 }
@@ -36,14 +40,18 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
 
 // C entry, bound with ctypes. head_dim is d (a multiple of 8, at most 128).
 // dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or
-// both null. Returns the CUDA error code of the launch (0 on success).
+// both null. k_scratch is a buffer shaped like k for the roped keys, needed
+// by the Hopper body with tables (null otherwise). *body is set to the body
+// that ran (sm90_route). Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void* v, void* o,
-                                        const void* cos_t, const void* sin_t, int B, int N,
-                                        int H, int head_dim, int n_valid, float scale,
-                                        int dtype, void* stream) {
-#define CBAS_HEAD_DIM(D) \
-  case D:                \
-    return run<D>(q, k, v, o, cos_t, sin_t, B, N, H, n_valid, scale, dtype, stream);
+                                        const void* cos_t, const void* sin_t, void* k_scratch,
+                                        int B, int N, int H, int head_dim, int n_valid,
+                                        float scale, int dtype, void* stream, int* body) {
+#define CBAS_HEAD_DIM(D)                                                                    \
+  case D:                                                                                   \
+    return run<D>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, n_valid, scale, dtype, stream, \
+                  body);
   switch (head_dim) {
     CBAS_HEAD_DIM(8)
     CBAS_HEAD_DIM(16)

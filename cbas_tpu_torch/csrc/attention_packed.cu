@@ -19,15 +19,18 @@
 
 #include "attention_common.cuh"
 
-// C entry, bound with ctypes. H is the head count (twice the pairs, so even);
-// head_dim must be 64. dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are
-// (N, 64) fp32 tables or both null. Returns the CUDA error code of the launch.
+// C entry, bound with ctypes, with the flat and head-major entries'
+// signature. H is the head count (twice the pairs, so even); head_dim must be
+// 64. dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, 64) fp32 tables
+// or both null. k_scratch is unused; *body is set to 0 (this body). Returns
+// the CUDA error code of the launch.
 extern "C" int cbas_attention_packed(const void* q, const void* k, const void* v, void* o,
-                                     const void* cos_t, const void* sin_t, int B, int N, int H,
-                                     int head_dim, int n_valid, float scale, int dtype,
-                                     void* stream) {
+                                     const void* cos_t, const void* sin_t, void* /*k_scratch*/,
+                                     int B, int N, int H, int head_dim, int n_valid, float scale,
+                                     int dtype, void* stream, int* body) {
   using namespace cbas_attention;
   if (head_dim != 64 || H % 2) return static_cast<int>(cudaErrorInvalidValue);
+  *body = 0;
   return static_cast<int>(launch<64>(q, k, v, o, cos_t, sin_t, B, N, H,
                                      packed_layout(N, H, 64), n_valid, scale, dtype, stream));
 }

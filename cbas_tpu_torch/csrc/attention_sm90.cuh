@@ -1,0 +1,665 @@
+// The Hopper body of the port's fused attention in bfloat16, for head dims 64
+// and 128: K1 (flat, d = 64) and K3 (head-major, d = 64 and 128) route here
+// (attention_fat.cu, attention_headmajor.cu); fp32, K3's other head dims and
+// K2 stay on attention_common.cuh.
+//
+// Same function and rounding points as attention_common.cuh's bf16 body:
+// RoPE in fp32, one rounding of roped, scaled q and of roped k to bf16, p
+// rounded to bf16 before p.V, fp32 row sums, keys at or beyond n_valid masked
+// by select. What this design does about what held that body back:
+//
+// - Copies in flight. One producer warp issues TMA loads
+//   (cp.async.bulk.tensor) of the 64-key tiles K(0), V(0), K(1), V(1), ...
+//   in turn into a ring of kSlots stages, each guarded by a "full" mbarrier
+//   (transaction bytes) and an "empty" one (the consumer's release), so K(t+1)
+//   loads while V(t) is read and the other way round. The tensor maps give K and
+//   V a row extent of n_valid, so rows at or beyond it arrive as zeros from
+//   the hardware: NaN or Inf bits in dead rows never reach shared memory.
+//   The score mask stays a select.
+// - wgmma. A consumer warpgroup of 64 query rows runs
+//   wgmma.mma_async m64n64k16, bf16 in and fp32 accumulate, for both
+//   products. q.k^T reads both operands from shared memory, K-major and
+//   128-byte swizzled: K as the TMA lands it, Q as the block stages it
+//   once. (Q as register fragments held across the loop was wrong at
+//   d = 64: ptxas gave them the registers of p.V's fragments.) The
+//   probabilities stay in registers as the A operand of p.V (the
+//   accumulator layout of q.k^T is the A layout of p.V); V is read through
+//   a transposed (MN-major) descriptor. The online softmax runs on the
+//   accumulator fragments. A 128-wide head is two 64-column swizzle atoms,
+//   each its own TMA box and its own n = 64 product. (Issuing the next
+//   tile's q.k^T before this tile's softmax, as FA3 does, or right after
+//   this tile's p.V, was measured slower here: the live score registers
+//   cost blocks an SM or spilled, and ptxas serialized the wgmmas.)
+// - RoPE once per (token, head, image). The query block ropes and scales its
+//   own Q rows as it stages them (each is read by one block only); K, which
+//   every query block of a head reads, is roped by a prologue kernel
+//   (rope_rows) into scratch the wrapper allocates, so the attention kernel
+//   reads roped K through the same TMA path. Without tables nothing is roped
+//   and the prologue does not run.
+//
+// Grid: (ceil(N / 64) query blocks, H, B), one consumer warpgroup and one
+// producer warp a block.
+//
+// What bounds it on this card: latency. A block does 5 (N = 261) to 19
+// (N = 1205) key tiles, each a chain of wgmma, wait, softmax, wgmma, wait;
+// the SM overlaps the chains of its 2-4 resident blocks, not the steps of
+// one. At N = 261 the last query block and the last key tile of a head hold
+// 5 rows of 64, so 25 tile steps do the work of 16.6. At N = 1205 the K and
+// V re-reads of the 19 query blocks of a head also load L2 (2.25 GB at
+// 640x480 for K1).
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: the driver entry is fetched at run time)
+
+#include "attention_common.cuh"
+
+namespace cbas_attention {
+namespace sm90 {
+
+constexpr int kBlockN = 64;     // keys per ring stage
+constexpr int kWGRows = 64;     // query rows per consumer warpgroup
+constexpr int kWGThreads = 128;
+constexpr int kAtom = 64;       // bf16 columns in one 128-byte swizzle atom
+constexpr int kAtomBytes = kBlockN * 128;  // one 64-row atom of a K or V tile
+
+template <int HD>
+struct Config {
+  static_assert(HD == 64 || HD == 128, "the Hopper body takes head dims 64 and 128");
+  static constexpr int kAtoms = HD / kAtom;
+  // One consumer warpgroup a block, a 2-stage ring and registers capped for
+  // 4 blocks an SM at d = 64, 3 at d = 128. The kernel is bound by latency,
+  // so independent blocks an SM are what helps: on an H100 at the main
+  // shapes this ran faster than two warpgroups sharing a 128-row block, and
+  // than 3- and 4-stage rings, which cost blocks an SM (or registers) for
+  // loads that a 2-stage ring already has in flight (PERF.md).
+  static constexpr int kSlots = 2;
+  static constexpr int kMinBlocks = HD == 64 ? 4 : 3;
+  static constexpr int kThreads = kWGThreads + 32;        // + the producer warp
+  static constexpr int kTileBytes = kAtoms * kAtomBytes;  // one K or V tile
+  static constexpr int kQBytes = kAtoms * kAtomBytes;      // the Q tile, swizzled like K
+  // 1024 bytes of slack to align the tiles to the 128-byte swizzle's period.
+  static constexpr size_t kSmemBytes = 1024 + kQBytes + kSlots * kTileBytes + (2 * kSlots + 1) * 8;
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that outlasts
+// about ten seconds of SM clock traps, so a fault in the ring ends the launch
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// --- TMA -------------------------------------------------------------------
+
+// One box of `map` at coordinates (c0, c1, c2, c3), innermost first, into
+// shared memory at `dst`; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of shared memory at `src` to `map` at (c0, c1, c2, c3), as a bulk
+// group of this thread.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// A shared-memory matrix descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (SW128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x (MUFU.EX2; 0 for -inf and for x far below -126).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The max (kMax) or sum of a thread's 16 scores of row r (0: row g, 1: row
+// g + 8) in an m64n64 accumulator, as a tree: 4 dependent steps, not 16.
+template <bool kMax>
+__device__ __forceinline__ float row_reduce(const float (&s)[32], int r) {
+  float v[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[2 * j] = s[4 * j + 2 * r], v[2 * j + 1] = s[4 * j + 2 * r + 1];
+  auto op = [](float x, float y) { return kMax ? fmaxf(x, y) : x + y; };
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = op(v[i], v[i + 8]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = op(v[i], v[i + 4]);
+  return op(op(v[0], v[2]), op(v[1], v[3]));
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across a
+// wgmma issue or wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, fp32) = a (64 x 16, bf16, registers) . b (16 x 64, bf16, shared
+// memory through `desc`) + (accumulate ? d : 0). TransB 0: b is K-major (its
+// 16-deep columns contiguous); 1: MN-major (its 64-wide rows contiguous).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TransB));
+}
+
+// The same product with a from shared memory too, through `desc_a` (K-major).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// --- the kernels -----------------------------------------------------------
+
+// RoPE prologue: token n < n_valid of head h of image b, roped in fp32 and
+// rounded to bf16 once (rope_chunk, scale 1: exactly what the common body
+// computes for K), written at the same offset of `out`. One thread per
+// 16-byte chunk, heads fastest, so the threads of a token share its table
+// row in L1; rows at or beyond n_valid are neither read nor written.
+template <int HD>
+__global__ void __launch_bounds__(256)
+rope_rows(const __nv_bfloat16* __restrict__ k, __nv_bfloat16* __restrict__ out,
+          const float* __restrict__ cos_t, const float* __restrict__ sin_t, int H, Layout L,
+          int n_valid, long long rows) {
+  constexpr int kChunks = HD / kChunk;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long r = i / kChunks;  // (b, n, h), h fastest
+  if (r >= rows) return;
+  const int c = static_cast<int>(i % kChunks) * kChunk;
+  const int h = static_cast<int>(r % H);
+  const long long bn = r / H;
+  const int n = static_cast<int>(bn % n_valid);
+  const size_t off = static_cast<size_t>(bn / n_valid) * L.batch_stride +
+                     static_cast<size_t>(h / L.heads_per_group) * L.group_stride +
+                     static_cast<size_t>(h % L.heads_per_group) * HD +
+                     static_cast<size_t>(n) * L.row_stride;
+  *reinterpret_cast<uint4*>(out + off + c) = rope_chunk<HD>(k + off, c, n, cos_t, sin_t, 1.f);
+}
+
+// Byte offset of column c of row r in a 128-byte-swizzled tile of 64-column
+// atoms (the layout the TMA writes): row r of atom c / 64 at 128 r, its
+// 16-byte chunk j at slot j ^ (r % 8).
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return (c / kAtom) * kAtomBytes + 128 * r + 16 * (((c % kAtom) / kChunk) ^ (r % 8));
+}
+
+// One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y of image
+// blockIdx.z. Warps 0-3 are the consumer warpgroup, warp 4 the producer.
+// `flat`: the maps are (64, H, rows, B) and a tile is at (c, h, row, b);
+// otherwise (HD, rows, H, B) and (c, row, h, b). Q's map has N rows, K's and
+// V's n_valid.
+template <int HD>
+__global__ void __launch_bounds__(Config<HD>::kThreads, Config<HD>::kMinBlocks)
+attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
+               const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
+               int n_valid, float scale, int flat) {
+  using C = Config<HD>;
+  constexpr int kKSteps = HD / 16;
+
+  unsigned char* raw = dynamic_smem();
+  const uint32_t raw_addr = smem_u32(raw);
+  const uint32_t q_tile = (raw_addr + 1023u) & ~1023u;
+  unsigned char* sq = raw + (q_tile - raw_addr);
+  // Load i of the ring is K(i / 2) if i is even, else V(i / 2), into stage
+  // i % kSlots at + (i % kSlots) * kTileBytes.
+  const uint32_t ring = q_tile + C::kQBytes;
+  // full barriers of the stages, their empty barriers, then Q's.
+  const uint32_t bars = ring + C::kSlots * C::kTileBytes;
+  auto full = [&](int i) { return bars + 8u * (i % C::kSlots); };
+  auto empty = [&](int i) { return bars + 8u * (C::kSlots + i % C::kSlots); };
+  auto stage = [&](int i) { return ring + (i % C::kSlots) * C::kTileBytes; };
+  const uint32_t q_full = bars + 8u * 2 * C::kSlots;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * kWGRows;
+  const int n_tiles = (n_valid + kBlockN - 1) / kBlockN;  // tiles past n_valid add zeros
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kSlots; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWGThreads / 32);  // one arrival a consumer warp
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWGThreads) {
+    // Producer: one thread loads the Q tile, then keeps the ring full.
+    if (threadIdx.x == kWGThreads) {
+      mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a)
+        tma_load_4d(q_tile + a * kAtomBytes, &q_map, q_full, a * kAtom, flat ? h : q0,
+                    flat ? q0 : h, b);
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int row = (i / 2) * kBlockN;
+        const CUtensorMap* map = i % 2 ? &v_map : &k_map;
+        mbar_wait(empty(i), ((i / C::kSlots) & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(full(i), C::kTileBytes);
+#pragma unroll
+        for (int a = 0; a < C::kAtoms; ++a)
+          tma_load_4d(stage(i) + a * kAtomBytes, map, full(i), a * kAtom, flat ? h : row,
+                      flat ? row : h, b);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  // Rope and scale the Q tile in place, as the shared-memory A operand of
+  // q.k^T: each thread takes pairs of 16-byte chunks, columns [c, c + 8) of
+  // the first half and their RoPE partners [c + HD/2, +8), and rounds each
+  // value to bf16 once, as rope_chunk does. The tables of a batch of pairs
+  // load while the TMA brings the tile. Rows at or beyond N arrived as zeros
+  // and stay so.
+  {
+    constexpr int kPairsPerRow = HD / 2 / kChunk;
+    constexpr int kPerThread = kWGRows * kPairsPerRow / kWGThreads;  // 2 or 4
+    constexpr int kBatch = 2;
+#pragma unroll
+    for (int p0 = 0; p0 < kPerThread; p0 += kBatch) {
+      float4 tab[kBatch][8];  // cos, then sin, of the chunk and of its partner
+#pragma unroll
+      for (int pb = 0; pb < kBatch; ++pb) {
+        const int i = tid + (p0 + pb) * kWGThreads;
+        const int n = q0 + i / kPairsPerRow;
+        const int c = (i % kPairsPerRow) * kChunk;
+        if (cos_t != nullptr && n < N) {
+          const float4* cs = reinterpret_cast<const float4*>(cos_t + static_cast<size_t>(n) * HD);
+          const float4* sn = reinterpret_cast<const float4*>(sin_t + static_cast<size_t>(n) * HD);
+          const int c4 = c / 4, p4 = (c + HD / 2) / 4;
+          tab[pb][0] = cs[c4], tab[pb][1] = cs[c4 + 1], tab[pb][2] = cs[p4], tab[pb][3] = cs[p4 + 1];
+          tab[pb][4] = sn[c4], tab[pb][5] = sn[c4 + 1], tab[pb][6] = sn[p4], tab[pb][7] = sn[p4 + 1];
+        }
+      }
+      if (p0 == 0) mbar_wait(q_full, 0);
+#pragma unroll
+      for (int pb = 0; pb < kBatch; ++pb) {
+        const int i = tid + (p0 + pb) * kWGThreads;
+        const int r = i / kPairsPerRow;
+        const int c = (i % kPairsPerRow) * kChunk;
+        if (q0 + r >= N) continue;
+        uint4* pa = reinterpret_cast<uint4*>(sq + sw128_offset(r, c));
+        uint4* pp = reinterpret_cast<uint4*>(sq + sw128_offset(r, c + HD / 2));
+        const uint4 xa = *pa, xp = *pp;
+        const float* tb = reinterpret_cast<const float*>(tab[pb]);  // [8 cos_a, 8 cos_p, ...]
+        uint4 ya, yp;
+        auto* a32 = reinterpret_cast<uint32_t*>(&ya);
+        auto* p32 = reinterpret_cast<uint32_t*>(&yp);
+#pragma unroll
+        for (int e = 0; e < kChunk; e += 2) {
+          float va[2], vp[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            va[u] = bf16_at(xa, e + u);
+            vp[u] = bf16_at(xp, e + u);
+            if (cos_t != nullptr) {
+              const float a = va[u];
+              va[u] = rope(a, vp[u], true, tb[e + u], tb[16 + e + u]);
+              vp[u] = rope(vp[u], a, false, tb[8 + e + u], tb[24 + e + u]);
+            }
+          }
+          a32[e / 2] = pack_bf16(va[0] * scale, va[1] * scale);
+          p32[e / 2] = pack_bf16(vp[0] * scale, vp[1] * scale);
+        }
+        *pa = ya;
+        *pp = yp;
+      }
+    }
+  }
+  // The wgmma reads shared memory through the async proxy.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
+
+  // Accumulator fragments (m64nNk16): element 4 j + e of a thread is row
+  // 16 warp + g + 8 (e / 2), column 8 j + 2 t + (e & 1).
+  float acc[C::kAtoms][32];
+#pragma unroll
+  for (int a = 0; a < C::kAtoms; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};              // running sum
+
+  auto wait_full = [&](int i) { mbar_wait(full(i), (i / C::kSlots) & 1); };
+  // Each consumer warp releases a stage once its share of the wgmma that read
+  // it has completed.
+  auto release = [&](int i) {
+    if (lane == 0) mbar_arrive(empty(i));
+  };
+
+  // S = Q K(kt)^T, issued and committed. Both operands K-major: a 16-deep
+  // step is 32 bytes into the atoms' rows; 8-row groups are 1024 bytes apart.
+  // The first step does not read sc (scale-d 0), so it is not zeroed: a
+  // non-wgmma write to an accumulator makes ptxas serialize the wgmmas.
+  float sc[32];
+  auto issue_qk = [&](int kt) {
+    const uint32_t k_tile = stage(2 * kt);
+    wait_full(2 * kt);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      const uint32_t step = (kk / 4) * kAtomBytes + (kk % 4) * 32;
+      wgmma_m64n64k16_ss(sc, sw128_desc(q_tile + step, 16, 1024),
+                         sw128_desc(k_tile + step, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  // O += P V(kt), issued and committed. MN-major B: a 16-key step is 16 rows
+  // (2048 bytes) down the atom; 8-row groups are 1024 bytes apart; each
+  // 64-column atom of V is its own n = 64 product.
+  auto issue_pv = [&](const uint32_t (&p)[4][4], int kt) {
+    const uint32_t v_tile = stage(2 * kt + 1);
+    wait_full(2 * kt + 1);
+#pragma unroll
+    for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < C::kAtoms; ++a)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16<1>(acc[a], p[kk],
+                           sw128_desc(v_tile + a * kAtomBytes + kk * 2048, kAtomBytes, 1024), 1);
+    wgmma_commit();
+  };
+
+  // The online softmax of tile kt's scores sc, over rows g (e = 0, 1) and
+  // g + 8 (e = 2, 3); a row's 64 scores are spread over the 4 lanes t = 0..3
+  // of one quad. exp(x - max) as 2^(x log2 e - max log2 e): one FFMA and one
+  // MUFU an element. Updates m and l, writes P (rounded to bf16) as the A
+  // fragments of p.V into p, and the factor O must be rescaled by into alpha.
+  auto softmax = [&](int kt, uint32_t (&p)[4][4], float (&alpha)[2]) {
+    // Only the last tile can hold dead keys: mask them by select. Their p is
+    // then exactly 0 (every row has a live key, so its max is finite).
+    const int k0 = kt * kBlockN;
+    if (k0 + kBlockN > n_valid) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t + (e & 1) >= n_valid) sc[4 * j + e] = kMasked;
+    }
+    float mxl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(m[r], row_reduce<true>(sc, r));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[r] = ex2((m[r] - mx) * kLog2e);  // 0 on the first tile (m = -inf)
+      m[r] = mx;
+      mxl[r] = mx * kLog2e;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = ex2(fmaf(sc[i], kLog2e, -mxl[(i % 4) / 2]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float rs = row_reduce<false>(sc, r);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[r] = l[r] * alpha[r] + rs;
+    }
+    // Key step kk of p.V is score columns 16 kk .. +15, the accumulator
+    // elements of 8-column tiles 2 kk and 2 kk + 1.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+  };
+
+  // Once the running max settles, alpha is exactly 1 and the rescale is
+  // skipped (a warp-uniform branch; a product by 1 changes nothing).
+  auto rescale = [&](const float (&alpha)[2]) {
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[a][i] *= alpha[(i % 4) / 2];
+    }
+  };
+
+  // Per tile: q.k^T, the softmax, p.V. Each stage is released as soon as its
+  // wgmma has read it, so K(kt + 1) loads during this tile's softmax and p.V.
+  uint32_t p[4][4];
+  float alpha[2];
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    issue_qk(kt);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(2 * kt);
+    softmax(kt, p, alpha);
+    rescale(alpha);
+    issue_pv(p, kt);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+    release(2 * kt + 1);
+  }
+
+  // O / rowsum, rounded to bf16, staged in the Q tile's shared memory (q.k^T
+  // has read it for the last time) in the same swizzled layout, then written
+  // by one TMA store a 64-column atom; the map clips rows at or beyond N.
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int a = 0; a < C::kAtoms; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, kAtom * a + 8 * j) + 4 * t) =
+            pack_bf16(acc[a][4 * j + 2 * r] * inv[r], acc[a][4 * j + 2 * r + 1] * inv[r]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
+  if (tid == 0) {
+#pragma unroll
+    for (int a = 0; a < C::kAtoms; ++a)
+      tma_store_4d(&o_map, q_tile + a * kAtomBytes, a * kAtom, flat ? h : q0, flat ? q0 : h, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // smem read: may exit
+  }
+}
+
+// --- host side ---------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so the
+// library links no libcuda; null if the driver has none.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D bf16 map of one of Q, K or V, whose heads hold N rows, of which
+// the map covers the first `rows`: innermost first, flat (64, H, rows, B) at
+// row stride H*64, otherwise (HD, rows, H, B); a box of one 64-column atom by
+// 64 rows, 128-byte swizzle, zeros out of bounds.
+template <int HD>
+inline bool encode_map(CUtensorMap* map, const void* base, int B, int N, int H, int rows,
+                       bool flat) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t e = 2;  // bytes per element
+  const cuuint64_t n = rows, h = H, b = B;
+  const cuuint64_t flat_dims[4] = {64, h, n, b}, hm_dims[4] = {HD, n, h, b};
+  const cuuint64_t flat_strides[3] = {64 * e, 64 * e * h, 64 * e * h * N};
+  const cuuint64_t hm_strides[3] = {HD * e, HD * e * N, HD * e * N * h};
+  const cuuint32_t box[4] = {kAtom, flat ? 1u : static_cast<cuuint32_t>(kBlockN),
+                             flat ? static_cast<cuuint32_t>(kBlockN) : 1u, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                flat ? flat_dims : hm_dims, flat ? flat_strides : hm_strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Launch the Hopper body (bf16) on `stream`: the RoPE prologue into
+// `k_scratch` (same shape as k) when there are tables, then the attention
+// kernel. `flat`: k/v/o are (B, N, H*64), otherwise (B, H, N, HD). Returns
+// the CUDA error of the launches (cudaSuccess when both were queued).
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
+                   const void* sin_t, void* k_scratch, int B, int N, int H, bool flat,
+                   int n_valid, float scale, void* stream) {
+  using C = Config<HD>;
+  const cudaError_t bad = check_args(B, N, H, n_valid);
+  if (bad != cudaSuccess) return bad;
+  if (flat && HD != 64) return cudaErrorInvalidValue;
+  const Layout L = flat ? flat_layout(N, H, HD) : headmajor_layout(N, H, HD);
+  const auto* c = static_cast<const float*>(cos_t);
+  const auto* s = static_cast<const float*>(sin_t);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const void* k_in = k;
+  if (c != nullptr) {
+    if (k_scratch == nullptr) return cudaErrorInvalidValue;
+    const long long rows = static_cast<long long>(B) * H * n_valid;
+    const long long threads = rows * (HD / kChunk);
+    rope_rows<HD><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(k_scratch), c, s, H, L,
+        n_valid, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    k_in = k_scratch;
+  }
+  CUtensorMap q_map, k_map, v_map, o_map;
+  if (!encode_map<HD>(&q_map, q, B, N, H, N, flat) || !encode_map<HD>(&o_map, o, B, N, H, N, flat) ||
+      !encode_map<HD>(&k_map, k_in, B, N, H, n_valid, flat) ||
+      !encode_map<HD>(&v_map, v, B, N, H, n_valid, flat))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmemBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
+  attention_sm90<HD><<<grid, C::kThreads, C::kSmemBytes, st>>>(
+      q_map, k_map, v_map, o_map, c, s, N, n_valid, scale, flat ? 1 : 0);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
+// Which body a (dtype, head dim) takes in the flat and head-major entries:
+// 1 (this file's Hopper body) for bfloat16 at d = 64 and 128, else 0
+// (attention_common.cuh). ops/flash_attention.py::attention_body mirrors it.
+inline int sm90_route(int dtype, int head_dim) {
+  return dtype == 1 && (head_dim == 64 || head_dim == 128) ? 1 : 0;
+}
+
+}  // namespace cbas_attention

@@ -65,8 +65,8 @@ class ClassifierBundle:
         """Write metadata first and weights last, each file staged to a tmp
         name and renamed, so no reader sees a partial file or new weights
         with old metadata."""
-        from cbas_tpu.core.config import dump_yaml
-        from cbas_tpu.models.torch_port import save_pth
+        from cbas_tpu_torch.core.config import dump_yaml
+        from cbas_tpu_torch.models.torch_port import save_pth
 
         os.makedirs(model_dir, exist_ok=True)
 
@@ -116,10 +116,10 @@ class ClassifierBundle:
 
     @classmethod
     def load(cls, model_dir: str, expected_encoder: Optional[str] = None) -> "ClassifierBundle":
-        from cbas_tpu.core.config import load_yaml
-        from cbas_tpu.models.torch_port import load_pth
-        from cbas_tpu.utils.logging import log_message
-        from cbas_tpu.utils.naming import identities_equivalent
+        from cbas_tpu_torch.core.config import load_yaml
+        from cbas_tpu_torch.models.torch_port import load_pth
+        from cbas_tpu_torch.utils.logging import log_message
+        from cbas_tpu_torch.utils.naming import identities_equivalent
 
         config = dict(load_yaml(os.path.join(model_dir, "config.yaml")) or {})
 
@@ -224,20 +224,20 @@ class ClassifierBundle:
             lstm_input=int(self.params["lin0.weight"].shape[0]),
         )
 
-    def head(self, device="cpu") -> Union[DeltasHead, LegacyHead]:
+    def head(self, device="cuda") -> Union[DeltasHead, LegacyHead]:
         """The head as an eval-mode module on ``device``."""
         if self.architecture == DELTAS_ARCH:
             return deltas_params_from_numpy(self.params, self.head_config(), device)
         return legacy_params_from_numpy(self.params, self.head_config(), device)
 
-    def logits_fn(self, device="cpu") -> Callable[[torch.Tensor], torch.Tensor]:
+    def logits_fn(self, device="cuda") -> Callable[[torch.Tensor], torch.Tensor]:
         """fn(windows (B, T, D) f32) -> logits (B, C), head built once on ``device``."""
         head = self.head(device)
         if self.architecture == DELTAS_ARCH:
             return lambda x: head(x)[0]
         return lambda x: legacy_forward_nodrop(head, x)
 
-    def probs_fn(self, device="cpu") -> Callable[[torch.Tensor], torch.Tensor]:
+    def probs_fn(self, device="cuda") -> Callable[[torch.Tensor], torch.Tensor]:
         """fn(windows) -> calibrated (temperature) softmax probabilities."""
         base = self.logits_fn(device)
         temp = max(1e-3, float(self.temperature))

@@ -3,11 +3,11 @@
 Port of ``cbas_tpu/engine/data.py``. Training examples are manifest entries
 ``(h5_path, center_frame, label_index)``; windows are sliced on demand.
 
-- :func:`build_manifest` reads files and is the JAX package's own, imported
-  when called.
+- :func:`build_manifest` reads files (a copy of the original, h5py imported
+  when it is called).
 - :class:`WindowSource` gathers (B, T, D) float32 windows through a cache.
-  ``h5py`` and ``cbas_tpu.core.hdf5_store`` are imported only where a file is
-  opened: any object whose ``get(path)["cls"]`` slices like a dataset and
+  ``h5py`` and ``cbas_tpu_torch.core.hdf5_store`` are imported only where a
+  file is opened: any object whose ``get(path)["cls"]`` slices like a dataset and
   that has ``read_window`` serves in-memory embeddings with neither.
 - :class:`DeviceWindowStore` stacks every referenced row into one (R, D)
   tensor on a device; a batch is its centre rows, and the train step gathers
@@ -28,15 +28,75 @@ import torch
 ManifestEntry = Tuple[str, int, int]  # (h5_path, center_frame, label_index)
 Instance = Dict[str, object]
 
-DATASET_NAME = "cls"  # cbas_tpu.core.hdf5_store.DATASET_NAME
+DATASET_NAME = "cls"  # cbas_tpu_torch.core.hdf5_store.DATASET_NAME
 
 
-def build_manifest(project_root, instances, seq_len, behaviors, progress_callback=None):
-    """One manifest entry per labeled frame with a full in-bounds window
-    (``cbas_tpu.engine.data.build_manifest``; reads the HDF5 files)."""
-    from cbas_tpu.engine.data import build_manifest as _build
+def build_manifest(
+    project_root: str,
+    instances: Sequence[Instance],
+    seq_len: int,
+    behaviors: Sequence[str],
+    progress_callback=None,
+) -> List[ManifestEntry]:
+    """One manifest entry per labeled frame with a full in-bounds window.
 
-    return _build(project_root, instances, seq_len, behaviors, progress_callback)
+    A copy of ``cbas_tpu/engine/data.py::build_manifest`` (h5py imported
+    here, when it is called). Mirrors ``Project.convert_instances``
+    (backend/cbas.py:1171-1219): frames within ``[start, end]`` of each
+    instance qualify iff ``center ± seq_len//2`` fits inside the video's
+    embedding file.
+    """
+    import h5py
+
+    from cbas_tpu_torch.utils.naming import h5_path_for_video
+
+    manifest: List[ManifestEntry] = []
+    half = seq_len // 2
+    behavior_index = {b: i for i, b in enumerate(behaviors)}
+
+    by_video: Dict[str, List[Instance]] = defaultdict(list)
+    for inst in instances:
+        # Normalize Windows separators like every other consumer (splits
+        # subject_of, clean_and_sort_labels, preflight): a labels.yaml
+        # authored on Windows must not produce an empty manifest here after
+        # preflight just validated the same paths. (The reference skips the
+        # replace and relies on os.path.join being on Windows,
+        # backend/cbas.py:1189.)
+        v = str(inst.get("video", "")).replace("\\", "/")
+        if v:
+            by_video[v].append(inst)
+
+    for i, (rel_video, insts) in enumerate(by_video.items()):
+        if progress_callback:
+            progress_callback((i + 1) / max(1, len(by_video)) * 100.0)
+        h5_path = h5_path_for_video(os.path.join(project_root, rel_video))
+        if not os.path.exists(h5_path):
+            print(f"Warning: H5 file not found, skipping instances for {rel_video}")
+            continue
+        try:
+            with h5py.File(h5_path, "r") as f:
+                num_frames = int(f[DATASET_NAME].shape[0])
+        except Exception as e:
+            print(f"Warning: could not read {h5_path}: {e}")
+            continue
+        if num_frames < seq_len:
+            continue
+        for inst in insts:
+            start, end = int(inst.get("start", -1)), int(inst.get("end", -1))
+            if start == -1 or end == -1:
+                continue
+            label = str(inst.get("label", "")).strip()
+            if label not in behavior_index:
+                print(
+                    f"WARNING: label '{label}' in '{rel_video}' is not in the "
+                    "master behavior list; instance skipped."
+                )
+                continue
+            li = behavior_index[label]
+            for center in range(start, end + 1):
+                if center - half >= 0 and center + half < num_frames:
+                    manifest.append((h5_path, center, li))
+    return manifest
 
 
 def _preload_budget_bytes() -> int:
@@ -71,7 +131,7 @@ class WindowSource:
         self.seq_len = seq_len
         self.half = seq_len // 2
         if cache is None:
-            from cbas_tpu.core.hdf5_store import global_handle_cache as cache
+            from cbas_tpu_torch.core.hdf5_store import global_handle_cache as cache
         self.cache = cache
         self._dim: Optional[int] = None
         # path -> (rows array, first-row offset); only the referenced span of
@@ -103,7 +163,7 @@ class WindowSource:
 
         budget = _preload_budget_bytes()
         if total > budget:
-            from cbas_tpu.utils.logging import log_message
+            from cbas_tpu_torch.utils.logging import log_message
 
             log_message(
                 f"Training-set preload would need {total / 1e9:.1f} GB "
@@ -321,7 +381,7 @@ def compute_class_weights(
 def instances_for_subjects(
     instances: Sequence[Instance], subjects: Sequence[str]
 ) -> List[Instance]:
-    from cbas_tpu.core.splits import subject_of
+    from cbas_tpu_torch.core.splits import subject_of
 
     subject_set = set(subjects)
     return [i for i in instances if subject_of(i) in subject_set]

@@ -18,18 +18,18 @@ import threading
 import time
 from typing import Callable, Optional
 
-from cbas_tpu.core.config import EncodeConfig
-from cbas_tpu.core.hdf5_store import EmbeddingWriter
-from cbas_tpu.ingest.decode import open_video
-from cbas_tpu.utils.logging import log_message
-from cbas_tpu.utils.metrics import (
+from cbas_tpu_torch.core.config import EncodeConfig
+from cbas_tpu_torch.core.hdf5_store import EmbeddingWriter
+from cbas_tpu_torch.ingest.decode import open_video
+from cbas_tpu_torch.utils.logging import log_message
+from cbas_tpu_torch.utils.metrics import (
     DECODE_FRAMES,
     ENCODE_FRAMES,
     ENCODE_FRAMES_COLD,
     H5_ROWS,
     metrics,
 )
-from cbas_tpu.utils.naming import h5_path_for_video
+from cbas_tpu_torch.utils.naming import h5_path_for_video
 from cbas_tpu_torch.models.encoder import FrameEncoder
 
 _SENTINEL = object()

@@ -149,9 +149,9 @@ class InferenceSession:
         import h5py
         import pandas as pd
 
-        from cbas_tpu.core.hdf5_store import DATASET_NAME
-        from cbas_tpu.utils.metrics import INFER_FRAMES, INFER_WINDOWS, metrics
-        from cbas_tpu.utils.naming import outputs_csv_for_h5
+        from cbas_tpu_torch.core.hdf5_store import DATASET_NAME
+        from cbas_tpu_torch.utils.metrics import INFER_FRAMES, INFER_WINDOWS, metrics
+        from cbas_tpu_torch.utils.naming import outputs_csv_for_h5
 
         output_csv = output_csv or outputs_csv_for_h5(h5_path, self.bundle.name)
         h = self.bundle.seq_len // 2

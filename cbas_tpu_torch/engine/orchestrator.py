@@ -22,16 +22,16 @@ import numpy as np
 import pandas as pd
 import yaml
 
-from cbas_tpu.core.config import TrainingConfig, dump_yaml, load_yaml
-from cbas_tpu.core.hdf5_store import global_handle_cache
-from cbas_tpu.core.project import Dataset, Project
-from cbas_tpu.core.splits import RandomSplitProvider, SplitProvider, subject_of
-from cbas_tpu.engine.plots import (
+from cbas_tpu_torch.core.config import TrainingConfig, dump_yaml, load_yaml
+from cbas_tpu_torch.core.hdf5_store import global_handle_cache
+from cbas_tpu_torch.core.project import Dataset, Project
+from cbas_tpu_torch.core.splits import RandomSplitProvider, SplitProvider, subject_of
+from cbas_tpu_torch.engine.plots import (
     plot_epoch_metric,
     plot_run_metrics,
     save_confusion_matrix_plot,
 )
-from cbas_tpu.utils.logging import log_message
+from cbas_tpu_torch.utils.logging import log_message
 from cbas_tpu_torch.engine.calibrate import fit_temperature
 from cbas_tpu_torch.engine.classifier import DELTAS_ARCH, ClassifierBundle
 from cbas_tpu_torch.engine.data import (
@@ -485,7 +485,7 @@ def generate_disagreement_report(
     """Find contiguous blocks where the model contradicts human labels, sorted
     by model confidence (reference: backend/workthreads.py:728-811)."""
     from cbas_tpu_torch.engine.infer import InferenceSession
-    from cbas_tpu.utils.naming import (
+    from cbas_tpu_torch.utils.naming import (
         h5_path_for_video,
         outputs_csv_for_h5,
         outputs_csv_is_stale,

@@ -31,7 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cbas_tpu.utils.metrics import TRAIN_STEPS, metrics
+from cbas_tpu_torch.utils.metrics import TRAIN_STEPS, metrics
 from cbas_tpu_torch.engine.data import (
     DATASET_NAME,
     BalancedSampler,

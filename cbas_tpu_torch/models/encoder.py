@@ -69,7 +69,7 @@ def load_encoder_params(identifier: str) -> Dict[str, np.ndarray]:
             from safetensors.numpy import load_file
 
             return dict(load_file(path))
-        from cbas_tpu.models.torch_port import load_pth
+        from cbas_tpu_torch.models.torch_port import load_pth
 
         return load_pth(path)
 
@@ -77,7 +77,7 @@ def load_encoder_params(identifier: str) -> Dict[str, np.ndarray]:
         import transformers
 
         model = transformers.AutoModel.from_pretrained(identifier, local_files_only=True)
-        from cbas_tpu.models.torch_port import state_dict_to_params
+        from cbas_tpu_torch.models.torch_port import state_dict_to_params
 
         return state_dict_to_params(model.state_dict())
     except Exception as e:

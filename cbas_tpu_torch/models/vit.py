@@ -213,7 +213,7 @@ def config_for_identifier(identifier: str) -> ViTConfig:
     # cbas_tpu's logger (console + UI queue), imported only here: resolving a
     # preset by its own name, as the device path does, imports nothing of
     # cbas_tpu.
-    from cbas_tpu.utils.logging import log_message
+    from cbas_tpu_torch.utils.logging import log_message
 
     for key in sorted(PRESETS, key=len, reverse=True):
         if key in name:

@@ -21,9 +21,16 @@ exact fp32 softmax, output in q's dtype.
 - On a CPU tensor it runs its plain PyTorch version
   (``attention_{fat,packed,headmajor}_reference``).
 
+Two bodies serve the three entries (:func:`attention_body`): bfloat16 at
+head dims 64 and 128 in the flat and head-major layouts takes the Hopper body
+(``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once per token and head);
+float32, the other head dims and the packed layout take
+``csrc/attention_common.cuh``'s.
+
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
 count kernel launches and nothing else, so a run can show which kernels its
-main path went through.
+main path went through; ``launches_sm90`` counts those of them that ran the
+Hopper body, as the C entry reports it.
 """
 
 from __future__ import annotations
@@ -42,6 +49,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0            # K1, fused_attention_fat
 launches_packed = 0     # K2, fused_attention_packed
 launches_headmajor = 0  # K3, fused_attention
+launches_sm90 = 0       # launches of any entry that ran the Hopper body
+
+_SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_headmajor": (64, 128)}
+
+
+def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The body entry ``kernel`` (``attention_fat``, ``attention_packed`` or
+    ``attention_headmajor``) runs for ``dtype`` and ``head_dim``: "sm90" (the
+    Hopper body, bfloat16 at the head dims it is built for) or "common". The
+    C entries route by the same rule and report the body they ran."""
+    if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS.get(kernel, ()):
+        return "sm90"
+    return "common"
 
 
 def use_fat_attention() -> bool:
@@ -145,8 +165,8 @@ def _kernel(name: str):
 
     fn = getattr(_cuda.load(name), f"cbas_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
     ]
     return fn
 
@@ -176,7 +196,9 @@ def _check(q, k, v, N, head_dim, n_valid, rope_cos, rope_sin) -> int:
 
 
 def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d) -> torch.Tensor:
-    """Launch ``csrc/<name>.cu``'s kernel on a CUDA tensor, or raise."""
+    """Launch ``csrc/<name>.cu``'s kernel on a CUDA tensor, or raise. The
+    Hopper body with tables gets a scratch buffer shaped like k for the roped
+    keys."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
     if q.dtype not in _DTYPE_CODES:
@@ -189,17 +211,27 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d) -> torch.T
     for arg, t in (("q", q), ("k", k), ("v", v), ("rope_cos", cos), ("rope_sin", sin)):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{arg} must be contiguous and 16-byte aligned")
+    want = attention_body(name, q.dtype, d)
+    body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
+        scratch = torch.empty_like(k) if want == "sm90" and cos is not None else None
         err = _kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
             B, N, H, d, nv, float(scale), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(body),
         )
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    ran = "sm90" if body.value == 1 else "common"
+    if ran != want:
+        raise RuntimeError(f"{name} ran the {ran} body where attention_body says {want}")
+    if ran == "sm90":
+        global launches_sm90
+        launches_sm90 += 1
     return out
 
 

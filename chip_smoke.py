@@ -11,25 +11,34 @@ non-zero and prints no final line):
    source, started together), with each kernel's registers and spills;
 2. kernel: each fused attention against its plain PyTorch version on the
    card, bf16 and fp32, RoPE on and off, N = 261 and 1205, ``n_valid`` < N
-   with NaN in the dead K/V rows, and the main paths' shapes, timed:
+   (272 / 261 and 1216 / 1205) with NaN in the dead K/V rows, and the main
+   paths' shapes:
    - K1 (flat) at dinov3-vitb16's 12 heads;
    - K2 (head-pair packed) at its 6 pairs;
    - K3 (head-major) at 32 heads of 128 (DINOv3 ViT-7B), at 3 heads of 64
-     (an odd head count), and at head dims 96 and 40;
+     (an odd head count), and at head dims 96 and 40.
+   bf16 at head dims 64 and 128 runs the Hopper body (``attention_body``),
+   the rest the common body. At the main shapes each kernel is timed with
+   RoPE and without, beside its plain version, its bound (FLOP and bytes
+   over the card's peaks) and ``scaled_dot_product_attention`` on the same
+   data (head-major, RoPE applied beforehand; the backend it picked is named
+   by its kernels in a profiler trace);
 3. encode, flat route: the main path at the full width of dinov3-vitb16
    (random weights from a numpy seed): 256x256 planes in two full batches
    and a partial one, 640x480 planes in one batch, then the head over the
-   embeddings. Kernel launch counts are read around this run: K1 only. Then
+   embeddings. Kernel launch counts are read around this run: K1 only, each
+   through the Hopper body. Then
    warm frames/s, and accuracy against the port's CPU fp32 run on the same
    weights;
 4. classify: probabilities of a deltas head (seq_len 31) against the CPU run;
 5. encode, packed route: ``CBAS_ATTN_FAT=0``, one 256x256 batch and one
    640x480 batch through dinov3-vitb16: K2 only, embeddings against the
-   flat route's;
+   flat route's (the common body: no launch through the Hopper body);
 6. encode, ViT-7B width: a checkpoint directory whose ``config.json`` has
    DINOv3 ViT-7B/16's published shape with the depth cut, opened through
    ``FrameEncoder``: 256x256 in a full batch and a partial one, 640x480 in
-   one batch: K3 only. Warm frames/s, and accuracy against the CPU fp32 run;
+   one batch: K3 only, each through the Hopper body. Warm frames/s, and
+   accuracy against the CPU fp32 run;
 7. files: ``encode_file`` -> ``infer_h5`` on a synthetic clip, then
    ``run_training_job`` on a two-subject project built from encoded clips
    and ``infer_h5`` with the bundle it wrote, where h5py, pandas, OpenCV,
@@ -43,7 +52,8 @@ non-zero and prints no final line):
    loaded and run by ``InferenceSession``, and ``fit_temperature``.
 
 The line before the last lists each kernel with its launches on its route,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+error, times, bound and the library call's time; the last line is
+``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
 
@@ -85,6 +95,10 @@ N_CHECK_7B = 2
 
 # The three kernels (source cbas_tpu_torch/csrc/<name>.cu) and the TPU kernel
 # each replaces.
+# The card's peaks (NVIDIA's H100 SXM data sheet, dense): the bound of a
+# kernel is the larger of its FLOP over the bf16 tensor-core rate and its
+# bytes (each input read once, each output written once) over the memory rate.
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 KERNELS = {
     "attention_fat": "cbas_tpu/ops/flash_attention.py:553",
     "attention_packed": "cbas_tpu/ops/flash_attention.py:101",
@@ -200,8 +214,9 @@ def ptxas_report(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"attention_(bf16|f32)ILi(\d+)E", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            k = re.search(r"(attention_bf16|attention_f32|attention_sm90|rope_rows)ILi(\d+)E",
+                          m.group(1))
+            name = f"{k.group(1).replace('attention_', '')}<{k.group(2)}>" if k else m.group(1)
             spill = "?"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -269,41 +284,98 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         tol_text = f"1 bf16 ulp + 2^-8 max|v| ({KERNEL_BF16_VREL * vmax:.3g}) + {KERNEL_BF16_FLOOR}"
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
     out = {
-        "phase": "kernel", "name": kernel, "B": B, "N": N, "H": H, "head_dim": d,
+        "phase": "kernel", "name": kernel, "body": fa.attention_body(kernel, dtype, d),
+        "B": B, "N": N, "H": H, "head_dim": d,
         "dtype": str(dtype).replace("torch.", ""), "rope": rope, "n_valid": n_valid,
         "max_abs_err": float(err.max()), "tol": tol_text, "ok": ok,
     }
     if time_it:
         out["ms"] = time_ms(torch, lambda: wrapper(q, k, v, scale, n_valid, cos, sin))
         out["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, scale, n_valid, cos, sin))
+        out["ms_norope"] = time_ms(torch, lambda: wrapper(q, k, v, scale, n_valid))
+        out.update(attention_bound(B, N, H, d, n_valid or N, rope))
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+        heads = {"attention_fat": lambda t: t.reshape(B, N, H, d).transpose(1, 2),
+                 "attention_packed": lambda t: t.reshape(B, H // 2, N, 2, d).transpose(2, 3)
+                 .reshape(B, H, N, d),
+                 "attention_headmajor": lambda t: t}[kernel]
+        out["library_ms"], out["library_kernels"] = library_case(
+            torch, fa, heads(q), heads(k), heads(v), scale, cos, sin)
+        out["library"] = sdpa_backend(out["library_kernels"])
     return out
 
 
+def attention_bound(B, N, H, d, n_valid, rope) -> dict:
+    """The least time the card could take for one fused attention in bf16:
+    q.k^T and p.V over the live keys on the tensor cores, against q and o
+    (N rows), k and v (n_valid rows) and the fp32 RoPE tables moved once."""
+    flop = 4 * B * H * N * n_valid * d
+    nbytes = 2 * B * H * d * (2 * N + 2 * n_valid) + (2 * N * d * 4 if rope else 0)
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"gflop": flop / 1e9, "mbytes": nbytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def library_case(torch, fa, q, k, v, scale, cos, sin):
+    """``scaled_dot_product_attention`` on head-major (B, H, N, d) copies of
+    the inputs, contiguous, with RoPE applied beforehand (fp32, rounded to
+    the input dtype) and the scale passed in: (ms, the CUDA kernels one call
+    ran). The port never calls it; it is the yardstick only."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    if cos is not None:
+        q, k = ((t.float() * cos + fa.rotate_half(t.float()) * sin).to(t.dtype) for t in (q, k))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    ms = time_ms(torch, lambda: sdpa(q, k, v, scale=scale))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0})
+    return ms, names
+
+
+def sdpa_backend(kernels) -> str:
+    """SDPA's backend, named from the kernels it ran."""
+    text = " ".join(kernels).lower()
+    for key, name in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                      ("cutlass", "efficient")):
+        if key in text:
+            return name
+    return "math" if kernels else "unknown (no device events traced)"
+
+
 def kernel_phase(torch, fa, cfg) -> dict:
-    """Every kernel case; returns the main-shape case of each kernel at
-    256x256 (the ``kernels`` line's numbers)."""
+    """Every kernel case; returns the main-shape cases of each kernel,
+    {name: (256x256 case, 640x480 case)} (the ``kernels`` line's numbers)."""
     g256, g480 = (16, 16), (30, 40)  # patch grids of 256x256 and 640x480
     bf16, f32 = torch.bfloat16, torch.float32
     results, main = [], {}
 
-    def sweep(kernel, H, d, small=((4, 261, g256), (2, 1205, g480)), ropes=(False, True)):
+    def sweep(kernel, H, d, small=((4, 261, g256), (2, 1205, g480)), ropes=(False, True),
+              dead=((4, 272, 261, g256), (2, 1216, 1205, g480))):
         for B, N, grid in small:
             for dtype in (bf16, f32):
                 for rope in ropes:
                     results.append(kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope))
-        for dtype in (bf16, f32):
-            results.append(
-                kernel_case(torch, fa, cfg, kernel, 4, H, 272, d, g256, dtype, True, n_valid=261)
-            )
+        for B, N, n_valid, grid in dead:  # NaN in the dead rows
+            for dtype in (bf16, f32):
+                for rope in ropes:
+                    results.append(kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype,
+                                               rope, n_valid=n_valid))
 
     H = cfg.num_heads
     sweep("attention_fat", H, 64)
     sweep("attention_packed", H, 64)
     sweep("attention_headmajor", VIT7B_CONFIG["num_attention_heads"], 128,
-          small=((2, 261, g256), (1, 1205, g480)))
+          small=((2, 261, g256), (1, 1205, g480)),
+          dead=((2, 272, 261, g256), (1, 1216, 1205, g480)))
     sweep("attention_headmajor", 3, 64)  # an odd head count
     for d in (96, 40):  # a half that is no power of two; a dim no multiple of 16
-        sweep("attention_headmajor", 4, d, small=((2, 261, g256),), ropes=(True,))
+        sweep("attention_headmajor", 4, d, small=((2, 261, g256),), ropes=(True,),
+              dead=((4, 272, 261, g256),))
     # The main paths' shapes: ViT-B at batch 128 / 32, ViT-7B width at 32 / 8.
     for kernel, H, d, b256, b480 in (
         ("attention_fat", H, 64, BATCH_256, BATCH_480),
@@ -311,9 +383,11 @@ def kernel_phase(torch, fa, cfg) -> dict:
         ("attention_headmajor", VIT7B_CONFIG["num_attention_heads"], 128, BATCH_7B_256,
          BATCH_7B_480),
     ):
-        main[kernel] = kernel_case(torch, fa, cfg, kernel, b256, H, 261, d, g256, bf16, True)
-        results += [main[kernel],
-                    kernel_case(torch, fa, cfg, kernel, b480, H, 1205, d, g480, bf16, True)]
+        main[kernel] = (
+            kernel_case(torch, fa, cfg, kernel, b256, H, 261, d, g256, bf16, True),
+            kernel_case(torch, fa, cfg, kernel, b480, H, 1205, d, g480, bf16, True),
+        )
+        results += main[kernel]
     for r in results:
         emit(r)
     bad = [r for r in results if not r["ok"]]
@@ -323,19 +397,21 @@ def kernel_phase(torch, fa, cfg) -> dict:
 
 
 def reset_launches(fa) -> None:
-    fa.launches = fa.launches_packed = fa.launches_headmajor = 0
+    fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
 
 
 def read_launches(fa) -> dict:
+    """Launches of each entry, and under "sm90" those that ran the Hopper body."""
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
-            "attention_headmajor": fa.launches_headmajor}
+            "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90}
 
 
-def check_launches(route, got, kernel, per_forward, forwards) -> dict:
+def check_launches(route, got, kernel, per_forward, forwards, sm90) -> dict:
     """The route launched ``kernel`` ``per_forward`` times a forward, and no
-    other kernel."""
+    other kernel; each launch through the Hopper body if ``sm90``, else none."""
     want = {name: 0 for name in KERNELS}
     want[kernel] = per_forward * forwards
+    want["sm90"] = want[kernel] if sm90 else 0
     if got != want:
         raise AssertionError(f"{route} route launched {got}, expected {want}")
     return want
@@ -473,7 +549,8 @@ def main() -> int:
     main_s = time.perf_counter() - t
     flat_launches = read_launches(fa)
     forwards = fwd_256 + fwd_480
-    want_flat = check_launches("flat", flat_launches, "attention_fat", per_forward, forwards)
+    want_flat = check_launches("flat", flat_launches, "attention_fat", per_forward, forwards,
+                               sm90=True)
     for name, e, n in (("256x256", emb_256, FRAMES_256), ("640x480", emb_480, BATCH_480)):
         if e.shape != (n, cfg.hidden_size) or e.dtype != np.float16 or not np.isfinite(e).all():
             raise AssertionError(f"{name} embeddings: {e.shape} {e.dtype}, finite={np.isfinite(e).all()}")
@@ -522,7 +599,7 @@ def main() -> int:
         packed_s = time.perf_counter() - t
         packed_launches = read_launches(fa)
         want_packed = check_launches(
-            "packed", packed_launches, "attention_packed", per_forward, pf_256 + pf_480
+            "packed", packed_launches, "attention_packed", per_forward, pf_256 + pf_480, sm90=False
         )
         cos_256 = row_cosine(pk_256, emb_256[:BATCH_256])
         cos_480 = row_cosine(pk_480, emb_480)
@@ -572,11 +649,17 @@ def main() -> int:
         "attention_fat": flat_launches, "attention_packed": packed_launches,
         "attention_headmajor": vit7b_launches,
     }
+    timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "library", "ms_norope", "gflop", "mbytes", "share_of_bound")
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": route_launches[name][name],
-        "max_abs_err": main_cases[name]["max_abs_err"],
-        "ms": main_cases[name]["ms"], "plain_ms": main_cases[name]["plain_ms"],
+        "launches_sm90": route_launches[name]["sm90"],
+        "body": main_cases[name][0]["body"],
+        **{key: main_cases[name][0][key] for key in timing_keys},
+        "shape": [main_cases[name][0][x] for x in ("B", "N", "H", "head_dim")],
+        "at_640x480": {key: main_cases[name][1][key] for key in timing_keys}
+        | {"shape": [main_cases[name][1][x] for x in ("B", "N", "H", "head_dim")]},
     } for name, replaces in KERNELS.items()]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -614,7 +697,8 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
         path_s = time.perf_counter() - t
         launches = read_launches(fa)
         want = check_launches(
-            "head-major", launches, "attention_headmajor", cfg.num_layers - 1, fwd_256 + fwd_480
+            "head-major", launches, "attention_headmajor", cfg.num_layers - 1, fwd_256 + fwd_480,
+            sm90=True,
         )
         for name, e, n in (("256x256", emb_256, FRAMES_7B_256), ("640x480", emb_480, BATCH_7B_480)):
             if e.shape != (n, cfg.hidden_size) or e.dtype != np.float16 or not np.isfinite(e).all():
@@ -669,8 +753,8 @@ def files_phase(enc, bundle, device="cuda") -> dict:
     import h5py
     import pandas as pd
 
-    from cbas_tpu.core.config import TrainingConfig
-    from cbas_tpu.core.project import Project
+    from cbas_tpu_torch.core.config import TrainingConfig
+    from cbas_tpu_torch.core.project import Project
     from cbas_tpu_torch.engine.classifier import ClassifierBundle
     from cbas_tpu_torch.engine.encode import EncodeConfig, EncodeStats, encode_file
     from cbas_tpu_torch.engine.infer import InferenceSession

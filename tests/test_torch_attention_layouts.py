@@ -256,3 +256,62 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, cuda_devic
     err = (got.float() - want.float()).abs()
     assert bool(torch.isfinite(got).all())
     assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
+
+
+@pytest.mark.parametrize(
+    "kernel,dtype,d,body",
+    [
+        ("attention_fat", torch.bfloat16, 64, "sm90"),
+        ("attention_fat", torch.float32, 64, "common"),
+        ("attention_headmajor", torch.bfloat16, 64, "sm90"),
+        ("attention_headmajor", torch.bfloat16, 128, "sm90"),
+        ("attention_headmajor", torch.float32, 128, "common"),
+        ("attention_headmajor", torch.bfloat16, 96, "common"),
+        ("attention_headmajor", torch.bfloat16, 40, "common"),
+        ("attention_packed", torch.bfloat16, 64, "common"),
+        ("attention_packed", torch.float32, 64, "common"),
+    ],
+)
+def test_attention_body_routing(kernel, dtype, d, body):
+    """Which body an entry runs for (dtype, head dim), as the wrapper reports
+    it without launching: the Hopper body for bf16 at d = 64 (flat and
+    head-major) and 128 (head-major), the common body otherwise."""
+    assert fa.attention_body(kernel, dtype, d) == body
+
+
+def test_cpu_tensors_never_count_as_hopper_launches():
+    before = fa.launches_sm90
+    fa.fused_attention_fat(*(torch.zeros(1, 16, 128, dtype=torch.bfloat16) for _ in range(3)), 0.1)
+    fa.fused_attention(*(torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16) for _ in range(3)), 0.1)
+    assert fa.launches_sm90 == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("N,n_valid", [(261, None), (272, 261), (1205, None), (1216, 1205)])
+@pytest.mark.parametrize("layout,H,d", [("flat", 12, 64), ("head-major", 3, 64), ("head-major", 8, 128)])
+def test_hopper_body_matches_plain_on_card(layout, H, d, N, n_valid, rope, cuda_device):
+    """The Hopper body (bf16 at d = 64 and 128) against the plain version,
+    NaN in the dead K/V rows; each call is counted as a launch through it."""
+    shape = (1, N, H * d) if layout == "flat" else (1, H, N, d)
+    q, k, v = (torch.from_numpy(t).to(cuda_device, torch.bfloat16) for t in _inputs(shape, seed=31))
+    token_dim = 1 if layout == "flat" else 2
+    if n_valid is not None:
+        dead = (slice(None),) * token_dim + (slice(n_valid, None),)
+        k[dead] = float("nan")
+        v[dead] = float("nan")
+    cos = sin = None
+    if rope:
+        cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=32))
+    entry, plain = ((fa.fused_attention_fat, fa.attention_fat_reference) if layout == "flat"
+                    else (fa.fused_attention, fa.attention_headmajor_reference))
+    before = fa.launches_sm90
+    got = entry(q, k, v, d ** -0.5, n_valid, cos, sin)
+    assert fa.launches_sm90 == before + 1
+    want = plain(q, k, v, d ** -0.5, n_valid, cos, sin)
+    live = (slice(None),) * token_dim + (slice(0, n_valid or N),)
+    vmax = v[live].float().abs().max()
+    tol = want.float().abs() * 2.0 ** -7 + 2.0 ** -8 * vmax + 1e-5
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol).all()), float(err.max())

@@ -156,7 +156,7 @@ def test_legacy_bundle_does_not_run_yet(bundle_dir):
     the JAX package's ``legacy_forward(train=True)`` does."""
     b = ClassifierBundle(name="legacy", behaviors=["walk", "rest", "groom"], seq_len=7,
                          params=_legacy_params(), architecture="ClassifierLegacyLSTM")
-    head = b.head()
+    head = b.head("cpu")
     assert isinstance(head, theads.LegacyHead) and not head.training
     with pytest.raises(NotImplementedError, match="legacy"):
         head.train()(torch.zeros(2, 7, D))

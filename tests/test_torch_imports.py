@@ -1,17 +1,21 @@
-"""cbas_tpu_torch never imports jax, its device path imports nothing of
-cbas_tpu, its training path runs without jax and h5py, and chip_smoke.py
-refuses to run without a CUDA device.
+"""cbas_tpu_torch imports nothing of jax or of cbas_tpu: no source names
+them, and its device, training and file paths run in an interpreter where
+importing cbas_tpu raises (the training path with jax and h5py blocked too).
+chip_smoke.py refuses to run without a CUDA device.
 
 conftest imports jax into every test process, so the import checks run in a
 fresh interpreter.
 """
 
+import ast
 import dataclasses
 import os
 import pkgutil
 import re
 import subprocess
 import sys
+
+import pytest
 
 import cbas_tpu_torch
 from cbas_tpu.core.config import InferenceConfig as JaxInferenceConfig
@@ -27,6 +31,26 @@ def _modules():
     for info in pkgutil.walk_packages(cbas_tpu_torch.__path__, "cbas_tpu_torch."):
         names.append(info.name)
     return names
+
+
+# Prepended to the code run in a fresh interpreter: a finder that raises on
+# any import of cbas_tpu or its submodules (cbas_tpu_torch is not one).
+BLOCK_CBAS_TPU = (
+    "import sys\n"
+    "class _BlockCbasTpu:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name == 'cbas_tpu' or name.startswith('cbas_tpu.'):\n"
+    "            raise ImportError(f'cbas_tpu is blocked: {name}')\n"
+    "sys.meta_path.insert(0, _BlockCbasTpu())\n"
+)
+
+
+def _port_sources():
+    """Every .py of the port, and the scripts that drive it on the card."""
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "cbas_tpu_torch")):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return out
 
 
 def _fresh_python(code: str) -> subprocess.CompletedProcess:
@@ -45,8 +69,7 @@ def test_no_module_imports_jax():
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
-        "import cbas_tpu.core.hdf5_store, cbas_tpu.ingest.decode\n"
-        "import chip_smoke\n"
+        "import chip_smoke, chip_ab\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
     )
     proc = _fresh_python(code)
@@ -54,12 +77,30 @@ def test_no_module_imports_jax():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_no_source_imports_cbas_tpu():
+    """No import statement of the port or of its card scripts, at module
+    level or inside a function, names cbas_tpu or a submodule of it."""
+    sources = _port_sources()
+    assert len(sources) > 30
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] != "cbas_tpu", f"{path}:{node.lineno} imports {name}"
+
+
 def test_device_path_imports_nothing_of_cbas_tpu():
     """What chip_smoke.py drives (a preset's config, FrameEncoder, an
-    in-memory bundle's head, predict_frames) loads no module of jax or of the
-    JAX package."""
-    code = (
-        "import sys\n"
+    in-memory bundle's head, predict_frames) runs with cbas_tpu blocked and
+    loads no module of jax."""
+    code = BLOCK_CBAS_TPU + (
         "import numpy as np\n"
         "import chip_smoke\n"
         "from cbas_tpu_torch.engine.classifier import ClassifierBundle\n"
@@ -84,11 +125,10 @@ def test_device_path_imports_nothing_of_cbas_tpu():
 
 
 def test_training_path_runs_without_jax_and_h5py():
-    """With jax and h5py blocked, as on the card's machine: train_head for
-    one epoch on in-memory embeddings, a bundle built in memory from its
-    params, and predict_frames."""
-    code = (
-        "import sys\n"
+    """With jax and h5py blocked, as on the card's machine, and cbas_tpu
+    blocked: train_head for one epoch on in-memory embeddings, a bundle built
+    in memory from its params, and predict_frames."""
+    code = BLOCK_CBAS_TPU + (
         "sys.modules['jax'] = sys.modules['h5py'] = None\n"
         "import numpy as np\n"
         "from cbas_tpu_torch.engine.classifier import ClassifierBundle\n"
@@ -114,7 +154,40 @@ def test_training_path_runs_without_jax_and_h5py():
         "probs = InferenceSession(b, device='cpu').predict_frames(arrays['r1'], 3, 3)\n"
         "assert probs.shape == (120, 2) and np.allclose(probs.sum(1), 1, atol=1e-5)\n"
         "print(sorted(m for m, v in sys.modules.items()\n"
-        "             if m.split('.')[0] in ('jax', 'h5py') and v is not None))\n"
+        "             if m.split('.')[0] in ('jax', 'h5py', 'cbas_tpu') and v is not None))\n"
+    )
+    proc = _fresh_python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_files_path_runs_with_cbas_tpu_blocked():
+    """encode_file on a tiny synthetic clip, then infer_h5 with an in-memory
+    bundle, with cbas_tpu blocked (where the host has h5py and OpenCV)."""
+    pytest.importorskip("h5py")
+    pytest.importorskip("cv2")
+    code = BLOCK_CBAS_TPU + (
+        "import os, tempfile\n"
+        "import numpy as np, pandas as pd\n"
+        "import chip_smoke\n"
+        "from cbas_tpu_torch.engine.classifier import ClassifierBundle\n"
+        "from cbas_tpu_torch.engine.encode import EncodeConfig, EncodeStats, encode_file\n"
+        "from cbas_tpu_torch.engine.infer import InferenceSession\n"
+        "from cbas_tpu_torch.models.encoder import FrameEncoder\n"
+        "from cbas_tpu_torch.models.heads import DeltasHeadConfig, init_deltas_params\n"
+        "from cbas_tpu_torch.models.vit import ViTConfig\n"
+        "cfg = ViTConfig(variant='dinov3', hidden_size=64, num_layers=2, num_heads=2,\n"
+        "                intermediate_size=128, layer_norm_eps=1e-5)\n"
+        "enc = FrameEncoder('dinov3-vitb16', cfg=cfg, random_init=True, device='cpu')\n"
+        "video = os.path.join(tempfile.mkdtemp(), 'm0_00001.mp4')\n"
+        "chip_smoke.write_clip(video, 20, 0, size=64)\n"
+        "h5 = encode_file(enc, video, config=EncodeConfig(chunk_frames=8), stats=EncodeStats())\n"
+        "hc = DeltasHeadConfig(in_features=64, out_features=2, seq_len=5, lstm_hidden_size=8)\n"
+        "b = ClassifierBundle(name='m', behaviors=['a', 'b'], seq_len=5,\n"
+        "                     params=init_deltas_params(0, hc), lstm_hidden_size=8)\n"
+        "probs = pd.read_csv(InferenceSession(b, device='cpu').infer_h5(h5)).to_numpy()\n"
+        "assert probs.shape == (20, 2) and np.allclose(probs.sum(1), 1, atol=1e-5)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'cbas_tpu')))\n"
     )
     proc = _fresh_python(code)
     assert proc.returncode == 0, proc.stderr
@@ -122,14 +195,17 @@ def test_training_path_runs_without_jax_and_h5py():
 
 
 def test_copied_helpers_equal_cbas_tpu(tmp_path):
-    """The two helpers copied so the device path stays free of cbas_tpu."""
+    """The helpers the device path reaches, held equal to their originals
+    (tests/test_torch_copies.py holds every copied module)."""
     demo = os.path.join(ROOT, "examples", "demo_project", "demo_encoder")
     ckpt = tmp_path / "weights.pth"
     ckpt.write_bytes(bytes(range(256)) * 1000)
     for ident in (demo, demo + "/", str(ckpt), "facebook/dinov3-vitb16", "dinov3-vitb16",
                   "/nowhere/enc", "sub/enc"):
-        assert naming.canonical_encoder_identity(ident) == \
-            jax_naming.canonical_encoder_identity(ident), ident
+        for fn in ("canonical_encoder_identity", "encoder_identity_candidates"):
+            assert getattr(naming, fn)(ident) == getattr(jax_naming, fn)(ident), (fn, ident)
+        assert naming.identities_equivalent(ident, demo) == \
+            jax_naming.identities_equivalent(ident, demo), ident
     assert "#" in naming.canonical_encoder_identity(demo)
     assert dataclasses.asdict(InferenceConfig()) == dataclasses.asdict(JaxInferenceConfig())
 

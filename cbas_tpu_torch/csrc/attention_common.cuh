@@ -48,29 +48,19 @@ constexpr int kMaxHeadDim = 128;
 // Where one head's rows lie. Head h of image b starts at element
 //   b * batch_stride + (h / heads_per_group) * group_stride
 //     + (h % heads_per_group) * head_dim,
-// and its consecutive rows (tokens) are row_stride elements apart.
+// and its consecutive rows (tokens) are row_stride elements apart. The
+// strides come from the caller's tensors, so the same heads can be read in
+// several layouts: flat (B, N, H*d) is one group of H heads at row stride
+// H*d; head-major (B, H, N, d) H groups of one head; head-pair packed
+// (B, H/2, N, 2d) H/2 groups of two, contiguous (row stride 2d) or as a
+// strided view of a flat tensor (group stride 2d, row stride H*d). A stride
+// of a dimension of size 1 is never stepped and may hold any value.
 struct Layout {
   long long batch_stride;
   long long group_stride;
   int heads_per_group;
-  int row_stride;
+  long long row_stride;
 };
-
-// flat (B, N, H*64): every head of a token on one row.
-inline Layout flat_layout(int N, int H, int hd) {
-  return Layout{static_cast<long long>(N) * H * hd, 0, H, H * hd};
-}
-
-// head-pair packed (B, H/2, N, 2*hd): two heads side by side on a row.
-inline Layout packed_layout(int N, int H, int hd) {
-  return Layout{static_cast<long long>(H / 2) * N * 2 * hd, static_cast<long long>(N) * 2 * hd,
-                2, 2 * hd};
-}
-
-// head-major (B, H, N, hd): each head its own (N, hd) matrix.
-inline Layout headmajor_layout(int N, int H, int hd) {
-  return Layout{static_cast<long long>(H) * N * hd, static_cast<long long>(N) * hd, 1, hd};
-}
 
 template <int HD>
 __device__ __forceinline__ size_t head_offset(const Layout& L) {
@@ -123,7 +113,7 @@ struct F32Tiles {
 template <int HD>
 __device__ __forceinline__ void load_tile_f32(float* __restrict__ dst,
                                               const float* __restrict__ head, int row0,
-                                              int live_rows, int row_stride,
+                                              int live_rows, long long row_stride,
                                               const float* __restrict__ cos_t,
                                               const float* __restrict__ sin_t, float scale) {
   using T = F32Tiles<HD>;
@@ -376,7 +366,7 @@ __device__ __forceinline__ uint4 rope_chunk(const __nv_bfloat16* __restrict__ ro
 template <int HD>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* __restrict__ dst,
                                                const __nv_bfloat16* __restrict__ head, int row0,
-                                               int live_rows, int row_stride,
+                                               int live_rows, long long row_stride,
                                                const float* __restrict__ cos_t,
                                                const float* __restrict__ sin_t, float scale) {
   using T = Bf16Tiles<HD>;
@@ -542,8 +532,9 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 // ---------------------------------------------------------------------------
 
 // The arguments every entry checks. Returns cudaSuccess or cudaErrorInvalidValue.
-inline cudaError_t check_args(int B, int N, int H, int n_valid) {
-  if (B <= 0 || N <= 0 || H <= 0 || n_valid <= 0 || n_valid > N || B > 65535 || H > 65535)
+inline cudaError_t check_args(int B, int N, int H, const Layout& L, int n_valid) {
+  if (B <= 0 || N <= 0 || H <= 0 || n_valid <= 0 || n_valid > N || B > 65535 || H > 65535 ||
+      L.heads_per_group <= 0 || H % L.heads_per_group)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
@@ -556,7 +547,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
                    const void* sin_t, int B, int N, int H, Layout L, int n_valid, float scale,
                    int dtype, void* stream) {
   static_assert(HD % 8 == 0 && HD <= kMaxHeadDim, "head dims are multiples of 8 up to 128");
-  const cudaError_t bad = check_args(B, N, H, n_valid);
+  const cudaError_t bad = check_args(B, N, H, L, n_valid);
   if (bad != cudaSuccess) return bad;
   const auto* c = static_cast<const float*>(cos_t);
   const auto* s = static_cast<const float*>(sin_t);

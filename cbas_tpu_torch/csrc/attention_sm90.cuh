@@ -1,7 +1,10 @@
 // The Hopper body of the port's fused attention in bfloat16, for head dims 64
-// and 128: K1 (flat, d = 64) and K3 (head-major, d = 64 and 128) route here
-// (attention_fat.cu, attention_headmajor.cu); fp32, K3's other head dims and
-// K2 stay on attention_common.cuh.
+// and 128: K1 (flat, d = 64), K2 (head-pair packed, d = 64) and K3
+// (head-major, d = 64 and 128) route here (attention_fat.cu,
+// attention_packed.cu, attention_headmajor.cu); fp32 and K3's other head
+// dims stay on attention_common.cuh. The tensor maps are built from the
+// caller's Layout (strides), so one code path reads every layout, strided
+// views included.
 //
 // Same function and rounding points as attention_common.cuh's bf16 body:
 // RoPE in fp32, one rounding of roped, scaled q and of roped k to bf16, p
@@ -36,6 +39,15 @@
 //   (rope_rows) into scratch the wrapper allocates, so the attention kernel
 //   reads roped K through the same TMA path. Without tables nothing is roped
 //   and the prologue does not run.
+// - Tensor maps from strides (map_shape). A map's outer dimensions go in
+//   ascending order of stride, dimensions of size 1 are left out, and a
+//   group joins its heads' dimension when the heads are evenly spaced. So
+//   K1's flat tensors, K3's head-major ones and K2's head-pair views of flat
+//   projections get rank-4 maps (K2's views exactly K1's map), contiguous
+//   packed tensors a rank-5 one. The rank is a template argument and a
+//   block's coordinates are shifts and masks computed once: a run-time
+//   division by the heads in a group, or a branch on the rank at each load,
+//   was measured slower at N = 261.
 //
 // Grid: (ceil(N / 64) query blocks, H, B), one consumer warpgroup and one
 // producer warp a block.
@@ -123,26 +135,75 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // --- TMA -------------------------------------------------------------------
 
-// One box of `map` at coordinates (c0, c1, c2, c3), innermost first, into
+// How a tensor map of rank 4 or 5 is addressed: map dimension d + 1 of row
+// `row` of head h of image b is
+//   ((h >> head_shift[d]) & head_mask[d]) + b * image[d] + row * rows[d].
+// The host builds it (map_shape): a head is one map dimension (mask all
+// ones) unless a head-in-group dimension (mask heads_per_group - 1) and a
+// group dimension (shift log2 heads_per_group) are both in the map.
+struct MapAddress {
+  int rank;  // the kernel's template argument
+  int head_shift[4];
+  int head_mask[4];
+  int image[4];
+  int rows[4];
+};
+
+// The map coordinates of one head's tiles: map dimension d + 1 of the tile
+// at row `row` is base[d] + step[d] * row. Computed once into registers, so
+// issuing a load costs a few multiply-adds.
+struct HeadTiles {
+  int base[4];
+  int step[4];
+
+  __device__ __forceinline__ HeadTiles(const MapAddress o, int h, int b) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      base[d] = ((h >> o.head_shift[d]) & o.head_mask[d]) + b * o.image[d];
+      step[d] = o.rows[d];
+    }
+  }
+  __device__ __forceinline__ int at(int d, int row) const { return base[d] + step[d] * row; }
+};
+
+// One box of `map` at column c0 of row `row` of the head `t` describes, into
 // shared memory at `dst`; completion is counted on `bar` in bytes.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
+template <int kRank>
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         const HeadTiles& t, int c0, int row) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  if constexpr (kRank == 5)
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+        "l"(m), "r"(bar), "r"(c0), "r"(t.at(0, row)), "r"(t.at(1, row)), "r"(t.at(2, row)),
+        "r"(t.at(3, row))
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(m), "r"(bar), "r"(c0), "r"(t.at(0, row)), "r"(t.at(1, row)), "r"(t.at(2, row))
+        : "memory");
 }
 
-// One box of shared memory at `src` to `map` at (c0, c1, c2, c3), as a bulk
-// group of this thread.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
+// One box of shared memory at `src` to `map` at the same coordinates, as a
+// bulk group of this thread.
+template <int kRank>
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, const HeadTiles& t,
+                                          int c0, int row) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  if constexpr (kRank == 5)
+    asm volatile(
+        "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+        ::"l"(m), "r"(src), "r"(c0), "r"(t.at(0, row)), "r"(t.at(1, row)), "r"(t.at(2, row)),
+        "r"(t.at(3, row))
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+        ::"l"(m), "r"(src), "r"(c0), "r"(t.at(0, row)), "r"(t.at(1, row)), "r"(t.at(2, row))
+        : "memory");
 }
 
 // --- wgmma -----------------------------------------------------------------
@@ -272,15 +333,14 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
 
 // One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y of image
 // blockIdx.z. Warps 0-3 are the consumer warpgroup, warp 4 the producer.
-// `flat`: the maps are (64, H, rows, B) and a tile is at (c, h, row, b);
-// otherwise (HD, rows, H, B) and (c, row, h, b). Q's map has N rows, K's and
-// V's n_valid.
-template <int HD>
+// The four maps share one Layout and so one MapAddress; Q's and O's maps have
+// N rows, K's and V's n_valid.
+template <int HD, int kRank>
 __global__ void __launch_bounds__(Config<HD>::kThreads, Config<HD>::kMinBlocks)
 attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
                const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
-               int n_valid, float scale, int flat) {
+               int n_valid, float scale, const MapAddress order) {
   using C = Config<HD>;
   constexpr int kKSteps = HD / 16;
 
@@ -316,11 +376,11 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   if (threadIdx.x >= kWGThreads) {
     // Producer: one thread loads the Q tile, then keeps the ring full.
     if (threadIdx.x == kWGThreads) {
+      const HeadTiles tiles(order, h, b);
       mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
       for (int a = 0; a < C::kAtoms; ++a)
-        tma_load_4d(q_tile + a * kAtomBytes, &q_map, q_full, a * kAtom, flat ? h : q0,
-                    flat ? q0 : h, b);
+        tma_load<kRank>(q_tile + a * kAtomBytes, &q_map, q_full, tiles, a * kAtom, q0);
       for (int i = 0; i < 2 * n_tiles; ++i) {
         const int row = (i / 2) * kBlockN;
         const CUtensorMap* map = i % 2 ? &v_map : &k_map;
@@ -328,8 +388,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
         mbar_expect_tx(full(i), C::kTileBytes);
 #pragma unroll
         for (int a = 0; a < C::kAtoms; ++a)
-          tma_load_4d(stage(i) + a * kAtomBytes, map, full(i), a * kAtom, flat ? h : row,
-                      flat ? row : h, b);
+          tma_load<kRank>(stage(i) + a * kAtomBytes, map, full(i), tiles, a * kAtom, row);
       }
     }
     return;
@@ -550,9 +609,10 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
   if (tid == 0) {
+    const HeadTiles tiles(order, h, b);
 #pragma unroll
     for (int a = 0; a < C::kAtoms; ++a)
-      tma_store_4d(&o_map, q_tile + a * kAtomBytes, a * kAtom, flat ? h : q0, flat ? q0 : h, b);
+      tma_store<kRank>(&o_map, q_tile + a * kAtomBytes, tiles, a * kAtom, q0);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // smem read: may exit
   }
@@ -586,43 +646,110 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 4-D bf16 map of one of Q, K or V, whose heads hold N rows, of which
-// the map covers the first `rows`: innermost first, flat (64, H, rows, B) at
-// row stride H*64, otherwise (HD, rows, H, B); a box of one 64-column atom by
-// 64 rows, 128-byte swizzle, zeros out of bounds.
+// The shape of the tensor maps over Layout L (with N rows): rank 4 or 5,
+// sizes and element strides, innermost (the HD columns) first, and how a
+// tile is addressed.
+struct MapShape {
+  long long size[5];
+  long long stride[5];
+  int rows_dim;
+  MapAddress order;
+};
+
+// The outer dimensions go in ascending order of stride. A dimension of size
+// 1 (other than the rows) is left out: it is never stepped, and its stride
+// may hold any value. The group joins the head-in-group dimension when the
+// heads are evenly spaced across groups. Trailing dimensions of size 1 pad
+// the rank to 4. So a flat tensor's map is (64, H, rows, B), a head-major
+// one's (HD, rows, H, B), the packed view of a flat tensor's the flat map
+// (64, H, rows, B), and a contiguous packed one's (64, 2, rows, H/2, B).
+// False if the heads of a group are split from their group in the map and
+// number other than a power of two (no layout of the port's entries).
 template <int HD>
-inline bool encode_map(CUtensorMap* map, const void* base, int B, int N, int H, int rows,
-                       bool flat) {
+inline bool map_shape(const Layout& L, int B, int N, int H, MapShape* m) {
+  const int hpg = L.heads_per_group;
+  const long long size[4] = {hpg, N, H / hpg, B};
+  // (A single row's stride may hold any value too: it becomes HD.)
+  const long long stride[4] = {HD, N > 1 ? L.row_stride : HD, L.group_stride, L.batch_stride};
+  int idx[4] = {0, 1, 2, 3};
+  for (int i = 1; i < 4; ++i)
+    for (int j = i; j > 0 && stride[idx[j]] < stride[idx[j - 1]]; --j) {
+      const int t = idx[j];
+      idx[j] = idx[j - 1];
+      idx[j - 1] = t;
+    }
+  *m = MapShape{{HD}, {1}, 0, {}};
+  int rank = 1, in_group_dim = 0, group_dim = 0;
+  long long span = HD;  // elements from the first to past the last
+  for (int p = 0; p < 4; ++p) {
+    const int i = idx[p];
+    if (size[i] == 1 && i != 1) continue;
+    span += (size[i] - 1) * stride[i];
+    const int last = rank - 1;
+    if (i == 2 && last > 0 && in_group_dim == last && stride[i] == m->stride[last] * size[0]) {
+      m->size[last] *= size[i];  // heads evenly spaced: one map dimension of all H
+      continue;
+    }
+    if (i == 0) in_group_dim = rank;
+    if (i == 1) m->rows_dim = rank;
+    if (i == 2) group_dim = rank;
+    if (i == 3) m->order.image[rank - 1] = 1;
+    m->size[rank] = size[i];
+    m->stride[rank] = stride[i];
+    ++rank;
+  }
+  // The head's coordinate: whole in the one map dimension that holds heads,
+  // or split as (h % hpg, h / hpg) when both are in the map.
+  if (in_group_dim && group_dim) {
+    if (hpg & (hpg - 1)) return false;
+    m->order.head_mask[in_group_dim - 1] = hpg - 1;
+    m->order.head_mask[group_dim - 1] = -1;
+    for (int s = hpg; s > 1; s >>= 1) ++m->order.head_shift[group_dim - 1];
+  } else if (in_group_dim || group_dim) {
+    m->order.head_mask[(in_group_dim ? in_group_dim : group_dim) - 1] = -1;
+  }
+  m->order.rows[m->rows_dim - 1] = 1;
+  for (; rank < 4; ++rank) {
+    m->size[rank] = 1;
+    m->stride[rank] = (span + kChunk - 1) / kChunk * kChunk;  // a 16-byte multiple
+  }
+  m->order.rank = rank;
+  return true;
+}
+
+// The bf16 map of one of Q, K, V or O, covering `rows` rows of each head; a
+// box of one 64-column atom by 64 rows, 128-byte swizzle, zeros out of
+// bounds. The driver refuses a base address or a stride that is not a
+// 16-byte multiple (the wrapper checks both first).
+inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t e = 2;  // bytes per element
-  const cuuint64_t n = rows, h = H, b = B;
-  const cuuint64_t flat_dims[4] = {64, h, n, b}, hm_dims[4] = {HD, n, h, b};
-  const cuuint64_t flat_strides[3] = {64 * e, 64 * e * h, 64 * e * h * N};
-  const cuuint64_t hm_strides[3] = {HD * e, HD * e * N, HD * e * N * h};
-  const cuuint32_t box[4] = {kAtom, flat ? 1u : static_cast<cuuint32_t>(kBlockN),
-                             flat ? static_cast<cuuint32_t>(kBlockN) : 1u, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                flat ? flat_dims : hm_dims, flat ? flat_strides : hm_strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const int rank = m.order.rank, rows_dim = m.rows_dim;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t box[5];
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  for (int d = 0; d < rank; ++d) {
+    dims[d] = static_cast<cuuint64_t>(d == rows_dim ? rows : m.size[d]);
+    box[d] = d == 0 ? kAtom : d == rows_dim ? kBlockN : 1;
+    if (d > 0) strides[d - 1] = static_cast<cuuint64_t>(m.stride[d]) * sizeof(__nv_bfloat16);
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
 
 // Launch the Hopper body (bf16) on `stream`: the RoPE prologue into
-// `k_scratch` (same shape as k) when there are tables, then the attention
-// kernel. `flat`: k/v/o are (B, N, H*64), otherwise (B, H, N, HD). Returns
-// the CUDA error of the launches (cudaSuccess when both were queued).
+// `k_scratch` (laid out like k) when there are tables, then the attention
+// kernel. q, k, v, o and k_scratch all lie as L says. Returns the CUDA error
+// of the launches (cudaSuccess when both were queued).
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-                   const void* sin_t, void* k_scratch, int B, int N, int H, bool flat,
+                   const void* sin_t, void* k_scratch, int B, int N, int H, const Layout& L,
                    int n_valid, float scale, void* stream) {
   using C = Config<HD>;
-  const cudaError_t bad = check_args(B, N, H, n_valid);
+  const cudaError_t bad = check_args(B, N, H, L, n_valid);
   if (bad != cudaSuccess) return bad;
-  if (flat && HD != 64) return cudaErrorInvalidValue;
-  const Layout L = flat ? flat_layout(N, H, HD) : headmajor_layout(N, H, HD);
   const auto* c = static_cast<const float*>(cos_t);
   const auto* s = static_cast<const float*>(sin_t);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -638,25 +765,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
     if (err != cudaSuccess) return err;
     k_in = k_scratch;
   }
+  MapShape m;
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!encode_map<HD>(&q_map, q, B, N, H, N, flat) || !encode_map<HD>(&o_map, o, B, N, H, N, flat) ||
-      !encode_map<HD>(&k_map, k_in, B, N, H, n_valid, flat) ||
-      !encode_map<HD>(&v_map, v, B, N, H, n_valid, flat))
+  if (!map_shape<HD>(L, B, N, H, &m) || !encode_map(&q_map, q, m, N) || !encode_map(&o_map, o, m, N) ||
+      !encode_map(&k_map, k_in, m, n_valid) || !encode_map(&v_map, v, m, n_valid))
     return cudaErrorInvalidValue;
+  const auto kernel = m.order.rank == 5 ? attention_sm90<HD, 5> : attention_sm90<HD, 4>;
   const cudaError_t err = cudaFuncSetAttribute(
-      attention_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kSmemBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
-  attention_sm90<HD><<<grid, C::kThreads, C::kSmemBytes, st>>>(
-      q_map, k_map, v_map, o_map, c, s, N, n_valid, scale, flat ? 1 : 0);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(q_map, k_map, v_map, o_map, c, s, N, n_valid,
+                                                   scale, m.order);
   return cudaGetLastError();
 }
 
 }  // namespace sm90
 
-// Which body a (dtype, head dim) takes in the flat and head-major entries:
-// 1 (this file's Hopper body) for bfloat16 at d = 64 and 128, else 0
+// Which body a (dtype, head dim) takes in every entry: 1 (this file's
+// Hopper body) for bfloat16 at d = 64 and 128, else 0
 // (attention_common.cuh). ops/flash_attention.py::attention_body mirrors it.
 inline int sm90_route(int dtype, int head_dim) {
   return dtype == 1 && (head_dim == 64 || head_dim == 128) ? 1 : 0;

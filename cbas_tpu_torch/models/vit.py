@@ -15,9 +15,11 @@ What differs from the JAX forward:
   rule (see :func:`_attention`): the hand-written kernel on a CUDA tensor,
   its plain version on a CPU tensor. There is no unfused path to switch to:
   the JAX package's ``set_fused_attention`` has no counterpart.
-- The head-pair packed and head-major layouts come from the flat
-  projections by a transpose: one copy each of q, k, v and the context, as
-  XLA makes for the JAX package's projection einsums into those layouts.
+- The head-pair packed layout is a strided view of the flat projections:
+  K2 reads and writes through their strides, so no copy is made of q, k, v
+  or the context. The head-major layout (K3) comes from them by a
+  transpose: one copy each of q, k, v and the context, as XLA makes for the
+  JAX package's projection einsums into that layout.
 - No token padding (the TPU's sublane granule), so no key masking inside the
   model, and no tensor-parallel reduction hooks.
 """
@@ -321,15 +323,21 @@ def _attention(
         ctx = fa.fused_attention_fat(q, k, v, scale, rope_cos=cos, rope_sin=sin)
         return _dense(params, out_name, ctx, out_bias)
 
-    pack = 2 if packed else 1
+    if packed:
+        def pairs(t):  # (B, N, H*64) -> a (B, H/2, N, 128) view, no copy
+            return t.view(B, N, H // 2, 2 * hd).transpose(1, 2)
 
-    def heads(t):  # (B, N, H*hd) -> (B, H/pack, N, pack*hd)
-        return t.view(B, N, H // pack, pack * hd).transpose(1, 2).contiguous()
+        ctx = fa.fused_attention_packed(pairs(q), pairs(k), pairs(v), scale, rope_cos=cos,
+                                        rope_sin=sin)
+    else:
+        def heads(t):  # (B, N, H*hd) -> (B, H, N, hd), a copy
+            return t.view(B, N, H, hd).transpose(1, 2).contiguous()
 
-    attend = fa.fused_attention_packed if packed else fa.fused_attention
-    ctx = attend(heads(q), heads(k), heads(v), scale, rope_cos=cos, rope_sin=sin)
+        ctx = fa.fused_attention(heads(q), heads(k), heads(v), scale, rope_cos=cos, rope_sin=sin)
     # The out-projection contracts over (heads, head dim) in the order the
-    # flat layout holds them, so the context goes back to (B, N, H*hd).
+    # flat layout holds them, so the context goes back to (B, N, H*hd): a
+    # view on the packed route (K2 writes with q's strides), a copy on the
+    # head-major one.
     return _dense(params, out_name, ctx.transpose(1, 2).reshape(B, N, D), out_bias)
 
 

@@ -8,7 +8,9 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
   2-D projection matmuls and into the out-projection, so no transpose
   surrounds the call.
 - :func:`fused_attention_packed` (K2): head-pair packed (B, H/2, N, 128),
-  two 64-wide heads side by side on the last dim.
+  two 64-wide heads side by side on the last dim. It takes strided views
+  (such as ``t.view(B, N, H // 2, 128).transpose(1, 2)`` of a flat
+  projection) as well as contiguous tensors, and returns q2's strides.
 - :func:`fused_attention` (K3): head-major (B, H, N, d), d any multiple of 8
   up to 128.
 
@@ -22,9 +24,9 @@ exact fp32 softmax, output in q's dtype.
   (``attention_{fat,packed,headmajor}_reference``).
 
 Two bodies serve the three entries (:func:`attention_body`): bfloat16 at
-head dims 64 and 128 in the flat and head-major layouts takes the Hopper body
-(``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once per token and head);
-float32, the other head dims and the packed layout take
+head dims 64 and 128 takes the Hopper body (``csrc/attention_sm90.cuh``: TMA
+ring, wgmma, RoPE once per token and head, tensor maps built from the
+tensors' strides); float32 and K3's other head dims take
 ``csrc/attention_common.cuh``'s.
 
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
@@ -51,7 +53,8 @@ launches_packed = 0     # K2, fused_attention_packed
 launches_headmajor = 0  # K3, fused_attention
 launches_sm90 = 0       # launches of any entry that ran the Hopper body
 
-_SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_headmajor": (64, 128)}
+_SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
+                   "attention_headmajor": (64, 128)}
 
 
 def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
@@ -128,8 +131,8 @@ def attention_packed_reference(
     B, G, N, dd = q2.shape
     d = dd // 2
 
-    def heads(t):  # (B, G, N, 2d) -> (B, 2G, N, d)
-        return t.reshape(B, G, N, 2, d).transpose(2, 3).reshape(B, 2 * G, N, d)
+    def heads(t):  # (B, G, N, 2d) -> (B, 2G, N, d), contiguous whatever t's strides
+        return t.reshape(B, G, N, 2, d).transpose(2, 3).reshape(B, 2 * G, N, d).contiguous()
 
     nv = N if n_valid is None else n_valid
     out = _attend(heads(q2), heads(k2), heads(v2), scale, nv, rope_cos, rope_sin, q2.dtype)
@@ -160,13 +163,15 @@ def attention_fat_reference(
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """The C entry ``cbas_<name>`` of ``csrc/<name>.cu``, built at first use.
-    All three share one signature."""
+    All three share one signature: seven pointers, (B, N, H, head_dim), the
+    (batch, group, row) element strides, n_valid, scale, dtype, the stream
+    and the body it ran."""
     from cbas_tpu_torch.ops import _cuda
 
     fn = getattr(_cuda.load(name), f"cbas_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
     ]
     return fn
 
@@ -195,10 +200,54 @@ def _check(q, k, v, N, head_dim, n_valid, rope_cos, rope_sin) -> int:
     return nv
 
 
-def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d) -> torch.Tensor:
-    """Launch ``csrc/<name>.cu``'s kernel on a CUDA tensor, or raise. The
-    Hopper body with tables gets a scratch buffer shaped like k for the roped
-    keys."""
+def _like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor with ``t``'s shape, dtype, device and strides
+    (``torch.empty_like`` keeps the strides of a dense ``t`` only)."""
+    out = torch.empty_like(t)
+    if out.stride() == t.stride():
+        return out
+    return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device=t.device)
+
+
+def _require_contiguous(**tensors) -> None:
+    """K1's and K3's kernels read contiguous rows in 16-byte chunks."""
+    for arg, t in tensors.items():
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{arg} must be contiguous and 16-byte aligned")
+
+
+def _check_packed_strides(q2, k2, v2) -> None:
+    """What K2 takes besides contiguous tensors: q2, k2 and v2 with one set
+    of strides, the last dim contiguous, every other stride (of a dim longer
+    than 1) and each base address a 16-byte multiple (the tensor maps' rule),
+    and no two elements at one address (the output takes these strides)."""
+    if not q2.stride() == k2.stride() == v2.stride():
+        raise ValueError(
+            f"q2, k2 and v2 must share strides, got {q2.stride()}, {k2.stride()} and "
+            f"{v2.stride()}"
+        )
+    if q2.stride(-1) != 1:
+        raise ValueError(f"the last dim must have stride 1, got stride {q2.stride(-1)}")
+    size = q2.element_size()
+    extent = q2.shape[-1]  # elements spanned so far, innermost first
+    for stride, n, dim in sorted((q2.stride(i), q2.shape[i], i) for i in range(3)):
+        if n == 1:
+            continue
+        if stride * size % 16:
+            raise ValueError(f"stride {stride} of dim {dim} is not a multiple of 16 bytes")
+        if stride < extent:
+            raise ValueError(f"stride {stride} of dim {dim} overlaps the elements within it")
+        extent += stride * (n - 1)
+    for arg, t in (("q2", q2), ("k2", k2), ("v2", v2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{arg} starts at {t.data_ptr():#x}, not a 16-byte multiple")
+
+
+def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu``'s kernel on a CUDA tensor, or raise.
+    ``strides`` are q's (batch, group, row) element strides, which k and v
+    share; the output (and, for the Hopper body with tables, a scratch
+    buffer for the roped keys) is allocated with them."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
     if q.dtype not in _DTYPE_CODES:
@@ -207,21 +256,18 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d) -> torch.T
     if rope_cos is not None:
         cos = rope_cos.to(torch.float32).contiguous()
         sin = rope_sin.to(torch.float32).contiguous()
-    # The kernels read rows in 16-byte chunks.
-    for arg, t in (("q", q), ("k", k), ("v", v), ("rope_cos", cos), ("rope_sin", sin)):
-        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"{arg} must be contiguous and 16-byte aligned")
+    _require_contiguous(rope_cos=cos, rope_sin=sin)
     want = attention_body(name, q.dtype, d)
     body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
-        out = torch.empty_like(q)
-        scratch = torch.empty_like(k) if want == "sm90" and cos is not None else None
+        out = _like(q)
+        scratch = _like(k) if want == "sm90" and cos is not None else None
         err = _kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None,
             scratch.data_ptr() if scratch is not None else None,
-            B, N, H, d, nv, float(scale), _DTYPE_CODES[q.dtype],
+            B, N, H, d, *strides, nv, float(scale), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream, ctypes.byref(body),
         )
     if err:
@@ -258,8 +304,9 @@ def fused_attention_fat(
     nv = _check(q, k, v, N, HEAD_DIM, n_valid, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return attention_fat_reference(q, k, v, scale, nv, rope_cos, rope_sin)
+    _require_contiguous(q=q, k=k, v=v)
     out = _launch("attention_fat", q, k, v, scale, nv, rope_cos, rope_sin, B, N, D // HEAD_DIM,
-                  HEAD_DIM)
+                  HEAD_DIM, (N * D, 0, D))
     global launches
     launches += 1
     return out
@@ -275,8 +322,14 @@ def fused_attention_packed(
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2: attention over head-pair packed (B, G, N, 128) tensors, two 64-wide
-    heads side by side on the last dim; returns the same packed layout.
+    heads side by side on the last dim; returns the same packed layout, with
+    q2's strides.
 
+    q2, k2 and v2 may be strided views, such as
+    ``t.view(B, N, G, 128).transpose(1, 2)`` of a flat (B, N, G*128)
+    projection: one set of strides for the three, the last dim contiguous,
+    the others and the base addresses 16-byte multiples, no overlap (raises
+    ``ValueError`` otherwise, on every device).
     ``rope_cos``/``rope_sin`` are (N, 64): both heads of a pair share them.
     """
     if q2.dim() != 4 or q2.shape[-1] != 2 * HEAD_DIM:
@@ -286,10 +339,12 @@ def fused_attention_packed(
         )
     B, G, N, _ = q2.shape
     nv = _check(q2, k2, v2, N, HEAD_DIM, n_valid, rope_cos, rope_sin)
+    _check_packed_strides(q2, k2, v2)
     if q2.device.type == "cpu":
-        return attention_packed_reference(q2, k2, v2, scale, nv, rope_cos, rope_sin)
+        return _like(q2).copy_(attention_packed_reference(q2, k2, v2, scale, nv, rope_cos,
+                                                          rope_sin))
     out = _launch("attention_packed", q2, k2, v2, scale, nv, rope_cos, rope_sin, B, N, 2 * G,
-                  HEAD_DIM)
+                  HEAD_DIM, (q2.stride(0), q2.stride(1), q2.stride(2)))
     global launches_packed
     launches_packed += 1
     return out
@@ -319,7 +374,9 @@ def fused_attention(
     nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return attention_headmajor_reference(q, k, v, scale, nv, rope_cos, rope_sin)
-    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d)
+    _require_contiguous(q=q, k=k, v=v)
+    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d,
+                  (H * N * d, N * d, d))
     global launches_headmajor
     launches_headmajor += 1
     return out

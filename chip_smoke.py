@@ -14,15 +14,17 @@ non-zero and prints no final line):
    (272 / 261 and 1216 / 1205) with NaN in the dead K/V rows, and the main
    paths' shapes:
    - K1 (flat) at dinov3-vitb16's 12 heads;
-   - K2 (head-pair packed) at its 6 pairs;
+   - K2 (head-pair packed) at its 6 pairs, on contiguous tensors and on
+     head-pair views of flat ones (the packed route's operands);
    - K3 (head-major) at 32 heads of 128 (DINOv3 ViT-7B), at 3 heads of 64
      (an odd head count), and at head dims 96 and 40.
    bf16 at head dims 64 and 128 runs the Hopper body (``attention_body``),
-   the rest the common body. At the main shapes each kernel is timed with
-   RoPE and without, beside its plain version, its bound (FLOP and bytes
-   over the card's peaks) and ``scaled_dot_product_attention`` on the same
-   data (head-major, RoPE applied beforehand; the backend it picked is named
-   by its kernels in a profiler trace);
+   the rest the common body. At the main shapes (K2: on both inputs) each
+   kernel is timed with RoPE and without, beside its plain version, its
+   bound (FLOP and bytes over the card's peaks) and
+   ``scaled_dot_product_attention`` on the same data (head-major, RoPE
+   applied beforehand; the backend it picked is named by its kernels in a
+   profiler trace);
 3. encode, flat route: the main path at the full width of dinov3-vitb16
    (random weights from a numpy seed): 256x256 planes in two full batches
    and a partial one, 640x480 planes in one batch, then the head over the
@@ -32,8 +34,9 @@ non-zero and prints no final line):
    weights;
 4. classify: probabilities of a deltas head (seq_len 31) against the CPU run;
 5. encode, packed route: ``CBAS_ATTN_FAT=0``, one 256x256 batch and one
-   640x480 batch through dinov3-vitb16: K2 only, embeddings against the
-   flat route's (the common body: no launch through the Hopper body);
+   640x480 batch through dinov3-vitb16: K2 only, on views of the
+   projections, each through the Hopper body; embeddings against the flat
+   route's;
 6. encode, ViT-7B width: a checkpoint directory whose ``config.json`` has
    DINOv3 ViT-7B/16's published shape with the depth cut, opened through
    ``FrameEncoder``: 256x256 in a full batch and a partial one, 640x480 in
@@ -214,9 +217,10 @@ def ptxas_report(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(attention_bf16|attention_f32|attention_sm90|rope_rows)ILi(\d+)E",
-                          m.group(1))
-            name = f"{k.group(1).replace('attention_', '')}<{k.group(2)}>" if k else m.group(1)
+            k = re.search(r"(attention_bf16|attention_f32|attention_sm90|rope_rows)ILi(\d+)E"
+                          r"(?:Li(\d+)E)?", m.group(1))
+            args = ", ".join(x for x in k.groups()[1:] if x) if k else ""
+            name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else m.group(1)
             spill = "?"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -245,9 +249,10 @@ def rope_full(torch, cfg, head_dim, grid, n_tokens, device):
 
 
 def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=None,
-                time_it=True):
+                time_it=True, view=False):
     """One fused-attention case on the card against its plain version, in
-    the kernel's own layout."""
+    the kernel's own layout; with ``view`` (K2 only), on head-pair views of
+    flat (B, N, H*d) tensors, as the packed route passes them."""
     wrapper, plain, shape, token_dim = {
         "attention_fat": (fa.fused_attention_fat, fa.attention_fat_reference, (B, N, H * d), 1),
         "attention_packed": (
@@ -259,9 +264,11 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
     }[kernel]
     rng = np.random.default_rng(SEED)
     q, k, v = (
-        torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", dtype)
-        for _ in range(3)
+        torch.from_numpy(rng.standard_normal((B, N, H * d) if view else shape, np.float32))
+        .to("cuda", dtype) for _ in range(3)
     )
+    if view:
+        q, k, v = (t.view(B, N, H // 2, 2 * d).transpose(1, 2) for t in (q, k, v))
     if n_valid is not None:  # dead rows hold NaN: the masks must keep it out
         dead = (slice(None),) * token_dim + (slice(n_valid, None),)
         k[dead] = float("nan")
@@ -285,6 +292,7 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
     out = {
         "phase": "kernel", "name": kernel, "body": fa.attention_body(kernel, dtype, d),
+        "inputs": "views of flat tensors" if view else "contiguous",
         "B": B, "N": N, "H": H, "head_dim": d,
         "dtype": str(dtype).replace("torch.", ""), "rope": rope, "n_valid": n_valid,
         "max_abs_err": float(err.max()), "tol": tol_text, "ok": ok,
@@ -355,20 +363,22 @@ def kernel_phase(torch, fa, cfg) -> dict:
     results, main = [], {}
 
     def sweep(kernel, H, d, small=((4, 261, g256), (2, 1205, g480)), ropes=(False, True),
-              dead=((4, 272, 261, g256), (2, 1216, 1205, g480))):
-        for B, N, grid in small:
-            for dtype in (bf16, f32):
-                for rope in ropes:
-                    results.append(kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope))
-        for B, N, n_valid, grid in dead:  # NaN in the dead rows
-            for dtype in (bf16, f32):
-                for rope in ropes:
-                    results.append(kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype,
-                                               rope, n_valid=n_valid))
+              dead=((4, 272, 261, g256), (2, 1216, 1205, g480)), views=(False,)):
+        for view in views:
+            for B, N, grid in small:
+                for dtype in (bf16, f32):
+                    for rope in ropes:
+                        results.append(kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype,
+                                                   rope, view=view))
+            for B, N, n_valid, grid in dead:  # NaN in the dead rows
+                for dtype in (bf16, f32):
+                    for rope in ropes:
+                        results.append(kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype,
+                                                   rope, n_valid=n_valid, view=view))
 
     H = cfg.num_heads
     sweep("attention_fat", H, 64)
-    sweep("attention_packed", H, 64)
+    sweep("attention_packed", H, 64, views=(False, True))
     sweep("attention_headmajor", VIT7B_CONFIG["num_attention_heads"], 128,
           small=((2, 261, g256), (1, 1205, g480)),
           dead=((2, 272, 261, g256), (1, 1216, 1205, g480)))
@@ -377,6 +387,7 @@ def kernel_phase(torch, fa, cfg) -> dict:
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),), ropes=(True,),
               dead=((4, 272, 261, g256),))
     # The main paths' shapes: ViT-B at batch 128 / 32, ViT-7B width at 32 / 8.
+    # K2 on contiguous tensors here; on views (its route's inputs) below.
     for kernel, H, d, b256, b480 in (
         ("attention_fat", H, 64, BATCH_256, BATCH_480),
         ("attention_packed", H, 64, BATCH_256, BATCH_480),
@@ -388,6 +399,11 @@ def kernel_phase(torch, fa, cfg) -> dict:
             kernel_case(torch, fa, cfg, kernel, b480, H, 1205, d, g480, bf16, True),
         )
         results += main[kernel]
+    main["attention_packed"] = tuple(
+        kernel_case(torch, fa, cfg, "attention_packed", b, cfg.num_heads, n, 64, g, bf16, True,
+                    view=True)
+        for b, n, g in ((BATCH_256, 261, g256), (BATCH_480, 1205, g480)))
+    results += main["attention_packed"]
     for r in results:
         emit(r)
     bad = [r for r in results if not r["ok"]]
@@ -599,7 +615,7 @@ def main() -> int:
         packed_s = time.perf_counter() - t
         packed_launches = read_launches(fa)
         want_packed = check_launches(
-            "packed", packed_launches, "attention_packed", per_forward, pf_256 + pf_480, sm90=False
+            "packed", packed_launches, "attention_packed", per_forward, pf_256 + pf_480, sm90=True
         )
         cos_256 = row_cosine(pk_256, emb_256[:BATCH_256])
         cos_480 = row_cosine(pk_480, emb_480)
@@ -655,7 +671,7 @@ def main() -> int:
         "name": name, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": route_launches[name][name],
         "launches_sm90": route_launches[name]["sm90"],
-        "body": main_cases[name][0]["body"],
+        "body": main_cases[name][0]["body"], "inputs": main_cases[name][0]["inputs"],
         **{key: main_cases[name][0][key] for key in timing_keys},
         "shape": [main_cases[name][0][x] for x in ("B", "N", "H", "head_dim")],
         "at_640x480": {key: main_cases[name][1][key] for key in timing_keys}

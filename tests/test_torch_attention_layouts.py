@@ -239,19 +239,90 @@ def test_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, cuda
     assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,G,N,n_valid", [(4, 6, 261, None), (2, 6, 1205, None), (4, 6, 272, 261)])
-def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, cuda_device):
-    dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(t).to(cuda_device, dt) for t in _inputs((B, G, N, 128), seed=29))
+def _flat_and_pairs(B, G, N, seed, dtype, device="cpu", n_valid=None):
+    """Flat (B, N, G*128) q, k, v from a numpy seed, NaN in the K/V rows at
+    or beyond ``n_valid``, and their (B, G, N, 128) head-pair views (the
+    packed route's operands: no copy)."""
+    flat = [torch.from_numpy(t).to(device, dtype) for t in _inputs((B, N, G * 128), seed)]
     if n_valid is not None:
-        k[:, :, n_valid:] = float("nan")
-        v[:, :, n_valid:] = float("nan")
-    cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, 64, seed=30))
-    before = fa.launches_packed
+        for t in flat[1:]:
+            t[:, n_valid:] = float("nan")
+    return flat, [t.view(B, N, G, 128).transpose(1, 2) for t in flat]
+
+
+@pytest.mark.parametrize("n_valid", [None, 61])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_views_equal_contiguous_copies(dtype, rope, n_valid):
+    """K2 on head-pair views of flat tensors gives bit for bit what it gives
+    on their contiguous copies, NaN in the dead K/V rows included, and
+    returns the views' strides: the packed route's context goes back to
+    (B, N, H*64) without a copy."""
+    B, G, N = 2, 3, 70
+    _, views = _flat_and_pairs(B, G, N, 33, dtype, n_valid=n_valid)
+    assert not any(t.is_contiguous() for t in views)
+    copies = [t.contiguous() for t in views]
+    cos, sin = (torch.from_numpy(t) for t in _rope(N, 64, seed=34)) if rope else (None, None)
+    got = fa.fused_attention_packed(*views, 0.125, n_valid, cos, sin)
+    want = fa.fused_attention_packed(*copies, 0.125, n_valid, cos, sin)
+    assert got.stride() == views[0].stride() and want.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    assert got.transpose(1, 2).reshape(B, N, G * 128).data_ptr() == got.data_ptr()
+
+
+@pytest.mark.parametrize(
+    "case,match",
+    [
+        ("last-dim stride 2", "stride 2"),
+        ("misaligned stride", "stride 132 of dim 2 is not a multiple of 16 bytes"),
+        ("different strides", "must share strides"),
+        ("overlapping rows", "stride 64 of dim 2 overlaps"),
+        ("misaligned base", "k2 starts at"),
+    ],
+)
+def test_packed_wrapper_refuses_strides_the_kernel_does_not_take(case, match):
+    """Each refusal names the stride (or address), on the CPU as on the card."""
+    base = torch.zeros(1, 2, 16, 264, dtype=torch.bfloat16)
+    q = base[..., :128]
+    k = v = q
+    if case == "last-dim stride 2":
+        q = k = v = base[..., ::2][..., :128]
+    elif case == "misaligned stride":
+        q = k = v = base[..., :132].contiguous()[..., :128]  # rows of 264 bytes
+    elif case == "different strides":
+        k = q.contiguous()
+    elif case == "overlapping rows":
+        q = k = v = base.flatten()[: 2 * 16 * 64 + 128].as_strided((1, 2, 16, 128), (0, 16 * 64, 64, 1))
+    elif case == "misaligned base":
+        k = base.flatten()[4:].as_strided(q.shape, q.stride())  # 8 bytes in
+    with pytest.raises(ValueError, match=match):
+        fa.fused_attention_packed(q, k, v, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "view of flat"])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,G,N,n_valid", [(4, 6, 261, None), (4, 6, 272, 261), (2, 6, 1205, None), (2, 6, 1216, 1205)]
+)
+def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layout, cuda_device):
+    """K2 against its plain version on contiguous tensors and on head-pair
+    views of flat ones, NaN in the dead K/V rows; bf16 runs the Hopper body
+    (each call counts in launches_sm90), fp32 the common one."""
+    dt = getattr(torch, dtype)
+    _, (q, k, v) = _flat_and_pairs(B, G, N, 29, dt, cuda_device, n_valid)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    cos = sin = None
+    if rope:
+        cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, 64, seed=30))
+    before, before_sm90 = fa.launches_packed, fa.launches_sm90
     got = fa.fused_attention_packed(q, k, v, 0.125, n_valid, cos, sin)
     assert fa.launches_packed == before + 1
+    assert fa.launches_sm90 == before_sm90 + (dt == torch.bfloat16)
+    assert got.stride() == q.stride()
     want = fa.attention_packed_reference(q, k, v, 0.125, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
     assert bool(torch.isfinite(got).all())
@@ -268,14 +339,14 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, cuda_devic
         ("attention_headmajor", torch.float32, 128, "common"),
         ("attention_headmajor", torch.bfloat16, 96, "common"),
         ("attention_headmajor", torch.bfloat16, 40, "common"),
-        ("attention_packed", torch.bfloat16, 64, "common"),
+        ("attention_packed", torch.bfloat16, 64, "sm90"),
         ("attention_packed", torch.float32, 64, "common"),
     ],
 )
 def test_attention_body_routing(kernel, dtype, d, body):
     """Which body an entry runs for (dtype, head dim), as the wrapper reports
-    it without launching: the Hopper body for bf16 at d = 64 (flat and
-    head-major) and 128 (head-major), the common body otherwise."""
+    it without launching: the Hopper body for bf16 at d = 64 (every layout)
+    and 128 (head-major), the common body otherwise."""
     assert fa.attention_body(kernel, dtype, d) == body
 
 
@@ -283,6 +354,8 @@ def test_cpu_tensors_never_count_as_hopper_launches():
     before = fa.launches_sm90
     fa.fused_attention_fat(*(torch.zeros(1, 16, 128, dtype=torch.bfloat16) for _ in range(3)), 0.1)
     fa.fused_attention(*(torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16) for _ in range(3)), 0.1)
+    fa.fused_attention_packed(
+        *(torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16) for _ in range(3)), 0.1)
     assert fa.launches_sm90 == before
 
 

@@ -170,6 +170,8 @@ ROUTES = {
     ),
     "hd64-3heads": (dict(SMALL["dinov3"], hidden_size=192, num_heads=3), None, "fused_attention"),
     "hd64-packed": (SMALL["dinov3"], "0", "fused_attention_packed"),
+    "hd64x4-packed": (dict(SMALL["dinov3"], hidden_size=256, num_heads=4), "0",
+                      "fused_attention_packed"),
     "hd64-flat": (SMALL["dinov3"], None, "fused_attention_fat"),
 }
 
@@ -208,11 +210,14 @@ def _route_forward(name, monkeypatch, fused):
 
 
 @pytest.mark.parametrize("fused", [True, False])
-@pytest.mark.parametrize("name", ["hd32", "hd128-gated", "hd64-3heads", "hd64-packed"])
+@pytest.mark.parametrize(
+    "name", ["hd32", "hd128-gated", "hd64-3heads", "hd64-packed", "hd64x4-packed"]
+)
 def test_forward_matches_jax_on_every_route(name, fused, monkeypatch, restore_fused_flag):
     """Head dims 32 and 128 and an odd head count run through K3, and 64-wide
-    pairs with CBAS_ATTN_FAT=0 through K2, matching the JAX forward with its
-    fused kernels (K3 or K2 in interpret mode) and without them."""
+    pairs (one and two of them) with CBAS_ATTN_FAT=0 through K2, matching
+    the JAX forward with its fused kernels (K3 or K2 in interpret mode) and
+    without them."""
     got, want = _route_forward(name, monkeypatch, fused)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
@@ -239,3 +244,38 @@ def test_attention_route_matches_jax_rule(name, monkeypatch, restore_fused_flag)
     layers = SMALL["dinov3"]["num_layers"]
     assert calls["torch"] == calls["jax"] == [expected] * layers
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_packed_route_passes_views_of_the_projections(monkeypatch, restore_fused_flag):
+    """Under CBAS_ATTN_FAT=0 the packed route (two head pairs) hands K2
+    non-contiguous views that share storage with the q, k and v
+    projections' outputs, and the out-projection reads a view of K2's
+    output: no copy of q, k, v or the context. The forward still matches
+    the JAX package's."""
+    from cbas_tpu_torch.ops import flash_attention as tfa
+
+    dense_in, dense_out, calls = {}, {}, []
+    real_dense, real_packed = tvit._dense, tfa.fused_attention_packed
+
+    def dense(params, name, x, bias=True):
+        dense_in[name], dense_out[name] = x, real_dense(params, name, x, bias)
+        return dense_out[name]
+
+    def packed(q2, k2, v2, *args, **kwargs):
+        calls.append(((q2, k2, v2), real_packed(q2, k2, v2, *args, **kwargs)))
+        return calls[-1][1]
+
+    monkeypatch.setattr(tvit, "_dense", dense)
+    monkeypatch.setattr(tfa, "fused_attention_packed", packed)
+    got, want = _route_forward("hd64x4-packed", monkeypatch, fused=True)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+    def storage(t):
+        return t.untyped_storage().data_ptr()
+
+    assert len(calls) == SMALL["dinov3"]["num_layers"]
+    for i, (operands, ctx) in enumerate(calls):
+        for t, proj in zip(operands, ("q_proj", "k_proj", "v_proj")):
+            assert not t.is_contiguous()
+            assert storage(t) == storage(dense_out[f"layer.{i}.attention.{proj}"])
+        assert storage(dense_in[f"layer.{i}.attention.o_proj"]) == storage(ctx)

@@ -410,13 +410,16 @@ class Project:
 
         These must be (re-)encoded before use (reference: backend/startup_page.py:82-126).
         """
-        from cbas_tpu_torch.core import hdf5_store
-
         todo: List[str] = []
         for video in self.all_video_files():
             h5 = h5_path_for_video(video)
-            if not os.path.exists(h5) or not hdf5_store.is_stamp_valid(
-                h5, self.encoder_model_identifier
-            ):
+            if not os.path.exists(h5):
+                todo.append(video)
+                continue
+            # h5py only where an H5 exists: a project without any loads on
+            # a host without h5py.
+            from cbas_tpu_torch.core import hdf5_store
+
+            if not hdf5_store.is_stamp_valid(h5, self.encoder_model_identifier):
                 todo.append(video)
         return todo

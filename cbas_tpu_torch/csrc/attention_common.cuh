@@ -23,14 +23,19 @@
 //   of 256 threads owns a 4 x 4 micro-tile of the scores and 4 rows of the
 //   output.
 //
-// Head dims: any multiple of 8 up to 128. The mma k-steps are 16 deep, so
+// Head dims: any multiple of 8 up to 256. The mma k-steps are 16 deep, so
 // the bf16 tiles are zero-filled in shared memory up to the next multiple of
 // 16: zero columns change neither q.k^T nor the live output columns. The
 // RoPE partner of column c is (c + hd/2) mod hd; when hd/2 is a multiple of
 // 8 a 16-byte chunk's partners form one chunk with one first-half flag,
 // otherwise (hd = 40, 56, ...) they are gathered one element at a time.
 // Shared memory is dynamic: at hd = 128 the bf16 tiles take 52 KB and the
-// fp32 tiles 99 KB, above the 48 KB a block may declare statically.
+// fp32 tiles 99 KB, above the 48 KB a block may declare statically; at
+// hd = 256, 101 KB and 193 KB, within the 227 KB a Hopper block may opt into,
+// so the 64-row query tile holds at every width.
+// Above hd = 128 the bf16 body keeps Q in shared memory and reads its
+// fragments once per key tile instead of holding all of them in registers:
+// the output accumulator alone takes hd / 2 registers a thread.
 
 #pragma once
 
@@ -43,7 +48,7 @@ namespace cbas_attention {
 
 constexpr int kTile = 64;          // query rows per block, keys per loop step
 constexpr float kMasked = -1e30f;  // the TPU kernels' masked-score value
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 
 // Where one head's rows lie. Head h of image b starts at element
 //   b * batch_stride + (h / heads_per_group) * group_stride
@@ -274,8 +279,11 @@ struct Bf16Tiles {
   // Blocks an SM must hold, passed to __launch_bounds__, which caps the
   // registers to fit them: without it ptxas takes 103 registers at d = 64
   // (4 blocks an SM) and 172 at d = 128 (2 blocks). Capped at 96 and 168,
-  // with a few bytes of spills, both ran faster on an H100 (PERF.md).
-  static constexpr int kMinBlocks = HD <= 64 ? 5 : 3;
+  // with a few bytes of spills, both ran faster on an H100 (PERF.md). Above
+  // d = 128, 2 blocks (255 registers each) as shared memory allows.
+  static constexpr int kMinBlocks = HD <= 64 ? 5 : HD <= 128 ? 3 : 2;
+  // Q's A fragments stay in registers up to d = 128 (8 k steps).
+  static constexpr bool kQInRegisters = kKSteps <= 8;
 };
 
 // d = a * b + d for one m16n8k16 tile: bf16 A (4 regs) and B (2 regs), fp32 D.
@@ -413,10 +421,12 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
   // This warp's 16 x kPad Q slice as A fragments, one per 16-wide k step:
   // matrices (rows 0-7, cols +0), (rows 8-15, +0), (rows 0-7, +8), (rows 8-15, +8).
-  uint32_t qa[kKSteps][4];
+  const __nv_bfloat16* q_frag = sq + (16 * warp + 8 * (mi % 2) + mr) * kLd + 8 * (mi / 2);
+  uint32_t qa[T::kQInRegisters ? kKSteps : 1][4];
+  if constexpr (T::kQInRegisters) {
 #pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk)
-    ldmatrix_x4(qa[kk], sq + (16 * warp + 8 * (mi % 2) + mr) * kLd + 16 * kk + 8 * (mi / 2));
+    for (int kk = 0; kk < kKSteps; ++kk) ldmatrix_x4(qa[kk], q_frag + 16 * kk);
+  }
 
   float acc[2 * kKSteps][4] = {};       // O: tiles of 8 output dims
   float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
@@ -433,19 +443,47 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     // S = Q K^T over 8 tiles of 8 keys. B[kd][key] = K[key][kd]: one x4 load
     // gives the B fragments of two 16-wide k steps, an x2 load those of one.
     float s[8][4] = {};
+    if constexpr (T::kQInRegisters) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int kp = 0; kp < kKSteps / 2; ++kp) {
+          uint32_t b[4];
+          ldmatrix_x4(b, sk + (8 * j + mr) * kLd + 32 * kp + 8 * mi);
+          mma_bf16(s[j], qa[2 * kp], b[0], b[1]);
+          mma_bf16(s[j], qa[2 * kp + 1], b[2], b[3]);
+        }
+        if constexpr (kKSteps % 2) {
+          uint32_t b[2];
+          ldmatrix_x2(b, sk + (8 * j + mr) * kLd + 16 * (kKSteps - 1) + 8 * (mi % 2));
+          mma_bf16(s[j], qa[kKSteps - 1], b[0], b[1]);
+        }
+      }
+    } else {
+      // k steps outermost: each pair of Q fragments is read from shared
+      // memory once per key tile and used for all 8 key tiles.
 #pragma unroll
       for (int kp = 0; kp < kKSteps / 2; ++kp) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sk + (8 * j + mr) * kLd + 32 * kp + 8 * mi);
-        mma_bf16(s[j], qa[2 * kp], b[0], b[1]);
-        mma_bf16(s[j], qa[2 * kp + 1], b[2], b[3]);
+        uint32_t a0[4], a1[4];
+        ldmatrix_x4(a0, q_frag + 32 * kp);
+        ldmatrix_x4(a1, q_frag + 32 * kp + 16);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, sk + (8 * j + mr) * kLd + 32 * kp + 8 * mi);
+          mma_bf16(s[j], a0, b[0], b[1]);
+          mma_bf16(s[j], a1, b[2], b[3]);
+        }
       }
       if constexpr (kKSteps % 2) {
-        uint32_t b[2];
-        ldmatrix_x2(b, sk + (8 * j + mr) * kLd + 16 * (kKSteps - 1) + 8 * (mi % 2));
-        mma_bf16(s[j], qa[kKSteps - 1], b[0], b[1]);
+        uint32_t a0[4];
+        ldmatrix_x4(a0, q_frag + 16 * (kKSteps - 1));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t b[2];
+          ldmatrix_x2(b, sk + (8 * j + mr) * kLd + 16 * (kKSteps - 1) + 8 * (mi % 2));
+          mma_bf16(s[j], a0, b[0], b[1]);
+        }
       }
     }
 
@@ -546,7 +584,7 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                    const void* sin_t, int B, int N, int H, Layout L, int n_valid, float scale,
                    int dtype, void* stream) {
-  static_assert(HD % 8 == 0 && HD <= kMaxHeadDim, "head dims are multiples of 8 up to 128");
+  static_assert(HD % 8 == 0 && HD <= kMaxHeadDim, "head dims are multiples of 8 up to 256");
   const cudaError_t bad = check_args(B, N, H, L, n_valid);
   if (bad != cudaSuccess) return bad;
   const auto* c = static_cast<const float*>(cos_t);

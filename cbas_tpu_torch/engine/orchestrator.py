@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+import sys
 import threading
 from typing import Callable, List, Optional
 
@@ -23,7 +24,6 @@ import pandas as pd
 import yaml
 
 from cbas_tpu_torch.core.config import TrainingConfig, dump_yaml, load_yaml
-from cbas_tpu_torch.core.hdf5_store import global_handle_cache
 from cbas_tpu_torch.core.project import Dataset, Project
 from cbas_tpu_torch.core.splits import RandomSplitProvider, SplitProvider, subject_of
 from cbas_tpu_torch.engine.plots import (
@@ -264,7 +264,11 @@ def run_training_job(
                 log_message(f"Disagreement report failed: {e}", "WARN")
         return model_dir
     finally:
-        global_handle_cache.close_all()
+        # The store (and h5py) is loaded only if the job opened a file; a
+        # host without h5py has no handles to close.
+        store = sys.modules.get("cbas_tpu_torch.core.hdf5_store")
+        if store is not None:
+            store.global_handle_cache.close_all()
 
 
 def _save_results(

@@ -178,6 +178,15 @@ class FrameEncoder:
 
     # -- public API -----------------------------------------------------------
 
+    @property
+    def weights_device(self) -> str:
+        """The device every weight tensor lies on, e.g. "cuda:0"."""
+        devices = {str(t.device) for t in self._params.values()}
+        devices.add(str(self._plane_kernel.device))
+        if len(devices) != 1:
+            raise RuntimeError(f"encoder weights are split over {sorted(devices)}")
+        return devices.pop()
+
     def encode_planes_async(self, planes_u8: np.ndarray, batch: Optional[int] = None):
         """Queue one batch without waiting: (device_tensor, n_valid, was_warm).
 

@@ -12,7 +12,7 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
   (such as ``t.view(B, N, H // 2, 128).transpose(1, 2)`` of a flat
   projection) as well as contiguous tensors, and returns q2's strides.
 - :func:`fused_attention` (K3): head-major (B, H, N, d), d any multiple of 8
-  up to 128.
+  up to 128, or 192 or 256.
 
 All three compute one function per head: optional rotate-half RoPE from fp32
 (N, d) tables, the scale on the q side, keys at or beyond ``n_valid`` masked,
@@ -31,8 +31,9 @@ tensors' strides); float32 and K3's other head dims take
 
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
 count kernel launches and nothing else, so a run can show which kernels its
-main path went through; ``launches_sm90`` counts those of them that ran the
-Hopper body, as the C entry reports it.
+main path went through; ``launches_headmajor_by_dim`` splits K3's by head
+dim, and ``launches_sm90`` counts those of them all that ran the Hopper
+body, as the C entry reports it.
 """
 
 from __future__ import annotations
@@ -45,12 +46,15 @@ from typing import Optional
 import torch
 
 HEAD_DIM = 64       # K1's and K2's head width
-MAX_HEAD_DIM = 128  # the widest head K3 takes (no public DINO checkpoint is wider)
+# K3's head dims: every multiple of 8 up to 128 (no public DINO checkpoint is
+# wider), and 192 and 256; each instantiated width adds to the kernel's build.
+HEADMAJOR_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0            # K1, fused_attention_fat
 launches_packed = 0     # K2, fused_attention_packed
 launches_headmajor = 0  # K3, fused_attention
+launches_headmajor_by_dim: dict = {}  # K3's launches by head dim
 launches_sm90 = 0       # launches of any entry that ran the Hopper body
 
 _SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
@@ -360,16 +364,16 @@ def fused_attention(
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K3: attention over head-major (B, H, N, d) tensors, d a multiple of 8
-    up to 128; returns (B, H, N, d) in q's dtype.
+    up to 128, or 192 or 256; returns (B, H, N, d) in q's dtype.
 
     ``rope_cos``/``rope_sin`` are full-length (N, d) tables.
     """
     if q.dim() != 4:
         raise ValueError(f"expected head-major (B, H, N, d) tensors, got q of shape {tuple(q.shape)}")
     B, H, N, d = q.shape
-    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+    if d not in HEADMAJOR_HEAD_DIMS:
         raise ValueError(
-            f"head dim {d}: the kernel takes multiples of 8 up to {MAX_HEAD_DIM}"
+            f"head dim {d}: the kernel takes multiples of 8 up to 128, and 192 and 256"
         )
     nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
     if q.device.type == "cpu":
@@ -379,6 +383,7 @@ def fused_attention(
                   (H * N * d, N * d, d))
     global launches_headmajor
     launches_headmajor += 1
+    launches_headmajor_by_dim[d] = launches_headmajor_by_dim.get(d, 0) + 1
     return out
 
 

@@ -17,7 +17,8 @@ non-zero and prints no final line):
    - K2 (head-pair packed) at its 6 pairs, on contiguous tensors and on
      head-pair views of flat ones (the packed route's operands);
    - K3 (head-major) at 32 heads of 128 (DINOv3 ViT-7B), at 3 heads of 64
-     (an odd head count), and at head dims 96 and 40.
+     (an odd head count), at head dims 96 and 40, and at head dims 192 and
+     256, wider than any shipped preset's heads (timed at 16 heads).
    bf16 at head dims 64 and 128 runs the Hopper body (``attention_body``),
    the rest the common body. At the main shapes (K2: on both inputs) each
    kernel is timed with RoPE and without, beside its plain version, its
@@ -52,10 +53,21 @@ non-zero and prints no final line):
    on the card against the CPU (TF32 off), ``train_head`` on the
    device-resident store (torch's TF32 defaults, as a user runs it), warm
    steps/s and epoch seconds, then the trained params as a bundle saved,
-   loaded and run by ``InferenceSession``, and ``fit_temperature``.
+   loaded and run by ``InferenceSession``, and ``fit_temperature``;
+9. app: the port's JSON-RPC server over ``Api(device="cuda")`` on a copy of
+   ``examples/demo_project``: ``load_project`` over HTTP with the encoder's
+   weights on the card, and the app's encoder (K1, each launch through the
+   Hopper body) against the CPU fp32 run. Where h5py, pandas and OpenCV are
+   installed, also: the encode queue drained and one H5 held against the CPU
+   run, one clip re-encoded with ``reuse_threshold`` 6.0 against the same
+   gate run on the host, two epochs of training, classification of every
+   clip, and (with matplotlib) the ethogram. Each step the host cannot run is
+   named in the line with the package it lacks.
 
 The line before the last lists each kernel with its launches on its route,
-error, times, bound and the library call's time; the last line is
+error, times, bound and the library call's time (K3 also at head dims 192
+and 256, with their launches counted over the encode routes' runs, though
+no shipped preset has such heads); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -95,6 +107,10 @@ VIT7B_DEPTH, VIT7B_PUBLISHED_DEPTH = 4, 40
 BATCH_7B_256, FRAMES_7B_256 = 32, 40  # one full batch and a partial one
 BATCH_7B_480 = 8
 N_CHECK_7B = 2
+# K3's head dims above 128, timed at 16 heads (a 3072- and a 4096-wide model);
+# no shipped preset has such heads. Their launches on the encode routes are
+# counted all the same (``launches_on_main_path``).
+WIDE_HEAD_DIMS, WIDE_HEADS = (192, 256), 16
 
 # The three kernels (source cbas_tpu_torch/csrc/<name>.cu) and the TPU kernel
 # each replaces.
@@ -386,6 +402,9 @@ def kernel_phase(torch, fa, cfg) -> dict:
     for d in (96, 40):  # a half that is no power of two; a dim no multiple of 16
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),), ropes=(True,),
               dead=((4, 272, 261, g256),))
+    for d in (192, 256):  # wider than 128: Q's fragments come from shared memory
+        sweep("attention_headmajor", 4, d, small=((2, 261, g256),),
+              dead=((2, 272, 261, g256),))
     # The main paths' shapes: ViT-B at batch 128 / 32, ViT-7B width at 32 / 8.
     # K2 on contiguous tensors here; on views (its route's inputs) below.
     for kernel, H, d, b256, b480 in (
@@ -399,6 +418,11 @@ def kernel_phase(torch, fa, cfg) -> dict:
             kernel_case(torch, fa, cfg, kernel, b480, H, 1205, d, g480, bf16, True),
         )
         results += main[kernel]
+    # K3 at the wide heads, at ViT-7B's batch and a width near its 4096.
+    for d in WIDE_HEAD_DIMS:
+        main[f"headmajor_d{d}"] = kernel_case(torch, fa, cfg, "attention_headmajor", BATCH_7B_256,
+                                              WIDE_HEADS, 261, d, g256, bf16, True)
+        results.append(main[f"headmajor_d{d}"])
     main["attention_packed"] = tuple(
         kernel_case(torch, fa, cfg, "attention_packed", b, cfg.num_heads, n, 64, g, bf16, True,
                     view=True)
@@ -414,12 +438,15 @@ def kernel_phase(torch, fa, cfg) -> dict:
 
 def reset_launches(fa) -> None:
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
+    fa.launches_headmajor_by_dim.clear()
 
 
 def read_launches(fa) -> dict:
-    """Launches of each entry, and under "sm90" those that ran the Hopper body."""
+    """Launches of each entry, under "sm90" those that ran the Hopper body,
+    and under "headmajor_by_dim" K3's split by head dim."""
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
-            "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90}
+            "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
+            "headmajor_by_dim": dict(fa.launches_headmajor_by_dim)}
 
 
 def check_launches(route, got, kernel, per_forward, forwards, sm90) -> dict:
@@ -428,8 +455,10 @@ def check_launches(route, got, kernel, per_forward, forwards, sm90) -> dict:
     want = {name: 0 for name in KERNELS}
     want[kernel] = per_forward * forwards
     want["sm90"] = want[kernel] if sm90 else 0
-    if got != want:
+    if {name: got[name] for name in want} != want:
         raise AssertionError(f"{route} route launched {got}, expected {want}")
+    if sum(got["headmajor_by_dim"].values()) != got["attention_headmajor"]:
+        raise AssertionError(f"{route} route: K3's launches by head dim do not add up: {got}")
     return want
 
 
@@ -647,12 +676,7 @@ def main() -> int:
     vit7b_launches, vit7b_line = vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card)
 
     # 7. files end to end, where the host has what the file paths need
-    missing = []
-    for mod in ("h5py", "pandas", "cv2", "yaml", "matplotlib", "sklearn"):
-        try:
-            __import__(mod)
-        except ImportError:
-            missing.append(mod)
+    missing = host_missing(("h5py", "pandas", "cv2", "yaml", "matplotlib", "sklearn"))
     if missing:
         emit({"phase": "files", "skipped": f"not installed: {', '.join(missing)}"})
     else:
@@ -661,10 +685,16 @@ def main() -> int:
     # 8. head training at full width, then its bundle through the serving path
     train_phase(torch, card, user_tf32, cfg.hidden_size)
 
+    # 9. the app over HTTP on the card
+    app_phase(torch, fa, card)
+
     route_launches = {
         "attention_fat": flat_launches, "attention_packed": packed_launches,
         "attention_headmajor": vit7b_launches,
     }
+    # K3's launches at each wide head dim over the three encode routes' runs
+    wide_launches = {d: sum(run["headmajor_by_dim"].get(d, 0) for run in route_launches.values())
+                     for d in WIDE_HEAD_DIMS}
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                    "library", "ms_norope", "gflop", "mbytes", "share_of_bound")
     emit({"kernels": [{
@@ -676,6 +706,11 @@ def main() -> int:
         "shape": [main_cases[name][0][x] for x in ("B", "N", "H", "head_dim")],
         "at_640x480": {key: main_cases[name][1][key] for key in timing_keys}
         | {"shape": [main_cases[name][1][x] for x in ("B", "N", "H", "head_dim")]},
+        **({f"at_head_dim_{d}": {key: main_cases[f"headmajor_d{d}"][key] for key in timing_keys}
+            | {"shape": [main_cases[f"headmajor_d{d}"][x] for x in ("B", "N", "H", "head_dim")],
+               "body": main_cases[f"headmajor_d{d}"]["body"],
+               "launches_on_main_path": wide_launches[d]}
+            for d in WIDE_HEAD_DIMS} if name == "attention_headmajor" else {}),
     } for name, replaces in KERNELS.items()]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1099,6 +1134,248 @@ def train_phase(torch, card, user_tf32, dim=768, device="cuda") -> dict:
     if not serve["ok"]:
         raise AssertionError("the trained bundle's serving path disagrees with build_logits_program")
     return line
+
+
+# 9. The app on the demo project (examples/demo_project: an encoder of 2 heads
+# of 64 at depth 2, so K1 once a forward; 8 clips of 300 frames at 64x64).
+DEMO_PROJECT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                            "demo_project")
+DEMO_CLIPS, DEMO_FRAMES = 8, 300
+APP_REUSE_THRESHOLD = 6.0
+APP_WAIT_S = 300  # every wait on the app's workers has this deadline
+
+
+def host_missing(modules) -> list:
+    """The modules of ``modules`` this host cannot import."""
+    missing = []
+    for mod in modules:
+        try:
+            __import__(mod)
+        except ImportError:
+            missing.append(mod)
+    return missing
+
+
+def write_spans_clip(path, n_frames, width=64, height=64) -> None:
+    """Spans of 10 frames over a static textured background: a still square
+    in even spans, a moving one in odd spans, so a reuse gate both reuses
+    frames and promotes keys."""
+    import cv2
+
+    rng = np.random.default_rng(5)
+    background = rng.integers(0, 256, (height, width, 3), np.uint8)
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (width, height))
+    for i in range(n_frames):
+        frame = background.copy()
+        span = i // 10
+        x = (4 * i if span % 2 else 4 * 10 * span) % (width - 12)
+        frame[8:20, x:x + 12] = 255
+        w.write(frame)
+    w.release()
+
+
+def rpc(port, method, *args, **kwargs):
+    """One JSON-RPC call to the app's server, as the frontend makes it."""
+    import urllib.request
+
+    payload = {"args": list(args), **({"kwargs": kwargs} if kwargs else {})}
+    req = urllib.request.Request(f"http://localhost:{port}/api/{method}",
+                                 data=json.dumps(payload).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        doc = json.loads(resp.read())
+    if "error" in doc:
+        raise AssertionError(f"app: {method} failed: {doc['error']}")
+    return doc.get("result")
+
+
+def wait_for(what, check, seconds=APP_WAIT_S):
+    deadline = time.time() + seconds
+    while time.time() < deadline:
+        got = check()
+        if got:
+            return got
+        time.sleep(0.25)
+    raise AssertionError(f"app: {what} not done after {seconds} s")
+
+
+def app_phase(torch, fa, card, device="cuda") -> dict:
+    """Phase 9: the port's app over HTTP on a copy of the demo project;
+    returns the phase line. (``device`` is "cpu" only in the CPU test of
+    this function.)"""
+    import shutil
+
+    from cbas_tpu_torch.app.api import Api
+    from cbas_tpu_torch.app.server import RpcServer
+    from cbas_tpu_torch.ingest.decode import open_video
+    from cbas_tpu_torch.models.encoder import FrameEncoder
+
+    files_missing = host_missing(("h5py", "pandas", "cv2"))
+    plots_missing = host_missing(("matplotlib",))
+    on_card = device == "cuda"
+    line = {"phase": "app", "device": device, "demo": f"{DEMO_CLIPS} clips of {DEMO_FRAMES} "
+            "frames at 64x64, encoder 2 heads x 64, depth 2", "ran": [], "skipped": {}}
+    clip_rel = os.path.join("recordings", "sess1", "mouse0", "mouse0_00001.mp4")
+    with tempfile.TemporaryDirectory() as d:
+        proj = os.path.join(d, "demo")
+        shutil.copytree(DEMO_PROJECT, proj)
+        with open_video(os.path.join(DEMO_PROJECT, clip_rel)) as reader:
+            planes = reader.read_green_batch(0, DEMO_FRAMES)
+        if files_missing:
+            # Without h5py the worker could only fail each clip: queue none.
+            shutil.rmtree(os.path.join(proj, "recordings"))
+            os.makedirs(os.path.join(proj, "recordings"))
+        api = Api(device=device)
+        srv = RpcServer(api)
+        port = srv.start()
+        try:
+            # load over HTTP: the encoder's weights on the card
+            if on_card:
+                torch.cuda.synchronize()
+            reset_launches(fa)
+            t0 = time.perf_counter()
+            if not rpc(port, "load_project", proj)["success"]:
+                raise AssertionError("app: load_project failed")
+            line["load_s"] = time.perf_counter() - t0
+            status = rpc(port, "get_cbas_status")
+            line["encoder_device"] = status["encoder_device"]
+            if not status["encoder_ready"] or not str(status["encoder_device"]).startswith(device):
+                raise AssertionError(f"app: the encoder is not ready on {device}: {status}")
+            line["ran"].append("load_project")
+
+            if files_missing:
+                for step in ("encode queue", "H5 against the CPU run", "reuse-gated re-encode",
+                             "train", "classify", "ethogram"):
+                    line["skipped"][step] = f"not installed: {', '.join(files_missing)}"
+                # The app's encoder on one clip, straight: the device path runs all the same.
+                got = api.state.encoder.encode_planes(planes[:64], batch=64)
+                line["launches"] = app_launches(fa, on_card, forwards=1)
+                line["ran"].append("the app's encoder on one clip")
+            else:
+                n_all = DEMO_CLIPS * DEMO_FRAMES
+                wait_for("encode queue", lambda: app_drained(port, DEMO_CLIPS))
+                line["encode_frames_per_s"] = n_all / (time.perf_counter() - t0 - line["load_s"])
+                chunk = api.state.project.settings.encode.chunk_frames
+                # a clip shorter than a device batch is one snapped batch
+                per_clip = 1 if DEMO_FRAMES < chunk else -(-DEMO_FRAMES // chunk)
+                line["launches"] = app_launches(fa, on_card, DEMO_CLIPS * per_clip)
+                import h5py
+
+                h5 = os.path.join(proj, clip_rel.replace(".mp4", "_cls.h5"))
+                with h5py.File(h5, "r") as f:
+                    got = f["cls"][:]
+                line["ran"].append("encode queue")
+            ref = FrameEncoder(os.path.join(proj, "demo_encoder"), compute_dtype=torch.float32,
+                               device="cpu").encode_planes(planes[:len(got)])
+            cos = row_cosine(got, ref)
+            line["min_cos_vs_cpu_fp32"] = float(cos.min())
+            line["tol_min_cos"] = ENCODE_BF16_MIN_COS
+            if got.shape != ref.shape or not np.isfinite(got).all() \
+                    or cos.min() < ENCODE_BF16_MIN_COS:
+                raise AssertionError(f"app: embeddings disagree with the CPU fp32 run ({cos.min()})")
+            line["ran"].append("embeddings against the CPU fp32 run")
+
+            if not files_missing:
+                line.update(app_file_steps(port, api, proj, clip_rel, plots_missing))
+                line["ran"] += ["reuse-gated re-encode", "train", "classify"]
+                if plots_missing:
+                    line["skipped"]["ethogram"] = f"not installed: {', '.join(plots_missing)}"
+                else:
+                    line["ran"].append("ethogram")
+        finally:
+            api.kill_all_processes()
+            srv.stop()
+    line["card"] = card
+    line["ok"] = True
+    emit(line)
+    return line
+
+
+def app_drained(port, n) -> bool:
+    q = rpc(port, "get_encoding_queue_status")
+    return q["total"] >= n and q["done"] == q["total"] and q["queued"] == 0
+
+
+def app_launches(fa, on_card, forwards) -> dict:
+    """The app's encoder went through K1 only, once a forward, each launch
+    through the Hopper body (on the card; the CPU runs the plain version)."""
+    got = read_launches(fa)
+    if on_card:
+        return check_launches("app", got, "attention_fat", 1, forwards, sm90=True)
+    if any(got.values()):
+        raise AssertionError(f"app: kernel launches counted on the CPU: {got}")
+    return got
+
+
+def app_file_steps(port, api, proj, clip_rel, plots_missing) -> dict:
+    """The reuse-gated re-encode against the gate run on the host, two
+    epochs of training, classification and the ethogram; returns numbers for
+    the phase line."""
+    import h5py
+    import pandas as pd
+
+    from cbas_tpu_torch.core.config import dump_yaml, load_yaml
+    from cbas_tpu_torch.engine.encode import _ReuseGate
+    from cbas_tpu_torch.ingest.decode import open_video
+
+    out = {}
+    # 1. re-encode one clip (static spans) with the reuse gate on
+    config = os.path.join(proj, "cbas_config.yaml")
+    dump_yaml({**load_yaml(config), "encode": {"reuse_threshold": APP_REUSE_THRESHOLD}}, config)
+    video = os.path.join(proj, clip_rel)
+    h5 = video.replace(".mp4", "_cls.h5")
+    os.remove(h5)
+    write_spans_clip(video, DEMO_FRAMES)
+    if not rpc(port, "load_project", proj)["success"]:
+        raise AssertionError("app: reloading the project failed")
+    wait_for("reuse re-encode", lambda: os.path.exists(h5) and app_drained(port, 1))
+    with h5py.File(h5, "r") as f:
+        rows = f["cls"][:]
+    with open_video(video) as reader:
+        planes = reader.read_green_batch(0, DEMO_FRAMES)
+    settings = api.state.project.settings.encode
+    gate, last, key_of = _ReuseGate(settings.reuse_tile, settings.reuse_threshold), None, []
+    for i, plane in enumerate(planes):
+        if last is None or gate.stat(plane, last) >= settings.reuse_threshold:
+            last, key = plane.copy(), i
+        key_of.append(key)
+    keys = sorted(set(key_of))
+    same_as_key = all(np.array_equal(rows[i], rows[k]) for i, k in enumerate(key_of))
+    distinct = all(not np.array_equal(rows[a], rows[b]) for a, b in zip(keys, keys[1:]))
+    out["reuse"] = {"threshold": APP_REUSE_THRESHOLD, "tile": settings.reuse_tile,
+                    "keys": len(keys), "reused": DEMO_FRAMES - len(keys)}
+    if rows.shape[0] != DEMO_FRAMES or not same_as_key or not distinct or len(keys) in (1, DEMO_FRAMES):
+        raise AssertionError(f"app: the reuse-gated H5 disagrees with the host gate: {out['reuse']}")
+
+    # 2. train two epochs on the committed labels
+    marker = os.path.join(proj, "models", "demo_behaviors_model", "model.npz")
+    t0 = os.path.getmtime(marker)
+    t = time.perf_counter()
+    rpc(port, "train_model", "demo_behaviors", epochs=2, sequence_length=15, lstm_hidden_size=16,
+        batch_size=64, learning_rate=0.003, num_runs=1, num_trials=1, use_test=False, patience=3)
+    wait_for("training", lambda: os.path.getmtime(marker) > t0)
+    out["train_s"] = time.perf_counter() - t
+
+    # 3. classify every clip
+    if rpc(port, "start_classification", "demo_behaviors_model",
+           [os.path.join(proj, "recordings")]) != DEMO_CLIPS:
+        raise AssertionError("app: start_classification did not queue every clip")
+
+    def csvs():
+        found = sorted(os.path.join(r, f) for r, _, fs in os.walk(proj) for f in fs
+                       if f.endswith("_demo_behaviors_model_outputs.csv"))
+        return found if len(found) == DEMO_CLIPS else None
+
+    written = wait_for("classification", csvs)
+    for csv in written:
+        probs = pd.read_csv(csv).to_numpy()
+        if probs.shape != (DEMO_FRAMES, 2) or float(np.abs(probs.sum(1) - 1).max()) > 1e-5:
+            raise AssertionError(f"app: {csv} holds {probs.shape}")
+    out["csvs"] = len(written)
+
+    # 4. the ethogram from one CSV
+    if not plots_missing and len(rpc(port, "generate_ethogram", written[0], 10) or "") < 1000:
+        raise AssertionError("app: generate_ethogram drew no PNG")
+    return out
 
 
 if __name__ == "__main__":

@@ -77,6 +77,8 @@ def _both(jax_entry, port_entry, q, k, v, n_valid=None, rope=None, **jax_kw):
         (1, 2, 272, 64, 261),    # the 256x256 token count padded, pad keys masked
         (1, 2, 272, 128, 261),
         (2, 2, 48, 32, 40),
+        (1, 2, 80, 192, None),   # wider than any shipped preset's heads
+        (1, 1, 96, 192, 90),
     ],
 )
 def test_headmajor_reference_matches_jax(B, H, N, d, n_valid, rope):
@@ -161,9 +163,10 @@ def test_three_plain_versions_compute_one_function(dtype):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    q = torch.zeros(1, 2, 16, 136)
-    with pytest.raises(ValueError, match="up to 128"):
-        fa.fused_attention(q, q, q, 0.1)
+    for d in (200, 264):  # between the wide widths K3 builds; beyond them
+        q = torch.zeros(1, 2, 16, d)
+        with pytest.raises(ValueError, match=f"head dim {d}: .* up to 128, and 192 and 256"):
+            fa.fused_attention(q, q, q, 0.1)
     q = torch.zeros(1, 2, 16, 12)
     with pytest.raises(ValueError, match="multiples of 8"):
         fa.fused_attention(q, q, q, 0.1)
@@ -183,11 +186,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_cpu_tensors_never_count_as_launches():
-    before = (fa.launches, fa.launches_packed, fa.launches_headmajor)
+    before = (fa.launches, fa.launches_packed, fa.launches_headmajor,
+              dict(fa.launches_headmajor_by_dim))
     q = torch.zeros(1, 2, 16, 128)
     fa.fused_attention(q, q, q, 0.1)
     fa.fused_attention_packed(q, q, q, 0.1)
-    assert (fa.launches, fa.launches_packed, fa.launches_headmajor) == before
+    assert (fa.launches, fa.launches_packed, fa.launches_headmajor,
+            fa.launches_headmajor_by_dim) == before
 
 
 @pytest.mark.parametrize("value", [None, "", "0", "false", "no", "off", "OFF", "1", "yes"])
@@ -221,6 +226,9 @@ def _card_tolerance(got, want, v, n_valid, N):
         (4, 3, 261, 64, None),     # an odd head count
         (2, 4, 272, 96, 261),      # a half not a power of two, pad keys masked
         (2, 4, 200, 40, 190),      # a head dim not a multiple of 16
+        (2, 4, 272, 192, 261),     # heads wider than 128: Q fragments from shared memory
+        (1, 2, 261, 256, None),    # the widest head K3 takes
+        (1, 2, 140, 256, 130),     # the widest, pad keys masked
     ],
 )
 def test_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, cuda_device):
@@ -230,9 +238,10 @@ def test_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, cuda
         k[:, :, n_valid:] = float("nan")
         v[:, :, n_valid:] = float("nan")
     cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=28))
-    before = fa.launches_headmajor
+    before = fa.launches_headmajor, fa.launches_headmajor_by_dim.get(d, 0)
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
-    assert fa.launches_headmajor == before + 1
+    assert (fa.launches_headmajor, fa.launches_headmajor_by_dim[d]) == (before[0] + 1,
+                                                                       before[1] + 1)
     want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
     assert bool(torch.isfinite(got).all())

@@ -17,6 +17,8 @@ import torch
 
 cv2 = pytest.importorskip("cv2")
 
+import chip_smoke
+
 import jax.numpy as jnp
 
 from cbas_tpu.core.config import EncodeConfig
@@ -151,6 +153,89 @@ def test_encode_file_h5_matches_jax(encoders, clip):
         assert_within_fp16_ulp(g["cls"][:], w["cls"][:])
 
 
-def test_reuse_gated_encode_is_not_ported_yet(encoders, clip):
-    with pytest.raises(NotImplementedError, match="reuse"):
-        encode_file(encoders[0], clip[0], config=EncodeConfig(reuse_threshold=4.0))
+class _TruncatingReader:
+    """A decoder whose every chunk after the first comes back 3 frames short;
+    with ``cancel``, it sets that event instead as it reads the second chunk
+    (a user cancelling mid-file)."""
+
+    def __init__(self, inner, cancel=None):
+        self._inner = inner
+        self._cancel = cancel
+        self.frame_count = inner.frame_count
+
+    def __len__(self):
+        return self._inner.frame_count
+
+    def read_green_batch(self, start, count):
+        got = self._inner.read_green_batch(start, count)
+        if self._cancel is not None:
+            if start > 0:
+                self._cancel.set()
+            return got
+        return got[: count - 3] if start > 0 else got
+
+    def close(self):
+        self._inner.close()
+
+
+def _same_rows(data):
+    """(N, N) bool: row i equals row j exactly."""
+    return (data[:, None, :] == data[None, :, :]).all(-1)
+
+
+# Each case: the geometry, EncodeConfig fields, and what else it does.
+REUSE_CASES = {
+    "exact_threshold_1": ((64, 64), dict(reuse_threshold=1.0, chunk_frames=16), None),
+    "inter_area_threshold_6": ((64, 64), dict(reuse_threshold=6.0, chunk_frames=16), None),
+    "ragged_tiles": ((80, 48), dict(reuse_threshold=4.0, reuse_tile=32, chunk_frames=16), None),
+    "whole_frame_mad": ((64, 64), dict(reuse_threshold=3.0, reuse_tile=0, chunk_frames=16), None),
+    "partial_key_batch": ((64, 64), dict(reuse_threshold=2.0, chunk_frames=12), None),
+    "truncation": ((64, 64), dict(reuse_threshold=1.0, chunk_frames=16), "truncate"),
+    "cancel_mid_file": ((64, 64), dict(reuse_threshold=1.0, chunk_frames=16), "cancel"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REUSE_CASES))
+def test_reuse_gated_encode_matches_jax(case, encoders, tmp_path, monkeypatch):
+    """The reuse-gated encode (reuse_threshold > 0) of one clip through both
+    packages: the same key and reuse counts, the same row-to-key pattern,
+    the same H5 layout, and rows within one fp16 ulp."""
+    import threading
+
+    from cbas_tpu.engine import encode as jax_encode
+    from cbas_tpu_torch.engine import encode as port_encode
+
+    (width, height), fields, action = REUSE_CASES[case]
+    cfg = EncodeConfig(h5_chunk_rows=32, **fields)
+    results = []
+    for mod, enc in ((port_encode, encoders[0]), (jax_encode, encoders[1])):
+        video = tmp_path / mod.__name__.split(".")[0] / "cam_00001.mp4"
+        video.parent.mkdir()
+        chip_smoke.write_spans_clip(str(video), 70, width, height)
+        cancel = threading.Event() if action == "cancel" else None
+        if action is not None:
+            real_open = mod.open_video
+            monkeypatch.setattr(mod, "open_video",
+                                lambda p, o=real_open, c=cancel: _TruncatingReader(o(p), c))
+        stats = mod.EncodeStats()
+        out = mod.encode_file(enc, str(video), config=cfg, cancel_event=cancel, stats=stats)
+        leftovers = sorted(f for f in os.listdir(video.parent) if f.endswith((".h5", ".tmp")))
+        results.append((out, stats, leftovers))
+    (got_path, got, got_files), (want_path, want, want_files) = results
+    assert (got.key_frames, got.reused_frames, got.frames) == \
+        (want.key_frames, want.reused_frames, want.frames)
+    assert got_files == want_files
+    if action == "cancel":
+        assert got_path is None and want_path is None and got_files == []
+        return
+    n = 16 + 13 if action == "truncate" else 70  # a short second chunk ends the file
+    assert got.frames == n and got.key_frames > 1 and got.reused_frames > 0
+    assert got.key_frames + got.reused_frames == n
+    with h5py.File(got_path, "r") as g, h5py.File(want_path, "r") as w:
+        assert dict(g.attrs) == dict(w.attrs)
+        assert g["cls"].shape == w["cls"].shape == (n, 128)
+        assert g["cls"].dtype == w["cls"].dtype == np.dtype("f2")
+        assert g["cls"].chunks == w["cls"].chunks
+        ours, theirs = g["cls"][:], w["cls"][:]
+    np.testing.assert_array_equal(_same_rows(ours), _same_rows(theirs))
+    assert_within_fp16_ulp(ours, theirs)

@@ -194,6 +194,31 @@ def test_files_path_runs_with_cbas_tpu_blocked():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_app_imports_and_loads_without_host_packages(tmp_path):
+    """As on the card's machine: with h5py, matplotlib, scikit-learn, jax and
+    cbas_tpu blocked, the app's entry points import, and Api(device="cpu")
+    loads a copy of the demo project with its encoder ready."""
+    code = BLOCK_CBAS_TPU + (
+        "for m in ('h5py', 'matplotlib', 'sklearn', 'jax'): sys.modules[m] = None\n"
+        "import shutil\n"
+        "import cbas_tpu_torch.app.main, cbas_tpu_torch.app.workers\n"
+        "from cbas_tpu_torch.app.api import Api\n"
+        f"shutil.copytree({os.path.join(ROOT, 'examples', 'demo_project')!r}, {str(tmp_path / 'p')!r})\n"
+        "api = Api(device='cpu')\n"
+        "api.state.encode_tasks.append = lambda path: False  # no encodes: they need h5py\n"
+        f"assert api.load_project({str(tmp_path / 'p')!r})['success']\n"
+        "status = api.get_cbas_status()\n"
+        "assert status['encoder_ready'] and status['encoder_device'] == 'cpu', status\n"
+        "api.kill_all_processes()\n"
+        "print(sorted(m for m, v in sys.modules.items()\n"
+        "             if m.split('.')[0] in ('jax', 'h5py', 'matplotlib', 'sklearn', 'cbas_tpu')\n"
+        "             and v is not None))\n"
+    )
+    proc = _fresh_python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_copied_helpers_equal_cbas_tpu(tmp_path):
     """The helpers the device path reaches, held equal to their originals
     (tests/test_torch_copies.py holds every copied module)."""

@@ -1,5 +1,5 @@
 // K3: fused attention forward over the head-major (B, H, N, d) layout, for
-// Hopper (sm_90a), d any multiple of 8 up to 128, and 192 and 256.
+// Hopper (sm_90a), built at every multiple of 8 up to 128, and 192 and 256.
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention): the JAX package's route for every head dim other
@@ -19,6 +19,8 @@
 // such rare widths. Above d = 128 (no shipped preset has such heads) the
 // bf16 body reads Q's fragments from shared memory once per key tile; only
 // 192 and 256 are instantiated there, since each width adds to the build.
+// The wrapper (ops/flash_attention.py::fused_attention) zero-pads a head of
+// any other width up to 256 to the next instantiated one.
 
 #include "attention_sm90.cuh"
 

@@ -135,9 +135,10 @@ class FrameEncoder:
             else None
         )
         # The forward never reads the raw (D,3,p,p) conv weight (folded
-        # above) nor the position table (resampled per geometry): keeping
-        # them on the device would pin dead memory.
-        dead = {conv_key, "embeddings.position_embeddings"}
+        # above), the position table (resampled per geometry) nor the
+        # masked-image-modelling token every Hugging Face DINO checkpoint
+        # carries: keeping them on the device would pin dead memory.
+        dead = {conv_key, "embeddings.position_embeddings", "embeddings.mask_token"}
         live = {k: a for k, a in params_np.items() if k not in dead}
         self._params = vit_params_from_numpy(live, self.cfg, self.device, compute_dtype)
         self._geometry_cache: dict = {}

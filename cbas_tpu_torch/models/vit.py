@@ -519,6 +519,61 @@ def vit_forward(
     return vit_forward_from_tokens(params, tokens, cfg, pos_embed, rope)
 
 
+def cls_attention_map(
+    params: Params,
+    pixel_values: torch.Tensor,
+    cfg: ViTConfig,
+    pos_embed: Optional[torch.Tensor] = None,
+    rope: Optional[Rope] = None,
+) -> torch.Tensor:
+    """Head-averaged last-layer attention of the CLS token over patch tokens,
+    (B, grid_h, grid_w) in fp32: the heatmap ``tools/compare_encoders.py``
+    draws to compare backbones.
+
+    ``params`` holds the full checkpoint (the raw patch-projection weight
+    and, for dinov2, the position table included) in ``pixel_values``'
+    dtype and device. The first ``num_layers - 1`` blocks run through
+    :func:`_block`, so their attention takes the fused kernels' routes; the
+    last block's CLS row is opened here: LayerNorm, the q and k
+    projections, RoPE, then an fp32 softmax of the scaled scores."""
+    B, _, H, W = pixel_values.shape
+    grid = (H // cfg.patch_size, W // cfg.patch_size)
+    if cfg.variant == "dinov2":
+        patch, layer_prefix, block_rope = "embeddings.patch_embeddings.projection", "encoder.layer", None
+        if pos_embed is None:
+            pos = params["embeddings.position_embeddings"].detach().float().cpu().numpy()
+            pos_embed = torch.from_numpy(resample_pos_embed(pos, *grid)).to(
+                pixel_values.device, pixel_values.dtype)
+    else:
+        patch, layer_prefix = "embeddings.patch_embeddings", "layer"
+        if rope is None:
+            rope = tuple(torch.from_numpy(t).to(pixel_values.device) for t in rope_tables(cfg, *grid))
+        block_rope = _full_rope_tables(rope, cfg.num_prefix_tokens)
+    w = params[f"{patch}.weight"]
+    tokens = F.linear(patchify(pixel_values, cfg.patch_size), w.reshape(w.shape[0], -1),
+                      params[f"{patch}.bias"])
+    x = _assemble_embeddings(params, tokens, cfg, pos_embed)
+    for i in range(cfg.num_layers - 1):
+        x = _block(params, f"{layer_prefix}.{i}", x, cfg, block_rope)
+
+    prefix = f"{layer_prefix}.{cfg.num_layers - 1}"
+    h = _ln(params, f"{prefix}.norm1", x, cfg.layer_norm_eps)
+    N, Hh, hd = h.shape[1], cfg.num_heads, cfg.head_dim
+    names, biases, _, _ = _attn_param_table(cfg, prefix)
+    q, k = (_dense(params, n, h, b).reshape(B, N, Hh, hd).transpose(1, 2)
+            for n, b in zip(names[:2], biases[:2]))
+    if block_rope is not None:
+        # The real forward's identity-prefix tables and rotate-half, not a
+        # private copy, so a RoPE fix cannot desynchronize this probe.
+        cos, sin = (t.to(q.dtype) for t in block_rope)
+        q = q * cos + fa.rotate_half(q) * sin
+        k = k * cos + fa.rotate_half(k) * sin
+    scores = torch.einsum("bhd,bhkd->bhk", q[:, :, 0, :], k) * (hd ** -0.5)
+    weights = torch.softmax(scores.float(), dim=-1)
+    patch_attn = weights[:, :, cfg.num_prefix_tokens:].mean(dim=1)  # head-averaged
+    return patch_attn.reshape(B, *grid)
+
+
 def cls_embeddings(
     params: Params,
     pixel_values: torch.Tensor,

@@ -11,8 +11,10 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
   two 64-wide heads side by side on the last dim. It takes strided views
   (such as ``t.view(B, N, H // 2, 128).transpose(1, 2)`` of a flat
   projection) as well as contiguous tensors, and returns q2's strides.
-- :func:`fused_attention` (K3): head-major (B, H, N, d), d any multiple of 8
-  up to 128, or 192 or 256.
+- :func:`fused_attention` (K3): head-major (B, H, N, d), any d up to 256
+  on the card: the kernel is built at every multiple of 8 up to 128, and
+  at 192 and 256, and a head of another width runs zero-padded to the
+  next of those (:func:`pad_head_dim`).
 
 All three compute one function per head: optional rotate-half RoPE from fp32
 (N, d) tables, the scale on the q side, keys at or beyond ``n_valid`` masked,
@@ -31,9 +33,10 @@ tensors' strides); float32 and K3's other head dims take
 
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
 count kernel launches and nothing else, so a run can show which kernels its
-main path went through; ``launches_headmajor_by_dim`` splits K3's by head
-dim, and ``launches_sm90`` counts those of them all that ran the Hopper
-body, as the C entry reports it.
+main path went through; ``launches_headmajor_by_dim`` splits K3's by the
+head dim the kernel ran at (the padded width), and ``launches_sm90`` counts
+those of them all that ran the Hopper body, as the C entry reports it
+(``launches_sm90_by_kernel`` by entry).
 """
 
 from __future__ import annotations
@@ -46,8 +49,9 @@ from typing import Optional
 import torch
 
 HEAD_DIM = 64       # K1's and K2's head width
-# K3's head dims: every multiple of 8 up to 128 (no public DINO checkpoint is
-# wider), and 192 and 256; each instantiated width adds to the kernel's build.
+# K3's built head dims: every multiple of 8 up to 128 (no public DINO
+# checkpoint is wider), and 192 and 256; each instantiated width adds to the
+# kernel's build, so other widths up to 256 run zero-padded to the next one.
 HEADMAJOR_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,6 +60,7 @@ launches_packed = 0     # K2, fused_attention_packed
 launches_headmajor = 0  # K3, fused_attention
 launches_headmajor_by_dim: dict = {}  # K3's launches by head dim
 launches_sm90 = 0       # launches of any entry that ran the Hopper body
+launches_sm90_by_kernel: dict = {}  # the same, by entry ("attention_fat", ...)
 
 _SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
                    "attention_headmajor": (64, 128)}
@@ -282,6 +287,7 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -
     if ran == "sm90":
         global launches_sm90
         launches_sm90 += 1
+        launches_sm90_by_kernel[name] = launches_sm90_by_kernel.get(name, 0) + 1
     return out
 
 
@@ -354,6 +360,42 @@ def fused_attention_packed(
     return out
 
 
+def padded_head_dim(d: int) -> int:
+    """The width K3 runs a d-wide head at: the smallest built head dim that
+    is at least d. Raises ``ValueError`` above 256."""
+    for width in HEADMAJOR_HEAD_DIMS:
+        if width >= d:
+            return width
+    raise ValueError(
+        f"head dim {d}: the kernel takes head dims up to {HEADMAJOR_HEAD_DIMS[-1]} (a 64-row "
+        "fp32 tile of a wider head outgrows the 227 KB of shared memory a block may use)"
+    )
+
+
+def pad_head_dim(t: torch.Tensor, width: int, halves: bool) -> torch.Tensor:
+    """``t`` with its last dim zero-padded from d to ``width``, contiguous, in
+    one copy.
+
+    With ``halves`` (RoPE), each half of d is padded on its own, to half of
+    ``width``: rotate-half pairs element i with i + d/2, so padding at the
+    end would pair elements that RoPE does not. A zero element stays zero
+    under any table, so the scores and the output's first d elements are
+    those of the d-wide head."""
+    d = t.shape[-1]
+    if not halves:
+        return torch.nn.functional.pad(t, (0, width - d))
+    halves_of_t = t.unflatten(-1, (2, d // 2))
+    return torch.nn.functional.pad(halves_of_t, (0, (width - d) // 2)).flatten(-2)
+
+
+def unpad_head_dim(t: torch.Tensor, d: int, halves: bool) -> torch.Tensor:
+    """The inverse of :func:`pad_head_dim`: the d elements it placed, in one
+    copy."""
+    if not halves:
+        return t[..., :d].contiguous()
+    return t.unflatten(-1, (2, t.shape[-1] // 2))[..., : d // 2].flatten(-2)
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -363,28 +405,39 @@ def fused_attention(
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K3: attention over head-major (B, H, N, d) tensors, d a multiple of 8
-    up to 128, or 192 or 256; returns (B, H, N, d) in q's dtype.
+    """K3: attention over head-major (B, H, N, d) tensors; returns (B, H, N, d)
+    in q's dtype.
 
-    ``rope_cos``/``rope_sin`` are full-length (N, d) tables.
+    ``rope_cos``/``rope_sin`` are full-length (N, d) tables. On a CPU tensor
+    any d runs (the plain version). On the card d runs up to 256: a width
+    the kernel is not built at runs zero-padded to the next built one
+    (:func:`padded_head_dim`) and is sliced back, ``scale`` unchanged;
+    RoPE there needs an even d. Others raise ``ValueError`` naming d.
     """
     if q.dim() != 4:
         raise ValueError(f"expected head-major (B, H, N, d) tensors, got q of shape {tuple(q.shape)}")
     B, H, N, d = q.shape
-    if d not in HEADMAJOR_HEAD_DIMS:
-        raise ValueError(
-            f"head dim {d}: the kernel takes multiples of 8 up to 128, and 192 and 256"
-        )
     nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return attention_headmajor_reference(q, k, v, scale, nv, rope_cos, rope_sin)
+    width = padded_head_dim(d)
+    halves = rope_cos is not None
+    if halves and d % 2:
+        raise ValueError(
+            f"head dim {d}: RoPE on the card needs an even head dim (rotate-half pairs "
+            "element i with i + d/2)"
+        )
+    if width != d:
+        q, k, v = (pad_head_dim(t, width, halves) for t in (q, k, v))
+        if halves:
+            rope_cos, rope_sin = (pad_head_dim(t, width, True) for t in (rope_cos, rope_sin))
     _require_contiguous(q=q, k=k, v=v)
-    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d,
-                  (H * N * d, N * d, d))
+    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, width,
+                  (H * N * width, N * width, width))
     global launches_headmajor
     launches_headmajor += 1
-    launches_headmajor_by_dim[d] = launches_headmajor_by_dim.get(d, 0) + 1
-    return out
+    launches_headmajor_by_dim[width] = launches_headmajor_by_dim.get(width, 0) + 1
+    return out if width == d else unpad_head_dim(out, d, halves)
 
 
 def reference_attention(q, k, v, scale):

@@ -62,12 +62,28 @@ non-zero and prints no final line):
    run, one clip re-encoded with ``reuse_threshold`` 6.0 against the same
    gate run on the host, two epochs of training, classification of every
    clip, and (with matplotlib) the ethogram. Each step the host cannot run is
-   named in the line with the package it lacks.
+   named in the line with the package it lacks;
+10. tools: ``tools/validate_kernels.py`` on the card at its geometries plus
+    (2, 32, 261, 128) with RoPE (K1, K2 and K3 in fp32 against an fp64
+    oracle, then K3 in bf16 at d = 128 through the Hopper body against
+    unfused bf16, and the bf16 LayerNorm), each error beside its tolerance
+    and each kernel's launches by body; K3 at head dims it is not built at
+    (100 and 160, zero-padded to 104 and 192), bf16 and fp32, RoPE on and
+    off, against the plain version at d and timed beside the built width and
+    SDPA at d; ``models/vit.py::cls_attention_map`` at dinov3-vitb16 (full
+    width and depth, q/k weights x4 so the map is far from uniform) on 8
+    frames of 256x256 in bf16, 11 K1 launches a call through the Hopper
+    body, against the CPU fp32 run; and, where h5py, pandas, OpenCV and
+    matplotlib import, ``tools/encode_fleet.py`` with one worker over two
+    clips (its H5s against an in-process ``encode_file``) and
+    ``tools/soak.py`` with two cameras for half a minute at full size
+    (otherwise a ``skipped`` entry names what is missing).
 
 The line before the last lists each kernel with its launches on its route,
 error, times, bound and the library call's time (K3 also at head dims 192
-and 256, with their launches counted over the encode routes' runs, though
-no shipped preset has such heads); the last line is
+and 256 and at phase 10's padded widths, with their launches counted over
+the encode routes' runs, though no shipped preset has such heads), and the
+launches of phase 10's runs; the last line is
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -439,13 +455,16 @@ def kernel_phase(torch, fa, cfg) -> dict:
 def reset_launches(fa) -> None:
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
     fa.launches_headmajor_by_dim.clear()
+    fa.launches_sm90_by_kernel.clear()
 
 
 def read_launches(fa) -> dict:
-    """Launches of each entry, under "sm90" those that ran the Hopper body,
-    and under "headmajor_by_dim" K3's split by head dim."""
+    """Launches of each entry, under "sm90" those that ran the Hopper body
+    (by entry under "sm90_by_kernel"), and under "headmajor_by_dim" K3's
+    split by the head dim it ran at."""
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
+            "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
             "headmajor_by_dim": dict(fa.launches_headmajor_by_dim)}
 
 
@@ -688,6 +707,9 @@ def main() -> int:
     # 9. the app over HTTP on the card
     app_phase(torch, fa, card)
 
+    # 10. the tools, K3 at padded widths and the CLS attention map
+    tools_line = tools_phase(torch, fa, cfg, params, card)
+
     route_launches = {
         "attention_fat": flat_launches, "attention_packed": packed_launches,
         "attention_headmajor": vit7b_launches,
@@ -711,6 +733,11 @@ def main() -> int:
                "body": main_cases[f"headmajor_d{d}"]["body"],
                "launches_on_main_path": wide_launches[d]}
             for d in WIDE_HEAD_DIMS} if name == "attention_headmajor" else {}),
+        **({"at_padded_widths": [
+            c | {"launches_on_main_path": sum(run["headmajor_by_dim"].get(c["padded_to"], 0)
+                                              for run in route_launches.values())}
+            for c in tools_line["padded_timings"]]} if name == "attention_headmajor" else {}),
+        "launches_tools": {run: launches[name] for run, launches in tools_line["launches"].items()},
     } for name, replaces in KERNELS.items()]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1375,6 +1402,272 @@ def app_file_steps(port, api, proj, clip_rel, plots_missing) -> dict:
     # 4. the ethogram from one CSV
     if not plots_missing and len(rpc(port, "generate_ethogram", written[0], 10) or "") < 1000:
         raise AssertionError("app: generate_ethogram drew no PNG")
+    return out
+
+
+# 10. The tools. validate_kernels runs its bf16 check at the last geometry it
+# is given, so this one, DINOv3 ViT-7B's heads, sends K3 in bf16 through the
+# Hopper body.
+TOOLS_EXTRA_GEOMETRY = (2, 32, 261, 128, True)
+# K3 at head dims it is not built at, (B, N, H, d): the card pads 100 to 104
+# and 160 to 192.
+PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 160), (4, 1205, 16, 100))
+# The CLS attention map at dinov3-vitb16 on 8 frames of 256x256. Every q and
+# k projection weight is scaled by 4, so the random-weight map is far from
+# uniform (the line reports its cosine to the uniform map); unscaled, each
+# map is nearly uniform and no error would show.
+MAP_FRAMES, MAP_QK_GAIN = 8, 4.0
+# - map, bf16 on the card vs fp32 on the CPU: the last block's scores are
+#   bf16 (2^-9 of logits of order 10, so a few percent of each weight)
+#   before the fp32 exponential, after 11 bf16 blocks. Bound: 10% of the
+#   largest map value, and a map-wise cosine of 0.99 (the encode's bf16
+#   bound).
+MAP_ATOL_OF_MAX, MAP_MIN_COS = 0.1, 0.99
+# encode_fleet over two clips, and soak at full size, where the host has
+# h5py, pandas, OpenCV and matplotlib.
+FLEET_CLIPS, FLEET_FRAMES = 2, 100
+SOAK_CAMERAS, SOAK_MINUTES = 2, 0.5
+
+
+def tools_phase(torch, fa, cfg, params, card) -> dict:
+    """Phase 10: validate_kernels on the card, K3 at padded widths, the CLS
+    attention map, and (where the host can) encode_fleet and soak. Returns
+    the phase line, with the padded cases' timings and the launches of each
+    run for the kernels line."""
+    line = {"phase": "tools", "card": card, "launches": {}}
+    line["validate_kernels"] = validate_kernels_step(torch, fa, line["launches"])
+    cases = padded_cases(torch, fa, cfg)
+    line["padded_timings"] = [{key: c[key] for key in (
+        "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
+        "ms", "built_width_ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "gflop",
+        "mbytes", "library_ms", "library")} for c in cases]
+    line["cls_attention_map"] = attention_map_step(torch, fa, cfg, params, line["launches"])
+    missing = host_missing(("h5py", "pandas", "cv2", "matplotlib"))
+    if missing:
+        line["skipped"] = {step: f"not installed: {', '.join(missing)}"
+                           for step in ("encode_fleet", "soak")}
+    else:
+        line["encode_fleet"] = fleet_step()
+        line["soak"] = soak_step()
+    line["ok"] = True
+    emit(line)
+    return line
+
+
+def validate_kernels_step(torch, fa, launches) -> dict:
+    """``validate_kernels.main`` on the card at its geometries plus
+    TOOLS_EXTRA_GEOMETRY: every check under its tolerance, K1, K2 and K3
+    launched as the geometries say, K3's bf16 check through the Hopper body."""
+    import io
+
+    from cbas_tpu_torch.tools import validate_kernels
+
+    geometries = list(validate_kernels.GEOMETRIES) + [TOOLS_EXTRA_GEOMETRY]
+    records, printed = [], io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches(fa)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = validate_kernels.main(geometries, device="cuda", records=records)
+    seconds = time.perf_counter() - t
+    got = read_launches(fa)
+    launches["validate_kernels"] = got
+    # one K3 call a geometry and the bf16 check; K1 and K2 where d = 64 and H is even
+    pairs = sum(1 for _, H, _, d, _ in geometries if d == 64 and H % 2 == 0)
+    last_d = geometries[-1][3]
+    sm90 = int(fa.attention_body("attention_headmajor", torch.bfloat16, last_d) == "sm90")
+    want = {"attention_fat": pairs, "attention_packed": pairs,
+            "attention_headmajor": len(geometries) + 1, "sm90": sm90}
+    by_body = {name: {"sm90": got["sm90_by_kernel"].get(name, 0),
+                      "common": got[name] - got["sm90_by_kernel"].get(name, 0)}
+               for name in KERNELS}
+    out = {"rc": rc, "geometries": geometries, "checks": records, "seconds": seconds,
+           "launches_by_body": by_body, "expected_launches": want,
+           "tol_f32": validate_kernels.CARD_TOL_F32,
+           "max_f32_err": max(r["err"] for r in records if "fp64" in r["check"]),
+           "printed": printed.getvalue().splitlines()}
+    bad = [r for r in records if not r["ok"]]
+    if rc != 0 or bad or not records:
+        raise AssertionError(f"validate_kernels failed on the card (rc {rc}): {bad}")
+    if {name: got[name] for name in want} != want or by_body["attention_headmajor"]["sm90"] != sm90:
+        raise AssertionError(f"validate_kernels launched {got}, expected {want}")
+    return out
+
+
+def padded_cases(torch, fa, cfg) -> list:
+    """K3 at PADDED_CASES' head dims, bf16 and fp32, RoPE off and on: each
+    against the plain version at d, timed beside the kernel at the width it
+    pads to (on tensors already padded) and SDPA at d."""
+    cases = []
+    for B, N, H, d in PADDED_CASES:
+        grid = (16, 16) if N == 261 else (30, 40)
+        width = fa.padded_head_dim(d)
+        for dtype in (torch.bfloat16, torch.float32):
+            for rope in (False, True):
+                case = kernel_case(torch, fa, cfg, "attention_headmajor", B, H, N, d, grid,
+                                   dtype, rope)
+                case["body"] = fa.attention_body("attention_headmajor", dtype, width)
+                case["padded_to"] = width
+                case["built_width_ms"] = built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype,
+                                                        rope)
+                case["phase"] = "kernel_padded"
+                emit(case)
+                cases.append(case)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K3 at padded widths disagrees with its plain version: {bad}")
+    return cases
+
+
+def built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> float:
+    """K3's time at the width ``d`` pads to, on tensors padded beforehand
+    (no pad or slice in the timed call)."""
+    width = fa.padded_head_dim(d)
+    rng = np.random.default_rng(SEED)
+    q, k, v = (fa.pad_head_dim(torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
+                               .to("cuda", dtype), width, rope) for _ in range(3))
+    cos = sin = None
+    if rope:
+        cos, sin = (fa.pad_head_dim(t, width, True) for t in rope_full(torch, cfg, d, grid, N, "cuda"))
+    return time_ms(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin))
+
+
+def attention_map_step(torch, fa, cfg, params, launches) -> dict:
+    """``cls_attention_map`` at ``cfg``'s full width and depth on MAP_FRAMES
+    frames of 256x256 in bf16 on the card: K1 once a block but the last,
+    each launch through the Hopper body; the map against the CPU fp32 run."""
+    from cbas_tpu_torch.models.vit import cls_attention_map
+
+    gained = {k: v * MAP_QK_GAIN if k.endswith(("q_proj.weight", "k_proj.weight")) else v
+              for k, v in params.items()}
+    planes = np.random.default_rng(SEED + 10).integers(0, 256, (MAP_FRAMES, 256, 256), np.uint8)
+    x = np.repeat((planes / 255.0).astype(np.float32)[:, None], 3, axis=1)
+    card_params = {k: torch.from_numpy(v).to("cuda", torch.bfloat16) for k, v in gained.items()}
+    pixels = torch.from_numpy(x).to("cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_launches(fa)
+    got = cls_attention_map(card_params, pixels, cfg)
+    torch.cuda.synchronize()
+    launches["cls_attention_map"] = read_launches(fa)
+    want_launches = check_launches("cls_attention_map", launches["cls_attention_map"],
+                                   "attention_fat", cfg.num_layers - 1, 1, sm90=True)
+    ms = time_ms(torch, lambda: cls_attention_map(card_params, pixels, cfg), iters=5, warmup=1)
+    t = time.perf_counter()
+    ref = cls_attention_map({k: torch.from_numpy(v) for k, v in gained.items()},
+                            torch.from_numpy(x), cfg).numpy()
+    cpu_s = time.perf_counter() - t
+    got = got.cpu().numpy()
+    grid = (256 // cfg.patch_size,) * 2
+    a, b = got.reshape(MAP_FRAMES, -1), ref.reshape(MAP_FRAMES, -1)
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    uniform_cos = b.sum(1) / (np.sqrt(b.shape[1]) * np.linalg.norm(b, axis=1))
+    err = float(np.abs(got - ref).max())
+    out = {"model": f"{ENCODER}, full width and depth, q/k weights x{MAP_QK_GAIN}",
+           "frames": MAP_FRAMES, "dtype": "bfloat16", "shape": list(got.shape),
+           "launches": launches["cls_attention_map"], "expected_launches": want_launches,
+           "ms_per_call": ms, "cpu_fp32_s": cpu_s, "max_abs_err": err,
+           "max_ref": float(ref.max()), "tol_abs": MAP_ATOL_OF_MAX * float(ref.max()),
+           "min_map_cos": float(cos.min()), "tol_min_cos": MAP_MIN_COS,
+           "ref_min_cos_to_uniform": float(uniform_cos.min())}
+    if got.shape != (MAP_FRAMES, *grid) or not np.isfinite(got).all() \
+            or err > out["tol_abs"] or cos.min() < MAP_MIN_COS:
+        raise AssertionError(f"cls_attention_map on the card disagrees with the CPU run: {out}")
+    return out
+
+
+def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
+    """``encode_fleet`` with one worker over FLEET_CLIPS 256x256 clips in a
+    fresh project whose encoder is ``encoder_dir`` (default: dinov3-vitb16
+    with random weights from SEED, saved as a checkpoint): every H5 stamped
+    and equal to an in-process ``encode_file`` on ``device``. (``device`` is
+    "cpu" only in the CPU test of this function.)"""
+    import shutil
+
+    import h5py
+    import torch
+
+    from cbas_tpu_torch.core import hdf5_store
+    from cbas_tpu_torch.core.config import dump_yaml
+    from cbas_tpu_torch.core.project import Project
+    from cbas_tpu_torch.engine.encode import encode_file
+    from cbas_tpu_torch.models.encoder import FrameEncoder
+
+    with tempfile.TemporaryDirectory() as d:
+        project = Project.create_project(d, "fleet")
+        encoder = os.path.join(project.path, "encoder")
+        if encoder_dir is None:
+            from safetensors.numpy import save_file
+
+            from cbas_tpu_torch.models.vit import PRESETS, init_vit_params
+
+            os.makedirs(encoder)
+            with open(os.path.join(encoder, "config.json"), "w") as f:
+                json.dump({"model_type": "dinov3_vit", "hidden_size": 768,
+                           "num_hidden_layers": 12, "num_attention_heads": 12,
+                           "intermediate_size": 3072, "patch_size": 16,
+                           "num_register_tokens": 4}, f)
+            save_file(init_vit_params(SEED, PRESETS[ENCODER]),
+                      os.path.join(encoder, "model.safetensors"))
+        else:
+            shutil.copytree(encoder_dir, encoder)
+        dump_yaml({"encoder_model_identifier": "encoder", "runtime": {"compute_dtype": dtype}},
+                  os.path.join(project.path, "cbas_config.yaml"))
+        videos = []
+        for i in range(FLEET_CLIPS):
+            video = os.path.join(project.recordings_dir, "day1", f"m{i}", f"m{i}_00001.mp4")
+            os.makedirs(os.path.dirname(video))
+            write_clip(video, FLEET_FRAMES, SEED + 20 + i)
+            videos.append(video)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "cbas_tpu_torch.tools.encode_fleet", "--project",
+               project.path, "--workers", "1"] + (["--force-cpu"] if device == "cpu" else [])
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+        fleet_s = time.perf_counter() - t
+        lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        if proc.returncode != 0 or not lines or lines[-1].get("still_stale") != 0:
+            raise AssertionError(f"encode_fleet failed (rc {proc.returncode}): "
+                                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        ident = Project(project.path).encoder_model_identifier
+        enc = FrameEncoder(ident, device=device, compute_dtype=getattr(torch, dtype))
+        max_diff = 0.0
+        for video in videos:
+            h5 = video.replace(".mp4", "_cls.h5")
+            if not hdf5_store.is_stamp_valid(h5, ident):
+                raise AssertionError(f"encode_fleet: {h5} is not stamped by {ident}")
+            with h5py.File(h5, "r") as f:
+                fleet_rows = f["cls"][:]
+            inproc = os.path.join(d, "inproc", os.path.basename(video))
+            os.makedirs(os.path.dirname(inproc), exist_ok=True)
+            shutil.copyfile(video, inproc)
+            with h5py.File(encode_file(enc, inproc), "r") as f:
+                rows = f["cls"][:]
+            if rows.shape != fleet_rows.shape or not np.array_equal(rows, fleet_rows):
+                raise AssertionError(f"encode_fleet: {h5} differs from the in-process encode")
+            max_diff = max(max_diff, float(np.abs(rows.astype(np.float32) - fleet_rows).max()))
+    return {"clips": FLEET_CLIPS, "frames": FLEET_FRAMES, "workers": 1, "device": device,
+            "dtype": dtype, "wall_s": fleet_s, "summary": lines[-1],
+            "max_abs_diff_vs_in_process": max_diff, "ok": True}
+
+
+def soak_step(device="cuda", **soak_kw) -> dict:
+    """``run_soak`` with SOAK_CAMERAS cameras for SOAK_MINUTES at full size
+    (dinov3-vitb16, bf16, the champion-size live head) on ``device``: segments
+    encoded and classified, the actogram drawn, the backlog bounded.
+    ``soak_kw`` cuts it down for the CPU test of this function."""
+    from cbas_tpu_torch.tools.soak import run_soak
+
+    kw = {"cameras": SOAK_CAMERAS, "minutes": SOAK_MINUTES, **soak_kw}
+    r = run_soak(device=device, **kw)
+    out = {key: getattr(r, key) for key in (
+        "cameras", "minutes", "sustained", "segments_delivered", "segments_encoded",
+        "segments_classified", "actograms_generated", "max_queue_depth", "final_queue_depth",
+        "encode_fps_avg", "reason")}
+    out["device"] = device
+    if not (r.segments_delivered >= 2 and r.segments_encoded >= 1 and r.segments_classified >= 1
+            and r.actograms_generated >= 1 and r.trace and r.sustained):
+        raise AssertionError(f"soak: {out}")
     return out
 
 

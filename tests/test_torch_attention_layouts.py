@@ -92,6 +92,49 @@ def test_headmajor_reference_matches_jax(B, H, N, d, n_valid, rope):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("d", [12, 36, 100, 160])
+def test_headmajor_at_widths_the_kernel_pads_matches_jax(d, rope):
+    """Head dims K3 is not built at (the card pads them to the next built
+    width) against the JAX kernel, which takes any d, with NaN in the dead
+    K/V rows."""
+    B, H, N, n_valid = 1, 2, 80, 70
+    q, k, v = _inputs((B, H, N, d), seed=40)
+    k[:, :, n_valid:] = np.nan
+    v[:, :, n_valid:] = np.nan
+    got, want = _both("fused_attention", fa.fused_attention, q, k, v, n_valid,
+                      _rope(N, d, seed=41) if rope else None)
+    assert np.isfinite(got).all()
+    tol = TOL_ROPE if rope else TOL
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("d", [12, 36, 100, 160, 200])
+def test_plain_version_on_padded_heads_equals_it_at_d(d, rope):
+    """What the card runs for a width K3 is not built at: q, k, v (and the
+    tables, half by half) zero-padded to the next built width, attention
+    there, the output sliced back. The plain version through that detour
+    equals the plain version at d."""
+    width = fa.padded_head_dim(d)
+    assert width in fa.HEADMAJOR_HEAD_DIMS and width > d
+    assert fa.padded_head_dim(width) == width
+    N, n_valid = 90, 83
+    q, k, v = (torch.from_numpy(t) for t in _inputs((2, 3, N, d), seed=42))
+    cos = sin = None
+    if rope:
+        cos, sin = (torch.from_numpy(t) for t in _rope(N, d, seed=43))
+    want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
+    pad = [fa.pad_head_dim(t, width, rope) for t in (q, k, v)]
+    if rope:
+        cos, sin = (fa.pad_head_dim(t, width, True) for t in (cos, sin))
+    padded = fa.attention_headmajor_reference(*pad, d ** -0.5, n_valid, cos, sin)
+    assert padded.shape[-1] == width
+    np.testing.assert_allclose(fa.unpad_head_dim(padded, d, rope).numpy(), want.numpy(),
+                               rtol=TOL, atol=TOL)
+    assert torch.equal(fa.unpad_head_dim(pad[2], d, rope), v)  # the round trip is exact
+
+
 @pytest.mark.parametrize("pvt", [False, True])
 @pytest.mark.parametrize("rope", [False, True])
 @pytest.mark.parametrize(
@@ -163,13 +206,15 @@ def test_three_plain_versions_compute_one_function(dtype):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    for d in (200, 264):  # between the wide widths K3 builds; beyond them
-        q = torch.zeros(1, 2, 16, d)
-        with pytest.raises(ValueError, match=f"head dim {d}: .* up to 128, and 192 and 256"):
-            fa.fused_attention(q, q, q, 0.1)
-    q = torch.zeros(1, 2, 16, 12)
-    with pytest.raises(ValueError, match="multiples of 8"):
+    # Off the CPU (a meta tensor reaches the same checks as a CUDA one, before
+    # any launch): wider than 256, and RoPE on an odd head dim.
+    q = torch.zeros(1, 2, 16, 264, device="meta")
+    with pytest.raises(ValueError, match="head dim 264: .* up to 256"):
         fa.fused_attention(q, q, q, 0.1)
+    q = torch.zeros(1, 2, 16, 13, device="meta")
+    table = torch.ones(16, 13, device="meta")
+    with pytest.raises(ValueError, match="head dim 13: RoPE on the card needs an even head dim"):
+        fa.fused_attention(q, q, q, 0.1, rope_cos=table, rope_sin=table)
     q = torch.zeros(1, 2, 16, 96)
     with pytest.raises(ValueError, match=r"rope_cos must be \(16, 96\)"):
         fa.fused_attention(q, q, q, 0.1, rope_cos=torch.ones(16, 64), rope_sin=torch.ones(16, 64))
@@ -245,6 +290,38 @@ def test_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, cuda
     want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
     assert bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,N,d,n_valid",
+    [
+        (2, 4, 261, 100, None),  # pads to 104
+        (2, 4, 272, 160, 261),   # pads to 192, pad keys masked
+        (1, 2, 140, 60, 130),    # pads to 64: the Hopper body in bf16
+        (1, 2, 100, 12, None),   # pads to 16
+    ],
+)
+def test_padded_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, rope,
+                                                       cuda_device):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(t).to(cuda_device, dt) for t in _inputs((B, H, N, d), seed=44))
+    if n_valid is not None:
+        k[:, :, n_valid:] = float("nan")
+        v[:, :, n_valid:] = float("nan")
+    cos = sin = None
+    if rope:
+        cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=45))
+    width = fa.padded_head_dim(d)
+    before = fa.launches_headmajor_by_dim.get(width, 0)
+    got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
+    assert fa.launches_headmajor_by_dim[width] == before + 1
+    want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert got.shape == (B, H, N, d) and bool(torch.isfinite(got).all())
     assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
 
 

@@ -113,6 +113,32 @@ def test_head_dim_128_checkpoint_dir_matches_jax(tmp_path):
     assert_within_fp16_ulp(ours.encode_planes(planes, batch=4), ref.encode_planes(planes, batch=4))
 
 
+@pytest.mark.parametrize("variant", ["dinov2", "dinov3"])
+def test_hf_checkpoint_dir_matches_jax(variant, tmp_path):
+    """A checkpoint saved by Hugging Face's own module (config.json and
+    model.safetensors, the masked-image-modelling token among its weights)
+    loads and encodes as in the JAX package."""
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(2)
+    if variant == "dinov2":
+        hf_cfg = transformers.Dinov2WithRegistersConfig(
+            hidden_size=64, num_hidden_layers=2, num_attention_heads=2, patch_size=16,
+            image_size=32, num_register_tokens=4)
+        model = transformers.Dinov2WithRegistersModel(hf_cfg)
+    else:
+        hf_cfg = transformers.DINOv3ViTConfig(
+            hidden_size=64, num_hidden_layers=2, num_attention_heads=2, patch_size=16,
+            image_size=32, num_register_tokens=4, intermediate_size=256)
+        model = transformers.DINOv3ViTModel(hf_cfg)
+    assert "embeddings.mask_token" in model.state_dict()
+    path = str(tmp_path / f"{variant}-tiny")
+    model.eval().save_pretrained(path)
+    ours = FrameEncoder(path, compute_dtype=torch.float32, device="cpu")
+    ref = JaxFrameEncoder(path, compute_dtype=jnp.float32)
+    planes = np.random.default_rng(5).integers(0, 256, (3, 48, 64), np.uint8)
+    assert_within_fp16_ulp(ours.encode_planes(planes, batch=4), ref.encode_planes(planes, batch=4))
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible")

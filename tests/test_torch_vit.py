@@ -279,3 +279,56 @@ def test_packed_route_passes_views_of_the_projections(monkeypatch, restore_fused
             assert not t.is_contiguous()
             assert storage(t) == storage(dense_out[f"layer.{i}.attention.{proj}"])
         assert storage(dense_in[f"layer.{i}.attention.o_proj"]) == storage(ctx)
+
+
+# The port's forward against Hugging Face's modules, random weights from
+# small configs (nothing is downloaded): fp32 on both sides, the JAX
+# package's own bound against the same modules (tests/test_vit_parity.py).
+HF_TOL = dict(rtol=5e-5, atol=5e-5)
+
+
+def _hf_model(variant, gated=False, image_size=32):
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    if variant == "dinov2":
+        from transformers.models.dinov2_with_registers.modeling_dinov2_with_registers import (
+            Dinov2WithRegistersModel,
+        )
+
+        hf_cfg = transformers.Dinov2WithRegistersConfig(
+            hidden_size=64, num_hidden_layers=2, num_attention_heads=2, patch_size=16,
+            image_size=image_size, num_register_tokens=4, attn_implementation="eager",
+        )
+        return Dinov2WithRegistersModel(hf_cfg).eval(), tvit.ViTConfig.from_hf(hf_cfg)
+    from transformers.models.dinov3_vit.modeling_dinov3_vit import DINOv3ViTModel
+
+    hf_cfg = transformers.DINOv3ViTConfig(
+        hidden_size=64, num_hidden_layers=2, num_attention_heads=2, patch_size=16,
+        image_size=image_size, num_register_tokens=4, intermediate_size=256,
+        use_gated_mlp=gated, attn_implementation="eager",
+    )
+    return DINOv3ViTModel(hf_cfg).eval(), tvit.ViTConfig.from_hf(hf_cfg)
+
+
+@pytest.mark.parametrize("variant,gated,shape", [
+    ("dinov2", False, (2, 3, 32, 32)),   # the native position table
+    ("dinov2", False, (2, 3, 64, 48)),   # resampled to a 4x3 grid
+    ("dinov3", False, (2, 3, 32, 32)),
+    ("dinov3", True, (2, 3, 48, 64)),    # gated MLP, rectangular input
+])
+def test_forward_matches_hf(variant, gated, shape):
+    from cbas_tpu_torch.models.torch_port import state_dict_to_params
+
+    model, cfg = _hf_model(variant, gated)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape).astype(np.float32))
+    with torch.no_grad():
+        want = model(x).last_hidden_state.numpy()
+    params_np = state_dict_to_params(model.state_dict())
+    del params_np["embeddings.mask_token"]  # pretraining only; the forward never reads it
+    pos = None
+    if variant == "dinov2":
+        pos = torch.from_numpy(tvit.resample_pos_embed(
+            params_np["embeddings.position_embeddings"], shape[2] // 16, shape[3] // 16))
+    got = tvit.vit_forward(vit_params_from_numpy(params_np, cfg), x, cfg, pos_embed=pos).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **HF_TOL)

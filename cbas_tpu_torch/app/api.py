@@ -9,7 +9,6 @@ the websocket frontend is in use. JS-push callbacks go through
 
 from __future__ import annotations
 
-import math
 import os
 import threading
 import time
@@ -118,13 +117,19 @@ class Api:
             st.callbacks.emit("showErrorOnStartup", str(e))
             return {"success": False, "message": str(e)}
 
-        shape = st.project.settings.runtime.mesh_shape
-        if shape is not None and math.prod(shape) > 1:
-            log_message(
-                f"runtime.mesh_shape {list(shape)} asks for {math.prod(shape)} "
-                f"devices; this backend runs on one ({st.device}).",
-                "WARN",
-            )
+        try:
+            from cbas_tpu_torch.parallel.mesh import runtime_mesh
+
+            # A mesh is of CUDA devices: --device cpu runs on the CPU alone.
+            st.mesh = runtime_mesh(st.project.settings.runtime) if st.device.type == "cuda" else None
+            if st.mesh is not None:
+                log_message(
+                    f"Data-parallel mesh over {st.mesh.devices.size} devices "
+                    f"({dict(st.mesh.shape)})."
+                )
+        except Exception as e:
+            log_message(f"Mesh construction failed ({e}); using one device.", "WARN")
+            st.mesh = None
 
         from cbas_tpu_torch.models.encoder import EncoderWeightsUnavailable, FrameEncoder
 
@@ -132,7 +137,7 @@ class Api:
             # runtime.compute_dtype ("bfloat16" by default, "float32" for
             # parity runs) picks the encoder's matmul dtype.
             st.encoder = FrameEncoder(
-                st.project.encoder_model_identifier, device=st.device,
+                st.project.encoder_model_identifier, device=st.device, mesh=st.mesh,
                 compute_dtype=getattr(torch, st.project.settings.runtime.compute_dtype),
             )
             log_message(
@@ -948,7 +953,8 @@ class Api:
         # report, engine/orchestrator.py generate_disagreement_report).
         if outputs_csv_is_stale(csv, model.path):
             try:
-                csv = InferenceSession(bundle, device=self.state.device).infer_h5(h5, output_csv=csv)
+                csv = InferenceSession(bundle, mesh=self.state.mesh, device=self.state.device).infer_h5(
+                    h5, output_csv=csv)
             except Exception as e:
                 self.state.callbacks.emit(
                     "showErrorOnLabelTrainPage", f"Inference failed: {e}"

@@ -9,8 +9,10 @@ deployments where the UI runs elsewhere.
     python -m cbas_tpu_torch.app.main --project /path/to/project [--frontend dir] [--port N]
         [--device {cuda,cpu}]
 
-The encoder, inference and training run on one CUDA device; without one the
-app exits unless ``--device cpu`` asks for the CPU.
+The encoder, inference and training run on CUDA: over a mesh of the visible
+cards when there are several or ``runtime.mesh_shape`` asks for one, else on
+one card. Without a card the app exits unless ``--device cpu`` asks for the
+CPU.
 """
 
 from __future__ import annotations

@@ -99,7 +99,8 @@ class AppState:
     def __init__(self, device="cuda") -> None:
         self.project = None  # cbas_tpu_torch.core.project.Project
         self.encoder = None  # cbas_tpu_torch.models.encoder.FrameEncoder
-        self.device = torch.device(device)  # the one device every engine runs on
+        self.device = torch.device(device)  # where every engine runs without a mesh
+        self.mesh = None  # parallel.mesh.Mesh when >1 device (parallel/mesh.py)
 
         self.encode_tasks = TaskQueue()
         self.classify_tasks = TaskQueue()

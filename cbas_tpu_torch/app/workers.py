@@ -170,7 +170,7 @@ class ClassifyWorker(threading.Thread):
             bundle = ClassifierBundle.load(
                 model.path, expected_encoder=st.project.encoder_model_identifier
             )
-            self._session = InferenceSession(bundle, self.config, device=st.device)
+            self._session = InferenceSession(bundle, self.config, mesh=st.mesh, device=st.device)
             self._loaded_sig = sig
             self._reload_retries = 0
             log_message(
@@ -231,7 +231,7 @@ class ClassifyWorker(threading.Thread):
                     bundle = ClassifierBundle.load(
                         model.path, expected_encoder=st.project.encoder_model_identifier
                     )
-                    self._session = InferenceSession(bundle, self.config, device=st.device)
+                    self._session = InferenceSession(bundle, self.config, mesh=st.mesh, device=st.device)
                     self._loaded_sig = sig
                     self._reload_retries = 0
                     log_message(f"Model '{name}' loaded for live inference.")
@@ -386,6 +386,7 @@ class TrainWorker(threading.Thread):
                 st.project, task,
                 cancel_event=st.training_cancel,
                 progress_callback=progress,
+                mesh=st.mesh,
                 device=st.device,
             )
             if model_dir:

@@ -36,6 +36,8 @@
 // Above hd = 128 the bf16 body keeps Q in shared memory and reads its
 // fragments once per key tile instead of holding all of them in registers:
 // the output accumulator alone takes hd / 2 registers a thread.
+// Above hd = 256 no 64-row tile of a whole row fits: attention_wide (below)
+// takes hd at run time and works in 64-column slices of d.
 
 #pragma once
 
@@ -562,6 +564,196 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     for (int j = 0; j < HD / 8; ++j)  // the pad columns' tiles are not written
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
           pack_bf16(acc[j][2 * r] * inv[r], acc[j][2 * r + 1] * inv[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Wide heads (d > 256): the head dim as a run-time argument
+// ---------------------------------------------------------------------------
+//
+// A 64-row fp32 tile of a head wider than 256 outgrows the shared memory a
+// block may use, so no tile here holds a whole row. Each block owns one
+// kWideSlice-column slice of O (the grid's third dimension is image x slice)
+// and walks the key tiles as the f32 body does; for each key tile it
+// accumulates s = q.k^T over d in kWideSlice-column slices of Q and K staged
+// through shared memory, recomputing the scores its slice needs (every slice
+// of a head recomputes them: a simple body, not a fast one). The RoPE partner
+// of column c, c + d/2 mod d, is read from global memory as the slice loads,
+// whichever slice it lies in; tables need an even d (the wrapper ropes an odd
+// head before the launch and passes none). Both dtypes compute in fp32 with
+// scalar FMAs; bfloat16 rounds where the other bodies round (roped, scaled q
+// and roped k to bf16, p to bf16 before p.V, fp32 row sums). Keys at or
+// beyond n_valid are masked by select and their K and V rows load as zeros.
+
+constexpr int kWideSlice = 64;  // columns of d a shared-memory slice holds, and of O a block owns
+
+struct WideTiles {
+  static constexpr int kLd = kWideSlice + 1;  // padded: column walks hit distinct banks
+  static constexpr size_t kSmemBytes = 3 * kTile * kLd * sizeof(float);  // Q, K then P, V
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// x as the element type T rounds it (identity for float).
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Columns [col0, col0 + kWideSlice) of rows [row0, row0 + 64) of one head
+// into shared memory as fp32. Rows at or beyond `live_rows`, and columns at
+// or beyond hd, load as 0. With tables, RoPE is applied as the row loads
+// (the partner read from global memory); then `scale`, then T's rounding.
+template <typename T>
+__device__ __forceinline__ void load_slice_wide(float* __restrict__ dst,
+                                                const T* __restrict__ head, int row0,
+                                                int live_rows, long long row_stride, int col0,
+                                                int hd, const float* __restrict__ cos_t,
+                                                const float* __restrict__ sin_t, float scale) {
+  for (int i = threadIdx.x; i < kTile * kWideSlice; i += kF32Threads) {
+    const int r = i / kWideSlice;
+    const int c = i % kWideSlice;
+    const int n = row0 + r;
+    const int col = col0 + c;
+    float x = 0.f;
+    if (n < live_rows && col < hd) {
+      const T* row = head + static_cast<size_t>(n) * row_stride;
+      x = to_float(row[col]);
+      if (cos_t != nullptr) {
+        const int half = hd / 2;
+        const int partner = col < half ? col + half : col - half;
+        const size_t t = static_cast<size_t>(n) * hd + col;
+        x = rope(x, to_float(row[partner]), col < half, cos_t[t], sin_t[t]);
+      }
+      x = round_to<T>(x * scale);
+    }
+    dst[r * WideTiles::kLd + c] = x;
+  }
+}
+
+// One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y, output
+// columns [s * 64, s * 64 + 64) of image b, where blockIdx.z = b * n_slices + s.
+// Thread (ty, tx) owns score rows ty + 16 i and key columns tx + 16 j, and
+// output columns tx + 16 j of the slice, as in attention_f32.
+template <typename T>
+__global__ void __launch_bounds__(kF32Threads)
+attention_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, const float* __restrict__ cos_t,
+               const float* __restrict__ sin_t, int N, int hd, int n_slices, Layout L,
+               int n_valid, float scale) {
+  constexpr int kLd = WideTiles::kLd;
+  float* sq = reinterpret_cast<float*>(dynamic_smem());  // a slice of Q, roped and scaled
+  float* sk = sq + kTile * kLd;                          // a slice of K, then P
+  float* sv = sk + kTile * kLd;                          // this block's slice of V
+
+  const int q0 = blockIdx.x * kTile;
+  const int b = blockIdx.z / n_slices;
+  const int c0 = (blockIdx.z % n_slices) * kWideSlice;
+  const int h = blockIdx.y;
+  const size_t head_off = static_cast<size_t>(b) * L.batch_stride +
+                          static_cast<size_t>(h / L.heads_per_group) * L.group_stride +
+                          static_cast<size_t>(h % L.heads_per_group) * hd;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  float acc[4][4], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+
+  const int n_key_tiles = (n_valid + kTile - 1) / kTile;  // tiles past n_valid add zeros
+  for (int kt = 0; kt < n_key_tiles; ++kt) {
+    const int k0 = kt * kTile;
+    float s[4][4] = {};
+    for (int d0 = 0; d0 < hd; d0 += kWideSlice) {
+      __syncthreads();  // every thread is done with the previous slices (and P, V)
+      load_slice_wide<T>(sq, q + head_off, q0, N, L.row_stride, d0, hd, cos_t, sin_t, scale);
+      load_slice_wide<T>(sk, k + head_off, k0, n_valid, L.row_stride, d0, hd, cos_t, sin_t, 1.f);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kWideSlice; ++d) {
+        float a[4], bk[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = sq[(ty + 16 * i) * kLd + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bk[j] = sk[(tx + 16 * j) * kLd + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + tx + 16 * j >= n_valid) s[i][j] = kMasked;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = reduce16_max(mx);
+      const float alpha = expf(m[i] - mx);  // 0 on the first tile (m = -inf)
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = k0 + tx + 16 * j < n_valid ? expf(s[i][j] - mx) : 0.f;
+        s[i][j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * alpha + reduce16_sum(rs);
+      m[i] = mx;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+    }
+
+    __syncthreads();  // every thread is done reading the K slice: its buffer takes P
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sk[(ty + 16 * i) * kLd + tx + 16 * j] = round_to<T>(s[i][j]);
+    load_slice_wide<T>(sv, v + head_off, k0, n_valid, L.row_stride, c0, hd, nullptr, nullptr,
+                       1.f);
+    __syncthreads();
+
+#pragma unroll 8
+    for (int c = 0; c < kTile; ++c) {
+      float p[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sk[(ty + 16 * i) * kLd + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = sv[c * kLd + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= N) continue;
+    const float inv = 1.f / l[i];
+    T* row = o + head_off + static_cast<size_t>(r) * L.row_stride;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (col < hd) store(row + col, acc[i][j] * inv);
+    }
   }
 }
 

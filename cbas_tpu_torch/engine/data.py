@@ -231,7 +231,10 @@ class DeviceWindowStore:
     stored dtype (fp16 for the HDF5 store); a window batch is described by
     its centre-row indices (a few KB host-to-device per step) and gathered
     inside the train step. ``ram`` is a ``WindowSource`` preload to reuse
-    instead of reading the files again.
+    instead of reading the files again. With ``mesh`` the rows are
+    replicated on every device of its data axis, as the JAX package's
+    replicated sharding places them: ``features`` is then a dict from each
+    such device to its copy.
     """
 
     def __init__(
@@ -240,6 +243,7 @@ class DeviceWindowStore:
         seq_len: int,
         device,
         ram: Optional[Dict[str, Tuple[np.ndarray, int]]] = None,
+        mesh=None,
     ):
         self.seq_len = seq_len
         self.half = seq_len // 2
@@ -265,7 +269,11 @@ class DeviceWindowStore:
             total += arr.shape[0]
             rows.append(arr)
         stacked = np.concatenate(rows, axis=0) if rows else np.zeros((0, 1), np.float16)
-        self.features = torch.from_numpy(stacked).to(device)
+        host = torch.from_numpy(stacked)
+        if mesh is None:
+            self.features = host.to(device)
+        else:
+            self.features = {d: host.to(d) for d in dict.fromkeys(mesh.grid()[:, 0])}
         self.centers = np.array([offsets[p] + c for p, c, _ in manifest], np.int32)
         self.labels = np.array([l for _, _, l in manifest], np.int32)
         self.embed_dim = int(stacked.shape[1])

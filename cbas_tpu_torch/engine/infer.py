@@ -11,6 +11,11 @@ one probability row per frame.
   fixed: the final partial batch re-reads overlapping windows at a clamped
   offset instead of changing shape.
 - Probabilities (temperature softmax) are computed on the device.
+- With a mesh (``parallel/mesh.py``) the window batch is padded to a
+  multiple of the data axis (not of the device count), each chunk is copied
+  to every data device, and each data shard runs its slice of the windows
+  through its own copy of the head in its thread; the probabilities are
+  gathered on the mesh's first device.
 
 The file path (:meth:`InferenceSession.infer_h5`) imports ``h5py``, ``pandas``
 and ``cbas_tpu``'s store, naming and metrics modules when it runs;
@@ -31,40 +36,79 @@ from cbas_tpu_torch.core.config import InferenceConfig  # re-exported: callers i
 from cbas_tpu_torch.engine.classifier import ClassifierBundle
 
 
-def _window_program(bundle: ClassifierBundle, window_batch: int, device):
-    """fn(chunk (M, D) on device, offset) -> probs (window_batch, C).
+def _window_program(bundle: ClassifierBundle, window_batch: int, device, mesh=None):
+    """fn(chunk (M, D) on the device, offset) -> probs (window_batch, C).
 
     ``chunk`` holds seq_len-1 halo rows beyond the targets; window i covers
-    rows [offset+i, offset+i+seq_len).
+    rows [offset+i, offset+i+seq_len). With ``mesh``, ``chunk`` maps each
+    data device to its copy, and data shard s computes windows
+    [s * per, (s + 1) * per) of the batch on its device.
     """
     seq_len = bundle.seq_len
-    probs = bundle.probs_fn(device)
+
+    def windows(chunk, start, n):
+        rows = chunk[start: start + n + seq_len - 1]
+        return rows.unfold(0, seq_len, 1).transpose(1, 2).float()  # (n, seq_len, D)
+
+    if mesh is None:
+        probs = bundle.probs_fn(device)
+
+        @torch.inference_mode()
+        def fn(chunk: torch.Tensor, offset: int) -> torch.Tensor:
+            return probs(windows(chunk, offset, window_batch))
+
+        return fn
+
+    from cbas_tpu_torch.parallel.mesh import run_shards
+
+    devices = list(mesh.grid()[:, 0])
+    per = window_batch // len(devices)
+    probs_on = {d: bundle.probs_fn(d) for d in dict.fromkeys(devices)}
 
     @torch.inference_mode()
-    def fn(chunk: torch.Tensor, offset: int) -> torch.Tensor:
-        rows = chunk[offset: offset + window_batch + seq_len - 1]
-        windows = rows.unfold(0, seq_len, 1).transpose(1, 2)  # (window_batch, seq_len, D)
-        return probs(windows.float())
+    def fn(chunks: dict, offset: int) -> torch.Tensor:
+        outs = run_shards(
+            [lambda s=s, d=d: probs_on[d](windows(chunks[d], offset + s * per, per))
+             for s, d in enumerate(devices)], devices)
+        return torch.cat([o.to(devices[0]) for o in outs])
 
     return fn
 
 
 class InferenceSession:
-    """Reusable inference pipeline for one model bundle on one device."""
+    """Reusable inference pipeline for one model bundle on one device, or
+    data-parallel over a mesh's data axis (``mesh``; ``device`` is then the
+    mesh's first device)."""
 
     def __init__(
         self,
         bundle: ClassifierBundle,
         config: Optional[InferenceConfig] = None,
+        mesh=None,
         device="cuda",
     ):
         self.bundle = bundle
         self.cfg = config or InferenceConfig()
+        self.mesh = mesh
+        wb = self.cfg.window_batch
+        if mesh is not None:
+            from cbas_tpu_torch.parallel.mesh import check_devices, data_axis_size, pad_to_multiple
+
+            check_devices(mesh)
+            device = mesh.first_device
+            wb = pad_to_multiple(wb, data_axis_size(mesh))
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("InferenceSession(device='cuda') needs a CUDA device; none is visible")
-        self._window_batch = self.cfg.window_batch
-        self._program = _window_program(bundle, self._window_batch, self.device)
+        self._window_batch = wb
+        self._program = _window_program(bundle, wb, self.device, mesh)
+
+    def _upload(self, features: np.ndarray):
+        """A chunk on the device, or on every data device of the mesh."""
+        host = torch.from_numpy(np.ascontiguousarray(features))
+        if self.mesh is None:
+            return host.to(self.device)
+        return {d: host.to(d) for d in dict.fromkeys(self.mesh.grid()[:, 0])}
 
     def _bucket_rows(self, n_targets: int) -> int:
         """Device rows for a chunk with ``n_targets`` target frames: the
@@ -105,7 +149,7 @@ class InferenceSession:
                  np.repeat(features[-1:], fixed_rows - features.shape[0], axis=0)],
                 axis=0,
             )
-        chunk_dev = torch.from_numpy(np.ascontiguousarray(features)).to(self.device)
+        chunk_dev = self._upload(features)
 
         out = np.empty((n_targets, len(self.bundle.behaviors)), np.float32)
         if n_targets <= wb:

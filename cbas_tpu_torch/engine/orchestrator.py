@@ -82,8 +82,9 @@ def run_training_job(
     mesh=None,
     device="cuda",
 ) -> Optional[str]:
-    """Execute a full training task on ``device``; returns the saved model
-    dir or None. ``mesh`` must be None: the port trains on one device."""
+    """Execute a full training task on ``device``, or data-parallel over
+    ``mesh``'s data axis (``train_head``); returns the saved model dir or
+    None."""
     cancel_event = cancel_event or threading.Event()
     progress = progress_callback or (lambda msg: None)
     dataset = project.datasets.get(task.name)

@@ -19,10 +19,24 @@ programs of the JAX package become closures over the module: a train step
 the device-gather path) updates the head in place and returns the loss as a
 device tensor, without a host sync. Batches have one fixed shape; padded
 rows carry label -1. Dropout draws from an explicit ``torch.Generator``.
+
+With a mesh (``parallel/mesh.py``) the programs are data-parallel over its
+data axis and compute what the single-device programs compute on the same
+global batch (up to the order of sums): the head lives on the mesh's first
+device and has a copy on each other data device, refreshed from it at every
+call; each shard runs the per-window layers (``deltas_features``) on its
+rows of the batch in its own thread with its rows of the dropout masks
+(drawn once for the global batch, in the single-device order); their
+outputs are gathered on the first device, where the pooling
+(``deltas_pool``) and the loss (the covariance term is over the global
+batch) run and autograd flows back across the copies; the copies' gradients
+are summed into the head's and Adam steps there. ``train_head`` rounds the batch size up to
+the data axis and replicates ``DeviceWindowStore`` on each data device.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import threading
@@ -45,7 +59,10 @@ from cbas_tpu_torch.models.convert import deltas_params_from_numpy
 from cbas_tpu_torch.models.heads import (
     DeltasHead,
     DeltasHeadConfig,
+    deltas_features,
     deltas_forward,
+    deltas_pool,
+    dropout_masks,
     init_deltas_params,
 )
 
@@ -138,11 +155,68 @@ def _gather_windows(features: torch.Tensor, centers: torch.Tensor, seq_len: int)
     return features[centers[:, None] + offsets[None, :]].float()
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "cbas_tpu_torch trains on one device: a mesh is not supported"
-        )
+class _Replicas:
+    """``head`` (on the mesh's first device) and a copy of it on each other
+    device of the mesh's data axis: ``module(s)`` is data shard s's. Shards
+    on the head's device use the head itself, so their gradients land in
+    its ``.grad`` directly."""
+
+    def __init__(self, head: DeltasHead, mesh):
+        from cbas_tpu_torch.parallel.mesh import check_devices
+
+        check_devices(mesh)
+        self.head = head
+        self.devices = list(mesh.grid()[:, 0])
+        primary = _device_of(head)
+        if self.devices[0] != primary:
+            raise ValueError(f"the head is on {primary}, the mesh starts at {self.devices[0]}")
+        self._by_device = {primary: head}
+        for d in self.devices:
+            if d not in self._by_device:
+                self._by_device[d] = copy.deepcopy(head).to(d)
+                if d.type == "cuda":
+                    self._by_device[d].lstm.flatten_parameters()
+        self._copies = [m for m in self._by_device.values() if m is not head]
+
+    def module(self, shard: int) -> DeltasHead:
+        return self._by_device[self.devices[shard]]
+
+    def refresh(self, train: bool) -> None:
+        """The head's weights into every copy, and every module in train or
+        eval mode."""
+        with torch.no_grad():
+            for c in self._copies:
+                for cp, p in zip(c.parameters(), self.head.parameters()):
+                    cp.copy_(p)
+        for m in self._by_device.values():
+            m.train(train)
+
+    def gather_grads(self) -> None:
+        """The copies' gradients added into the head's (then cleared)."""
+        for c in self._copies:
+            for cp, p in zip(c.parameters(), self.head.parameters()):
+                if cp.grad is not None:
+                    g = cp.grad.to(p.device)
+                    p.grad = g if p.grad is None else p.grad + g
+                    cp.grad = None
+
+    def run(self, fn, n_rows: int) -> list:
+        """``fn(shard, rows, device)`` on each data shard in its thread,
+        ``rows`` the shard's slice of ``range(n_rows)``; the results in order."""
+        from cbas_tpu_torch.parallel.mesh import run_shards
+
+        n = len(self.devices)
+        if n_rows % n:
+            raise ValueError(f"a batch of {n_rows} does not split over {n} data shards")
+        per = n_rows // n
+        return run_shards([lambda s=s: fn(s, slice(s * per, (s + 1) * per), self.devices[s])
+                           for s in range(n)], self.devices)
+
+
+def _on(features, device: torch.device) -> torch.Tensor:
+    """A data device's copy of the window store's rows (a dict from a
+    replicated ``DeviceWindowStore``), or ``features`` copied there."""
+    return features[device] if isinstance(features, dict) else features.to(device)
 
 
 def build_train_step(
@@ -160,56 +234,119 @@ def build_train_step(
     set: ``step(features, centers, y, generator)`` slices the windows from
     the device buffer). Host arrays go to the device without a sync; the
     step puts the head in training mode (cuDNN's LSTM backward needs it),
-    updates it in place and returns the loss tensor.
+    updates it in place and returns the loss tensor. With ``mesh`` the step
+    is data-parallel (module docstring); the head must be on its first
+    device.
     """
-    _no_mesh(mesh)
     device = _device_of(head)
     cw = (torch.as_tensor(class_weights, dtype=torch.float32, device=device)
           if class_weights is not None else None)
 
-    def update(x: torch.Tensor, y: torch.Tensor, generator) -> torch.Tensor:
-        head.train()
-        optimizer.zero_grad(set_to_none=True)
-        logits, latent = deltas_forward(head, x, generator)
+    def loss_of(logits, latent, y):
         ce = masked_cross_entropy(logits, y, cw, label_smoothing)
-        loss = ce + covariance_loss(latent, y >= 0)
+        return ce + covariance_loss(latent, y >= 0)
+
+    if mesh is None:
+        def update(x: torch.Tensor, y: torch.Tensor, generator) -> torch.Tensor:
+            head.train()
+            optimizer.zero_grad(set_to_none=True)
+            logits, latent = deltas_forward(head, x, generator)
+            loss = loss_of(logits, latent, y)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        if gather_seq_len is None:
+            def step(x: np.ndarray, y: np.ndarray, generator=None) -> torch.Tensor:
+                return update(_to_device(x, device), _to_device(y.astype(np.int64), device),
+                              generator)
+        else:
+            def step(features: torch.Tensor, centers: np.ndarray, y: np.ndarray,
+                     generator=None) -> torch.Tensor:
+                x = _gather_windows(
+                    features, _to_device(centers.astype(np.int64), device), gather_seq_len
+                )
+                return update(x, _to_device(y.astype(np.int64), device), generator)
+        return step
+
+    replicas = _Replicas(head, mesh)
+
+    def update_sharded(windows, n_rows: int, y: np.ndarray, generator) -> torch.Tensor:
+        """``windows(rows, device)``: a shard's (rows, T, D) windows on its device."""
+        replicas.refresh(train=True)
+        optimizer.zero_grad(set_to_none=True)
+        xs = replicas.run(lambda s, rows, d: windows(rows, d), n_rows)
+        # Every mask of the global batch from the one generator, in the
+        # single-device order; each shard takes its rows.
+        masks = (dropout_masks(head.cfg, n_rows, xs[0].shape[1], generator, device)
+                 if generator is not None else None)
+
+        def features(s, rows, d):
+            own = None if masks is None else [None if m is None else m[rows].to(d) for m in masks]
+            return deltas_features(replicas.module(s), xs[s], None, masks=own)
+
+        outs = replicas.run(features, n_rows)
+        logits, latent = deltas_pool(head, torch.cat([lin.to(device) for lin, _ in outs]),
+                                     torch.cat([seq.to(device) for _, seq in outs]))
+        loss = loss_of(logits, latent, _to_device(y.astype(np.int64), device))
         loss.backward()
+        replicas.gather_grads()
         optimizer.step()
         return loss.detach()
 
     if gather_seq_len is None:
         def step(x: np.ndarray, y: np.ndarray, generator=None) -> torch.Tensor:
-            return update(_to_device(x, device), _to_device(y.astype(np.int64), device),
-                          generator)
+            return update_sharded(lambda rows, d: _to_device(x[rows], d), len(x), y, generator)
     else:
-        def step(features: torch.Tensor, centers: np.ndarray, y: np.ndarray,
-                 generator=None) -> torch.Tensor:
-            x = _gather_windows(
-                features, _to_device(centers.astype(np.int64), device), gather_seq_len
-            )
-            return update(x, _to_device(y.astype(np.int64), device), generator)
+        def step(features, centers: np.ndarray, y: np.ndarray, generator=None) -> torch.Tensor:
+            def windows(rows, d):
+                return _gather_windows(_on(features, d), _to_device(
+                    centers[rows].astype(np.int64), d), gather_seq_len)
+
+            return update_sharded(windows, len(centers), y, generator)
     return step
 
 
 def build_logits_program(head: DeltasHead, gather_seq_len: Optional[int] = None, mesh=None):
     """Eval-mode logits, ``fn(x)`` on host windows or ``fn(features, centers)``
-    on the device gather; returns a device tensor (B, C)."""
-    _no_mesh(mesh)
+    on the device gather; returns a device tensor (B, C). With ``mesh`` the
+    batch is split over its data axis and the logits gathered on its first
+    device."""
     device = _device_of(head)
+
+    if mesh is None:
+        if gather_seq_len is None:
+            @torch.inference_mode()
+            def logits(x: np.ndarray) -> torch.Tensor:
+                head.eval()
+                return head(_to_device(x, device))[0]
+        else:
+            @torch.inference_mode()
+            def logits(features: torch.Tensor, centers: np.ndarray) -> torch.Tensor:
+                head.eval()
+                x = _gather_windows(
+                    features, _to_device(centers.astype(np.int64), device), gather_seq_len
+                )
+                return head(x)[0]
+        return logits
+
+    replicas = _Replicas(head, mesh)
+
+    def sharded(windows, n_rows: int) -> torch.Tensor:
+        replicas.refresh(train=False)
+        outs = replicas.run(lambda s, rows, d: replicas.module(s)(windows(rows, d))[0], n_rows)
+        return torch.cat([o.to(device) for o in outs])
 
     if gather_seq_len is None:
         @torch.inference_mode()
         def logits(x: np.ndarray) -> torch.Tensor:
-            head.eval()
-            return head(_to_device(x, device))[0]
+            return sharded(lambda rows, d: _to_device(x[rows], d), len(x))
     else:
         @torch.inference_mode()
-        def logits(features: torch.Tensor, centers: np.ndarray) -> torch.Tensor:
-            head.eval()
-            x = _gather_windows(
-                features, _to_device(centers.astype(np.int64), device), gather_seq_len
-            )
-            return head(x)[0]
+        def logits(features, centers: np.ndarray) -> torch.Tensor:
+            return sharded(lambda rows, d: _gather_windows(
+                _on(features, d), _to_device(centers[rows].astype(np.int64), d), gather_seq_len),
+                len(centers))
     return logits
 
 
@@ -398,8 +535,10 @@ def train_head(
     mesh=None,
     device="cuda",
 ) -> Tuple[Optional[Params], Optional[List[PerformanceReport]], int]:
-    """Train a deltas head on ``device``; returns (best params as a numpy
-    dict keyed by ``state_dict`` names, reports, best_epoch).
+    """Train a deltas head on ``device``, or data-parallel over ``mesh``'s
+    data axis (``device`` is then the mesh's first device); returns (best
+    params as a numpy dict keyed by ``state_dict`` names, reports,
+    best_epoch).
 
     The JAX package's control flow: balanced oversampled train stream, full
     train+val evaluation each epoch, best-by-val-F1 with early stopping,
@@ -409,7 +548,14 @@ def train_head(
     """
     if len(train_source) == 0:
         return None, None, -1
-    _no_mesh(mesh)
+    if mesh is not None:
+        from cbas_tpu_torch.parallel.mesh import check_devices, data_axis_size, pad_to_multiple
+
+        check_devices(mesh)
+        # Fixed-shape batches must divide the data axis; round the batch
+        # size up (iter_batches / batch_indices already pad partial batches).
+        batch_size = pad_to_multiple(batch_size, data_axis_size(mesh))
+        device = mesh.first_device
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_head(device='cuda') needs a CUDA device; none is visible")
@@ -442,11 +588,11 @@ def train_head(
                 total += _manifest_bytes(val_source.manifest, val_ram)
             if total <= DEVICE_DATA_BUDGET_BYTES:
                 train_store = DeviceWindowStore(
-                    train_source.manifest, seq_len, device, ram=train_ram
+                    train_source.manifest, seq_len, device, ram=train_ram, mesh=mesh
                 )
                 if has_val:
                     val_store = DeviceWindowStore(
-                        val_source.manifest, seq_len, device, ram=val_ram
+                        val_source.manifest, seq_len, device, ram=val_ram, mesh=mesh
                     )
         except Exception as e:
             print(f"Device-data path unavailable ({e}); using host windows.")
@@ -454,8 +600,10 @@ def train_head(
     gather = seq_len if train_store is not None else None
 
     optimizer = make_optimizer(head, lr, weight_decay)
-    step = build_train_step(head, optimizer, class_weights, label_smoothing, gather_seq_len=gather)
-    logits_prog = build_logits_program(head, gather_seq_len=gather)
+    step = build_train_step(
+        head, optimizer, class_weights, label_smoothing, gather_seq_len=gather, mesh=mesh
+    )
+    logits_prog = build_logits_program(head, gather_seq_len=gather, mesh=mesh)
 
     train_sampler = BalancedSampler(train_source.manifest, len(behaviors), seed=seed)
 

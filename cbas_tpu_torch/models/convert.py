@@ -36,14 +36,28 @@ def vit_params_from_numpy(
     forward). Keys may be missing: callers drop the ones their forward never
     reads.
     """
+    check_vit_params(params_np, cfg)
+    return params_to_device(params_np, device, dtype)
+
+
+def check_vit_params(params_np: Mapping[str, np.ndarray], cfg: ViTConfig) -> None:
+    """Raise ``ValueError`` unless every key is a parameter of ``cfg`` with
+    the shape ``cfg`` gives it."""
     spec = vit_param_shapes(cfg)
-    out: Dict[str, torch.Tensor] = {}
     for name, arr in params_np.items():
-        arr = np.asarray(arr)
         if name not in spec:
             raise ValueError(f"'{name}' is not a parameter of {cfg}")
-        if tuple(arr.shape) != spec[name][0]:
-            raise ValueError(f"'{name}' has shape {arr.shape}, config says {spec[name][0]}")
+        if tuple(np.shape(arr)) != spec[name][0]:
+            raise ValueError(f"'{name}' has shape {np.shape(arr)}, config says {spec[name][0]}")
+
+
+def params_to_device(
+    params_np: Mapping[str, np.ndarray], device="cpu", dtype: torch.dtype = torch.float32
+) -> Dict[str, torch.Tensor]:
+    """Numpy arrays -> tensors on ``device``, float arrays cast to ``dtype``,
+    unchecked (a tensor-parallel shard's slices have no config shape)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, arr in params_np.items():
         t = torch.from_numpy(np.array(arr))  # a private, writable copy
         out[name] = t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
     return out

@@ -1,4 +1,4 @@
-"""FrameEncoder: decoded video frames -> CLS embeddings on one device.
+"""FrameEncoder: decoded video frames -> CLS embeddings, on one device or a mesh.
 
 Port of ``cbas_tpu/models/encoder.py``. One forward per batch performs
 
@@ -13,6 +13,13 @@ Port of ``cbas_tpu/models/encoder.py``. One forward per batch performs
 - Partial batches are zero-padded to the requested batch and sliced after.
 - Per-geometry state (RoPE tables or the resampled position table) is built
   once per (batch, height, width).
+- With a mesh (``parallel/mesh.py``) the batch is padded to a multiple of
+  the data axis and split over it: a data-only mesh replicates the weights
+  on each device; a (data, model) mesh cuts them by ``parallel/tp.py``'s
+  rules, so each shard holds only its heads and intermediate columns. Each
+  shard's rows go straight from pinned memory to its device, and each shard
+  runs in its own thread; the embeddings are gathered on the mesh's first
+  device.
 
 PyTorch runs eagerly: ``encode_planes_async`` returns once the work is
 queued on the device, and :meth:`to_host` waits for it.
@@ -28,7 +35,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cbas_tpu_torch.models.convert import vit_params_from_numpy
+from cbas_tpu_torch.models.convert import (
+    check_vit_params,
+    params_to_device,
+    vit_params_from_numpy,
+)
 from cbas_tpu_torch.models.vit import (
     ViTConfig,
     config_for_identifier,
@@ -88,8 +99,17 @@ def load_encoder_params(identifier: str) -> Dict[str, np.ndarray]:
         ) from e
 
 
+class _Shard:
+    """One mesh shard's copy of what the forward reads, on its device."""
+
+    def __init__(self, device: torch.device, params: Dict[str, torch.Tensor],
+                 plane_kernel: torch.Tensor):
+        self.device, self.params, self.plane_kernel = device, params, plane_kernel
+
+
 class FrameEncoder:
-    """Frozen ViT frame encoder on one device, with per-geometry state cached."""
+    """Frozen ViT frame encoder on one device or a mesh, with per-geometry
+    state cached."""
 
     def __init__(
         self,
@@ -98,9 +118,18 @@ class FrameEncoder:
         cfg: Optional[ViTConfig] = None,
         compute_dtype: torch.dtype = torch.bfloat16,
         random_init: bool = False,
+        mesh=None,
         fast_gelu: Optional[bool] = None,
         device="cuda",
     ):
+        """``mesh`` (``parallel/mesh.py``) runs the encoder on its devices
+        (``device`` is then its first one); without it, on ``device``."""
+        self.mesh = mesh
+        if mesh is not None:
+            from cbas_tpu_torch.parallel.mesh import check_devices
+
+            check_devices(mesh)
+            device = mesh.first_device
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FrameEncoder(device='cuda') needs a CUDA device; none is visible")
@@ -126,9 +155,7 @@ class FrameEncoder:
             else "embeddings.patch_embeddings.weight"
         )
         self._patch_bias_key = conv_key[: -len("weight")] + "bias"
-        self._plane_kernel = torch.from_numpy(
-            fold_channels_into_patch_kernel(params_np[conv_key])
-        ).to(self.device, compute_dtype)
+        plane_kernel = fold_channels_into_patch_kernel(params_np[conv_key])
         # dinov2's position table is resampled per geometry on the host.
         self._pos_table = (
             params_np.get("embeddings.position_embeddings") if self.cfg.variant == "dinov2"
@@ -140,22 +167,60 @@ class FrameEncoder:
         # carries: keeping them on the device would pin dead memory.
         dead = {conv_key, "embeddings.position_embeddings", "embeddings.mask_token"}
         live = {k: a for k, a in params_np.items() if k not in dead}
-        self._params = vit_params_from_numpy(live, self.cfg, self.device, compute_dtype)
+        self._shards = self._place(live, plane_kernel)
+        self._params = self._shards[0][0].params
+        self._plane_kernel = self._shards[0][0].plane_kernel
         self._geometry_cache: dict = {}
+
+    def _place(self, live: Dict[str, np.ndarray], plane_kernel: np.ndarray):
+        """The shards as a (data, model) grid of :class:`_Shard`: one device
+        without a mesh; the weights replicated on each device of a data-only
+        mesh; a (data, model) mesh's weights cut by ``parallel/tp.py``'s
+        rules, model shard j's slices on each device of column j. Shards on
+        one device with the same slices share one copy."""
+        if self.mesh is None:
+            params = vit_params_from_numpy(live, self.cfg, self.device, self.compute_dtype)
+            kernel = torch.from_numpy(plane_kernel).to(self.device, self.compute_dtype)
+            return [[_Shard(self.device, params, kernel)]]
+        from cbas_tpu_torch.parallel.tp import shard_vit_params, vit_param_pspecs
+
+        check_vit_params(live, self.cfg)  # the full shapes, before any slicing
+        grid = self.mesh.grid()
+        n_model = grid.shape[1]
+        by_rank = [live]
+        if n_model > 1:
+            specs = vit_param_pspecs(live, self.mesh, self.cfg.head_dim)
+            by_rank = shard_vit_params(live, specs, n_model)
+        placed: dict = {}
+        shards = []
+        for i in range(grid.shape[0]):
+            row = []
+            for j in range(n_model):
+                dev = grid[i][j]
+                if (dev, j) not in placed:
+                    placed[(dev, j)] = _Shard(
+                        dev, params_to_device(by_rank[j], dev, self.compute_dtype),
+                        torch.from_numpy(plane_kernel).to(dev, self.compute_dtype))
+                row.append(placed[(dev, j)])
+            shards.append(row)
+        return shards
 
     # -- per-geometry state ---------------------------------------------------
 
     def _build(self, height: int, width: int) -> dict:
+        """The geometry's state on each device of the shards."""
         p = self.cfg.patch_size
         grid = (height // p, width // p)
+        devices = list(dict.fromkeys(s.device for row in self._shards for s in row))
         if self.cfg.variant == "dinov2":
-            pos = resample_pos_embed(self._pos_table, *grid)
-            return {"pos_embed": torch.from_numpy(pos).to(self.device, self.compute_dtype)}
-        cos, sin = rope_tables(self.cfg, *grid)
-        return {"rope": (torch.from_numpy(cos).to(self.device), torch.from_numpy(sin).to(self.device))}
+            pos = torch.from_numpy(resample_pos_embed(self._pos_table, *grid))
+            return {d: {"pos_embed": pos.to(d, self.compute_dtype)} for d in devices}
+        cos, sin = (torch.from_numpy(t) for t in rope_tables(self.cfg, *grid))
+        return {d: {"rope": (cos.to(d), sin.to(d))} for d in devices}
 
     def _geometry(self, batch: int, height: int, width: int):
-        """Returns (state, was_cached); the first request per geometry builds it."""
+        """Returns (state by device, was_cached); the first request per
+        geometry builds it."""
         key = (batch, height, width)
         state = self._geometry_cache.get(key)
         if state is None:
@@ -164,49 +229,74 @@ class FrameEncoder:
         return state, True
 
     @torch.inference_mode()
-    def _forward(self, plane_u8: torch.Tensor, state: dict) -> torch.Tensor:
+    def _forward(self, shard: _Shard, plane_u8: torch.Tensor, state: dict) -> torch.Tensor:
         x = normalize_plane(plane_u8, self.compute_dtype)
         tokens = F.linear(
             patchify_plane(x, self.cfg.patch_size),
-            self._plane_kernel,
-            self._params[self._patch_bias_key],
+            shard.plane_kernel,
+            shard.params[self._patch_bias_key],
         )
         hidden = vit_forward_from_tokens(
-            self._params, tokens, self.cfg,
+            shard.params, tokens, self.cfg,
             pos_embed=state.get("pos_embed"), rope=state.get("rope"), cls_only=True,
         )
         return hidden[:, 0, :].to(torch.float16)
+
+    def _run_mesh(self, host: torch.Tensor, state: dict) -> torch.Tensor:
+        """One padded batch over the mesh: gathered on its first device."""
+        from cbas_tpu_torch.parallel.mesh import shard_batch, shard_batch_2d
+
+        def fn(shard, planes):
+            return self._forward(shard, planes, state[shard.device])
+
+        if len(self._shards[0]) > 1:  # a model axis: tensor-parallel shards
+            return shard_batch_2d(fn, self.mesh)(self._shards, host)
+        return shard_batch(fn, self.mesh)([row[0] for row in self._shards], host)
 
     # -- public API -----------------------------------------------------------
 
     @property
     def weights_device(self) -> str:
-        """The device every weight tensor lies on, e.g. "cuda:0"."""
-        devices = {str(t.device) for t in self._params.values()}
-        devices.add(str(self._plane_kernel.device))
-        if len(devices) != 1:
-            raise RuntimeError(f"encoder weights are split over {sorted(devices)}")
-        return devices.pop()
+        """The device every weight tensor lies on, e.g. "cuda:0"; with a mesh,
+        its distinct devices joined by commas, e.g. "cuda:0,cuda:1". Raises if
+        one shard's weights are split over devices."""
+        devices = {}
+        for row in self._shards:
+            for shard in row:
+                found = {str(t.device) for t in shard.params.values()}
+                found.add(str(shard.plane_kernel.device))
+                if len(found) != 1:
+                    raise RuntimeError(f"encoder weights are split over {sorted(found)}")
+                devices[found.pop()] = True
+        return ",".join(devices)
 
     def encode_planes_async(self, planes_u8: np.ndarray, batch: Optional[int] = None):
         """Queue one batch without waiting: (device_tensor, n_valid, was_warm).
 
         ``was_warm`` is False when this call built the state for a new
-        geometry. Resolve with :meth:`to_host`.
+        geometry. With a mesh the batch is padded to a multiple of its data
+        axis. Resolve with :meth:`to_host`.
         """
         n, h, w = planes_u8.shape
         padded = batch or n
         if n > padded:
             raise ValueError(f"{n} planes do not fit a batch of {padded}")
+        if self.mesh is not None:
+            from cbas_tpu_torch.parallel.mesh import data_axis_size, pad_to_multiple
+
+            # The batch splits over the data axis; the pad is sliced off by to_host.
+            padded = pad_to_multiple(padded, data_axis_size(self.mesh))
         state, was_warm = self._geometry(padded, h, w)
         on_gpu = self.device.type == "cuda"
         host = torch.empty((padded, h, w), dtype=torch.uint8, pin_memory=on_gpu)
         host[:n].copy_(torch.from_numpy(np.ascontiguousarray(planes_u8)))
         host[n:].zero_()
+        if self.mesh is not None:
+            return self._run_mesh(host, state), n, was_warm
         # A pinned source makes the upload asynchronous; the caching host
         # allocator keeps the buffer alive until the copy has run.
         planes = host.to(self.device, non_blocking=on_gpu)
-        return self._forward(planes, state), n, was_warm
+        return self._forward(self._shards[0][0], planes, state[self.device]), n, was_warm
 
     @staticmethod
     def to_host(pending) -> np.ndarray:

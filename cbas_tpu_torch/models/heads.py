@@ -20,7 +20,7 @@ bundles: inference only, BatchNorm on its running statistics.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,14 +59,33 @@ def _center_bounds(hsl: int, sw: int, length: int) -> Tuple[int, int]:
 
 
 def _dropout(
-    x: torch.Tensor, p: float, train: bool, generator: Optional[torch.Generator]
+    x: torch.Tensor, p: float, train: bool, generator: Optional[torch.Generator],
+    keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (never the
-    global RNG); identity unless ``train`` and a generator are both given."""
+    global RNG); identity unless ``train`` and a generator are both given.
+    ``keep``, a mask drawn beforehand (:func:`dropout_masks`), is used
+    instead of a draw."""
+    if keep is not None:
+        return torch.where(keep, x / (1.0 - p), 0.0)
     if not train or p <= 0.0 or generator is None:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def dropout_masks(
+    cfg: "DeltasHeadConfig", batch: int, length: int, generator: torch.Generator, device
+) -> List[Optional[torch.Tensor]]:
+    """The keep masks :func:`deltas_forward` draws in training for a batch of
+    ``batch`` windows of ``length`` frames, drawn from ``generator`` in its
+    order and shapes (each stream's bottleneck, then lin0; None where the
+    rate is 0): the same numbers it would draw. A data-parallel step draws
+    them once for the global batch and gives each shard its rows."""
+    sites = [((batch, length, cfg.bottleneck_dim), BOTTLENECK_DROPOUT) for _ in _streams(cfg)]
+    sites.append(((batch, length, LSTM_IN), cfg.dropout_p))
+    return [torch.rand(shape, generator=generator, device=device) >= p if p > 0.0 else None
+            for shape, p in sites]
 
 
 def _streams(cfg: DeltasHeadConfig):
@@ -96,15 +115,34 @@ class DeltasHead(nn.Module):
 
 
 def deltas_forward(
-    head: DeltasHead, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    head: DeltasHead, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+    masks: Optional[List[Optional[torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, T, in_features) -> (logits (B, out), latent (B, 2H)).
 
     Dropout masks are drawn from ``generator`` in the JAX order (cls, delta,
-    acc bottlenecks, then lin0) when ``head.training``.
+    acc bottlenecks, then lin0) when ``head.training``; ``masks``
+    (:func:`dropout_masks`' list, or rows of it) are used instead of draws.
     """
+    return deltas_pool(head, *deltas_features(head, x, generator, masks))
+
+
+def deltas_features(
+    head: DeltasHead, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+    masks: Optional[List[Optional[torch.Tensor]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-window part of :func:`deltas_forward` (the linear branch,
+    the bottlenecks and the LSTM): (B, T, in_features) -> (linear logits
+    (B, out), LSTM output (B, T, 2H))."""
     cfg = head.cfg
     train = head.training
+    pending = iter(masks) if masks is not None else None
+
+    def dropout(t, p):
+        if pending is None:
+            return _dropout(t, p, train, generator)
+        return _dropout(t, p, train, None, keep=next(pending))
+
     T = x.shape[1]
     smooth, delta, acc = robust_deltas(x, cfg.ema_alpha)
 
@@ -119,19 +157,30 @@ def deltas_forward(
     streams = {"cls": smooth, "delta": delta, "acc": acc}
     x_aug = torch.cat(
         [
-            getattr(head, f"{s}_ln")(_dropout(
-                F.gelu(getattr(head, f"{s}_bottleneck")(streams[s])),
-                BOTTLENECK_DROPOUT, train, generator,
+            getattr(head, f"{s}_ln")(dropout(
+                F.gelu(getattr(head, f"{s}_bottleneck")(streams[s])), BOTTLENECK_DROPOUT,
             ))
             for s in _streams(cfg)
         ],
         dim=-1,
     )
-    x_lstm = _dropout(F.gelu(head.lin0(x_aug)), cfg.dropout_p, train, generator)
+    x_lstm = dropout(F.gelu(head.lin0(x_aug)), cfg.dropout_p)
     # Mean-centre over time in fp32.
     x_lstm = (x_lstm - x_lstm.float().mean(dim=1, keepdim=True)).to(x_lstm.dtype)
 
-    lstm_out = lstm_forward(head.lstm, x_lstm)
+    return linear_logits, lstm_forward(head.lstm, x_lstm)
+
+
+def deltas_pool(
+    head: DeltasHead, linear_logits: torch.Tensor, lstm_out: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The head's last part, over :func:`deltas_features`' outputs: the
+    attention pooling of the LSTM's centre window and the gated sum of the
+    two branches -> (logits, latent). A data-parallel step runs it on the
+    whole gathered batch, so the pooling's parameters get their gradients
+    summed in the single-device order (the attention bias's true gradient is
+    0 and its rounding noise, which Adam scales up, must match too)."""
+    cfg = head.cfg
     L = lstm_out.shape[1]
     l, r = _center_bounds(cfg.hsl, cfg.center_window_size, L)
     if l >= r:

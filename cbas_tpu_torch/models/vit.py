@@ -21,14 +21,23 @@ What differs from the JAX forward:
   transpose: one copy each of q, k, v and the context, as XLA makes for the
   JAX package's projection einsums into that layout.
 - No token padding (the TPU's sublane granule), so no key masking inside the
-  model, and no tensor-parallel reduction hooks.
+  model.
+
+Tensor parallelism, as in the JAX package: the attention and MLP code reads
+the local head count and intermediate width off the weights, so the same
+forward serves one device and a model shard (``parallel/tp.py`` cuts the
+weights); under :class:`tp_psum_axis` each out-projection's partial is summed
+over the shards (``parallel/mesh.py::AllReduce``) before its replicated bias
+is added, once.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +47,38 @@ from cbas_tpu_torch.ops import flash_attention as fa
 
 Params = Dict[str, torch.Tensor]
 Rope = Tuple[torch.Tensor, torch.Tensor]
+
+# Tensor-parallel reduction (set by parallel/mesh.py's 2-D shard runner in
+# each shard's thread). When set, _attention/_attention_cls/_mlp sum their
+# out-projection partials through it iff their weights arrived sharded
+# (detected from the weight shapes vs the config's full dims). Thread-local:
+# each shard's thread runs its own forward, and a plain encoder on another
+# thread must not see a shard's reduction.
+_TP_STATE = threading.local()
+
+
+class tp_psum_axis:
+    """Context manager enabling TP partial sums through ``psum``, a function
+    that returns the sum of one tensor over this shard's model-axis group
+    (None disables)."""
+
+    def __init__(self, psum: Optional[Callable[[torch.Tensor], torch.Tensor]]):
+        self.psum = psum
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_TP_STATE, "psum", None)
+        _TP_STATE.psum = self.psum
+        return self
+
+    def __exit__(self, *exc):
+        _TP_STATE.psum = self._prev
+
+
+def _maybe_psum(y: torch.Tensor) -> torch.Tensor:
+    """``y`` summed over this thread's model-axis group, if it has one."""
+    psum = getattr(_TP_STATE, "psum", None)
+    return psum(y) if psum is not None else y
 
 
 @dataclass(frozen=True)
@@ -244,10 +285,12 @@ def config_for_identifier(identifier: str) -> ViTConfig:
 
 def _ln(params: Params, name: str, x: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm in fp32: single-pass E[x^2] - mean^2 variance on bf16
-    activations, two-pass on fp32, as the JAX package's default."""
+    activations, two-pass on fp32, as the JAX package's default;
+    ``CBAS_LN_TWO_PASS`` set (to anything non-empty) forces the two-pass form
+    on bf16 too, as it does there."""
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
-    if x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 and not os.environ.get("CBAS_LN_TWO_PASS"):
         var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
     else:
         var = x32.var(-1, keepdim=True, unbiased=False)
@@ -257,6 +300,18 @@ def _ln(params: Params, name: str, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _dense(params: Params, name: str, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
     return F.linear(x, params[f"{name}.weight"], params[f"{name}.bias"] if bias else None)
+
+
+def _dense_reduce(
+    params: Params, name: str, x: torch.Tensor, bias: bool, full_in: int
+) -> torch.Tensor:
+    """Down-projection whose input dim may be TP-sharded: matmul over the
+    local columns, psum the partial iff the weight is a shard of ``full_in``,
+    then add the replicated bias exactly once."""
+    if params[f"{name}.weight"].shape[1] == full_in:
+        return _dense(params, name, x, bias)
+    y = _maybe_psum(_dense(params, name, x, False))
+    return y + params[f"{name}.bias"] if bias else y
 
 
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
@@ -300,28 +355,32 @@ def _attention(
     params: Params, prefix: str, x: torch.Tensor, cfg: ViTConfig, rope: Optional[Rope]
 ) -> torch.Tensor:
     """Full attention, routed as the JAX package routes it
-    (``cbas_tpu/models/vit.py::_attention``):
+    (``cbas_tpu/models/vit.py::_attention``) on the local head count, read
+    off the q weight (under tensor parallelism a shard holds H / model of
+    the heads):
 
-    - 64-wide heads, an even head count and :func:`fa.use_fat_attention`: the
-      flat projections feed K1 directly and its output feeds the
+    - 64-wide heads, an even local head count and :func:`fa.use_fat_attention`:
+      the flat projections feed K1 directly and its output feeds the
       out-projection;
-    - 64-wide heads and an even head count otherwise: projections into the
-      head-pair packed (B, H/2, N, 128) layout, K2;
-    - any other head dim, or an odd head count: projections into the
+    - 64-wide heads and an even local head count otherwise: projections into
+      the head-pair packed (B, H/2, N, 128) layout, K2;
+    - any other head dim, or an odd local head count: projections into the
       head-major (B, H, N, d) layout, K3.
 
     No route falls back to another. ``rope`` is the full-length
-    (N, head_dim) table pair or None."""
-    B, N, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    (N, head_dim) table pair or None. A sharded out-projection's partial is
+    summed over the model axis before its bias is added (:func:`_dense_reduce`)."""
+    B, N, _ = x.shape
+    hd = cfg.head_dim
     names, biases, out_name, out_bias = _attn_param_table(cfg, prefix)
+    H = params[f"{names[0]}.weight"].shape[0] // hd  # the local head count
     q, k, v = (_dense(params, n, x, b) for n, b in zip(names, biases))
     cos, sin = rope if rope is not None else (None, None)
     scale = hd ** -0.5
     packed = hd == fa.HEAD_DIM and H % 2 == 0
     if packed and fa.use_fat_attention():
         ctx = fa.fused_attention_fat(q, k, v, scale, rope_cos=cos, rope_sin=sin)
-        return _dense(params, out_name, ctx, out_bias)
+        return _dense_reduce(params, out_name, ctx, out_bias, cfg.hidden_size)
 
     if packed:
         def pairs(t):  # (B, N, H*64) -> a (B, H/2, N, 128) view, no copy
@@ -338,18 +397,20 @@ def _attention(
     # flat layout holds them, so the context goes back to (B, N, H*hd): a
     # view on the packed route (K2 writes with q's strides), a copy on the
     # head-major one.
-    return _dense(params, out_name, ctx.transpose(1, 2).reshape(B, N, D), out_bias)
+    ctx = ctx.transpose(1, 2).reshape(B, N, H * hd)
+    return _dense_reduce(params, out_name, ctx, out_bias, cfg.hidden_size)
 
 
 def _attention_cls(
     params: Params, prefix: str, h: torch.Tensor, cfg: ViTConfig, rope: Optional[Rope]
 ) -> torch.Tensor:
     """Attention output for the CLS row only: one query row, K/V over every
-    token. Plain torch: a (B, H, 1, N) score tensor is too small for a
-    kernel to matter."""
-    B, N, D = h.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    token, over the local heads. Plain torch: a (B, H, 1, N) score tensor is
+    too small for a kernel to matter."""
+    B, N, _ = h.shape
+    hd = cfg.head_dim
     names, biases, out_name, out_bias = _attn_param_table(cfg, prefix)
+    H = params[f"{names[0]}.weight"].shape[0] // hd  # the local head count
 
     def heads(t):
         return t.reshape(B, t.shape[1], H, hd).transpose(1, 2)  # (B, H, n, hd)
@@ -362,24 +423,27 @@ def _attention_cls(
         k = k * cos + fa.rotate_half(k) * sin
     s = (q @ k.transpose(-1, -2)).float() * (hd ** -0.5)
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    ctx = (p @ v).transpose(1, 2).reshape(B, 1, D)
-    return _dense(params, out_name, ctx, out_bias)
+    ctx = (p @ v).transpose(1, 2).reshape(B, 1, H * hd)
+    return _dense_reduce(params, out_name, ctx, out_bias, cfg.hidden_size)
 
 
 def _mlp(params: Params, prefix: str, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """The block's MLP. Its down-projection may be TP-sharded on the
+    intermediate dim (:func:`_dense_reduce`); SwiGLU stays replicated."""
     approx = "tanh" if cfg.gelu_approximate else "none"
+    inter = cfg.intermediate_size
     if cfg.variant == "dinov2":
         if cfg.use_swiglu_ffn:
             x1, x2 = _dense(params, f"{prefix}.mlp.weights_in", x).chunk(2, dim=-1)
             return _dense(params, f"{prefix}.mlp.weights_out", F.silu(x1) * x2)
         h = F.gelu(_dense(params, f"{prefix}.mlp.fc1", x), approximate=approx)
-        return _dense(params, f"{prefix}.mlp.fc2", h)
+        return _dense_reduce(params, f"{prefix}.mlp.fc2", h, True, inter)
     if cfg.use_gated_mlp:
         g = F.gelu(_dense(params, f"{prefix}.mlp.gate_proj", x, cfg.mlp_bias), approximate=approx)
         u = _dense(params, f"{prefix}.mlp.up_proj", x, cfg.mlp_bias)
-        return _dense(params, f"{prefix}.mlp.down_proj", g * u, cfg.mlp_bias)
+        return _dense_reduce(params, f"{prefix}.mlp.down_proj", g * u, cfg.mlp_bias, inter)
     h = F.gelu(_dense(params, f"{prefix}.mlp.up_proj", x, cfg.mlp_bias), approximate=approx)
-    return _dense(params, f"{prefix}.mlp.down_proj", h, cfg.mlp_bias)
+    return _dense_reduce(params, f"{prefix}.mlp.down_proj", h, cfg.mlp_bias, inter)
 
 
 def _block(

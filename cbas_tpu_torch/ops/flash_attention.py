@@ -11,10 +11,12 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
   two 64-wide heads side by side on the last dim. It takes strided views
   (such as ``t.view(B, N, H // 2, 128).transpose(1, 2)`` of a flat
   projection) as well as contiguous tensors, and returns q2's strides.
-- :func:`fused_attention` (K3): head-major (B, H, N, d), any d up to 256
-  on the card: the kernel is built at every multiple of 8 up to 128, and
-  at 192 and 256, and a head of another width runs zero-padded to the
-  next of those (:func:`pad_head_dim`).
+- :func:`fused_attention` (K3): head-major (B, H, N, d), any d on the
+  card: the kernel is built at every multiple of 8 up to 128, and at 192
+  and 256, a head of another width up to 256 runs zero-padded to the next
+  of those (:func:`pad_head_dim`), and a wider head runs the wide body,
+  which takes d at run time. An odd d with RoPE tables is roped here and
+  launched without them (rotate-half's pairing of an odd d survives no pad).
 
 All three compute one function per head: optional rotate-half RoPE from fp32
 (N, d) tables, the scale on the q side, keys at or beyond ``n_valid`` masked,
@@ -36,7 +38,8 @@ count kernel launches and nothing else, so a run can show which kernels its
 main path went through; ``launches_headmajor_by_dim`` splits K3's by the
 head dim the kernel ran at (the padded width), and ``launches_sm90`` counts
 those of them all that ran the Hopper body, as the C entry reports it
-(``launches_sm90_by_kernel`` by entry).
+(``launches_sm90_by_kernel`` by entry). The shards of a device mesh launch
+from threads of their own, so every count is updated under one lock.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -61,6 +65,7 @@ launches_headmajor = 0  # K3, fused_attention
 launches_headmajor_by_dim: dict = {}  # K3's launches by head dim
 launches_sm90 = 0       # launches of any entry that ran the Hopper body
 launches_sm90_by_kernel: dict = {}  # the same, by entry ("attention_fat", ...)
+_count_lock = threading.Lock()  # shard threads launch concurrently
 
 _SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
                    "attention_headmajor": (64, 128)}
@@ -284,11 +289,25 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -
     ran = "sm90" if body.value == 1 else "common"
     if ran != want:
         raise RuntimeError(f"{name} ran the {ran} body where attention_body says {want}")
-    if ran == "sm90":
-        global launches_sm90
-        launches_sm90 += 1
-        launches_sm90_by_kernel[name] = launches_sm90_by_kernel.get(name, 0) + 1
+    _count_launch(name, d, ran)
     return out
+
+
+def _count_launch(name: str, d: int, body: str) -> None:
+    """One launch of entry ``name`` at head dim ``d`` through ``body``, in
+    the module's counters."""
+    global launches, launches_packed, launches_headmajor, launches_sm90
+    with _count_lock:
+        if name == "attention_fat":
+            launches += 1
+        elif name == "attention_packed":
+            launches_packed += 1
+        else:
+            launches_headmajor += 1
+            launches_headmajor_by_dim[d] = launches_headmajor_by_dim.get(d, 0) + 1
+        if body == "sm90":
+            launches_sm90 += 1
+            launches_sm90_by_kernel[name] = launches_sm90_by_kernel.get(name, 0) + 1
 
 
 def fused_attention_fat(
@@ -315,11 +334,8 @@ def fused_attention_fat(
     if q.device.type == "cpu":
         return attention_fat_reference(q, k, v, scale, nv, rope_cos, rope_sin)
     _require_contiguous(q=q, k=k, v=v)
-    out = _launch("attention_fat", q, k, v, scale, nv, rope_cos, rope_sin, B, N, D // HEAD_DIM,
-                  HEAD_DIM, (N * D, 0, D))
-    global launches
-    launches += 1
-    return out
+    return _launch("attention_fat", q, k, v, scale, nv, rope_cos, rope_sin, B, N, D // HEAD_DIM,
+                   HEAD_DIM, (N * D, 0, D))
 
 
 def fused_attention_packed(
@@ -353,23 +369,17 @@ def fused_attention_packed(
     if q2.device.type == "cpu":
         return _like(q2).copy_(attention_packed_reference(q2, k2, v2, scale, nv, rope_cos,
                                                           rope_sin))
-    out = _launch("attention_packed", q2, k2, v2, scale, nv, rope_cos, rope_sin, B, N, 2 * G,
-                  HEAD_DIM, (q2.stride(0), q2.stride(1), q2.stride(2)))
-    global launches_packed
-    launches_packed += 1
-    return out
+    return _launch("attention_packed", q2, k2, v2, scale, nv, rope_cos, rope_sin, B, N, 2 * G,
+                   HEAD_DIM, (q2.stride(0), q2.stride(1), q2.stride(2)))
 
 
 def padded_head_dim(d: int) -> int:
     """The width K3 runs a d-wide head at: the smallest built head dim that
-    is at least d. Raises ``ValueError`` above 256."""
+    is at least d, or d itself above 256 (the wide body takes any d)."""
     for width in HEADMAJOR_HEAD_DIMS:
         if width >= d:
             return width
-    raise ValueError(
-        f"head dim {d}: the kernel takes head dims up to {HEADMAJOR_HEAD_DIMS[-1]} (a 64-row "
-        "fp32 tile of a wider head outgrows the 227 KB of shared memory a block may use)"
-    )
+    return d
 
 
 def pad_head_dim(t: torch.Tensor, width: int, halves: bool) -> torch.Tensor:
@@ -396,6 +406,15 @@ def unpad_head_dim(t: torch.Tensor, d: int, halves: bool) -> torch.Tensor:
     return t.unflatten(-1, (2, t.shape[-1] // 2))[..., : d // 2].flatten(-2)
 
 
+def _rope_heads(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                scale: float = 1.0) -> torch.Tensor:
+    """RoPE on head-major ``t`` in fp32, times ``scale``, rounded once to
+    ``t``'s dtype: the values the plain version rounds to at the same point
+    (q with the scale folded in, k without)."""
+    x = t.float()
+    return ((x * cos.float() + rotate_half(x) * sin.float()) * scale).to(t.dtype)
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -409,10 +428,14 @@ def fused_attention(
     in q's dtype.
 
     ``rope_cos``/``rope_sin`` are full-length (N, d) tables. On a CPU tensor
-    any d runs (the plain version). On the card d runs up to 256: a width
+    the plain version runs. On the card any d runs: a width up to 256 that
     the kernel is not built at runs zero-padded to the next built one
-    (:func:`padded_head_dim`) and is sliced back, ``scale`` unchanged;
-    RoPE there needs an even d. Others raise ``ValueError`` naming d.
+    (:func:`padded_head_dim`) and is sliced back, ``scale`` unchanged; a
+    width above 256 runs the wide body at d. With tables and an odd d, q and
+    k are roped here (:func:`_rope_heads`, the scale folded into q) and the
+    kernel runs without tables at scale 1: rotate-half pairs element i of an
+    odd head with element i + d // 2 for i <= d // 2 and with i - d // 2 - 1
+    above, a pairing no zero pad keeps.
     """
     if q.dim() != 4:
         raise ValueError(f"expected head-major (B, H, N, d) tensors, got q of shape {tuple(q.shape)}")
@@ -420,13 +443,12 @@ def fused_attention(
     nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
     if q.device.type == "cpu":
         return attention_headmajor_reference(q, k, v, scale, nv, rope_cos, rope_sin)
+    if rope_cos is not None and d % 2:
+        q = _rope_heads(q, rope_cos, rope_sin, scale)
+        k = _rope_heads(k, rope_cos, rope_sin)
+        scale, rope_cos, rope_sin = 1.0, None, None
     width = padded_head_dim(d)
     halves = rope_cos is not None
-    if halves and d % 2:
-        raise ValueError(
-            f"head dim {d}: RoPE on the card needs an even head dim (rotate-half pairs "
-            "element i with i + d/2)"
-        )
     if width != d:
         q, k, v = (pad_head_dim(t, width, halves) for t in (q, k, v))
         if halves:
@@ -434,9 +456,6 @@ def fused_attention(
     _require_contiguous(q=q, k=k, v=v)
     out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, width,
                   (H * N * width, N * width, width))
-    global launches_headmajor
-    launches_headmajor += 1
-    launches_headmajor_by_dim[width] = launches_headmajor_by_dim.get(width, 0) + 1
     return out if width == d else unpad_head_dim(out, d, halves)
 
 

@@ -77,13 +77,29 @@ non-zero and prints no final line):
     matplotlib import, ``tools/encode_fleet.py`` with one worker over two
     clips (its H5s against an in-process ``encode_file``) and
     ``tools/soak.py`` with two cameras for half a minute at full size
-    (otherwise a ``skipped`` entry names what is missing).
+    (otherwise a ``skipped`` entry names what is missing). Then K3 at the
+    head dims it refused on the card before: (8, 261, 16, 320) and (4, 1205,
+    8, 384) on the wide body, (8, 261, 16, 65) with RoPE tables, bf16 and
+    fp32, each against the plain version and timed beside its bound and SDPA;
+11. mesh: the device mesh in one process, one thread a shard, over logical
+    shards of cuda:0 (``runtime_mesh()`` is None on one card and is
+    printed): dinov3-vitb16 at full width over (data 2, model 2) and (1, 4),
+    and (2, 2) again with ``CBAS_ATTN_FAT=0``, each against the one-device
+    encoder (bf16 cosine >= 0.999) with its K1, K2 or K3 launches counted
+    per shard and each model shard's q-projection rows; the ViT-7B width
+    over model 2 (K3 at 16 heads of 128 a shard); one DP train step over
+    data 2 against the one-device step; DP inference against one device.
+    Sharded and one-device frames/s are printed side by side; on logical
+    shards of one card they record that the path runs, not scaling. With
+    two cards or more the phase runs again over distinct cards
+    (``mesh_multi_gpu``), else that line says it was skipped.
 
 The line before the last lists each kernel with its launches on its route,
 error, times, bound and the library call's time (K3 also at head dims 192
-and 256 and at phase 10's padded widths, with their launches counted over
-the encode routes' runs, though no shipped preset has such heads), and the
-launches of phase 10's runs; the last line is
+and 256, at phase 10's padded, wide and odd widths, with their launches
+counted over the encode routes' runs, though no shipped preset has such
+heads), the launches of phase 10's runs, and its launches over phase 11's
+mesh encodes (``launches_mesh``); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -131,9 +147,10 @@ WIDE_HEAD_DIMS, WIDE_HEADS = (192, 256), 16
 # The three kernels (source cbas_tpu_torch/csrc/<name>.cu) and the TPU kernel
 # each replaces.
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): the bound of a
-# kernel is the larger of its FLOP over the bf16 tensor-core rate and its
-# bytes (each input read once, each output written once) over the memory rate.
-PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+# kernel is the larger of its FLOP over the rate of its inputs' type (bf16 on
+# the tensor cores, fp32 outside them) and its bytes (each input read once,
+# each output written once) over the memory rate.
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 989e12, 67e12, 3.35e12
 KERNELS = {
     "attention_fat": "cbas_tpu/ops/flash_attention.py:553",
     "attention_packed": "cbas_tpu/ops/flash_attention.py:101",
@@ -253,6 +270,9 @@ def ptxas_report(log: str) -> list:
                           r"(?:Li(\d+)E)?", m.group(1))
             args = ", ".join(x for x in k.groups()[1:] if x) if k else ""
             name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else m.group(1)
+            w = re.search(r"attention_wideI(f|13__nv_bfloat16)E", m.group(1))
+            if w:  # the wide body, templated on the dtype, not a head dim
+                name = f"wide<{'f32' if w.group(1) == 'f' else 'bf16'}>"
             spill = "?"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -281,10 +301,11 @@ def rope_full(torch, cfg, head_dim, grid, n_tokens, device):
 
 
 def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=None,
-                time_it=True, view=False):
+                time_it=True, view=False, tables=None):
     """One fused-attention case on the card against its plain version, in
     the kernel's own layout; with ``view`` (K2 only), on head-pair views of
-    flat (B, N, H*d) tensors, as the packed route passes them."""
+    flat (B, N, H*d) tensors, as the packed route passes them. ``tables``,
+    a (cos, sin) pair on the card, replaces the model's RoPE tables."""
     wrapper, plain, shape, token_dim = {
         "attention_fat": (fa.fused_attention_fat, fa.attention_fat_reference, (B, N, H * d), 1),
         "attention_packed": (
@@ -307,7 +328,7 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         v[dead] = float("nan")
     cos = sin = None
     if rope:
-        cos, sin = rope_full(torch, cfg, d, grid, N, "cuda")
+        cos, sin = tables or rope_full(torch, cfg, d, grid, N, "cuda")
     scale = d ** -0.5
     got = wrapper(q, k, v, scale, n_valid, cos, sin)
     want = plain(q, k, v, scale, n_valid, cos, sin)
@@ -333,7 +354,7 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         out["ms"] = time_ms(torch, lambda: wrapper(q, k, v, scale, n_valid, cos, sin))
         out["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, scale, n_valid, cos, sin))
         out["ms_norope"] = time_ms(torch, lambda: wrapper(q, k, v, scale, n_valid))
-        out.update(attention_bound(B, N, H, d, n_valid or N, rope))
+        out.update(attention_bound(B, N, H, d, n_valid or N, rope, dtype == torch.float32))
         out["share_of_bound"] = out["bound_ms"] / out["ms"]
         heads = {"attention_fat": lambda t: t.reshape(B, N, H, d).transpose(1, 2),
                  "attention_packed": lambda t: t.reshape(B, H // 2, N, 2, d).transpose(2, 3)
@@ -345,13 +366,15 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
     return out
 
 
-def attention_bound(B, N, H, d, n_valid, rope) -> dict:
-    """The least time the card could take for one fused attention in bf16:
-    q.k^T and p.V over the live keys on the tensor cores, against q and o
-    (N rows), k and v (n_valid rows) and the fp32 RoPE tables moved once."""
+def attention_bound(B, N, H, d, n_valid, rope, fp32=False) -> dict:
+    """The least time the card could take for one fused attention: q.k^T
+    and p.V over the live keys at the peak of the inputs' type (bf16 on the
+    tensor cores, fp32 outside them), against q and o (N rows), k and v
+    (n_valid rows) and the fp32 RoPE tables moved once."""
     flop = 4 * B * H * N * n_valid * d
-    nbytes = 2 * B * H * d * (2 * N + 2 * n_valid) + (2 * N * d * 4 if rope else 0)
-    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    nbytes = (4 if fp32 else 2) * B * H * d * (2 * N + 2 * n_valid) + (2 * N * d * 4 if rope else 0)
+    t_ops = flop / (PEAK_F32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return {"gflop": flop / 1e9, "mbytes": nbytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
@@ -707,8 +730,17 @@ def main() -> int:
     # 9. the app over HTTP on the card
     app_phase(torch, fa, card)
 
-    # 10. the tools, K3 at padded widths and the CLS attention map
+    # 10. the tools, K3 at padded, wide and odd widths and the CLS attention map
     tools_line = tools_phase(torch, fa, cfg, params, card)
+
+    # 11. the device mesh over logical shards of cuda:0, then over the cards
+    mesh_launches, _ = mesh_phase(torch, fa, cfg, enc, planes_256[:BATCH_256],
+                                  emb_256[:BATCH_256], bundle, probs, emb_256, card)
+    if torch.cuda.device_count() >= 2:
+        mesh_phase(torch, fa, cfg, enc, planes_256[:BATCH_256], emb_256[:BATCH_256], bundle,
+                   probs, emb_256, card, real=True)
+    else:
+        emit({"phase": "mesh_multi_gpu", "skipped": "one CUDA device visible"})
 
     route_launches = {
         "attention_fat": flat_launches, "attention_packed": packed_launches,
@@ -736,7 +768,12 @@ def main() -> int:
         **({"at_padded_widths": [
             c | {"launches_on_main_path": sum(run["headmajor_by_dim"].get(c["padded_to"], 0)
                                               for run in route_launches.values())}
-            for c in tools_line["padded_timings"]]} if name == "attention_headmajor" else {}),
+            for c in tools_line["padded_timings"]],
+            "at_wide_and_odd_head_dims": [
+            c | {"launches_on_main_path": sum(run["headmajor_by_dim"].get(c["padded_to"], 0)
+                                              for run in route_launches.values())}
+            for c in tools_line["wide_odd_timings"]]} if name == "attention_headmajor" else {}),
+        "launches_mesh": mesh_launches[name],
         "launches_tools": {run: launches[name] for run, launches in tools_line["launches"].items()},
     } for name, replaces in KERNELS.items()]})
     emit({"ok": True, "device": {
@@ -1412,6 +1449,11 @@ TOOLS_EXTRA_GEOMETRY = (2, 32, 261, 128, True)
 # K3 at head dims it is not built at, (B, N, H, d): the card pads 100 to 104
 # and 160 to 192.
 PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 160), (4, 1205, 16, 100))
+# K3 at the head dims it refused on the card before, (B, N, H, d), with RoPE:
+# wider than 256 (the wide body, d at run time) and odd (q and k roped before
+# the launch, then zero-padded). d 320 and 384 take the model's tables at
+# that width; d 65 random angles (the model's tables need a multiple of 4).
+WIDE_ODD_CASES = ((8, 261, 16, 320), (4, 1205, 8, 384), (8, 261, 16, 65))
 # The CLS attention map at dinov3-vitb16 on 8 frames of 256x256. Every q and
 # k projection weight is scaled by 4, so the random-weight map is far from
 # uniform (the line reports its cosine to the uniform map); unscaled, each
@@ -1441,6 +1483,11 @@ def tools_phase(torch, fa, cfg, params, card) -> dict:
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
         "ms", "built_width_ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "gflop",
         "mbytes", "library_ms", "library")} for c in cases]
+    wide = wide_odd_cases(torch, fa, cfg)
+    line["wide_odd_timings"] = [{key: c[key] for key in (
+        "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
+        "ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "gflop", "mbytes", "library_ms",
+        "library")} for c in wide]
     line["cls_attention_map"] = attention_map_step(torch, fa, cfg, params, line["launches"])
     missing = host_missing(("h5py", "pandas", "cv2", "matplotlib"))
     if missing:
@@ -1516,6 +1563,30 @@ def padded_cases(torch, fa, cfg) -> list:
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K3 at padded widths disagrees with its plain version: {bad}")
+    return cases
+
+
+def wide_odd_cases(torch, fa, cfg) -> list:
+    """K3 at WIDE_ODD_CASES' head dims, bf16 and fp32, with RoPE tables:
+    each against the plain version at d, timed beside its bound and SDPA at
+    d (RoPE applied beforehand)."""
+    cases = []
+    for B, N, H, d in WIDE_ODD_CASES:
+        grid = (16, 16) if N == 261 else (30, 40)
+        tables = None
+        if d % 4:
+            ang = np.random.default_rng(SEED + 11).uniform(-np.pi, np.pi, (N, d)).astype(np.float32)
+            tables = tuple(torch.from_numpy(f(ang)).to("cuda") for f in (np.cos, np.sin))
+        for dtype in (torch.bfloat16, torch.float32):
+            case = kernel_case(torch, fa, cfg, "attention_headmajor", B, H, N, d, grid, dtype,
+                               True, tables=tables)
+            case["padded_to"] = fa.padded_head_dim(d)
+            case["phase"] = "kernel_wide_odd"
+            emit(case)
+            cases.append(case)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K3 at wide or odd head dims disagrees with its plain version: {bad}")
     return cases
 
 
@@ -1668,6 +1739,215 @@ def soak_step(device="cuda", **soak_kw) -> dict:
     if not (r.segments_delivered >= 2 and r.segments_encoded >= 1 and r.segments_classified >= 1
             and r.actograms_generated >= 1 and r.trace and r.sustained):
         raise AssertionError(f"soak: {out}")
+    return out
+
+
+# 11. The device mesh: one process, one thread per shard. Without a second
+# card the shards are logical (cuda:0 listed once per shard), so their
+# frames/s record that the sharded path runs, not how it scales.
+MESH_LAYOUTS = ((2, 2), (1, 4))  # (data, model) over dinov3-vitb16
+# - mesh bf16 vs one device bf16: the same weights and roundings, but each
+#   sharded out-projection sums its partials in another order (and rounds
+#   them to bf16 apiece), so rows may differ by a few bf16 ulps.
+MESH_MIN_COS = 0.999
+MESH_7B_MODEL, MESH_7B_FRAMES = 2, 16  # ViT-7B width, 16 heads of 128 a shard
+# The shard threads meet at a barrier twice per model-axis sum; a thread that
+# wakes there waits for the interpreter lock, which the running thread keeps
+# for up to the switch interval (5 ms by default). The first layout is timed
+# again at this interval to show how much of the sharded encode that costs.
+MESH_SWITCH_INTERVAL_S = 1e-4
+MESH_TRAIN_DATA, MESH_TRAIN_RECORDINGS, MESH_TRAIN_FRAMES = 2, 2, 4000
+# - a DP train step vs the one-device step on the card, fp32 with TF32 off,
+#   dropout on from one seed: the loss within 1e-5 relative, as phase 8.
+
+
+def mesh_devices(torch, n, real, device="cuda"):
+    """``n`` shards: cuda:0 .. cuda:n-1 if ``real``, else ``device`` n times."""
+    return [torch.device("cuda", i) if real else torch.device(device) for i in range(n)]
+
+
+def mesh_launches_check(route, got, kernel, n, device):
+    """``kernel`` launched ``n`` times and no other kernel, each through the
+    Hopper body (on the CPU the plain versions run and nothing is counted)."""
+    return check_launches(route, got, kernel, n, 1, sm90=True) if device == "cuda" else None
+
+
+def mesh_phase(torch, fa, cfg, enc, planes, one_emb, bundle, one_probs, emb, card,
+               real=False, device="cuda") -> tuple:
+    """Phase 11 over logical shards of cuda:0, or (``real``) over distinct
+    cards: dinov3-vitb16 at full width over each of MESH_LAYOUTS (and the
+    first one again with ``CBAS_ATTN_FAT=0``) against the one-device
+    encoder's ``one_emb`` for ``planes``, its launches counted per shard;
+    the ViT-7B width over model = MESH_7B_MODEL; one DP train step against
+    the one-device step; DP inference against ``one_probs``. Returns (the
+    launches of the encodes, the phase line). (``device`` is "cpu" only in
+    the CPU test of this function, at a cut size.)"""
+    from cbas_tpu_torch.engine import train as train_mod
+    from cbas_tpu_torch.engine.infer import InferenceSession
+    from cbas_tpu_torch.models.encoder import FrameEncoder
+    from cbas_tpu_torch.parallel.mesh import make_mesh, runtime_mesh
+
+    n_cards = torch.cuda.device_count()
+    line = {"phase": "mesh_multi_gpu" if real else "mesh", "card": card,
+            "shards": "distinct cards" if real else "logical shards of cuda:0",
+            "runtime_mesh": repr(runtime_mesh())}
+    print(f"runtime_mesh() on {n_cards} visible card(s): {line['runtime_mesh']}", flush=True)
+    if (n_cards < 2) != (line["runtime_mesh"] == "None"):
+        raise AssertionError(f"runtime_mesh() on {n_cards} cards gave {line['runtime_mesh']}")
+    layouts = [(d, m) for d, m in MESH_LAYOUTS if d * m <= (n_cards if real else 8)]
+    if real:
+        layouts = layouts or [(n_cards, 1)]
+    batch = len(planes)
+    runs, total = [], {}
+    one_fps = warm_fps(torch, enc, planes, batch, 3)
+    for (d, m), fat in [(lay, "1") for lay in layouts] + [(layouts[0], "0")]:
+        mesh = make_mesh((d, m), ("data", "model"), mesh_devices(torch, d * m, real, device))
+        with env_var("CBAS_ATTN_FAT", fat):
+            menc = FrameEncoder(ENCODER, random_init=True, mesh=mesh)
+            torch.cuda.synchronize()
+            reset_launches(fa)
+            got = menc.encode_planes(planes, batch=batch)
+            launches = read_launches(fa)
+            local = cfg.num_heads // m if cfg.num_heads % m == 0 else cfg.num_heads
+            kernel = ("attention_headmajor" if local % 2
+                      else "attention_fat" if fat == "1" else "attention_packed")
+            want = mesh_launches_check(f"mesh {d}x{m}", launches, kernel,
+                                       (cfg.num_layers - 1) * d * m, device)
+            cos = row_cosine(got, one_emb)
+            run = {"data": d, "model": m, "CBAS_ATTN_FAT": fat, "local_heads": local,
+                   "kernel": kernel, "launches": launches, "expected_launches": want,
+                   "q_proj_rows_per_shard": [
+                       int(menc._shards[0][j].params["layer.0.attention.q_proj.weight"].shape[0])
+                       for j in range(m)],
+                   "weights_device": menc.weights_device, "min_cos": float(cos.min()),
+                   "tol_min_cos": MESH_MIN_COS,
+                   "fps": warm_fps(torch, menc, planes, batch, 3), "one_device_fps": one_fps}
+            if (d, m) == layouts[0] and fat == "1":
+                old_interval = sys.getswitchinterval()
+                sys.setswitchinterval(MESH_SWITCH_INTERVAL_S)
+                try:
+                    run["fps_at_switch_interval"] = warm_fps(torch, menc, planes, batch, 3)
+                finally:
+                    sys.setswitchinterval(old_interval)
+                run["switch_interval_s"] = MESH_SWITCH_INTERVAL_S
+        rows = cfg.hidden_size // m if local != cfg.num_heads else cfg.hidden_size
+        if got.shape != one_emb.shape or not np.isfinite(got).all() or cos.min() < MESH_MIN_COS \
+                or run["q_proj_rows_per_shard"] != [rows] * m:
+            raise AssertionError(f"mesh encode {d}x{m} disagrees with one device: {run}")
+        runs.append(run)
+        for name in KERNELS:
+            total[name] = total.get(name, 0) + launches[name]
+        del menc
+    line["encode"] = runs
+    line["fps_note"] = ("logical shards share one card: a correctness record, not scaling"
+                        if not real else "distinct cards")
+    line["vit7b"] = mesh_vit7b_step(torch, fa, FrameEncoder, make_mesh, real, total, device)
+    line["train_step"] = mesh_train_step(torch, train_mod, real, device)
+    imesh = make_mesh((MESH_TRAIN_DATA,), ("data",),
+                      mesh_devices(torch, MESH_TRAIN_DATA, real, device))
+    half = SEQ_LEN // 2
+    probs = InferenceSession(bundle, mesh=imesh).predict_frames(emb, pad_front=half,
+                                                                pad_back=half)
+    err = float(np.abs(probs - one_probs).max())
+    line["infer"] = {"data": MESH_TRAIN_DATA, "frames": len(emb), "max_abs_err_vs_one_device": err,
+                     "tol": CLASSIFY_TOL}
+    if probs.shape != one_probs.shape or err > CLASSIFY_TOL:
+        raise AssertionError(f"DP inference disagrees with one device: {line['infer']}")
+    line["launches"] = total
+    line["ok"] = True
+    emit(line)
+    return total, line
+
+
+def mesh_vit7b_step(torch, fa, FrameEncoder, make_mesh, real, total, device="cuda") -> dict:
+    """The ViT-7B width (depth VIT7B_DEPTH) over model = MESH_7B_MODEL
+    against one device, bf16, MESH_7B_FRAMES frames of 256x256: K3 at 16
+    heads of 128 a shard, through the Hopper body."""
+    from cbas_tpu_torch.models.vit import config_for_identifier, init_vit_params
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump({**VIT7B_CONFIG, "num_hidden_layers": VIT7B_DEPTH}, f)
+        cfg = config_for_identifier(ckpt)
+        params = init_vit_params(SEED, cfg)
+        one = FrameEncoder(ckpt, params=params, device=device)
+        planes = np.random.default_rng(SEED + 12).integers(
+            0, 256, (MESH_7B_FRAMES, 256, 256), np.uint8)
+        want = one.encode_planes(planes)
+        one_fps = warm_fps(torch, one, planes, MESH_7B_FRAMES, 2)
+        del one
+        mesh = make_mesh((1, MESH_7B_MODEL), ("data", "model"),
+                         mesh_devices(torch, MESH_7B_MODEL, real, device))
+        menc = FrameEncoder(ckpt, params=params, mesh=mesh)
+        del params
+        torch.cuda.synchronize()
+        reset_launches(fa)
+        got = menc.encode_planes(planes)
+        launches = read_launches(fa)
+        expected = mesh_launches_check("mesh ViT-7B", launches, "attention_headmajor",
+                                       (cfg.num_layers - 1) * MESH_7B_MODEL, device)
+        cos = row_cosine(got, want)
+        out = {"model": f"DINOv3 ViT-7B/16 width, depth {VIT7B_DEPTH}", "model_axis": MESH_7B_MODEL,
+               "local_heads": cfg.num_heads // MESH_7B_MODEL, "head_dim": cfg.head_dim,
+               "launches": launches, "expected_launches": expected,
+               "q_proj_rows_per_shard": int(
+                   menc._shards[0][0].params["layer.0.attention.q_proj.weight"].shape[0]),
+               "min_cos": float(cos.min()), "tol_min_cos": MESH_MIN_COS,
+               "fps": warm_fps(torch, menc, planes, MESH_7B_FRAMES, 2), "one_device_fps": one_fps}
+        del menc
+        torch.cuda.empty_cache()
+    if not np.isfinite(got).all() or cos.min() < MESH_MIN_COS \
+            or out["q_proj_rows_per_shard"] != cfg.hidden_size // MESH_7B_MODEL:
+        raise AssertionError(f"ViT-7B over model = {MESH_7B_MODEL} disagrees: {out}")
+    for name in KERNELS:
+        total[name] = total.get(name, 0) + launches[name]
+    return out
+
+
+def mesh_train_step(torch, train_mod, real, device="cuda") -> dict:
+    """One train step of the deltas head at the app's width over data =
+    MESH_TRAIN_DATA against the one-device step: device-gather path (the
+    store replicated on each data device), dropout on from one seed, class
+    weights, label smoothing and weight decay; fp32 with TF32 off."""
+    from cbas_tpu_torch.engine.data import BalancedSampler, DeviceWindowStore, WindowSource
+    from cbas_tpu_torch.models.convert import deltas_params_from_numpy
+    from cbas_tpu_torch.models.heads import DeltasHeadConfig, init_deltas_params
+    from cbas_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(SEED + 13)
+    dim, half = 768, SEQ_LEN // 2
+    arrays = {f"rec{r}": rng.standard_normal((MESH_TRAIN_FRAMES, dim), np.float32)
+              .astype(np.float16) for r in range(MESH_TRAIN_RECORDINGS)}
+    manifest = [(name, c, int(c // 200) % len(TRAIN_BEHAVIORS)) for name in arrays
+                for c in range(half, MESH_TRAIN_FRAMES - half)]
+    source = WindowSource(manifest, SEQ_LEN, cache=MemoryCache(arrays), preload=True)
+    cfg = DeltasHeadConfig(in_features=dim, out_features=len(TRAIN_BEHAVIORS), seq_len=SEQ_LEN,
+                           lstm_hidden_size=HIDDEN)
+    params = init_deltas_params(SEED, cfg)
+    idx = BalancedSampler(manifest, cfg.out_features, seed=SEED).epoch_indices()
+    weights = np.linspace(0.5, 2.0, cfg.out_features).astype(np.float32)
+    devices = mesh_devices(torch, MESH_TRAIN_DATA, real, device)
+    runs = {}
+    with tf32(torch, False, False):
+        for name, mesh in (("one", None), ("mesh", make_mesh((MESH_TRAIN_DATA,), ("data",),
+                                                             devices))):
+            store = DeviceWindowStore(manifest, SEQ_LEN, device, ram=source._ram, mesh=mesh)
+            centers, labels = store.batch_indices(idx[:TRAIN_BATCH], TRAIN_BATCH)
+            head = deltas_params_from_numpy(params, cfg, device)
+            opt = train_mod.make_optimizer(head, TRAIN_LR, STEP_WEIGHT_DECAY, GATE_DECAY)
+            step = train_mod.build_train_step(head, opt, weights, 0.1, gather_seq_len=SEQ_LEN,
+                                              mesh=mesh)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            loss = float(step(store.features, centers, labels, gen))
+            runs[name] = (loss, {n: p.detach().cpu().numpy() for n, p in head.named_parameters()})
+            del store, head, opt
+    (loss_1, new_1), (loss_m, new_m) = runs["one"], runs["mesh"]
+    out = {"data": MESH_TRAIN_DATA, "batch": TRAIN_BATCH, "dropout": True, "loss_one": loss_1,
+           "loss_mesh": loss_m, "loss_rel_err": abs(loss_m - loss_1) / abs(loss_1),
+           "loss_rtol": STEP_LOSS_RTOL,
+           "max_weight_diff": max(float(np.abs(new_m[n] - new_1[n]).max()) for n in new_1)}
+    if not np.isfinite(loss_m) or out["loss_rel_err"] > STEP_LOSS_RTOL:
+        raise AssertionError(f"a DP train step disagrees with the one-device step: {out}")
     return out
 
 

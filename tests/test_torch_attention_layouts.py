@@ -135,6 +135,129 @@ def test_plain_version_on_padded_heads_equals_it_at_d(d, rope):
     assert torch.equal(fa.unpad_head_dim(pad[2], d, rope), v)  # the round trip is exact
 
 
+def _bf16_tolerance(want, v, n_valid, N):
+    """bf16 against the JAX kernel (interpret mode), which ropes and scales
+    in bf16 arithmetic where the port rounds once from fp32: each roped
+    element may differ by a few bf16 ulps, so each score by about 2^-6 of
+    its size, each p by as much, and the output by 2^-5 of the largest |v|
+    plus 2^-6 of its own size."""
+    vmax = np.abs(v[..., : n_valid or N, :].astype(np.float32)).max()
+    return np.abs(want) * 2.0 ** -6 + 2.0 ** -5 * vmax
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "d,rope,n_valid",
+    [
+        (320, False, None),  # wider than 256: the card's wide body
+        (320, True, 70),
+        (384, True, None),
+        (384, False, 70),
+        (65, True, None),    # odd with tables: roped before the launch on the card
+        (65, True, 70),
+        (97, True, 70),
+    ],
+)
+def test_wide_and_odd_rope_heads_match_jax(d, rope, n_valid, dtype):
+    """The two head dims K3 refused on the card before (above 256; odd with
+    RoPE) against the JAX kernel, which takes any d, NaN in the dead K/V rows.
+    fp32: the JAX suite's bound. bf16: :func:`_bf16_tolerance`."""
+    jnp = pytest.importorskip("jax.numpy")
+    from cbas_tpu.ops import flash_attention as jfa
+
+    B, H, N = 1, 2, 80
+    q, k, v = _inputs((B, H, N, d), seed=46)
+    if n_valid is not None:
+        k[:, :, n_valid:] = np.nan
+        v[:, :, n_valid:] = np.nan
+    cos = sin = None
+    if rope:
+        cos, sin = _rope(N, d - d % 2, seed=47)
+        if d % 2:  # rotate-half tables of an odd head: one more angle column
+            ang = np.random.default_rng(48).standard_normal((N, d)).astype(np.float32)
+            cos, sin = np.cos(ang), np.sin(ang)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jfa.fused_attention(
+        *(jnp.asarray(t).astype(jdt) for t in (q, k, v)), d ** -0.5, n_valid=n_valid,
+        rope_cos=None if cos is None else jnp.asarray(cos),
+        rope_sin=None if sin is None else jnp.asarray(sin), interpret=True,
+    ).astype(jnp.float32))
+    got = fa.fused_attention(
+        *(torch.from_numpy(t).to(tdt) for t in (q, k, v)), d ** -0.5, n_valid,
+        None if cos is None else torch.from_numpy(cos),
+        None if sin is None else torch.from_numpy(sin),
+    ).float().numpy()
+    assert got.shape == (B, H, N, d) and np.isfinite(got).all()
+    if dtype == "float32":
+        tol = TOL_ROPE if rope else TOL
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    else:
+        vb = torch.from_numpy(v).to(tdt).float().numpy()
+        assert (np.abs(got - want) <= _bf16_tolerance(want, vb, n_valid, N)).all(), \
+            float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [13, 65, 97, 261])
+def test_odd_rope_detour_equals_plain_version(d, dtype):
+    """What the card runs for an odd head with tables: q and k roped
+    beforehand (the scale folded into q, one rounding to the dtype), then
+    attention without tables at scale 1. The plain version through that
+    detour equals the plain version with tables bit for bit: both round at
+    the same points."""
+    N, n_valid = 70, 61
+    q, k, v = (torch.from_numpy(t).to(dtype) for t in _inputs((2, 3, N, d), seed=49))
+    ang = torch.from_numpy(np.random.default_rng(50).standard_normal((N, d)).astype(np.float32))
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    scale = d ** -0.5
+    want = fa.attention_headmajor_reference(q, k, v, scale, n_valid, cos, sin)
+    got = fa.attention_headmajor_reference(
+        fa._rope_heads(q, cos, sin, scale), fa._rope_heads(k, cos, sin), v, 1.0, n_valid)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [257, 320, 384, 1000])
+def test_heads_above_256_run_at_their_own_width(d):
+    """Above 256 the card runs the wide body at d itself: no padding."""
+    assert fa.padded_head_dim(d) == d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,N,d,n_valid,rope",
+    [
+        (8, 16, 261, 320, None, True),   # the wide body, at phase 10's shapes
+        (4, 8, 1205, 384, None, True),
+        (2, 4, 272, 320, 261, False),    # pad keys masked, NaN in the dead rows
+        (2, 4, 140, 384, 130, True),
+        (1, 2, 100, 257, 90, False),     # an odd d above 256, no tables
+        (8, 16, 261, 65, None, True),    # odd with tables: roped before the launch
+        (2, 4, 272, 97, 261, True),
+        (1, 2, 140, 301, 130, True),     # odd above 256 with tables
+    ],
+)
+def test_wide_and_odd_rope_kernel_matches_plain_on_card(B, H, N, d, n_valid, rope, dtype,
+                                                        cuda_device):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(t).to(cuda_device, dt) for t in _inputs((B, H, N, d), seed=51))
+    if n_valid is not None:
+        k[:, :, n_valid:] = float("nan")
+        v[:, :, n_valid:] = float("nan")
+    cos = sin = None
+    if rope:
+        ang = np.random.default_rng(52).standard_normal((N, d)).astype(np.float32)
+        cos, sin = (torch.from_numpy(f(ang)).to(cuda_device) for f in (np.cos, np.sin))
+    width = fa.padded_head_dim(d)
+    before = fa.launches_headmajor_by_dim.get(width, 0)
+    got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
+    assert fa.launches_headmajor_by_dim[width] == before + 1
+    want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert got.shape == (B, H, N, d) and bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
+
+
 @pytest.mark.parametrize("pvt", [False, True])
 @pytest.mark.parametrize("rope", [False, True])
 @pytest.mark.parametrize(
@@ -207,14 +330,12 @@ def test_three_plain_versions_compute_one_function(dtype):
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     # Off the CPU (a meta tensor reaches the same checks as a CUDA one, before
-    # any launch): wider than 256, and RoPE on an odd head dim.
-    q = torch.zeros(1, 2, 16, 264, device="meta")
-    with pytest.raises(ValueError, match="head dim 264: .* up to 256"):
-        fa.fused_attention(q, q, q, 0.1)
-    q = torch.zeros(1, 2, 16, 13, device="meta")
-    table = torch.ones(16, 13, device="meta")
-    with pytest.raises(ValueError, match="head dim 13: RoPE on the card needs an even head dim"):
-        fa.fused_attention(q, q, q, 0.1, rope_cos=table, rope_sin=table)
+    # any launch): a head wider than 256, and RoPE on an odd head dim, pass
+    # every check and stop only at the launch, which takes cpu or cuda.
+    for d, table in ((264, None), (13, torch.ones(16, 13, device="meta"))):
+        q = torch.zeros(1, 2, 16, d, device="meta")
+        with pytest.raises(ValueError, match="runs on cpu or cuda, not meta"):
+            fa.fused_attention(q, q, q, 0.1, rope_cos=table, rope_sin=table)
     q = torch.zeros(1, 2, 16, 96)
     with pytest.raises(ValueError, match=r"rope_cos must be \(16, 96\)"):
         fa.fused_attention(q, q, q, 0.1, rope_cos=torch.ones(16, 64), rope_sin=torch.ones(16, 64))

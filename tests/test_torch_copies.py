@@ -7,8 +7,8 @@ cbas_tpu_torch imports nothing of cbas_tpu, so it keeps its own copies of
 logging,metrics,naming}.py``, ``models/torch_port.py``, ``engine/plots.py``,
 ``engine/data.py::build_manifest``, ``ingest/{decode,record,standardize,
 watcher}.py`` with the native loader, the app (``app/*.py``) and the tools
-(``tools/*.py``; ``_device.py`` is the port's own, ``weak_scaling.py`` is
-not ported). Each case
+(``tools/*.py``; ``_device.py`` and ``weak_scaling.py``, which needs no
+child processes, are the port's own). Each case
 of ``test_copy_equals_original`` checks one module's behaviour; each case of
 ``test_copy_source_matches_original`` holds a copied file's text to its
 original's, apart from hunks listed by name with their reasons.
@@ -499,18 +499,20 @@ def test_copy_equals_original(module, tmp_path):
 # changed line, stripped and prefixed "-" (original) or "+" (copy), must
 # match one pattern of its file in full, and each pattern must match a
 # changed line. Files listed with no entries must be equal.
-DEVICE = "the port runs on one torch device where the JAX app builds a mesh"
+DEVICE = ("the engines take the app's torch device beside its mesh; a mesh is of CUDA "
+          "devices, so --device cpu gets none")
 SOURCE_HUNKS = {
     "utils/claims.py": [], "core/labels.py": [], "ingest/watcher.py": [],
     "ingest/standardize.py": [], "ingest/record.py": [], "app/__init__.py": [],
     "app/media.py": [], "app/labeling.py": [], "app/preflight.py": [], "app/server.py": [],
     "app/state.py": [
         ("torch import", "AppState.device is a torch.device", (r"\+import torch",)),
-        ("device for mesh", DEVICE, (
+        ("device beside the mesh", DEVICE, (
             r"-def __init__\(self\) -> None:",
             r'\+def __init__\(self, device="cuda"\) -> None:',
             r"-self\.mesh = None +# jax\.sharding\.Mesh when >1 device \(parallel/mesh\.py\)",
-            r"\+self\.device = torch\.device\(device\) +# the one device every engine runs on",
+            r"\+self\.device = torch\.device\(device\) +# where every engine runs without a mesh",
+            r"\+self\.mesh = None +# parallel\.mesh\.Mesh when >1 device \(parallel/mesh\.py\)",
         )),
     ],
     "app/visualize.py": [
@@ -536,10 +538,11 @@ SOURCE_HUNKS = {
             r"\+# Imported here: the encode path needs h5py, which the app does",
             r"\+# not need to start\.",
         )),
-        ("device for mesh", DEVICE, (
+        ("device beside the mesh", DEVICE, (
             r"-self\._session = InferenceSession\(bundle, self\.config, mesh=st\.mesh\)",
-            r"\+self\._session = InferenceSession\(bundle, self\.config, device=st\.device\)",
-            r"-mesh=st\.mesh,", r"\+device=st\.device,",
+            r"\+self\._session = InferenceSession\(bundle, self\.config, mesh=st\.mesh, "
+            r"device=st\.device\)",
+            r"\+device=st\.device,",
         )),
     ],
     "app/sweep.py": [
@@ -578,8 +581,7 @@ SOURCE_HUNKS = {
         )),
     ],
     "app/api.py": [
-        ("imports", "math for the device count, torch for the CUDA check",
-         (r"\+import math", r"\+import torch")),
+        ("imports", "torch for the CUDA check", (r"\+import torch",)),
         ("Api(device)", "Api takes the device and refuses a CUDA one that is not visible", (
             r"-def __init__\(self, state: Optional\[AppState\] = None\):",
             r'\+def __init__\(self, state: Optional\[AppState\] = None, device="cuda"\):',
@@ -593,21 +595,13 @@ SOURCE_HUNKS = {
             r"\+raise RuntimeError\(",
             r"\+\"Api\(device='cuda'\) needs a CUDA device and none is visible; \"",
             r"\+\"pass device='cpu' to run on the CPU\"",
+            r"\+\)",
         )),
-        ("no mesh", DEVICE + "; a multi-device runtime setting is logged", (
-            r"-try:", r"-from cbas_tpu\.parallel\.mesh import runtime_mesh",
+        ("mesh of CUDA devices", DEVICE, (
             r"-st\.mesh = runtime_mesh\(st\.project\.settings\.runtime\)",
-            r"-if st\.mesh is not None:",
-            r'-f"Data-parallel mesh over \{st\.mesh\.devices\.size\} devices "',
-            r'-f"\(\{dict\(st\.mesh\.shape\)\}\)\."',
-            r"-except Exception as e:",
-            r'-log_message\(f"Mesh construction failed \(\{e\}\); using one device\.", "WARN"\)',
-            r"-st\.mesh = None",
-            r"\+shape = st\.project\.settings\.runtime\.mesh_shape",
-            r"\+if shape is not None and math\.prod\(shape\) > 1:",
-            r'\+f"runtime\.mesh_shape \{list\(shape\)\} asks for \{math\.prod\(shape\)\} "',
-            r'\+f"devices; this backend runs on one \(\{st\.device\}\)\.",',
-            r'\+"WARN",', r"[-+]log_message\(", r"[-+]\)",
+            r"\+# A mesh is of CUDA devices: --device cpu runs on the CPU alone\.",
+            r'\+st\.mesh = runtime_mesh\(st\.project\.settings\.runtime\) if st\.device\.type == '
+            r'"cuda" else None',
         )),
         ("encoder on the device", "FrameEncoder on the app's device in the runtime's dtype; "
          "a device fault is raised, not taken for missing weights", (
@@ -618,9 +612,10 @@ SOURCE_HUNKS = {
             r'\+# runtime\.compute_dtype \("bfloat16" by default, "float32" for',
             r"\+# parity runs\) picks the encoder's matmul dtype\.",
             r"\+st\.encoder = FrameEncoder\(",
-            r"\+st\.project\.encoder_model_identifier, device=st\.device,",
+            r"\+st\.project\.encoder_model_identifier, device=st\.device, mesh=st\.mesh,",
             r"\+compute_dtype=getattr\(torch, st\.project\.settings\.runtime\.compute_dtype\),",
             r'\+f"Encoder ready: \{st\.project\.encoder_model_identifier\} on \{st\.device\}"',
+            r"\+log_message\(",
             r"\+# A device fault \(torch raises CUDA errors as RuntimeError\) must",
             r"\+# surface, not leave the app serving with encoding disabled\.",
             r"\+if isinstance\(e, RuntimeError\) and not isinstance\(e, EncoderWeightsUnavailable\):",
@@ -638,8 +633,9 @@ SOURCE_HUNKS = {
         )),
         ("guided labeling on the device", DEVICE, (
             r"-csv = InferenceSession\(bundle, mesh=self\.state\.mesh\)\.infer_h5\(h5, output_csv=csv\)",
-            r"\+csv = InferenceSession\(bundle, device=self\.state\.device\)\.infer_h5\(h5, "
-            r"output_csv=csv\)",
+            r"\+csv = InferenceSession\(bundle, mesh=self\.state\.mesh, "
+            r"device=self\.state\.device\)\.infer_h5\(",
+            r"\+h5, output_csv=csv\)",
         )),
     ],
     "app/main.py": [
@@ -647,8 +643,10 @@ SOURCE_HUNKS = {
             r"-and keeps pumping until interrupted — the mode used for server/TPU-pod",
             r"\+and keeps pumping until interrupted — the mode used for server",
             r"\+\[--device \{cuda,cpu\}\]",
-            r"\+The encoder, inference and training run on one CUDA device; without one the",
-            r"\+app exits unless ``--device cpu`` asks for the CPU\.",
+            r"\+The encoder, inference and training run on CUDA: over a mesh of the visible",
+            r"\+cards when there are several or ``runtime\.mesh_shape`` asks for one, else on",
+            r"\+one card\. Without a card the app exits unless ``--device cpu`` asks for the",
+            r"\+CPU\.",
         )),
         ("--device", "--device cuda (default) or cpu; no CUDA device and no --device cpu "
          "exits, where the JAX app set up its compilation cache", (

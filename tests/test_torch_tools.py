@@ -37,7 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, "examples", "demo_project")
 DEMO_ENCODER = os.path.join(DEMO, "demo_encoder")
 TOOLS = ("validate_kernels", "compare_encoders", "check_h5", "analyze_split",
-         "prediction_viewer", "encode_fleet", "soak", "reuse_fidelity")
+         "prediction_viewer", "encode_fleet", "soak", "reuse_fidelity", "weak_scaling")
 no_card = pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without CUDA")
 
 # cls_attention_map, fp32 on both sides: the map is a softmax of two layers'
@@ -428,11 +428,38 @@ def test_compare_encoders_checkpoint_fails_on_port_bug(checkpoint_dir, frame_png
 
 
 # ---------------------------------------------------------------------------
+# weak_scaling
+# ---------------------------------------------------------------------------
+
+def test_weak_scaling_shape_2dev(capsys):
+    """The DP encode's weak-scaling shape at 2 logical CPU shards, as the
+    JAX suite's ``test_weak_scaling_shape_2dev``: one weak-scaled step costs
+    about 2 single-device steps on shared cores (the shards' threads may
+    even overlap), plus the split and the gather. A cost that grew with
+    the work would land far above the bound. Then the report of ``main``."""
+    from cbas_tpu_torch.tools.weak_scaling import main, measure
+
+    torch.set_num_threads(2)
+    r1 = measure(1, per_device_batch=16, iters=4, device="cpu")
+    r2 = measure(2, per_device_batch=16, iters=4, device="cpu")
+    assert (r1["batch"], r2["batch"]) == (16, 32)
+    overhead = (r2["step_s"] - 2 * r1["step_s"]) / (2 * r1["step_s"])
+    assert overhead < 0.6, f"2-shard weak-scaled step {r2} vs 1-device {r1}"
+    assert main(["--devices", "1", "2", "--per-device-batch", "2", "--iters", "1",
+                 "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert [r["devices"] for r in report["rows"]] == [1, 2]
+    assert report["rows"][0]["overhead_pct"] == 0.0
+
+
+# ---------------------------------------------------------------------------
 # the device rule and the command lines
 # ---------------------------------------------------------------------------
 
 def _refusals(tmp_path):
-    from cbas_tpu_torch.tools import compare_encoders, reuse_fidelity, soak, validate_kernels
+    from cbas_tpu_torch.tools import (
+        compare_encoders, reuse_fidelity, soak, validate_kernels, weak_scaling,
+    )
 
     png = str(tmp_path / "f.png")
     cv2.imwrite(png, np.zeros((32, 32, 3), np.uint8))
@@ -443,12 +470,13 @@ def _refusals(tmp_path):
         "soak": lambda: soak.run_soak(cameras=1, minutes=0.1, tiny=True,
                                       project_dir=str(tmp_path / "soak")),
         "reuse_fidelity": lambda: reuse_fidelity.run([6.0], n_frames=10, size=32, tiny=True),
+        "weak_scaling": lambda: weak_scaling.main(["--devices", "1", "2"]),
     }
 
 
 @no_card
 @pytest.mark.parametrize("tool", ["validate_kernels", "compare_encoders", "soak",
-                                  "reuse_fidelity"])
+                                  "reuse_fidelity", "weak_scaling"])
 def test_tool_refuses_without_cuda(tool, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         _refusals(tmp_path)[tool]()

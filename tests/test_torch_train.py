@@ -387,10 +387,18 @@ def test_fit_temperature_matches_jax(labeled):
 
 
 def test_mesh_is_refused():
+    """The trainer takes a mesh (``tests/test_torch_parallel.py``), but not
+    one it cannot run as asked: CUDA devices that are not visible, or a mesh
+    that does not start on the head's device. Nothing falls back."""
+    from cbas_tpu_torch.parallel.mesh import make_mesh
+
     head = deltas_params_from_numpy(_small_params(), theads.DeltasHeadConfig(**SMALL))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttrain.build_train_step(head, ttrain.make_optimizer(head, 1e-3, 0.0), None, 0.0,
-                                mesh=object())
+    opt = ttrain.make_optimizer(head, 1e-3, 0.0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="the mesh needs cuda:0, which is not visible"):
+            ttrain.build_train_step(head, opt, None, 0.0, mesh=make_mesh(devices=["cuda:0"] * 2))
+    with pytest.raises(ValueError, match="the head is on cpu, the mesh starts at meta"):
+        ttrain.build_train_step(head, opt, None, 0.0, mesh=make_mesh(devices=["meta", "cpu"]))
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@
 //   of 256 threads owns a 4 x 4 micro-tile of the scores and 4 rows of the
 //   output.
 //
-// Head dims: any multiple of 8 up to 256. The mma k-steps are 16 deep, so
+// Head dims: any multiple of 8 up to 256 in fp32, up to 128 in bf16 (bf16 at
+// 192 and 256 runs attention_sm90.cuh's body). The mma k-steps are 16 deep, so
 // the bf16 tiles are zero-filled in shared memory up to the next multiple of
 // 16: zero columns change neither q.k^T nor the live output columns. The
 // RoPE partner of column c is (c + hd/2) mod hd; when hd/2 is a multiple of
@@ -31,13 +32,10 @@
 // otherwise (hd = 40, 56, ...) they are gathered one element at a time.
 // Shared memory is dynamic: at hd = 128 the bf16 tiles take 52 KB and the
 // fp32 tiles 99 KB, above the 48 KB a block may declare statically; at
-// hd = 256, 101 KB and 193 KB, within the 227 KB a Hopper block may opt into,
-// so the 64-row query tile holds at every width.
-// Above hd = 128 the bf16 body keeps Q in shared memory and reads its
-// fragments once per key tile instead of holding all of them in registers:
-// the output accumulator alone takes hd / 2 registers a thread.
-// Above hd = 256 no 64-row tile of a whole row fits: attention_wide (below)
-// takes hd at run time and works in 64-column slices of d.
+// hd = 256 the fp32 tiles take 193 KB, within the 227 KB a Hopper block may
+// opt into, so the 64-row query tile holds at every width.
+// Above hd = 256 K3 takes attention_wide.cuh's body, which takes hd at run
+// time.
 
 #pragma once
 
@@ -281,11 +279,8 @@ struct Bf16Tiles {
   // Blocks an SM must hold, passed to __launch_bounds__, which caps the
   // registers to fit them: without it ptxas takes 103 registers at d = 64
   // (4 blocks an SM) and 172 at d = 128 (2 blocks). Capped at 96 and 168,
-  // with a few bytes of spills, both ran faster on an H100 (PERF.md). Above
-  // d = 128, 2 blocks (255 registers each) as shared memory allows.
-  static constexpr int kMinBlocks = HD <= 64 ? 5 : HD <= 128 ? 3 : 2;
-  // Q's A fragments stay in registers up to d = 128 (8 k steps).
-  static constexpr bool kQInRegisters = kKSteps <= 8;
+  // with a few bytes of spills, both ran faster on an H100 (PERF.md).
+  static constexpr int kMinBlocks = HD <= 64 ? 5 : 3;
 };
 
 // d = a * b + d for one m16n8k16 tile: bf16 A (4 regs) and B (2 regs), fp32 D.
@@ -424,11 +419,9 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   // This warp's 16 x kPad Q slice as A fragments, one per 16-wide k step:
   // matrices (rows 0-7, cols +0), (rows 8-15, +0), (rows 0-7, +8), (rows 8-15, +8).
   const __nv_bfloat16* q_frag = sq + (16 * warp + 8 * (mi % 2) + mr) * kLd + 8 * (mi / 2);
-  uint32_t qa[T::kQInRegisters ? kKSteps : 1][4];
-  if constexpr (T::kQInRegisters) {
+  uint32_t qa[kKSteps][4];
 #pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) ldmatrix_x4(qa[kk], q_frag + 16 * kk);
-  }
+  for (int kk = 0; kk < kKSteps; ++kk) ldmatrix_x4(qa[kk], q_frag + 16 * kk);
 
   float acc[2 * kKSteps][4] = {};       // O: tiles of 8 output dims
   float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
@@ -445,47 +438,19 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     // S = Q K^T over 8 tiles of 8 keys. B[kd][key] = K[key][kd]: one x4 load
     // gives the B fragments of two 16-wide k steps, an x2 load those of one.
     float s[8][4] = {};
-    if constexpr (T::kQInRegisters) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int kp = 0; kp < kKSteps / 2; ++kp) {
-          uint32_t b[4];
-          ldmatrix_x4(b, sk + (8 * j + mr) * kLd + 32 * kp + 8 * mi);
-          mma_bf16(s[j], qa[2 * kp], b[0], b[1]);
-          mma_bf16(s[j], qa[2 * kp + 1], b[2], b[3]);
-        }
-        if constexpr (kKSteps % 2) {
-          uint32_t b[2];
-          ldmatrix_x2(b, sk + (8 * j + mr) * kLd + 16 * (kKSteps - 1) + 8 * (mi % 2));
-          mma_bf16(s[j], qa[kKSteps - 1], b[0], b[1]);
-        }
-      }
-    } else {
-      // k steps outermost: each pair of Q fragments is read from shared
-      // memory once per key tile and used for all 8 key tiles.
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int kp = 0; kp < kKSteps / 2; ++kp) {
-        uint32_t a0[4], a1[4];
-        ldmatrix_x4(a0, q_frag + 32 * kp);
-        ldmatrix_x4(a1, q_frag + 32 * kp + 16);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t b[4];
-          ldmatrix_x4(b, sk + (8 * j + mr) * kLd + 32 * kp + 8 * mi);
-          mma_bf16(s[j], a0, b[0], b[1]);
-          mma_bf16(s[j], a1, b[2], b[3]);
-        }
+        uint32_t b[4];
+        ldmatrix_x4(b, sk + (8 * j + mr) * kLd + 32 * kp + 8 * mi);
+        mma_bf16(s[j], qa[2 * kp], b[0], b[1]);
+        mma_bf16(s[j], qa[2 * kp + 1], b[2], b[3]);
       }
       if constexpr (kKSteps % 2) {
-        uint32_t a0[4];
-        ldmatrix_x4(a0, q_frag + 16 * (kKSteps - 1));
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t b[2];
-          ldmatrix_x2(b, sk + (8 * j + mr) * kLd + 16 * (kKSteps - 1) + 8 * (mi % 2));
-          mma_bf16(s[j], a0, b[0], b[1]);
-        }
+        uint32_t b[2];
+        ldmatrix_x2(b, sk + (8 * j + mr) * kLd + 16 * (kKSteps - 1) + 8 * (mi % 2));
+        mma_bf16(s[j], qa[kKSteps - 1], b[0], b[1]);
       }
     }
 
@@ -568,196 +533,6 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 }
 
 // ---------------------------------------------------------------------------
-// Wide heads (d > 256): the head dim as a run-time argument
-// ---------------------------------------------------------------------------
-//
-// A 64-row fp32 tile of a head wider than 256 outgrows the shared memory a
-// block may use, so no tile here holds a whole row. Each block owns one
-// kWideSlice-column slice of O (the grid's third dimension is image x slice)
-// and walks the key tiles as the f32 body does; for each key tile it
-// accumulates s = q.k^T over d in kWideSlice-column slices of Q and K staged
-// through shared memory, recomputing the scores its slice needs (every slice
-// of a head recomputes them: a simple body, not a fast one). The RoPE partner
-// of column c, c + d/2 mod d, is read from global memory as the slice loads,
-// whichever slice it lies in; tables need an even d (the wrapper ropes an odd
-// head before the launch and passes none). Both dtypes compute in fp32 with
-// scalar FMAs; bfloat16 rounds where the other bodies round (roped, scaled q
-// and roped k to bf16, p to bf16 before p.V, fp32 row sums). Keys at or
-// beyond n_valid are masked by select and their K and V rows load as zeros.
-
-constexpr int kWideSlice = 64;  // columns of d a shared-memory slice holds, and of O a block owns
-
-struct WideTiles {
-  static constexpr int kLd = kWideSlice + 1;  // padded: column walks hit distinct banks
-  static constexpr size_t kSmemBytes = 3 * kTile * kLd * sizeof(float);  // Q, K then P, V
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// x as the element type T rounds it (identity for float).
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Columns [col0, col0 + kWideSlice) of rows [row0, row0 + 64) of one head
-// into shared memory as fp32. Rows at or beyond `live_rows`, and columns at
-// or beyond hd, load as 0. With tables, RoPE is applied as the row loads
-// (the partner read from global memory); then `scale`, then T's rounding.
-template <typename T>
-__device__ __forceinline__ void load_slice_wide(float* __restrict__ dst,
-                                                const T* __restrict__ head, int row0,
-                                                int live_rows, long long row_stride, int col0,
-                                                int hd, const float* __restrict__ cos_t,
-                                                const float* __restrict__ sin_t, float scale) {
-  for (int i = threadIdx.x; i < kTile * kWideSlice; i += kF32Threads) {
-    const int r = i / kWideSlice;
-    const int c = i % kWideSlice;
-    const int n = row0 + r;
-    const int col = col0 + c;
-    float x = 0.f;
-    if (n < live_rows && col < hd) {
-      const T* row = head + static_cast<size_t>(n) * row_stride;
-      x = to_float(row[col]);
-      if (cos_t != nullptr) {
-        const int half = hd / 2;
-        const int partner = col < half ? col + half : col - half;
-        const size_t t = static_cast<size_t>(n) * hd + col;
-        x = rope(x, to_float(row[partner]), col < half, cos_t[t], sin_t[t]);
-      }
-      x = round_to<T>(x * scale);
-    }
-    dst[r * WideTiles::kLd + c] = x;
-  }
-}
-
-// One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y, output
-// columns [s * 64, s * 64 + 64) of image b, where blockIdx.z = b * n_slices + s.
-// Thread (ty, tx) owns score rows ty + 16 i and key columns tx + 16 j, and
-// output columns tx + 16 j of the slice, as in attention_f32.
-template <typename T>
-__global__ void __launch_bounds__(kF32Threads)
-attention_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, const float* __restrict__ cos_t,
-               const float* __restrict__ sin_t, int N, int hd, int n_slices, Layout L,
-               int n_valid, float scale) {
-  constexpr int kLd = WideTiles::kLd;
-  float* sq = reinterpret_cast<float*>(dynamic_smem());  // a slice of Q, roped and scaled
-  float* sk = sq + kTile * kLd;                          // a slice of K, then P
-  float* sv = sk + kTile * kLd;                          // this block's slice of V
-
-  const int q0 = blockIdx.x * kTile;
-  const int b = blockIdx.z / n_slices;
-  const int c0 = (blockIdx.z % n_slices) * kWideSlice;
-  const int h = blockIdx.y;
-  const size_t head_off = static_cast<size_t>(b) * L.batch_stride +
-                          static_cast<size_t>(h / L.heads_per_group) * L.group_stride +
-                          static_cast<size_t>(h % L.heads_per_group) * hd;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  float acc[4][4], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_key_tiles = (n_valid + kTile - 1) / kTile;  // tiles past n_valid add zeros
-  for (int kt = 0; kt < n_key_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    float s[4][4] = {};
-    for (int d0 = 0; d0 < hd; d0 += kWideSlice) {
-      __syncthreads();  // every thread is done with the previous slices (and P, V)
-      load_slice_wide<T>(sq, q + head_off, q0, N, L.row_stride, d0, hd, cos_t, sin_t, scale);
-      load_slice_wide<T>(sk, k + head_off, k0, n_valid, L.row_stride, d0, hd, cos_t, sin_t, 1.f);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kWideSlice; ++d) {
-        float a[4], bk[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sq[(ty + 16 * i) * kLd + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = sk[(tx + 16 * j) * kLd + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= n_valid) s[i][j] = kMasked;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = reduce16_max(mx);
-      const float alpha = expf(m[i] - mx);  // 0 on the first tile (m = -inf)
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx + 16 * j < n_valid ? expf(s[i][j] - mx) : 0.f;
-        s[i][j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + reduce16_sum(rs);
-      m[i] = mx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-    }
-
-    __syncthreads();  // every thread is done reading the K slice: its buffer takes P
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sk[(ty + 16 * i) * kLd + tx + 16 * j] = round_to<T>(s[i][j]);
-    load_slice_wide<T>(sv, v + head_off, k0, n_valid, L.row_stride, c0, hd, nullptr, nullptr,
-                       1.f);
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float p[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sk[(ty + 16 * i) * kLd + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = sv[c * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= N) continue;
-    const float inv = 1.f / l[i];
-    T* row = o + head_off + static_cast<size_t>(r) * L.row_stride;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (col < hd) store(row + col, acc[i][j] * inv);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -769,7 +544,8 @@ inline cudaError_t check_args(int B, int N, int H, const Layout& L, int n_valid)
   return cudaSuccess;
 }
 
-// Launch one head dim's kernel on `stream`. dtype: 0 = float32, 1 = bfloat16.
+// Launch one head dim's kernel on `stream`. dtype: 0 = float32, 1 = bfloat16
+// (up to HD = 128).
 // cos_t/sin_t are (N, HD) fp32 tables or both null (no RoPE). Returns the
 // CUDA error of the launch (cudaSuccess when it was queued).
 template <int HD>
@@ -792,14 +568,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), c, s, N, L, n_valid, scale);
   } else if (dtype == 1) {
-    constexpr size_t bytes = Bf16Tiles<HD>::kSmemBytes;
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    attention_bf16<HD><<<grid, kBf16Threads, bytes, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), c, s, N, L,
-        n_valid, scale);
+    if constexpr (HD <= 128) {
+      constexpr size_t bytes = Bf16Tiles<HD>::kSmemBytes;
+      const cudaError_t err = cudaFuncSetAttribute(
+          attention_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+      attention_bf16<HD><<<grid, kBf16Threads, bytes, st>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), c, s, N, L,
+          n_valid, scale);
+    } else {
+      return cudaErrorInvalidValue;  // bf16 above 128 runs attention_sm90.cuh's body
+    }
   } else {
     return cudaErrorInvalidValue;
   }

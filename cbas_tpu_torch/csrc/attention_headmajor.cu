@@ -10,26 +10,22 @@
 //
 // What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
-// cores at N = 1205. bfloat16 at d = 64 and 128 takes the Hopper body
-// (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head). The
-// other head dims, and float32 at every head dim, keep attention_common.cuh's
-// body: its tiles outgrow static shared memory above d = 64 (dynamic, 52 KB
-// in bf16 at d = 128), head dims that are not a multiple of 16 are
-// zero-filled to one in shared memory, and those whose half is not a
-// multiple of 8 gather RoPE partners one element at a time: both cost only
-// such rare widths. Above d = 128 (no shipped preset has such heads) the
-// bf16 body reads Q's fragments from shared memory once per key tile; only
-// 192 and 256 are instantiated there, since each width adds to the build.
-// The wrapper (ops/flash_attention.py::fused_attention) zero-pads a head of
-// any other width up to 256 to the next instantiated one.
-//
-// Above d = 256 a 64-row fp32 tile of a head outgrows the 227 KB of shared
-// memory a block may use: the wide body (attention_common.cuh's
-// attention_wide) gives each block one 64-column slice of O and accumulates
-// the scores over d in 64-column slices of Q and K through shared memory,
-// recomputing them for every slice. It takes d at run time, in fp32 and bf16,
-// so it adds two kernels to the build, not one per width. Simple and right,
-// not fast: each slice of a head repeats the q.k^T work.
+// cores at N = 1205. Three bodies:
+// - bfloat16 at d = 64, 128, 192 and 256: the Hopper body
+//   (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head);
+// - float32 at every d up to 256, and bfloat16 at the other multiples of 8
+//   up to 128: attention_common.cuh's body (its tiles outgrow static shared
+//   memory above d = 64, head dims that are not a multiple of 16 are
+//   zero-filled to one in shared memory, and those whose half is not a
+//   multiple of 8 gather RoPE partners one element at a time: both cost only
+//   such rare widths);
+// - any d above 256, both dtypes: the wide body (attention_wide.cuh: O in
+//   384-column slices, the scores formed once a slice; bf16 on wgmma with
+//   two consumer warpgroups, fp32 on FMAs). It takes d at run time, so it
+//   adds two kernels to the build, not one per width.
+// Each instantiated width adds to the build, so the wrapper
+// (ops/flash_attention.py::fused_attention) zero-pads a head of any other
+// width up to 256 to the next instantiated one.
 //
 // An odd d with RoPE tables: rotate-half pairs element i with i + d/2
 // rounded down (cbas_tpu/models/vit.py's concat(-t[d//2:], t[:d//2])), a
@@ -37,7 +33,7 @@
 // scale folded in, one rounding to the input dtype, the plain version's
 // rounding points) and launches this kernel without tables and at scale 1.
 
-#include "attention_sm90.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -47,7 +43,7 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
         int n_valid, float scale, int dtype, void* stream, int* body) {
   using namespace cbas_attention;
   *body = sm90_route(dtype, HD);
-  if constexpr (HD == 64 || HD == 128) {
+  if constexpr (HD == 64 || HD == 128 || HD == 192 || HD == 256) {
     if (*body)
       return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L,
                                                n_valid, scale, stream));
@@ -56,62 +52,19 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                                      stream));
 }
 
-// Launch the wide body (attention_common.cuh's attention_wide: any head dim
-// hd above kMaxHeadDim, as a run-time argument) on `stream`. It is launched
-// from here only, so the flat and packed libraries do not build it. dtype:
-// 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, hd) fp32 tables, which
-// need an even hd, or both null. Returns the CUDA error of the launch
-// (cudaSuccess when it was queued).
-cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-                        const void* sin_t, int B, int N, int H, int hd,
-                        const cbas_attention::Layout& L, int n_valid, float scale, int dtype,
-                        void* stream) {
-  using namespace cbas_attention;
-  const cudaError_t bad = check_args(B, N, H, L, n_valid);
-  if (bad != cudaSuccess) return bad;
-  const int n_slices = (hd + kWideSlice - 1) / kWideSlice;
-  if (hd <= kMaxHeadDim || (cos_t != nullptr && hd % 2) || (cos_t == nullptr) != (sin_t == nullptr) ||
-      static_cast<long long>(B) * n_slices > 65535)
-    return cudaErrorInvalidValue;
-  const auto* c = static_cast<const float*>(cos_t);
-  const auto* s = static_cast<const float*>(sin_t);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kTile - 1) / kTile, H, B * n_slices);
-  constexpr size_t bytes = WideTiles::kSmemBytes;
-  if (dtype == 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_wide<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    attention_wide<float><<<grid, kF32Threads, bytes, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), c, s, N, hd, n_slices, L, n_valid, scale);
-  } else if (dtype == 1) {
-    const cudaError_t err = cudaFuncSetAttribute(attention_wide<__nv_bfloat16>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    attention_wide<__nv_bfloat16><<<grid, kF32Threads, bytes, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), c, s, N, hd,
-        n_slices, L, n_valid, scale);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // C entry, bound with ctypes, with the flat and packed entries' signature.
 // head_dim is d (a multiple of 8 up to 128, 192, 256, or any d above 256:
-// the wide body, which takes tables only at an even d). batch_stride,
-// group_stride (between heads) and row_stride are q's (k's, v's and o's)
-// element strides.
+// the wide body, which takes tables only at an even d).
+// batch_stride, group_stride (between heads) and row_stride are q's (k's,
+// v's and o's) element strides.
 // dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or
-// both null. k_scratch is a buffer laid out like k for the roped keys, needed
-// by the Hopper body with tables (null otherwise). *body is set to the body
-// that ran (sm90_route). Returns the CUDA error code of the launch (0 on
-// success).
+// both null. With tables the Hopper body needs k_scratch, a buffer laid out
+// like k for the roped keys, and the wide body two such buffers back to back
+// (roped q, then roped k); null otherwise. *body is set to the body that ran:
+// 0 the common body, 1 the Hopper body (sm90_route), 2 the wide body.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void* v, void* o,
                                         const void* cos_t, const void* sin_t, void* k_scratch,
                                         int B, int N, int H, int head_dim, long long batch_stride,
@@ -143,9 +96,10 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
     CBAS_HEAD_DIM(256)
     default:
       if (head_dim <= cbas_attention::kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-      *body = 0;
-      return static_cast<int>(
-          launch_wide(q, k, v, o, cos_t, sin_t, B, N, H, head_dim, L, n_valid, scale, dtype, stream));
+      *body = 2;
+      return static_cast<int>(cbas_attention::wide::launch(q, k, v, o, cos_t, sin_t, k_scratch, B,
+                                                           N, H, head_dim, L, n_valid, scale,
+                                                           dtype, stream));
   }
 #undef CBAS_HEAD_DIM
 }

@@ -1,8 +1,9 @@
-// The Hopper body of the port's fused attention in bfloat16, for head dims 64
-// and 128: K1 (flat, d = 64), K2 (head-pair packed, d = 64) and K3
-// (head-major, d = 64 and 128) route here (attention_fat.cu,
+// The Hopper body of the port's fused attention in bfloat16, for head dims
+// 64, 128, 192 and 256: K1 (flat, d = 64), K2 (head-pair packed, d = 64) and
+// K3 (head-major, d = 64, 128, 192 and 256) route here (attention_fat.cu,
 // attention_packed.cu, attention_headmajor.cu); fp32 and K3's other head
-// dims stay on attention_common.cuh. The tensor maps are built from the
+// dims up to 256 stay on attention_common.cuh, K3's heads above 256 take
+// attention_wide.cuh. The tensor maps are built from the
 // caller's Layout (strides), so one code path reads every layout, strided
 // views included.
 //
@@ -59,6 +60,15 @@
 // 5 rows of 64, so 25 tile steps do the work of 16.6. At N = 1205 the K and
 // V re-reads of the 19 query blocks of a head also load L2 (2.25 GB at
 // 640x480 for K1).
+//
+// At d = 192 and 256 (K3; the TPU kernel cbas_tpu/ops/flash_attention.py::
+// _attn_kernel at those widths, and through the wrapper's one-copy pad every
+// width from 136 to 248) the same body runs with 3 and 4 swizzle atoms, each
+// its own TMA box and its own n = 64 product. What bounds it there: the
+// bytes of q, k, v and o at N = 261, and registers: O alone is HD / 2 fp32
+// registers a consumer thread (96, 128) before the scores (32) and P (16),
+// so blocks an SM are fewer (Config::kMinBlocks). Q 24-32 KB and a 24-32 KB
+// ring stage keep two blocks an SM within shared memory.
 
 #pragma once
 
@@ -77,16 +87,24 @@ constexpr int kAtomBytes = kBlockN * 128;  // one 64-row atom of a K or V tile
 
 template <int HD>
 struct Config {
-  static_assert(HD == 64 || HD == 128, "the Hopper body takes head dims 64 and 128");
+  static_assert(HD == 64 || HD == 128 || HD == 192 || HD == 256,
+                "the Hopper body takes head dims 64, 128, 192 and 256");
   static constexpr int kAtoms = HD / kAtom;
   // One consumer warpgroup a block, a 2-stage ring and registers capped for
   // 4 blocks an SM at d = 64, 3 at d = 128. The kernel is bound by latency,
   // so independent blocks an SM are what helps: on an H100 at the main
   // shapes this ran faster than two warpgroups sharing a 128-row block, and
   // than 3- and 4-stage rings, which cost blocks an SM (or registers) for
-  // loads that a 2-stage ring already has in flight (PERF.md).
+  // loads that a 2-stage ring already has in flight (PERF.md). At d = 192
+  // and 256 the O accumulator alone is 96 and 128 registers a thread: one
+  // warpgroup a block takes 158 and 194 registers, so 2 blocks an SM at 192
+  // and 1 at 256 (an SM sub-partition holds 3 warps of up to 168 registers).
+  // Two consumer warpgroups on a 128-row block, with thread 0 refilling a
+  // shared 4-stage ring and no producer warp, ran slower at both widths;
+  // FA3's shape, a producer handing registers to two consumer warpgroups by
+  // setmaxnreg, is not measured (PERF.md).
   static constexpr int kSlots = 2;
-  static constexpr int kMinBlocks = HD == 64 ? 4 : 3;
+  static constexpr int kMinBlocks = HD == 64 ? 4 : HD == 128 ? 3 : HD == 192 ? 2 : 1;
   static constexpr int kThreads = kWGThreads + 32;        // + the producer warp
   static constexpr int kTileBytes = kAtoms * kAtomBytes;  // one K or V tile
   static constexpr int kQBytes = kAtoms * kAtomBytes;      // the Q tile, swizzled like K
@@ -664,9 +682,9 @@ struct MapShape {
 // one's (HD, rows, H, B), the packed view of a flat tensor's the flat map
 // (64, H, rows, B), and a contiguous packed one's (64, 2, rows, H/2, B).
 // False if the heads of a group are split from their group in the map and
-// number other than a power of two (no layout of the port's entries).
-template <int HD>
-inline bool map_shape(const Layout& L, int B, int N, int H, MapShape* m) {
+// number other than a power of two (no layout of the port's entries). HD is
+// the head dim (a run-time argument: the wide body's is one).
+inline bool map_shape(const Layout& L, int HD, int B, int N, int H, MapShape* m) {
   const int hpg = L.heads_per_group;
   const long long size[4] = {hpg, N, H / hpg, B};
   // (A single row's stride may hold any value too: it becomes HD.)
@@ -767,7 +785,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
   }
   MapShape m;
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!map_shape<HD>(L, B, N, H, &m) || !encode_map(&q_map, q, m, N) || !encode_map(&o_map, o, m, N) ||
+  if (!map_shape(L, HD, B, N, H, &m) || !encode_map(&q_map, q, m, N) || !encode_map(&o_map, o, m, N) ||
       !encode_map(&k_map, k_in, m, n_valid) || !encode_map(&v_map, v, m, n_valid))
     return cudaErrorInvalidValue;
   const auto kernel = m.order.rank == 5 ? attention_sm90<HD, 5> : attention_sm90<HD, 4>;
@@ -783,10 +801,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
 }  // namespace sm90
 
 // Which body a (dtype, head dim) takes in every entry: 1 (this file's
-// Hopper body) for bfloat16 at d = 64 and 128, else 0
-// (attention_common.cuh). ops/flash_attention.py::attention_body mirrors it.
+// Hopper body) for bfloat16 at d = 64, 128, 192 and 256 (an entry builds the
+// widths it takes: K1 and K2 only 64), else 0 (attention_common.cuh). K3's
+// heads above 256 take the wide body (attention_wide.cuh), which
+// attention_headmajor.cu reports as 2. ops/flash_attention.py::attention_body
+// mirrors it.
 inline int sm90_route(int dtype, int head_dim) {
-  return dtype == 1 && (head_dim == 64 || head_dim == 128) ? 1 : 0;
+  return dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 192 || head_dim == 256)
+             ? 1
+             : 0;
 }
 
 }  // namespace cbas_attention

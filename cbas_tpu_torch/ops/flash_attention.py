@@ -27,19 +27,25 @@ exact fp32 softmax, output in q's dtype.
 - On a CPU tensor it runs its plain PyTorch version
   (``attention_{fat,packed,headmajor}_reference``).
 
-Two bodies serve the three entries (:func:`attention_body`): bfloat16 at
-head dims 64 and 128 takes the Hopper body (``csrc/attention_sm90.cuh``: TMA
-ring, wgmma, RoPE once per token and head, tensor maps built from the
-tensors' strides); float32 and K3's other head dims take
-``csrc/attention_common.cuh``'s.
+Three bodies serve the three entries (:func:`attention_body`):
+
+- "sm90": bfloat16 at head dims 64 (K1, K2, K3), 128, 192 and 256 (K3) takes
+  the Hopper body (``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once
+  per token and head, tensor maps built from the tensors' strides);
+- "wide": K3's heads above 256, both dtypes, take the wide body
+  (``csrc/attention_wide.cuh``: O in 384-column slices, the scores formed
+  once a slice; bf16 on wgmma with two consumer warpgroups, fp32 on FMAs);
+- "common": float32 up to 256 and K3's other bf16 head dims (up to 128) take
+  ``csrc/attention_common.cuh``'s.
 
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
 count kernel launches and nothing else, so a run can show which kernels its
 main path went through; ``launches_headmajor_by_dim`` splits K3's by the
-head dim the kernel ran at (the padded width), and ``launches_sm90`` counts
+head dim the kernel ran at (the padded width), ``launches_sm90`` counts
 those of them all that ran the Hopper body, as the C entry reports it
-(``launches_sm90_by_kernel`` by entry). The shards of a device mesh launch
-from threads of their own, so every count is updated under one lock.
+(``launches_sm90_by_kernel`` by entry), and ``launches_wide`` those of K3
+that ran the wide body. The shards of a device mesh launch from threads of
+their own, so every count is updated under one lock.
 """
 
 from __future__ import annotations
@@ -65,17 +71,22 @@ launches_headmajor = 0  # K3, fused_attention
 launches_headmajor_by_dim: dict = {}  # K3's launches by head dim
 launches_sm90 = 0       # launches of any entry that ran the Hopper body
 launches_sm90_by_kernel: dict = {}  # the same, by entry ("attention_fat", ...)
+launches_wide = 0       # K3's launches that ran the wide body (d > 256)
 _count_lock = threading.Lock()  # shard threads launch concurrently
 
 _SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
-                   "attention_headmajor": (64, 128)}
+                   "attention_headmajor": (64, 128, 192, 256)}
+_BODIES = {0: "common", 1: "sm90", 2: "wide"}  # the C entries' *body codes
 
 
 def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     """The body entry ``kernel`` (``attention_fat``, ``attention_packed`` or
     ``attention_headmajor``) runs for ``dtype`` and ``head_dim``: "sm90" (the
-    Hopper body, bfloat16 at the head dims it is built for) or "common". The
-    C entries route by the same rule and report the body they ran."""
+    Hopper body, bfloat16 at the head dims it is built for), "wide" (K3's
+    heads above 256, both dtypes) or "common". The C entries route by the
+    same rule and report the body they ran."""
+    if kernel == "attention_headmajor" and head_dim > 256:
+        return "wide"
     if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS.get(kernel, ()):
         return "sm90"
     return "common"
@@ -275,7 +286,11 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -
     body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         out = _like(q)
-        scratch = _like(k) if want == "sm90" and cos is not None else None
+        scratch = None  # roped keys (the Hopper body), roped q then k (the wide body)
+        if cos is not None and want == "sm90":
+            scratch = _like(k)
+        elif cos is not None and want == "wide":
+            scratch = torch.empty(2 * k.numel(), dtype=k.dtype, device=k.device)
         err = _kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             cos.data_ptr() if cos is not None else None,
@@ -286,7 +301,7 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -
         )
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-    ran = "sm90" if body.value == 1 else "common"
+    ran = _BODIES.get(body.value, f"unknown ({body.value})")
     if ran != want:
         raise RuntimeError(f"{name} ran the {ran} body where attention_body says {want}")
     _count_launch(name, d, ran)
@@ -296,7 +311,7 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -
 def _count_launch(name: str, d: int, body: str) -> None:
     """One launch of entry ``name`` at head dim ``d`` through ``body``, in
     the module's counters."""
-    global launches, launches_packed, launches_headmajor, launches_sm90
+    global launches, launches_packed, launches_headmajor, launches_sm90, launches_wide
     with _count_lock:
         if name == "attention_fat":
             launches += 1
@@ -308,6 +323,8 @@ def _count_launch(name: str, d: int, body: str) -> None:
         if body == "sm90":
             launches_sm90 += 1
             launches_sm90_by_kernel[name] = launches_sm90_by_kernel.get(name, 0) + 1
+        elif body == "wide":
+            launches_wide += 1
 
 
 def fused_attention_fat(

@@ -11,7 +11,13 @@ each:
 
 - kernel ms (CUDA events over 20 launches after 3 warm-up) of K1 (flat),
   K2 (head-pair packed) and K3 (head-major) in bf16 at the main paths'
-  shapes, with RoPE and without;
+  shapes, with RoPE and without; and K3 at the widths no preset has: 192
+  and 256 (16 heads at ViT-7B's batch), 160 (padded to 192) and, in bf16
+  and fp32, 320 and 384 (the wide body);
+- a ``torch.profiler`` trace of K3 at ``TRACE_ROWS`` (the width 160 padded
+  to 192, and 192 itself): each CUDA kernel's launches and device ms per
+  call, the device's busy ms per call, the host's ms to issue one call and
+  the CUDA-event ms per call, read once (not a list, so not summarized);
 - warm encode frames/s: dinov3-vitb16 flat and packed (``CBAS_ATTN_FAT=0``)
   routes at 256x256 (batch 128) and 640x480 (batch 32); the DINOv3
   ViT-7B/16 width at depth 4 at 256x256 (batch 32) and 640x480 (batch 8).
@@ -33,14 +39,27 @@ import sys
 import tempfile
 import time
 
-KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid)
-    ("attention_fat", 128, 261, 12, 64, (16, 16)),
-    ("attention_fat", 32, 1205, 12, 64, (30, 40)),
-    ("attention_packed", 128, 261, 12, 64, (16, 16)),
-    ("attention_packed", 32, 1205, 12, 64, (30, 40)),
-    ("attention_headmajor", 32, 261, 32, 128, (16, 16)),
-    ("attention_headmajor", 8, 1205, 32, 128, (30, 40)),
+KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
+    ("attention_fat", 128, 261, 12, 64, (16, 16), "bfloat16"),
+    ("attention_fat", 32, 1205, 12, 64, (30, 40), "bfloat16"),
+    ("attention_packed", 128, 261, 12, 64, (16, 16), "bfloat16"),
+    ("attention_packed", 32, 1205, 12, 64, (30, 40), "bfloat16"),
+    ("attention_headmajor", 32, 261, 32, 128, (16, 16), "bfloat16"),
+    ("attention_headmajor", 8, 1205, 32, 128, (30, 40), "bfloat16"),
+    ("attention_headmajor", 32, 261, 16, 192, (16, 16), "bfloat16"),
+    ("attention_headmajor", 32, 261, 16, 256, (16, 16), "bfloat16"),
+    ("attention_headmajor", 8, 261, 16, 160, (16, 16), "bfloat16"),
+    ("attention_headmajor", 8, 261, 16, 320, (16, 16), "bfloat16"),
+    ("attention_headmajor", 4, 1205, 8, 384, (30, 40), "bfloat16"),
+    ("attention_headmajor", 8, 261, 16, 320, (16, 16), "float32"),
+    ("attention_headmajor", 4, 1205, 8, 384, (30, 40), "float32"),
 )
+TRACE_ROWS = (  # (B, N, H, d, patch grid, RoPE), K3 in bf16
+    (8, 261, 16, 160, (16, 16), True),
+    (8, 261, 16, 160, (16, 16), False),
+    (8, 261, 16, 192, (16, 16), True),
+)
+TRACE_CALLS = 20
 VIT7B_CONFIG = {
     "model_type": "dinov3_vit", "hidden_size": 4096, "num_attention_heads": 32,
     "intermediate_size": 8192, "use_gated_mlp": True, "patch_size": 16,
@@ -54,6 +73,40 @@ def card_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def trace_calls(torch, fn, calls: int = TRACE_CALLS) -> dict:
+    """Where the time of one call of ``fn`` goes: ``calls`` calls under
+    ``torch.profiler`` give each CUDA kernel's launches and device ms per
+    call and the device's busy ms per call; without the profiler, the host's
+    ms to issue one call (no synchronize between calls) and the CUDA-event
+    ms per call (``chip_smoke.time_ms``)."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issue_ms = 1e3 * (time.perf_counter() - t) / calls
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, api = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name[:90], {"launches_per_call": 0.0, "device_ms_per_call": 0.0})
+            k["launches_per_call"] += 1 / calls
+            k["device_ms_per_call"] += e.time_range.elapsed_us() / 1e3 / calls
+        elif e.name.startswith("cu"):  # the CUDA runtime and driver calls the host made
+            api[e.name] = api.get(e.name, 0) + 1 / calls
+    return {"kernels": kernels, "runtime_calls_per_call": api,
+            "device_busy_ms_per_call": sum(k["device_ms_per_call"] for k in kernels.values()),
+            "host_issue_ms_per_call": issue_ms, "event_ms_per_call": chip_smoke.time_ms(torch, fn)}
 
 
 def measure(root: str, reads: int) -> dict:
@@ -80,17 +133,25 @@ def measure(root: str, reads: int) -> dict:
                 "attention_packed": fa.fused_attention_packed,
                 "attention_headmajor": fa.fused_attention}
     rng = np.random.default_rng(0)
-    for kernel, B, N, H, d, grid in KERNEL_ROWS:
+    for kernel, B, N, H, d, grid, dtype in KERNEL_ROWS:
         shape = {"attention_fat": (B, N, H * d), "attention_packed": (B, H // 2, N, 2 * d),
                  "attention_headmajor": (B, H, N, d)}[kernel]
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", torch.bfloat16)
-                   for _ in range(3))
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to("cuda", getattr(torch, dtype)) for _ in range(3))
         cos, sin = chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda")
         for rope in (True, False):
             tables = (cos, sin) if rope else (None, None)
             fn = lambda: wrappers[kernel](q, k, v, d ** -0.5, None, *tables)  # noqa: E731
-            out[f"{kernel} {B}x{N}x{H}x{d} rope={rope} ms"] = [
-                chip_smoke.time_ms(torch, fn) for _ in range(reads)]
+            fp32 = " fp32" if dtype == "float32" else ""
+            label = f"{kernel} {B}x{N}x{H}x{d} rope={rope}{fp32} ms"
+            out[label] = [chip_smoke.time_ms(torch, fn) for _ in range(reads)]
+        del q, k, v
+    for B, N, H, d, grid, rope in TRACE_ROWS:
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        tables = chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda") if rope else (None, None)
+        out[f"trace attention_headmajor {B}x{N}x{H}x{d} rope={rope}"] = trace_calls(
+            torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, *tables))  # noqa: B023
         del q, k, v
 
     def fps(enc, planes, batch, label):

@@ -19,8 +19,10 @@ non-zero and prints no final line):
    - K3 (head-major) at 32 heads of 128 (DINOv3 ViT-7B), at 3 heads of 64
      (an odd head count), at head dims 96 and 40, and at head dims 192 and
      256, wider than any shipped preset's heads (timed at 16 heads).
-   bf16 at head dims 64 and 128 runs the Hopper body (``attention_body``),
-   the rest the common body. At the main shapes (K2: on both inputs) each
+   bf16 at head dims 64 and 128 (and K3's 192 and 256) runs the Hopper body
+   (``attention_body``), the rest the common body; each case names the
+   registers and spills of the kernel it ran (``-Xptxas -v``). At the main
+   shapes (K2: on both inputs) each
    kernel is timed with RoPE and without, beside its plain version, its
    bound (FLOP and bytes over the card's peaks) and
    ``scaled_dot_product_attention`` on the same data (head-major, RoPE
@@ -81,6 +83,7 @@ non-zero and prints no final line):
     head dims it refused on the card before: (8, 261, 16, 320) and (4, 1205,
     8, 384) on the wide body, (8, 261, 16, 65) with RoPE tables, bf16 and
     fp32, each against the plain version and timed beside its bound and SDPA;
+    the padded, wide and odd cases name the body they ran and its registers;
 11. mesh: the device mesh in one process, one thread a shard, over logical
     shards of cuda:0 (``runtime_mesh()`` is None on one card and is
     printed): dinov3-vitb16 at full width over (data 2, model 2) and (1, 4),
@@ -92,14 +95,22 @@ non-zero and prints no final line):
     Sharded and one-device frames/s are printed side by side; on logical
     shards of one card they record that the path runs, not scaling. With
     two cards or more the phase runs again over distinct cards
-    (``mesh_multi_gpu``), else that line says it was skipped.
+    (``mesh_multi_gpu``), else that line says it was skipped;
+12. wide heads: encoders of 8 heads of 192, 256 and 320 at depth 2 (random
+    weights, opened from a checkpoint directory's config.json), 32 frames of
+    256x256 in bf16 each: K3 once a forward through the Hopper body at 192
+    and 256 and the wide body at 320 (the counts set to 0 before each run
+    and read after it), embeddings against the CPU fp32 run; then K3 alone
+    at the shape each encode gave it, against its plain version and timed.
 
 The line before the last lists each kernel with its launches on its route,
-error, times, bound and the library call's time (K3 also at head dims 192
-and 256, at phase 10's padded, wide and odd widths, with their launches
-counted over the encode routes' runs, though no shipped preset has such
-heads), the launches of phase 10's runs, and its launches over phase 11's
-mesh encodes (``launches_mesh``); the last line is
+error, times, bound, registers and the library call's time (K3 also at head
+dims 192 and 256, at phase 10's padded, wide and odd widths, with their
+launches counted over the encode routes' runs and phase 12's), the launches
+of phase 10's runs, and its launches over phase 11's mesh encodes
+(``launches_mesh``), then K3's wide body (``attention_wide.cuh``) as an
+entry of its own, its launches those of phase 12 and its numbers those of
+phase 12's kernel case at d 320; the last line is
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -143,6 +154,14 @@ N_CHECK_7B = 2
 # no shipped preset has such heads. Their launches on the encode routes are
 # counted all the same (``launches_on_main_path``).
 WIDE_HEAD_DIMS, WIDE_HEADS = (192, 256), 16
+# 12. The same widths and one above 256 through the encoder: checkpoint
+# directories whose config.json has 8 heads of 192, 256 and 320 (hidden 1536,
+# 2048 and 2560, gated MLP twice the hidden width, the ViT-7B config's other
+# fields) at depth 2, random weights from SEED. No public DINO checkpoint has
+# such heads: this drives K3's Hopper body at 192 and 256 and its wide body
+# through FrameEncoder as a checkpoint of that shape would.
+WIDE_ENCODER_HEAD_DIMS, WIDE_ENCODER_HEADS, WIDE_ENCODER_DEPTH = (192, 256, 320), 8, 2
+WIDE_ENCODER_FRAMES = 32
 
 # The three kernels (source cbas_tpu_torch/csrc/<name>.cu) and the TPU kernel
 # each replaces.
@@ -259,6 +278,11 @@ def build_all(_cuda) -> dict:
         return dict(pool.map(one, KERNELS))
 
 
+# Each kernel library's ``-Xptxas -v`` report, {library: {kernel: "N regs,
+# S/L spill"}}, filled once the kernels are built (``kernel_ptxas`` reads it).
+PTXAS: dict = {}
+
+
 def ptxas_report(log: str) -> list:
     """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log, as
     "<dtype><head dim>: N regs, S/L spill" strings."""
@@ -270,9 +294,14 @@ def ptxas_report(log: str) -> list:
                           r"(?:Li(\d+)E)?", m.group(1))
             args = ", ".join(x for x in k.groups()[1:] if x) if k else ""
             name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else m.group(1)
-            w = re.search(r"attention_wideI(f|13__nv_bfloat16)E", m.group(1))
-            if w:  # the wide body, templated on the dtype, not a head dim
-                name = f"wide<{'f32' if w.group(1) == 'f' else 'bf16'}>"
+            w = re.search(r"(attention_wide_bf16|attention_wide_f32|rope_rows_wide)"
+                          r"(?:I(f|13__nv_bfloat16|Lb[01])E)?", m.group(1))
+            if w:  # the wide body and its prologue: d at run time, not a template argument
+                name = w.group(1).replace("attention_", "")
+                if w.group(2) in ("Lb1", "Lb0"):  # Q resident, or streamed above d = 1024
+                    name += "<resident Q>" if w.group(2) == "Lb1" else "<streamed Q>"
+                elif w.group(2):
+                    name += f"<{'f32' if w.group(2) == 'f' else 'bf16'}>"
             spill = "?"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -283,6 +312,18 @@ def ptxas_report(log: str) -> list:
             out.append(f"{name}: {m.group(1)} regs, {spill} spill")
             name = None
     return out
+
+
+def kernel_ptxas(fa, kernel, dtype, d) -> str:
+    """Registers and spills of the kernel ``kernel`` runs at head dim ``d``
+    (K3: the width it pads to) in ``dtype``, from PTXAS."""
+    width = fa.padded_head_dim(d) if kernel == "attention_headmajor" else d
+    bf16 = str(dtype) == "torch.bfloat16"
+    wide_bf16 = f"wide_bf16<{'resident' if d <= 1024 else 'streamed'} Q>"
+    prefix = {"sm90": f"sm90<{width}, ", "wide": wide_bf16 if bf16 else "wide_f32",
+              "common": f"{'bf16' if bf16 else 'f32'}<{width}>"}[fa.attention_body(kernel, dtype, width)]
+    found = [v for k, v in PTXAS.get(kernel, {}).items() if k.startswith(prefix)]
+    return found[0] if found else "not in the build log"
 
 
 def rope_full(torch, cfg, head_dim, grid, n_tokens, device):
@@ -349,6 +390,7 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         "B": B, "N": N, "H": H, "head_dim": d,
         "dtype": str(dtype).replace("torch.", ""), "rope": rope, "n_valid": n_valid,
         "max_abs_err": float(err.max()), "tol": tol_text, "ok": ok,
+        "ptxas": kernel_ptxas(fa, kernel, dtype, d),
     }
     if time_it:
         out["ms"] = time_ms(torch, lambda: wrapper(q, k, v, scale, n_valid, cos, sin))
@@ -441,7 +483,7 @@ def kernel_phase(torch, fa, cfg) -> dict:
     for d in (96, 40):  # a half that is no power of two; a dim no multiple of 16
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),), ropes=(True,),
               dead=((4, 272, 261, g256),))
-    for d in (192, 256):  # wider than 128: Q's fragments come from shared memory
+    for d in (192, 256):  # wider than 128: the Hopper body in bf16
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),),
               dead=((2, 272, 261, g256),))
     # The main paths' shapes: ViT-B at batch 128 / 32, ViT-7B width at 32 / 8.
@@ -477,16 +519,18 @@ def kernel_phase(torch, fa, cfg) -> dict:
 
 def reset_launches(fa) -> None:
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
+    fa.launches_wide = 0
     fa.launches_headmajor_by_dim.clear()
     fa.launches_sm90_by_kernel.clear()
 
 
 def read_launches(fa) -> dict:
     """Launches of each entry, under "sm90" those that ran the Hopper body
-    (by entry under "sm90_by_kernel"), and under "headmajor_by_dim" K3's
-    split by the head dim it ran at."""
+    (by entry under "sm90_by_kernel"), under "wide" K3's that ran the wide
+    body, and under "headmajor_by_dim" K3's split by the head dim it ran at."""
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
+            "wide": fa.launches_wide,
             "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
             "headmajor_by_dim": dict(fa.launches_headmajor_by_dim)}
 
@@ -595,13 +639,16 @@ def main() -> int:
     print(card, flush=True)
     t = time.perf_counter()
     libs = build_all(_cuda)
+    reports = {name: ptxas_report(lib.with_suffix(".log").read_text())
+               for name, (lib, _) in libs.items()}
+    PTXAS.update({name: dict(line.split(": ", 1) for line in report)
+                  for name, report in reports.items()})
     emit({
         "phase": "environment", "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "card": card,
         "device": torch.cuda.get_device_name(0), "build_s": time.perf_counter() - t,
         "build_s_each": {name: s for name, (_, s) in libs.items()},
-        "ptxas": {name: ptxas_report(lib.with_suffix(".log").read_text())
-                  for name, (lib, _) in libs.items()},
+        "ptxas": reports,
     })
 
     # 2. the kernels against their plain versions
@@ -742,15 +789,19 @@ def main() -> int:
     else:
         emit({"phase": "mesh_multi_gpu", "skipped": "one CUDA device visible"})
 
+    # 12. K3's Hopper body at 192 and 256 and its wide body through the encoder
+    wide_runs, wide_cases = wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card)
+
     route_launches = {
         "attention_fat": flat_launches, "attention_packed": packed_launches,
         "attention_headmajor": vit7b_launches,
     }
-    # K3's launches at each wide head dim over the three encode routes' runs
-    wide_launches = {d: sum(run["headmajor_by_dim"].get(d, 0) for run in route_launches.values())
+    # K3's launches at each head dim above 128 over the encode runs, phase 12's included
+    runs = [*route_launches.values(), *wide_runs.values()]
+    wide_launches = {d: sum(run["headmajor_by_dim"].get(d, 0) for run in runs)
                      for d in WIDE_HEAD_DIMS}
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                   "library", "ms_norope", "gflop", "mbytes", "share_of_bound")
+                   "library", "ms_norope", "gflop", "mbytes", "share_of_bound", "ptxas")
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": route_launches[name][name],
@@ -767,15 +818,16 @@ def main() -> int:
             for d in WIDE_HEAD_DIMS} if name == "attention_headmajor" else {}),
         **({"at_padded_widths": [
             c | {"launches_on_main_path": sum(run["headmajor_by_dim"].get(c["padded_to"], 0)
-                                              for run in route_launches.values())}
+                                              for run in runs)}
             for c in tools_line["padded_timings"]],
             "at_wide_and_odd_head_dims": [
             c | {"launches_on_main_path": sum(run["headmajor_by_dim"].get(c["padded_to"], 0)
-                                              for run in route_launches.values())}
+                                              for run in runs)}
             for c in tools_line["wide_odd_timings"]]} if name == "attention_headmajor" else {}),
         "launches_mesh": mesh_launches[name],
         "launches_tools": {run: launches[name] for run, launches in tools_line["launches"].items()},
-    } for name, replaces in KERNELS.items()]})
+    } for name, replaces in KERNELS.items()]
+        + [wide_kernel_entry(tools_line, wide_runs, wide_cases)]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -844,6 +896,99 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
         del cpu, gpu32
         torch.cuda.empty_cache()
     return launches, line
+
+
+def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
+    """Phase 12: an encoder at each of WIDE_ENCODER_HEAD_DIMS (8 heads, depth
+    2, opened from a checkpoint directory's config.json with random weights)
+    on WIDE_ENCODER_FRAMES frames of 256x256 in bf16: K3 once a forward, at
+    the head dim itself, through the Hopper body at 192 and 256 and the wide
+    body at 320; the embeddings against the CPU fp32 run. Then K3 alone at
+    the shape that path gives it (the frames as the batch, the encoder's
+    heads, tokens and RoPE tables) against its plain version, timed, after
+    the launches are read. Returns ({head dim: launches}, {head dim: that
+    kernel case})."""
+    planes = np.random.default_rng(SEED + 12).integers(0, 256, (WIDE_ENCODER_FRAMES, 256, 256),
+                                                       np.uint8)
+    runs, cases = {}, {}
+    for d in WIDE_ENCODER_HEAD_DIMS:
+        hidden = WIDE_ENCODER_HEADS * d
+        with tempfile.TemporaryDirectory() as ckpt:
+            with open(os.path.join(ckpt, "config.json"), "w") as f:
+                json.dump({**VIT7B_CONFIG, "hidden_size": hidden,
+                           "num_attention_heads": WIDE_ENCODER_HEADS,
+                           "intermediate_size": 2 * hidden,
+                           "num_hidden_layers": WIDE_ENCODER_DEPTH}, f)
+            enc = FrameEncoder(ckpt, random_init=True, device="cuda")
+            if enc.cfg.head_dim != d:
+                raise AssertionError(f"config with {d}-wide heads resolved to {enc.cfg}")
+            torch.cuda.synchronize()
+            reset_launches(fa)
+            t = time.perf_counter()
+            emb, forwards = encode_stream(enc, planes, WIDE_ENCODER_FRAMES)
+            path_s = time.perf_counter() - t
+            got = read_launches(fa)
+            body = fa.attention_body("attention_headmajor", torch.bfloat16, d)
+            per = (WIDE_ENCODER_DEPTH - 1) * forwards  # the CLS-only last block is plain
+            want = {"attention_fat": 0, "attention_packed": 0, "attention_headmajor": per,
+                    "sm90": per * (body == "sm90"), "wide": per * (body == "wide"),
+                    "headmajor_by_dim": {d: per}}
+            if {key: got[key] for key in want} != want:
+                raise AssertionError(f"{d}-wide heads launched {got}, expected {want}")
+            if emb.shape != (WIDE_ENCODER_FRAMES, hidden) or not np.isfinite(emb).all():
+                raise AssertionError(f"{d}-wide heads: embeddings {emb.shape}, "
+                                     f"finite={np.isfinite(emb).all()}")
+            fps = warm_fps(torch, enc, planes, WIDE_ENCODER_FRAMES, 3)
+            grid = (256 // enc.cfg.patch_size,) * 2
+            case = kernel_case(torch, fa, enc.cfg, "attention_headmajor", WIDE_ENCODER_FRAMES,
+                               WIDE_ENCODER_HEADS, enc.cfg.num_prefix_tokens + grid[0] * grid[1],
+                               d, grid, torch.bfloat16, True)
+            case["phase"] = "kernel_wide_heads"
+            emit(case)
+            if not case["ok"] or case["body"] != body:
+                raise AssertionError(f"K3 at phase 12's shape, d {d}: {case}")
+            params = init_vit_params(SEED, enc.cfg)
+            del enc
+            cpu = FrameEncoder(ckpt, params=params, compute_dtype=torch.float32, device="cpu")
+            cos = row_cosine(emb[:N_CHECK_7B], cpu.encode_planes(planes[:N_CHECK_7B]))
+            del cpu
+        line = {"phase": "encode_wide_heads", "route": "head-major (K3)", "body": body,
+                "model": f"{WIDE_ENCODER_HEADS} heads x {d} (hidden {hidden}, gated MLP "
+                         f"{2 * hidden}), depth {WIDE_ENCODER_DEPTH}, random weights",
+                "dtype": "bfloat16", "frames": WIDE_ENCODER_FRAMES, "forwards": forwards,
+                "launches": got, "expected_launches": want, "main_path_s": path_s,
+                "warm_fps_256": fps, "bf16_min_cos_vs_cpu_fp32": float(cos.min()),
+                "tol_min_cos": ENCODE_BF16_MIN_COS, "card": card,
+                "ok": bool(cos.min() >= ENCODE_BF16_MIN_COS)}
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"{d}-wide heads: embeddings disagree with the CPU fp32 run")
+        runs[d], cases[d] = got, case
+        torch.cuda.empty_cache()
+    return runs, cases
+
+
+def wide_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
+    """The ``kernels`` line's entry for K3's wide body (``attention_wide.cuh``):
+    its launches over phase 12's encode at 320-wide heads, its numbers from
+    phase 12's kernel case at the shape that encode gives it, and phase 10's
+    wide cases beside them."""
+    main = wide_cases[max(wide_cases)]
+    if main["body"] != "wide":
+        raise AssertionError(f"phase 12's widest heads ran the {main['body']} body")
+    cases = [c for c in tools_line["wide_odd_timings"] if c["body"] == "wide"]
+    return {
+        "name": "attention_headmajor_wide", "route": "cuda",
+        "source": "cbas_tpu_torch/csrc/attention_wide.cuh",
+        "replaces": KERNELS["attention_headmajor"],
+        "launches": sum(run["wide"] for run in wide_runs.values()),
+        "body": "wide", **{key: main[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "ms_norope", "gflop", "mbytes", "ptxas")},
+        "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
+        "share_of_bound": main["bound_ms"] / main["ms"],
+        "other_cases": cases,
+    }
 
 
 def write_clip(path, n_frames, seed, size=256) -> None:
@@ -1482,12 +1627,12 @@ def tools_phase(torch, fa, cfg, params, card) -> dict:
     line["padded_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
         "ms", "built_width_ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "gflop",
-        "mbytes", "library_ms", "library")} for c in cases]
+        "mbytes", "library_ms", "library", "ptxas")} for c in cases]
     wide = wide_odd_cases(torch, fa, cfg)
     line["wide_odd_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
         "ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "gflop", "mbytes", "library_ms",
-        "library")} for c in wide]
+        "library", "ptxas")} for c in wide]
     line["cls_attention_map"] = attention_map_step(torch, fa, cfg, params, line["launches"])
     missing = host_missing(("h5py", "pandas", "cv2", "matplotlib"))
     if missing:

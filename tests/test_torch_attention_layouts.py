@@ -93,11 +93,11 @@ def test_headmajor_reference_matches_jax(B, H, N, d, n_valid, rope):
 
 
 @pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("d", [12, 36, 100, 160])
+@pytest.mark.parametrize("d", [12, 36, 100, 136, 160, 200])
 def test_headmajor_at_widths_the_kernel_pads_matches_jax(d, rope):
     """Head dims K3 is not built at (the card pads them to the next built
-    width) against the JAX kernel, which takes any d, with NaN in the dead
-    K/V rows."""
+    width: 136 and 160 to 192, 200 to 256, the Hopper body in bf16) against
+    the JAX kernel, which takes any d, with NaN in the dead K/V rows."""
     B, H, N, n_valid = 1, 2, 80, 70
     q, k, v = _inputs((B, H, N, d), seed=40)
     k[:, :, n_valid:] = np.nan
@@ -110,7 +110,7 @@ def test_headmajor_at_widths_the_kernel_pads_matches_jax(d, rope):
 
 
 @pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("d", [12, 36, 100, 160, 200])
+@pytest.mark.parametrize("d", [12, 36, 100, 136, 160, 200, 248])
 def test_plain_version_on_padded_heads_equals_it_at_d(d, rope):
     """What the card runs for a width K3 is not built at: q, k, v (and the
     tables, half by half) zero-padded to the next built width, attention
@@ -392,7 +392,7 @@ def _card_tolerance(got, want, v, n_valid, N):
         (4, 3, 261, 64, None),     # an odd head count
         (2, 4, 272, 96, 261),      # a half not a power of two, pad keys masked
         (2, 4, 200, 40, 190),      # a head dim not a multiple of 16
-        (2, 4, 272, 192, 261),     # heads wider than 128: Q fragments from shared memory
+        (2, 4, 272, 192, 261),     # heads wider than 128: the Hopper body in bf16
         (1, 2, 261, 256, None),    # the widest head K3 takes
         (1, 2, 140, 256, 130),     # the widest, pad keys masked
     ],
@@ -440,6 +440,44 @@ def test_padded_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtyp
     before = fa.launches_headmajor_by_dim.get(width, 0)
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
     assert fa.launches_headmajor_by_dim[width] == before + 1
+    want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert got.shape == (B, H, N, d) and bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("N,n_valid", [(261, None), (272, 261), (329, 300), (1205, None),
+                                       (1216, 1205)])
+@pytest.mark.parametrize("d", [192, 256, 200, 320, 384, 257, 301, 1040, 1100])
+def test_redesigned_headmajor_bodies_match_plain_on_card(d, N, n_valid, rope, dtype, cuda_device):
+    """K3's Hopper body at d 192 and 256 (200 pads to 256), and its wide
+    body above 256 (257 and 301 odd: staged without the TMA, roped before
+    the launch; 1040 and 1100 wider than a resident Q: Q streamed, 1100
+    staged without the TMA), against the plain version, NaN in the dead K/V
+    rows; the launch counters say which body ran."""
+    dt = getattr(torch, dtype)
+    B, H = (2, 4) if N < 1000 else (1, 3)
+    q, k, v = (torch.from_numpy(t).to(cuda_device, dt) for t in _inputs((B, H, N, d), seed=53))
+    if n_valid is not None:
+        k[:, :, n_valid:] = float("nan")
+        v[:, :, n_valid:] = float("nan")
+    cos = sin = None
+    if rope:
+        ang = np.random.default_rng(54).standard_normal((N, d)).astype(np.float32)
+        cos, sin = (torch.from_numpy(f(ang)).to(cuda_device) for f in (np.cos, np.sin))
+    width = fa.padded_head_dim(d)
+    body = fa.attention_body("attention_headmajor", dt, width)
+    assert body == ("wide" if d > 256 else "sm90" if dt == torch.bfloat16 else "common")
+
+    def counts():
+        return fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90, fa.launches_wide
+
+    before = counts()
+    got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
+    assert counts() == (before[0] + 1, before[1] + (body == "sm90"), before[2] + (body == "wide"))
     want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
     assert got.shape == (B, H, N, d) and bool(torch.isfinite(got).all())
@@ -548,13 +586,35 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
         ("attention_headmajor", torch.bfloat16, 40, "common"),
         ("attention_packed", torch.bfloat16, 64, "sm90"),
         ("attention_packed", torch.float32, 64, "common"),
+        ("attention_headmajor", torch.bfloat16, 192, "sm90"),
+        ("attention_headmajor", torch.bfloat16, 256, "sm90"),
+        ("attention_headmajor", torch.float32, 192, "common"),
+        ("attention_headmajor", torch.float32, 256, "common"),
+        ("attention_headmajor", torch.bfloat16, 257, "wide"),
+        ("attention_headmajor", torch.bfloat16, 320, "wide"),
+        ("attention_headmajor", torch.float32, 320, "wide"),
+        ("attention_headmajor", torch.float32, 384, "wide"),
+        ("attention_headmajor", torch.float32, 1000, "wide"),
     ],
 )
 def test_attention_body_routing(kernel, dtype, d, body):
     """Which body an entry runs for (dtype, head dim), as the wrapper reports
     it without launching: the Hopper body for bf16 at d = 64 (every layout)
-    and 128 (head-major), the common body otherwise."""
+    and 128, 192 and 256 (head-major), K3's wide body above 256 in both
+    dtypes, the common body otherwise."""
     assert fa.attention_body(kernel, dtype, d) == body
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "sm90"), (torch.float32, "common")])
+@pytest.mark.parametrize("d", [136, 160, 184, 192, 200, 232, 248, 256])
+def test_widths_above_128_pad_onto_the_hopper_body_in_bf16(d, dtype, body):
+    """A head from 136 to 256 runs at 192 or 256, the Hopper body's widths in
+    bf16 (fp32 stays on the common body there); above 256 the wide body runs
+    at d itself."""
+    width = fa.padded_head_dim(d)
+    assert width == (192 if d <= 192 else 256)
+    assert fa.attention_body("attention_headmajor", dtype, width) == body
+    assert fa.attention_body("attention_headmajor", dtype, fa.padded_head_dim(d + 256)) == "wide"
 
 
 def test_cpu_tensors_never_count_as_hopper_launches():

@@ -533,6 +533,149 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 }
 
 // ---------------------------------------------------------------------------
+// The RoPE prologue of the bodies that rope before their attention kernel
+// ---------------------------------------------------------------------------
+
+// The Hopper body ropes K here (Q in its own blocks); at a head width it
+// runs padded (d below the built width, whose in-kernel rotation would pair
+// the wrong columns) and in the wide body, Q and K both are roped here.
+//
+// Rounding: x * cos + rot(x) * sin in fp32 (rope(): each product and the sum
+// rounded apart), times the job's scale, then one rounding to T. These are
+// ops/flash_attention.py::_rope_heads's rounding points, and so the plain
+// version's (roped q times the scale rounded once, roped k rounded once),
+// and the same values rope_chunk computes in the bodies that rope as they
+// load.
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T x[V];
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// V consecutive fp32 table values in 16- or 8-byte loads (V % 4 == 0 needs a
+// 16-byte aligned p, V == 2 an 8-byte aligned one).
+template <int V>
+__device__ __forceinline__ void load_table(const float* __restrict__ p, float (&x)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < V / 4; ++j) {
+      const float4 f = reinterpret_cast<const float4*>(p)[j];
+      x[4 * j] = f.x, x[4 * j + 1] = f.y, x[4 * j + 2] = f.z, x[4 * j + 3] = f.w;
+    }
+  } else if constexpr (V == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x, x[1] = f.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// One tensor the prologue ropes: `in` read and `out` written through the
+// same Layout, tokens at or beyond n_live neither read nor written, each
+// value times `scale` after the rotation.
+template <typename T>
+struct RopeJob {
+  const T* in;
+  T* out;
+  int n_live;
+  float scale;
+};
+
+// Job blockIdx.y (0: a, 1: b). Token n of head h of image b starts where L
+// says, with head stride d within a group. One thread takes V consecutive
+// columns [c, c + V) of the first half and their partners [c + d/2, +V),
+// threads ordered (b, n, h, c) with c fastest, so a token's threads share its
+// table row in L1. d is even (an odd head is roped by the wrapper). Thread
+// indices are 32-bit (the host checks that they fit): a 64-bit division a
+// thread per index cost more issue slots than the memory-bound pass hides.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+rope_rows(const RopeJob<T> a, const RopeJob<T> b, const float* __restrict__ cos_t,
+          const float* __restrict__ sin_t, int B, int H, int d, Layout L) {
+  const RopeJob<T> job = blockIdx.y ? b : a;
+  const unsigned half = d / 2;
+  const unsigned per_row = half / V;
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned r = i / per_row;  // (b, n, h), h fastest
+  if (r >= static_cast<unsigned>(B) * H * job.n_live) return;
+  const unsigned c = (i - r * per_row) * V;
+  const unsigned bn = r / H;
+  const unsigned h = r - bn * H;
+  const unsigned bi = bn / job.n_live;
+  const unsigned n = bn - bi * job.n_live;
+  const size_t off = static_cast<size_t>(bi) * L.batch_stride +
+                     static_cast<size_t>(h / L.heads_per_group) * L.group_stride +
+                     static_cast<size_t>(h % L.heads_per_group) * d +
+                     static_cast<size_t>(n) * L.row_stride + c;
+  const size_t t = static_cast<size_t>(n) * d + c;
+  const Pack<T, V> xa = *reinterpret_cast<const Pack<T, V>*>(job.in + off);
+  const Pack<T, V> xp = *reinterpret_cast<const Pack<T, V>*>(job.in + off + half);
+  float ca[V], sa[V], cp[V], sp[V];
+  load_table<V>(cos_t + t, ca);
+  load_table<V>(sin_t + t, sa);
+  load_table<V>(cos_t + t + half, cp);
+  load_table<V>(sin_t + t + half, sp);
+  Pack<T, V> ya, yp;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float x = to_float(xa.x[e]), p = to_float(xp.x[e]);
+    ya.x[e] = from_float<T>(rope(x, p, true, ca[e], sa[e]) * job.scale);
+    yp.x[e] = from_float<T>(rope(p, x, false, cp[e], sp[e]) * job.scale);
+  }
+  *reinterpret_cast<Pack<T, V>*>(job.out + off) = ya;
+  *reinterpret_cast<Pack<T, V>*>(job.out + off + half) = yp;
+}
+
+// Launch rope_rows<T, V> at the widest V (16 bytes of T at most) that
+// divides d / 2, every stride and the head offsets, and to whose bytes every
+// base address is aligned.
+template <typename T, int V>
+cudaError_t launch_rope_at(int v, const RopeJob<T>& a, const RopeJob<T>& b, int jobs,
+                           const float* cos_t, const float* sin_t, int B, int H, int d,
+                           const Layout& L, cudaStream_t st) {
+  if constexpr (V > 1) {
+    if (v < V) return launch_rope_at<T, V / 2>(v, a, b, jobs, cos_t, sin_t, B, H, d, L, st);
+  }
+  const int rows = jobs > 1 && b.n_live > a.n_live ? b.n_live : a.n_live;
+  const long long threads = static_cast<long long>(B) * H * rows * (d / 2 / V);
+  if (threads + 255 > 0xFFFFFFFFLL) return cudaErrorInvalidValue;  // 32-bit thread indices
+  rope_rows<T, V><<<dim3(static_cast<unsigned>((threads + 255) / 256), jobs), 256, 0, st>>>(
+      a, b, cos_t, sin_t, B, H, d, L);
+  return cudaGetLastError();
+}
+
+// Rope job a, and job b if jobs == 2, on `stream`: one launch. Returns the
+// CUDA error of the launch.
+template <typename T>
+cudaError_t launch_rope(const RopeJob<T>& a, const RopeJob<T>& b, int jobs, const float* cos_t,
+                        const float* sin_t, int B, int H, int d, const Layout& L,
+                        cudaStream_t stream) {
+  if (d % 2 || cos_t == nullptr || sin_t == nullptr) return cudaErrorInvalidValue;
+  constexpr int kWidest = 16 / static_cast<int>(sizeof(T));
+  const auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  int v = kWidest;
+  while (v > 1 && ((d / 2) % v || L.row_stride % v || L.group_stride % v || L.batch_stride % v ||
+                   !aligned(a.in, v * sizeof(T)) || !aligned(a.out, v * sizeof(T)) ||
+                   (jobs > 1 && (!aligned(b.in, v * sizeof(T)) || !aligned(b.out, v * sizeof(T)))) ||
+                   !aligned(cos_t, v % 4 ? 8 : 16) || !aligned(sin_t, v % 4 ? 8 : 16)))
+    v /= 2;
+  return launch_rope_at<T, kWidest>(v, a, b, jobs, cos_t, sin_t, B, H, d, L, stream);
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 

@@ -22,13 +22,15 @@
 // signature. dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, 64) fp32
 // tables or both null (no RoPE). head_dim must be 64. batch_stride and
 // row_stride are q's (k's, v's and o's) element strides; group_stride is
-// unused (one group of H heads). k_scratch is a buffer laid out like k for
-// the roped keys, needed by the Hopper body with tables (null otherwise).
+// unused (one group of H heads), and so is q_scratch. k_scratch is a buffer
+// laid out like k for the roped keys, needed by the Hopper body with tables
+// (null otherwise).
 // *body is set to the body that ran (sm90_route). Returns the CUDA error code
 // of the launch (0 on success); the caller raises on anything else.
 extern "C" int cbas_attention_fat(const void* q, const void* k, const void* v, void* o,
-                                  const void* cos_t, const void* sin_t, void* k_scratch, int B,
-                                  int N, int H, int head_dim, long long batch_stride,
+                                  const void* cos_t, const void* sin_t, void* /*q_scratch*/,
+                                  void* k_scratch, int B, int N, int H, int head_dim,
+                                  long long batch_stride,
                                   long long /*group_stride*/, long long row_stride, int n_valid,
                                   float scale, int dtype, void* stream, int* body) {
   using namespace cbas_attention;
@@ -36,8 +38,8 @@ extern "C" int cbas_attention_fat(const void* q, const void* k, const void* v, v
   const Layout L{batch_stride, 0, H, row_stride};
   *body = sm90_route(dtype, head_dim);
   if (*body)
-    return static_cast<int>(sm90::launch<64>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L,
-                                             n_valid, scale, stream));
+    return static_cast<int>(sm90::launch<64>(q, k, v, o, cos_t, sin_t, nullptr, k_scratch, B, N, H,
+                                             64, L, n_valid, scale, stream));
   return static_cast<int>(launch<64>(q, k, v, o, cos_t, sin_t, B, N, H, L, n_valid, scale, dtype,
                                      stream));
 }

@@ -4,15 +4,20 @@
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention): the JAX package's route for every head dim other
-// than 64 and for odd head counts. Same function as K1 and K2, read at row
-// stride d with head h at h * N * d of its image (H groups of one head; the
-// tensors are contiguous, as the wrapper requires).
+// than 64 and for odd head counts. Same function as K1 and K2, read where
+// the caller's strides put each head (H groups of one head): contiguous
+// (B, H, N, d) tensors, or the head-major views (B, N, H, d).transpose(1, 2)
+// of the flat projections that the model's route passes, so no copy
+// surrounds the kernel; the output is written with the same strides.
 //
 // What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
 // cores at N = 1205. Three bodies:
 // - bfloat16 at d = 64, 128, 192 and 256: the Hopper body
 //   (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head);
+//   and bfloat16 at any other d % 8 == 0 from 136 to 248, on the same body
+//   at the next of 192 and 256, its tensor maps at the head's own width
+//   (columns beyond it load as zeros, the store clips them);
 // - float32 at every d up to 256, and bfloat16 at the other multiples of 8
 //   up to 128: attention_common.cuh's body (its tiles outgrow static shared
 //   memory above d = 64, head dims that are not a multiple of 16 are
@@ -24,8 +29,9 @@
 //   two consumer warpgroups, fp32 on FMAs). It takes d at run time, so it
 //   adds two kernels to the build, not one per width.
 // Each instantiated width adds to the build, so the wrapper
-// (ops/flash_attention.py::fused_attention) zero-pads a head of any other
-// width up to 256 to the next instantiated one.
+// (ops/flash_attention.py::fused_attention) zero-pads, in one copy, a head
+// of the widths no body reads in place (float32 at an unbuilt width up to
+// 256, bfloat16 at one that is not a multiple of 8) to the next built one.
 //
 // An odd d with RoPE tables: rotate-half pairs element i with i + d/2
 // rounded down (cbas_tpu/models/vit.py's concat(-t[d//2:], t[:d//2])), a
@@ -39,14 +45,15 @@ namespace {
 
 template <int HD>
 int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-        const void* sin_t, void* k_scratch, int B, int N, int H, const cbas_attention::Layout& L,
-        int n_valid, float scale, int dtype, void* stream, int* body) {
+        const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
+        const cbas_attention::Layout& L, int n_valid, float scale, int dtype, void* stream,
+        int* body) {
   using namespace cbas_attention;
   *body = sm90_route(dtype, HD);
   if constexpr (HD == 64 || HD == 128 || HD == 192 || HD == 256) {
     if (*body)
-      return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L,
-                                               n_valid, scale, stream));
+      return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
+                                               N, H, HD, L, n_valid, scale, stream));
   }
   return static_cast<int>(launch<HD>(q, k, v, o, cos_t, sin_t, B, N, H, L, n_valid, scale, dtype,
                                      stream));
@@ -55,26 +62,29 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
 }  // namespace
 
 // C entry, bound with ctypes, with the flat and packed entries' signature.
-// head_dim is d (a multiple of 8 up to 128, 192, 256, or any d above 256:
-// the wide body, which takes tables only at an even d).
-// batch_stride, group_stride (between heads) and row_stride are q's (k's,
-// v's and o's) element strides.
-// dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or
-// both null. With tables the Hopper body needs k_scratch, a buffer laid out
-// like k for the roped keys, and the wide body two such buffers back to back
-// (roped q, then roped k); null otherwise. *body is set to the body that ran:
-// 0 the common body, 1 the Hopper body (sm90_route), 2 the wide body.
-// Returns the CUDA error code of the launch (0 on success).
+// head_dim is d: a multiple of 8 up to 128, 192 or 256; in bfloat16 any
+// other multiple of 8 from 136 to 248 (the Hopper body at the next built
+// width, maps at d); or any d above 256 (the wide body, which takes tables
+// only at an even d). batch_stride, group_stride (between heads) and
+// row_stride are q's (k's, v's and o's) element strides. dtype: 0 = float32,
+// 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or both null. With
+// tables the Hopper body needs k_scratch, and at a padded width and in the
+// wide body also q_scratch: buffers laid out like q for the roped keys and
+// queries (null otherwise). *body is set to the body that ran: 0 the common
+// body, 1 the Hopper body (sm90_route), 2 the wide body. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void* v, void* o,
-                                        const void* cos_t, const void* sin_t, void* k_scratch,
-                                        int B, int N, int H, int head_dim, long long batch_stride,
-                                        long long group_stride, long long row_stride, int n_valid,
-                                        float scale, int dtype, void* stream, int* body) {
-  const cbas_attention::Layout L{batch_stride, group_stride, 1, row_stride};
-#define CBAS_HEAD_DIM(D)                                                                     \
-  case D:                                                                                    \
-    return run<D>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L, n_valid, scale, dtype,    \
-                  stream, body);
+                                        const void* cos_t, const void* sin_t, void* q_scratch,
+                                        void* k_scratch, int B, int N, int H, int head_dim,
+                                        long long batch_stride, long long group_stride,
+                                        long long row_stride, int n_valid, float scale, int dtype,
+                                        void* stream, int* body) {
+  using namespace cbas_attention;
+  const Layout L{batch_stride, group_stride, 1, row_stride};
+#define CBAS_HEAD_DIM(D)                                                                      \
+  case D:                                                                                     \
+    return run<D>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, L, n_valid, scale, \
+                  dtype, stream, body);
   switch (head_dim) {
     CBAS_HEAD_DIM(8)
     CBAS_HEAD_DIM(16)
@@ -95,11 +105,19 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
     CBAS_HEAD_DIM(192)
     CBAS_HEAD_DIM(256)
     default:
-      if (head_dim <= cbas_attention::kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-      *body = 2;
-      return static_cast<int>(cbas_attention::wide::launch(q, k, v, o, cos_t, sin_t, k_scratch, B,
-                                                           N, H, head_dim, L, n_valid, scale,
-                                                           dtype, stream));
+      if (head_dim > kMaxHeadDim) {
+        *body = 2;
+        return static_cast<int>(wide::launch(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
+                                             N, H, head_dim, L, n_valid, scale, dtype, stream));
+      }
+      if (dtype != 1 || head_dim <= 128 || head_dim % kChunk)
+        return static_cast<int>(cudaErrorInvalidValue);
+      *body = 1;
+      return static_cast<int>(
+          head_dim < 192 ? sm90::launch<192>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
+                                             H, head_dim, L, n_valid, scale, stream)
+                         : sm90::launch<256>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
+                                             H, head_dim, L, n_valid, scale, stream));
   }
 #undef CBAS_HEAD_DIM
 }

@@ -40,12 +40,14 @@
 // 64. batch_stride, group_stride (between pairs) and row_stride are q's (k's,
 // v's and o's) element strides: 16-byte multiples, the last dim contiguous.
 // dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, 64) fp32 tables or
-// both null. k_scratch is a buffer laid out like k for the roped keys, needed
-// by the Hopper body with tables (null otherwise). *body is set to the body
-// that ran (sm90_route). Returns the CUDA error code of the launch.
+// both null. q_scratch is unused; k_scratch is a buffer laid out like k for
+// the roped keys, needed by the Hopper body with tables (null otherwise).
+// *body is set to the body that ran (sm90_route). Returns the CUDA error
+// code of the launch.
 extern "C" int cbas_attention_packed(const void* q, const void* k, const void* v, void* o,
-                                     const void* cos_t, const void* sin_t, void* k_scratch, int B,
-                                     int N, int H, int head_dim, long long batch_stride,
+                                     const void* cos_t, const void* sin_t, void* /*q_scratch*/,
+                                     void* k_scratch, int B, int N, int H, int head_dim,
+                                     long long batch_stride,
                                      long long group_stride, long long row_stride, int n_valid,
                                      float scale, int dtype, void* stream, int* body) {
   using namespace cbas_attention;
@@ -53,8 +55,8 @@ extern "C" int cbas_attention_packed(const void* q, const void* k, const void* v
   const Layout L{batch_stride, group_stride, 2, row_stride};
   *body = sm90_route(dtype, head_dim);
   if (*body)
-    return static_cast<int>(sm90::launch<64>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L,
-                                             n_valid, scale, stream));
+    return static_cast<int>(sm90::launch<64>(q, k, v, o, cos_t, sin_t, nullptr, k_scratch, B, N, H,
+                                             64, L, n_valid, scale, stream));
   return static_cast<int>(launch<64>(q, k, v, o, cos_t, sin_t, B, N, H, L, n_valid, scale, dtype,
                                      stream));
 }

@@ -37,18 +37,20 @@
 // - RoPE once per (token, head, image). The query block ropes and scales its
 //   own Q rows as it stages them (each is read by one block only); K, which
 //   every query block of a head reads, is roped by a prologue kernel
-//   (rope_rows) into scratch the wrapper allocates, so the attention kernel
-//   reads roped K through the same TMA path. Without tables nothing is roped
-//   and the prologue does not run.
+//   (rope_rows, attention_common.cuh, shared with the wide body) into
+//   scratch the wrapper allocates, so the attention kernel reads roped K
+//   through the same TMA path. Without tables nothing is roped and the
+//   prologue does not run.
 // - Tensor maps from strides (map_shape). A map's outer dimensions go in
 //   ascending order of stride, dimensions of size 1 are left out, and a
 //   group joins its heads' dimension when the heads are evenly spaced. So
 //   K1's flat tensors, K3's head-major ones and K2's head-pair views of flat
 //   projections get rank-4 maps (K2's views exactly K1's map), contiguous
-//   packed tensors a rank-5 one. The rank is a template argument and a
-//   block's coordinates are shifts and masks computed once: a run-time
-//   division by the heads in a group, or a branch on the rank at each load,
-//   was measured slower at N = 261.
+//   packed tensors a rank-5 one; K3's head-major views of flat projections
+//   get (d, H, rows, B), the flat map again. The rank is a template
+//   argument and a block's coordinates are shifts and masks computed once:
+//   a run-time division by the heads in a group, or a branch on the rank at
+//   each load, was measured slower at N = 261.
 //
 // Grid: (ceil(N / 64) query blocks, H, B), one consumer warpgroup and one
 // producer warp a block.
@@ -62,13 +64,16 @@
 // 640x480 for K1).
 //
 // At d = 192 and 256 (K3; the TPU kernel cbas_tpu/ops/flash_attention.py::
-// _attn_kernel at those widths, and through the wrapper's one-copy pad every
-// width from 136 to 248) the same body runs with 3 and 4 swizzle atoms, each
-// its own TMA box and its own n = 64 product. What bounds it there: the
-// bytes of q, k, v and o at N = 261, and registers: O alone is HD / 2 fp32
-// registers a consumer thread (96, 128) before the scores (32) and P (16),
-// so blocks an SM are fewer (Config::kMinBlocks). Q 24-32 KB and a 24-32 KB
-// ring stage keep two blocks an SM within shared memory.
+// _attn_kernel at those widths) the same body runs with 3 and 4 swizzle
+// atoms, each its own TMA box and its own n = 64 product. A bf16 head of
+// another width d from 136 to 248 (d % 8 == 0) runs at the next of them,
+// with no copy: its maps' innermost extent is d, so the columns from d to
+// the built width load as zeros and the store of O clips them (launch).
+// What bounds it there: the bytes of q, k, v and o at N = 261, and
+// registers: O alone is HD / 2 fp32 registers a consumer thread (96, 128)
+// before the scores (32) and P (16), so blocks an SM are fewer
+// (Config::kMinBlocks). Q 24-32 KB and a 24-32 KB ring stage keep two blocks
+// an SM within shared memory.
 
 #pragma once
 
@@ -316,31 +321,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
 }
 
 // --- the kernels -----------------------------------------------------------
-
-// RoPE prologue: token n < n_valid of head h of image b, roped in fp32 and
-// rounded to bf16 once (rope_chunk, scale 1: exactly what the common body
-// computes for K), written at the same offset of `out`. One thread per
-// 16-byte chunk, heads fastest, so the threads of a token share its table
-// row in L1; rows at or beyond n_valid are neither read nor written.
-template <int HD>
-__global__ void __launch_bounds__(256)
-rope_rows(const __nv_bfloat16* __restrict__ k, __nv_bfloat16* __restrict__ out,
-          const float* __restrict__ cos_t, const float* __restrict__ sin_t, int H, Layout L,
-          int n_valid, long long rows) {
-  constexpr int kChunks = HD / kChunk;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long r = i / kChunks;  // (b, n, h), h fastest
-  if (r >= rows) return;
-  const int c = static_cast<int>(i % kChunks) * kChunk;
-  const int h = static_cast<int>(r % H);
-  const long long bn = r / H;
-  const int n = static_cast<int>(bn % n_valid);
-  const size_t off = static_cast<size_t>(bn / n_valid) * L.batch_stride +
-                     static_cast<size_t>(h / L.heads_per_group) * L.group_stride +
-                     static_cast<size_t>(h % L.heads_per_group) * HD +
-                     static_cast<size_t>(n) * L.row_stride;
-  *reinterpret_cast<uint4*>(out + off + c) = rope_chunk<HD>(k + off, c, n, cos_t, sin_t, 1.f);
-}
 
 // Byte offset of column c of row r in a 128-byte-swizzled tile of 64-column
 // atoms (the layout the TMA writes): row r of atom c / 64 at 128 r, its
@@ -679,16 +659,18 @@ struct MapShape {
 // may hold any value. The group joins the head-in-group dimension when the
 // heads are evenly spaced across groups. Trailing dimensions of size 1 pad
 // the rank to 4. So a flat tensor's map is (64, H, rows, B), a head-major
-// one's (HD, rows, H, B), the packed view of a flat tensor's the flat map
+// one's (d, rows, H, B), a head-major view of a flat one's the flat map
+// (d, H, rows, B), the packed view of a flat tensor's the flat map
 // (64, H, rows, B), and a contiguous packed one's (64, 2, rows, H/2, B).
 // False if the heads of a group are split from their group in the map and
-// number other than a power of two (no layout of the port's entries). HD is
-// the head dim (a run-time argument: the wide body's is one).
-inline bool map_shape(const Layout& L, int HD, int B, int N, int H, MapShape* m) {
+// number other than a power of two (no layout of the port's entries). d is
+// the heads' width: the maps' innermost extent, which may be below the width
+// a body runs at (the columns between load as zeros).
+inline bool map_shape(const Layout& L, int d, int B, int N, int H, MapShape* m) {
   const int hpg = L.heads_per_group;
   const long long size[4] = {hpg, N, H / hpg, B};
-  // (A single row's stride may hold any value too: it becomes HD.)
-  const long long stride[4] = {HD, N > 1 ? L.row_stride : HD, L.group_stride, L.batch_stride};
+  // (A single row's stride may hold any value too: it becomes d.)
+  const long long stride[4] = {d, N > 1 ? L.row_stride : d, L.group_stride, L.batch_stride};
   int idx[4] = {0, 1, 2, 3};
   for (int i = 1; i < 4; ++i)
     for (int j = i; j > 0 && stride[idx[j]] < stride[idx[j - 1]]; --j) {
@@ -696,9 +678,9 @@ inline bool map_shape(const Layout& L, int HD, int B, int N, int H, MapShape* m)
       idx[j] = idx[j - 1];
       idx[j - 1] = t;
     }
-  *m = MapShape{{HD}, {1}, 0, {}};
+  *m = MapShape{{d}, {1}, 0, {}};
   int rank = 1, in_group_dim = 0, group_dim = 0;
-  long long span = HD;  // elements from the first to past the last
+  long long span = d;  // elements from the first to past the last
   for (int p = 0; p < 4; ++p) {
     const int i = idx[p];
     if (size[i] == 1 && i != 1) continue;
@@ -757,36 +739,46 @@ inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, in
          CUDA_SUCCESS;
 }
 
-// Launch the Hopper body (bf16) on `stream`: the RoPE prologue into
-// `k_scratch` (laid out like k) when there are tables, then the attention
-// kernel. q, k, v, o and k_scratch all lie as L says. Returns the CUDA error
-// of the launches (cudaSuccess when both were queued).
+// Launch the Hopper body (bf16) on `stream` over heads of width d, built at
+// HD >= d: the maps' innermost extent is d, so columns d..HD-1 of every box
+// load as zeros (they add nothing to q.k^T or p.V) and the store of O clips
+// them; no copy pads a head. With tables, the RoPE prologue (rope_rows)
+// first: at d == HD it ropes k into `k_scratch` and the attention kernel
+// ropes its Q tiles itself; at d < HD, whose in-kernel rotation would pair
+// column c with c + HD/2 instead of c + d/2, it ropes q (times the scale)
+// into `q_scratch` and k into `k_scratch`, and the attention kernel runs
+// without tables at scale 1. q, k, v, o and the scratch all lie as L says.
+// Returns the CUDA error of the launches (cudaSuccess when all were queued).
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-                   const void* sin_t, void* k_scratch, int B, int N, int H, const Layout& L,
-                   int n_valid, float scale, void* stream) {
+                   const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
+                   const Layout& L, int n_valid, float scale, void* stream) {
   using C = Config<HD>;
   const cudaError_t bad = check_args(B, N, H, L, n_valid);
   if (bad != cudaSuccess) return bad;
+  if (d > HD || d <= HD - kAtom || d % kChunk) return cudaErrorInvalidValue;
   const auto* c = static_cast<const float*>(cos_t);
   const auto* s = static_cast<const float*>(sin_t);
   const auto st = static_cast<cudaStream_t>(stream);
+  const void* q_in = q;
   const void* k_in = k;
   if (c != nullptr) {
-    if (k_scratch == nullptr) return cudaErrorInvalidValue;
-    const long long rows = static_cast<long long>(B) * H * n_valid;
-    const long long threads = rows * (HD / kChunk);
-    rope_rows<HD><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(k_scratch), c, s, H, L,
-        n_valid, rows);
-    const cudaError_t err = cudaGetLastError();
+    using T = __nv_bfloat16;
+    const bool padded = d < HD;
+    if (k_scratch == nullptr || (padded && q_scratch == nullptr)) return cudaErrorInvalidValue;
+    const RopeJob<T> kj{static_cast<const T*>(k), static_cast<T*>(k_scratch), n_valid, 1.f};
+    const RopeJob<T> qj{static_cast<const T*>(q), static_cast<T*>(q_scratch), N, scale};
+    const cudaError_t err = padded ? launch_rope<T>(qj, kj, 2, c, s, B, H, d, L, st)
+                                   : launch_rope<T>(kj, kj, 1, c, s, B, H, d, L, st);
     if (err != cudaSuccess) return err;
     k_in = k_scratch;
+    if (padded) q_in = q_scratch, c = s = nullptr, scale = 1.f;
   }
   MapShape m;
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!map_shape(L, HD, B, N, H, &m) || !encode_map(&q_map, q, m, N) || !encode_map(&o_map, o, m, N) ||
-      !encode_map(&k_map, k_in, m, n_valid) || !encode_map(&v_map, v, m, n_valid))
+  if (!map_shape(L, d, B, N, H, &m) || !encode_map(&q_map, q_in, m, N) ||
+      !encode_map(&o_map, o, m, N) || !encode_map(&k_map, k_in, m, n_valid) ||
+      !encode_map(&v_map, v, m, n_valid))
     return cudaErrorInvalidValue;
   const auto kernel = m.order.rank == 5 ? attention_sm90<HD, 5> : attention_sm90<HD, 4>;
   const cudaError_t err = cudaFuncSetAttribute(

@@ -39,16 +39,16 @@
 //   the consumers); the one probe of it here did not test it, since ptxas
 //   ignored the instruction (C7508: no register count known at the kernel's
 //   entry), so that shape is not measured (PERF.md).
-// - RoPE once per (token, head): with tables a prologue kernel
-//   (rope_rows_wide) writes q (the scale folded in) and k roped, each value
-//   rounded once, to scratch the wrapper allocates, and the attention kernel
-//   reads those. Without tables the consumers scale Q in shared memory as it
-//   lands (one rounding, as with tables). It is not the Hopper body's
-//   rope_rows: that one ropes K of any layout at scale 1, 16-byte chunks a
-//   thread with the head dim a template argument, which needs bf16 and
-//   d % 8 == 0; this one takes fp32 too, any even d and a scale, one column
-//   pair a thread of a contiguous head-major tensor. The arithmetic they
-//   share, and so its rounding, is one function (rope, attention_common.cuh).
+// - RoPE once per (token, head): with tables the shared prologue
+//   (rope_rows, attention_common.cuh; the Hopper body's too) writes q (the
+//   scale folded in) and k roped, each value rounded once, in one launch to
+//   two scratch buffers laid out like q, and the attention kernel reads
+//   those through the same Layout. Without tables the consumers scale Q in
+//   shared memory as it lands (one rounding, as with tables).
+// - Any layout of one head a group: the heads lie where the Layout's strides
+//   put them (contiguous head-major tensors, or head-major views of flat
+//   (B, N, H*d) projections); the TMA maps and the staging both read through
+//   them.
 // - d % 8 != 0: rows are not 16-byte aligned, which the TMA needs, so each
 //   warpgroup stages its atoms itself with zero-filled loads into the same
 //   swizzled layout just before it reads them (slower; no model has such
@@ -110,11 +110,6 @@ __host__ __device__ constexpr int ring_slots(int atoms) {
 }
 static_assert(ring_slots(kMaxAtoms) >= kMinSlots, "Q of kMaxAtoms atoms leaves room for the rings");
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 // A named barrier of `count` threads (id 0 is __syncthreads').
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -124,30 +119,6 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 // (the wgmma reads shared memory through it).
 __device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// RoPE prologue: rows r < rows of a contiguous head-major tensor (token
-// r % N; tokens at or beyond n_live are neither read nor written), roped in
-// fp32 from the (N, hd) tables, times `scale`, rounded to T once: what
-// rope_chunk computes, one column pair (c, c + hd / 2) a thread. hd is even
-// (the wrapper ropes an odd head itself).
-template <typename T>
-__global__ void __launch_bounds__(256)
-rope_rows_wide(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ cos_t,
-               const float* __restrict__ sin_t, int hd, int N, int n_live, long long rows,
-               float scale) {
-  const int half = hd / 2;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= rows * half) return;
-  const long long r = i / half;
-  const int c = static_cast<int>(i % half);
-  const int n = static_cast<int>(r % N);
-  if (n >= n_live) return;
-  const size_t row = static_cast<size_t>(r) * hd;
-  const size_t t = static_cast<size_t>(n) * hd + c;
-  const float a = to_float(x[row + c]), p = to_float(x[row + c + half]);
-  store(out + row + c, rope(a, p, true, cos_t[t], sin_t[t]) * scale);
-  store(out + row + c + half, rope(p, a, false, cos_t[t + half], sin_t[t + half]) * scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -654,45 +625,52 @@ attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Host side
 // ---------------------------------------------------------------------------
 
-// Launch the wide body on `stream`: any hd above kMaxHeadDim, contiguous
-// head-major tensors (L as the K3 entry passes
-// it). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, hd) fp32
-// tables, which need an even hd and `scratch` (two buffers laid out like q:
-// roped q, then roped k), or both null. Returns the CUDA error of the
+// With tables, q (times the scale) and k roped into the scratch, laid out
+// like them, by one launch of the shared prologue (rope_rows); q and k then
+// point at the scratch and the scale is 1. Returns the launch's CUDA error.
+template <typename T>
+cudaError_t rope_first(const T*& q, const T*& k, void* q_scratch, void* k_scratch,
+                       const float* cos_t, const float* sin_t, int B, int N, int H, int hd,
+                       const Layout& L, int n_valid, float& scale, cudaStream_t st) {
+  if (cos_t == nullptr) return cudaSuccess;
+  auto* qs = static_cast<T*>(q_scratch);
+  auto* ks = static_cast<T*>(k_scratch);
+  const cudaError_t err = launch_rope<T>(RopeJob<T>{q, qs, N, scale},
+                                         RopeJob<T>{k, ks, n_valid, 1.f}, 2, cos_t, sin_t, B, H,
+                                         hd, L, st);
+  q = qs, k = ks, scale = 1.f;
+  return err;
+}
+
+// Launch the wide body on `stream`: any hd above kMaxHeadDim, head-major
+// heads wherever L puts them (one head a group; contiguous tensors and views
+// of flat ones alike). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are
+// (N, hd) fp32 tables, which need an even hd and two scratch buffers laid
+// out like q (roped q, roped k), or both null. Returns the CUDA error of the
 // launches (cudaSuccess when all were queued).
 inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-                          const void* sin_t, void* scratch, int B, int N, int H, int hd,
-                          const Layout& L, int n_valid, float scale, int dtype, void* stream) {
+                          const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
+                          int hd, const Layout& L, int n_valid, float scale, int dtype,
+                          void* stream) {
   const cudaError_t bad = check_args(B, N, H, L, n_valid);
   if (bad != cudaSuccess) return bad;
   const int atoms = (hd + kAtom - 1) / kAtom;
   const int n_slices = (atoms + kSliceAtoms - 1) / kSliceAtoms;
-  const long long head = static_cast<long long>(N) * hd;
   if (hd <= kMaxHeadDim || (dtype != 0 && dtype != 1) ||
       (cos_t == nullptr) != (sin_t == nullptr) ||
-      (cos_t != nullptr && (hd % 2 || scratch == nullptr)) || L.heads_per_group != 1 ||
-      L.row_stride != hd || L.group_stride != head || L.batch_stride != H * head ||
-      static_cast<long long>(B) * n_slices > 65535)
+      (cos_t != nullptr && (hd % 2 || q_scratch == nullptr || k_scratch == nullptr)) ||
+      L.heads_per_group != 1 || static_cast<long long>(B) * n_slices > 65535)
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* c = static_cast<const float*>(cos_t);
   const auto* s = static_cast<const float*>(sin_t);
-  const size_t elems = static_cast<size_t>(B) * H * head;
-  const long long rows = static_cast<long long>(B) * H * N;
-  const unsigned rope_blocks = static_cast<unsigned>((rows * (hd / 2) + 255) / 256);
   const dim3 grid((N + kTile - 1) / kTile, H, B * n_slices);
   cudaError_t err;
   if (dtype == 0) {
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
-    if (c != nullptr) {
-      auto* qs = static_cast<float*>(scratch);
-      rope_rows_wide<float><<<rope_blocks, 256, 0, st>>>(qf, qs, c, s, hd, N, N, rows, scale);
-      rope_rows_wide<float><<<rope_blocks, 256, 0, st>>>(kf, qs + elems, c, s, hd, N, n_valid,
-                                                         rows, 1.f);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      qf = qs, kf = qs + elems, scale = 1.f;
-    }
+    err = rope_first(qf, kf, q_scratch, k_scratch, c, s, B, N, H, hd, L, n_valid, scale, st);
+    if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(attention_wide_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kF32SmemBytes));
     if (err != cudaSuccess) return err;
@@ -704,16 +682,12 @@ inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, 
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  if (c != nullptr) {
-    auto* qs = static_cast<__nv_bfloat16*>(scratch);
-    rope_rows_wide<__nv_bfloat16><<<rope_blocks, 256, 0, st>>>(qb, qs, c, s, hd, N, N, rows, scale);
-    rope_rows_wide<__nv_bfloat16><<<rope_blocks, 256, 0, st>>>(kb, qs + elems, c, s, hd, N,
-                                                               n_valid, rows, 1.f);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    qb = qs, kb = qs + elems, scale = 1.f;
-  }
+  err = rope_first(qb, kb, q_scratch, k_scratch, c, s, B, N, H, hd, L, n_valid, scale, st);
+  if (err != cudaSuccess) return err;
   // The TMA takes rows at 16-byte multiples: d % 8 == 0 (the wrapper checks
-  // the base addresses); the warpgroups stage other widths themselves.
+  // the strides and base addresses); the warpgroups stage other widths
+  // themselves. A view's map is (hd, H, rows, B), a contiguous tensor's
+  // (hd, rows, H, B): rank 4 either way.
   const int tma = hd % kChunk == 0;
   sm90::MapShape m{};
   CUtensorMap q_map{}, k_map{}, v_map{};

@@ -362,10 +362,10 @@ def _attention(
     - 64-wide heads, an even local head count and :func:`fa.use_fat_attention`:
       the flat projections feed K1 directly and its output feeds the
       out-projection;
-    - 64-wide heads and an even local head count otherwise: projections into
-      the head-pair packed (B, H/2, N, 128) layout, K2;
-    - any other head dim, or an odd local head count: projections into the
-      head-major (B, H, N, d) layout, K3.
+    - 64-wide heads and an even local head count otherwise: head-pair packed
+      (B, H/2, N, 128) views of the projections, K2;
+    - any other head dim, or an odd local head count: head-major
+      (B, H, N, d) views of the projections, K3.
 
     No route falls back to another. ``rope`` is the full-length
     (N, head_dim) table pair or None. A sharded out-projection's partial is
@@ -389,14 +389,15 @@ def _attention(
         ctx = fa.fused_attention_packed(pairs(q), pairs(k), pairs(v), scale, rope_cos=cos,
                                         rope_sin=sin)
     else:
-        def heads(t):  # (B, N, H*hd) -> (B, H, N, hd), a copy
-            return t.view(B, N, H, hd).transpose(1, 2).contiguous()
+        def heads(t):  # (B, N, H*hd) -> a (B, H, N, hd) view, no copy
+            return t.view(B, N, H, hd).transpose(1, 2)
 
         ctx = fa.fused_attention(heads(q), heads(k), heads(v), scale, rope_cos=cos, rope_sin=sin)
     # The out-projection contracts over (heads, head dim) in the order the
     # flat layout holds them, so the context goes back to (B, N, H*hd): a
-    # view on the packed route (K2 writes with q's strides), a copy on the
-    # head-major one.
+    # view on both routes, since K2 and K3 write with q's strides (K3 copies
+    # only for the head dims it reads through a pad, fused_attention says
+    # which).
     ctx = ctx.transpose(1, 2).reshape(B, N, H * hd)
     return _dense_reduce(params, out_name, ctx, out_bias, cfg.hidden_size)
 

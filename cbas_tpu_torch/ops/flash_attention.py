@@ -12,11 +12,16 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
   (such as ``t.view(B, N, H // 2, 128).transpose(1, 2)`` of a flat
   projection) as well as contiguous tensors, and returns q2's strides.
 - :func:`fused_attention` (K3): head-major (B, H, N, d), any d on the
-  card: the kernel is built at every multiple of 8 up to 128, and at 192
-  and 256, a head of another width up to 256 runs zero-padded to the next
-  of those (:func:`pad_head_dim`), and a wider head runs the wide body,
-  which takes d at run time. An odd d with RoPE tables is roped here and
-  launched without them (rotate-half's pairing of an odd d survives no pad).
+  card. It takes strided views (such as ``t.view(B, N, H, d).transpose(1,
+  2)`` of a flat projection) and returns q's strides. The kernel is built
+  at every multiple of 8 up to 128, and at 192 and 256; a bf16 head of
+  another multiple of 8 up to 256 runs at the next of those, its tensor
+  maps at d (the columns beyond read as zeros); a head above 256 runs the
+  wide body, which takes d at run time. The rest is copied first: fp32 at
+  another width up to 256 and bf16 at one that is no multiple of 8 run
+  zero-padded to the next built width (:func:`pad_head_dim`), and an odd d
+  with RoPE tables is roped here and launched without them (rotate-half's
+  pairing of an odd d survives no pad).
 
 All three compute one function per head: optional rotate-half RoPE from fp32
 (N, d) tables, the scale on the q side, keys at or beyond ``n_valid`` masked,
@@ -41,17 +46,19 @@ Three bodies serve the three entries (:func:`attention_body`):
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
 count kernel launches and nothing else, so a run can show which kernels its
 main path went through; ``launches_headmajor_by_dim`` splits K3's by the
-head dim the kernel ran at (the padded width), ``launches_sm90`` counts
-those of them all that ran the Hopper body, as the C entry reports it
-(``launches_sm90_by_kernel`` by entry), and ``launches_wide`` those of K3
-that ran the wide body. The shards of a device mesh launch from threads of
-their own, so every count is updated under one lock.
+head dim the kernel ran at (the built width, for a head it runs padded),
+``launches_sm90`` counts those of them all that ran the Hopper body, as the
+C entry reports it (``launches_sm90_by_kernel`` by entry), and
+``launches_wide`` those of K3 that ran the wide body. The shards of a
+device mesh launch from threads of their own, so every count is updated
+under one lock.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 import threading
 from typing import Optional
@@ -188,14 +195,14 @@ def attention_fat_reference(
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """The C entry ``cbas_<name>`` of ``csrc/<name>.cu``, built at first use.
-    All three share one signature: seven pointers, (B, N, H, head_dim), the
-    (batch, group, row) element strides, n_valid, scale, dtype, the stream
-    and the body it ran."""
+    All three share one signature: eight pointers (q, k, v, o, the tables,
+    the q and k scratch), (B, N, H, head_dim), the (batch, group, row)
+    element strides, n_valid, scale, dtype, the stream and the body it ran."""
     from cbas_tpu_torch.ops import _cuda
 
     fn = getattr(_cuda.load(name), f"cbas_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
     ]
     return fn
@@ -235,44 +242,51 @@ def _like(t: torch.Tensor) -> torch.Tensor:
 
 
 def _require_contiguous(**tensors) -> None:
-    """K1's and K3's kernels read contiguous rows in 16-byte chunks."""
+    """K1's kernel reads contiguous rows in 16-byte chunks, as every kernel
+    reads its tables and K3 what the wrapper copied."""
     for arg, t in tensors.items():
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{arg} must be contiguous and 16-byte aligned")
 
 
-def _check_packed_strides(q2, k2, v2) -> None:
-    """What K2 takes besides contiguous tensors: q2, k2 and v2 with one set
-    of strides, the last dim contiguous, every other stride (of a dim longer
-    than 1) and each base address a 16-byte multiple (the tensor maps' rule),
-    and no two elements at one address (the output takes these strides)."""
-    if not q2.stride() == k2.stride() == v2.stride():
+def _check_strides(names, q, k, v, unit: int = 16) -> None:
+    """What K2 and K3 take besides contiguous tensors: q, k and v (called
+    ``names`` in the messages) with one set of strides, the last dim
+    contiguous, every other stride (of a dim longer than 1) a multiple of
+    ``unit`` bytes and each base address a 16-byte multiple (the tensor
+    maps' rule, at the default unit), and no two elements at one address
+    (the output takes these strides)."""
+    if not q.stride() == k.stride() == v.stride():
         raise ValueError(
-            f"q2, k2 and v2 must share strides, got {q2.stride()}, {k2.stride()} and "
-            f"{v2.stride()}"
+            f"{names[0]}, {names[1]} and {names[2]} must share strides, got {q.stride()}, "
+            f"{k.stride()} and {v.stride()}"
         )
-    if q2.stride(-1) != 1:
-        raise ValueError(f"the last dim must have stride 1, got stride {q2.stride(-1)}")
-    size = q2.element_size()
-    extent = q2.shape[-1]  # elements spanned so far, innermost first
-    for stride, n, dim in sorted((q2.stride(i), q2.shape[i], i) for i in range(3)):
+    if q.stride(-1) != 1:
+        raise ValueError(f"the last dim must have stride 1, got stride {q.stride(-1)}")
+    size = q.element_size()
+    extent = q.shape[-1]  # elements spanned so far, innermost first
+    for stride, n, dim in sorted((q.stride(i), q.shape[i], i) for i in range(q.dim() - 1)):
         if n == 1:
             continue
-        if stride * size % 16:
-            raise ValueError(f"stride {stride} of dim {dim} is not a multiple of 16 bytes")
+        if stride * size % unit:
+            raise ValueError(f"stride {stride} of dim {dim} is not a multiple of {unit} bytes")
         if stride < extent:
             raise ValueError(f"stride {stride} of dim {dim} overlaps the elements within it")
         extent += stride * (n - 1)
-    for arg, t in (("q2", q2), ("k2", k2), ("v2", v2)):
+    for arg, t in zip(names, (q, k, v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{arg} starts at {t.data_ptr():#x}, not a 16-byte multiple")
 
 
-def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -> torch.Tensor:
+def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides,
+            width=None) -> torch.Tensor:
     """Launch ``csrc/<name>.cu``'s kernel on a CUDA tensor, or raise.
     ``strides`` are q's (batch, group, row) element strides, which k and v
-    share; the output (and, for the Hopper body with tables, a scratch
-    buffer for the roped keys) is allocated with them."""
+    share; the output (and the scratch for roped keys and queries, where the
+    body needs it) is allocated with them. ``d`` is the heads' width and
+    ``width`` the one the kernel runs at (K3: a built width >= d, whose
+    extra columns the kernel reads as zeros; d by default)."""
+    width = d if width is None else width
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
     if q.dtype not in _DTYPE_CODES:
@@ -282,20 +296,20 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -
         cos = rope_cos.to(torch.float32).contiguous()
         sin = rope_sin.to(torch.float32).contiguous()
     _require_contiguous(rope_cos=cos, rope_sin=sin)
-    want = attention_body(name, q.dtype, d)
+    want = attention_body(name, q.dtype, width)
     body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         out = _like(q)
-        scratch = None  # roped keys (the Hopper body), roped q then k (the wide body)
-        if cos is not None and want == "sm90":
-            scratch = _like(k)
-        elif cos is not None and want == "wide":
-            scratch = torch.empty(2 * k.numel(), dtype=k.dtype, device=k.device)
+        # Roped keys (the Hopper body), and roped queries too where the
+        # kernel cannot rope them itself (the wide body, a padded width).
+        q_scratch = k_scratch = None
+        if cos is not None and want in ("sm90", "wide"):
+            k_scratch = _like(q)
+            if want == "wide" or width != d:
+                q_scratch = _like(q)
         err = _kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            cos.data_ptr() if cos is not None else None,
-            sin.data_ptr() if sin is not None else None,
-            scratch.data_ptr() if scratch is not None else None,
+            *(t.data_ptr() if t is not None else None for t in (cos, sin, q_scratch, k_scratch)),
             B, N, H, d, *strides, nv, float(scale), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream, ctypes.byref(body),
         )
@@ -304,7 +318,7 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides) -
     ran = _BODIES.get(body.value, f"unknown ({body.value})")
     if ran != want:
         raise RuntimeError(f"{name} ran the {ran} body where attention_body says {want}")
-    _count_launch(name, d, ran)
+    _count_launch(name, width, ran)
     return out
 
 
@@ -382,7 +396,7 @@ def fused_attention_packed(
         )
     B, G, N, _ = q2.shape
     nv = _check(q2, k2, v2, N, HEAD_DIM, n_valid, rope_cos, rope_sin)
-    _check_packed_strides(q2, k2, v2)
+    _check_strides(("q2", "k2", "v2"), q2, k2, v2)
     if q2.device.type == "cpu":
         return _like(q2).copy_(attention_packed_reference(q2, k2, v2, scale, nv, rope_cos,
                                                           rope_sin))
@@ -445,34 +459,63 @@ def fused_attention(
     in q's dtype.
 
     ``rope_cos``/``rope_sin`` are full-length (N, d) tables. On a CPU tensor
-    the plain version runs. On the card any d runs: a width up to 256 that
-    the kernel is not built at runs zero-padded to the next built one
-    (:func:`padded_head_dim`) and is sliced back, ``scale`` unchanged; a
-    width above 256 runs the wide body at d. With tables and an odd d, q and
-    k are roped here (:func:`_rope_heads`, the scale folded into q) and the
-    kernel runs without tables at scale 1: rotate-half pairs element i of an
-    odd head with element i + d // 2 for i <= d // 2 and with i - d // 2 - 1
-    above, a pairing no zero pad keeps.
+    the plain version runs. On the card the kernel reads q, k and v where
+    they lie, and writes the output with q's strides, at every d but three
+    cases below: the widths it is built at (multiples of 8 up to 128, 192
+    and 256), every d above 256 (the wide body), and in bf16 every other
+    multiple of 8 from 136 to 248 (the Hopper body at the next built width,
+    its tensor maps at d, so the columns beyond d read as zeros and no copy
+    pads the head). There q, k and v may be strided views, such as
+    ``t.view(B, N, H, d).transpose(1, 2)`` of a flat (B, N, H*d) projection,
+    whose context's ``transpose(1, 2).reshape(B, N, H*d)`` is then a view
+    too: one set of strides for the three, the last dim contiguous, the
+    other strides multiples of 16 bytes (of the largest power of two up to
+    16 that divides a row's bytes, for the wide body's rows that are not
+    16-byte multiples), 16-byte aligned base addresses, no overlap (raises
+    ``ValueError`` otherwise, on every device).
+
+    Three cases still copy first, take any strides and return contiguous
+    tensors:
+
+    - fp32 at a width up to 256 that is not built, and bf16 at one that is
+      not a multiple of 8 (its rows are not 16-byte multiples, which a
+      tensor map refuses): q, k and v (and the tables, half by half, with
+      RoPE) zero-padded to the next built width (:func:`pad_head_dim`), the
+      output sliced back, ``scale`` unchanged;
+    - an odd d with tables: q and k roped here (:func:`_rope_heads`, the
+      scale folded into q) and the kernel run without tables at scale 1:
+      rotate-half pairs element i of an odd head with element i + d // 2 for
+      i <= d // 2 and with i - d // 2 - 1 above, a pairing no zero pad keeps.
     """
     if q.dim() != 4:
         raise ValueError(f"expected head-major (B, H, N, d) tensors, got q of shape {tuple(q.shape)}")
     B, H, N, d = q.shape
     nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
+    width = padded_head_dim(d)
+    odd_rope = rope_cos is not None and d % 2 == 1
+    padded = width != d and not (q.dtype == torch.bfloat16 and d % 8 == 0)
+    in_place = not (odd_rope or padded)
+    if in_place:
+        _check_strides(("q", "k", "v"), q, k, v, math.gcd(16, d * q.element_size()))
     if q.device.type == "cpu":
-        return attention_headmajor_reference(q, k, v, scale, nv, rope_cos, rope_sin)
-    if rope_cos is not None and d % 2:
+        out = attention_headmajor_reference(q, k, v, scale, nv, rope_cos, rope_sin)
+        return _like(q).copy_(out) if in_place else out
+    if in_place:
+        return _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d,
+                       (q.stride(0), q.stride(1), q.stride(2)), width)
+    if odd_rope:
         q = _rope_heads(q, rope_cos, rope_sin, scale)
         k = _rope_heads(k, rope_cos, rope_sin)
         scale, rope_cos, rope_sin = 1.0, None, None
-    width = padded_head_dim(d)
     halves = rope_cos is not None
     if width != d:
         q, k, v = (pad_head_dim(t, width, halves) for t in (q, k, v))
         if halves:
             rope_cos, rope_sin = (pad_head_dim(t, width, True) for t in (rope_cos, rope_sin))
+    q, k, v = (t.contiguous() for t in (q, k, v))
     _require_contiguous(q=q, k=k, v=v)
     out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, width,
-                  (H * N * width, N * width, width))
+                  (q.stride(0), q.stride(1), q.stride(2)))
     return out if width == d else unpad_head_dim(out, d, halves)
 
 

@@ -12,15 +12,22 @@ each:
 - kernel ms (CUDA events over 20 launches after 3 warm-up) of K1 (flat),
   K2 (head-pair packed) and K3 (head-major) in bf16 at the main paths'
   shapes, with RoPE and without; and K3 at the widths no preset has: 192
-  and 256 (16 heads at ViT-7B's batch), 160 (padded to 192) and, in bf16
+  and 256 (16 heads at ViT-7B's batch), 160 and 200 (run at 192 and
+  256) and, in bf16
   and fp32, 320 and 384 (the wide body);
-- a ``torch.profiler`` trace of K3 at ``TRACE_ROWS`` (the width 160 padded
-  to 192, and 192 itself): each CUDA kernel's launches and device ms per
+- the head-major route's attention at the ViT-7B width (``ROUTE_ROWS``):
+  views of flat projections in, K3, the context back as (B, N, H*d), with
+  RoPE and without; a checkout whose K3 refuses views copies q, k, v and
+  the context there, as its route did;
+- a ``torch.profiler`` trace of K3 at ``TRACE_ROWS`` (the width 160 run
+  at 192, and 192 itself): each CUDA kernel's launches and device ms per
   call, the device's busy ms per call, the host's ms to issue one call and
   the CUDA-event ms per call, read once (not a list, so not summarized);
 - warm encode frames/s: dinov3-vitb16 flat and packed (``CBAS_ATTN_FAT=0``)
   routes at 256x256 (batch 128) and 640x480 (batch 32); the DINOv3
-  ViT-7B/16 width at depth 4 at 256x256 (batch 32) and 640x480 (batch 8).
+  ViT-7B/16 width at depth 4 at 256x256 (batch 32) and 640x480 (batch 8);
+  and each of those forwards' ms a batch by CUDA events over 10 batches
+  queued back to back (the host clock's frames/s spread more).
 
 Prints one JSON line per run, then a summary line: for each metric the
 median and range of the parent's reads and of the change's, and the card's
@@ -49,11 +56,18 @@ KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
     ("attention_headmajor", 32, 261, 16, 192, (16, 16), "bfloat16"),
     ("attention_headmajor", 32, 261, 16, 256, (16, 16), "bfloat16"),
     ("attention_headmajor", 8, 261, 16, 160, (16, 16), "bfloat16"),
+    ("attention_headmajor", 8, 261, 16, 200, (16, 16), "bfloat16"),
     ("attention_headmajor", 8, 261, 16, 320, (16, 16), "bfloat16"),
     ("attention_headmajor", 4, 1205, 8, 384, (30, 40), "bfloat16"),
     ("attention_headmajor", 8, 261, 16, 320, (16, 16), "float32"),
     ("attention_headmajor", 4, 1205, 8, 384, (30, 40), "float32"),
 )
+# The head-major route's attention at the ViT-7B width, (B, N, H, d, patch
+# grid), bf16: head-major views of flat (B, N, H*d) projections in, K3, the
+# context back as (B, N, H*d). A checkout whose K3 refuses views runs its
+# route as it did: q, k and v copied to contiguous tensors, the context
+# copied back.
+ROUTE_ROWS = ((32, 261, 32, 128, (16, 16)), (8, 1205, 32, 128, (30, 40)))
 TRACE_ROWS = (  # (B, N, H, d, patch grid, RoPE), K3 in bf16
     (8, 261, 16, 160, (16, 16), True),
     (8, 261, 16, 160, (16, 16), False),
@@ -146,6 +160,29 @@ def measure(root: str, reads: int) -> dict:
             label = f"{kernel} {B}x{N}x{H}x{d} rope={rope}{fp32} ms"
             out[label] = [chip_smoke.time_ms(torch, fn) for _ in range(reads)]
         del q, k, v
+    for B, N, H, d, grid in ROUTE_ROWS:
+        flat = [torch.from_numpy(rng.standard_normal((B, N, H * d), np.float32))
+                .to("cuda", torch.bfloat16) for _ in range(3)]
+        views = [t.view(B, N, H, d).transpose(1, 2) for t in flat]
+        try:
+            fa.fused_attention(*views, d ** -0.5)
+            copies = False
+        except ValueError:  # a K3 that takes contiguous tensors only
+            copies = True
+        cos, sin = chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda")
+
+        def route(tables, views=views, copies=copies, B=B, N=N, H=H, d=d):
+            operands = [t.contiguous() for t in views] if copies else views
+            ctx = fa.fused_attention(*operands, d ** -0.5, None, *tables)
+            return ctx.transpose(1, 2).reshape(B, N, H * d)
+
+        for rope in (True, False):
+            tables = (cos, sin) if rope else (None, None)
+            label = f"K3 route (views in, context out) {B}x{N}x{H}x{d} rope={rope} ms"
+            out[label] = [chip_smoke.time_ms(torch, lambda: route(tables))  # noqa: B023
+                          for _ in range(reads)]
+        out[f"K3 route {B}x{N}x{H}x{d} copies q, k, v and the context"] = copies
+        del flat, views
     for B, N, H, d, grid, rope in TRACE_ROWS:
         q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
                    .to("cuda", torch.bfloat16) for _ in range(3))
@@ -157,6 +194,10 @@ def measure(root: str, reads: int) -> dict:
     def fps(enc, planes, batch, label):
         enc.encode_planes(planes[:batch], batch=batch)  # warm
         out[label] = [chip_smoke.warm_fps(torch, enc, planes, batch, 3) for _ in range(reads)]
+        # The same forward by CUDA events (no host clock, no copy back).
+        out[label.replace("fps", "ms a batch (events)")] = [chip_smoke.time_ms(
+            torch, lambda: enc.encode_planes_async(planes[:batch], batch=batch), iters=10)
+            for _ in range(reads)]
 
     enc = FrameEncoder("dinov3-vitb16", random_init=True, device="cuda")
     planes_256 = rng.integers(0, 256, (128, 256, 256), np.uint8)

@@ -18,7 +18,11 @@ non-zero and prints no final line):
      head-pair views of flat ones (the packed route's operands);
    - K3 (head-major) at 32 heads of 128 (DINOv3 ViT-7B), at 3 heads of 64
      (an odd head count), at head dims 96 and 40, and at head dims 192 and
-     256, wider than any shipped preset's heads (timed at 16 heads).
+     256, wider than any shipped preset's heads (timed at 16 heads); and on
+     head-major views of flat tensors (the head-major route's operands) at
+     d 64, 128, 192, 256 and 320, N 261, 329 and 1205 and 272 / 261 and
+     329 / 300, each view case also bit for bit against the kernel on
+     contiguous copies.
    bf16 at head dims 64 and 128 (and K3's 192 and 256) runs the Hopper body
    (``attention_body``), the rest the common body; each case names the
    registers and spills of the kernel it ran (``-Xptxas -v``). At the main
@@ -27,7 +31,9 @@ non-zero and prints no final line):
    bound (FLOP and bytes over the card's peaks) and
    ``scaled_dot_product_attention`` on the same data (head-major, RoPE
    applied beforehand; the backend it picked is named by its kernels in a
-   profiler trace);
+   profiler trace). K1, K2 (views) and K3 (views, d 64 and 128) are also
+   timed in fp32 at the main shapes, the common body
+   (``runtime.compute_dtype: float32``);
 3. encode, flat route: the main path at the full width of dinov3-vitb16
    (random weights from a numpy seed): 256x256 planes in two full batches
    and a partial one, 640x480 planes in one batch, then the head over the
@@ -43,8 +49,11 @@ non-zero and prints no final line):
 6. encode, ViT-7B width: a checkpoint directory whose ``config.json`` has
    DINOv3 ViT-7B/16's published shape with the depth cut, opened through
    ``FrameEncoder``: 256x256 in a full batch and a partial one, 640x480 in
-   one batch: K3 only, each through the Hopper body. Warm frames/s, and
-   accuracy against the CPU fp32 run;
+   one batch: K3 only, each through the Hopper body, on views of the
+   projections: a profiler trace of one forward finds no copy kernel next
+   to a K3 launch. Warm frames/s, and accuracy against the CPU fp32 run
+   (its launches are the fp32 forward's, as are those of the flat and
+   packed routes' fp32 runs, checked a forward);
 7. files: ``encode_file`` -> ``infer_h5`` on a synthetic clip, then
    ``run_training_job`` on a two-subject project built from encoded clips
    and ``infer_h5`` with the bundle it wrote, where h5py, pandas, OpenCV,
@@ -70,9 +79,12 @@ non-zero and prints no final line):
     oracle, then K3 in bf16 at d = 128 through the Hopper body against
     unfused bf16, and the bf16 LayerNorm), each error beside its tolerance
     and each kernel's launches by body; K3 at head dims it is not built at
-    (100 and 160, zero-padded to 104 and 192), bf16 and fp32, RoPE on and
-    off, against the plain version at d and timed beside the built width and
-    SDPA at d; ``models/vit.py::cls_attention_map`` at dinov3-vitb16 (full
+    (100, zero-padded to 104; 136, 160, 200 and 248, run at 192 or 256
+    with no copy in bf16 and zero-padded in fp32), bf16 and fp32, RoPE on
+    and off, against the plain version at d, timed beside the built width
+    and SDPA at d, with K3's launches and the CUDA kernels of one call (a
+    profiler trace: bf16 at a multiple of 8 runs one kernel, two with
+    RoPE); ``models/vit.py::cls_attention_map`` at dinov3-vitb16 (full
     width and depth, q/k weights x4 so the map is far from uniform) on 8
     frames of 256x256 in bf16, 11 K1 launches a call through the Hopper
     body, against the CPU fp32 run; and, where h5py, pandas, OpenCV and
@@ -104,7 +116,9 @@ non-zero and prints no final line):
     at the shape each encode gave it, against its plain version and timed.
 
 The line before the last lists each kernel with its launches on its route,
-error, times, bound, registers and the library call's time (K3 also at head
+error, times, bound, registers and the library call's time (K2 and K3 on
+views, their routes' inputs, with their times on contiguous tensors beside;
+each also in fp32, with its launches of one fp32 forward; K3 also at head
 dims 192 and 256, at phase 10's padded, wide and odd widths, with their
 launches counted over the encode routes' runs and phase 12's), the launches
 of phase 10's runs, and its launches over phase 11's mesh encodes
@@ -290,11 +304,14 @@ def ptxas_report(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(attention_bf16|attention_f32|attention_sm90|rope_rows)ILi(\d+)E"
+            k = re.search(r"(attention_bf16|attention_f32|attention_sm90)ILi(\d+)E"
                           r"(?:Li(\d+)E)?", m.group(1))
             args = ", ".join(x for x in k.groups()[1:] if x) if k else ""
             name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else m.group(1)
-            w = re.search(r"(attention_wide_bf16|attention_wide_f32|rope_rows_wide)"
+            r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+            if r:  # the RoPE prologue: its dtype and the columns a thread takes
+                name = f"rope_rows<{'f32' if r.group(1) == 'f' else 'bf16'}, {r.group(2)}>"
+            w = re.search(r"(attention_wide_bf16|attention_wide_f32)"
                           r"(?:I(f|13__nv_bfloat16|Lb[01])E)?", m.group(1))
             if w:  # the wide body and its prologue: d at run time, not a template argument
                 name = w.group(1).replace("attention_", "")
@@ -344,9 +361,11 @@ def rope_full(torch, cfg, head_dim, grid, n_tokens, device):
 def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=None,
                 time_it=True, view=False, tables=None):
     """One fused-attention case on the card against its plain version, in
-    the kernel's own layout; with ``view`` (K2 only), on head-pair views of
-    flat (B, N, H*d) tensors, as the packed route passes them. ``tables``,
-    a (cos, sin) pair on the card, replaces the model's RoPE tables."""
+    the kernel's own layout; with ``view`` (K2 and K3), on head-pair or
+    head-major views of flat (B, N, H*d) tensors, as the packed and
+    head-major routes pass them, and then also bit for bit against the
+    kernel on contiguous copies of the views. ``tables``, a (cos, sin) pair
+    on the card, replaces the model's RoPE tables."""
     wrapper, plain, shape, token_dim = {
         "attention_fat": (fa.fused_attention_fat, fa.attention_fat_reference, (B, N, H * d), 1),
         "attention_packed": (
@@ -362,7 +381,8 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         .to("cuda", dtype) for _ in range(3)
     )
     if view:
-        q, k, v = (t.view(B, N, H // 2, 2 * d).transpose(1, 2) for t in (q, k, v))
+        group = 2 if kernel == "attention_packed" else 1
+        q, k, v = (t.view(B, N, H // group, group * d).transpose(1, 2) for t in (q, k, v))
     if n_valid is not None:  # dead rows hold NaN: the masks must keep it out
         dead = (slice(None),) * token_dim + (slice(n_valid, None),)
         k[dead] = float("nan")
@@ -384,6 +404,9 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         tol = bf16_ulp(torch, want.float()) + KERNEL_BF16_VREL * vmax + KERNEL_BF16_FLOOR
         tol_text = f"1 bf16 ulp + 2^-8 max|v| ({KERNEL_BF16_VREL * vmax:.3g}) + {KERNEL_BF16_FLOOR}"
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    if view:  # the views' strides kept, and the same bits as on contiguous copies
+        copies = wrapper(*(t.contiguous() for t in (q, k, v)), scale, n_valid, cos, sin)
+        ok = ok and got.stride() == q.stride() and bool(torch.equal(got, copies))
     out = {
         "phase": "kernel", "name": kernel, "body": fa.attention_body(kernel, dtype, d),
         "inputs": "views of flat tensors" if view else "contiguous",
@@ -454,24 +477,28 @@ def sdpa_backend(kernels) -> str:
 
 def kernel_phase(torch, fa, cfg) -> dict:
     """Every kernel case; returns the main-shape cases of each kernel,
-    {name: (256x256 case, 640x480 case)} (the ``kernels`` line's numbers)."""
-    g256, g480 = (16, 16), (30, 40)  # patch grids of 256x256 and 640x480
+    {name: (256x256 case, 640x480 case)} (the ``kernels`` line's numbers;
+    under "<name>_contiguous" K2's and K3's on contiguous tensors), the fp32
+    cases under "fp32", and under "padded_calls" the kernels one K3 call
+    launches at phase 10's padded widths (:func:`padded_calls`)."""
+    g256, g288, g480 = (16, 16), (18, 18), (30, 40)  # patch grids of 256x256, 288x288, 640x480
     bf16, f32 = torch.bfloat16, torch.float32
     results, main = [], {}
 
     def sweep(kernel, H, d, small=((4, 261, g256), (2, 1205, g480)), ropes=(False, True),
-              dead=((4, 272, 261, g256), (2, 1216, 1205, g480)), views=(False,)):
+              dead=((4, 272, 261, g256), (2, 1216, 1205, g480)), views=(False,), time_it=True):
         for view in views:
             for B, N, grid in small:
                 for dtype in (bf16, f32):
                     for rope in ropes:
                         results.append(kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype,
-                                                   rope, view=view))
+                                                   rope, view=view, time_it=time_it))
             for B, N, n_valid, grid in dead:  # NaN in the dead rows
                 for dtype in (bf16, f32):
                     for rope in ropes:
                         results.append(kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype,
-                                                   rope, n_valid=n_valid, view=view))
+                                                   rope, n_valid=n_valid, view=view,
+                                                   time_it=time_it))
 
     H = cfg.num_heads
     sweep("attention_fat", H, 64)
@@ -486,8 +513,17 @@ def kernel_phase(torch, fa, cfg) -> dict:
     for d in (192, 256):  # wider than 128: the Hopper body in bf16
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),),
               dead=((2, 272, 261, g256),))
+    # K3 on head-major views of flat tensors (the head-major route's
+    # operands) on each body: N 261, 329 and 1205, and 272 / 261 and
+    # 329 / 300 with NaN in the dead rows; each also against the kernel on
+    # contiguous copies, bit for bit. Untimed: the main shapes are timed below.
+    for d in (64, 128, 192, 256, 320):
+        sweep("attention_headmajor", 4, d, views=(True,),
+              small=((2, 261, g256), (2, 329, g288), (1, 1205, g480)),
+              dead=((2, 272, 261, g256), (2, 329, 300, g288)), time_it=False)
     # The main paths' shapes: ViT-B at batch 128 / 32, ViT-7B width at 32 / 8.
-    # K2 on contiguous tensors here; on views (its route's inputs) below.
+    # K2 and K3 on contiguous tensors here; on views (their routes' inputs)
+    # below.
     for kernel, H, d, b256, b480 in (
         ("attention_fat", H, 64, BATCH_256, BATCH_480),
         ("attention_packed", H, 64, BATCH_256, BATCH_480),
@@ -504,11 +540,33 @@ def kernel_phase(torch, fa, cfg) -> dict:
         main[f"headmajor_d{d}"] = kernel_case(torch, fa, cfg, "attention_headmajor", BATCH_7B_256,
                                               WIDE_HEADS, 261, d, g256, bf16, True)
         results.append(main[f"headmajor_d{d}"])
-    main["attention_packed"] = tuple(
-        kernel_case(torch, fa, cfg, "attention_packed", b, cfg.num_heads, n, 64, g, bf16, True,
-                    view=True)
-        for b, n, g in ((BATCH_256, 261, g256), (BATCH_480, 1205, g480)))
-    results += main["attention_packed"]
+    # K2 and K3 on views of flat tensors, their routes' inputs: the kernels
+    # line's numbers.
+    for kernel, H, d, b256, b480 in (
+        ("attention_packed", cfg.num_heads, 64, BATCH_256, BATCH_480),
+        ("attention_headmajor", VIT7B_CONFIG["num_attention_heads"], 128, BATCH_7B_256,
+         BATCH_7B_480),
+    ):
+        main[f"{kernel}_contiguous"] = main[kernel]
+        main[kernel] = tuple(
+            kernel_case(torch, fa, cfg, kernel, b, H, n, d, g, bf16, True, view=True)
+            for b, n, g in ((b256, 261, g256), (b480, 1205, g480)))
+        results += main[kernel]
+    # fp32 (runtime.compute_dtype: float32) on the main paths' shapes, the
+    # common body: K1, K2 (views) and K3 (views) at d 64, and K3 (views) at
+    # the ViT-7B width.
+    main["fp32"] = [
+        kernel_case(torch, fa, cfg, kernel, b, H, n, d, g, f32, True,
+                    view=kernel != "attention_fat")
+        for kernel, H, d, b256, b480 in (
+            ("attention_fat", cfg.num_heads, 64, BATCH_256, BATCH_480),
+            ("attention_packed", cfg.num_heads, 64, BATCH_256, BATCH_480),
+            ("attention_headmajor", cfg.num_heads, 64, BATCH_256, BATCH_480),
+            ("attention_headmajor", VIT7B_CONFIG["num_attention_heads"], 128, BATCH_7B_256,
+             BATCH_7B_480))
+        for b, n, g in ((b256, 261, g256), (b480, 1205, g480))]
+    results += main["fp32"]
+    main["padded_calls"] = padded_calls(torch, fa, cfg)
     for r in results:
         emit(r)
     bad = [r for r in results if not r["ok"]]
@@ -589,11 +647,16 @@ def row_cosine(a, b):
     return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
 
 
-def accuracy_check(cpu, gpu32, planes, e_bf16, n, name, extra=None) -> dict:
+def accuracy_check(cpu, gpu32, planes, e_bf16, n, name, extra=None, fa=None) -> dict:
     """The GPU fp32 run within 1 fp16 ulp + floor of the CPU fp32 run, and
-    the bf16 embeddings within the cosine bound of it."""
+    the bf16 embeddings within the cosine bound of it. With ``fa``, the
+    kernel launches of the GPU fp32 run (one forward) under
+    "fp32_launches"."""
     ref = cpu.encode_planes(planes[:n]).astype(np.float32)
+    if fa is not None:
+        reset_launches(fa)
     g32 = gpu32.encode_planes(planes[:n]).astype(np.float32)
+    launches = read_launches(fa) if fa is not None else None
     err = np.abs(g32 - ref)
     ulp = np.spacing(np.abs(ref).astype(np.float16)).astype(np.float32)
     cos = row_cosine(e_bf16[:n], ref)
@@ -606,6 +669,7 @@ def accuracy_check(cpu, gpu32, planes, e_bf16, n, name, extra=None) -> dict:
         "fp32_max_abs_err": float(err.max()), "fp32_max_fp16_ulps": float((err / ulp).max()),
         "fp32_tol": f"{ENCODE_FP32_ULPS} fp16 ulp + {ENCODE_FP32_FLOOR}",
         "bf16_min_cos": float(cos.min()), "bf16_tol_min_cos": ENCODE_BF16_MIN_COS,
+        **({"fp32_launches": launches} if launches is not None else {}),
         "ok": ok,
     }
     emit(line)
@@ -702,8 +766,13 @@ def main() -> int:
     # Accuracy against the port's CPU fp32 run on the same weights.
     cpu = FrameEncoder(ENCODER, params=params, compute_dtype=torch.float32, device="cpu")
     gpu32 = FrameEncoder(ENCODER, params=params, compute_dtype=torch.float32, device="cuda")
-    accuracy_check(cpu, gpu32, planes_256, emb_256, N_CHECK_256, "256x256")
+    fp32_flat = accuracy_check(cpu, gpu32, planes_256, emb_256, N_CHECK_256, "256x256",
+                               fa=fa)["fp32_launches"]
     accuracy_check(cpu, gpu32, planes_480, emb_480, N_CHECK_480, "640x480")
+    with env_var("CBAS_ATTN_FAT", "0"):  # the packed route in fp32, one forward
+        reset_launches(fa)
+        gpu32.encode_planes(planes_256[:N_CHECK_256])
+        fp32_packed = read_launches(fa)
     del cpu, gpu32
 
     # 4. classify check
@@ -762,7 +831,16 @@ def main() -> int:
             raise AssertionError("the packed route's embeddings disagree with the flat route's")
 
     # 6. the ViT-7B-width encode through K3
-    vit7b_launches, vit7b_line = vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card)
+    vit7b_launches, vit7b_line, fp32_headmajor = vit7b_phase(torch, fa, FrameEncoder,
+                                                             init_vit_params, card)
+    # Launches of one fp32 forward (runtime.compute_dtype: float32) on each
+    # route: the same kernel counts as bf16, none through the Hopper body.
+    fp32_runs = {"attention_fat": fp32_flat, "attention_packed": fp32_packed,
+                 "attention_headmajor": fp32_headmajor}
+    for name, run in fp32_runs.items():
+        layers = (VIT7B_DEPTH if name == "attention_headmajor" else cfg.num_layers) - 1
+        check_launches(f"{name} fp32", run, name, layers, 1, sm90=False)
+    fp32_launches = {name: run[name] for name, run in fp32_runs.items()}
 
     # 7. files end to end, where the host has what the file paths need
     missing = host_missing(("h5py", "pandas", "cv2", "yaml", "matplotlib", "sklearn"))
@@ -778,7 +856,7 @@ def main() -> int:
     app_phase(torch, fa, card)
 
     # 10. the tools, K3 at padded, wide and odd widths and the CLS attention map
-    tools_line = tools_phase(torch, fa, cfg, params, card)
+    tools_line = tools_phase(torch, fa, cfg, params, card, main_cases["padded_calls"])
 
     # 11. the device mesh over logical shards of cuda:0, then over the cards
     mesh_launches, _ = mesh_phase(torch, fa, cfg, enc, planes_256[:BATCH_256],
@@ -824,6 +902,15 @@ def main() -> int:
             c | {"launches_on_main_path": sum(run["headmajor_by_dim"].get(c["padded_to"], 0)
                                               for run in runs)}
             for c in tools_line["wide_odd_timings"]]} if name == "attention_headmajor" else {}),
+        **({"contiguous": [{key: c[key] for key in ("ms", "ms_norope", "max_abs_err")}
+                           | {"shape": [c[x] for x in ("B", "N", "H", "head_dim")]}
+                           for c in main_cases[f"{name}_contiguous"]]}
+           if f"{name}_contiguous" in main_cases else {}),
+        "fp32": [{key: c[key] for key in timing_keys}
+                 | {"shape": [c[x] for x in ("B", "N", "H", "head_dim")], "body": c["body"],
+                    "inputs": c["inputs"]}
+                 for c in main_cases["fp32"] if c["name"] == name],
+        "launches_fp32": fp32_launches[name],
         "launches_mesh": mesh_launches[name],
         "launches_tools": {run: launches[name] for run, launches in tools_line["launches"].items()},
     } for name, replaces in KERNELS.items()]
@@ -833,6 +920,46 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }})
     return 0
+
+
+COPY_KERNEL = re.compile(r"copy|memcpy", re.IGNORECASE)
+
+
+def trace_kernels(torch, fn) -> list:
+    """The names of the CUDA kernels (and copies) one call of ``fn`` ran, in
+    the order they started, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
+def copies_around(kernels, marker, prologue="rope_rows") -> dict:
+    """Of a kernel trace: the copy kernels in all, the launches of kernels
+    whose name holds ``marker``, and the copy kernels that run next to one
+    of them (right before it, past its ``prologue``, or right after it),
+    with the names of those neighbours."""
+    hits, around, neighbours = 0, 0, set()
+    for i, name in enumerate(kernels):
+        if marker not in name:
+            continue
+        hits += 1
+        j = i - 1
+        while j >= 0 and prologue in kernels[j]:
+            j -= 1
+        for k in (j, i + 1):
+            while 0 <= k < len(kernels) and COPY_KERNEL.search(kernels[k]):
+                around += 1
+                neighbours.add(kernels[k][:120])
+                k += 1 if k > i else -1
+            if 0 <= k < len(kernels):
+                neighbours.add(kernels[k][:120])
+    return {"kernels": len(kernels), "copy_kernels": sum(bool(COPY_KERNEL.search(n)) for n in kernels),
+            "launches": hits, "copies_around": around, "neighbours": sorted(neighbours)}
 
 
 def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
@@ -870,8 +997,16 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
         for name, e, n in (("256x256", emb_256, FRAMES_7B_256), ("640x480", emb_480, BATCH_7B_480)):
             if e.shape != (n, cfg.hidden_size) or e.dtype != np.float16 or not np.isfinite(e).all():
                 raise AssertionError(f"ViT-7B {name} embeddings: {e.shape} {e.dtype}")
+        # One forward traced: the route hands K3 views of the projections and
+        # reads its output back as a view, so no copy kernel runs next to a
+        # K3 launch.
+        copies = copies_around(trace_kernels(torch, lambda: enc.encode_planes(
+            planes_256[:BATCH_7B_256], batch=BATCH_7B_256)), "attention_sm90")
+        if copies["launches"] != cfg.num_layers - 1 or copies["copies_around"]:
+            raise AssertionError(f"ViT-7B forward: copies next to K3: {copies}")
         line = {
             "phase": "encode_vit7b", "route": "head-major (K3)",
+            "one_forward_trace": copies,
             "model": "DINOv3 ViT-7B/16 width (hidden 4096, 32 heads x 128, gated MLP 8192)",
             "depth": f"{VIT7B_DEPTH} of {VIT7B_PUBLISHED_DEPTH} blocks (cut: a numpy init of "
                      "all 40 is 27 GB of fp32 on the host)",
@@ -891,11 +1026,12 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
         cpu = FrameEncoder(ckpt, params=params, compute_dtype=torch.float32, device="cpu")
         gpu32 = FrameEncoder(ckpt, params=params, compute_dtype=torch.float32, device="cuda")
         del params
-        accuracy_check(cpu, gpu32, planes_256, emb_256, N_CHECK_7B, "256x256",
-                       {"model": "ViT-7B width, depth 4"})
+        fp32_launches = accuracy_check(cpu, gpu32, planes_256, emb_256, N_CHECK_7B, "256x256",
+                                       {"model": "ViT-7B width, depth 4"},
+                                       fa=fa)["fp32_launches"]
         del cpu, gpu32
         torch.cuda.empty_cache()
-    return launches, line
+    return launches, line, fp32_launches
 
 
 def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
@@ -1592,8 +1728,10 @@ def app_file_steps(port, api, proj, clip_rel, plots_missing) -> dict:
 # Hopper body.
 TOOLS_EXTRA_GEOMETRY = (2, 32, 261, 128, True)
 # K3 at head dims it is not built at, (B, N, H, d): the card pads 100 to 104
-# and 160 to 192.
-PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 160), (4, 1205, 16, 100))
+# (one copy a tensor), and in bf16 runs 136 and 160 at 192 and 200 and 248
+# at 256 with no copy (the tensor maps at d; fp32 still pads them).
+PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 136), (8, 261, 16, 160), (8, 261, 16, 200),
+                (8, 261, 16, 248), (4, 1205, 16, 100))
 # K3 at the head dims it refused on the card before, (B, N, H, d), with RoPE:
 # wider than 256 (the wide body, d at run time) and odd (q and k roped before
 # the launch, then zero-padded). d 320 and 384 take the model's tables at
@@ -1616,18 +1754,20 @@ FLEET_CLIPS, FLEET_FRAMES = 2, 100
 SOAK_CAMERAS, SOAK_MINUTES = 2, 0.5
 
 
-def tools_phase(torch, fa, cfg, params, card) -> dict:
-    """Phase 10: validate_kernels on the card, K3 at padded widths, the CLS
-    attention map, and (where the host can) encode_fleet and soak. Returns
+def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
+    """Phase 10: validate_kernels on the card, K3 at padded widths (``calls``:
+    the kernels one call launches there, from phase 2), the CLS attention
+    map, and (where the host can) encode_fleet and soak. Returns
     the phase line, with the padded cases' timings and the launches of each
     run for the kernels line."""
     line = {"phase": "tools", "card": card, "launches": {}}
     line["validate_kernels"] = validate_kernels_step(torch, fa, line["launches"])
-    cases = padded_cases(torch, fa, cfg)
+    cases = padded_cases(torch, fa, cfg, calls)
     line["padded_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
         "ms", "built_width_ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "gflop",
-        "mbytes", "library_ms", "library", "ptxas")} for c in cases]
+        "mbytes", "library_ms", "library", "ptxas", "k3_launches_per_call",
+        "kernels_per_call")} for c in cases]
     wide = wide_odd_cases(torch, fa, cfg)
     line["wide_odd_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
@@ -1686,10 +1826,24 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     return out
 
 
-def padded_cases(torch, fa, cfg) -> list:
+def padded_calls(torch, fa, cfg) -> dict:
+    """``calls_launches`` at each of PADDED_CASES, bf16 and fp32, RoPE off
+    and on, keyed (N, d, dtype, rope). Taken in phase 2: after phases 8 and
+    9 the profiler's traces hold no device events on the card's machine."""
+    return {(N, d, str(dtype), rope): calls_launches(
+                torch, fa, cfg, B, H, N, d, (16, 16) if N == 261 else (30, 40), dtype, rope)
+            for B, N, H, d in PADDED_CASES for dtype in (torch.bfloat16, torch.float32)
+            for rope in (False, True)}
+
+
+def padded_cases(torch, fa, cfg, calls) -> list:
     """K3 at PADDED_CASES' head dims, bf16 and fp32, RoPE off and on: each
     against the plain version at d, timed beside the kernel at the width it
-    pads to (on tensors already padded) and SDPA at d."""
+    pads to (on tensors already padded) and SDPA at d, with the kernels one
+    call launches (K3's counter, and every CUDA kernel of a profiler trace
+    of one call: ``calls``, from :func:`padded_calls`). bf16 at a multiple
+    of 8 runs with no copy: one kernel a call, two with RoPE (the prologue,
+    then K3)."""
     cases = []
     for B, N, H, d in PADDED_CASES:
         grid = (16, 16) if N == 261 else (30, 40)
@@ -1700,6 +1854,10 @@ def padded_cases(torch, fa, cfg) -> list:
                                    dtype, rope)
                 case["body"] = fa.attention_body("attention_headmajor", dtype, width)
                 case["padded_to"] = width
+                case.update(calls[(N, d, str(dtype), rope)])
+                if dtype == torch.bfloat16 and d % 8 == 0:
+                    case["ok"] = case["ok"] and case["kernels_per_call"] == 1 + rope and not any(
+                        COPY_KERNEL.search(name) for name in case["kernel_names"])
                 case["built_width_ms"] = built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype,
                                                         rope)
                 case["phase"] = "kernel_padded"
@@ -1733,6 +1891,21 @@ def wide_odd_cases(torch, fa, cfg) -> list:
     if bad:
         raise AssertionError(f"K3 at wide or odd head dims disagrees with its plain version: {bad}")
     return cases
+
+
+def calls_launches(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> dict:
+    """K3's launches in one call at d (its counter) and the CUDA kernels the
+    call ran (a profiler trace), by name."""
+    rng = np.random.default_rng(SEED)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32)).to("cuda", dtype)
+               for _ in range(3))
+    cos, sin = rope_full(torch, cfg, d, grid, N, "cuda") if rope else (None, None)
+    before = fa.launches_headmajor
+    fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin)
+    launches = fa.launches_headmajor - before
+    names = trace_kernels(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin))
+    return {"k3_launches_per_call": launches, "kernels_per_call": len(names),
+            "kernel_names": [name[:120] for name in names]}
 
 
 def built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> float:

@@ -545,6 +545,116 @@ def test_packed_wrapper_refuses_strides_the_kernel_does_not_take(case, match):
         fa.fused_attention_packed(q, k, v, 0.1)
 
 
+def _flat_and_heads(B, H, N, d, seed, dtype, device="cpu", n_valid=None):
+    """Flat (B, N, H*d) q, k, v from a numpy seed, NaN in the K/V rows at or
+    beyond ``n_valid``, and their (B, H, N, d) head-major views (the
+    head-major route's operands: no copy)."""
+    flat = [torch.from_numpy(t).to(device, dtype) for t in _inputs((B, N, H * d), seed)]
+    if n_valid is not None:
+        for t in flat[1:]:
+            t[:, n_valid:] = float("nan")
+    return flat, [t.view(B, N, H, d).transpose(1, 2) for t in flat]
+
+
+@pytest.mark.parametrize("d", [64, 128, 160, 200, 320, 330])
+@pytest.mark.parametrize("n_valid", [None, 61])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_headmajor_views_equal_contiguous_copies(dtype, rope, n_valid, d):
+    """K3 on head-major views of flat tensors gives bit for bit what it gives
+    on their contiguous copies, NaN in the dead K/V rows included, and
+    returns the views' strides: the head-major route's context goes back to
+    (B, N, H*d) without a copy. (fp32 at 160 and 200 is copied and padded
+    on the card, and so returns a contiguous tensor; at 330 a row is no
+    16-byte multiple, so the strides need only be multiples of 4 bytes in
+    bf16 and 8 in fp32, what the wide body's staged loads take.)"""
+    B, H, N = 2, 3, 70
+    _, views = _flat_and_heads(B, H, N, d, 35, dtype, n_valid=n_valid)
+    assert not any(t.is_contiguous() for t in views)
+    copies = [t.contiguous() for t in views]
+    cos, sin = (torch.from_numpy(t) for t in _rope(N, d, seed=36)) if rope else (None, None)
+    got = fa.fused_attention(*views, d ** -0.5, n_valid, cos, sin)
+    want = fa.fused_attention(*copies, d ** -0.5, n_valid, cos, sin)
+    assert want.is_contiguous() and bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    if dtype == torch.float32 and fa.padded_head_dim(d) != d:
+        assert got.is_contiguous()
+    else:
+        assert got.stride() == views[0].stride()
+        assert got.transpose(1, 2).reshape(B, N, H * d).data_ptr() == got.data_ptr()
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("B,H,N,d,n_valid", [(1, 3, 261, 64, None), (2, 2, 140, 128, 130),
+                                              (1, 2, 80, 160, 70), (1, 2, 80, 200, None)])
+def test_headmajor_views_match_jax(B, H, N, d, n_valid, rope):
+    """The port's K3 on head-major views of flat tensors against the JAX
+    kernel (interpret mode) on the same arrays, contiguous: fp32, the JAX
+    suite's bounds."""
+    jnp = pytest.importorskip("jax.numpy")
+    from cbas_tpu.ops import flash_attention as jfa
+
+    flat, views = _flat_and_heads(B, H, N, d, 37, torch.float32, n_valid=n_valid)
+    cos, sin = _rope(N, d, seed=38) if rope else (None, None)
+    want = np.asarray(jfa.fused_attention(
+        *(jnp.asarray(t.contiguous().numpy()) for t in views), d ** -0.5, n_valid=n_valid,
+        rope_cos=None if cos is None else jnp.asarray(cos),
+        rope_sin=None if sin is None else jnp.asarray(sin), interpret=True,
+    ))
+    got = fa.fused_attention(*views, d ** -0.5, n_valid,
+                             None if cos is None else torch.from_numpy(cos),
+                             None if sin is None else torch.from_numpy(sin))
+    assert np.isfinite(got.numpy()).all()
+    tol = TOL_ROPE if rope else TOL
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize(
+    "case,match",
+    [
+        ("last-dim stride 2", "stride 2"),
+        ("misaligned stride", "stride 132 of dim 2 is not a multiple of 16 bytes"),
+        ("different strides", "must share strides"),
+        ("overlapping rows", "stride 64 of dim 2 overlaps"),
+        ("misaligned base", "k starts at"),
+    ],
+)
+def test_headmajor_wrapper_refuses_strides_the_kernel_does_not_take(case, match):
+    """K3 takes views under K2's rule, and names each refusal the same way,
+    on the CPU as on the card."""
+    base = torch.zeros(1, 2, 16, 264, dtype=torch.bfloat16)
+    q = base[..., :128]
+    k = v = q
+    if case == "last-dim stride 2":
+        q = k = v = base[..., ::2][..., :128]
+    elif case == "misaligned stride":
+        q = k = v = base[..., :132].contiguous()[..., :128]  # rows of 264 bytes
+    elif case == "different strides":
+        k = q.contiguous()
+    elif case == "overlapping rows":
+        q = k = v = base.flatten()[: 2 * 16 * 64 + 128].as_strided((1, 2, 16, 128), (0, 16 * 64, 64, 1))
+    elif case == "misaligned base":
+        k = base.flatten()[4:].as_strided(q.shape, q.stride())  # 8 bytes in
+    with pytest.raises(ValueError, match=match):
+        fa.fused_attention(q, k, v, 0.1)
+
+
+@pytest.mark.parametrize("d,dtype", [(100, torch.bfloat16), (160, torch.float32), (13, torch.float32)])
+def test_headmajor_copying_routes_take_any_strides(d, dtype):
+    """The widths the card still copies first (bf16 not a multiple of 8, fp32
+    at an unbuilt width, an odd d with tables) take strides the in-place
+    rule refuses, here q, k and v with three different ones."""
+    B, H, N = 1, 2, 20
+    flat, views = _flat_and_heads(B, H, N, d, 39, dtype)
+    q, k, v = views[0], views[1].contiguous(), views[2][..., ::1]
+    cos, sin = (torch.from_numpy(t) for t in _rope(N, d - d % 2, seed=40)) if d % 2 == 0 else (
+        torch.ones(N, d), torch.zeros(N, d))
+    got = fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin)
+    want = fa.attention_headmajor_reference(*(t.contiguous() for t in (q, k, v)), d ** -0.5, None,
+                                            cos, sin)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["contiguous", "view of flat"])
 @pytest.mark.parametrize("rope", [False, True])
@@ -655,3 +765,81 @@ def test_hopper_body_matches_plain_on_card(layout, H, d, N, n_valid, rope, cuda_
     err = (got.float() - want.float()).abs()
     assert bool(torch.isfinite(got).all())
     assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("N,n_valid", [(261, None), (272, 261), (329, 300), (1205, None)])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 330])
+def test_headmajor_views_match_plain_on_card(d, N, n_valid, rope, dtype, cuda_device):
+    """K3 on head-major views of flat tensors (the head-major route's
+    operands) against its plain version, NaN in the dead K/V rows, and bit
+    for bit against itself on their contiguous copies; the output keeps the
+    views' strides, each call one launch at d (330: the wide body's staged
+    loads, rows no 16-byte multiple)."""
+    dt = getattr(torch, dtype)
+    B, H = (2, 4) if N < 1000 else (1, 3)
+    _, views = _flat_and_heads(B, H, N, d, 55, dt, cuda_device, n_valid)
+    cos = sin = None
+    if rope:
+        cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=56))
+    before = fa.launches_headmajor_by_dim.get(d, 0)
+    got = fa.fused_attention(*views, d ** -0.5, n_valid, cos, sin)
+    assert fa.launches_headmajor_by_dim[d] == before + 1
+    assert got.stride() == views[0].stride()
+    want = fa.attention_headmajor_reference(*views, d ** -0.5, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, views[2], n_valid, N)).all()), float(err.max())
+    copies = fa.fused_attention(*(t.contiguous() for t in views), d ** -0.5, n_valid, cos, sin)
+    assert torch.equal(got, copies)
+
+
+def _cuda_kernels(torch_mod, fn) -> list:
+    """The names of the CUDA kernels one call of ``fn`` ran, from a
+    ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch_mod.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch_mod.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch_mod.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "view of flat"])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("N,n_valid", [(261, None), (272, 261), (1205, None)])
+@pytest.mark.parametrize("d", [136, 160, 200, 248])
+def test_map_padded_widths_run_without_copies_on_card(d, N, n_valid, rope, layout, cuda_device):
+    """bf16 heads of the multiples of 8 from 136 to 248 that K3 is not built
+    at run on the Hopper body at the next built width with no pad or slice:
+    one kernel a call without RoPE and two with (the RoPE prologue, then
+    the attention kernel), by the counters and by a profiler trace; against
+    the plain version, NaN in the dead K/V rows."""
+    B, H = (2, 4) if N < 1000 else (1, 3)
+    _, views = _flat_and_heads(B, H, N, d, 57, torch.bfloat16, cuda_device, n_valid)
+    q, k, v = views if layout == "view of flat" else [t.contiguous() for t in views]
+    cos = sin = None
+    if rope:
+        cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=58))
+    width = fa.padded_head_dim(d)
+    assert width in (192, 256)
+
+    def counts():
+        return fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90
+
+    before = counts()
+    got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert got.shape == (B, H, N, d) and got.stride() == q.stride()
+    want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
+    kernels = _cuda_kernels(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin))
+    assert len(kernels) == 1 + rope, kernels
+    assert sum("attention_sm90" in name for name in kernels) == 1, kernels
+    assert sum("rope_rows" in name for name in kernels) == rope, kernels

@@ -281,6 +281,58 @@ def test_packed_route_passes_views_of_the_projections(monkeypatch, restore_fused
         assert storage(dense_in[f"layer.{i}.attention.o_proj"]) == storage(ctx)
 
 
+def test_headmajor_route_passes_views_of_the_projections(monkeypatch, restore_fused_flag):
+    """Head dim 32 (the head-major route) hands K3 non-contiguous views that
+    share storage with the q, k and v projections' outputs, and the
+    out-projection reads a view of K3's output: no copy of q, k, v or the
+    context. One block's attention equals the JAX package's _attention (its
+    K3 in interpret mode) at the same numpy weights, within ATOL (fp32 on
+    both sides, summation order only)."""
+    from cbas_tpu_torch.ops import flash_attention as tfa
+
+    kwargs = ROUTES["hd32"][0]
+    monkeypatch.delenv("CBAS_ATTN_FAT", raising=False)
+    jvit.set_fused_attention(True)
+    jcfg, tcfg = jvit.ViTConfig(**kwargs), tvit.ViTConfig(**kwargs)
+    assert tcfg.head_dim == 32
+    jparams = jax.device_get(jvit.init_vit_params(jax.random.key(3), jcfg))
+    grid = (2, 3)
+    N = tcfg.num_prefix_tokens + grid[0] * grid[1]
+    x = np.random.default_rng(8).standard_normal((2, N, tcfg.hidden_size)).astype(np.float32)
+    rope_np = tvit.rope_tables(tcfg, *grid)
+    want = jvit._attention({k: jnp.asarray(v) for k, v in jparams.items()}, "layer.0",
+                           jnp.asarray(x), jcfg, rope=tuple(jnp.asarray(t) for t in rope_np))
+
+    dense_in, dense_out, calls = {}, {}, []
+    real_dense, real_headmajor = tvit._dense, tfa.fused_attention
+
+    def dense(params, name, x, bias=True):
+        dense_in[name], dense_out[name] = x, real_dense(params, name, x, bias)
+        return dense_out[name]
+
+    def headmajor(q, k, v, *args, **kwargs):
+        calls.append(((q, k, v), real_headmajor(q, k, v, *args, **kwargs)))
+        return calls[-1][1]
+
+    monkeypatch.setattr(tvit, "_dense", dense)
+    monkeypatch.setattr(tfa, "fused_attention", headmajor)
+    rope = tvit._full_rope_tables(tuple(torch.from_numpy(t) for t in rope_np),
+                                  tcfg.num_prefix_tokens)
+    got = tvit._attention(vit_params_from_numpy(jparams, tcfg), "layer.0", torch.from_numpy(x),
+                          tcfg, rope)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+    def storage(t):
+        return t.untyped_storage().data_ptr()
+
+    assert len(calls) == 1
+    (operands, ctx), = calls
+    for t, proj in zip(operands, ("q_proj", "k_proj", "v_proj")):
+        assert not t.is_contiguous()
+        assert storage(t) == storage(dense_out[f"layer.0.attention.{proj}"])
+    assert storage(dense_in["layer.0.attention.o_proj"]) == storage(ctx)
+
+
 # The port's forward against Hugging Face's modules, random weights from
 # small configs (nothing is downloaded): fp32 on both sides, the JAX
 # package's own bound against the same modules (tests/test_vit_parity.py).

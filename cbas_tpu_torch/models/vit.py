@@ -15,11 +15,21 @@ What differs from the JAX forward:
   rule (see :func:`_attention`): the hand-written kernel on a CUDA tensor,
   its plain version on a CPU tensor. There is no unfused path to switch to:
   the JAX package's ``set_fused_attention`` has no counterpart.
-- The head-pair packed layout is a strided view of the flat projections:
-  K2 reads and writes through their strides, so no copy is made of q, k, v
-  or the context. The head-major layout (K3) comes from them by a
-  transpose: one copy each of q, k, v and the context, as XLA makes for the
-  JAX package's projection einsums into that layout.
+- The head-pair packed and head-major layouts are strided views of the flat
+  projections: K2 and K3 read q, k and v through their strides and write
+  the context with q's strides, so the route copies none of them (K3 still
+  copies at the few head dims it runs zero-padded, ``fa.fused_attention``
+  says which), where XLA makes a copy for the JAX package's projection
+  einsums into the head-major layout.
+- Every LayerNorm runs through :mod:`cbas_tpu_torch.ops.layernorm` (the
+  hand-written kernel on a CUDA tensor, the eager expressions of the JAX
+  ``_ln`` on a CPU tensor), and each residual add with its layer scale runs
+  in one kernel with the LayerNorm that follows it: ``norm2`` inside a
+  block, the next block's ``norm1`` (or the final LayerNorm) after the MLP.
+  So :func:`_block` takes and returns the pair (x, LayerNorm of x), and a
+  cls-only forward launches the kernel 2L + 1 times (block 0's ``norm1``
+  alone, then two fused sites a block). The residual stream is the one the
+  JAX package computes: ``h * lambda`` rounded to x's dtype, then the add.
 - No token padding (the TPU's sublane granule), so no key masking inside the
   model.
 
@@ -34,7 +44,6 @@ is added, once.
 from __future__ import annotations
 
 import math
-import os
 import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -44,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from cbas_tpu_torch.ops import flash_attention as fa
+from cbas_tpu_torch.ops import layernorm as ln_ops
 
 Params = Dict[str, torch.Tensor]
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -284,18 +294,22 @@ def config_for_identifier(identifier: str) -> ViTConfig:
 # ---------------------------------------------------------------------------
 
 def _ln(params: Params, name: str, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm in fp32: single-pass E[x^2] - mean^2 variance on bf16
+    """LayerNorm ``name`` of x (:func:`ln_ops.layernorm`: the kernel on a CUDA
+    tensor). fp32 statistics: single-pass E[x^2] - mean^2 variance on bf16
     activations, two-pass on fp32, as the JAX package's default;
     ``CBAS_LN_TWO_PASS`` set (to anything non-empty) forces the two-pass form
     on bf16 too, as it does there."""
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    if x.dtype == torch.bfloat16 and not os.environ.get("CBAS_LN_TWO_PASS"):
-        var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    else:
-        var = x32.var(-1, keepdim=True, unbiased=False)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * params[f"{name}.weight"].float() + params[f"{name}.bias"].float()).to(x.dtype)
+    return ln_ops.layernorm(x, params[f"{name}.weight"], params[f"{name}.bias"], eps)
+
+
+def _add_ln(
+    params: Params, name: str, x: torch.Tensor, h: torch.Tensor, scale: str, eps: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add ``x + h * params[scale]`` and LayerNorm ``name`` of
+    its result, in one kernel on a CUDA tensor (:func:`ln_ops.add_layernorm`);
+    returns (the new residual stream, its LayerNorm)."""
+    return ln_ops.add_layernorm(x, h, params[scale], params[f"{name}.weight"],
+                                params[f"{name}.bias"], eps)
 
 
 def _dense(params: Params, name: str, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
@@ -448,24 +462,34 @@ def _mlp(params: Params, prefix: str, x: torch.Tensor, cfg: ViTConfig) -> torch.
 
 
 def _block(
-    params: Params, prefix: str, x: torch.Tensor, cfg: ViTConfig, rope: Optional[Rope]
-) -> torch.Tensor:
-    h = _ln(params, f"{prefix}.norm1", x, cfg.layer_norm_eps)
-    x = x + _attention(params, prefix, h, cfg, rope) * params[f"{prefix}.layer_scale1.lambda1"]
-    h = _ln(params, f"{prefix}.norm2", x, cfg.layer_norm_eps)
-    return x + _mlp(params, prefix, h, cfg) * params[f"{prefix}.layer_scale2.lambda1"]
+    params: Params, prefix: str, x: torch.Tensor, h: torch.Tensor, cfg: ViTConfig,
+    rope: Optional[Rope], next_norm: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block on the residual stream x and ``h``, its ``norm1`` of x.
+    Each residual add runs in one kernel with the LayerNorm that follows it:
+    ``norm2`` here, and ``next_norm`` (the next block's ``norm1``, or the
+    final LayerNorm) after the MLP. Returns (x, next_norm of x)."""
+    eps = cfg.layer_norm_eps
+    h = _attention(params, prefix, h, cfg, rope)
+    x, h = _add_ln(params, f"{prefix}.norm2", x, h, f"{prefix}.layer_scale1.lambda1", eps)
+    h = _mlp(params, prefix, h, cfg)
+    return _add_ln(params, next_norm, x, h, f"{prefix}.layer_scale2.lambda1", eps)
 
 
 def _block_cls(
-    params: Params, prefix: str, x: torch.Tensor, cfg: ViTConfig, rope: Optional[Rope]
+    params: Params, prefix: str, x: torch.Tensor, h: torch.Tensor, cfg: ViTConfig,
+    rope: Optional[Rope], final_norm: str,
 ) -> torch.Tensor:
-    """Final block specialised to the CLS row: K/V span all tokens, but
-    q/out-proj/MLP/residual run on token 0 alone. Returns (B, 1, D)."""
-    h = _ln(params, f"{prefix}.norm1", x, cfg.layer_norm_eps)
+    """Final block specialised to the CLS row: K/V span all tokens (``h``,
+    its ``norm1`` of x), but q/out-proj/MLP/residual run on token 0 alone.
+    The kernel reads the CLS rows of x in place (``x[:, :1]``). Returns
+    ``final_norm`` of the CLS row, (B, 1, D)."""
+    eps = cfg.layer_norm_eps
     h = _attention_cls(params, prefix, h, cfg, rope)
-    x0 = x[:, :1] + h * params[f"{prefix}.layer_scale1.lambda1"]
-    h = _ln(params, f"{prefix}.norm2", x0, cfg.layer_norm_eps)
-    return x0 + _mlp(params, prefix, h, cfg) * params[f"{prefix}.layer_scale2.lambda1"]
+    x0, h = _add_ln(params, f"{prefix}.norm2", x[:, :1], h, f"{prefix}.layer_scale1.lambda1",
+                    eps)
+    h = _mlp(params, prefix, h, cfg)
+    return _add_ln(params, final_norm, x0, h, f"{prefix}.layer_scale2.lambda1", eps)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -555,11 +579,13 @@ def vit_forward_from_tokens(
         block_rope = _full_rope_tables(rope, cfg.num_prefix_tokens)
 
     last = cfg.num_layers - 1
+    norms = [f"{layer_prefix}.{i}.norm1" for i in range(cfg.num_layers)] + [final_ln]
+    h = _ln(params, norms[0], x, cfg.layer_norm_eps)
     for i in range(last if cls_only else cfg.num_layers):
-        x = _block(params, f"{layer_prefix}.{i}", x, cfg, block_rope)
+        x, h = _block(params, f"{layer_prefix}.{i}", x, h, cfg, block_rope, norms[i + 1])
     if cls_only:
-        x = _block_cls(params, f"{layer_prefix}.{last}", x, cfg, block_rope)
-    return _ln(params, final_ln, x, cfg.layer_norm_eps)
+        return _block_cls(params, f"{layer_prefix}.{last}", x, h, cfg, block_rope, final_ln)
+    return h
 
 
 def vit_forward(
@@ -598,8 +624,9 @@ def cls_attention_map(
     ``params`` holds the full checkpoint (the raw patch-projection weight
     and, for dinov2, the position table included) in ``pixel_values``'
     dtype and device. The first ``num_layers - 1`` blocks run through
-    :func:`_block`, so their attention takes the fused kernels' routes; the
-    last block's CLS row is opened here: LayerNorm, the q and k
+    :func:`_block`, so their attention takes the fused kernels' routes and
+    the last of them hands over the last block's ``norm1`` (fused with its
+    residual add); the last block's CLS row is opened here: the q and k
     projections, RoPE, then an fp32 softmax of the scaled scores."""
     B, _, H, W = pixel_values.shape
     grid = (H // cfg.patch_size, W // cfg.patch_size)
@@ -618,11 +645,12 @@ def cls_attention_map(
     tokens = F.linear(patchify(pixel_values, cfg.patch_size), w.reshape(w.shape[0], -1),
                       params[f"{patch}.bias"])
     x = _assemble_embeddings(params, tokens, cfg, pos_embed)
+    norms = [f"{layer_prefix}.{i}.norm1" for i in range(cfg.num_layers)]
+    h = _ln(params, norms[0], x, cfg.layer_norm_eps)
     for i in range(cfg.num_layers - 1):
-        x = _block(params, f"{layer_prefix}.{i}", x, cfg, block_rope)
+        x, h = _block(params, f"{layer_prefix}.{i}", x, h, cfg, block_rope, norms[i + 1])
 
     prefix = f"{layer_prefix}.{cfg.num_layers - 1}"
-    h = _ln(params, f"{prefix}.norm1", x, cfg.layer_norm_eps)
     N, Hh, hd = h.shape[1], cfg.num_heads, cfg.head_dim
     names, biases, _, _ = _attn_param_table(cfg, prefix)
     q, k = (_dense(params, n, h, b).reshape(B, N, Hh, hd).transpose(1, 2)

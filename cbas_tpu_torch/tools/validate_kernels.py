@@ -213,6 +213,22 @@ def main(geometries=None, device="cuda", records=None) -> int:
     ok = check("single-pass bf16 LayerNorm (outlier rows) vs two-pass", err_ln, 6e-2)
     failures += not ok  # ~2 bf16 output ulp at |y| <= 5
     print(f"single-pass bf16 LayerNorm (outlier rows) vs two-pass: {err_ln:.2e} {'ok' if ok else 'FAIL'}")
+
+    # The kernel's two-pass form (CBAS_LN_TWO_PASS) on the same rows against
+    # the float64 LayerNorm: one bf16 ulp of the oracle (half for the output's
+    # rounding) plus 1e-4 for the fp32 mean of the rows offset by 100. The
+    # error is printed as a fraction of that bound.
+    from cbas_tpu_torch.ops.layernorm import layernorm
+
+    exact = (xq - xq.mean(-1, keepdims=True)) / np.sqrt(xq.var(-1, keepdims=True) + 1e-6)
+    two = layernorm(xb, p["ln.weight"], p["ln.bias"], 1e-6, two_pass=True).double().cpu().numpy()
+    bound = np.exp2(np.floor(np.log2(np.maximum(np.abs(exact), 2.0 ** -126))) - 7) + 1e-4
+    err_two = (np.abs(two - exact) / bound).max()
+    ok = check("two-pass bf16 LayerNorm (outlier rows) vs float64, over 1 bf16 ulp + 1e-4",
+               err_two, 1.0)
+    failures += not ok
+    print(f"two-pass bf16 LayerNorm (outlier rows) vs float64: {err_two:.2f} of its bound "
+          f"{'ok' if ok else 'FAIL'}")
     return 1 if failures else 0
 
 

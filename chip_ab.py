@@ -27,7 +27,14 @@ each:
   routes at 256x256 (batch 128) and 640x480 (batch 32); the DINOv3
   ViT-7B/16 width at depth 4 at 256x256 (batch 32) and 640x480 (batch 8);
   and each of those forwards' ms a batch by CUDA events over 10 batches
-  queued back to back (the host clock's frames/s spread more).
+  queued back to back (the host clock's frames/s spread more);
+- a ``torch.profiler`` trace of one warm batch of each of those forwards
+  (``trace_calls`` over 3 batches), its kernels summed by group
+  (``KERNEL_GROUPS``: the LayerNorm kernel, attention, GEMMs, the rest), read
+  once;
+- on a checkout that has it (so on the change's side only), the LayerNorm
+  kernel at ``LN_ROWS``: ms beside its plain version and the library call
+  (``chip_smoke.ln_case``).
 
 Prints one JSON line per run, then a summary line: for each metric the
 median and range of the parent's reads and of the change's, and the card's
@@ -74,6 +81,15 @@ TRACE_ROWS = (  # (B, N, H, d, patch grid, RoPE), K3 in bf16
     (8, 261, 16, 192, (16, 16), True),
 )
 TRACE_CALLS = 20
+# The LayerNorm kernel's rows, (rows, D): dinov3-vitb16 at 256x256 batch 128
+# and 640x480 batch 32, the ViT-7B width at 32 and 8; bf16, fused with the
+# residual, single-pass (the main paths' form).
+LN_ROWS = ((128 * 261, 768), (32 * 1205, 768), (32 * 261, 4096), (8 * 1205, 4096))
+# A forward trace's kernels by group, the first pattern a name matches
+# (lower case): the LayerNorm kernel, the attention kernels, cuBLAS's GEMMs
+# (and CUTLASS's), the rest (elementwise, reductions, copies).
+KERNEL_GROUPS = (("layernorm kernel", ("add_ln_",)), ("attention", ("attention",)),
+                 ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")))
 VIT7B_CONFIG = {
     "model_type": "dinov3_vit", "hidden_size": 4096, "num_attention_heads": 32,
     "intermediate_size": 8192, "use_gated_mlp": True, "patch_size": 16,
@@ -123,6 +139,26 @@ def trace_calls(torch, fn, calls: int = TRACE_CALLS) -> dict:
             "host_issue_ms_per_call": issue_ms, "event_ms_per_call": chip_smoke.time_ms(torch, fn)}
 
 
+def trace_groups(trace: dict) -> dict:
+    """A ``trace_calls`` result summed by KERNEL_GROUPS: launches and device
+    ms a call of each group, the busy and event ms, and the 8 kernels that
+    take the most device time."""
+    groups = {name: {"launches_per_call": 0.0, "device_ms_per_call": 0.0}
+              for name, _ in KERNEL_GROUPS + (("other", ()),)}
+    for kernel, k in trace["kernels"].items():
+        name = next((g for g, keys in KERNEL_GROUPS if any(x in kernel.lower() for x in keys)),
+                    "other")
+        for key in ("launches_per_call", "device_ms_per_call"):
+            groups[name][key] += k[key]
+    top = sorted(trace["kernels"].items(), key=lambda kv: -kv[1]["device_ms_per_call"])[:8]
+    return {"groups": groups, "launches_per_call": sum(
+                k["launches_per_call"] for k in trace["kernels"].values()),
+            "device_busy_ms_per_call": trace["device_busy_ms_per_call"],
+            "event_ms_per_call": trace["event_ms_per_call"],
+            "host_issue_ms_per_call": trace["host_issue_ms_per_call"],
+            "top_kernels": {name: k for name, k in top}}
+
+
 def measure(root: str, reads: int) -> dict:
     """Every metric of the checkout at ``root``, ``reads`` reads each."""
     sys.path.insert(0, root)
@@ -138,7 +174,9 @@ def measure(root: str, reads: int) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_ab: no CUDA device is visible")
     t = time.perf_counter()
-    for name in ("attention_fat", "attention_packed", "attention_headmajor"):
+    has_ln = os.path.exists(os.path.join(root, "cbas_tpu_torch", "csrc", "layernorm.cu"))
+    for name in ("attention_fat", "attention_packed", "attention_headmajor") + (
+            ("layernorm",) if has_ln else ()):
         _cuda.build(name)
     out = {"root": os.path.dirname(os.path.dirname(fa.__file__)), "build_s": time.perf_counter() - t}
 
@@ -191,6 +229,20 @@ def measure(root: str, reads: int) -> dict:
             torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, *tables))  # noqa: B023
         del q, k, v
 
+    if has_ln:
+        from cbas_tpu_torch.ops import layernorm as ln
+
+        for rows, D in LN_ROWS:
+            for key in ("ms", "plain_ms", "library_ms"):
+                out[f"layernorm {rows}x{D} bf16 fused {key}"] = []
+            for _ in range(reads):
+                case = chip_smoke.ln_case(torch, ln, rows, D, "bfloat16", time_it=True)
+                if not case["ok"]:
+                    raise SystemExit(f"chip_ab: the LayerNorm kernel disagrees: {case}")
+                for key in ("ms", "plain_ms", "library_ms"):
+                    out[f"layernorm {rows}x{D} bf16 fused {key}"].append(case[key])
+            out[f"layernorm {rows}x{D} bound ms"] = case["bound_ms"]
+
     def fps(enc, planes, batch, label):
         enc.encode_planes(planes[:batch], batch=batch)  # warm
         out[label] = [chip_smoke.warm_fps(torch, enc, planes, batch, 3) for _ in range(reads)]
@@ -198,6 +250,8 @@ def measure(root: str, reads: int) -> dict:
         out[label.replace("fps", "ms a batch (events)")] = [chip_smoke.time_ms(
             torch, lambda: enc.encode_planes_async(planes[:batch], batch=batch), iters=10)
             for _ in range(reads)]
+        out[label.replace("fps", "trace of one batch")] = trace_groups(trace_calls(
+            torch, lambda: enc.encode_planes_async(planes[:batch], batch=batch), calls=3))
 
     enc = FrameEncoder("dinov3-vitb16", random_init=True, device="cuda")
     planes_256 = rng.integers(0, 256, (128, 256, 256), np.uint8)
@@ -249,13 +303,14 @@ def main() -> int:
         print(json.dumps(run), flush=True)
         runs.append(run)
     summary = {"card": card, "order": [r["side"] for r in runs], "metrics": {}}
-    for key in runs[0]:
-        if not isinstance(runs[0][key], list):
-            continue
+    keys = list(dict.fromkeys(key for r in runs for key in r))
+    for key in keys:
         for side in ("parent", "change"):
-            reads = [x for r in runs if r["side"] == side for x in r[key]]
-            summary["metrics"].setdefault(key, {})[side] = {
-                "median": statistics.median(reads), "min": min(reads), "max": max(reads)}
+            reads = [x for r in runs if r["side"] == side and isinstance(r.get(key), list)
+                     for x in r[key]]
+            if reads:
+                summary["metrics"].setdefault(key, {})[side] = {
+                    "median": statistics.median(reads), "min": min(reads), "max": max(reads)}
     print(json.dumps(summary), flush=True)
     return 0
 

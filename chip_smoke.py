@@ -8,7 +8,8 @@ non-zero and prints no final line):
 
 1. environment: torch/CUDA versions, the card's name and power limit, and a
    fresh build of every kernel from ``cbas_tpu_torch/csrc`` (one nvcc per
-   source, started together), with each kernel's registers and spills;
+   source, started together: the three attention kernels and the LayerNorm),
+   with each kernel's registers and spills;
 2. kernel: each fused attention against its plain PyTorch version on the
    card, bf16 and fp32, RoPE on and off, N = 261 and 1205, ``n_valid`` < N
    (272 / 261 and 1216 / 1205) with NaN in the dead K/V rows, and the main
@@ -33,12 +34,24 @@ non-zero and prints no final line):
    applied beforehand; the backend it picked is named by its kernels in a
    profiler trace). K1, K2 (views) and K3 (views, d 64 and 128) are also
    timed in fp32 at the main shapes, the common body
-   (``runtime.compute_dtype: float32``);
+   (``runtime.compute_dtype: float32``). Then the LayerNorm kernel
+   (``ops/layernorm.py``, fused with the residual add and layer scale)
+   against its plain version: the residual bit for bit, y within
+   LN_STAT_REL's bound, at the main paths' shapes (rows, D) = (33408, 768),
+   (38560, 768), (8352, 4096) and (9640, 4096) in bf16, fused,
+   single-pass; at the first also the
+   LayerNorm alone, two-pass, fp32 and the CLS rows read in place through
+   their row stride; the outlier rows of ``tools/validate_kernels.py`` in
+   every mode; an fp32 affine on bf16 x; D 64, 100, 127, 384, 1536, 2560,
+   3001 and 20480 (one warp a row, one element a lane at a time, several
+   warps a row, and the streamed rows); every case timed beside its byte
+   bound, ``x + h * lam`` then ``F.layer_norm``, and the plain version;
 3. encode, flat route: the main path at the full width of dinov3-vitb16
    (random weights from a numpy seed): 256x256 planes in two full batches
    and a partial one, 640x480 planes in one batch, then the head over the
    embeddings. Kernel launch counts are read around this run: K1 only, each
-   through the Hopper body. Then
+   through the Hopper body, and the LayerNorm kernel 2L + 1 = 25 times a
+   forward (every encode phase below checks its route's 2L + 1). Then
    warm frames/s, and accuracy against the port's CPU fp32 run on the same
    weights;
 4. classify: probabilities of a deltas head (seq_len 31) against the CPU run;
@@ -77,8 +90,9 @@ non-zero and prints no final line):
 10. tools: ``tools/validate_kernels.py`` on the card at its geometries plus
     (2, 32, 261, 128) with RoPE (K1, K2 and K3 in fp32 against an fp64
     oracle, then K3 in bf16 at d = 128 through the Hopper body against
-    unfused bf16, and the bf16 LayerNorm), each error beside its tolerance
-    and each kernel's launches by body; K3 at head dims it is not built at
+    unfused bf16, and the LayerNorm kernel in bf16 on outlier rows,
+    single-pass against two-pass and two-pass against float64), each error
+    beside its tolerance and each kernel's launches by body; K3 at head dims it is not built at
     (100, zero-padded to 104; 136, 160, 200 and 248, run at 192 or 256
     with no copy in bf16 and zero-padded in fp32), bf16 and fp32, RoPE on
     and off, against the plain version at d, timed beside the built width
@@ -124,7 +138,10 @@ launches counted over the encode routes' runs and phase 12's), the launches
 of phase 10's runs, and its launches over phase 11's mesh encodes
 (``launches_mesh``), then K3's wide body (``attention_wide.cuh``) as an
 entry of its own, its launches those of phase 12 and its numbers those of
-phase 12's kernel case at d 320; the last line is
+phase 12's kernel case at d 320, and the LayerNorm kernel (``layernorm``,
+replacing ``benchmarks/attn_probes/probe25_ln_256.py:51``) with its
+launches on every route, its numbers at (33408, 768) and its other timed
+cases; the last line is
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -189,6 +206,34 @@ KERNELS = {
     "attention_packed": "cbas_tpu/ops/flash_attention.py:101",
     "attention_headmajor": "cbas_tpu/ops/flash_attention.py:35",
 }
+# The row LayerNorm (source cbas_tpu_torch/csrc/layernorm.cu), fused with the
+# residual add and layer scale before it, and the TPU kernel it replaces. Its
+# launches are counted on every route beside the attention kernel's: 2L + 1
+# a cls-only forward of L blocks (block 0's norm1 alone, then two fused sites
+# a block), 2L - 1 a cls_attention_map call.
+LN_KERNEL, LN_REPLACES = "layernorm", "benchmarks/attn_probes/probe25_ln_256.py:51"
+# Its cases on the card, (rows, D): the main paths' shapes (dinov3-vitb16 at
+# 256x256 batch 128 and 640x480 batch 32; the ViT-7B width at 32 and 8), each
+# timed; then small ones for the other paths through the kernel (rows, D,
+# what they cover).
+LN_MAIN_SHAPES = ((BATCH_256 * 261, 768), (BATCH_480 * 1205, 768),
+                  (BATCH_7B_256 * 261, 4096), (BATCH_7B_480 * 1205, 4096))
+LN_SMALL_SHAPES = ((300, 64, "bf16: one warp a row, one chunk a lane"),
+                   (300, 100, "D no multiple of 8: one element a lane at a time"),
+                   (200, 127, "odd D: one element a lane at a time"),
+                   (261, 384, "bf16: one warp a row"), (261, 1536, "bf16: two warps a row"),
+                   (97, 2560, "bf16: four warps a row"), (33, 3001, "streamed: odd D over 2048"),
+                   (9, 20480, "streamed: over 16384 elements in bf16"))
+LN_EPS = 1e-5  # dinov3's layer_norm_eps
+# - LayerNorm kernel vs its plain version on the card: the residual stream
+#   bit for bit (both round h * lambda, then the sum, to x's dtype). y: both
+#   sum the statistics in fp32 in different orders, each sum rounded at most
+#   about 64 times on either side at these widths, so the fp32 y may differ
+#   by 128 fp32 ulps (2^-17) relative to the terms: |y - b| (through rstd)
+#   and |w| rstd mean|x'| (through the mean), times kappa = E[x'^2] / var
+#   for the single-pass variance (its cancellation; 1 for two-pass); then
+#   one ulp of the output dtype for the final rounding.
+LN_STAT_REL = 2.0 ** -17
 
 # Tolerances, each with its reason:
 # - kernel fp32: both sides compute in fp32 and differ only in summation
@@ -275,10 +320,11 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bf16_ulp(torch, x):
-    """One bf16 ulp at |x| (8 significant bits)."""
+def dtype_ulp(torch, x, bits: int = 8):
+    """One ulp at |x| of a float type with ``bits`` significant bits (8:
+    bf16, 24: fp32)."""
     e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
-    return torch.pow(2.0, e - 7)
+    return torch.pow(2.0, e - (bits - 1))
 
 
 def build_all(_cuda) -> dict:
@@ -288,8 +334,9 @@ def build_all(_cuda) -> dict:
         t = time.perf_counter()
         return name, (_cuda.build(name), time.perf_counter() - t)
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(pool.map(one, KERNELS))
+    names = (*KERNELS, LN_KERNEL)
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(pool.map(one, names))
 
 
 # Each kernel library's ``-Xptxas -v`` report, {library: {kernel: "N regs,
@@ -311,6 +358,12 @@ def ptxas_report(log: str) -> list:
             r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
             if r:  # the RoPE prologue: its dtype and the columns a thread takes
                 name = f"rope_rows<{'f32' if r.group(1) == 'f' else 'bf16'}, {r.group(2)}>"
+            n = re.search(r"(add_ln_rows|add_ln_stream)I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?",
+                          m.group(1))
+            if n:  # the LayerNorm: its dtype, and the elements a chunk and the chunks a thread
+                dtype = "f32" if n.group(2) == "f" else "bf16"
+                name = (f"ln_rows<{dtype}, V{n.group(3)}, C{n.group(4)}>" if n.group(3)
+                        else f"ln_stream<{dtype}>")
             w = re.search(r"(attention_wide_bf16|attention_wide_f32)"
                           r"(?:I(f|13__nv_bfloat16|Lb[01])E)?", m.group(1))
             if w:  # the wide body and its prologue: d at run time, not a template argument
@@ -401,7 +454,7 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
     else:
         live = (slice(None),) * token_dim + (slice(0, n_valid or N),)
         vmax = float(v[live].float().abs().max())
-        tol = bf16_ulp(torch, want.float()) + KERNEL_BF16_VREL * vmax + KERNEL_BF16_FLOOR
+        tol = dtype_ulp(torch, want.float()) + KERNEL_BF16_VREL * vmax + KERNEL_BF16_FLOOR
         tol_text = f"1 bf16 ulp + 2^-8 max|v| ({KERNEL_BF16_VREL * vmax:.3g}) + {KERNEL_BF16_FLOOR}"
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
     if view:  # the views' strides kept, and the same bits as on contiguous copies
@@ -575,30 +628,209 @@ def kernel_phase(torch, fa, cfg) -> dict:
     return main
 
 
+def ln_tolerance(torch, x, want, w, b, two_pass: bool, bits: int):
+    """LN_STAT_REL's bound on |y - want|, elementwise, for the LayerNorm
+    ``want`` (fp32 values of the output dtype, ``bits`` significant bits)
+    of the rows ``x`` with the affine ``w``, ``b``: one ulp of the output
+    plus 2^-17 kappa (|want - b| + |w| rstd mean|x|), kappa = E[x^2] / var
+    for the single-pass variance and 1 for two-pass."""
+    var = x.var(-1, keepdim=True, unbiased=False)
+    kappa = 1.0 if two_pass else ((x * x).mean(-1, keepdim=True) / (var + LN_EPS)).clamp_min(1.0)
+    terms = (want - b).abs() + w.abs() * torch.rsqrt(var + LN_EPS) * x.abs().mean(-1, keepdim=True)
+    return dtype_ulp(torch, want, bits) + LN_STAT_REL * kappa * terms, kappa
+
+
+def ln_config(dtype: str, D: int, vec: bool) -> str:
+    """The kernel ``csrc/layernorm.cu`` dispatches to for ``dtype`` and
+    ``D`` (``vec``: on its 16-byte path), named as :func:`ptxas_report`
+    names it, with the warps it gives a row."""
+    V = (8 if dtype == "bfloat16" else 4) if vec else 1
+    chunks, warps = -(-D // V), 1
+    while warps < 8 and chunks > 32 * warps * 4:
+        warps *= 2
+    c = -(-chunks // (32 * warps))
+    short = "bf16" if dtype == "bfloat16" else "f32"
+    if c > 8:
+        return f"ln_stream<{short}>, 32 warps a row"
+    return f"ln_rows<{short}, V{V}, C{c}>, {warps} warp{'s' if warps > 1 else ''} a row"
+
+
+def outlier_rows(rng, rows, D):
+    """``tools/validate_kernels.py``'s LayerNorm rows, a quarter each: unit
+    noise; unit noise with 4 dims at +-1000 (sparse massive activations);
+    +30 and -100 offsets with unit noise (near-constant rows, where the
+    single-pass variance cancels)."""
+    q = rows // 4
+    x = rng.standard_normal((rows, D)).astype(np.float32)
+    for i in range(q, 2 * q):
+        x[i, rng.integers(0, D, 4)] = 1000.0 * (1 - 2 * (i % 2))
+    x[2 * q:3 * q] += 30.0
+    x[3 * q:] -= 100.0
+    return x
+
+
+def ln_case(torch, ln, rows, D, dtype, residual=True, two_pass=None, outliers=False,
+            cls_rows=False, affine_f32=False, time_it=False, what="", device="cuda"):
+    """The LayerNorm kernel on the card against its plain version on the
+    same inputs: x (``outliers``: :func:`outlier_rows`) and h unit normal,
+    lambda in [0.1, 1], w in [0.5, 1.5], b of std 0.1, from a numpy seed, in
+    ``dtype`` (the affine in fp32 with ``affine_f32``). ``cls_rows``: x is
+    the CLS rows ``x[:, :1]`` of a (rows, 261, D) stream, read in place
+    through its row stride. The residual stream bit for bit, y within
+    LN_STAT_REL's tolerance; with ``time_it``, timed beside the plain
+    version, the library call and the bound. (``device`` is "cpu" only in
+    the CPU test of this function: the plain version on both sides,
+    untimed.)"""
+    import torch.nn.functional as F
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(SEED + rows + D)
+    x_np = outlier_rows(rng, rows, D) if outliers else rng.standard_normal((rows, D), np.float32)
+    h = torch.from_numpy(rng.standard_normal((rows, D), np.float32)).to(device, dt)
+    pdt = torch.float32 if affine_f32 else dt
+    lam, w, b = (torch.from_numpy(a.astype(np.float32)).to(device, pdt) for a in (
+        rng.uniform(0.1, 1.0, D), rng.uniform(0.5, 1.5, D), 0.1 * rng.standard_normal(D)))
+    if cls_rows:
+        stream = torch.from_numpy(rng.standard_normal((rows, 261, D), np.float32)).to(device, dt)
+        stream[:, 0] = torch.from_numpy(x_np).to(device, dt)
+        x, h = stream[:, :1], h[:, None]
+    else:
+        x = torch.from_numpy(x_np).to(device, dt)
+    del x_np
+    if residual:
+        kernel = lambda: ln.add_layernorm(x, h, lam, w, b, LN_EPS, two_pass)  # noqa: E731
+        plain = lambda: ln.add_layernorm_reference(x, h, lam, w, b, LN_EPS, two_pass)  # noqa: E731
+        library = lambda: F.layer_norm(x + h * lam, (D,), w, b, LN_EPS)  # noqa: E731
+    else:
+        kernel = lambda: (None, ln.layernorm(x, w, b, LN_EPS, two_pass))  # noqa: E731
+        plain = lambda: (x, ln.layernorm_reference(x, w, b, LN_EPS, two_pass))  # noqa: E731
+        library = lambda: F.layer_norm(x, (D,), w, b, LN_EPS)  # noqa: E731
+    before = ln.launches
+    x_got, y = kernel()
+    x_new, want = plain()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    two = ln.use_two_pass(dt, two_pass)
+    want32 = want.float()
+    tol, kappa = ln_tolerance(torch, x_new.float(), want32, w.float(), b.float(), two,
+                              8 if dtype == "bfloat16" else 24)
+    err = (y.float() - want32).abs()
+    bit_equal = None if not residual else bool(torch.equal(x_got, x_new))
+    vec = (D % (8 if dtype == "bfloat16" else 4) == 0)
+    out = {
+        "phase": "kernel_layernorm", "what": what, "rows": rows, "D": D, "dtype": dtype,
+        "residual": residual, "two_pass": two, "outlier_rows": outliers,
+        "x": f"x[:, :1] of ({rows}, 261, {D})" if cls_rows else "contiguous",
+        "affine_dtype": str(pdt).replace("torch.", ""),
+        "launches": ln.launches - before, "residual_bit_equal": bit_equal,
+        "max_abs_err": float(err.max()), "max_err_over_tol": float((err / tol).max()),
+        "tol": f"1 {dtype} ulp + 2^-17 kappa (|y - b| + |w| rstd mean|x'|)",
+        "max_kappa": kappa if two else float(kappa.max()),
+        "kernel": ln_config(dtype, D, vec),
+    }
+    out["ptxas"] = PTXAS.get(LN_KERNEL, {}).get(out["kernel"].split(">, ")[0] + ">",
+                                                "not in the build log")
+    out["ok"] = bool(torch.isfinite(y).all()) and bool((err <= tol).all()) \
+        and bit_equal is not False and out["launches"] == int(on_card) and y.shape == x.shape \
+        and y.is_contiguous()
+    if time_it and on_card:
+        size = torch.finfo(dt).bits // 8
+        nbytes = size * rows * D * (4 if residual else 2) \
+            + D * sum(t.element_size() for t in ((lam, w, b) if residual else (w, b)))
+        out["ms"] = time_ms(torch, kernel)
+        out["plain_ms"] = time_ms(torch, plain)
+        out["library_ms"] = time_ms(torch, library)
+        out["library"] = ("x + h * lam, then F.layer_norm" if residual else "F.layer_norm")
+        out["mbytes"] = nbytes / 1e6
+        out["bound_ms"] = 1e3 * nbytes / PEAK_BYTES_PER_S
+        out["bound_by"] = "bytes"
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def ln_kernel_phase(torch, device="cuda") -> dict:
+    """The LayerNorm kernel's cases (phase 2), each timed: at each of
+    LN_MAIN_SHAPES the main paths' form (bf16, fused, single-pass); at the
+    first also block 0's LayerNorm alone, the two-pass form, fp32 and the
+    CLS rows in place; the outlier rows in every mode; fp32 affine with
+    bf16 x; and LN_SMALL_SHAPES. Returns {"main": the main-shape cases, "other": the
+    first shape's other timed cases}. (``device`` is "cpu" only in the CPU
+    test of this function.)"""
+    from cbas_tpu_torch.ops import layernorm as ln
+
+    def case(*args, **kw):
+        return ln_case(torch, ln, *args, time_it=True, device=device, **kw)
+
+    main = [case(rows, D, "bfloat16", what="main path: fused, single-pass")
+            for rows, D in LN_MAIN_SHAPES]
+    rows, D = LN_MAIN_SHAPES[0]
+    other = [
+        case(rows, D, "bfloat16", residual=False, what="block 0's norm1: LayerNorm alone"),
+        case(rows, D, "bfloat16", two_pass=True, what="fused, two-pass (CBAS_LN_TWO_PASS)"),
+        case(rows, D, "float32", what="fused, fp32 (runtime.compute_dtype: float32)"),
+        case(BATCH_256, D, "bfloat16", cls_rows=True,
+             what="the last block's norm2: CLS rows read in place"),
+    ]
+    cases = main + other
+    for dtype, two_pass in (("bfloat16", False), ("bfloat16", True), ("float32", None)):
+        for residual in (True, False):
+            cases.append(case(64, 768, dtype, residual, two_pass, outliers=True,
+                              what="outlier rows"))
+    cases.append(case(64, 768, "bfloat16", outliers=True, affine_f32=True,
+                      what="fp32 affine on bf16 x (tools/validate_kernels.py)"))
+    for rows, D, what in LN_SMALL_SHAPES:
+        for dtype, two_pass, residual in (("bfloat16", None, True), ("bfloat16", True, False),
+                                          ("float32", None, True)):
+            cases.append(case(rows, D, dtype, residual, two_pass, what=what))
+    for c in cases:
+        emit(c)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"the LayerNorm kernel disagrees with its plain version: {bad}")
+    return {"main": main, "other": other}
+
+
 def reset_launches(fa) -> None:
+    from cbas_tpu_torch.ops import layernorm as ln
+
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
     fa.launches_wide = 0
     fa.launches_headmajor_by_dim.clear()
     fa.launches_sm90_by_kernel.clear()
+    ln.launches = 0
 
 
 def read_launches(fa) -> dict:
     """Launches of each entry, under "sm90" those that ran the Hopper body
     (by entry under "sm90_by_kernel"), under "wide" K3's that ran the wide
-    body, and under "headmajor_by_dim" K3's split by the head dim it ran at."""
+    body, under "headmajor_by_dim" K3's split by the head dim it ran at, and
+    under "layernorm" the LayerNorm kernel's."""
+    from cbas_tpu_torch.ops import layernorm as ln
+
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
             "wide": fa.launches_wide,
             "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
-            "headmajor_by_dim": dict(fa.launches_headmajor_by_dim)}
+            "headmajor_by_dim": dict(fa.launches_headmajor_by_dim),
+            LN_KERNEL: ln.launches}
 
 
-def check_launches(route, got, kernel, per_forward, forwards, sm90) -> dict:
+def ln_per_forward(num_layers: int) -> int:
+    """The LayerNorm kernel's launches in one cls-only forward of
+    ``num_layers`` blocks: block 0's norm1, then each block's norm2 and the
+    next norm1 (the last block: norm2 and the final LayerNorm)."""
+    return 2 * num_layers + 1
+
+
+def check_launches(route, got, kernel, per_forward, forwards, sm90, ln_per) -> dict:
     """The route launched ``kernel`` ``per_forward`` times a forward, and no
-    other kernel; each launch through the Hopper body if ``sm90``, else none."""
+    other attention kernel; each launch through the Hopper body if ``sm90``,
+    else none; and the LayerNorm kernel ``ln_per`` times a forward."""
     want = {name: 0 for name in KERNELS}
     want[kernel] = per_forward * forwards
     want["sm90"] = want[kernel] if sm90 else 0
+    want[LN_KERNEL] = ln_per * forwards
     if {name: got[name] for name in want} != want:
         raise AssertionError(f"{route} route launched {got}, expected {want}")
     if sum(got["headmajor_by_dim"].values()) != got["attention_headmajor"]:
@@ -718,6 +950,7 @@ def main() -> int:
     # 2. the kernels against their plain versions
     cfg = PRESETS[ENCODER]
     main_cases = kernel_phase(torch, fa, cfg)
+    ln_cases = ln_kernel_phase(torch)
 
     # 3 + 4. the flat route: encode at full width, then classify
     params = init_vit_params(SEED, cfg)
@@ -737,6 +970,7 @@ def main() -> int:
     session = InferenceSession(bundle, device="cuda")
     half = SEQ_LEN // 2
     per_forward = cfg.num_layers - 1  # the CLS-only last block is plain
+    ln_per = ln_per_forward(cfg.num_layers)
 
     torch.cuda.synchronize()
     reset_launches(fa)
@@ -748,7 +982,7 @@ def main() -> int:
     flat_launches = read_launches(fa)
     forwards = fwd_256 + fwd_480
     want_flat = check_launches("flat", flat_launches, "attention_fat", per_forward, forwards,
-                               sm90=True)
+                               sm90=True, ln_per=ln_per)
     for name, e, n in (("256x256", emb_256, FRAMES_256), ("640x480", emb_480, BATCH_480)):
         if e.shape != (n, cfg.hidden_size) or e.dtype != np.float16 or not np.isfinite(e).all():
             raise AssertionError(f"{name} embeddings: {e.shape} {e.dtype}, finite={np.isfinite(e).all()}")
@@ -802,7 +1036,8 @@ def main() -> int:
         packed_s = time.perf_counter() - t
         packed_launches = read_launches(fa)
         want_packed = check_launches(
-            "packed", packed_launches, "attention_packed", per_forward, pf_256 + pf_480, sm90=True
+            "packed", packed_launches, "attention_packed", per_forward, pf_256 + pf_480, sm90=True,
+            ln_per=ln_per,
         )
         cos_256 = row_cosine(pk_256, emb_256[:BATCH_256])
         cos_480 = row_cosine(pk_480, emb_480)
@@ -838,8 +1073,9 @@ def main() -> int:
     fp32_runs = {"attention_fat": fp32_flat, "attention_packed": fp32_packed,
                  "attention_headmajor": fp32_headmajor}
     for name, run in fp32_runs.items():
-        layers = (VIT7B_DEPTH if name == "attention_headmajor" else cfg.num_layers) - 1
-        check_launches(f"{name} fp32", run, name, layers, 1, sm90=False)
+        depth = VIT7B_DEPTH if name == "attention_headmajor" else cfg.num_layers
+        check_launches(f"{name} fp32", run, name, depth - 1, 1, sm90=False,
+                       ln_per=ln_per_forward(depth))
     fp32_launches = {name: run[name] for name, run in fp32_runs.items()}
 
     # 7. files end to end, where the host has what the file paths need
@@ -914,7 +1150,9 @@ def main() -> int:
         "launches_mesh": mesh_launches[name],
         "launches_tools": {run: launches[name] for run, launches in tools_line["launches"].items()},
     } for name, replaces in KERNELS.items()]
-        + [wide_kernel_entry(tools_line, wide_runs, wide_cases)]})
+        + [wide_kernel_entry(tools_line, wide_runs, wide_cases),
+           ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
+                           wide_runs)]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -992,7 +1230,7 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
         launches = read_launches(fa)
         want = check_launches(
             "head-major", launches, "attention_headmajor", cfg.num_layers - 1, fwd_256 + fwd_480,
-            sm90=True,
+            sm90=True, ln_per=ln_per_forward(cfg.num_layers),
         )
         for name, e, n in (("256x256", emb_256, FRAMES_7B_256), ("640x480", emb_480, BATCH_7B_480)):
             if e.shape != (n, cfg.hidden_size) or e.dtype != np.float16 or not np.isfinite(e).all():
@@ -1068,7 +1306,8 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
             per = (WIDE_ENCODER_DEPTH - 1) * forwards  # the CLS-only last block is plain
             want = {"attention_fat": 0, "attention_packed": 0, "attention_headmajor": per,
                     "sm90": per * (body == "sm90"), "wide": per * (body == "wide"),
-                    "headmajor_by_dim": {d: per}}
+                    "headmajor_by_dim": {d: per},
+                    LN_KERNEL: ln_per_forward(WIDE_ENCODER_DEPTH) * forwards}
             if {key: got[key] for key in want} != want:
                 raise AssertionError(f"{d}-wide heads launched {got}, expected {want}")
             if emb.shape != (WIDE_ENCODER_FRAMES, hidden) or not np.isfinite(emb).all():
@@ -1102,6 +1341,32 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
         runs[d], cases[d] = got, case
         torch.cuda.empty_cache()
     return runs, cases
+
+
+def ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
+                    wide_runs) -> dict:
+    """The ``kernels`` line's entry for the LayerNorm kernel: its launches on
+    the flat route's main path (and on every other route, run and phase),
+    its numbers at dinov3-vitb16 256x256 batch 128 (bf16, fused,
+    single-pass), and its other timed cases beside them."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "mbytes", "share_of_bound", "kernel", "ptxas")
+    main = ln_cases["main"][0]
+    return {
+        "name": LN_KERNEL, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{LN_KERNEL}.cu",
+        "replaces": LN_REPLACES, "launches": route_launches["attention_fat"][LN_KERNEL],
+        "launches_by_route": {name: run[LN_KERNEL] for name, run in route_launches.items()}
+        | {f"wide_heads_d{d}": run[LN_KERNEL] for d, run in wide_runs.items()},
+        **{key: main[key] for key in keys},
+        "shape": [main["rows"], main["D"]], "what": main["what"],
+        "at_other_shapes": [
+            {key: c[key] for key in keys}
+            | {key: c[key] for key in ("rows", "D", "dtype", "residual", "two_pass", "x", "what")}
+            for c in ln_cases["main"][1:] + ln_cases["other"]],
+        "launches_fp32": {name: run[LN_KERNEL] for name, run in fp32_runs.items()},
+        "launches_mesh": mesh_launches[LN_KERNEL],
+        "launches_tools": {run: got[LN_KERNEL] for run, got in tools_line["launches"].items()},
+    }
 
 
 def wide_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
@@ -1593,7 +1858,7 @@ def app_phase(torch, fa, card, device="cuda") -> dict:
                     line["skipped"][step] = f"not installed: {', '.join(files_missing)}"
                 # The app's encoder on one clip, straight: the device path runs all the same.
                 got = api.state.encoder.encode_planes(planes[:64], batch=64)
-                line["launches"] = app_launches(fa, on_card, forwards=1)
+                line["launches"] = app_launches(fa, on_card, 1, api.state.encoder.cfg.num_layers)
                 line["ran"].append("the app's encoder on one clip")
             else:
                 n_all = DEMO_CLIPS * DEMO_FRAMES
@@ -1602,7 +1867,8 @@ def app_phase(torch, fa, card, device="cuda") -> dict:
                 chunk = api.state.project.settings.encode.chunk_frames
                 # a clip shorter than a device batch is one snapped batch
                 per_clip = 1 if DEMO_FRAMES < chunk else -(-DEMO_FRAMES // chunk)
-                line["launches"] = app_launches(fa, on_card, DEMO_CLIPS * per_clip)
+                line["launches"] = app_launches(fa, on_card, DEMO_CLIPS * per_clip,
+                                                api.state.encoder.cfg.num_layers)
                 import h5py
 
                 h5 = os.path.join(proj, clip_rel.replace(".mp4", "_cls.h5"))
@@ -1640,12 +1906,15 @@ def app_drained(port, n) -> bool:
     return q["total"] >= n and q["done"] == q["total"] and q["queued"] == 0
 
 
-def app_launches(fa, on_card, forwards) -> dict:
-    """The app's encoder went through K1 only, once a forward, each launch
-    through the Hopper body (on the card; the CPU runs the plain version)."""
+def app_launches(fa, on_card, forwards, layers) -> dict:
+    """The app's encoder (``layers`` blocks) went through K1 only, once a
+    block but the last, each launch through the Hopper body, and through the
+    LayerNorm kernel 2L + 1 times a forward (on the card; the CPU runs the
+    plain versions)."""
     got = read_launches(fa)
     if on_card:
-        return check_launches("app", got, "attention_fat", 1, forwards, sm90=True)
+        return check_launches("app", got, "attention_fat", layers - 1, forwards, sm90=True,
+                              ln_per=ln_per_forward(layers))
     if any(got.values()):
         raise AssertionError(f"app: kernel launches counted on the CPU: {got}")
     return got
@@ -1809,14 +2078,15 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     last_d = geometries[-1][3]
     sm90 = int(fa.attention_body("attention_headmajor", torch.bfloat16, last_d) == "sm90")
     want = {"attention_fat": pairs, "attention_packed": pairs,
-            "attention_headmajor": len(geometries) + 1, "sm90": sm90}
+            "attention_headmajor": len(geometries) + 1, "sm90": sm90,
+            LN_KERNEL: 2}  # its single-pass and two-pass LayerNorm checks
     by_body = {name: {"sm90": got["sm90_by_kernel"].get(name, 0),
                       "common": got[name] - got["sm90_by_kernel"].get(name, 0)}
                for name in KERNELS}
     out = {"rc": rc, "geometries": geometries, "checks": records, "seconds": seconds,
            "launches_by_body": by_body, "expected_launches": want,
            "tol_f32": validate_kernels.CARD_TOL_F32,
-           "max_f32_err": max(r["err"] for r in records if "fp64" in r["check"]),
+           "max_f32_err": max(r["err"] for r in records if "vs fp64" in r["check"]),
            "printed": printed.getvalue().splitlines()}
     bad = [r for r in records if not r["ok"]]
     if rc != 0 or bad or not records:
@@ -1939,7 +2209,8 @@ def attention_map_step(torch, fa, cfg, params, launches) -> dict:
     torch.cuda.synchronize()
     launches["cls_attention_map"] = read_launches(fa)
     want_launches = check_launches("cls_attention_map", launches["cls_attention_map"],
-                                   "attention_fat", cfg.num_layers - 1, 1, sm90=True)
+                                   "attention_fat", cfg.num_layers - 1, 1, sm90=True,
+                                   ln_per=ln_per_forward(cfg.num_layers) - 2)
     ms = time_ms(torch, lambda: cls_attention_map(card_params, pixels, cfg), iters=5, warmup=1)
     t = time.perf_counter()
     ref = cls_attention_map({k: torch.from_numpy(v) for k, v in gained.items()},
@@ -2084,10 +2355,13 @@ def mesh_devices(torch, n, real, device="cuda"):
     return [torch.device("cuda", i) if real else torch.device(device) for i in range(n)]
 
 
-def mesh_launches_check(route, got, kernel, n, device):
-    """``kernel`` launched ``n`` times and no other kernel, each through the
-    Hopper body (on the CPU the plain versions run and nothing is counted)."""
-    return check_launches(route, got, kernel, n, 1, sm90=True) if device == "cuda" else None
+def mesh_launches_check(route, got, kernel, n, ln_n, device):
+    """``kernel`` launched ``n`` times and no other attention kernel, each
+    through the Hopper body, and the LayerNorm kernel ``ln_n`` times (on the
+    CPU the plain versions run and nothing is counted)."""
+    if device != "cuda":
+        return None
+    return check_launches(route, got, kernel, n, 1, sm90=True, ln_per=ln_n)
 
 
 def mesh_phase(torch, fa, cfg, enc, planes, one_emb, bundle, one_probs, emb, card,
@@ -2130,7 +2404,8 @@ def mesh_phase(torch, fa, cfg, enc, planes, one_emb, bundle, one_probs, emb, car
             kernel = ("attention_headmajor" if local % 2
                       else "attention_fat" if fat == "1" else "attention_packed")
             want = mesh_launches_check(f"mesh {d}x{m}", launches, kernel,
-                                       (cfg.num_layers - 1) * d * m, device)
+                                       (cfg.num_layers - 1) * d * m,
+                                       ln_per_forward(cfg.num_layers) * d * m, device)
             cos = row_cosine(got, one_emb)
             run = {"data": d, "model": m, "CBAS_ATTN_FAT": fat, "local_heads": local,
                    "kernel": kernel, "launches": launches, "expected_launches": want,
@@ -2153,7 +2428,7 @@ def mesh_phase(torch, fa, cfg, enc, planes, one_emb, bundle, one_probs, emb, car
                 or run["q_proj_rows_per_shard"] != [rows] * m:
             raise AssertionError(f"mesh encode {d}x{m} disagrees with one device: {run}")
         runs.append(run)
-        for name in KERNELS:
+        for name in (*KERNELS, LN_KERNEL):
             total[name] = total.get(name, 0) + launches[name]
         del menc
     line["encode"] = runs
@@ -2203,7 +2478,8 @@ def mesh_vit7b_step(torch, fa, FrameEncoder, make_mesh, real, total, device="cud
         got = menc.encode_planes(planes)
         launches = read_launches(fa)
         expected = mesh_launches_check("mesh ViT-7B", launches, "attention_headmajor",
-                                       (cfg.num_layers - 1) * MESH_7B_MODEL, device)
+                                       (cfg.num_layers - 1) * MESH_7B_MODEL,
+                                       ln_per_forward(cfg.num_layers) * MESH_7B_MODEL, device)
         cos = row_cosine(got, want)
         out = {"model": f"DINOv3 ViT-7B/16 width, depth {VIT7B_DEPTH}", "model_axis": MESH_7B_MODEL,
                "local_heads": cfg.num_heads // MESH_7B_MODEL, "head_dim": cfg.head_dim,
@@ -2217,7 +2493,7 @@ def mesh_vit7b_step(torch, fa, FrameEncoder, make_mesh, real, total, device="cud
     if not np.isfinite(got).all() or cos.min() < MESH_MIN_COS \
             or out["q_proj_rows_per_shard"] != cfg.hidden_size // MESH_7B_MODEL:
         raise AssertionError(f"ViT-7B over model = {MESH_7B_MODEL} disagrees: {out}")
-    for name in KERNELS:
+    for name in (*KERNELS, LN_KERNEL):
         total[name] = total.get(name, 0) + launches[name]
     return out
 

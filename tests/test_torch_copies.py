@@ -882,10 +882,34 @@ SOURCE_HUNKS = {
             r"torch\.from_numpy\(ref\.astype\(np\.float32\)\)\.to\(torch\.bfloat16\)\.double\(\)\."
             r"numpy\(\)",
             r"-ok = err_ln < 6e-2  # ~2 bf16 output ulp at \|y\| <= 5",
-            r"-failures \+= not ok",
             r"\+ok = check\(\"single-pass bf16 LayerNorm \(outlier rows\) vs two-pass\", err_ln, "
             r"6e-2\)",
             r"\+failures \+= not ok  # ~2 bf16 output ulp at \|y\| <= 5",
+        )),
+        ("two-pass LayerNorm check", "the LayerNorm kernel's two-pass form against a float64 "
+         "oracle, beside the single-pass check (whose print the diff shows moved)", (
+            r"\+print\(f\"single-pass bf16 LayerNorm \(outlier rows\) vs two-pass: "
+            r"\{err_ln:\.2e\} \{'ok' if ok else 'FAIL'\}\"\)",
+            r"-print\(f\"single-pass bf16 LayerNorm \(outlier rows\) vs two-pass: "
+            r"\{err_ln:\.2e\} \{'ok' if ok else 'FAIL'\}\"\)",
+            r"\+# The kernel's two-pass form \(CBAS_LN_TWO_PASS\) on the same rows against",
+            r"\+# the float64 LayerNorm: one bf16 ulp of the oracle \(half for the output's",
+            r"\+# rounding\) plus 1e-4 for the fp32 mean of the rows offset by 100\. The",
+            r"\+# error is printed as a fraction of that bound\.",
+            r"\+from cbas_tpu\.ops\.layernorm import layernorm",
+            r"\+exact = \(xq - xq\.mean\(-1, keepdims=True\)\) / np\.sqrt\(xq\.var\(-1, "
+            r"keepdims=True\) \+ 1e-6\)",
+            r"\+two = layernorm\(xb, p\[\"ln\.weight\"\], p\[\"ln\.bias\"\], 1e-6, "
+            r"two_pass=True\)\.double\(\)\.cpu\(\)\.numpy\(\)",
+            r"\+bound = np\.exp2\(np\.floor\(np\.log2\(np\.maximum\(np\.abs\(exact\), "
+            r"2\.0 \*\* -126\)\)\) - 7\) \+ 1e-4",
+            r"\+err_two = \(np\.abs\(two - exact\) / bound\)\.max\(\)",
+            r"\+ok = check\(\"two-pass bf16 LayerNorm \(outlier rows\) vs float64, over 1 bf16 "
+            r"ulp \+ 1e-4\",",
+            r"\+err_two, 1\.0\)",
+            r"\+print\(f\"two-pass bf16 LayerNorm \(outlier rows\) vs float64: \{err_two:\.2f\} "
+            r"of its bound \"",
+            r"\+f\"\{'ok' if ok else 'FAIL'\}\"\)",
         )),
         ("--device", "the command line takes --device", (
             r"-sys\.exit\(main\(\)\)",

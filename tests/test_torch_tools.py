@@ -87,7 +87,7 @@ def test_validate_kernels_passes_on_tiny_geometries(capsys):
     out = capsys.readouterr().out
     assert rc == 0 and "FAIL" not in out
     assert "packed vs fp64" in out and "fat vs fp64" in out  # K2's and K1's plain versions ran
-    assert len(records) == 6 and all(r["ok"] and r["err"] < r["tol"] for r in records)
+    assert len(records) == 7 and all(r["ok"] and r["err"] < r["tol"] for r in records)
 
 
 def test_validate_kernels_detects_failure(capsys, monkeypatch):
@@ -286,20 +286,27 @@ def test_two_cpu_workers_drain_the_demo_project(tmp_path):
     assert [f for _, _, fs in os.walk(root) for f in fs if f.endswith(".claim")] == []
 
     # the same encode in this process: the project's encode settings and
-    # dtype, chunks of 64
+    # dtype, chunks of 64, at the workers' thread count (this process keeps
+    # whatever count earlier tests in it left), its own count restored after
     settings = proj.settings
     enc = FrameEncoder(proj.encoder_model_identifier, device="cpu",
                        compute_dtype=getattr(torch, settings.runtime.compute_dtype))
     cfg = dataclasses.replace(settings.encode, chunk_frames=64)
     inproc = tmp_path / "inproc"
-    for i, line in enumerate(per_file):
-        video = str(inproc / f"v{i}" / os.path.basename(line["video"]))
-        os.makedirs(os.path.dirname(video))
-        shutil.copyfile(line["video"], video)
-        with h5py.File(encode_file(enc, video, config=cfg), "r") as a, \
-                h5py.File(line["h5"], "r") as b:
-            assert a["cls"].dtype == b["cls"].dtype and np.array_equal(a["cls"][:], b["cls"][:])
-            assert b.attrs["encoder_model_identifier"] == a.attrs["encoder_model_identifier"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(int(_env()["OMP_NUM_THREADS"]))
+    try:
+        for i, line in enumerate(per_file):
+            video = str(inproc / f"v{i}" / os.path.basename(line["video"]))
+            os.makedirs(os.path.dirname(video))
+            shutil.copyfile(line["video"], video)
+            with h5py.File(encode_file(enc, video, config=cfg), "r") as a, \
+                    h5py.File(line["h5"], "r") as b:
+                assert a["cls"].dtype == b["cls"].dtype
+                assert np.array_equal(a["cls"][:], b["cls"][:])
+                assert b.attrs["encoder_model_identifier"] == a.attrs["encoder_model_identifier"]
+    finally:
+        torch.set_num_threads(threads)
 
     proc, lines = _fleet(root, "--workers", "2", "--force-cpu", "--model", "demo_behaviors_model")
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -439,9 +446,18 @@ def test_weak_scaling_shape_2dev(capsys):
     the work would land far above the bound. Then the report of ``main``."""
     from cbas_tpu_torch.tools.weak_scaling import main, measure
 
+    threads = torch.get_num_threads()  # restored: later tests in this process keep theirs
     torch.set_num_threads(2)
-    r1 = measure(1, per_device_batch=16, iters=4, device="cpu")
-    r2 = measure(2, per_device_batch=16, iters=4, device="cpu")
+    try:
+        # Three reads of each, interleaved, and the fastest of each kept: the
+        # other test workers load the shared cores unevenly, and a read taken
+        # at their peak times the load, not the encode. A cost that grows
+        # with the work slows every read, the fastest too.
+        reads = [(measure(1, per_device_batch=16, iters=4, device="cpu"),
+                  measure(2, per_device_batch=16, iters=4, device="cpu")) for _ in range(3)]
+    finally:
+        torch.set_num_threads(threads)
+    r1, r2 = (min((pair[i] for pair in reads), key=lambda r: r["step_s"]) for i in (0, 1))
     assert (r1["batch"], r2["batch"]) == (16, 32)
     overhead = (r2["step_s"] - 2 * r1["step_s"]) / (2 * r1["step_s"])
     assert overhead < 0.6, f"2-shard weak-scaled step {r2} vs 1-device {r1}"

@@ -60,6 +60,12 @@ constexpr int kMaxHeadDim = 256;
 // (B, H/2, N, 2d) H/2 groups of two, contiguous (row stride 2d) or as a
 // strided view of a flat tensor (group stride 2d, row stride H*d). A stride
 // of a dimension of size 1 is never stepped and may hold any value.
+//
+// An entry takes two: the inputs' (q, k and v share one) and the output's.
+// The output is dense in the inputs' dim order (the wrapper allocates it so),
+// so a view of a fused (B, N, 3D) projection, row stride 3D, is read in
+// place and its context written at row stride D; the RoPE scratch lies as
+// the output does.
 struct Layout {
   long long batch_stride;
   long long group_stride;
@@ -67,12 +73,19 @@ struct Layout {
   long long row_stride;
 };
 
+// Element offset of token n of head h of image b (n may be 0: the head's
+// first row), head stride d within a group.
+__device__ __forceinline__ size_t token_offset(const Layout& L, unsigned b, unsigned h,
+                                               unsigned n, int d) {
+  return static_cast<size_t>(b) * L.batch_stride +
+         static_cast<size_t>(h / L.heads_per_group) * L.group_stride +
+         static_cast<size_t>(h % L.heads_per_group) * d + static_cast<size_t>(n) * L.row_stride;
+}
+
+// The first row of this block's head (blockIdx.y) of image blockIdx.z.
 template <int HD>
 __device__ __forceinline__ size_t head_offset(const Layout& L) {
-  const int h = blockIdx.y;
-  return static_cast<size_t>(blockIdx.z) * L.batch_stride +
-         static_cast<size_t>(h / L.heads_per_group) * L.group_stride +
-         static_cast<size_t>(h % L.heads_per_group) * HD;
+  return token_offset(L, blockIdx.z, blockIdx.y, 0, HD);
 }
 
 __device__ __forceinline__ unsigned char* dynamic_smem() {
@@ -159,7 +172,7 @@ __global__ void __launch_bounds__(kF32Threads)
 attention_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
-              Layout L, int n_valid, float scale) {
+              Layout L, Layout Lo, int n_valid, float scale) {
   using T = F32Tiles<HD>;
   constexpr int kOutCols = T::kCols / 16;
   float* sq = reinterpret_cast<float*>(dynamic_smem());  // Q tile, roped and scaled
@@ -254,7 +267,7 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= N) continue;
     const float inv = 1.f / l[i];
-    float* row = o + head_off + static_cast<size_t>(r) * L.row_stride;
+    float* row = o + head_offset<HD>(Lo) + static_cast<size_t>(r) * Lo.row_stride;
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j)
       if (tx + 16 * j < HD) row[tx + 16 * j] = acc[i][j] * inv;
@@ -396,7 +409,7 @@ __global__ void __launch_bounds__(kBf16Threads, Bf16Tiles<HD>::kMinBlocks)
 attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
-               Layout L, int n_valid, float scale) {
+               Layout L, Layout Lo, int n_valid, float scale) {
   using T = Bf16Tiles<HD>;
   constexpr int kKSteps = T::kKSteps;
   constexpr int kLd = T::kLd;
@@ -524,7 +537,7 @@ attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + 16 * warp + g + 8 * r;
     if (row >= N) continue;
-    __nv_bfloat16* out = o + head_off + static_cast<size_t>(row) * L.row_stride + 2 * t;
+    __nv_bfloat16* out = o + head_offset<HD>(Lo) + static_cast<size_t>(row) * Lo.row_stride + 2 * t;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)  // the pad columns' tiles are not written
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
@@ -581,9 +594,9 @@ __device__ __forceinline__ void load_table(const float* __restrict__ p, float (&
   }
 }
 
-// One tensor the prologue ropes: `in` read and `out` written through the
-// same Layout, tokens at or beyond n_live neither read nor written, each
-// value times `scale` after the rotation.
+// One tensor the prologue ropes: `in` read through the inputs' Layout and
+// `out` (scratch) written through the output's, tokens at or beyond n_live
+// neither read nor written, each value times `scale` after the rotation.
 template <typename T>
 struct RopeJob {
   const T* in;
@@ -593,7 +606,8 @@ struct RopeJob {
 };
 
 // Job blockIdx.y (0: a, 1: b). Token n of head h of image b starts where L
-// says, with head stride d within a group. One thread takes V consecutive
+// says in the input and where Lo says in the scratch, with head stride d
+// within a group. One thread takes V consecutive
 // columns [c, c + V) of the first half and their partners [c + d/2, +V),
 // threads ordered (b, n, h, c) with c fastest, so a token's threads share its
 // table row in L1. d is even (an odd head is roped by the wrapper). Thread
@@ -602,7 +616,7 @@ struct RopeJob {
 template <typename T, int V>
 __global__ void __launch_bounds__(256)
 rope_rows(const RopeJob<T> a, const RopeJob<T> b, const float* __restrict__ cos_t,
-          const float* __restrict__ sin_t, int B, int H, int d, Layout L) {
+          const float* __restrict__ sin_t, int B, int H, int d, Layout L, Layout Lo) {
   const RopeJob<T> job = blockIdx.y ? b : a;
   const unsigned half = d / 2;
   const unsigned per_row = half / V;
@@ -614,10 +628,8 @@ rope_rows(const RopeJob<T> a, const RopeJob<T> b, const float* __restrict__ cos_
   const unsigned h = r - bn * H;
   const unsigned bi = bn / job.n_live;
   const unsigned n = bn - bi * job.n_live;
-  const size_t off = static_cast<size_t>(bi) * L.batch_stride +
-                     static_cast<size_t>(h / L.heads_per_group) * L.group_stride +
-                     static_cast<size_t>(h % L.heads_per_group) * d +
-                     static_cast<size_t>(n) * L.row_stride + c;
+  const size_t off = token_offset(L, bi, h, n, d) + c;
+  const size_t off_o = token_offset(Lo, bi, h, n, d) + c;
   const size_t t = static_cast<size_t>(n) * d + c;
   const Pack<T, V> xa = *reinterpret_cast<const Pack<T, V>*>(job.in + off);
   const Pack<T, V> xp = *reinterpret_cast<const Pack<T, V>*>(job.in + off + half);
@@ -633,34 +645,35 @@ rope_rows(const RopeJob<T> a, const RopeJob<T> b, const float* __restrict__ cos_
     ya.x[e] = from_float<T>(rope(x, p, true, ca[e], sa[e]) * job.scale);
     yp.x[e] = from_float<T>(rope(p, x, false, cp[e], sp[e]) * job.scale);
   }
-  *reinterpret_cast<Pack<T, V>*>(job.out + off) = ya;
-  *reinterpret_cast<Pack<T, V>*>(job.out + off + half) = yp;
+  *reinterpret_cast<Pack<T, V>*>(job.out + off_o) = ya;
+  *reinterpret_cast<Pack<T, V>*>(job.out + off_o + half) = yp;
 }
 
 // Launch rope_rows<T, V> at the widest V (16 bytes of T at most) that
-// divides d / 2, every stride and the head offsets, and to whose bytes every
-// base address is aligned.
+// divides d / 2, every stride of both Layouts and the head offsets, and to
+// whose bytes every base address is aligned.
 template <typename T, int V>
 cudaError_t launch_rope_at(int v, const RopeJob<T>& a, const RopeJob<T>& b, int jobs,
                            const float* cos_t, const float* sin_t, int B, int H, int d,
-                           const Layout& L, cudaStream_t st) {
+                           const Layout& L, const Layout& Lo, cudaStream_t st) {
   if constexpr (V > 1) {
-    if (v < V) return launch_rope_at<T, V / 2>(v, a, b, jobs, cos_t, sin_t, B, H, d, L, st);
+    if (v < V) return launch_rope_at<T, V / 2>(v, a, b, jobs, cos_t, sin_t, B, H, d, L, Lo, st);
   }
   const int rows = jobs > 1 && b.n_live > a.n_live ? b.n_live : a.n_live;
   const long long threads = static_cast<long long>(B) * H * rows * (d / 2 / V);
   if (threads + 255 > 0xFFFFFFFFLL) return cudaErrorInvalidValue;  // 32-bit thread indices
   rope_rows<T, V><<<dim3(static_cast<unsigned>((threads + 255) / 256), jobs), 256, 0, st>>>(
-      a, b, cos_t, sin_t, B, H, d, L);
+      a, b, cos_t, sin_t, B, H, d, L, Lo);
   return cudaGetLastError();
 }
 
-// Rope job a, and job b if jobs == 2, on `stream`: one launch. Returns the
-// CUDA error of the launch.
+// Rope job a, and job b if jobs == 2, on `stream`: one launch, the inputs
+// read through L, the scratch written through Lo. Returns the CUDA error of
+// the launch.
 template <typename T>
 cudaError_t launch_rope(const RopeJob<T>& a, const RopeJob<T>& b, int jobs, const float* cos_t,
                         const float* sin_t, int B, int H, int d, const Layout& L,
-                        cudaStream_t stream) {
+                        const Layout& Lo, cudaStream_t stream) {
   if (d % 2 || cos_t == nullptr || sin_t == nullptr) return cudaErrorInvalidValue;
   constexpr int kWidest = 16 / static_cast<int>(sizeof(T));
   const auto aligned = [](const void* p, int bytes) {
@@ -668,35 +681,38 @@ cudaError_t launch_rope(const RopeJob<T>& a, const RopeJob<T>& b, int jobs, cons
   };
   int v = kWidest;
   while (v > 1 && ((d / 2) % v || L.row_stride % v || L.group_stride % v || L.batch_stride % v ||
+                   Lo.row_stride % v || Lo.group_stride % v || Lo.batch_stride % v ||
                    !aligned(a.in, v * sizeof(T)) || !aligned(a.out, v * sizeof(T)) ||
                    (jobs > 1 && (!aligned(b.in, v * sizeof(T)) || !aligned(b.out, v * sizeof(T)))) ||
                    !aligned(cos_t, v % 4 ? 8 : 16) || !aligned(sin_t, v % 4 ? 8 : 16)))
     v /= 2;
-  return launch_rope_at<T, kWidest>(v, a, b, jobs, cos_t, sin_t, B, H, d, L, stream);
+  return launch_rope_at<T, kWidest>(v, a, b, jobs, cos_t, sin_t, B, H, d, L, Lo, stream);
 }
 
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
-// The arguments every entry checks. Returns cudaSuccess or cudaErrorInvalidValue.
-inline cudaError_t check_args(int B, int N, int H, const Layout& L, int n_valid) {
+// The arguments every entry checks: the output's Layout groups the heads as
+// the inputs' does. Returns cudaSuccess or cudaErrorInvalidValue.
+inline cudaError_t check_args(int B, int N, int H, const Layout& L, const Layout& Lo,
+                              int n_valid) {
   if (B <= 0 || N <= 0 || H <= 0 || n_valid <= 0 || n_valid > N || B > 65535 || H > 65535 ||
-      L.heads_per_group <= 0 || H % L.heads_per_group)
+      L.heads_per_group <= 0 || H % L.heads_per_group || Lo.heads_per_group != L.heads_per_group)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-// Launch one head dim's kernel on `stream`. dtype: 0 = float32, 1 = bfloat16
-// (up to HD = 128).
+// Launch one head dim's kernel on `stream`: q, k and v read through L, o
+// written through Lo. dtype: 0 = float32, 1 = bfloat16 (up to HD = 128).
 // cos_t/sin_t are (N, HD) fp32 tables or both null (no RoPE). Returns the
 // CUDA error of the launch (cudaSuccess when it was queued).
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-                   const void* sin_t, int B, int N, int H, Layout L, int n_valid, float scale,
-                   int dtype, void* stream) {
+                   const void* sin_t, int B, int N, int H, Layout L, Layout Lo, int n_valid,
+                   float scale, int dtype, void* stream) {
   static_assert(HD % 8 == 0 && HD <= kMaxHeadDim, "head dims are multiples of 8 up to 256");
-  const cudaError_t bad = check_args(B, N, H, L, n_valid);
+  const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   const auto* c = static_cast<const float*>(cos_t);
   const auto* s = static_cast<const float*>(sin_t);
@@ -709,7 +725,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
     if (err != cudaSuccess) return err;
     attention_f32<HD><<<grid, kF32Threads, bytes, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), c, s, N, L, n_valid, scale);
+        static_cast<float*>(o), c, s, N, L, Lo, n_valid, scale);
   } else if (dtype == 1) {
     if constexpr (HD <= 128) {
       constexpr size_t bytes = Bf16Tiles<HD>::kSmemBytes;
@@ -718,7 +734,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
       if (err != cudaSuccess) return err;
       attention_bf16<HD><<<grid, kBf16Threads, bytes, st>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), c, s, N, L,
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), c, s, N, L, Lo,
           n_valid, scale);
     } else {
       return cudaErrorInvalidValue;  // bf16 above 128 runs attention_sm90.cuh's body

@@ -7,8 +7,10 @@
 // than 64 and for odd head counts. Same function as K1 and K2, read where
 // the caller's strides put each head (H groups of one head): contiguous
 // (B, H, N, d) tensors, or the head-major views (B, N, H, d).transpose(1, 2)
-// of the flat projections that the model's route passes, so no copy
-// surrounds the kernel; the output is written with the same strides.
+// of one fused (B, N, 3*H*d) q|k|v projection that the model's route
+// passes, so no copy surrounds the kernel; the output is written with
+// strides of its own, dense in q's dim order (empty(B, N, H, d).transpose(1,
+// 2) for those views).
 //
 // What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
@@ -46,17 +48,17 @@ namespace {
 template <int HD>
 int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
         const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
-        const cbas_attention::Layout& L, int n_valid, float scale, int dtype, void* stream,
-        int* body) {
+        const cbas_attention::Layout& L, const cbas_attention::Layout& Lo, int n_valid,
+        float scale, int dtype, void* stream, int* body) {
   using namespace cbas_attention;
   *body = sm90_route(dtype, HD);
   if constexpr (HD == 64 || HD == 128 || HD == 192 || HD == 256) {
     if (*body)
       return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
-                                               N, H, HD, L, n_valid, scale, stream));
+                                               N, H, HD, L, Lo, n_valid, scale, stream));
   }
-  return static_cast<int>(launch<HD>(q, k, v, o, cos_t, sin_t, B, N, H, L, n_valid, scale, dtype,
-                                     stream));
+  return static_cast<int>(launch<HD>(q, k, v, o, cos_t, sin_t, B, N, H, L, Lo, n_valid, scale,
+                                     dtype, stream));
 }
 
 }  // namespace
@@ -66,24 +68,27 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
 // other multiple of 8 from 136 to 248 (the Hopper body at the next built
 // width, maps at d); or any d above 256 (the wide body, which takes tables
 // only at an even d). batch_stride, group_stride (between heads) and
-// row_stride are q's (k's, v's and o's) element strides. dtype: 0 = float32,
-// 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or both null. With
-// tables the Hopper body needs k_scratch, and at a padded width and in the
-// wide body also q_scratch: buffers laid out like q for the roped keys and
-// queries (null otherwise). *body is set to the body that ran: 0 the common
+// row_stride are q's (k's and v's) element strides, the o_ ones o's (its
+// dims in q's order). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are
+// (N, d) fp32 tables or both null. With tables the Hopper body needs
+// k_scratch, and at a padded width and in the wide body also q_scratch:
+// buffers laid out like o for the roped keys and queries (null otherwise). *body is set to the body that ran: 0 the common
 // body, 1 the Hopper body (sm90_route), 2 the wide body. Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void* v, void* o,
                                         const void* cos_t, const void* sin_t, void* q_scratch,
                                         void* k_scratch, int B, int N, int H, int head_dim,
                                         long long batch_stride, long long group_stride,
-                                        long long row_stride, int n_valid, float scale, int dtype,
-                                        void* stream, int* body) {
+                                        long long row_stride, long long o_batch_stride,
+                                        long long o_group_stride, long long o_row_stride,
+                                        int n_valid, float scale, int dtype, void* stream,
+                                        int* body) {
   using namespace cbas_attention;
   const Layout L{batch_stride, group_stride, 1, row_stride};
-#define CBAS_HEAD_DIM(D)                                                                      \
-  case D:                                                                                     \
-    return run<D>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, L, n_valid, scale, \
+  const Layout Lo{o_batch_stride, o_group_stride, 1, o_row_stride};
+#define CBAS_HEAD_DIM(D)                                                                         \
+  case D:                                                                                        \
+    return run<D>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, L, Lo, n_valid, scale, \
                   dtype, stream, body);
   switch (head_dim) {
     CBAS_HEAD_DIM(8)
@@ -108,16 +113,17 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
       if (head_dim > kMaxHeadDim) {
         *body = 2;
         return static_cast<int>(wide::launch(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
-                                             N, H, head_dim, L, n_valid, scale, dtype, stream));
+                                             N, H, head_dim, L, Lo, n_valid, scale, dtype,
+                                             stream));
       }
       if (dtype != 1 || head_dim <= 128 || head_dim % kChunk)
         return static_cast<int>(cudaErrorInvalidValue);
       *body = 1;
       return static_cast<int>(
           head_dim < 192 ? sm90::launch<192>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
-                                             H, head_dim, L, n_valid, scale, stream)
+                                             H, head_dim, L, Lo, n_valid, scale, stream)
                          : sm90::launch<256>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
-                                             H, head_dim, L, n_valid, scale, stream));
+                                             H, head_dim, L, Lo, n_valid, scale, stream));
   }
 #undef CBAS_HEAD_DIM
 }

@@ -7,9 +7,11 @@
 //
 // Layout: H/2 groups of two heads; the caller's strides say where they lie.
 // Contiguous packed tensors have row stride 128 and group stride N*128. The
-// port's own caller passes strided views of the flat (B, N, H*64)
-// projections instead (group stride 128, row stride H*64), so it copies
-// neither q, k and v in nor the output out: o is written with q's strides.
+// port's own caller passes strided views of one fused (B, N, 3*H*64) q|k|v
+// projection instead (group stride 128, row stride 3*H*64), so it copies
+// neither q, k and v in nor the output out: o is written dense in q's dim
+// order, empty(B, N, H/2, 128).transpose(1, 2), whose flat (B, N, H*64)
+// view feeds the out-projection.
 // The rows of a head are 128 bytes wherever they lie, so the tiles a block
 // reads are K1's.
 //
@@ -37,26 +39,30 @@
 
 // C entry, bound with ctypes, with the flat and head-major entries'
 // signature. H is the head count (twice the pairs, so even); head_dim must be
-// 64. batch_stride, group_stride (between pairs) and row_stride are q's (k's,
-// v's and o's) element strides: 16-byte multiples, the last dim contiguous.
-// dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, 64) fp32 tables or
-// both null. q_scratch is unused; k_scratch is a buffer laid out like k for
-// the roped keys, needed by the Hopper body with tables (null otherwise).
+// 64. batch_stride, group_stride (between pairs) and row_stride are q's (k's
+// and v's) element strides, the o_ ones o's: 16-byte multiples, the last dim
+// contiguous, o's dims in q's order. dtype: 0 = float32, 1 = bfloat16.
+// cos_t/sin_t are (N, 64) fp32 tables or both null. q_scratch is unused;
+// k_scratch is a buffer laid out like o for the roped keys, needed by the
+// Hopper body with tables (null otherwise).
 // *body is set to the body that ran (sm90_route). Returns the CUDA error
 // code of the launch.
 extern "C" int cbas_attention_packed(const void* q, const void* k, const void* v, void* o,
                                      const void* cos_t, const void* sin_t, void* /*q_scratch*/,
                                      void* k_scratch, int B, int N, int H, int head_dim,
                                      long long batch_stride,
-                                     long long group_stride, long long row_stride, int n_valid,
-                                     float scale, int dtype, void* stream, int* body) {
+                                     long long group_stride, long long row_stride,
+                                     long long o_batch_stride, long long o_group_stride,
+                                     long long o_row_stride, int n_valid, float scale, int dtype,
+                                     void* stream, int* body) {
   using namespace cbas_attention;
   if (head_dim != 64 || H % 2) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L{batch_stride, group_stride, 2, row_stride};
+  const Layout Lo{o_batch_stride, o_group_stride, 2, o_row_stride};
   *body = sm90_route(dtype, head_dim);
   if (*body)
     return static_cast<int>(sm90::launch<64>(q, k, v, o, cos_t, sin_t, nullptr, k_scratch, B, N, H,
-                                             64, L, n_valid, scale, stream));
-  return static_cast<int>(launch<64>(q, k, v, o, cos_t, sin_t, B, N, H, L, n_valid, scale, dtype,
-                                     stream));
+                                             64, L, Lo, n_valid, scale, stream));
+  return static_cast<int>(launch<64>(q, k, v, o, cos_t, sin_t, B, N, H, L, Lo, n_valid, scale,
+                                     dtype, stream));
 }

@@ -4,8 +4,8 @@
 // attention_packed.cu, attention_headmajor.cu); fp32 and K3's other head
 // dims up to 256 stay on attention_common.cuh, K3's heads above 256 take
 // attention_wide.cuh. The tensor maps are built from the
-// caller's Layout (strides), so one code path reads every layout, strided
-// views included.
+// caller's Layouts (strides), so one code path reads every layout, strided
+// views included, and writes the output dense.
 //
 // Same function and rounding points as attention_common.cuh's bf16 body:
 // RoPE in fp32, one rounding of roped, scaled q and of roped k to bf16, p
@@ -331,8 +331,8 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
 
 // One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y of image
 // blockIdx.z. Warps 0-3 are the consumer warpgroup, warp 4 the producer.
-// The four maps share one Layout and so one MapAddress; Q's and O's maps have
-// N rows, K's and V's n_valid.
+// The four maps share one dim order and so one MapAddress; Q's and O's maps
+// have N rows, K's and V's n_valid.
 template <int HD, int kRank>
 __global__ void __launch_bounds__(Config<HD>::kThreads, Config<HD>::kMinBlocks)
 attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
@@ -644,33 +644,42 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The shape of the tensor maps over Layout L (with N rows): rank 4 or 5,
-// sizes and element strides, innermost (the HD columns) first, and how a
-// tile is addressed.
+// The shape of the tensor maps over the inputs' Layout L and the output's
+// Lo (with N rows): rank 4 or 5, sizes, and element strides of each,
+// innermost (the HD columns) first, in one dim order, so one MapAddress
+// addresses a tile in every map.
 struct MapShape {
   long long size[5];
-  long long stride[5];
+  long long stride[5];      // the inputs'
+  long long out_stride[5];  // the output's (and the RoPE scratch's)
   int rows_dim;
   MapAddress order;
 };
 
-// The outer dimensions go in ascending order of stride. A dimension of size
-// 1 (other than the rows) is left out: it is never stepped, and its stride
-// may hold any value. The group joins the head-in-group dimension when the
-// heads are evenly spaced across groups. Trailing dimensions of size 1 pad
-// the rank to 4. So a flat tensor's map is (64, H, rows, B), a head-major
-// one's (d, rows, H, B), a head-major view of a flat one's the flat map
-// (d, H, rows, B), the packed view of a flat tensor's the flat map
-// (64, H, rows, B), and a contiguous packed one's (64, 2, rows, H/2, B).
-// False if the heads of a group are split from their group in the map and
-// number other than a power of two (no layout of the port's entries). d is
-// the heads' width: the maps' innermost extent, which may be below the width
-// a body runs at (the columns between load as zeros).
-inline bool map_shape(const Layout& L, int d, int B, int N, int H, MapShape* m) {
+// The outer dimensions go in ascending order of the inputs' stride. A
+// dimension of size 1 (other than the rows) is left out: it is never
+// stepped, and its stride may hold any value. The group joins the
+// head-in-group dimension when the heads are evenly spaced across groups in
+// both Layouts. Trailing dimensions of size 1 pad the rank to 4. So a flat
+// tensor's map is (64, H, rows, B), a head-major one's (d, rows, H, B), a
+// head-major view of a flat one's the flat map (d, H, rows, B), the packed
+// view of a flat tensor's the flat map (64, H, rows, B), and a contiguous
+// packed one's (64, 2, rows, H/2, B); a view of a fused (B, N, 3D)
+// projection has the map of its flat (or head-major, or packed) context,
+// at row stride 3D. The output's strides follow the same order: the
+// wrapper allocates it dense in the inputs' dim order. False if the heads
+// of a group are split from their group in the map and number other than a
+// power of two (no layout of the port's entries). d is the heads' width:
+// the maps' innermost extent, which may be below the width a body runs at
+// (the columns between load as zeros).
+inline bool map_shape(const Layout& L, const Layout& Lo, int d, int B, int N, int H,
+                      MapShape* m) {
   const int hpg = L.heads_per_group;
   const long long size[4] = {hpg, N, H / hpg, B};
   // (A single row's stride may hold any value too: it becomes d.)
   const long long stride[4] = {d, N > 1 ? L.row_stride : d, L.group_stride, L.batch_stride};
+  const long long out_stride[4] = {d, N > 1 ? Lo.row_stride : d, Lo.group_stride,
+                                   Lo.batch_stride};
   int idx[4] = {0, 1, 2, 3};
   for (int i = 1; i < 4; ++i)
     for (int j = i; j > 0 && stride[idx[j]] < stride[idx[j - 1]]; --j) {
@@ -678,15 +687,17 @@ inline bool map_shape(const Layout& L, int d, int B, int N, int H, MapShape* m) 
       idx[j] = idx[j - 1];
       idx[j - 1] = t;
     }
-  *m = MapShape{{d}, {1}, 0, {}};
+  *m = MapShape{{d}, {1}, {1}, 0, {}};
   int rank = 1, in_group_dim = 0, group_dim = 0;
-  long long span = d;  // elements from the first to past the last
+  long long span = d, out_span = d;  // elements from the first to past the last
   for (int p = 0; p < 4; ++p) {
     const int i = idx[p];
     if (size[i] == 1 && i != 1) continue;
     span += (size[i] - 1) * stride[i];
+    out_span += (size[i] - 1) * out_stride[i];
     const int last = rank - 1;
-    if (i == 2 && last > 0 && in_group_dim == last && stride[i] == m->stride[last] * size[0]) {
+    if (i == 2 && last > 0 && in_group_dim == last && stride[i] == m->stride[last] * size[0] &&
+        out_stride[i] == m->out_stride[last] * size[0]) {
       m->size[last] *= size[i];  // heads evenly spaced: one map dimension of all H
       continue;
     }
@@ -696,6 +707,7 @@ inline bool map_shape(const Layout& L, int d, int B, int N, int H, MapShape* m) 
     if (i == 3) m->order.image[rank - 1] = 1;
     m->size[rank] = size[i];
     m->stride[rank] = stride[i];
+    m->out_stride[rank] = out_stride[i];
     ++rank;
   }
   // The head's coordinate: whole in the one map dimension that holds heads,
@@ -712,16 +724,20 @@ inline bool map_shape(const Layout& L, int d, int B, int N, int H, MapShape* m) 
   for (; rank < 4; ++rank) {
     m->size[rank] = 1;
     m->stride[rank] = (span + kChunk - 1) / kChunk * kChunk;  // a 16-byte multiple
+    m->out_stride[rank] = (out_span + kChunk - 1) / kChunk * kChunk;
   }
   m->order.rank = rank;
   return true;
 }
 
-// The bf16 map of one of Q, K, V or O, covering `rows` rows of each head; a
-// box of one 64-column atom by 64 rows, 128-byte swizzle, zeros out of
-// bounds. The driver refuses a base address or a stride that is not a
-// 16-byte multiple (the wrapper checks both first).
-inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, int rows) {
+// The bf16 map of one of Q, K, V or O, covering `rows` rows of each head,
+// at the inputs' strides or (`out`) the output's; a box of one 64-column
+// atom by 64 rows, 128-byte swizzle, zeros out of bounds. The driver refuses
+// a base address or a stride that is not a 16-byte multiple (the wrapper
+// checks both first).
+inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, int rows,
+                       bool out = false) {
+  const long long* stride = out ? m.out_stride : m.stride;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const int rank = m.order.rank, rows_dim = m.rows_dim;
@@ -731,7 +747,7 @@ inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, in
   for (int d = 0; d < rank; ++d) {
     dims[d] = static_cast<cuuint64_t>(d == rows_dim ? rows : m.size[d]);
     box[d] = d == 0 ? kAtom : d == rows_dim ? kBlockN : 1;
-    if (d > 0) strides[d - 1] = static_cast<cuuint64_t>(m.stride[d]) * sizeof(__nv_bfloat16);
+    if (d > 0) strides[d - 1] = static_cast<cuuint64_t>(stride[d]) * sizeof(__nv_bfloat16);
   }
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -747,14 +763,15 @@ inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, in
 // ropes its Q tiles itself; at d < HD, whose in-kernel rotation would pair
 // column c with c + HD/2 instead of c + d/2, it ropes q (times the scale)
 // into `q_scratch` and k into `k_scratch`, and the attention kernel runs
-// without tables at scale 1. q, k, v, o and the scratch all lie as L says.
-// Returns the CUDA error of the launches (cudaSuccess when all were queued).
+// without tables at scale 1. q, k and v lie as L says; o and the scratch as
+// Lo says, in the same dim order (map_shape). Returns the CUDA error of the
+// launches (cudaSuccess when all were queued).
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                    const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
-                   const Layout& L, int n_valid, float scale, void* stream) {
+                   const Layout& L, const Layout& Lo, int n_valid, float scale, void* stream) {
   using C = Config<HD>;
-  const cudaError_t bad = check_args(B, N, H, L, n_valid);
+  const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   if (d > HD || d <= HD - kAtom || d % kChunk) return cudaErrorInvalidValue;
   const auto* c = static_cast<const float*>(cos_t);
@@ -762,22 +779,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
   const auto st = static_cast<cudaStream_t>(stream);
   const void* q_in = q;
   const void* k_in = k;
+  bool q_roped = false;  // q_in, and k_in with tables, are scratch laid out as Lo
   if (c != nullptr) {
     using T = __nv_bfloat16;
     const bool padded = d < HD;
     if (k_scratch == nullptr || (padded && q_scratch == nullptr)) return cudaErrorInvalidValue;
     const RopeJob<T> kj{static_cast<const T*>(k), static_cast<T*>(k_scratch), n_valid, 1.f};
     const RopeJob<T> qj{static_cast<const T*>(q), static_cast<T*>(q_scratch), N, scale};
-    const cudaError_t err = padded ? launch_rope<T>(qj, kj, 2, c, s, B, H, d, L, st)
-                                   : launch_rope<T>(kj, kj, 1, c, s, B, H, d, L, st);
+    const cudaError_t err = padded ? launch_rope<T>(qj, kj, 2, c, s, B, H, d, L, Lo, st)
+                                   : launch_rope<T>(kj, kj, 1, c, s, B, H, d, L, Lo, st);
     if (err != cudaSuccess) return err;
     k_in = k_scratch;
-    if (padded) q_in = q_scratch, c = s = nullptr, scale = 1.f;
+    if (padded) q_in = q_scratch, q_roped = true, c = s = nullptr, scale = 1.f;
   }
   MapShape m;
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!map_shape(L, d, B, N, H, &m) || !encode_map(&q_map, q_in, m, N) ||
-      !encode_map(&o_map, o, m, N) || !encode_map(&k_map, k_in, m, n_valid) ||
+  if (!map_shape(L, Lo, d, B, N, H, &m) || !encode_map(&q_map, q_in, m, N, q_roped) ||
+      !encode_map(&o_map, o, m, N, true) || !encode_map(&k_map, k_in, m, n_valid, k_in != k) ||
       !encode_map(&v_map, v, m, n_valid))
     return cudaErrorInvalidValue;
   const auto kernel = m.order.rank == 5 ? attention_sm90<HD, 5> : attention_sm90<HD, 4>;

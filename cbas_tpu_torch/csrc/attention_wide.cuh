@@ -42,13 +42,14 @@
 // - RoPE once per (token, head): with tables the shared prologue
 //   (rope_rows, attention_common.cuh; the Hopper body's too) writes q (the
 //   scale folded in) and k roped, each value rounded once, in one launch to
-//   two scratch buffers laid out like q, and the attention kernel reads
-//   those through the same Layout. Without tables the consumers scale Q in
+//   two scratch buffers laid out like the output, and the attention kernel
+//   reads those through the output's Layout. Without tables the consumers scale Q in
 //   shared memory as it lands (one rounding, as with tables).
-// - Any layout of one head a group: the heads lie where the Layout's strides
-//   put them (contiguous head-major tensors, or head-major views of flat
-//   (B, N, H*d) projections); the TMA maps and the staging both read through
-//   them.
+// - Any layout of one head a group: the heads lie where the Layouts'
+//   strides put them (contiguous head-major tensors, or head-major views of
+//   flat (B, N, H*d) or fused (B, N, 3 H*d) projections); the TMA maps and
+//   the staging both read through them, and the output is written through
+//   its own Layout (dense in the inputs' dim order).
 // - d % 8 != 0: rows are not 16-byte aligned, which the TMA needs, so each
 //   warpgroup stages its atoms itself with zero-filled loads into the same
 //   swizzled layout just before it reads them (slower; no model has such
@@ -172,8 +173,9 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map, const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int N, int hd, int n_slices, Layout L,
-                    int n_valid, float scale, const sm90::MapAddress order, int tma) {
+                    __nv_bfloat16* __restrict__ o, int N, int hd, int n_slices, Layout Lqk,
+                    Layout L, Layout Lo, int n_valid, float scale, const sm90::MapAddress order,
+                    int tma) {
   using namespace sm90;
   const int atoms = (hd + kAtom - 1) / kAtom;
   // kQResident (up to kMaxAtoms atoms): Q stays in shared memory; else
@@ -219,8 +221,10 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
   const int my_o = (slice_atoms - wg + 1) / 2;  // O atoms wg, wg + 2, wg + 4 of the slice
   const int k_items = q_resident ? my_k : 2 * my_k;  // loads a key tile: K's (Q a, K a streamed)
   const int per_tile = k_items + my_o;               // then V's
-  const size_t head_off =
-      static_cast<size_t>(b) * L.batch_stride + static_cast<size_t>(h) * L.group_stride;
+  // This head's first row in a Layout (one head a group).
+  auto head_off = [&](const Layout& X) {
+    return static_cast<size_t>(b) * X.batch_stride + static_cast<size_t>(h) * X.group_stride;
+  };
 
   if (wtid == 0) {
     for (int s = 0; s < slots; ++s) {
@@ -256,14 +260,15 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
     if (++issue_item == per_tile) issue_item = 0, ++issue_tile;
   };
   // The next load, the atom at column `col` of rows [row, row + 64) of `src`
-  // (q, k or v; rows at or beyond `live` are zeros): its stage's address
-  // once it is there.
-  auto acquire = [&](const __nv_bfloat16* src, int live, int col, int row) {
+  // (q or k through Lqk, v through L; rows at or beyond `live` are zeros):
+  // its stage's address once it is there.
+  auto acquire = [&](const __nv_bfloat16* src, const Layout& X, int live, int col, int row) {
     const int st = acquired.stage;
     if (tma) {
       mbar_wait(full(st), acquired.phase);
     } else {
-      stage_atom(sring + st * kAtomBytes, src + head_off, row, live, L.row_stride, col, hd, wtid);
+      stage_atom(sring + st * kAtomBytes, src + head_off(X), row, live, X.row_stride, col, hd,
+                 wtid);
       fence_async();
       named_sync(1 + wg, kWGThreads);
     }
@@ -316,7 +321,8 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
     if (q_resident) mbar_wait(q_full, 0);
   } else if (q_resident) {
     for (int a = wg; a < atoms; a += 2)
-      stage_atom(sq + a * kAtomBytes, q + head_off, q0, N, L.row_stride, a * kAtom, hd, wtid);
+      stage_atom(sq + a * kAtomBytes, q + head_off(Lqk), q0, N, Lqk.row_stride, a * kAtom, hd,
+                 wtid);
     fence_async();  // the wgmma reads Q through the async proxy
     named_sync(1 + wg, kWGThreads);
   }
@@ -351,10 +357,10 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
       const int a = wg + 2 * j;
       uint32_t qa = q_tile + a * kAtomBytes;
       if constexpr (!q_resident) {
-        qa = acquire(q, N, a * kAtom, q0);
+        qa = acquire(q, Lqk, N, a * kAtom, q0);
         if (scale != 1.f) scale_atom(sq + (qa - q_tile));
       }
-      const uint32_t ka = acquire(k, n_valid, a * kAtom, kt * kBlockN);
+      const uint32_t ka = acquire(k, Lqk, n_valid, a * kAtom, kt * kBlockN);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_m64n64k16_ss(sc, sw128_desc(qa + kk * 32, 16, 1024),
@@ -433,7 +439,8 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int jj = 0; jj < kOutAtoms; ++jj) {
       if (jj < my_o) {
-        const uint32_t va = acquire(v, n_valid, (atom0 + wg + 2 * jj) * kAtom, kt * kBlockN);
+        const uint32_t va =
+            acquire(v, L, n_valid, (atom0 + wg + 2 * jj) * kAtom, kt * kBlockN);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
           wgmma_m64n64k16<1>(acc[jj], p[kk], sw128_desc(va + kk * 2048, kAtomBytes, 1024), 1);
@@ -453,7 +460,7 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + 16 * warp + g + 8 * r;
     if (row >= N) continue;
-    __nv_bfloat16* out = o + head_off + static_cast<size_t>(row) * L.row_stride;
+    __nv_bfloat16* out = o + head_off(Lo) + static_cast<size_t>(row) * Lo.row_stride;
 #pragma unroll
     for (int jj = 0; jj < kOutAtoms; ++jj) {
       if (jj >= my_o) continue;
@@ -501,11 +508,12 @@ __device__ __forceinline__ void load_slice_f32(float* __restrict__ dst,
 // One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y, O atoms
 // [6 s, 6 s + 6) of image b, where blockIdx.z = b * n_slices + s. Thread
 // (ty, tx) owns score rows ty + 16 i and key columns tx + 16 j, and output
-// columns 64 a + tx + 16 j of the slice's atom a, as in attention_f32.
+// columns 64 a + tx + 16 j of the slice's atom a, as in attention_f32. q and
+// k lie as Lqk says, v as L, o as Lo.
 __global__ void __launch_bounds__(kF32Threads)
 attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o, int N, int hd, int n_slices,
-                   Layout L, int n_valid, float scale) {
+                   Layout Lqk, Layout L, Layout Lo, int n_valid, float scale) {
   float* sq = reinterpret_cast<float*>(dynamic_smem());  // a slice of Q, scaled
   float* sk = sq + kTile * kLd;                          // a slice of K, then P
   float* sv = sk + kTile * kLd;                          // an atom of the slice of V
@@ -516,8 +524,9 @@ attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z / n_slices;
   const int atom0 = (blockIdx.z % n_slices) * kSliceAtoms;
   const int slice_atoms = min(kSliceAtoms, atoms - atom0);
-  const size_t head_off =
-      static_cast<size_t>(b) * L.batch_stride + static_cast<size_t>(h) * L.group_stride;
+  auto head_off = [&](const Layout& X) {  // this head's first row (one head a group)
+    return static_cast<size_t>(b) * X.batch_stride + static_cast<size_t>(h) * X.group_stride;
+  };
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
@@ -536,8 +545,8 @@ attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
     float s[4][4] = {};
     for (int d0 = 0; d0 < hd; d0 += kTile) {
       __syncthreads();  // every thread is done with the previous slices (and P, V)
-      load_slice_f32(sq, q + head_off, q0, N, L.row_stride, d0, hd, scale);
-      load_slice_f32(sk, k + head_off, k0, n_valid, L.row_stride, d0, hd, 1.f);
+      load_slice_f32(sq, q + head_off(Lqk), q0, N, Lqk.row_stride, d0, hd, scale);
+      load_slice_f32(sk, k + head_off(Lqk), k0, n_valid, Lqk.row_stride, d0, hd, 1.f);
       __syncthreads();
 #pragma unroll 8
       for (int d = 0; d < kTile; ++d) {
@@ -586,7 +595,8 @@ attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int sa = 0; sa < kSliceAtoms; ++sa) {
       if (sa >= slice_atoms) break;
       if (sa > 0) __syncthreads();  // every thread is done reading the last atom of V
-      load_slice_f32(sv, v + head_off, k0, n_valid, L.row_stride, (atom0 + sa) * kAtom, hd, 1.f);
+      load_slice_f32(sv, v + head_off(L), k0, n_valid, L.row_stride, (atom0 + sa) * kAtom, hd,
+                     1.f);
       __syncthreads();
 #pragma unroll 8
       for (int c = 0; c < kTile; ++c) {
@@ -608,7 +618,7 @@ attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= N) continue;
     const float inv = 1.f / l[i];
-    float* row = o + head_off + static_cast<size_t>(r) * L.row_stride;
+    float* row = o + head_off(Lo) + static_cast<size_t>(r) * Lo.row_stride;
 #pragma unroll
     for (int sa = 0; sa < kSliceAtoms; ++sa) {
       if (sa >= slice_atoms) break;
@@ -626,33 +636,35 @@ attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 // With tables, q (times the scale) and k roped into the scratch, laid out
-// like them, by one launch of the shared prologue (rope_rows); q and k then
-// point at the scratch and the scale is 1. Returns the launch's CUDA error.
+// like the output (Lo), by one launch of the shared prologue (rope_rows); q
+// and k then point at the scratch, Lqk becomes Lo and the scale is 1.
+// Returns the launch's CUDA error.
 template <typename T>
 cudaError_t rope_first(const T*& q, const T*& k, void* q_scratch, void* k_scratch,
                        const float* cos_t, const float* sin_t, int B, int N, int H, int hd,
-                       const Layout& L, int n_valid, float& scale, cudaStream_t st) {
+                       Layout& Lqk, const Layout& Lo, int n_valid, float& scale, cudaStream_t st) {
   if (cos_t == nullptr) return cudaSuccess;
   auto* qs = static_cast<T*>(q_scratch);
   auto* ks = static_cast<T*>(k_scratch);
   const cudaError_t err = launch_rope<T>(RopeJob<T>{q, qs, N, scale},
                                          RopeJob<T>{k, ks, n_valid, 1.f}, 2, cos_t, sin_t, B, H,
-                                         hd, L, st);
-  q = qs, k = ks, scale = 1.f;
+                                         hd, Lqk, Lo, st);
+  q = qs, k = ks, Lqk = Lo, scale = 1.f;
   return err;
 }
 
 // Launch the wide body on `stream`: any hd above kMaxHeadDim, head-major
 // heads wherever L puts them (one head a group; contiguous tensors and views
-// of flat ones alike). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are
+// of flat or fused projections alike), the output where Lo puts it (dense
+// in L's dim order). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are
 // (N, hd) fp32 tables, which need an even hd and two scratch buffers laid
-// out like q (roped q, roped k), or both null. Returns the CUDA error of the
-// launches (cudaSuccess when all were queued).
+// out like the output (roped q, roped k), or both null. Returns the CUDA
+// error of the launches (cudaSuccess when all were queued).
 inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                           const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
-                          int hd, const Layout& L, int n_valid, float scale, int dtype,
-                          void* stream) {
-  const cudaError_t bad = check_args(B, N, H, L, n_valid);
+                          int hd, const Layout& L, const Layout& Lo, int n_valid, float scale,
+                          int dtype, void* stream) {
+  const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   const int atoms = (hd + kAtom - 1) / kAtom;
   const int n_slices = (atoms + kSliceAtoms - 1) / kSliceAtoms;
@@ -665,34 +677,39 @@ inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, 
   const auto* c = static_cast<const float*>(cos_t);
   const auto* s = static_cast<const float*>(sin_t);
   const dim3 grid((N + kTile - 1) / kTile, H, B * n_slices);
+  Layout Lqk = L;  // where q and k lie: L, or Lo once roped into the scratch
   cudaError_t err;
   if (dtype == 0) {
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
-    err = rope_first(qf, kf, q_scratch, k_scratch, c, s, B, N, H, hd, L, n_valid, scale, st);
+    err = rope_first(qf, kf, q_scratch, k_scratch, c, s, B, N, H, hd, Lqk, Lo, n_valid, scale,
+                     st);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(attention_wide_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kF32SmemBytes));
     if (err != cudaSuccess) return err;
     attention_wide_f32<<<grid, kF32Threads, kF32SmemBytes, st>>>(
-        qf, kf, static_cast<const float*>(v), static_cast<float*>(o), N, hd, n_slices, L, n_valid,
-        scale);
+        qf, kf, static_cast<const float*>(v), static_cast<float*>(o), N, hd, n_slices, Lqk, L, Lo,
+        n_valid, scale);
     return cudaGetLastError();
   }
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  err = rope_first(qb, kb, q_scratch, k_scratch, c, s, B, N, H, hd, L, n_valid, scale, st);
+  err = rope_first(qb, kb, q_scratch, k_scratch, c, s, B, N, H, hd, Lqk, Lo, n_valid, scale, st);
   if (err != cudaSuccess) return err;
   // The TMA takes rows at 16-byte multiples: d % 8 == 0 (the wrapper checks
   // the strides and base addresses); the warpgroups stage other widths
   // themselves. A view's map is (hd, H, rows, B), a contiguous tensor's
-  // (hd, rows, H, B): rank 4 either way.
+  // (hd, rows, H, B): rank 4 either way. q's and k's maps take the output's
+  // strides once they are the roped scratch.
   const int tma = hd % kChunk == 0;
+  const bool roped = c != nullptr;
   sm90::MapShape m{};
   CUtensorMap q_map{}, k_map{}, v_map{};
-  if (tma && (!sm90::map_shape(L, hd, B, N, H, &m) || m.order.rank != 4 ||
-              !sm90::encode_map(&q_map, qb, m, N) || !sm90::encode_map(&k_map, kb, m, n_valid) ||
+  if (tma && (!sm90::map_shape(L, Lo, hd, B, N, H, &m) || m.order.rank != 4 ||
+              !sm90::encode_map(&q_map, qb, m, N, roped) ||
+              !sm90::encode_map(&k_map, kb, m, n_valid, roped) ||
               !sm90::encode_map(&v_map, vb, m, n_valid)))
     return cudaErrorInvalidValue;
   const bool q_resident = atoms <= kMaxAtoms;
@@ -702,8 +719,8 @@ inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, 
   if (err != cudaSuccess) return err;
   const int q_atoms = q_resident ? atoms : 0;
   kernel<<<grid, kThreads, smem_bytes(q_atoms, ring_slots(q_atoms)), st>>>(
-      q_map, k_map, v_map, qb, kb, vb, static_cast<__nv_bfloat16*>(o), N, hd, n_slices, L,
-      n_valid, scale, m.order, tma);
+      q_map, k_map, v_map, qb, kb, vb, static_cast<__nv_bfloat16*>(o), N, hd, n_slices, Lqk, L,
+      Lo, n_valid, scale, m.order, tma);
   return cudaGetLastError();
 }
 

@@ -20,7 +20,7 @@ from cbas_tpu_torch.models.heads import (
     LegacyHead,
     LegacyHeadConfig,
 )
-from cbas_tpu_torch.models.vit import ViTConfig, vit_param_shapes
+from cbas_tpu_torch.models.vit import ViTConfig, fuse_qkv, vit_param_shapes
 
 
 def vit_params_from_numpy(
@@ -29,7 +29,9 @@ def vit_params_from_numpy(
     device="cpu",
     dtype: torch.dtype = torch.float32,
 ) -> Dict[str, torch.Tensor]:
-    """Numpy ViT params -> tensors on ``device``; float arrays cast to ``dtype``.
+    """Numpy ViT params -> tensors on ``device``; float arrays cast to ``dtype``,
+    each block's q, k and v projections fused into one (``vit.fuse_qkv``:
+    the forward's form; the three names stay as views of it).
 
     Every key must be a parameter of ``cfg`` with the shape ``cfg`` gives it
     (a checkpoint of another architecture raises here, not deep in the
@@ -37,7 +39,7 @@ def vit_params_from_numpy(
     reads.
     """
     check_vit_params(params_np, cfg)
-    return params_to_device(params_np, device, dtype)
+    return fuse_qkv(params_to_device(params_np, device, dtype), cfg)
 
 
 def check_vit_params(params_np: Mapping[str, np.ndarray], cfg: ViTConfig) -> None:

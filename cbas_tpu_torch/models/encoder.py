@@ -43,6 +43,7 @@ from cbas_tpu_torch.models.convert import (
 from cbas_tpu_torch.models.vit import (
     ViTConfig,
     config_for_identifier,
+    fuse_qkv,
     init_vit_params,
     resample_pos_embed,
     rope_tables,
@@ -177,7 +178,9 @@ class FrameEncoder:
         without a mesh; the weights replicated on each device of a data-only
         mesh; a (data, model) mesh's weights cut by ``parallel/tp.py``'s
         rules, model shard j's slices on each device of column j. Shards on
-        one device with the same slices share one copy."""
+        one device with the same slices share one copy. Each copy's q, k and
+        v projections are fused into one (``vit.fuse_qkv``), after the cut:
+        a model shard fuses its own heads."""
         if self.mesh is None:
             params = vit_params_from_numpy(live, self.cfg, self.device, self.compute_dtype)
             kernel = torch.from_numpy(plane_kernel).to(self.device, self.compute_dtype)
@@ -199,7 +202,8 @@ class FrameEncoder:
                 dev = grid[i][j]
                 if (dev, j) not in placed:
                     placed[(dev, j)] = _Shard(
-                        dev, params_to_device(by_rank[j], dev, self.compute_dtype),
+                        dev, fuse_qkv(params_to_device(by_rank[j], dev, self.compute_dtype),
+                                      self.cfg),
                         torch.from_numpy(plane_kernel).to(dev, self.compute_dtype))
                 row.append(placed[(dev, j)])
             shards.append(row)

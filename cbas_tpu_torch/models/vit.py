@@ -10,17 +10,28 @@ is a copy: the JAX module imports jax at the top.
 
 What differs from the JAX forward:
 
+- One projection GEMM a block: :func:`fuse_qkv` concatenates each block's
+  q, k and v weights (and biases, zeros where a flag is off) into one
+  ``attention.qkv`` weight, and :func:`_attention` makes one ``F.linear``
+  over it, where the JAX package makes three. q, k and v are the column
+  blocks ``[..., :HD]``, ``[..., HD:2HD]`` and ``[..., 2HD:]`` of its
+  (B, N, 3 HD) output (the TPU probe
+  ``benchmarks/attn_probes/probe22_qkvfused_256.py``'s fused projection),
+  and the CLS block makes one k|v ``F.linear`` over every token from the
+  fused weight's contiguous row block ``[HD:3HD]``. The three HF names stay
+  in the dict as row-block views of the fused weight, for the CLS row's q,
+  ``cls_attention_map`` and tensor parallelism's checks.
 - Every full block's attention runs through one of the fused kernels of
   :mod:`cbas_tpu_torch.ops.flash_attention`, routed by the JAX package's
   rule (see :func:`_attention`): the hand-written kernel on a CUDA tensor,
   its plain version on a CPU tensor. There is no unfused path to switch to:
   the JAX package's ``set_fused_attention`` has no counterpart.
-- The head-pair packed and head-major layouts are strided views of the flat
-  projections: K2 and K3 read q, k and v through their strides and write
-  the context with q's strides, so the route copies none of them (K3 still
-  copies at the few head dims it runs zero-padded, ``fa.fused_attention``
-  says which), where XLA makes a copy for the JAX package's projection
-  einsums into the head-major layout.
+- K1 reads q, k and v as the column blocks of the fused projection, K2 and
+  K3 as head-pair and head-major views of them; each writes a dense
+  context, so no route copies (K3 still copies at the few head dims it
+  runs zero-padded, ``fa.fused_attention`` says which), where XLA makes a
+  copy for the JAX package's projection einsums into the head-major
+  layout.
 - Every LayerNorm runs through :mod:`cbas_tpu_torch.ops.layernorm` (the
   hand-written kernel on a CUDA tensor, the eager expressions of the JAX
   ``_ln`` on a CPU tensor), and each residual add with its layer scale runs
@@ -89,6 +100,20 @@ def _maybe_psum(y: torch.Tensor) -> torch.Tensor:
     """``y`` summed over this thread's model-axis group, if it has one."""
     psum = getattr(_TP_STATE, "psum", None)
     return psum(y) if psum is not None else y
+
+
+# The attention's projection GEMMs, counted where each ``F.linear`` is
+# issued: "qkv" a full block's fused q|k|v, "q_cls" and "kv_cls" the CLS
+# block's q on the CLS row and k|v over every token. A cls-only forward of L
+# blocks makes L - 1, 1 and 1. The shards of a device mesh run from threads
+# of their own, so the counts are updated under a lock.
+projection_gemms = {"qkv": 0, "q_cls": 0, "kv_cls": 0}
+_count_lock = threading.Lock()
+
+
+def _count_gemm(kind: str) -> None:
+    with _count_lock:
+        projection_gemms[kind] += 1
 
 
 @dataclass(frozen=True)
@@ -365,30 +390,84 @@ def _attn_param_table(cfg: ViTConfig, prefix: str):
     )
 
 
+def fuse_qkv(params: Params, cfg: ViTConfig) -> Params:
+    """Give each block of ``params`` one q|k|v projection, in place, and
+    return ``params``.
+
+    ``{prefix}.attention.qkv.weight`` is the block's q, k and v weights
+    (``_attn_param_table``'s names) concatenated on the output dim, (3 HD,
+    D) for HD the local heads times the head dim (under tensor parallelism
+    each shard fuses its own heads); ``...qkv.bias`` their biases, zeros
+    where the config has none (dinov3's ``key_bias``), which add an exact 0.
+    The three names then hold row-block views of the fused tensors, so
+    memory does not double and readers by name (the CLS row's q,
+    :func:`cls_attention_map`, tensor parallelism's checks) see the same
+    numbers. A block whose q, k and v weights are all absent is skipped, as
+    is one fused already."""
+    layer = "encoder.layer" if cfg.variant == "dinov2" else "layer"
+    for prefix in (f"{layer}.{i}" for i in range(cfg.num_layers)):
+        names, flags, _, _ = _attn_param_table(cfg, prefix)
+        weights = [params.get(f"{n}.weight") for n in names]
+        if f"{_qkv(prefix)}.weight" in params or all(w is None for w in weights):
+            continue
+        if any(w is None for w in weights):
+            raise KeyError(f"{prefix}: fuse_qkv needs all of {[f'{n}.weight' for n in names]}")
+        rows = weights[0].shape[0]
+        weight = torch.cat(weights, dim=0)
+        bias = torch.cat([params[f"{n}.bias"] if flag else weights[0].new_zeros(rows)
+                          for n, flag in zip(names, flags)])
+        params[f"{_qkv(prefix)}.weight"] = weight
+        params[f"{_qkv(prefix)}.bias"] = bias
+        for j, (n, flag) in enumerate(zip(names, flags)):
+            params[f"{n}.weight"] = weight[j * rows:(j + 1) * rows]
+            if flag:
+                params[f"{n}.bias"] = bias[j * rows:(j + 1) * rows]
+    return params
+
+
+def _qkv(prefix: str) -> str:
+    return f"{prefix}.attention.qkv"
+
+
+def _fused_qkv(params: Params, prefix: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's fused q|k|v weight and bias (:func:`fuse_qkv`)."""
+    try:
+        return params[f"{_qkv(prefix)}.weight"], params[f"{_qkv(prefix)}.bias"]
+    except KeyError:
+        raise KeyError(f"{_qkv(prefix)}.weight: the forward takes params with one q|k|v "
+                       "projection a block; pass them through fuse_qkv first") from None
+
+
 def _attention(
     params: Params, prefix: str, x: torch.Tensor, cfg: ViTConfig, rope: Optional[Rope]
 ) -> torch.Tensor:
-    """Full attention, routed as the JAX package routes it
-    (``cbas_tpu/models/vit.py::_attention``) on the local head count, read
-    off the q weight (under tensor parallelism a shard holds H / model of
-    the heads):
+    """Full attention: one q|k|v projection GEMM (:func:`fuse_qkv`), then
+    the kernels on column views of its (B, N, 3 HD) output, routed as the JAX
+    package routes it (``cbas_tpu/models/vit.py::_attention``) on the local
+    head count, read off the fused weight (under tensor parallelism a shard
+    holds H / model of the heads):
 
     - 64-wide heads, an even local head count and :func:`fa.use_fat_attention`:
-      the flat projections feed K1 directly and its output feeds the
+      the q, k and v column blocks feed K1 directly and its output feeds the
       out-projection;
     - 64-wide heads and an even local head count otherwise: head-pair packed
-      (B, H/2, N, 128) views of the projections, K2;
+      (B, H/2, N, 128) views of the column blocks, K2;
     - any other head dim, or an odd local head count: head-major
-      (B, H, N, d) views of the projections, K3.
+      (B, H, N, d) views of the column blocks, K3.
 
-    No route falls back to another. ``rope`` is the full-length
-    (N, head_dim) table pair or None. A sharded out-projection's partial is
-    summed over the model axis before its bias is added (:func:`_dense_reduce`)."""
+    No route falls back to another, and none copies q, k, v or the context.
+    ``rope`` is the full-length (N, head_dim) table pair or None. A sharded
+    out-projection's partial is summed over the model axis before its bias
+    is added (:func:`_dense_reduce`)."""
     B, N, _ = x.shape
     hd = cfg.head_dim
-    names, biases, out_name, out_bias = _attn_param_table(cfg, prefix)
-    H = params[f"{names[0]}.weight"].shape[0] // hd  # the local head count
-    q, k, v = (_dense(params, n, x, b) for n, b in zip(names, biases))
+    _, _, out_name, out_bias = _attn_param_table(cfg, prefix)
+    weight, bias = _fused_qkv(params, prefix)
+    HD = weight.shape[0] // 3
+    H = HD // hd  # the local head count
+    qkv = F.linear(x, weight, bias)
+    _count_gemm("qkv")
+    q, k, v = qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:]
     cos, sin = rope if rope is not None else (None, None)
     scale = hd ** -0.5
     packed = hd == fa.HEAD_DIM and H % 2 == 0
@@ -409,9 +488,9 @@ def _attention(
         ctx = fa.fused_attention(heads(q), heads(k), heads(v), scale, rope_cos=cos, rope_sin=sin)
     # The out-projection contracts over (heads, head dim) in the order the
     # flat layout holds them, so the context goes back to (B, N, H*hd): a
-    # view on both routes, since K2 and K3 write with q's strides (K3 copies
-    # only for the head dims it reads through a pad, fused_attention says
-    # which).
+    # view on both routes, since K2 and K3 write it dense in q's dim order,
+    # (B, N, H, w) transposed (K3 copies only for the head dims it reads
+    # through a pad, fused_attention says which).
     ctx = ctx.transpose(1, 2).reshape(B, N, H * hd)
     return _dense_reduce(params, out_name, ctx, out_bias, cfg.hidden_size)
 
@@ -420,19 +499,25 @@ def _attention_cls(
     params: Params, prefix: str, h: torch.Tensor, cfg: ViTConfig, rope: Optional[Rope]
 ) -> torch.Tensor:
     """Attention output for the CLS row only: one query row, K/V over every
-    token, over the local heads. Plain torch: a (B, H, 1, N) score tensor is
-    too small for a kernel to matter."""
+    token, over the local heads. q comes from the fused weight's first row
+    block on the CLS row, k and v from one GEMM over every token with its
+    contiguous rows ``[HD:3HD]``. Plain torch: a (B, H, 1, N) score tensor
+    is too small for a kernel to matter."""
     B, N, _ = h.shape
     hd = cfg.head_dim
-    names, biases, out_name, out_bias = _attn_param_table(cfg, prefix)
-    H = params[f"{names[0]}.weight"].shape[0] // hd  # the local head count
+    _, _, out_name, out_bias = _attn_param_table(cfg, prefix)
+    weight, bias = _fused_qkv(params, prefix)
+    HD = weight.shape[0] // 3
+    H = HD // hd  # the local head count
 
     def heads(t):
         return t.reshape(B, t.shape[1], H, hd).transpose(1, 2)  # (B, H, n, hd)
 
-    q = heads(_dense(params, names[0], h[:, :1], biases[0]))  # CLS row; its RoPE is identity
-    k = heads(_dense(params, names[1], h, biases[1]))
-    v = heads(_dense(params, names[2], h, biases[2]))
+    q = heads(F.linear(h[:, :1], weight[:HD], bias[:HD]))  # CLS row; its RoPE is identity
+    _count_gemm("q_cls")
+    kv = F.linear(h, weight[HD:], bias[HD:])
+    _count_gemm("kv_cls")
+    k, v = heads(kv[..., :HD]), heads(kv[..., HD:])
     if rope is not None:
         cos, sin = (t.to(k.dtype) for t in rope)
         k = k * cos + fa.rotate_half(k) * sin
@@ -565,7 +650,9 @@ def vit_forward_from_tokens(
 ) -> torch.Tensor:
     """Run the transformer over already-projected patch tokens (B, N, D).
 
-    ``rope`` (dinov3) is the patch-only (cos, sin) pair of :func:`rope_tables`
+    ``params`` has each block's q, k and v projections fused
+    (:func:`fuse_qkv`; ``convert.vit_params_from_numpy`` and the encoder do
+    it). ``rope`` (dinov3) is the patch-only (cos, sin) pair of :func:`rope_tables`
     as fp32 tensors. ``cls_only=True`` returns just the CLS row (B, 1, D) and
     runs the final block on that row alone (K/V still span all tokens).
     """
@@ -623,7 +710,8 @@ def cls_attention_map(
 
     ``params`` holds the full checkpoint (the raw patch-projection weight
     and, for dinov2, the position table included) in ``pixel_values``'
-    dtype and device. The first ``num_layers - 1`` blocks run through
+    dtype and device, passed through :func:`fuse_qkv`. The first
+    ``num_layers - 1`` blocks run through
     :func:`_block`, so their attention takes the fused kernels' routes and
     the last of them hands over the last block's ``norm1`` (fused with its
     residual add); the last block's CLS row is opened here: the q and k

@@ -5,15 +5,12 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
 ``pvt`` arguments dropped):
 
 - :func:`fused_attention_fat` (K1): flat (B, N, H*64), straight out of the
-  2-D projection matmuls and into the out-projection, so no transpose
-  surrounds the call.
+  projection matmul and into the out-projection, so no transpose surrounds
+  the call.
 - :func:`fused_attention_packed` (K2): head-pair packed (B, H/2, N, 128),
-  two 64-wide heads side by side on the last dim. It takes strided views
-  (such as ``t.view(B, N, H // 2, 128).transpose(1, 2)`` of a flat
-  projection) as well as contiguous tensors, and returns q2's strides.
+  two 64-wide heads side by side on the last dim.
 - :func:`fused_attention` (K3): head-major (B, H, N, d), any d on the
-  card. It takes strided views (such as ``t.view(B, N, H, d).transpose(1,
-  2)`` of a flat projection) and returns q's strides. The kernel is built
+  card. The kernel is built
   at every multiple of 8 up to 128, and at 192 and 256; a bf16 head of
   another multiple of 8 up to 256 runs at the next of those, its tensor
   maps at d (the columns beyond read as zeros); a head above 256 runs the
@@ -26,6 +23,21 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
 All three compute one function per head: optional rotate-half RoPE from fp32
 (N, d) tables, the scale on the q side, keys at or beyond ``n_valid`` masked,
 exact fp32 softmax, output in q's dtype.
+
+All three take strided views as well as contiguous tensors: q, k and v with
+one set of strides (``_check_strides``), such as the column blocks
+``qkv[..., :D]``, ``qkv[..., D:2D]`` and ``qkv[..., 2D:]`` of one fused
+(B, N, 3D) q|k|v projection (the TPU kernel
+``benchmarks/attn_probes/probe22_qkvfused_256.py::make_qkv_kernel`` read its
+q, k and v at those offsets of one row), and their head-pair or head-major
+views (``t.view(B, N, H // 2, 128).transpose(1, 2)``,
+``t.view(B, N, H, d).transpose(1, 2)``). The output is allocated dense in
+q's dim order (:func:`_dense_like`): contiguous (B, N, H*64) for K1,
+``empty(B, N, H or H/2, w).transpose(1, 2)`` for K2 and K3 on such views, so
+the model's ``ctx.transpose(1, 2).reshape(B, N, H*d)`` is a view, and the
+contiguous layout itself for contiguous inputs. The kernels read q, k and v
+through q's strides and write the output through its own; the RoPE scratch
+of the Hopper and wide bodies lies as the output does.
 
 - On a CUDA tensor each wrapper launches its hand-written kernel
   (``csrc/attention_{fat,packed,headmajor}.cu``) or raises. None falls back.
@@ -196,13 +208,14 @@ def attention_fat_reference(
 def _kernel(name: str):
     """The C entry ``cbas_<name>`` of ``csrc/<name>.cu``, built at first use.
     All three share one signature: eight pointers (q, k, v, o, the tables,
-    the q and k scratch), (B, N, H, head_dim), the (batch, group, row)
-    element strides, n_valid, scale, dtype, the stream and the body it ran."""
+    the q and k scratch), (B, N, H, head_dim), q's and then o's (batch,
+    group, row) element strides, n_valid, scale, dtype, the stream and the
+    body it ran."""
     from cbas_tpu_torch.ops import _cuda
 
     fn = getattr(_cuda.load(name), f"cbas_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
     ]
     return fn
@@ -232,30 +245,38 @@ def _check(q, k, v, N, head_dim, n_valid, rope_cos, rope_sin) -> int:
     return nv
 
 
-def _like(t: torch.Tensor) -> torch.Tensor:
-    """An empty tensor with ``t``'s shape, dtype, device and strides
-    (``torch.empty_like`` keeps the strides of a dense ``t`` only)."""
-    out = torch.empty_like(t)
-    if out.stride() == t.stride():
-        return out
-    return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device=t.device)
+def _dense_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of ``t``'s shape, dtype and device, dense, with its
+    dims laid out in ``t``'s order (outermost: the largest stride; ties in
+    dim order): ``t``'s own strides for a dense ``t``, and for a view of a
+    wider buffer the strides it would have without the holes."""
+    order = sorted(range(t.dim()), key=lambda i: (-t.stride(i), i))
+    out = torch.empty([t.shape[i] for i in order], dtype=t.dtype, device=t.device)
+    return out.permute([order.index(i) for i in range(t.dim())])
+
+
+def _in_dense_order(q: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out`` (q's shape), laid out as :func:`_dense_like` lays out q's
+    output: itself if it is so already, else a copy."""
+    dense = _dense_like(q)
+    return out if out.stride() == dense.stride() else dense.copy_(out)
 
 
 def _require_contiguous(**tensors) -> None:
-    """K1's kernel reads contiguous rows in 16-byte chunks, as every kernel
-    reads its tables and K3 what the wrapper copied."""
+    """Contiguous and 16-byte aligned, as every kernel reads its tables and
+    K3 what the wrapper copied."""
     for arg, t in tensors.items():
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{arg} must be contiguous and 16-byte aligned")
 
 
 def _check_strides(names, q, k, v, unit: int = 16) -> None:
-    """What K2 and K3 take besides contiguous tensors: q, k and v (called
+    """What the kernels take besides contiguous tensors: q, k and v (called
     ``names`` in the messages) with one set of strides, the last dim
     contiguous, every other stride (of a dim longer than 1) a multiple of
     ``unit`` bytes and each base address a 16-byte multiple (the tensor
-    maps' rule, at the default unit), and no two elements at one address
-    (the output takes these strides)."""
+    maps' rule, at the default unit), and no two elements at one address.
+    The output (:func:`_dense_like`) is held to the same rule."""
     if not q.stride() == k.stride() == v.stride():
         raise ValueError(
             f"{names[0]}, {names[1]} and {names[2]} must share strides, got {q.stride()}, "
@@ -278,14 +299,23 @@ def _check_strides(names, q, k, v, unit: int = 16) -> None:
             raise ValueError(f"{arg} starts at {t.data_ptr():#x}, not a 16-byte multiple")
 
 
-def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides,
-            width=None) -> torch.Tensor:
-    """Launch ``csrc/<name>.cu``'s kernel on a CUDA tensor, or raise.
-    ``strides`` are q's (batch, group, row) element strides, which k and v
-    share; the output (and the scratch for roped keys and queries, where the
-    body needs it) is allocated with them. ``d`` is the heads' width and
-    ``width`` the one the kernel runs at (K3: a built width >= d, whose
-    extra columns the kernel reads as zeros; d by default)."""
+def _layout(t: torch.Tensor) -> tuple:
+    """The (batch, group, row) element strides of a kernel operand: a flat
+    (B, N, H*64) tensor is one group of heads (group stride 0), a packed or
+    head-major (B, G, N, w) one G groups."""
+    if t.dim() == 3:
+        return t.stride(0), 0, t.stride(1)
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, width=None) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu``'s kernel on a CUDA tensor, or raise. q, k
+    and v share q's strides; the output (and the scratch for roped keys and
+    queries, where the body needs it) is allocated dense in q's dim order
+    (:func:`_dense_like`), and the kernel gets both sets of strides
+    (:func:`_layout`). ``d`` is the heads' width and ``width`` the one the
+    kernel runs at (K3: a built width >= d, whose extra columns the kernel
+    reads as zeros; d by default)."""
     width = d if width is None else width
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
@@ -299,18 +329,20 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, strides,
     want = attention_body(name, q.dtype, width)
     body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
-        out = _like(q)
+        out = _dense_like(q)
+        _check_strides(("out",) * 3, out, out, out, math.gcd(16, d * q.element_size()))
         # Roped keys (the Hopper body), and roped queries too where the
-        # kernel cannot rope them itself (the wide body, a padded width).
+        # kernel cannot rope them itself (the wide body, a padded width),
+        # laid out as the output is: dense, without a fused buffer's holes.
         q_scratch = k_scratch = None
         if cos is not None and want in ("sm90", "wide"):
-            k_scratch = _like(q)
+            k_scratch = _dense_like(q)
             if want == "wide" or width != d:
-                q_scratch = _like(q)
+                q_scratch = _dense_like(q)
         err = _kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in (cos, sin, q_scratch, k_scratch)),
-            B, N, H, d, *strides, nv, float(scale), _DTYPE_CODES[q.dtype],
+            B, N, H, d, *_layout(q), *_layout(out), nv, float(scale), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream, ctypes.byref(body),
         )
     if err:
@@ -351,8 +383,13 @@ def fused_attention_fat(
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K1: attention over flat (B, N, H*64) q, k, v; returns (B, N, H*64) in
-    q's dtype.
+    q's dtype, dense (contiguous for q's usual dim order).
 
+    q, k and v may be strided views, such as the column blocks
+    ``qkv[..., :D]``, ``qkv[..., D:2D]`` and ``qkv[..., 2D:]`` of one fused
+    (B, N, 3D) projection: one set of strides for the three, the last dim
+    contiguous, the others and the base addresses 16-byte multiples, no
+    overlap (raises ``ValueError`` otherwise, on every device).
     ``rope_cos``/``rope_sin`` are full-length (N, 64) tables (identity rows for
     prefix tokens). Keys at or beyond ``n_valid`` are masked.
     """
@@ -362,11 +399,11 @@ def fused_attention_fat(
     if D % HEAD_DIM:
         raise ValueError(f"last dim {D} is not a multiple of the head dim {HEAD_DIM}")
     nv = _check(q, k, v, N, HEAD_DIM, n_valid, rope_cos, rope_sin)
+    _check_strides(("q", "k", "v"), q, k, v)
     if q.device.type == "cpu":
-        return attention_fat_reference(q, k, v, scale, nv, rope_cos, rope_sin)
-    _require_contiguous(q=q, k=k, v=v)
+        return _in_dense_order(q, attention_fat_reference(q, k, v, scale, nv, rope_cos, rope_sin))
     return _launch("attention_fat", q, k, v, scale, nv, rope_cos, rope_sin, B, N, D // HEAD_DIM,
-                   HEAD_DIM, (N * D, 0, D))
+                   HEAD_DIM)
 
 
 def fused_attention_packed(
@@ -379,12 +416,14 @@ def fused_attention_packed(
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2: attention over head-pair packed (B, G, N, 128) tensors, two 64-wide
-    heads side by side on the last dim; returns the same packed layout, with
-    q2's strides.
+    heads side by side on the last dim; returns the same packed layout,
+    dense in q2's dim order.
 
     q2, k2 and v2 may be strided views, such as
-    ``t.view(B, N, G, 128).transpose(1, 2)`` of a flat (B, N, G*128)
-    projection: one set of strides for the three, the last dim contiguous,
+    ``t.view(B, N, G, 128).transpose(1, 2)`` of a flat (B, N, G*128) column
+    block of a fused projection, whose output is then
+    ``empty(B, N, G, 128).transpose(1, 2)``: one set of strides for the
+    three, the last dim contiguous,
     the others and the base addresses 16-byte multiples, no overlap (raises
     ``ValueError`` otherwise, on every device).
     ``rope_cos``/``rope_sin`` are (N, 64): both heads of a pair share them.
@@ -398,10 +437,10 @@ def fused_attention_packed(
     nv = _check(q2, k2, v2, N, HEAD_DIM, n_valid, rope_cos, rope_sin)
     _check_strides(("q2", "k2", "v2"), q2, k2, v2)
     if q2.device.type == "cpu":
-        return _like(q2).copy_(attention_packed_reference(q2, k2, v2, scale, nv, rope_cos,
-                                                          rope_sin))
+        return _in_dense_order(q2, attention_packed_reference(q2, k2, v2, scale, nv, rope_cos,
+                                                              rope_sin))
     return _launch("attention_packed", q2, k2, v2, scale, nv, rope_cos, rope_sin, B, N, 2 * G,
-                   HEAD_DIM, (q2.stride(0), q2.stride(1), q2.stride(2)))
+                   HEAD_DIM)
 
 
 def padded_head_dim(d: int) -> int:
@@ -460,15 +499,17 @@ def fused_attention(
 
     ``rope_cos``/``rope_sin`` are full-length (N, d) tables. On a CPU tensor
     the plain version runs. On the card the kernel reads q, k and v where
-    they lie, and writes the output with q's strides, at every d but three
-    cases below: the widths it is built at (multiples of 8 up to 128, 192
-    and 256), every d above 256 (the wide body), and in bf16 every other
+    they lie, and writes the output dense in q's dim order, at every d but
+    three cases below: the widths it is built at (multiples of 8 up to 128,
+    192 and 256), every d above 256 (the wide body), and in bf16 every other
     multiple of 8 from 136 to 248 (the Hopper body at the next built width,
     its tensor maps at d, so the columns beyond d read as zeros and no copy
     pads the head). There q, k and v may be strided views, such as
-    ``t.view(B, N, H, d).transpose(1, 2)`` of a flat (B, N, H*d) projection,
-    whose context's ``transpose(1, 2).reshape(B, N, H*d)`` is then a view
-    too: one set of strides for the three, the last dim contiguous, the
+    ``t.view(B, N, H, d).transpose(1, 2)`` of a flat (B, N, H*d) column
+    block of a fused projection, whose output is then
+    ``empty(B, N, H, d).transpose(1, 2)`` and its ``transpose(1,
+    2).reshape(B, N, H*d)`` a view: one set of strides for the three, the
+    last dim contiguous, the
     other strides multiples of 16 bytes (of the largest power of two up to
     16 that divides a row's bytes, for the wide body's rows that are not
     16-byte multiples), 16-byte aligned base addresses, no overlap (raises
@@ -499,10 +540,10 @@ def fused_attention(
         _check_strides(("q", "k", "v"), q, k, v, math.gcd(16, d * q.element_size()))
     if q.device.type == "cpu":
         out = attention_headmajor_reference(q, k, v, scale, nv, rope_cos, rope_sin)
-        return _like(q).copy_(out) if in_place else out
+        return _in_dense_order(q, out) if in_place else out
     if in_place:
         return _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d,
-                       (q.stride(0), q.stride(1), q.stride(2)), width)
+                       width)
     if odd_rope:
         q = _rope_heads(q, rope_cos, rope_sin, scale)
         k = _rope_heads(k, rope_cos, rope_sin)
@@ -514,8 +555,7 @@ def fused_attention(
             rope_cos, rope_sin = (pad_head_dim(t, width, True) for t in (rope_cos, rope_sin))
     q, k, v = (t.contiguous() for t in (q, k, v))
     _require_contiguous(q=q, k=k, v=v)
-    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, width,
-                  (q.stride(0), q.stride(1), q.stride(2)))
+    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, width)
     return out if width == d else unpad_head_dim(out, d, halves)
 
 

@@ -74,6 +74,7 @@ def main(argv=None) -> None:
     from cbas_tpu_torch.models.vit import (
         cls_attention_map,
         config_for_identifier,
+        fuse_qkv,
         init_vit_params,
     )
     from cbas_tpu_torch.tools._device import require_device
@@ -108,6 +109,7 @@ def main(argv=None) -> None:
         else:
             params = load_encoder_params(identifier)
         params = {k: torch.from_numpy(np.array(v, np.float32)).to(device) for k, v in params.items()}
+        params = fuse_qkv(params, cfg)  # the port's forward takes one q|k|v projection a block
         attn = cls_attention_map(params, torch.from_numpy(rgb_rep).to(device), cfg)[0].cpu().numpy()
         ax.imshow(green, cmap="gray")
         ax.imshow(

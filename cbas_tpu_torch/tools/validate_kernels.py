@@ -161,6 +161,28 @@ def main(geometries=None, device="cuda", records=None) -> int:
                     f"{'ok' if ok else 'FAIL'}"
                 )
 
+            # The three kernels on views of one fused (B, N, 3*H*d) q|k|v
+            # projection, the model's operands: K1 on its column blocks, K2
+            # and K3 on their head-pair and head-major views.
+            qkv = on(np.concatenate([flat(q), flat(k), flat(v)], -1))
+            cols = [qkv[..., j * H * d:(j + 1) * H * d] for j in range(3)]
+            tables = {"rope_cos": on(cos), "rope_sin": on(sin)} if rope else {}
+            fused_views = {
+                "fat": fused_attention_fat(*cols, scale, **tables).reshape(B, N, H, d)
+                .transpose(1, 2),
+                "packed": fused_attention_packed(
+                    *(c.view(B, N, H // 2, 2 * d).transpose(1, 2) for c in cols), scale, **tables)
+                .reshape(B, H // 2, N, 2, d).transpose(2, 3).reshape(B, H, N, d),
+                "head-major": fused_attention(
+                    *(c.view(B, N, H, d).transpose(1, 2) for c in cols), scale, **tables),
+            }
+            for name, got_v in fused_views.items():
+                err_v = np.abs(got_v.double().cpu().numpy() - want).max()
+                label = f"B{B} H{H} N{N} d{d} rope={rope}: {name} on fused q|k|v views vs fp64"
+                ok = check(label, err_v, tol_f32)
+                failures += not ok
+                print(f"{label} {err_v:.2e} {'ok' if ok else 'FAIL'}")
+
     # Production bf16 path vs unfused bf16 (480p ViT-B shape, or the last
     # override geometry when the test suite passes tiny shapes).
     bB, bH, bN, bd = (2, 12, 1205, 64) if geometries is None else geometries[-1][:4]

@@ -30,11 +30,19 @@ each:
   queued back to back (the host clock's frames/s spread more);
 - a ``torch.profiler`` trace of one warm batch of each of those forwards
   (``trace_calls`` over 3 batches), its kernels summed by group
-  (``KERNEL_GROUPS``: the LayerNorm kernel, attention, GEMMs, the rest), read
-  once;
+  (``KERNEL_GROUPS``: the LayerNorm kernel, attention, GEMMs, the rest) and
+  its GEMMs by input shape, read once;
 - on a checkout that has it (so on the change's side only), the LayerNorm
   kernel at ``LN_ROWS``: ms beside its plain version and the library call
-  (``chip_smoke.ln_case``).
+  (``chip_smoke.ln_case``);
+- K1, K2 and K3 in bf16 with RoPE on views of one fused (B, N, 3*H*d)
+  q|k|v buffer at ``FUSED_ROWS`` (the operands the routes pass once the
+  projection is one GEMM), beside the same call on contiguous tensors, on
+  a checkout whose wrapper takes them (a K1 that refuses views records
+  nothing; a parent's K2 and K3 take them but write the output with the
+  views' strides, holes and all);
+- on a checkout that has it, the memory floor at probe14's (384*6, 272,
+  128) bf16 blocks and at ``FUSED_ROWS``' bytes, and ``out.copy_(q)`` there.
 
 Prints one JSON line per run, then a summary line: for each metric the
 median and range of the parent's reads and of the change's, and the card's
@@ -90,6 +98,16 @@ LN_ROWS = ((128 * 261, 768), (32 * 1205, 768), (32 * 261, 4096), (8 * 1205, 4096
 # (and CUTLASS's), the rest (elementwise, reductions, copies).
 KERNEL_GROUPS = (("layernorm kernel", ("add_ln_",)), ("attention", ("attention",)),
                  ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")))
+# K1, K2 and K3 on views of one fused projection, (entry, B, N, H, d, patch
+# grid): dinov3-vitb16 at 256x256 / 128 and 640x480 / 32, and K3 at the
+# ViT-7B width's 256x256 / 32.
+FUSED_ROWS = (
+    ("attention_fat", 128, 261, 12, 64, (16, 16)),
+    ("attention_fat", 32, 1205, 12, 64, (30, 40)),
+    ("attention_packed", 128, 261, 12, 64, (16, 16)),
+    ("attention_headmajor", 128, 261, 12, 64, (16, 16)),
+    ("attention_headmajor", 32, 261, 32, 128, (16, 16)),
+)
 VIT7B_CONFIG = {
     "model_type": "dinov3_vit", "hidden_size": 4096, "num_attention_heads": 32,
     "intermediate_size": 8192, "use_gated_mlp": True, "patch_size": 16,
@@ -108,9 +126,11 @@ def card_name_and_power() -> str:
 def trace_calls(torch, fn, calls: int = TRACE_CALLS) -> dict:
     """Where the time of one call of ``fn`` goes: ``calls`` calls under
     ``torch.profiler`` give each CUDA kernel's launches and device ms per
-    call and the device's busy ms per call; without the profiler, the host's
-    ms to issue one call (no synchronize between calls) and the CUDA-event
-    ms per call (``chip_smoke.time_ms``)."""
+    call, each GEMM's (``aten::addmm`` and ``aten::mm``, by input shapes:
+    one cuBLAS kernel name serves GEMMs of several shapes) and the device's
+    busy ms per call; without the profiler, the host's ms to issue one call
+    (no synchronize between calls) and the CUDA-event ms per call
+    (``chip_smoke.time_ms``)."""
     import chip_smoke
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,10 +142,17 @@ def trace_calls(torch, fn, calls: int = TRACE_CALLS) -> dict:
         fn()
     issue_ms = 1e3 * (time.perf_counter() - t) / calls
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    gemms = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::addmm", "aten::mm"):
+            device_us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+            gemms[f"{e.key} {e.input_shapes}"] = {"calls_per_call": e.count / calls,
+                                                  "device_ms_per_call": device_us / 1e3 / calls}
     kernels, api = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -134,15 +161,15 @@ def trace_calls(torch, fn, calls: int = TRACE_CALLS) -> dict:
             k["device_ms_per_call"] += e.time_range.elapsed_us() / 1e3 / calls
         elif e.name.startswith("cu"):  # the CUDA runtime and driver calls the host made
             api[e.name] = api.get(e.name, 0) + 1 / calls
-    return {"kernels": kernels, "runtime_calls_per_call": api,
+    return {"kernels": kernels, "runtime_calls_per_call": api, "gemms_by_shape": gemms,
             "device_busy_ms_per_call": sum(k["device_ms_per_call"] for k in kernels.values()),
             "host_issue_ms_per_call": issue_ms, "event_ms_per_call": chip_smoke.time_ms(torch, fn)}
 
 
 def trace_groups(trace: dict) -> dict:
     """A ``trace_calls`` result summed by KERNEL_GROUPS: launches and device
-    ms a call of each group, the busy and event ms, and the 8 kernels that
-    take the most device time."""
+    ms a call of each group, the busy and event ms, the 8 kernels that take
+    the most device time, and each GEMM shape's calls and device ms."""
     groups = {name: {"launches_per_call": 0.0, "device_ms_per_call": 0.0}
               for name, _ in KERNEL_GROUPS + (("other", ()),)}
     for kernel, k in trace["kernels"].items():
@@ -156,7 +183,8 @@ def trace_groups(trace: dict) -> dict:
             "device_busy_ms_per_call": trace["device_busy_ms_per_call"],
             "event_ms_per_call": trace["event_ms_per_call"],
             "host_issue_ms_per_call": trace["host_issue_ms_per_call"],
-            "top_kernels": {name: k for name, k in top}}
+            "top_kernels": {name: k for name, k in top},
+            "gemms_by_shape": trace["gemms_by_shape"]}
 
 
 def measure(root: str, reads: int) -> dict:
@@ -175,8 +203,9 @@ def measure(root: str, reads: int) -> dict:
         raise SystemExit("chip_ab: no CUDA device is visible")
     t = time.perf_counter()
     has_ln = os.path.exists(os.path.join(root, "cbas_tpu_torch", "csrc", "layernorm.cu"))
-    for name in ("attention_fat", "attention_packed", "attention_headmajor") + (
-            ("layernorm",) if has_ln else ()):
+    extra = tuple(name for name in ("layernorm", "memory_floor")
+                  if os.path.exists(os.path.join(root, "cbas_tpu_torch", "csrc", f"{name}.cu")))
+    for name in ("attention_fat", "attention_packed", "attention_headmajor") + extra:
         _cuda.build(name)
     out = {"root": os.path.dirname(os.path.dirname(fa.__file__)), "build_s": time.perf_counter() - t}
 
@@ -242,6 +271,38 @@ def measure(root: str, reads: int) -> dict:
                 for key in ("ms", "plain_ms", "library_ms"):
                     out[f"layernorm {rows}x{D} bf16 fused {key}"].append(case[key])
             out[f"layernorm {rows}x{D} bound ms"] = case["bound_ms"]
+
+    for kernel, B, N, H, d, grid in FUSED_ROWS:
+        qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to(
+            "cuda", torch.bfloat16)
+        views = [qkv[..., j * H * d:(j + 1) * H * d] for j in range(3)]
+        if kernel != "attention_fat":
+            group = 2 if kernel == "attention_packed" else 1
+            views = [t.view(B, N, H // group, group * d).transpose(1, 2) for t in views]
+        copies = [t.contiguous() for t in views]
+        tables = chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda")
+        try:
+            wrappers[kernel](*views, d ** -0.5, None, *tables)
+        except ValueError:  # a wrapper that takes contiguous tensors only
+            continue
+        for label, ops in (("fused views", views), ("contiguous", copies)):
+            out[f"{kernel} {B}x{N}x{H}x{d} {label} rope=True ms"] = [
+                chip_smoke.time_ms(torch, lambda ops=ops: wrappers[kernel](  # noqa: B023
+                    *ops, d ** -0.5, None, *tables)) for _ in range(reads)]
+        del qkv, views, copies
+    if os.path.exists(os.path.join(root, "cbas_tpu_torch", "ops", "memory_floor.py")):
+        from cbas_tpu_torch.ops import memory_floor as mf
+
+        shapes = [(384 * 6, 272, 128)] + [(B * N, H * d) for _, B, N, H, d, _ in FUSED_ROWS]
+        for shape in dict.fromkeys(shapes):
+            q, k, v = chip_smoke.floor_inputs(torch, shape, "bfloat16")
+            copy = torch.empty_like(q)
+            label = "x".join(map(str, shape))
+            out[f"memory floor {label} bf16 ms"] = [chip_smoke.time_ms(
+                torch, lambda: mf.memory_floor(q, k, v)) for _ in range(reads)]  # noqa: B023
+            out[f"copy_ {label} bf16 ms"] = [chip_smoke.time_ms(
+                torch, lambda: copy.copy_(q)) for _ in range(reads)]  # noqa: B023
+            del q, k, v, copy
 
     def fps(enc, planes, batch, label):
         enc.encode_planes(planes[:batch], batch=batch)  # warm

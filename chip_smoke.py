@@ -8,9 +8,18 @@ non-zero and prints no final line):
 
 1. environment: torch/CUDA versions, the card's name and power limit, and a
    fresh build of every kernel from ``cbas_tpu_torch/csrc`` (one nvcc per
-   source, started together: the three attention kernels and the LayerNorm),
-   with each kernel's registers and spills;
-2. kernel: each fused attention against its plain PyTorch version on the
+   source, started together: the three attention kernels, the LayerNorm and
+   the memory floor), with each kernel's registers and spills;
+2. kernel: first the memory floor (``ops/memory_floor.py``, ``o = q + 0*k
+   + 0*v``, replacing probe14's and probe15's ``dma_kernel``) against its
+   plain version, bit for bit where the result is a number and NaN where it
+   is NaN (Inf and NaN in k and v, -0 in q), at probe14's own (384*6, 272,
+   128) bf16 blocks and its flat (rows, 128) form, then at the bytes of
+   every timed attention and LayerNorm row below, each timed beside its
+   bound at the peak memory rate and ``out.copy_(q)`` (the card's copy
+   rate), its launches counted over this phase alone; every timed case
+   below reports the floor at its own bytes ("floor_ms"). Then each fused
+   attention against its plain PyTorch version on the
    card, bf16 and fp32, RoPE on and off, N = 261 and 1205, ``n_valid`` < N
    (272 / 261 and 1216 / 1205) with NaN in the dead K/V rows, and the main
    paths' shapes:
@@ -23,7 +32,17 @@ non-zero and prints no final line):
      head-major views of flat tensors (the head-major route's operands) at
      d 64, 128, 192, 256 and 320, N 261, 329 and 1205 and 272 / 261 and
      329 / 300, each view case also bit for bit against the kernel on
-     contiguous copies.
+     contiguous copies;
+   - all three on views of one fused (B, N, 3*H*d) q|k|v projection (the
+     operands every encode route passes since the projection is one GEMM):
+     K1 on its column blocks, K2 and K3 on their head-pair and head-major
+     views, small cases of every body (K3 at d 40, 64, 128, 160, 192, 256 and
+     320) with NaN in the dead rows, the output dense in q's dim order and
+     bit for bit the kernel's on contiguous copies; then at
+     dinov3-vitb16's (128, 261, 12, 64) and (32, 1205, 12, 64), and K3
+     also at the ViT-7B width's (32, 261, 32, 128) and (8, 1205, 32, 128),
+     timed with RoPE and without beside the same call on contiguous
+     tensors, the bound, the floor and SDPA.
    bf16 at head dims 64 and 128 (and K3's 192 and 256) runs the Hopper body
    (``attention_body``), the rest the common body; each case names the
    registers and spills of the kernel it ran (``-Xptxas -v``). At the main
@@ -50,8 +69,13 @@ non-zero and prints no final line):
    (random weights from a numpy seed): 256x256 planes in two full batches
    and a partial one, 640x480 planes in one batch, then the head over the
    embeddings. Kernel launch counts are read around this run: K1 only, each
-   through the Hopper body, and the LayerNorm kernel 2L + 1 = 25 times a
-   forward (every encode phase below checks its route's 2L + 1). Then
+   through the Hopper body, the LayerNorm kernel 2L + 1 = 25 times a
+   forward, and, by ``models/vit.py``'s own counter, one q|k|v projection
+   GEMM a full block and one k|v GEMM (beside the CLS row's q) in the CLS
+   block (every encode phase below checks its route's 2L + 1 and its
+   projections; a profiler trace of one warm forward records its kernels
+   beside the 227 of the forward with three projection GEMMs a block).
+   Then
    warm frames/s, and accuracy against the port's CPU fp32 run on the same
    weights;
 4. classify: probabilities of a deltas head (seq_len 31) against the CPU run;
@@ -136,12 +160,15 @@ each also in fp32, with its launches of one fp32 forward; K3 also at head
 dims 192 and 256, at phase 10's padded, wide and odd widths, with their
 launches counted over the encode routes' runs and phase 12's), the launches
 of phase 10's runs, and its launches over phase 11's mesh encodes
-(``launches_mesh``), then K3's wide body (``attention_wide.cuh``) as an
+(``launches_mesh``) and (``fused_views``) its cases on views of one fused
+projection beside the same call on contiguous tensors, then K3's wide body (``attention_wide.cuh``) as an
 entry of its own, its launches those of phase 12 and its numbers those of
 phase 12's kernel case at d 320, and the LayerNorm kernel (``layernorm``,
 replacing ``benchmarks/attn_probes/probe25_ln_256.py:51``) with its
 launches on every route, its numbers at (33408, 768) and its other timed
-cases; the last line is
+cases, and the memory floor (``memory_floor``, replacing probe14's and
+probe15's ``dma_kernel``) with its launches over the floor phase, its
+numbers at probe14's blocks and at every other row; the last line is
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -193,6 +220,19 @@ WIDE_HEAD_DIMS, WIDE_HEADS = (192, 256), 16
 # through FrameEncoder as a checkpoint of that shape would.
 WIDE_ENCODER_HEAD_DIMS, WIDE_ENCODER_HEADS, WIDE_ENCODER_DEPTH = (192, 256, 320), 8, 2
 WIDE_ENCODER_FRAMES = 32
+# K1, K2 and K3 on views of one fused (B, N, 3*H*d) q|k|v projection, the
+# operands every encode route hands them since the projection is one GEMM,
+# timed at these (B, N, H, d) beside the same call on contiguous tensors and
+# SDPA: dinov3-vitb16 at 256x256 / 128 and 640x480 / 32 (all three), and the
+# ViT-7B width at 256x256 / 32 and 640x480 / 8 (K3).
+FUSED_SHAPES = ((BATCH_256, 261, 12, 64), (BATCH_480, 1205, 12, 64))
+# The CUDA kernels of one warm forward (H2D copy included, no D2H) of the
+# forward with three projection GEMMs a block, before they were fused, by
+# the same kind of trace (``chip_ab.py``; PERF.md §5), at dinov3-vitb16
+# 256x256 / 128 and the ViT-7B width at depth 4, 256x256 / 32. Recorded
+# beside the fused forward's count, not required.
+UNFUSED_KERNELS_A_FORWARD = {"vitb16": 227, "vit7b_depth4": 101}
+FUSED_SHAPES_7B = ((BATCH_7B_256, 261, 32, 128), (BATCH_7B_480, 1205, 32, 128))
 
 # The three kernels (source cbas_tpu_torch/csrc/<name>.cu) and the TPU kernel
 # each replaces.
@@ -225,6 +265,43 @@ LN_SMALL_SHAPES = ((300, 64, "bf16: one warp a row, one chunk a lane"),
                    (97, 2560, "bf16: four warps a row"), (33, 3001, "streamed: odd D over 2048"),
                    (9, 20480, "streamed: over 16384 elements in bf16"))
 LN_EPS = 1e-5  # dinov3's layer_norm_eps
+# The memory floor (source cbas_tpu_torch/csrc/memory_floor.cu): o = q + 0*k
+# + 0*v, the bytes of one attention call (q, k and v read, o written) with
+# none of its arithmetic. It replaces the TPU kernel dma_kernel of three probe
+# sites; its own path is the floor phase, run with the counts set to 0 before
+# it and read after it.
+FLOOR_KERNEL = "memory_floor"
+FLOOR_REPLACES = "benchmarks/attn_probes/probe14_dma_floor_256.py:40"
+FLOOR_SITES = ("benchmarks/attn_probes/probe14_dma_floor_256.py:51",
+               "benchmarks/attn_probes/probe14_dma_floor_256.py:63",
+               "benchmarks/attn_probes/probe15_marginal_256.py:50")
+# Its cases, (label, shape, dtype): the probes' own, (B*G, N, 128) bf16 blocks
+# of probe14's make_dma and probe15's f_dma and the same bytes flat (probe14's
+# make_dma_flat2d); then the bytes of each timed attention row (four (B*N,
+# H*d) tensors) and LayerNorm row (x and h read, x' and y written: four
+# (rows, D) tensors; the LayerNorm alone: half of that) of PERF.md, so each
+# row's bound at the peak rate has its measured floor beside it.
+FLOOR_SHAPES = (("probe14/15 blocks (B*G, N, 128)", (384 * 6, 272, 128), "bfloat16"),
+                ("probe14 flat2d (rows, 128)", (384 * 6 * 272, 128), "bfloat16"))
+
+
+def floor_rows() -> tuple:
+    """FLOOR_SHAPES, then (label, shape, dtype) at the bytes of every timed
+    attention and LayerNorm row."""
+    attention = [(BATCH_256, 261, 12, 64), (BATCH_480, 1205, 12, 64),
+                 (BATCH_7B_256, 261, 32, 128), (BATCH_7B_480, 1205, 32, 128)]
+    rows = [(f"attention {B}x{N}x{H}x{d}", (B * N, H * d), dt) for B, N, H, d in attention
+            for dt in ("bfloat16", "float32")]
+    others = [(BATCH_7B_256, 261, WIDE_HEADS, d) for d in WIDE_HEAD_DIMS]
+    others += [(B, N, H, d) for B, N, H, d in PADDED_CASES + WIDE_ODD_CASES]
+    others += [(WIDE_ENCODER_FRAMES, 261, WIDE_ENCODER_HEADS, max(WIDE_ENCODER_HEAD_DIMS))]
+    rows += [(f"attention {B}x{N}x{H}x{d}", (B * N, H * d), dt) for B, N, H, d in others
+             for dt in ("bfloat16", "float32")]
+    ln = [(f"layernorm {r}x{D} fused", (r, D), "bfloat16") for r, D in LN_MAIN_SHAPES]
+    r, D = LN_MAIN_SHAPES[0]
+    ln += [(f"layernorm {r}x{D} alone", (r, D // 2), "bfloat16"),
+           (f"layernorm {r}x{D} fused", (r, D), "float32")]
+    return FLOOR_SHAPES + tuple(dict.fromkeys(rows)) + tuple(ln)
 # - LayerNorm kernel vs its plain version on the card: the residual stream
 #   bit for bit (both round h * lambda, then the sum, to x's dtype). y: both
 #   sum the statistics in fp32 in different orders, each sum rounded at most
@@ -334,7 +411,7 @@ def build_all(_cuda) -> dict:
         t = time.perf_counter()
         return name, (_cuda.build(name), time.perf_counter() - t)
 
-    names = (*KERNELS, LN_KERNEL)
+    names = (*KERNELS, LN_KERNEL, FLOOR_KERNEL)
     with ThreadPoolExecutor(len(names)) as pool:
         return dict(pool.map(one, names))
 
@@ -411,14 +488,115 @@ def rope_full(torch, cfg, head_dim, grid, n_tokens, device):
     return cos.to(device), sin.to(device)
 
 
+# The memory floor's time at each (elements a tensor, dtype) the floor phase
+# or a timed case measured: {(n, dtype name): ms}.
+FLOOR_MS: dict = {}
+
+
+def floor_inputs(torch, shape, dtype, device="cuda"):
+    """q, k and v of ``shape`` from a numpy seed, with the values that tell
+    the expression from a copy at their first elements: +-Inf and NaN in k
+    and v (6 NaNs in o: Inf * 0 is NaN), and -0 in q beside k and v of
+    either sign (one -0 left in o: -0 + -0 + -0)."""
+    rng = np.random.default_rng(SEED + 14)
+    n = int(np.prod(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(n, np.float32)).to(device, getattr(torch, dtype))
+               for _ in range(3))
+    special = torch.tensor([float("inf"), float("-inf"), float("nan"), 1.0, -1.0, 1.0, -1.0, 2.0])
+    k[:8] = special.to(device, k.dtype)
+    v[8:16] = special.to(device, v.dtype)
+    q[16:20] = torch.tensor([-0.0, -0.0, -0.0, 0.0]).to(device, q.dtype)
+    k[16:20] = torch.tensor([1.0, -1.0, -1.0, -1.0]).to(device, k.dtype)
+    v[16:20] = torch.tensor([-1.0, 1.0, -1.0, -1.0]).to(device, v.dtype)
+    return tuple(t.view(shape) for t in (q, k, v))
+
+
+def floor_ms(torch, n, dtype) -> float:
+    """The memory floor's ms at four tensors of ``n`` elements of ``dtype``
+    (a name), measured once and kept in FLOOR_MS."""
+    from cbas_tpu_torch.ops import memory_floor as mf
+
+    key = (n, dtype)
+    if key not in FLOOR_MS:
+        q, k, v = floor_inputs(torch, (n,), dtype)
+        FLOOR_MS[key] = time_ms(torch, lambda: mf.memory_floor(q, k, v))
+    return FLOOR_MS[key]
+
+
+def floor_case(torch, mf, label, shape, dtype, device="cuda") -> dict:
+    """The memory floor on the card against its plain version, bit for bit
+    (NaN where the plain version has NaN; whether the NaN bits match too is
+    reported), then timed beside the plain version, ``out.copy_(q)`` (the
+    card's copy rate over half the bytes, named as such: no PyTorch call
+    computes the expression) and its bound at the peak memory rate.
+    (``device`` is "cpu" only in the CPU test of this function: the plain
+    version on both sides, untimed.)"""
+    q, k, v = floor_inputs(torch, shape, dtype, device)
+    before = mf.launches
+    got = mf.memory_floor(q, k, v)
+    want = mf.memory_floor_reference(q, k, v)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    ints = torch.int16 if dtype == "bfloat16" else torch.int32
+    same_bits = got.view(ints) == want.view(ints)
+    nan = torch.isnan(want)
+    numbers_equal = bool((same_bits | (nan & torch.isnan(got))).all())
+    n = q.numel()
+    nbytes = 4 * n * q.element_size()
+    out = {"phase": "memory_floor", "what": label, "shape": list(shape), "dtype": dtype,
+           "mbytes": nbytes / 1e6, "launches": mf.launches - before,
+           "bit_equal_where_not_nan": numbers_equal, "nan_bits_equal": bool(same_bits.all()),
+           "nan_count": int(nan.sum()),
+           "max_abs_err": float((got.float() - want.float())[~nan].abs().max()),
+           "minus_zero_in_q_kept": int(torch.signbit(got.flatten()[16:20]).sum())}
+    out["ok"] = numbers_equal and got.shape == q.shape and got.is_contiguous() \
+        and out["launches"] == int(on_card) and out["nan_count"] == 6 \
+        and out["minus_zero_in_q_kept"] == 1  # a copy of q would keep 3 (floor_inputs)
+    if on_card:
+        FLOOR_MS[(n, dtype)] = out["ms"] = time_ms(torch, lambda: mf.memory_floor(q, k, v))
+        out["plain_ms"] = time_ms(torch, lambda: mf.memory_floor_reference(q, k, v))
+        copy = torch.empty_like(q)
+        out["copy_ms"] = time_ms(torch, lambda: copy.copy_(q))
+        out["gbps"] = nbytes / out["ms"] / 1e6
+        out["copy_gbps"] = 2 * n * q.element_size() / out["copy_ms"] / 1e6
+        out["bound_ms"] = 1e3 * nbytes / PEAK_BYTES_PER_S
+        out["bound_by"] = "bytes"
+        out["share_of_peak"] = out["bound_ms"] / out["ms"]
+        out["library_ms"] = None
+    return out
+
+
+def floor_phase(torch, device="cuda") -> dict:
+    """The memory floor at every row of :func:`floor_rows`, its launch count
+    set to 0 before and read after: {"cases": [...], "launches": N}.
+    (``device`` is "cpu" only in the CPU test, where ``rows`` are cut.)"""
+    from cbas_tpu_torch.ops import memory_floor as mf
+
+    mf.launches = 0
+    cases = []
+    for label, shape, dtype in floor_rows():
+        cases.append(floor_case(torch, mf, label, shape, dtype, device))
+        emit(cases[-1])
+    launches = mf.launches
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"the memory floor disagrees with its plain version: {bad}")
+    if device == "cuda" and launches < len(cases):
+        raise AssertionError(f"the floor phase launched the kernel {launches} times")
+    return {"cases": cases, "launches": launches}
+
+
 def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=None,
                 time_it=True, view=False, tables=None):
     """One fused-attention case on the card against its plain version, in
-    the kernel's own layout; with ``view`` (K2 and K3), on head-pair or
-    head-major views of flat (B, N, H*d) tensors, as the packed and
-    head-major routes pass them, and then also bit for bit against the
-    kernel on contiguous copies of the views. ``tables``, a (cos, sin) pair
-    on the card, replaces the model's RoPE tables."""
+    the kernel's own layout; with ``view`` True (K2 and K3), on head-pair or
+    head-major views of flat (B, N, H*d) tensors, and with ``view`` "fused"
+    on the q, k and v column blocks of one fused (B, N, 3*H*d) projection
+    (and their head-pair or head-major views), as the model's routes pass
+    them; then the output is dense in q's dim order and the kernel agrees
+    bit for bit with itself on contiguous copies of the views. ``tables``, a
+    (cos, sin) pair on the card, replaces the model's RoPE tables."""
     wrapper, plain, shape, token_dim = {
         "attention_fat": (fa.fused_attention_fat, fa.attention_fat_reference, (B, N, H * d), 1),
         "attention_packed": (
@@ -429,11 +607,15 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         ),
     }[kernel]
     rng = np.random.default_rng(SEED)
-    q, k, v = (
-        torch.from_numpy(rng.standard_normal((B, N, H * d) if view else shape, np.float32))
-        .to("cuda", dtype) for _ in range(3)
-    )
-    if view:
+    if view == "fused":
+        qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to("cuda", dtype)
+        q, k, v = (qkv[..., j * H * d:(j + 1) * H * d] for j in range(3))
+    else:
+        q, k, v = (
+            torch.from_numpy(rng.standard_normal((B, N, H * d) if view else shape, np.float32))
+            .to("cuda", dtype) for _ in range(3)
+        )
+    if view and kernel != "attention_fat":
         group = 2 if kernel == "attention_packed" else 1
         q, k, v = (t.view(B, N, H // group, group * d).transpose(1, 2) for t in (q, k, v))
     if n_valid is not None:  # dead rows hold NaN: the masks must keep it out
@@ -457,12 +639,21 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         tol = dtype_ulp(torch, want.float()) + KERNEL_BF16_VREL * vmax + KERNEL_BF16_FLOOR
         tol_text = f"1 bf16 ulp + 2^-8 max|v| ({KERNEL_BF16_VREL * vmax:.3g}) + {KERNEL_BF16_FLOOR}"
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
-    if view:  # the views' strides kept, and the same bits as on contiguous copies
-        copies = wrapper(*(t.contiguous() for t in (q, k, v)), scale, n_valid, cos, sin)
-        ok = ok and got.stride() == q.stride() and bool(torch.equal(got, copies))
+    copies = [t.contiguous() for t in (q, k, v)]
+    # K3 copies and pads the heads it reads at no width of its own (fp32 at an
+    # unbuilt width): its output is then contiguous.
+    padded = kernel == "attention_headmajor" and fa.padded_head_dim(d) != d \
+        and not (dtype == torch.bfloat16 and d % 8 == 0)
+    if view:  # a dense output in q's dim order, the same bits as on contiguous copies
+        ok = ok and bool(torch.equal(got, wrapper(*copies, scale, n_valid, cos, sin)))
+        ok = ok and (got.is_contiguous() if padded else got.stride() == fa._dense_like(q).stride())
+        if kernel != "attention_fat" and not padded:  # the context back to (B, N, H*d): a view
+            flat = got.transpose(1, 2).reshape(B, N, H * d)
+            ok = ok and flat.data_ptr() == got.data_ptr() and flat.is_contiguous()
     out = {
         "phase": "kernel", "name": kernel, "body": fa.attention_body(kernel, dtype, d),
-        "inputs": "views of flat tensors" if view else "contiguous",
+        "inputs": ("views of one fused (B, N, 3*H*d) projection" if view == "fused"
+                   else "views of flat tensors" if view else "contiguous"),
         "B": B, "N": N, "H": H, "head_dim": d,
         "dtype": str(dtype).replace("torch.", ""), "rope": rope, "n_valid": n_valid,
         "max_abs_err": float(err.max()), "tol": tol_text, "ok": ok,
@@ -472,8 +663,12 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         out["ms"] = time_ms(torch, lambda: wrapper(q, k, v, scale, n_valid, cos, sin))
         out["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, scale, n_valid, cos, sin))
         out["ms_norope"] = time_ms(torch, lambda: wrapper(q, k, v, scale, n_valid))
+        if view == "fused":  # the same call on contiguous tensors, in the same run
+            out["contiguous_ms"] = time_ms(torch, lambda: wrapper(*copies, scale, n_valid, cos, sin))
+            out["contiguous_ms_norope"] = time_ms(torch, lambda: wrapper(*copies, scale, n_valid))
         out.update(attention_bound(B, N, H, d, n_valid or N, rope, dtype == torch.float32))
         out["share_of_bound"] = out["bound_ms"] / out["ms"]
+        out["floor_ms"] = floor_ms(torch, B * N * H * d, str(dtype).replace("torch.", ""))
         heads = {"attention_fat": lambda t: t.reshape(B, N, H, d).transpose(1, 2),
                  "attention_packed": lambda t: t.reshape(B, H // 2, N, 2, d).transpose(2, 3)
                  .reshape(B, H, N, d),
@@ -531,9 +726,11 @@ def sdpa_backend(kernels) -> str:
 def kernel_phase(torch, fa, cfg) -> dict:
     """Every kernel case; returns the main-shape cases of each kernel,
     {name: (256x256 case, 640x480 case)} (the ``kernels`` line's numbers;
-    under "<name>_contiguous" K2's and K3's on contiguous tensors), the fp32
-    cases under "fp32", and under "padded_calls" the kernels one K3 call
-    launches at phase 10's padded widths (:func:`padded_calls`)."""
+    under "<name>_contiguous" K2's and K3's on contiguous tensors, under
+    "<name>_fused" each kernel's on views of one fused projection at
+    FUSED_SHAPES), the fp32 cases under "fp32", and under "padded_calls"
+    the kernels one K3 call launches at phase 10's padded widths
+    (:func:`padded_calls`)."""
     g256, g288, g480 = (16, 16), (18, 18), (30, 40)  # patch grids of 256x256, 288x288, 640x480
     bf16, f32 = torch.bfloat16, torch.float32
     results, main = [], {}
@@ -619,6 +816,23 @@ def kernel_phase(torch, fa, cfg) -> dict:
              BATCH_7B_480))
         for b, n, g in ((b256, 261, g256), (b480, 1205, g480))]
     results += main["fp32"]
+    # Views of one fused (B, N, 3*H*d) projection, the routes' operands
+    # since the projection is one GEMM: small cases of every body (bf16 and
+    # fp32, RoPE on and off, NaN in the dead rows), untimed; then the main
+    # shapes in bf16 with RoPE, timed beside contiguous copies and SDPA.
+    sweep("attention_fat", H, 64, views=("fused",), small=((2, 261, g256), (1, 1205, g480)),
+          dead=((2, 272, 261, g256),), time_it=False)
+    sweep("attention_packed", H, 64, views=("fused",), small=((2, 261, g256),),
+          dead=((2, 272, 261, g256),), time_it=False)
+    for d in (40, 64, 128, 160, 192, 256, 320):
+        sweep("attention_headmajor", 4, d, views=("fused",), small=((2, 261, g256),),
+              dead=((2, 329, 300, g288),), time_it=False)
+    for kernel, shapes in (("attention_fat", FUSED_SHAPES), ("attention_packed", FUSED_SHAPES),
+                           ("attention_headmajor", FUSED_SHAPES + FUSED_SHAPES_7B)):
+        main[f"{kernel}_fused"] = [
+            kernel_case(torch, fa, cfg, kernel, B, H_, N, d, g256 if N == 261 else g480, bf16,
+                        True, view="fused") for B, N, H_, d in shapes]
+        results += main[f"{kernel}_fused"]
     main["padded_calls"] = padded_calls(torch, fa, cfg)
     for r in results:
         emit(r)
@@ -746,6 +960,9 @@ def ln_case(torch, ln, rows, D, dtype, residual=True, two_pass=None, outliers=Fa
         out["bound_ms"] = 1e3 * nbytes / PEAK_BYTES_PER_S
         out["bound_by"] = "bytes"
         out["share_of_bound"] = out["bound_ms"] / out["ms"]
+        # the floor at the rows' bytes: four tensors of rows x D (fused), or
+        # of half that (the LayerNorm alone reads x and writes y)
+        out["floor_ms"] = floor_ms(torch, rows * D // (1 if residual else 2), dtype)
     return out
 
 
@@ -792,6 +1009,7 @@ def ln_kernel_phase(torch, device="cuda") -> dict:
 
 
 def reset_launches(fa) -> None:
+    from cbas_tpu_torch.models import vit
     from cbas_tpu_torch.ops import layernorm as ln
 
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
@@ -799,13 +1017,19 @@ def reset_launches(fa) -> None:
     fa.launches_headmajor_by_dim.clear()
     fa.launches_sm90_by_kernel.clear()
     ln.launches = 0
+    for kind in vit.projection_gemms:
+        vit.projection_gemms[kind] = 0
 
 
 def read_launches(fa) -> dict:
     """Launches of each entry, under "sm90" those that ran the Hopper body
     (by entry under "sm90_by_kernel"), under "wide" K3's that ran the wide
-    body, under "headmajor_by_dim" K3's split by the head dim it ran at, and
-    under "layernorm" the LayerNorm kernel's."""
+    body, under "headmajor_by_dim" K3's split by the head dim it ran at,
+    under "layernorm" the LayerNorm kernel's, and under "projection_gemms"
+    the attention's projection GEMMs as ``models/vit.py`` counts them (a
+    full block's fused q|k|v, the CLS block's q and k|v; counted on every
+    device)."""
+    from cbas_tpu_torch.models import vit
     from cbas_tpu_torch.ops import layernorm as ln
 
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
@@ -813,7 +1037,7 @@ def read_launches(fa) -> dict:
             "wide": fa.launches_wide,
             "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
             "headmajor_by_dim": dict(fa.launches_headmajor_by_dim),
-            LN_KERNEL: ln.launches}
+            LN_KERNEL: ln.launches, "projection_gemms": dict(vit.projection_gemms)}
 
 
 def ln_per_forward(num_layers: int) -> int:
@@ -823,14 +1047,27 @@ def ln_per_forward(num_layers: int) -> int:
     return 2 * num_layers + 1
 
 
-def check_launches(route, got, kernel, per_forward, forwards, sm90, ln_per) -> dict:
+def projections_per_run(full_blocks: int, cls_blocks: int) -> dict:
+    """The projection GEMMs of ``full_blocks`` full blocks and ``cls_blocks``
+    CLS-only blocks: one fused q|k|v GEMM a full block, and a CLS block's q
+    on the CLS row and one k|v GEMM over every token (three GEMMs a block
+    each before the projections were fused)."""
+    return {"qkv": full_blocks, "q_cls": cls_blocks, "kv_cls": cls_blocks}
+
+
+def check_launches(route, got, kernel, per_forward, forwards, sm90, ln_per,
+                   cls_blocks=None) -> dict:
     """The route launched ``kernel`` ``per_forward`` times a forward, and no
     other attention kernel; each launch through the Hopper body if ``sm90``,
-    else none; and the LayerNorm kernel ``ln_per`` times a forward."""
+    else none; the LayerNorm kernel ``ln_per`` times a forward; and one
+    projection GEMM a full block (``per_forward`` a forward) and one k|v
+    GEMM a CLS block (``cls_blocks``, one a forward unless given)."""
     want = {name: 0 for name in KERNELS}
     want[kernel] = per_forward * forwards
     want["sm90"] = want[kernel] if sm90 else 0
     want[LN_KERNEL] = ln_per * forwards
+    want["projection_gemms"] = projections_per_run(
+        per_forward * forwards, forwards if cls_blocks is None else cls_blocks)
     if {name: got[name] for name in want} != want:
         raise AssertionError(f"{route} route launched {got}, expected {want}")
     if sum(got["headmajor_by_dim"].values()) != got["attention_headmajor"]:
@@ -947,8 +1184,11 @@ def main() -> int:
         "ptxas": reports,
     })
 
-    # 2. the kernels against their plain versions
+    # 2. the memory floor at every timed row's bytes (its own path: the
+    # count set to 0 before, read after), then the kernels against their
+    # plain versions, each timed row with its floor beside it
     cfg = PRESETS[ENCODER]
+    floor = floor_phase(torch)
     main_cases = kernel_phase(torch, fa, cfg)
     ln_cases = ln_kernel_phase(torch)
 
@@ -992,6 +1232,9 @@ def main() -> int:
         "frames_256": FRAMES_256, "batch_256": BATCH_256, "frames_480": BATCH_480,
         "forwards": forwards, "launches": flat_launches, "expected_launches": want_flat,
         "main_path_s": main_s,
+        "kernels_one_forward": len(trace_kernels(torch, lambda: enc.encode_planes_async(
+            planes_256[:BATCH_256], batch=BATCH_256))),
+        "kernels_one_forward_unfused": UNFUSED_KERNELS_A_FORWARD["vitb16"],
         "warm_fps_256": warm_fps(torch, enc, planes_256, BATCH_256, 4),
         "warm_fps_480": warm_fps(torch, enc, planes_480, BATCH_480, 3),
         "card": card,
@@ -1115,7 +1358,10 @@ def main() -> int:
     wide_launches = {d: sum(run["headmajor_by_dim"].get(d, 0) for run in runs)
                      for d in WIDE_HEAD_DIMS}
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                   "library", "ms_norope", "gflop", "mbytes", "share_of_bound", "ptxas")
+                   "library", "ms_norope", "gflop", "mbytes", "share_of_bound", "floor_ms", "ptxas")
+    fused_keys = ("inputs", "max_abs_err", "ms", "ms_norope", "contiguous_ms",
+                  "contiguous_ms_norope", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+                  "library_ms", "library", "share_of_bound")
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": route_launches[name][name],
@@ -1142,6 +1388,9 @@ def main() -> int:
                            | {"shape": [c[x] for x in ("B", "N", "H", "head_dim")]}
                            for c in main_cases[f"{name}_contiguous"]]}
            if f"{name}_contiguous" in main_cases else {}),
+        "fused_views": [{key: c[key] for key in fused_keys}
+                        | {"shape": [c[x] for x in ("B", "N", "H", "head_dim")]}
+                        for c in main_cases[f"{name}_fused"]],
         "fp32": [{key: c[key] for key in timing_keys}
                  | {"shape": [c[x] for x in ("B", "N", "H", "head_dim")], "body": c["body"],
                     "inputs": c["inputs"]}
@@ -1152,7 +1401,8 @@ def main() -> int:
     } for name, replaces in KERNELS.items()]
         + [wide_kernel_entry(tools_line, wide_runs, wide_cases),
            ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
-                           wide_runs)]})
+                           wide_runs),
+           floor_kernel_entry(floor)]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -1163,16 +1413,25 @@ def main() -> int:
 COPY_KERNEL = re.compile(r"copy|memcpy", re.IGNORECASE)
 
 
+TRACE_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
 def trace_kernels(torch, fn) -> list:
     """The names of the CUDA kernels (and copies) one call of ``fn`` ran, in
-    the order they started, from a ``torch.profiler`` trace."""
+    the order they started, from a ``torch.profiler`` trace. The trace
+    opens with a marker kernel (``torch.cuda._sleep``), left out of the
+    list: on the card's machine a trace may lose its first device event,
+    which then is the marker's, not one of ``fn``'s."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and TRACE_MARKER not in e.name]
     return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
 
 
@@ -1238,10 +1497,11 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
         # One forward traced: the route hands K3 views of the projections and
         # reads its output back as a view, so no copy kernel runs next to a
         # K3 launch.
-        copies = copies_around(trace_kernels(torch, lambda: enc.encode_planes(
+        copies = copies_around(trace_kernels(torch, lambda: enc.encode_planes_async(
             planes_256[:BATCH_7B_256], batch=BATCH_7B_256)), "attention_sm90")
         if copies["launches"] != cfg.num_layers - 1 or copies["copies_around"]:
             raise AssertionError(f"ViT-7B forward: copies next to K3: {copies}")
+        copies["kernels_unfused"] = UNFUSED_KERNELS_A_FORWARD["vit7b_depth4"]
         line = {
             "phase": "encode_vit7b", "route": "head-major (K3)",
             "one_forward_trace": copies,
@@ -1307,7 +1567,8 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
             want = {"attention_fat": 0, "attention_packed": 0, "attention_headmajor": per,
                     "sm90": per * (body == "sm90"), "wide": per * (body == "wide"),
                     "headmajor_by_dim": {d: per},
-                    LN_KERNEL: ln_per_forward(WIDE_ENCODER_DEPTH) * forwards}
+                    LN_KERNEL: ln_per_forward(WIDE_ENCODER_DEPTH) * forwards,
+                    "projection_gemms": projections_per_run(per, forwards)}
             if {key: got[key] for key in want} != want:
                 raise AssertionError(f"{d}-wide heads launched {got}, expected {want}")
             if emb.shape != (WIDE_ENCODER_FRAMES, hidden) or not np.isfinite(emb).all():
@@ -1350,7 +1611,7 @@ def ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_li
     its numbers at dinov3-vitb16 256x256 batch 128 (bf16, fused,
     single-pass), and its other timed cases beside them."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-            "mbytes", "share_of_bound", "kernel", "ptxas")
+            "mbytes", "share_of_bound", "floor_ms", "kernel", "ptxas")
     main = ln_cases["main"][0]
     return {
         "name": LN_KERNEL, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{LN_KERNEL}.cu",
@@ -1366,6 +1627,27 @@ def ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_li
         "launches_fp32": {name: run[LN_KERNEL] for name, run in fp32_runs.items()},
         "launches_mesh": mesh_launches[LN_KERNEL],
         "launches_tools": {run: got[LN_KERNEL] for run, got in tools_line["launches"].items()},
+    }
+
+
+def floor_kernel_entry(floor) -> dict:
+    """The ``kernels`` line's entry for the memory floor: its launches over
+    the floor phase, its numbers at probe14's own (B*G, N, 128) blocks, and
+    every other row's beside them."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "copy_ms",
+            "gbps", "copy_gbps", "share_of_peak", "mbytes", "bit_equal_where_not_nan",
+            "nan_bits_equal")
+    main = floor["cases"][0]
+    return {
+        "name": FLOOR_KERNEL, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{FLOOR_KERNEL}.cu",
+        "replaces": FLOOR_REPLACES, "sites": list(FLOOR_SITES), "launches": floor["launches"],
+        **{key: main[key] for key in keys}, "shape": main["shape"], "dtype": main["dtype"],
+        "library": "none computes q + 0*k + 0*v in one call; copy_ms is out.copy_(q), the "
+                   "card's copy rate over half the bytes",
+        "ptxas": list(PTXAS.get(FLOOR_KERNEL, {}).items()),
+        "at_rows": [{key: c[key] for key in ("what", "shape", "dtype", "mbytes", "ms", "gbps",
+                                             "copy_ms", "copy_gbps", "bound_ms", "share_of_peak")}
+                    for c in floor["cases"][1:]],
     }
 
 
@@ -1385,7 +1667,7 @@ def wide_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
         "launches": sum(run["wide"] for run in wide_runs.values()),
         "body": "wide", **{key: main[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-            "ms_norope", "gflop", "mbytes", "ptxas")},
+            "ms_norope", "gflop", "mbytes", "floor_ms", "ptxas")},
         "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
         "share_of_bound": main["bound_ms"] / main["ms"],
         "other_cases": cases,
@@ -1915,7 +2197,7 @@ def app_launches(fa, on_card, forwards, layers) -> dict:
     if on_card:
         return check_launches("app", got, "attention_fat", layers - 1, forwards, sm90=True,
                               ln_per=ln_per_forward(layers))
-    if any(got.values()):
+    if any(n for name, n in got.items() if name != "projection_gemms"):
         raise AssertionError(f"app: kernel launches counted on the CPU: {got}")
     return got
 
@@ -2034,14 +2316,14 @@ def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
     cases = padded_cases(torch, fa, cfg, calls)
     line["padded_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
-        "ms", "built_width_ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "gflop",
-        "mbytes", "library_ms", "library", "ptxas", "k3_launches_per_call",
+        "ms", "built_width_ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+        "gflop", "mbytes", "library_ms", "library", "ptxas", "k3_launches_per_call",
         "kernels_per_call")} for c in cases]
     wide = wide_odd_cases(torch, fa, cfg)
     line["wide_odd_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
-        "ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "gflop", "mbytes", "library_ms",
-        "library", "ptxas")} for c in wide]
+        "ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "floor_ms", "gflop", "mbytes",
+        "library_ms", "library", "ptxas")} for c in wide]
     line["cls_attention_map"] = attention_map_step(torch, fa, cfg, params, line["launches"])
     missing = host_missing(("h5py", "pandas", "cv2", "matplotlib"))
     if missing:
@@ -2073,12 +2355,13 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     seconds = time.perf_counter() - t
     got = read_launches(fa)
     launches["validate_kernels"] = got
-    # one K3 call a geometry and the bf16 check; K1 and K2 where d = 64 and H is even
+    # one K3 call a geometry and the bf16 check; where d = 64 and H is even K1
+    # and K2 on contiguous tensors, and K1, K2 and K3 on fused q|k|v views
     pairs = sum(1 for _, H, _, d, _ in geometries if d == 64 and H % 2 == 0)
     last_d = geometries[-1][3]
     sm90 = int(fa.attention_body("attention_headmajor", torch.bfloat16, last_d) == "sm90")
-    want = {"attention_fat": pairs, "attention_packed": pairs,
-            "attention_headmajor": len(geometries) + 1, "sm90": sm90,
+    want = {"attention_fat": 2 * pairs, "attention_packed": 2 * pairs,
+            "attention_headmajor": len(geometries) + 1 + pairs, "sm90": sm90,
             LN_KERNEL: 2}  # its single-pass and two-pass LayerNorm checks
     by_body = {name: {"sm90": got["sm90_by_kernel"].get(name, 0),
                       "common": got[name] - got["sm90_by_kernel"].get(name, 0)}
@@ -2195,13 +2478,14 @@ def attention_map_step(torch, fa, cfg, params, launches) -> dict:
     """``cls_attention_map`` at ``cfg``'s full width and depth on MAP_FRAMES
     frames of 256x256 in bf16 on the card: K1 once a block but the last,
     each launch through the Hopper body; the map against the CPU fp32 run."""
+    from cbas_tpu_torch.models.convert import vit_params_from_numpy
     from cbas_tpu_torch.models.vit import cls_attention_map
 
     gained = {k: v * MAP_QK_GAIN if k.endswith(("q_proj.weight", "k_proj.weight")) else v
               for k, v in params.items()}
     planes = np.random.default_rng(SEED + 10).integers(0, 256, (MAP_FRAMES, 256, 256), np.uint8)
     x = np.repeat((planes / 255.0).astype(np.float32)[:, None], 3, axis=1)
-    card_params = {k: torch.from_numpy(v).to("cuda", torch.bfloat16) for k, v in gained.items()}
+    card_params = vit_params_from_numpy(gained, cfg, "cuda", torch.bfloat16)
     pixels = torch.from_numpy(x).to("cuda", torch.bfloat16)
     torch.cuda.synchronize()
     reset_launches(fa)
@@ -2210,11 +2494,10 @@ def attention_map_step(torch, fa, cfg, params, launches) -> dict:
     launches["cls_attention_map"] = read_launches(fa)
     want_launches = check_launches("cls_attention_map", launches["cls_attention_map"],
                                    "attention_fat", cfg.num_layers - 1, 1, sm90=True,
-                                   ln_per=ln_per_forward(cfg.num_layers) - 2)
+                                   ln_per=ln_per_forward(cfg.num_layers) - 2, cls_blocks=0)
     ms = time_ms(torch, lambda: cls_attention_map(card_params, pixels, cfg), iters=5, warmup=1)
     t = time.perf_counter()
-    ref = cls_attention_map({k: torch.from_numpy(v) for k, v in gained.items()},
-                            torch.from_numpy(x), cfg).numpy()
+    ref = cls_attention_map(vit_params_from_numpy(gained, cfg), torch.from_numpy(x), cfg).numpy()
     cpu_s = time.perf_counter() - t
     got = got.cpu().numpy()
     grid = (256 // cfg.patch_size,) * 2
@@ -2355,13 +2638,14 @@ def mesh_devices(torch, n, real, device="cuda"):
     return [torch.device("cuda", i) if real else torch.device(device) for i in range(n)]
 
 
-def mesh_launches_check(route, got, kernel, n, ln_n, device):
+def mesh_launches_check(route, got, kernel, n, ln_n, device, shards):
     """``kernel`` launched ``n`` times and no other attention kernel, each
-    through the Hopper body, and the LayerNorm kernel ``ln_n`` times (on the
-    CPU the plain versions run and nothing is counted)."""
+    through the Hopper body, the LayerNorm kernel ``ln_n`` times and one
+    CLS block a shard (on the CPU the plain versions run and nothing is
+    counted)."""
     if device != "cuda":
         return None
-    return check_launches(route, got, kernel, n, 1, sm90=True, ln_per=ln_n)
+    return check_launches(route, got, kernel, n, 1, sm90=True, ln_per=ln_n, cls_blocks=shards)
 
 
 def mesh_phase(torch, fa, cfg, enc, planes, one_emb, bundle, one_probs, emb, card,
@@ -2405,7 +2689,7 @@ def mesh_phase(torch, fa, cfg, enc, planes, one_emb, bundle, one_probs, emb, car
                       else "attention_fat" if fat == "1" else "attention_packed")
             want = mesh_launches_check(f"mesh {d}x{m}", launches, kernel,
                                        (cfg.num_layers - 1) * d * m,
-                                       ln_per_forward(cfg.num_layers) * d * m, device)
+                                       ln_per_forward(cfg.num_layers) * d * m, device, d * m)
             cos = row_cosine(got, one_emb)
             run = {"data": d, "model": m, "CBAS_ATTN_FAT": fat, "local_heads": local,
                    "kernel": kernel, "launches": launches, "expected_launches": want,
@@ -2479,7 +2763,8 @@ def mesh_vit7b_step(torch, fa, FrameEncoder, make_mesh, real, total, device="cud
         launches = read_launches(fa)
         expected = mesh_launches_check("mesh ViT-7B", launches, "attention_headmajor",
                                        (cfg.num_layers - 1) * MESH_7B_MODEL,
-                                       ln_per_forward(cfg.num_layers) * MESH_7B_MODEL, device)
+                                       ln_per_forward(cfg.num_layers) * MESH_7B_MODEL, device,
+                                       MESH_7B_MODEL)
         cos = row_cosine(got, want)
         out = {"model": f"DINOv3 ViT-7B/16 width, depth {VIT7B_DEPTH}", "model_axis": MESH_7B_MODEL,
                "local_heads": cfg.num_heads // MESH_7B_MODEL, "head_dim": cfg.head_dim,

@@ -674,6 +674,12 @@ SOURCE_HUNKS = {
         )),
     ],
     "tools/compare_encoders.py": [
+        ("fused q|k|v", "the port's forward takes each block's q, k and v projections fused "
+         "into one (models/vit.py::fuse_qkv)", (
+            r"\+fuse_qkv,",
+            r"\+params = fuse_qkv\(params, cfg\)  # the port's forward takes one q\|k\|v "
+            r"projection a block",
+        )),
         ("docstring and help", "the --device flag; transformers is the one optional package "
          "(torch is the port's own)", (
             r"-\[--out comparison\.png\] \[--random-init\]",
@@ -731,6 +737,32 @@ SOURCE_HUNKS = {
         )),
     ],
     "tools/validate_kernels.py": [
+        ("fused q|k|v views", "K1, K2 and K3 on views of one fused (B, N, 3*H*d) projection "
+         "against the fp64 oracle: the port's routes pass such views", (
+            r"\+# The three kernels on views of one fused \(B, N, 3\*H\*d\) q\|k\|v",
+            r"\+# projection, the model's operands: K1 on its column blocks, K2",
+            r"\+# and K3 on their head-pair and head-major views\.",
+            r"\+qkv = on\(np\.concatenate\(\[flat\(q\), flat\(k\), flat\(v\)\], -1\)\)",
+            r"\+cols = \[qkv\[\.\.\., j \* H \* d:\(j \+ 1\) \* H \* d\] for j in range\(3\)\]",
+            r"\+tables = \{\"rope_cos\": on\(cos\), \"rope_sin\": on\(sin\)\} if rope else \{\}",
+            r"\+fused_views = \{",
+            r"\+\"fat\": fused_attention_fat\(\*cols, scale, \*\*tables\)\.reshape\(B, N, H, d\)",
+            r"\+\.transpose\(1, 2\),",
+            r"\+\"packed\": fused_attention_packed\(",
+            r"\+\*\(c\.view\(B, N, H // 2, 2 \* d\)\.transpose\(1, 2\) for c in cols\), scale, "
+            r"\*\*tables\)",
+            r"\+\.reshape\(B, H // 2, N, 2, d\)\.transpose\(2, 3\)\.reshape\(B, H, N, d\),",
+            r"\+\"head-major\": fused_attention\(",
+            r"\+\*\(c\.view\(B, N, H, d\)\.transpose\(1, 2\) for c in cols\), scale, \*\*tables\),",
+            r"\+\}",
+            r"\+for name, got_v in fused_views\.items\(\):",
+            r"\+err_v = np\.abs\(got_v\.double\(\)\.cpu\(\)\.numpy\(\) - want\)\.max\(\)",
+            r"\+label = f\"B\{B\} H\{H\} N\{N\} d\{d\} rope=\{rope\}: \{name\} on fused q\|k\|v "
+            r"views vs fp64\"",
+            r"\+ok = check\(label, err_v, tol_f32\)",
+            r"\+failures \+= not ok",
+            r"\+print\(f\"\{label\} \{err_v:\.2e\} \{'ok' if ok else 'FAIL'\}\"\)",
+        )),
         ("docstring", "the CUDA kernels, --device and the envelope measured on the card, where "
          "the original spoke of Pallas on a TPU", (
             r"-\"\"\"On-device kernel validation: fused attention vs XLA vs an fp64 oracle\.",

@@ -196,7 +196,8 @@ CFGS = {
 
 
 def _model(variant, dtype):
-    """A small model with layer scales and affines away from 1 and 0."""
+    """A small model with layer scales and affines away from 1 and 0, in
+    the forward's form: one q|k|v projection a block (``fuse_qkv``)."""
     cfg = tvit.ViTConfig(**CFGS[variant])
     rng = np.random.default_rng(50)
     params = tvit.init_vit_params(51, cfg)
@@ -206,7 +207,7 @@ def _model(variant, dtype):
             params[k] = rng.uniform(0.1, 2.0, params[k].shape).astype(np.float32)
         elif k.endswith(("norm1.bias", "norm2.bias", "norm.bias", "layernorm.bias")):
             params[k] = (0.1 * rng.standard_normal(params[k].shape)).astype(np.float32)
-    return cfg, {k: torch.from_numpy(v).to(dtype) for k, v in params.items()}
+    return cfg, tvit.fuse_qkv({k: torch.from_numpy(v).to(dtype) for k, v in params.items()}, cfg)
 
 
 def _eager_ln(params, name, x, eps):

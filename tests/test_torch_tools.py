@@ -87,7 +87,8 @@ def test_validate_kernels_passes_on_tiny_geometries(capsys):
     out = capsys.readouterr().out
     assert rc == 0 and "FAIL" not in out
     assert "packed vs fp64" in out and "fat vs fp64" in out  # K2's and K1's plain versions ran
-    assert len(records) == 7 and all(r["ok"] and r["err"] < r["tol"] for r in records)
+    assert out.count("on fused q|k|v views vs fp64 ") == 3  # K1, K2 and K3 on views of one buffer
+    assert len(records) == 10 and all(r["ok"] and r["err"] < r["tol"] for r in records)
 
 
 def test_validate_kernels_detects_failure(capsys, monkeypatch):

@@ -246,48 +246,78 @@ def test_attention_route_matches_jax_rule(name, monkeypatch, restore_fused_flag)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
-def test_packed_route_passes_views_of_the_projections(monkeypatch, restore_fused_flag):
-    """Under CBAS_ATTN_FAT=0 the packed route (two head pairs) hands K2
-    non-contiguous views that share storage with the q, k and v
-    projections' outputs, and the out-projection reads a view of K2's
-    output: no copy of q, k, v or the context. The forward still matches
-    the JAX package's."""
-    from cbas_tpu_torch.ops import flash_attention as tfa
+def _spy_fused_projection(monkeypatch, width):
+    """Record the output of each ``F.linear`` whose weight has ``width``
+    rows (a block's fused q|k|v projection, 3 H hd) and the input of each
+    ``_dense`` call (the out-projection's), by name."""
+    fused_out, dense_in = [], {}
+    real_linear, real_dense = tvit.F.linear, tvit._dense
 
-    dense_in, dense_out, calls = {}, {}, []
-    real_dense, real_packed = tvit._dense, tfa.fused_attention_packed
+    def linear(x, weight, bias=None):
+        y = real_linear(x, weight, bias)
+        if weight.shape[0] == width:
+            fused_out.append(y)
+        return y
 
     def dense(params, name, x, bias=True):
-        dense_in[name], dense_out[name] = x, real_dense(params, name, x, bias)
-        return dense_out[name]
+        dense_in[name] = x
+        return real_dense(params, name, x, bias)
+
+    monkeypatch.setattr(tvit.F, "linear", linear)
+    monkeypatch.setattr(tvit, "_dense", dense)
+    return fused_out, dense_in
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _assert_views_of_fused(operands, fused, heads, hd):
+    """q, k and v are non-contiguous views of one fused (B, N, 3 H hd)
+    projection output, at its column offsets 0, H hd and 2 H hd."""
+    width = heads * hd
+    for j, t in enumerate(operands):
+        assert not t.is_contiguous()
+        assert _storage(t) == _storage(fused)
+        assert t.data_ptr() - fused.data_ptr() == j * width * fused.element_size()
+
+
+def test_packed_route_passes_views_of_the_projections(monkeypatch, restore_fused_flag):
+    """Under CBAS_ATTN_FAT=0 the packed route (two head pairs) makes one q|k|v
+    projection a block and hands K2 non-contiguous head-pair views of its
+    output (the q, k and v column blocks, storage shared), and the
+    out-projection reads a view of K2's output: no copy of q, k, v or the
+    context. The forward still matches the JAX package's."""
+    from cbas_tpu_torch.ops import flash_attention as tfa
+
+    calls = []
+    real_packed = tfa.fused_attention_packed
 
     def packed(q2, k2, v2, *args, **kwargs):
         calls.append(((q2, k2, v2), real_packed(q2, k2, v2, *args, **kwargs)))
         return calls[-1][1]
 
-    monkeypatch.setattr(tvit, "_dense", dense)
+    kwargs = ROUTES["hd64x4-packed"][0]
+    fused_out, dense_in = _spy_fused_projection(monkeypatch, 3 * kwargs["hidden_size"])
     monkeypatch.setattr(tfa, "fused_attention_packed", packed)
     got, want = _route_forward("hd64x4-packed", monkeypatch, fused=True)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
-    def storage(t):
-        return t.untyped_storage().data_ptr()
-
-    assert len(calls) == SMALL["dinov3"]["num_layers"]
+    layers = SMALL["dinov3"]["num_layers"]
+    assert len(calls) == len(fused_out) == layers  # one projection GEMM a block
     for i, (operands, ctx) in enumerate(calls):
-        for t, proj in zip(operands, ("q_proj", "k_proj", "v_proj")):
-            assert not t.is_contiguous()
-            assert storage(t) == storage(dense_out[f"layer.{i}.attention.{proj}"])
-        assert storage(dense_in[f"layer.{i}.attention.o_proj"]) == storage(ctx)
+        _assert_views_of_fused(operands, fused_out[i], kwargs["num_heads"], 64)
+        assert _storage(dense_in[f"layer.{i}.attention.o_proj"]) == _storage(ctx)
 
 
 def test_headmajor_route_passes_views_of_the_projections(monkeypatch, restore_fused_flag):
-    """Head dim 32 (the head-major route) hands K3 non-contiguous views that
-    share storage with the q, k and v projections' outputs, and the
-    out-projection reads a view of K3's output: no copy of q, k, v or the
-    context. One block's attention equals the JAX package's _attention (its
-    K3 in interpret mode) at the same numpy weights, within ATOL (fp32 on
-    both sides, summation order only)."""
+    """Head dim 32 (the head-major route) makes one q|k|v projection and
+    hands K3 non-contiguous head-major views of its output (the q, k and v
+    column blocks, storage shared), and the out-projection reads a view of
+    K3's output: no copy of q, k, v or the context. One block's attention
+    equals the JAX package's _attention (its K3 in interpret mode) at the
+    same numpy weights, within ATOL (fp32 on both sides, summation order
+    only)."""
     from cbas_tpu_torch.ops import flash_attention as tfa
 
     kwargs = ROUTES["hd32"][0]
@@ -303,34 +333,25 @@ def test_headmajor_route_passes_views_of_the_projections(monkeypatch, restore_fu
     want = jvit._attention({k: jnp.asarray(v) for k, v in jparams.items()}, "layer.0",
                            jnp.asarray(x), jcfg, rope=tuple(jnp.asarray(t) for t in rope_np))
 
-    dense_in, dense_out, calls = {}, {}, []
-    real_dense, real_headmajor = tvit._dense, tfa.fused_attention
-
-    def dense(params, name, x, bias=True):
-        dense_in[name], dense_out[name] = x, real_dense(params, name, x, bias)
-        return dense_out[name]
+    calls = []
+    real_headmajor = tfa.fused_attention
 
     def headmajor(q, k, v, *args, **kwargs):
         calls.append(((q, k, v), real_headmajor(q, k, v, *args, **kwargs)))
         return calls[-1][1]
 
-    monkeypatch.setattr(tvit, "_dense", dense)
+    params = vit_params_from_numpy(jparams, tcfg)
+    fused_out, dense_in = _spy_fused_projection(monkeypatch, 3 * tcfg.hidden_size)
     monkeypatch.setattr(tfa, "fused_attention", headmajor)
     rope = tvit._full_rope_tables(tuple(torch.from_numpy(t) for t in rope_np),
                                   tcfg.num_prefix_tokens)
-    got = tvit._attention(vit_params_from_numpy(jparams, tcfg), "layer.0", torch.from_numpy(x),
-                          tcfg, rope)
+    got = tvit._attention(params, "layer.0", torch.from_numpy(x), tcfg, rope)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
-    def storage(t):
-        return t.untyped_storage().data_ptr()
-
-    assert len(calls) == 1
+    assert len(calls) == len(fused_out) == 1
     (operands, ctx), = calls
-    for t, proj in zip(operands, ("q_proj", "k_proj", "v_proj")):
-        assert not t.is_contiguous()
-        assert storage(t) == storage(dense_out[f"layer.0.attention.{proj}"])
-    assert storage(dense_in["layer.0.attention.o_proj"]) == storage(ctx)
+    _assert_views_of_fused(operands, fused_out[0], tcfg.num_heads, 32)
+    assert _storage(dense_in["layer.0.attention.o_proj"]) == _storage(ctx)
 
 
 # The port's forward against Hugging Face's modules, random weights from

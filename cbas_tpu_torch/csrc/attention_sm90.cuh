@@ -33,7 +33,8 @@
 //   each its own TMA box and its own n = 64 product. (Issuing the next
 //   tile's q.k^T before this tile's softmax, as FA3 does, or right after
 //   this tile's p.V, was measured slower here: the live score registers
-//   cost blocks an SM or spilled, and ptxas serialized the wgmmas.)
+//   cost blocks an SM or spilled, and ptxas serialized the wgmmas; the
+//   variant kPipe below keeps the first form as a timing case.)
 // - RoPE once per (token, head, image). The query block ropes and scales its
 //   own Q rows as it stages them (each is read by one block only); K, which
 //   every query block of a head reads, is roped by a prologue kernel
@@ -74,6 +75,15 @@
 // before the scores (32) and P (16), so blocks an SM are fewer
 // (Config::kMinBlocks). Q 24-32 KB and a 24-32 KB ring stage keep two blocks
 // an SM within shared memory.
+//
+// Compile-time variants (kVariant, attention_variants.cu). Variant 0 (kFull)
+// is the function above, the only one K1, K2 and K3 run. The others port the
+// stage isolation of the TPU probes benchmarks/attn_probes/probe2.py
+// (make_variant, its bodies dma_kernel, qk_kernel, nosm_kernel and
+// pipe_kernel) and probe4.py (vext_kernel), as timing cases of this loop: the
+// producer, the ring and the stores are the same in every variant, and each
+// drops or changes one stage of the consumer (Variant). They are built at
+// d = 64 and 128 only, and no encode route calls them.
 
 #pragma once
 
@@ -116,6 +126,28 @@ struct Config {
   // 1024 bytes of slack to align the tiles to the 128-byte swizzle's period.
   static constexpr size_t kSmemBytes = 1024 + kQBytes + kSlots * kTileBytes + (2 * kSlots + 1) * 8;
 };
+
+// The body's variants and the function each computes (the plain versions:
+// cbas_tpu_torch/ops/attention_variants.py). Every variant loads Q and each
+// K and V tile through the ring and stores one output tile, as kFull does;
+// what it keeps of the consumer's work is all it claims to time, and no
+// variant skips a key tile.
+enum Variant : int {
+  kFull = 0,         // the attention function (K1, K2, K3)
+  kDma = 1,          // probe2 dma_kernel: no RoPE, no wgmma; o = q, bit for bit
+  kQk = 2,           // probe2 qk_kernel: RoPE and q.k^T of every tile; o = bf16 of the
+                     // scores of keys 0 .. HD-1 (key tile a into O's atom a)
+  kNoSoftmax = 3,    // probe2 nosm_kernel: o = bf16(bf16(s) . V); no mask, max, exp or sum
+  kPipe = 4,         // probe2 pipe_kernel: kFull with tile t+1's q.k^T issued before
+                     // tile t's softmax; bit for bit kFull
+  kVext = 5,         // probe4 vext_kernel: row sums from p.[V | 1] on the tensor cores
+  kVextBf16Exp = 6,  // the same with p = bf16(2^bf16(x)), two exponentials a MUFU op
+};
+
+// A tile of bf16 ones, B of the row-sum product p.1 (m64n8k16) of kVext and
+// kVextBf16Exp: every element is 1, so its layout does not matter, and each
+// 16-key step reads the same 16 x 8 block of it.
+constexpr uint32_t kOnesBytes = 1024;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -260,6 +292,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// 2^x of both bf16 halves of x, as bf16x2 (one MUFU op for the pair; sm_90).
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
 // The max (kMax) or sum of a thread's 16 scores of row r (0: row g, 1: row
 // g + 8) in an m64n64 accumulator, as a tree: 4 dependent steps, not 16.
 template <bool kMax>
@@ -320,6 +359,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 8, fp32) = a (64 x 16, bf16, registers) . b (16 x 8, bf16, shared
+// memory through `desc`, K-major) + (accumulate ? d : 0).
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                               uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// A shared-memory matrix descriptor without swizzle (layout 0): start
+// address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t plain_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+}
+
 // --- the kernels -----------------------------------------------------------
 
 // Byte offset of column c of row r in a 128-byte-swizzled tile of 64-column
@@ -332,8 +391,9 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
 // One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y of image
 // blockIdx.z. Warps 0-3 are the consumer warpgroup, warp 4 the producer.
 // The four maps share one dim order and so one MapAddress; Q's and O's maps
-// have N rows, K's and V's n_valid.
-template <int HD, int kRank>
+// have N rows, K's and V's n_valid. kVariant selects the consumer's work
+// (Variant); the producer is the same in all.
+template <int HD, int kRank, int kVariant = kFull>
 __global__ void __launch_bounds__(Config<HD>::kThreads, Config<HD>::kMinBlocks)
 attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
@@ -341,6 +401,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
                int n_valid, float scale, const MapAddress order) {
   using C = Config<HD>;
   constexpr int kKSteps = HD / 16;
+  constexpr bool kRowSumProduct = kVariant == kVext || kVariant == kVextBf16Exp;
 
   unsigned char* raw = dynamic_smem();
   const uint32_t raw_addr = smem_u32(raw);
@@ -349,8 +410,10 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   // Load i of the ring is K(i / 2) if i is even, else V(i / 2), into stage
   // i % kSlots at + (i % kSlots) * kTileBytes.
   const uint32_t ring = q_tile + C::kQBytes;
-  // full barriers of the stages, their empty barriers, then Q's.
-  const uint32_t bars = ring + C::kSlots * C::kTileBytes;
+  // The row-sum variants' ones tile, then the full barriers of the stages,
+  // their empty barriers, then Q's.
+  const uint32_t ones = ring + C::kSlots * C::kTileBytes;
+  const uint32_t bars = ones + (kRowSumProduct ? kOnesBytes : 0);
   auto full = [&](int i) { return bars + 8u * (i % C::kSlots); };
   auto empty = [&](int i) { return bars + 8u * (C::kSlots + i % C::kSlots); };
   auto stage = [&](int i) { return ring + (i % C::kSlots) * C::kTileBytes; };
@@ -399,70 +462,92 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   const int g = lane / 4;
   const int t = lane % 4;
 
-  // Rope and scale the Q tile in place, as the shared-memory A operand of
-  // q.k^T: each thread takes pairs of 16-byte chunks, columns [c, c + 8) of
-  // the first half and their RoPE partners [c + HD/2, +8), and rounds each
-  // value to bf16 once, as rope_chunk does. The tables of a batch of pairs
-  // load while the TMA brings the tile. Rows at or beyond N arrived as zeros
-  // and stay so.
-  {
-    constexpr int kPairsPerRow = HD / 2 / kChunk;
-    constexpr int kPerThread = kWGRows * kPairsPerRow / kWGThreads;  // 2 or 4
-    constexpr int kBatch = 2;
+  auto wait_full = [&](int i) { mbar_wait(full(i), (i / C::kSlots) & 1); };
+  // Each consumer warp releases a stage once its share of the wgmma that read
+  // it has completed.
+  auto release = [&](int i) {
+    if (lane == 0) mbar_arrive(empty(i));
+  };
+
+  if constexpr (kVariant == kDma) {
+    // Loads and stores only: Q as it arrived, each stage waited on and
+    // released; the epilogue stores the Q tile unchanged.
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < 2 * n_tiles; ++i) {
+      wait_full(i);
+      release(i);
+    }
+  } else {
+    // Rope and scale the Q tile in place, as the shared-memory A operand of
+    // q.k^T: each thread takes pairs of 16-byte chunks, columns [c, c + 8) of
+    // the first half and their RoPE partners [c + HD/2, +8), and rounds each
+    // value to bf16 once, as rope_chunk does. The tables of a batch of pairs
+    // load while the TMA brings the tile. Rows at or beyond N arrived as zeros
+    // and stay so.
+    {
+      constexpr int kPairsPerRow = HD / 2 / kChunk;
+      constexpr int kPerThread = kWGRows * kPairsPerRow / kWGThreads;  // 2 or 4
+      constexpr int kBatch = 2;
 #pragma unroll
-    for (int p0 = 0; p0 < kPerThread; p0 += kBatch) {
-      float4 tab[kBatch][8];  // cos, then sin, of the chunk and of its partner
+      for (int p0 = 0; p0 < kPerThread; p0 += kBatch) {
+        float4 tab[kBatch][8];  // cos, then sin, of the chunk and of its partner
 #pragma unroll
-      for (int pb = 0; pb < kBatch; ++pb) {
-        const int i = tid + (p0 + pb) * kWGThreads;
-        const int n = q0 + i / kPairsPerRow;
-        const int c = (i % kPairsPerRow) * kChunk;
-        if (cos_t != nullptr && n < N) {
-          const float4* cs = reinterpret_cast<const float4*>(cos_t + static_cast<size_t>(n) * HD);
-          const float4* sn = reinterpret_cast<const float4*>(sin_t + static_cast<size_t>(n) * HD);
-          const int c4 = c / 4, p4 = (c + HD / 2) / 4;
-          tab[pb][0] = cs[c4], tab[pb][1] = cs[c4 + 1], tab[pb][2] = cs[p4], tab[pb][3] = cs[p4 + 1];
-          tab[pb][4] = sn[c4], tab[pb][5] = sn[c4 + 1], tab[pb][6] = sn[p4], tab[pb][7] = sn[p4 + 1];
-        }
-      }
-      if (p0 == 0) mbar_wait(q_full, 0);
-#pragma unroll
-      for (int pb = 0; pb < kBatch; ++pb) {
-        const int i = tid + (p0 + pb) * kWGThreads;
-        const int r = i / kPairsPerRow;
-        const int c = (i % kPairsPerRow) * kChunk;
-        if (q0 + r >= N) continue;
-        uint4* pa = reinterpret_cast<uint4*>(sq + sw128_offset(r, c));
-        uint4* pp = reinterpret_cast<uint4*>(sq + sw128_offset(r, c + HD / 2));
-        const uint4 xa = *pa, xp = *pp;
-        const float* tb = reinterpret_cast<const float*>(tab[pb]);  // [8 cos_a, 8 cos_p, ...]
-        uint4 ya, yp;
-        auto* a32 = reinterpret_cast<uint32_t*>(&ya);
-        auto* p32 = reinterpret_cast<uint32_t*>(&yp);
-#pragma unroll
-        for (int e = 0; e < kChunk; e += 2) {
-          float va[2], vp[2];
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            va[u] = bf16_at(xa, e + u);
-            vp[u] = bf16_at(xp, e + u);
-            if (cos_t != nullptr) {
-              const float a = va[u];
-              va[u] = rope(a, vp[u], true, tb[e + u], tb[16 + e + u]);
-              vp[u] = rope(vp[u], a, false, tb[8 + e + u], tb[24 + e + u]);
-            }
+        for (int pb = 0; pb < kBatch; ++pb) {
+          const int i = tid + (p0 + pb) * kWGThreads;
+          const int n = q0 + i / kPairsPerRow;
+          const int c = (i % kPairsPerRow) * kChunk;
+          if (cos_t != nullptr && n < N) {
+            const size_t row = static_cast<size_t>(n) * HD;
+            const float4* cs = reinterpret_cast<const float4*>(cos_t + row);
+            const float4* sn = reinterpret_cast<const float4*>(sin_t + row);
+            const int c4 = c / 4, p4 = (c + HD / 2) / 4;
+            tab[pb][0] = cs[c4], tab[pb][1] = cs[c4 + 1], tab[pb][2] = cs[p4], tab[pb][3] = cs[p4 + 1];
+            tab[pb][4] = sn[c4], tab[pb][5] = sn[c4 + 1], tab[pb][6] = sn[p4], tab[pb][7] = sn[p4 + 1];
           }
-          a32[e / 2] = pack_bf16(va[0] * scale, va[1] * scale);
-          p32[e / 2] = pack_bf16(vp[0] * scale, vp[1] * scale);
         }
-        *pa = ya;
-        *pp = yp;
+        if (p0 == 0) mbar_wait(q_full, 0);
+#pragma unroll
+        for (int pb = 0; pb < kBatch; ++pb) {
+          const int i = tid + (p0 + pb) * kWGThreads;
+          const int r = i / kPairsPerRow;
+          const int c = (i % kPairsPerRow) * kChunk;
+          if (q0 + r >= N) continue;
+          uint4* pa = reinterpret_cast<uint4*>(sq + sw128_offset(r, c));
+          uint4* pp = reinterpret_cast<uint4*>(sq + sw128_offset(r, c + HD / 2));
+          const uint4 xa = *pa, xp = *pp;
+          const float* tb = reinterpret_cast<const float*>(tab[pb]);  // [8 cos_a, 8 cos_p, ...]
+          uint4 ya, yp;
+          auto* a32 = reinterpret_cast<uint32_t*>(&ya);
+          auto* p32 = reinterpret_cast<uint32_t*>(&yp);
+#pragma unroll
+          for (int e = 0; e < kChunk; e += 2) {
+            float va[2], vp[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              va[u] = bf16_at(xa, e + u);
+              vp[u] = bf16_at(xp, e + u);
+              if (cos_t != nullptr) {
+                const float a = va[u];
+                va[u] = rope(a, vp[u], true, tb[e + u], tb[16 + e + u]);
+                vp[u] = rope(vp[u], a, false, tb[8 + e + u], tb[24 + e + u]);
+              }
+            }
+            a32[e / 2] = pack_bf16(va[0] * scale, va[1] * scale);
+            p32[e / 2] = pack_bf16(vp[0] * scale, vp[1] * scale);
+          }
+          *pa = ya;
+          *pp = yp;
+        }
       }
     }
+    if constexpr (kRowSumProduct) {  // the ones tile: 128 threads x 8 bytes of bf16 1.0
+      static_assert(kOnesBytes == kWGThreads * 8, "one uint2 of ones a consumer thread");
+      reinterpret_cast<uint2*>(raw + (ones - raw_addr))[tid] = make_uint2(0x3F803F80u, 0x3F803F80u);
+    }
+    // The wgmma reads shared memory through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
   }
-  // The wgmma reads shared memory through the async proxy.
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
 
   // Accumulator fragments (m64nNk16): element 4 j + e of a thread is row
   // 16 warp + g + 8 (e / 2), column 8 j + 2 t + (e & 1).
@@ -473,28 +558,25 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
     for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
   float l[2] = {0.f, 0.f};              // running sum
+  // The row-sum variants' running sums, from p.1 (m64n8: elements 0 and 1
+  // are row g, 2 and 3 row g + 8, every column the same sum).
+  float lsum[4] = {0.f, 0.f, 0.f, 0.f};
 
-  auto wait_full = [&](int i) { mbar_wait(full(i), (i / C::kSlots) & 1); };
-  // Each consumer warp releases a stage once its share of the wgmma that read
-  // it has completed.
-  auto release = [&](int i) {
-    if (lane == 0) mbar_arrive(empty(i));
-  };
-
-  // S = Q K(kt)^T, issued and committed. Both operands K-major: a 16-deep
-  // step is 32 bytes into the atoms' rows; 8-row groups are 1024 bytes apart.
-  // The first step does not read sc (scale-d 0), so it is not zeroed: a
-  // non-wgmma write to an accumulator makes ptxas serialize the wgmmas.
+  // S = Q K(kt)^T into s, issued and committed. Both operands K-major: a
+  // 16-deep step is 32 bytes into the atoms' rows; 8-row groups are 1024
+  // bytes apart. The first step does not read s (scale-d 0), so it is not
+  // zeroed: a non-wgmma write to an accumulator makes ptxas serialize the
+  // wgmmas.
   float sc[32];
-  auto issue_qk = [&](int kt) {
+  auto issue_qk = [&](float (&s)[32], int kt) {
     const uint32_t k_tile = stage(2 * kt);
     wait_full(2 * kt);
-    fence_regs(sc);
+    fence_regs(s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
       const uint32_t step = (kk / 4) * kAtomBytes + (kk % 4) * 32;
-      wgmma_m64n64k16_ss(sc, sw128_desc(q_tile + step, 16, 1024),
+      wgmma_m64n64k16_ss(s, sw128_desc(q_tile + step, 16, 1024),
                          sw128_desc(k_tile + step, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -502,12 +584,14 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
 
   // O += P V(kt), issued and committed. MN-major B: a 16-key step is 16 rows
   // (2048 bytes) down the atom; 8-row groups are 1024 bytes apart; each
-  // 64-column atom of V is its own n = 64 product.
+  // 64-column atom of V is its own n = 64 product. The row-sum variants add
+  // P 1 into lsum in the same group.
   auto issue_pv = [&](const uint32_t (&p)[4][4], int kt) {
     const uint32_t v_tile = stage(2 * kt + 1);
     wait_full(2 * kt + 1);
 #pragma unroll
     for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+    if constexpr (kRowSumProduct) fence_regs(lsum);
     wgmma_fence();
 #pragma unroll
     for (int a = 0; a < C::kAtoms; ++a)
@@ -515,6 +599,10 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       for (int kk = 0; kk < 4; ++kk)
         wgmma_m64n64k16<1>(acc[a], p[kk],
                            sw128_desc(v_tile + a * kAtomBytes + kk * 2048, kAtomBytes, 1024), 1);
+    if constexpr (kRowSumProduct) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n8k16(lsum, p[kk], plain_desc(ones, 128, 256), 1);
+    }
     wgmma_commit();
   };
 
@@ -523,6 +611,9 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   // of one quad. exp(x - max) as 2^(x log2 e - max log2 e): one FFMA and one
   // MUFU an element. Updates m and l, writes P (rounded to bf16) as the A
   // fragments of p.V into p, and the factor O must be rescaled by into alpha.
+  // The row-sum variants keep no l (p.1 sums P); kVextBf16Exp rounds each
+  // x to bf16 and takes 2^x of a pair in one bf16x2 MUFU op, whose result is
+  // P's A fragment as it stands.
   auto softmax = [&](int kt, uint32_t (&p)[4][4], float (&alpha)[2]) {
     // Only the last tile can hold dead keys: mask them by select. Their p is
     // then exactly 0 (every row has a live key, so its max is finite).
@@ -544,21 +635,34 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       m[r] = mx;
       mxl[r] = mx * kLog2e;
     }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = ex2(fmaf(sc[i], kLog2e, -mxl[(i % 4) / 2]));
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float rs = row_reduce<false>(sc, r);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[r] = l[r] * alpha[r] + rs;
-    }
     // Key step kk of p.V is score columns 16 kk .. +15, the accumulator
-    // elements of 8-column tiles 2 kk and 2 kk + 1.
+    // elements of 8-column tiles 2 kk and 2 kk + 1; element 8 kk + 2 i (and
+    // its neighbour, one bf16x2) is in row i % 2.
+    if constexpr (kVariant == kVextBf16Exp) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+        for (int i = 0; i < 4; ++i)
+          p[kk][i] = ex2_bf16x2(pack_bf16(fmaf(sc[8 * kk + 2 * i], kLog2e, -mxl[i % 2]),
+                                          fmaf(sc[8 * kk + 2 * i + 1], kLog2e, -mxl[i % 2])));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = ex2(fmaf(sc[i], kLog2e, -mxl[(i % 4) / 2]));
+      if constexpr (!kRowSumProduct) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float rs = row_reduce<false>(sc, r);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+          l[r] = l[r] * alpha[r] + rs;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+    }
   };
 
   // Once the running max settles, alpha is exactly 1 and the rescale is
@@ -569,40 +673,117 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       for (int a = 0; a < C::kAtoms; ++a)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[a][i] *= alpha[(i % 4) / 2];
+      if constexpr (kRowSumProduct) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) lsum[i] *= alpha[i / 2];
+      }
     }
   };
 
-  // Per tile: q.k^T, the softmax, p.V. Each stage is released as soon as its
-  // wgmma has read it, so K(kt + 1) loads during this tile's softmax and p.V.
   uint32_t p[4][4];
   float alpha[2];
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    issue_qk(kt);
+  if constexpr (kVariant == kQk) {
+    // q.k^T of every tile; tile a's scores (keys 64 a ..) become O's atom a.
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      issue_qk(sc, kt);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(2 * kt);
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a)
+        if (kt == a) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[a][i] = sc[i];
+        }
+      wait_full(2 * kt + 1);
+      release(2 * kt + 1);
+    }
+  } else if constexpr (kVariant == kNoSoftmax) {
+    // P = bf16(S) as it stands, then O += P V(kt).
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      issue_qk(sc, kt);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(2 * kt);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+      issue_pv(p, kt);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+      release(2 * kt + 1);
+    }
+  } else if constexpr (kVariant == kPipe) {
+    // Tile kt + 1's q.k^T runs (into sn) during tile kt's softmax. The ring
+    // still loads K(0), V(0), K(1), ...: K(kt + 1), load 2 kt + 2, reuses
+    // the slot of K(kt), which is released before it is waited on, and the
+    // producer has issued V(kt) before it (V(kt - 1) was released), so the
+    // consumer's order K(kt + 1), V(kt) never waits on a load not issued.
+    float sn[32];
+    issue_qk(sc, 0);
     wgmma_wait<0>();
     fence_regs(sc);
-    release(2 * kt);
-    softmax(kt, p, alpha);
-    rescale(alpha);
-    issue_pv(p, kt);
-    wgmma_wait<0>();
+    release(0);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const bool next = kt + 1 < n_tiles;
+      if (next) issue_qk(sn, kt + 1);
+      softmax(kt, p, alpha);
+      rescale(alpha);
+      issue_pv(p, kt);
+      wgmma_wait<0>();
+      fence_regs(sn);
 #pragma unroll
-    for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
-    release(2 * kt + 1);
+      for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+      release(2 * kt + 1);
+      if (next) {
+        release(2 * kt + 2);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = sn[i];
+      }
+    }
+  } else if constexpr (kVariant != kDma) {
+    // Per tile: q.k^T, the softmax, p.V. Each stage is released as soon as its
+    // wgmma has read it, so K(kt + 1) loads during this tile's softmax and p.V.
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      issue_qk(sc, kt);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(2 * kt);
+      softmax(kt, p, alpha);
+      rescale(alpha);
+      issue_pv(p, kt);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+      if constexpr (kRowSumProduct) fence_regs(lsum);
+      release(2 * kt + 1);
+    }
   }
 
   // O / rowsum, rounded to bf16, staged in the Q tile's shared memory (q.k^T
   // has read it for the last time) in the same swizzled layout, then written
   // by one TMA store a 64-column atom; the map clips rows at or beyond N.
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  // kQk and kNoSoftmax do not divide; kDma stores the Q tile as it arrived.
+  if constexpr (kVariant != kDma) {
+    float inv[2] = {1.f, 1.f};
+    if constexpr (kRowSumProduct) {
+      inv[0] = 1.f / lsum[0], inv[1] = 1.f / lsum[2];
+    } else if constexpr (kVariant != kQk && kVariant != kNoSoftmax) {
+      inv[0] = 1.f / l[0], inv[1] = 1.f / l[1];
+    }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = 16 * warp + g + 8 * r;
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;
 #pragma unroll
-    for (int a = 0; a < C::kAtoms; ++a)
+      for (int a = 0; a < C::kAtoms; ++a)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, kAtom * a + 8 * j) + 4 * t) =
-            pack_bf16(acc[a][4 * j + 2 * r] * inv[r], acc[a][4 * j + 2 * r + 1] * inv[r]);
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, kAtom * a + 8 * j) + 4 * t) =
+              pack_bf16(acc[a][4 * j + 2 * r] * inv[r], acc[a][4 * j + 2 * r + 1] * inv[r]);
+    }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
@@ -764,9 +945,10 @@ inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, in
 // column c with c + HD/2 instead of c + d/2, it ropes q (times the scale)
 // into `q_scratch` and k into `k_scratch`, and the attention kernel runs
 // without tables at scale 1. q, k and v lie as L says; o and the scratch as
-// Lo says, in the same dim order (map_shape). Returns the CUDA error of the
-// launches (cudaSuccess when all were queued).
-template <int HD>
+// Lo says, in the same dim order (map_shape). kVariant other than kFull
+// runs at d == HD only, and kDma without the prologue (it ropes nothing).
+// Returns the CUDA error of the launches (cudaSuccess when all were queued).
+template <int HD, int kVariant = kFull>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                    const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
                    const Layout& L, const Layout& Lo, int n_valid, float scale, void* stream) {
@@ -774,8 +956,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
   const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   if (d > HD || d <= HD - kAtom || d % kChunk) return cudaErrorInvalidValue;
-  const auto* c = static_cast<const float*>(cos_t);
-  const auto* s = static_cast<const float*>(sin_t);
+  if (kVariant != kFull && d != HD) return cudaErrorInvalidValue;
+  const auto* c = kVariant == kDma ? nullptr : static_cast<const float*>(cos_t);
+  const auto* s = kVariant == kDma ? nullptr : static_cast<const float*>(sin_t);
   const auto st = static_cast<cudaStream_t>(stream);
   const void* q_in = q;
   const void* k_in = k;
@@ -798,13 +981,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
       !encode_map(&o_map, o, m, N, true) || !encode_map(&k_map, k_in, m, n_valid, k_in != k) ||
       !encode_map(&v_map, v, m, n_valid))
     return cudaErrorInvalidValue;
-  const auto kernel = m.order.rank == 5 ? attention_sm90<HD, 5> : attention_sm90<HD, 4>;
+  const auto kernel = m.order.rank == 5 ? attention_sm90<HD, 5, kVariant>
+                                         : attention_sm90<HD, 4, kVariant>;
+  constexpr size_t smem =
+      C::kSmemBytes + (kVariant == kVext || kVariant == kVextBf16Exp ? kOnesBytes : 0);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmemBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
-  kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(q_map, k_map, v_map, o_map, c, s, N, n_valid,
-                                                   scale, m.order);
+  kernel<<<grid, C::kThreads, smem, st>>>(q_map, k_map, v_map, o_map, c, s, N, n_valid, scale,
+                                          m.order);
   return cudaGetLastError();
 }
 

@@ -60,6 +60,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
     ("attention_fat", 128, 261, 12, 64, (16, 16), "bfloat16"),
@@ -334,10 +335,57 @@ def measure(root: str, reads: int) -> dict:
     return out
 
 
+def build_logs(root: str) -> dict:
+    """Build every kernel of the checkout at ``root`` (one nvcc a source, in
+    parallel, in a process of that checkout) and read each library's
+    ``-Xptxas -v`` log: {library: log}."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "from concurrent.futures import ThreadPoolExecutor\n"
+        "from cbas_tpu_torch.ops import _cuda\n"
+        "names = sorted(p.stem for p in _cuda.SRC_DIR.glob('*.cu'))\n"
+        "with ThreadPoolExecutor(len(names)) as pool:\n"
+        "    libs = dict(zip(names, pool.map(_cuda.build, names)))\n"
+        "print(json.dumps({n: l.with_suffix('.log').read_text() for n, l in libs.items()}))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root)
+    if proc.returncode:
+        raise SystemExit(f"building {root} failed:\n{proc.stderr[-8000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def compare_ptxas(parent: str, change: str) -> dict:
+    """Registers, shared memory, stack and spills of every kernel the
+    parent's libraries hold, beside the same kernel in the change's: whether
+    each is the same, and the kernels only the change has."""
+    with ThreadPoolExecutor(2) as pool:
+        logs = dict(zip(("parent", "change"), pool.map(build_logs, (parent, change))))
+    import chip_smoke
+
+    def entries(log):  # (chip_smoke.ptxas_entries under chip_smoke.comparable_name)
+        return {chip_smoke.comparable_name(name): e
+                for name, e in chip_smoke.ptxas_entries(log).items()}
+
+    kernels, only_change = {}, {}
+    for lib, log in logs["change"].items():
+        now = entries(log)
+        before = entries(logs["parent"].get(lib, ""))
+        for name, props in before.items():
+            kernels.setdefault(lib, {})[name] = {"parent": props, "change": now.get(name),
+                                                 "same": props == now.get(name)}
+        only_change[lib] = {name: props for name, props in now.items() if name not in before}
+    return {"kernels": kernels, "only_in_change": only_change,
+            "missing_in_change": sorted(set(logs["parent"]) - set(logs["change"])),
+            "all_same": all(k["same"] for lib in kernels.values() for k in lib.values())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of the parent's checkout")
     ap.add_argument("--reads", type=int, default=3)
+    ap.add_argument("--ptxas", action="store_true",
+                    help="compare the two checkouts' ptxas reports only (no card needed)")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one run, in the checkout at this root
     args = ap.parse_args()
     if args.measure:
@@ -346,6 +394,9 @@ def main() -> int:
     if not args.parent:
         ap.error("--parent is required")
     here = os.path.dirname(os.path.abspath(__file__))
+    if args.ptxas:
+        print(json.dumps(compare_ptxas(os.path.abspath(args.parent), here)), flush=True)
+        return 0
     card = card_name_and_power()
     print(card, flush=True)
     runs = []

@@ -8,8 +8,9 @@ non-zero and prints no final line):
 
 1. environment: torch/CUDA versions, the card's name and power limit, and a
    fresh build of every kernel from ``cbas_tpu_torch/csrc`` (one nvcc per
-   source, started together: the three attention kernels, the LayerNorm and
-   the memory floor), with each kernel's registers and spills;
+   source, started together: the three attention kernels, the LayerNorm,
+   the memory floor and the attention body's stage variants), with each
+   kernel's registers and spills;
 2. kernel: first the memory floor (``ops/memory_floor.py``, ``o = q + 0*k
    + 0*v``, replacing probe14's and probe15's ``dma_kernel``) against its
    plain version, bit for bit where the result is a number and NaN where it
@@ -64,7 +65,26 @@ non-zero and prints no final line):
    every mode; an fp32 affine on bf16 x; D 64, 100, 127, 384, 1536, 2560,
    3001 and 20480 (one warp a row, one element a lane at a time, several
    warps a row, and the streamed rows); every case timed beside its byte
-   bound, ``x + h * lam`` then ``F.layer_norm``, and the plain version;
+   bound, ``x + h * lam`` then ``F.layer_norm``, and the plain version.
+   Between the two, the stage phase (``stage_phase``, the variants' launch
+   counts set to 0 before it and read after): the compile-time variants of
+   the Hopper body (``ops/attention_variants.py``, ``csrc/
+   attention_variants.cu``; probe2.py's dma, qk, nosm and pipe bodies and
+   probe4.py's vext with and without a bf16 exponential) at the probes' own
+   packed (320, 6, 1216, 128) blocks with 1205 live rows (inputs x 0.3,
+   random tables, NaN in the dead k and v rows) and at the main paths'
+   fused-view shapes (K1 (128, 261, 12, 64) and (32, 1205, 12, 64), K3 (32,
+   261, 32, 128) and (8, 1205, 32, 128)), RoPE on and off: dma bit for bit
+   q, pipe bit for bit variant 0 (K1, K2 or K3 on the same inputs), qk,
+   nosm, vext and vext_bf16exp within ``stage_tolerance``'s bounds of their
+   plain versions (the vext forms' run the kernel's own loop; the card's
+   ``ex2.approx.ftz.bf16x2`` is first read at every bf16 input,
+   ``ex2_deviation``); each timed between two reads of variant 0 (variant 0,
+   variant, variant, variant 0) beside the floor, the bound and SDPA, the
+   SM clock, power draw, temperature and clock-event reasons sampled around
+   each case (``gpu_clocks``), and variant 0's time
+   split into stages (dma - floor, qk - dma, nosm - qk, full - nosm, full -
+   vext, full - vext_bf16exp);
 3. encode, flat route: the main path at the full width of dinov3-vitb16
    (random weights from a numpy seed): 256x256 planes in two full batches
    and a partial one, 640x480 planes in one batch, then the head over the
@@ -168,7 +188,11 @@ replacing ``benchmarks/attn_probes/probe25_ln_256.py:51``) with its
 launches on every route, its numbers at (33408, 768) and its other timed
 cases, and the memory floor (``memory_floor``, replacing probe14's and
 probe15's ``dma_kernel``) with its launches over the floor phase, its
-numbers at probe14's blocks and at every other row; the last line is
+numbers at probe14's blocks and at every other row, and the stage variants
+(``attention_variants``, replacing probe2.py's ``make_variant`` bodies and
+probe4.py's ``vext_kernel``) with their launches over the stage phase, pipe's
+numbers at K1's 256x256 shape with RoPE, every variant's there, and each
+case's times and split; the last line is
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -177,7 +201,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -283,6 +309,36 @@ FLOOR_SITES = ("benchmarks/attn_probes/probe14_dma_floor_256.py:51",
 # row's bound at the peak rate has its measured floor beside it.
 FLOOR_SHAPES = (("probe14/15 blocks (B*G, N, 128)", (384 * 6, 272, 128), "bfloat16"),
                 ("probe14 flat2d (rows, 128)", (384 * 6 * 272, 128), "bfloat16"))
+
+
+# The stage variants of the Hopper attention body (source
+# cbas_tpu_torch/csrc/attention_variants.cu, compile-time variants of
+# attention_sm90.cuh's loop): probe2.py's make_variant with its four bodies
+# (dma_kernel, qk_kernel, nosm_kernel, pipe_kernel) and probe4.py's
+# make_variant with vext_kernel (bf16exp off and on). Their own path is the
+# stage phase, run with their counts set to 0 before it and read after it.
+VARIANTS_KERNEL = "attention_variants"
+VARIANTS_REPLACES = "benchmarks/attn_probes/probe2.py:45"
+VARIANTS_SITES = tuple(f"benchmarks/attn_probes/{site}" for site in (
+    "probe2.py:63", "probe2.py:67", "probe2.py:95", "probe2.py:126", "probe4.py:46",
+    "probe4.py:64"))
+# Its cases, (label, layout, B, N, H, d, n_valid, patch grid): the probes' own
+# packed (320 * 6, 1216, 128) blocks with 1205 live rows, probe-like inputs
+# (standard normal x 0.3, random tables from a seed; grid None), then the main
+# paths' shapes on views of one fused projection with the model's tables, as
+# kernel_case builds them: K1 at dinov3-vitb16's, K3 at the ViT-7B width's.
+# Each with RoPE and without.
+STAGE_CASES = (
+    ("probe2/probe4 blocks", "packed", 320, 1216, 12, 64, 1205, None),
+    ("K1 vitb16 256x256", "fat", BATCH_256, 261, 12, 64, 261, (16, 16)),
+    ("K1 vitb16 640x480", "fat", BATCH_480, 1205, 12, 64, 1205, (30, 40)),
+    ("K3 ViT-7B width 256x256", "headmajor", BATCH_7B_256, 261, 32, 128, 261, (16, 16)),
+    ("K3 ViT-7B width 640x480", "headmajor", BATCH_7B_480, 1205, 32, 128, 1205, (30, 40)),
+)
+# The kernels line's headline: this case (index into STAGE_CASES), with RoPE,
+# and this variant (the full function).
+STAGE_HEADLINE = (1, "pipe")
+STAGE_PROBE_INPUT_SCALE = 0.3  # probe2.py / probe4.py: standard normal x 0.3
 
 
 def floor_rows() -> tuple:
@@ -411,7 +467,7 @@ def build_all(_cuda) -> dict:
         t = time.perf_counter()
         return name, (_cuda.build(name), time.perf_counter() - t)
 
-    names = (*KERNELS, LN_KERNEL, FLOOR_KERNEL)
+    names = (*KERNELS, LN_KERNEL, FLOOR_KERNEL, VARIANTS_KERNEL)
     with ThreadPoolExecutor(len(names)) as pool:
         return dict(pool.map(one, names))
 
@@ -421,44 +477,83 @@ def build_all(_cuda) -> dict:
 PTXAS: dict = {}
 
 
-def ptxas_report(log: str) -> list:
-    """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log, as
-    "<dtype><head dim>: N regs, S/L spill" strings."""
-    out, name = [], None
+def ptxas_entries(log: str) -> dict:
+    """Each kernel of a ``-Xptxas -v`` log, in its order: {mangled name:
+    {"registers", "smem", "stack", "spill_stores", "spill_loads",
+    "wgmma_serialized"}}; the last is whether ptxas says it serialized the
+    kernel's wgmma instructions (its note C7512)."""
+    out, name = {}, None
+    serialized = set(re.findall(r"wgmma\.mma_async instructions are serialized .* for the "
+                                r"function '(\w+)'", log))
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(attention_bf16|attention_f32|attention_sm90)ILi(\d+)E"
-                          r"(?:Li(\d+)E)?", m.group(1))
-            args = ", ".join(x for x in k.groups()[1:] if x) if k else ""
-            name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else m.group(1)
-            r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
-            if r:  # the RoPE prologue: its dtype and the columns a thread takes
-                name = f"rope_rows<{'f32' if r.group(1) == 'f' else 'bf16'}, {r.group(2)}>"
-            n = re.search(r"(add_ln_rows|add_ln_stream)I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?",
-                          m.group(1))
-            if n:  # the LayerNorm: its dtype, and the elements a chunk and the chunks a thread
-                dtype = "f32" if n.group(2) == "f" else "bf16"
-                name = (f"ln_rows<{dtype}, V{n.group(3)}, C{n.group(4)}>" if n.group(3)
-                        else f"ln_stream<{dtype}>")
-            w = re.search(r"(attention_wide_bf16|attention_wide_f32)"
-                          r"(?:I(f|13__nv_bfloat16|Lb[01])E)?", m.group(1))
-            if w:  # the wide body and its prologue: d at run time, not a template argument
-                name = w.group(1).replace("attention_", "")
-                if w.group(2) in ("Lb1", "Lb0"):  # Q resident, or streamed above d = 1024
-                    name += "<resident Q>" if w.group(2) == "Lb1" else "<streamed Q>"
-                elif w.group(2):
-                    name += f"<{'f32' if w.group(2) == 'f' else 'bf16'}>"
-            spill = "?"
+            name = m.group(1)
+            out[name] = {"wgmma_serialized": name in serialized}
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            spill = f"{m.group(1)}/{m.group(2)}"
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} regs, {spill} spill")
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m[1]), smem=int(smem[1]) if smem else 0)
             name = None
     return out
+
+
+def comparable_name(mangled: str) -> str:
+    """A kernel's mangled name as a checkout without the Hopper body's
+    variants gives it: variant 0's template argument (``attention_sm90.cuh``'s
+    kFull) dropped, and the hashes of the file's path that the compiler puts
+    in an anonymous namespace's name, so two checkouts' reports compare."""
+    name = re.sub(r"(attention_sm90ILi\d+ELi\d+E)Li0E", r"\1", mangled)
+    return re.sub(r"(_GLOBAL__N__)[0-9a-f]{8}(_\d+_\w+?_cu_)[0-9a-f]{8}", r"\1\2", name)
+
+
+def kernel_label(mangled: str) -> str:
+    """A short name for a kernel of the port: its body and template
+    arguments ("sm90<64, 4, pipe>", "rope_rows<bf16, 8>", ...)."""
+    k = re.search(r"(attention_bf16|attention_f32|attention_sm90)ILi(\d+)E"
+                  r"(?:Li(\d+)E)?(?:Li(\d+)E)?", mangled)
+    args = ", ".join(x for x in k.groups()[1:3] if x) if k else ""
+    if k and k.group(4) and k.group(4) != "0":  # a stage variant (enum Variant, from 1)
+        from cbas_tpu_torch.ops.attention_variants import VARIANTS
+
+        args += f", {VARIANTS[int(k.group(4)) - 1]}"
+    name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else mangled
+    if "ex2_bf16x2_table" in mangled:  # the stage variants' exponential table
+        name = "ex2_bf16x2_table"
+    r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if r:  # the RoPE prologue: its dtype and the columns a thread takes
+        name = f"rope_rows<{'f32' if r.group(1) == 'f' else 'bf16'}, {r.group(2)}>"
+    n = re.search(r"(add_ln_rows|add_ln_stream)I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?", mangled)
+    if n:  # the LayerNorm: its dtype, and the elements a chunk and the chunks a thread
+        dtype = "f32" if n.group(2) == "f" else "bf16"
+        name = (f"ln_rows<{dtype}, V{n.group(3)}, C{n.group(4)}>" if n.group(3)
+                else f"ln_stream<{dtype}>")
+    w = re.search(r"(attention_wide_bf16|attention_wide_f32)(?:I(f|13__nv_bfloat16|Lb[01])E)?",
+                  mangled)
+    if w:  # the wide body and its prologue: d at run time, not a template argument
+        name = w.group(1).replace("attention_", "")
+        if w.group(2) in ("Lb1", "Lb0"):  # Q resident, or streamed above d = 1024
+            name += "<resident Q>" if w.group(2) == "Lb1" else "<streamed Q>"
+        elif w.group(2):
+            name += f"<{'f32' if w.group(2) == 'f' else 'bf16'}>"
+    return name
+
+
+def ptxas_report(log: str) -> list:
+    """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log
+    (:func:`ptxas_entries`), as "<kernel label>: N regs, S/L spill" strings,
+    with ", wgmma serialized" where ptxas serialized its wgmma instructions."""
+    return [f"{kernel_label(name)}: {e['registers']} regs, "
+            f"{e.get('spill_stores', '?')}/{e.get('spill_loads', '?')} spill"
+            + (", wgmma serialized" if e["wgmma_serialized"] else "")
+            for name, e in ptxas_entries(log).items() if "registers" in e]
 
 
 def kernel_ptxas(fa, kernel, dtype, d) -> str:
@@ -703,14 +798,7 @@ def library_case(torch, fa, q, k, v, scale, cos, sin):
         q, k = ((t.float() * cos + fa.rotate_half(t.float()) * sin).to(t.dtype) for t in (q, k))
     q, k, v = (t.contiguous() for t in (q, k, v))
     ms = time_ms(torch, lambda: sdpa(q, k, v, scale=scale))
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sdpa(q, k, v, scale=scale)
-        torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0})
-    return ms, names
+    return ms, sorted(set(trace_kernels(torch, lambda: sdpa(q, k, v, scale=scale))))
 
 
 def sdpa_backend(kernels) -> str:
@@ -840,6 +928,356 @@ def kernel_phase(torch, fa, cfg) -> dict:
     if bad:
         raise AssertionError(f"fused attention disagrees with its plain version: {bad}")
     return main
+
+
+# What gpu_clocks samples: the SM clock and power draw, then the temperature
+# and the bit mask of reasons the clock is held down (0x1 idle, 0x4 power
+# cap, 0x20 / 0x40 thermal, 0x8 / 0x80 hardware slowdown).
+GPU_CLOCK_FIELDS = "clocks.sm,power.draw,temperature.gpu,clocks_event_reasons.active"
+
+
+def gpu_clocks() -> str:
+    """The card's GPU_CLOCK_FIELDS now, as ``nvidia-smi`` reads them; raises
+    if it refuses the query."""
+    proc = subprocess.run(["nvidia-smi", f"--query-gpu={GPU_CLOCK_FIELDS}",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvidia-smi refuses --query-gpu={GPU_CLOCK_FIELDS}: "
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def stage_inputs(torch, cfg, case, device="cuda"):
+    """q, k, v and the tables of a STAGE_CASES case, drawn on ``device``
+    from a seeded generator (the probes' shape is 0.9 G values, slow to draw
+    on the host): the probes' packed blocks (standard normal x 0.3, standard
+    normal tables, as probe2.py and probe4.py make them) where the case has
+    no patch grid, else the column blocks of one fused (B, N, 3*H*d)
+    projection (and their head-major views) with the model's tables, as
+    kernel_case makes them. NaN in the rows of k and v at or past n_valid."""
+    _, layout, B, N, H, d, n_valid, grid = case
+    gen = torch.Generator(device).manual_seed(SEED + 2)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    if grid is None:
+        q, k, v = ((normal(B, H // 2, N, 2 * d) * STAGE_PROBE_INPUT_SCALE).to(torch.bfloat16)
+                   for _ in range(3))
+        cos, sin = normal(N, d), normal(N, d)
+    else:
+        qkv = normal(B, N, 3 * H * d).to(torch.bfloat16)
+        q, k, v = (qkv[..., j * H * d:(j + 1) * H * d] for j in range(3))
+        if layout == "headmajor":
+            q, k, v = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
+        cos, sin = rope_full(torch, cfg, d, grid, N, device)
+    token_dim = 1 if layout == "fat" else 2
+    dead = (slice(None),) * token_dim + (slice(n_valid, None),)
+    k[dead] = float("nan")
+    v[dead] = float("nan")
+    return q, k, v, cos, sin
+
+
+def stage_tolerance(torch, av, variant, layout, q, k, v, scale, nv, cos, sin, want,
+                    ex2_dev=None):
+    """The bound on |kernel - plain| of ``variant`` at each output element,
+    in ``layout`` (its reasons beside each case below). Both sides read the
+    same bf16 roped q and k (RoPE in fp32, one rounding). ``ex2_dev``: the
+    card's ex2.approx.ftz.bf16x2 against the correctly rounded 2^y
+    (:func:`ex2_deviation`); None where the kernel's are taken as correctly
+    rounded (the CPU tests)."""
+    ulp = functools.partial(dtype_ulp, torch)
+    qh, kh, vh, s = av.roped_scores(*(av.to_heads(t, layout) for t in (q, k, v)), scale, nv,
+                                    cos, sin, torch.bfloat16)
+    want = av.to_heads(want.float(), layout).abs()
+    d = qh.shape[-1]
+    # The scores: each side sums d exact bf16 products in fp32 in its own
+    # order (the tensor cores' and the plain matmul's), at most 2 ulps of
+    # the running |sum| an add (a truncating accumulator), so they differ by
+    # at most d 2^-22 sum_i |q_i k_i|.
+    ds = d * 2.0 ** -22 * (qh.abs() @ kh.abs().transpose(-1, -2))
+    if variant == "qk":  # scores of keys 0..d-1, each rounded once to bf16 on each side
+        ds = torch.nn.functional.pad(ds[..., :d], (0, max(0, d - ds.shape[-1])))
+        return av.from_heads(ds + ulp(want + ds), layout)
+    if variant == "nosm":
+        # p = bf16(s) on each side may round the two scores one ulp apart;
+        # then p.V over nv keys in fp32 in two orders; then the output's
+        # rounding.
+        dp = ds + ulp(s.abs() + ds)
+        dv = dp @ vh.abs() + nv * 2.0 ** -22 * (s.to(torch.bfloat16).float().abs() @ vh.abs())
+        return av.from_heads(dv + ulp(want + dv), layout)
+    # vext, vext_bf16exp: the plain version runs the kernel's own loop
+    # (av.online_softmax: the same tiles, running max and rounding points),
+    # so the two differ only by the scores' ds and by what ds can move:
+    # - the running max m of a row, by at most s_m = max over its keys of ds;
+    # - x = s log2(e) - m log2(e), by at most dx = log2(e) (ds + s_m) and
+    #   the fp32 roundings of x and of m log2(e);
+    # - p: where every value within dx of x rounds to the same bf16 x
+    #   (bf16exp) or every value within 2^x (1 +- ln(2) dx + 2^-20) to the
+    #   same bf16 p (vext; 2^-20 covers both sides' fp32 exponentials), the
+    #   two p are equal; else p lies in [p_lo, p_hi], the rounded ends. On
+    #   the card ex2.approx.ftz.bf16x2 may leave the correctly rounded 2^y:
+    #   its own results (``ex2_dev``, |ln(card / plain)| by the input's bit
+    #   pattern) widen p_lo and p_hi;
+    # - the product of the later tiles' alphas, by a factor within e^(+-b),
+    #   b = 2 s_m (both maxima; ln(2) log2(e) = 1) + 2^-20 a tile.
+    # So each key's weight (p a, a = av.online_softmax's factor) moves by at
+    # most D_j = a (max(p_hi - p, p - p_lo) + p_hi expm1(b)), and the
+    # weighted mean o by at most (sum D_j |v_j| + |o| sum D_j) / (1 - sum
+    # D_j). Each side sums p.V in fp32 tile by tile into the carried
+    # accumulator: at most KEY_TILE + 1 roundings of 2^-22 of a running sum
+    # no larger than the carried one plus the tile's sum w_j |v_j| (w = p a;
+    # the kernel's w within D_j of it), in units of the final lsum; p.1 adds
+    # nv 2^-22 |o| a side (all its terms are positive), the inverse and
+    # product 2^-21 |o|; then the output's rounding.
+    bf16exp = variant == "vext_bf16exp"
+    live = torch.arange(s.shape[-1], device=s.device) < nv
+    ds = torch.where(live, ds, 0.0)
+    s_m = ds.amax(-1, keepdim=True)
+    o, x, p, a = av.online_softmax(s, vh, nv, bf16exp=bf16exp)
+    dx = av.LOG2E * (ds + s_m) + 2.0 ** -21 * (x.abs() + av.LOG2E * s.abs().amax(-1, keepdim=True))
+    x, dx = torch.where(live, x, 0.0), torch.where(live, dx, 0.0)
+    if bf16exp:
+        lo, hi = ((x + sign * dx).to(torch.bfloat16) for sign in (-1, 1))
+        p_lo, p_hi = av.ex2_bf16(lo), av.ex2_bf16(hi)
+        if ex2_dev is not None:
+            p_lo = p_lo * torch.exp(-ex2_dev[av.bf16_bits(lo)])
+            p_hi = p_hi * torch.exp(ex2_dev[av.bf16_bits(hi)])
+    else:
+        e, eps = torch.exp2(x), math.log(2.0) * dx + 2.0 ** -20
+        p_lo, p_hi = ((e * (1 + sign * eps)).to(torch.bfloat16).float() for sign in (-1, 1))
+    b = 2 * s_m + 2.0 ** -20 * -(-nv // av.KEY_TILE)
+    dw = a * (torch.maximum(p_hi - p, p - p_lo) + p_hi * torch.expm1(b))
+    dw = torch.where(live, dw, 0.0)
+    dw_sum = dw.sum(-1, keepdim=True)
+    w, carried, prefix = p * a, torch.zeros_like(o), torch.zeros_like(o)
+    for k0 in range(0, nv, av.KEY_TILE):
+        carried += prefix.abs()
+        prefix += w[..., k0:k0 + av.KEY_TILE] @ vh[..., k0:k0 + av.KEY_TILE, :]
+    sums = (av.KEY_TILE + 1) * 2.0 ** -21 * (carried + (w + (1 + nv // av.KEY_TILE) * dw)
+                                              @ vh.abs())
+    dv = (dw @ vh.abs() + dw_sum * o.abs()) / (1 - dw_sum) + sums + (nv + 1) * 2.0 ** -21 * o.abs()
+    return av.from_heads(dv + ulp(torch.maximum(want, o.abs()) + dv), layout)
+
+
+# The sanity bound held on the card's ex2.approx.ftz.bf16x2 for every bf16
+# input whose 2^y is a normal bf16: relative error at most 2^-7.
+EX2_BF16_REL = 2.0 ** -7
+
+
+def ex2_deviation(torch, av) -> tuple:
+    """The card's ex2.approx.ftz.bf16x2 (``vext_bf16exp``'s exponential) at
+    every bf16 input against the correctly rounded 2^y (``av.ex2_bf16``):
+    (|ln(card / plain)| by bit pattern, both clamped below at 2^-126, 0
+    where they agree and above y = 1, which no argument x <= 0 reaches; a
+    report). Raises where the instruction
+    leaves 2^y by more than EX2_BF16_REL, relatively, at an input whose 2^y
+    is a normal bf16."""
+    y = av.bf16_values("cuda")
+    card, plain = av.ex2_bf16_on_card("cuda"), av.ex2_bf16(y)
+    exact = torch.exp2(y.double())
+    normal = torch.isfinite(y) & (exact >= 2.0 ** -126) & (exact < 2.0 ** 128)
+    rel = torch.where(normal, (card.double() - exact).abs() / exact, 0.0)
+    differ = torch.isfinite(y) & (card != plain)
+    dev = (card.clamp_min(2.0 ** -126).log() - plain.clamp_min(2.0 ** -126).log()).abs()
+    dev = torch.where(torch.isfinite(y) & (y <= 1) & (card != plain), dev, 0.0)
+    report = {"inputs": int(torch.isfinite(y).sum()), "differ_from_correctly_rounded":
+              int(differ.sum()), "max_rel_err": float(rel.max()), "max_ln_dev": float(dev.max()),
+              "bound_rel": EX2_BF16_REL}
+    if not bool(torch.isfinite(dev).all()) or report["max_rel_err"] > EX2_BF16_REL:
+        raise AssertionError(f"ex2.approx.ftz.bf16x2 leaves 2^y: {report}")
+    return dev, report
+
+
+def stage_check(torch, av, variant, layout, q, k, v, scale, nv, cos, sin, got, full,
+                ex2_dev=None) -> dict:
+    """``got``, the variant's output, against its yardstick: "dma" against
+    its plain version (q) bit for bit, "pipe" against variant 0's output
+    ``full`` bit for bit, the rest against their plain versions within
+    :func:`stage_tolerance` (``ex2_dev`` passed on), the batch taken in
+    chunks whose scores fit in 2 GiB of fp32."""
+    B, N, H, d = av._shape(q, layout)
+    n_valid = nv if nv < N else None
+    if variant in ("dma", "pipe"):
+        want = q if variant == "dma" else full
+        ok = bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
+        err = float((got.float() - want.float()).abs().max())
+        return {"max_abs_err": err, "tol": "bit-equal to " + ("q" if variant == "dma" else
+                                                              "variant 0"), "ok": ok}
+    chunk = max(1, 2 ** 31 // (4 * H * N * N))
+    err, worst, ok = 0.0, 0.0, bool(torch.isfinite(got).all())
+    for b0 in range(0, B, chunk):
+        part = [t[b0:b0 + chunk] for t in (q, k, v)]
+        want = av.attention_variant_reference(*part, scale, n_valid, cos, sin, variant=variant,
+                                              layout=layout)
+        tol = stage_tolerance(torch, av, variant, layout, *part, scale, nv, cos, sin, want,
+                              ex2_dev)
+        e = (got[b0:b0 + chunk].float() - want.float()).abs()
+        err = max(err, float(e.max()))
+        worst = max(worst, float((e / tol).max()))
+        ok = ok and bool((e <= tol).all())
+    return {"max_abs_err": err, "max_err_over_tol": worst,
+            "tol": "stage_tolerance (chip_smoke.py)", "ok": ok}
+
+
+def stage_bound(variant, B, N, H, d, n_valid, rope) -> dict:
+    """The least time for a variant's claimed work: "dma" the bytes of q, k,
+    v and o its ring and store move; "qk" those, the tables and q.k^T over
+    the live keys; the rest the attention's own bound (attention_bound)."""
+    if variant not in ("dma", "qk"):
+        return attention_bound(B, N, H, d, n_valid, rope)
+    flop = 2 * B * H * N * n_valid * d if variant == "qk" else 0
+    nbytes = 2 * B * H * d * (2 * N + 2 * n_valid) + (
+        2 * N * d * 4 if rope and variant == "qk" else 0)
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"gflop": flop / 1e9, "mbytes": nbytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def stage_case(torch, fa, av, case, inputs, rope, device="cuda", plain=False,
+               ex2_dev=None) -> dict:
+    """One STAGE_CASES case on its ``inputs`` (:func:`stage_inputs`), with
+    RoPE or without: every variant against its
+    yardstick (:func:`stage_check`), then, on the card, each timed between
+    two reads of variant 0 (K1, K2 or K3 on the same inputs: variant 0,
+    variant, variant, variant 0), beside the floor at the case's bytes, its
+    bound, SDPA's time and (with ``plain``) its plain version's; and the
+    split of variant 0's time into stages. ``plain``: the headline case,
+    whose plain versions are timed for the kernels line; ``ex2_dev``: the
+    card's bf16 exponential against the correctly rounded one
+    (:func:`ex2_deviation`)."""
+    label, layout, B, N, H, d, nv, _ = case
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    q, k, v, cos, sin = inputs if rope else inputs[:3] + (None, None)
+    scale = d ** -0.5
+    n_valid = nv if nv < N else None
+    default = {"fat": fa.fused_attention_fat, "packed": fa.fused_attention_packed,
+               "headmajor": fa.fused_attention}[layout]
+
+    def full():
+        return default(q, k, v, scale, n_valid, cos, sin)
+
+    out = {"phase": "stages", "what": label, "layout": layout, "shape": [B, N, H, d],
+           "n_valid": nv, "rope": rope, "variants": {}}
+    if on_card:
+        out["clocks_before"] = gpu_clocks()
+    want0 = full()
+    v0_reads = []
+    for variant in av.VARIANTS:
+        def run(variant=variant):
+            return av.attention_variant(q, k, v, scale, n_valid, cos, sin, variant=variant,
+                                        layout=layout)
+
+        got = run()
+        if on_card:
+            torch.cuda.synchronize()
+        entry = stage_check(torch, av, variant, layout, q, k, v, scale, nv, cos, sin, got, want0,
+                            ex2_dev)
+        if on_card:
+            reads = [time_ms(torch, f) for f in (full, run, run, full)]
+            v0_reads += [reads[0], reads[3]]
+            entry.update({"ms": (reads[1] + reads[2]) / 2, "ms_reads": reads[1:3],
+                          "v0_ms_beside": (reads[0] + reads[3]) / 2},
+                         **stage_bound(variant, B, N, H, d, nv, rope))
+            entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+            entry["plain_ms"] = time_ms(torch, lambda: av.attention_variant_reference(
+                q, k, v, scale, n_valid, cos, sin, variant=variant, layout=layout)) if plain else None
+        out["variants"][variant] = entry
+    out["ok"] = all(e["ok"] for e in out["variants"].values())
+    if on_card:
+        ms = {name: e["ms"] for name, e in out["variants"].items()}
+        out["v0_ms"] = full_ms = sum(v0_reads) / len(v0_reads)
+        out["floor_ms"] = floor_ms(torch, B * N * H * d, "bfloat16")
+        out.update(attention_bound(B, N, H, d, nv, rope))
+        out["sdpa_ms"], kernels = library_case(
+            torch, fa, *(av.to_heads(t, layout) for t in (q, k, v)), scale, cos, sin)
+        out["sdpa"] = sdpa_backend(kernels)
+        copy = torch.empty_like(q)
+        out["clone_ms"] = time_ms(torch, lambda: copy.copy_(q))  # o = q by one PyTorch call
+        out["split_ms"] = {
+            "dma - floor": ms["dma"] - out["floor_ms"], "qk - dma": ms["qk"] - ms["dma"],
+            "nosm - qk": ms["nosm"] - ms["qk"], "full - nosm": full_ms - ms["nosm"],
+            "full - pipe": full_ms - ms["pipe"], "full - vext": full_ms - ms["vext"],
+            "full - vext_bf16exp": full_ms - ms["vext_bf16exp"]}
+        out["clocks_after"] = gpu_clocks()
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def stage_phase(torch, cfg, device="cuda") -> dict:
+    """Every STAGE_CASES case with RoPE and without (:func:`stage_case`),
+    the variants' launch counts set to 0 before and read after: {"cases":
+    [...], "launches": {variant: N}, "clocks": ..., "ex2": ..., "seconds":
+    s}; "ex2" is :func:`ex2_deviation`'s report, read first. A failed check,
+    or a variant never launched on the card, raises. (``device`` is "cpu"
+    only in the CPU test, where the cases are cut: the plain versions on
+    both sides, untimed.)"""
+    from cbas_tpu_torch.ops import attention_variants as av
+    from cbas_tpu_torch.ops import flash_attention as fa
+
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    clocks = {"before": gpu_clocks()} if on_card else {}
+    ex2_dev, ex2 = ex2_deviation(torch, av) if on_card else (None, None)
+    emit({"phase": "stages_ex2_bf16x2", **(ex2 or {})})
+    av.launches = 0
+    av.launches_by_variant.clear()
+    cases = []
+    for i, case in enumerate(STAGE_CASES):
+        inputs = stage_inputs(torch, cfg, case, device)
+        for rope in (True, False):
+            cases.append(stage_case(torch, fa, av, case, inputs, rope, device,
+                                    plain=rope and i == STAGE_HEADLINE[0], ex2_dev=ex2_dev))
+            emit(cases[-1])
+        del inputs
+    launches = dict(av.launches_by_variant)
+    if on_card:
+        clocks["after"] = gpu_clocks()
+    out = {"cases": cases, "launches": launches, "clocks": clocks, "ex2": ex2,
+           "seconds": time.perf_counter() - t}
+    emit({"phase": "stages_summary", "seconds": out["seconds"], "clocks": clocks,
+          "launches": launches,
+          "split_ms": [{"what": c["what"], "rope": c["rope"], "v0_ms": c.get("v0_ms"),
+                        **c.get("split_ms", {})} for c in cases]})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"a stage variant disagrees with its yardstick: {bad}")
+    if on_card and any(launches.get(name, 0) < len(cases) for name in av.VARIANTS):
+        raise AssertionError(f"the stage phase launched the variants {launches} times")
+    return out
+
+
+def variants_kernel_entry(stages) -> dict:
+    """The ``kernels`` line's entry for the stage variants: their launches
+    over the stage phase, the headline variant's numbers at the headline
+    case (STAGE_HEADLINE, with RoPE), every variant's there, and each case's
+    times and split."""
+    index, headline = STAGE_HEADLINE
+    label = STAGE_CASES[index][0]
+    case = next(c for c in stages["cases"] if c["what"] == label and c["rope"])
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+            "v0_ms_beside")
+    library = {"dma": case["clone_ms"], "pipe": case["sdpa_ms"], "vext": case["sdpa_ms"],
+               "vext_bf16exp": case["sdpa_ms"]}
+    variants = {name: {key: e[key] for key in keys} | {"library_ms": library.get(name)}
+                for name, e in case["variants"].items()}
+    return {
+        "name": VARIANTS_KERNEL, "route": "cuda",
+        "source": f"cbas_tpu_torch/csrc/{VARIANTS_KERNEL}.cu", "replaces": VARIANTS_REPLACES,
+        "sites": list(VARIANTS_SITES), "launches": sum(stages["launches"].values()),
+        "launches_by_variant": stages["launches"], "variant": headline, "what": label,
+        "shape": case["shape"], "rope": True, **variants[headline],
+        "library": f"scaled_dot_product_attention ({case['sdpa']}), RoPE applied beforehand; "
+                   "dma: out.copy_(q); qk, nosm: none",
+        "variants": variants,
+        "cases": [{key: c[key] for key in ("what", "shape", "n_valid", "rope", "v0_ms",
+                                           "floor_ms", "bound_ms", "sdpa_ms", "split_ms")}
+                  | {"ms": {name: e["ms"] for name, e in c["variants"].items()}}
+                  for c in stages["cases"]],
+        "clocks": stages["clocks"], "ex2_bf16x2": stages["ex2"], "seconds": stages["seconds"],
+        "ptxas": list(PTXAS.get(VARIANTS_KERNEL, {}).items()),
+    }
 
 
 def ln_tolerance(torch, x, want, w, b, two_pass: bool, bits: int):
@@ -1190,6 +1628,7 @@ def main() -> int:
     cfg = PRESETS[ENCODER]
     floor = floor_phase(torch)
     main_cases = kernel_phase(torch, fa, cfg)
+    stages = stage_phase(torch, cfg)  # its own path: the variants' counts set to 0 before
     ln_cases = ln_kernel_phase(torch)
 
     # 3 + 4. the flat route: encode at full width, then classify
@@ -1402,7 +1841,7 @@ def main() -> int:
         + [wide_kernel_entry(tools_line, wide_runs, wide_cases),
            ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
                            wide_runs),
-           floor_kernel_entry(floor)]})
+           floor_kernel_entry(floor), variants_kernel_entry(stages)]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -1414,6 +1853,7 @@ COPY_KERNEL = re.compile(r"copy|memcpy", re.IGNORECASE)
 
 
 TRACE_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
+TRACE_TRIES = 3  # traces taken of one call at most, while they hold no event
 
 
 def trace_kernels(torch, fn) -> list:
@@ -1421,17 +1861,23 @@ def trace_kernels(torch, fn) -> list:
     the order they started, from a ``torch.profiler`` trace. The trace
     opens with a marker kernel (``torch.cuda._sleep``), left out of the
     list: on the card's machine a trace may lose its first device event,
-    which then is the marker's, not one of ``fn``'s."""
+    which then is the marker's, not one of ``fn``'s. It may also lose every
+    event of ``fn``; every call traced here launches a kernel, so a trace
+    that holds none is taken again, TRACE_TRIES times in all (its callers
+    read their launch counters before it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
+    for _ in range(TRACE_TRIES):
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and TRACE_MARKER not in e.name]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and TRACE_MARKER not in e.name]
+        if events:
+            break
     return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
 
 

@@ -1,0 +1,591 @@
+// The batched whole-row attention, for Hopper (sm_90a): a timing kernel of
+// its own beside the Hopper body K1-K3 run (attention_sm90.cuh), whose
+// helpers (mbarriers, wgmma, swizzled descriptors) it includes and whose
+// code it does not change. No encode route calls it.
+//
+// Replaces the TPU kernels of the head-major batched probes of
+// benchmarks/attn_probes/, which run a (b, h) item's whole key row at once
+// and batch several items into one program:
+// - probe13_batched_dot_256.py:134 (make) with qk_kernel (:80, per head
+//   pair, q.k^T into scratch, o = q) and qk_batched_kernel (:94, one batched
+//   q.k^T, o = q) as the qk stage, and full_batched_kernel (:101, RoPE and
+//   scale applied outside) as the full stage; its dma_kernel (:76) is the
+//   memory floor (memory_floor.cu);
+// - probe16_variants_marginal_256.py:83 with full_batched_kernel (:65);
+// - probe21_batched_model_256.py:72, make_batched_kernel's kernel (:41):
+//   the full stage with RoPE inside, in bf16 arithmetic;
+// - probe26_layouts_256.py:90 batched_kernel (:72, the scale on the fp32
+//   scores), :119 batched_kt_kernel (:100, K given transposed, (B*H, d, N))
+//   and :208 fatq_kt_kernel (:182, flat q, K and V transposed);
+// - probe26b_gbbatch_256.py:104 gbbatch_kernel (:59): flat q, k, v and o,
+//   the items of gb images a program, RoPE inside or none.
+//
+// The function, for each (b, h) item (d = 64, N <= 320, bfloat16):
+// - full stage: s = q.k^T in fp32, times s_scale (1 where the scale sits in
+//   q); keys at or beyond n_valid -> -1e30 by select; m = the row's max over
+//   all keys; p = exp(s - m) in fp32; o = (bf16(p).V) / sum(p), V's rows at
+//   or beyond n_valid read as zero. An exact softmax against the row's true
+//   max: no running max and no rescale, as the probes compute it.
+// - qk stage: the scores of every key are formed (and kept live), o = q.
+// - RoPE inside (full stage, K and V as rows): q = bf16(bf16(q cq) +
+//   bf16(rot(q) sq)) and the same for k with (ck, sk), each product and the
+//   sum rounded, from bf16 (N, 64) tables (probe21's carry the scale in q's
+//   and sqrt(d) in k's; probe26b's are the plain tables, the scale on s).
+//   Q is roped as its tile is staged; an item's K tiles are roped in shared
+//   memory once, after the TMA lands them, by a warp of their own while the
+//   consumers work on the item before: no prologue kernel, no scratch.
+//
+// Design. A block holds one item's whole K and V in shared memory (N <=
+// 320: five 64-row tiles each, 2 x 40 KB) and a second item slot that the
+// producer fills with the next item's K and V while this one computes; it
+// takes `items` consecutive items in turn (a CTA of the probes' program).
+// One producer warp issues the TMA loads; three consumer warpgroups take the
+// item's 64-row query blocks in turn (block j of item t goes to warpgroup
+// (t * blocks + j) % 3), each with a ring of two Q tiles. Shared memory: 2 x
+// 80 KB of K and V, 6 x 8 KB of Q, about 209 KB: one block an SM.
+//
+// A warpgroup takes its block's exact softmax in two passes over the key
+// tiles (the probes' whole-row form with q.k^T formed twice): the first
+// keeps the row max, the second forms the same scores again (the same
+// products give the same bits), p = exp(s - m) (as 2^(s log2(e) - m log2(e)),
+// one FFMA and one MUFU op as K1-K3 take it), the row sums, P rounded to
+// bf16 as p.V's A fragments (the accumulator layout of q.k^T is the A layout
+// of p.V) and O += P V. Within a warpgroup the tiles run one after another
+// (issuing tile kt + 1's q.k^T before tile kt is used made ptxas serialize
+// the wgmma for want of registers); the warpgroups overlap each other.
+// O is staged in the Q tile for one TMA store. The one-pass form, the block's
+// 64 x 320 scores held in registers (160 a thread), was built first and not
+// kept: ptxas allocates registers by whole warpgroups, so 288 threads cap a
+// thread at 168, and the scores spilled with the wgmma serialized, several
+// times K3's time; a producer warpgroup handing its registers to the
+// consumers by setmaxnreg did not raise ptxas's allocation (PERF.md). The
+// two-pass form needs one score tile and one P tile (48 registers) and costs
+// a second q.k^T. The qk stage is the first pass alone: the scores formed
+// and reduced.
+//
+// Transposed operands. K given as (d, N) rows is the MN-major B operand of
+// q.k^T (the tile lands d rows of 64 keys, as V's tile lands keys rows of d
+// for p.V); V given as (d, N) is the K-major B operand of p.V (as K's tile is
+// for q.k^T). The tensor maps end each key extent at n_valid, so dead keys
+// load as zeros (NaN bits in dead rows never reach shared memory) and the
+// score mask stays a select. Every operand is read through a rank-5 map
+// (inner, rows, heads in a group, groups, images) built from its own strides,
+// so head-major, flat and head-pair packed views take one path.
+//
+// What bounds it on this card: at the probes' shapes (384 or 448 images x 12
+// heads, N 272) the bytes of q, k, v and o (0.64-0.75 GB, 0.19-0.22 ms at
+// 3.35 TB/s) against 87-102 GFLOP of q.k^T and p.V (0.09-0.10 ms at 989
+// TFLOP/s): bytes; and the latency of each block's chain of q.k^T, softmax
+// and p.V, which the warpgroups and the item slots overlap with loads.
+
+#include "attention_sm90.cuh"
+
+namespace {
+
+using namespace cbas_attention;
+using namespace cbas_attention::sm90;
+
+constexpr int kRows = 64;       // query rows of a block; keys of a tile
+constexpr int kMaxTiles = 5;    // N <= 320
+constexpr int kMaxN = kMaxTiles * kRows;
+constexpr int kTile = kRows * 128;  // bytes of one 64 x 64 bf16 tile (one swizzle atom)
+constexpr int kConsumers = 3;       // warpgroups
+constexpr int kConsumerThreads = kConsumers * kWGThreads;
+constexpr int kThreads = kConsumerThreads + 64;  // + the producer warp and the RoPE warp
+constexpr int kItemSlots = 2;
+constexpr int kQSlots = 2;  // Q tiles a consumer warpgroup holds
+
+enum Stage : int { kStageFull = 0, kStageQk = 1 };
+
+// Shared memory, from a 1024-byte aligned base: the item slots (K tiles,
+// then V tiles), the Q rings, then the mbarriers: kv_full[2], kv_empty[2],
+// q_full[3][2], q_empty[3][2] (a consumer warpgroup's Q ring), k_roped[2].
+constexpr uint32_t kSlotBytes = 2 * kMaxTiles * kTile;
+constexpr uint32_t kQBase = kItemSlots * kSlotBytes;
+constexpr uint32_t kBarBase = kQBase + kConsumers * kQSlots * kTile;
+constexpr int kBars = 3 * kItemSlots + 2 * kConsumers * kQSlots;
+constexpr size_t kSmemBytes = 1024 + kBarBase + 8 * kBars;
+static_assert(kSmemBytes <= 232448, "one block an SM within the 227 KB a block may use");
+
+// Named barriers: 0 is __syncthreads; warpgroup w uses 1 + w.
+
+// One box of `map` at (c0, c1, c2, c3, c4) into shared memory at `dst`,
+// counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store5(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                           int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+
+// d (64 x 64, fp32) = a (64 x 16) . b (16 x 64), both bf16 in shared memory;
+// a K-major, b K-major (TransB 0) or MN-major (TransB 1).
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+// The bf16 RoPE tables of one chunk pair: columns [c, c + 8) of row n and
+// their partners [c + 32, c + 40), cos then sin. Loaded apart from their use,
+// so a thread's loads for several pairs are in flight together (and before
+// the wait for the tile they rope).
+struct RopeTab {
+  uint4 ca, cp, sa, sp;
+};
+
+__device__ __forceinline__ RopeTab rope_tab(const __nv_bfloat16* __restrict__ cos_t,
+                                            const __nv_bfloat16* __restrict__ sin_t, int n,
+                                            int c) {
+  const size_t row = static_cast<size_t>(n) * kRows;
+  return {*reinterpret_cast<const uint4*>(cos_t + row + c),
+          *reinterpret_cast<const uint4*>(cos_t + row + c + kRows / 2),
+          *reinterpret_cast<const uint4*>(sin_t + row + c),
+          *reinterpret_cast<const uint4*>(sin_t + row + c + kRows / 2)};
+}
+
+// RoPE in bf16 arithmetic on the chunk pair at column c of row r of a
+// swizzled 64 x 64 tile at `tile`, in place: x' = bf16(bf16(x cos) +
+// bf16(rot(x) sin)), rot(x) = (-x2, x1), two columns an instruction: each
+// bf16x2 product and sum rounded once, as the probes' bf16 arithmetic is
+// (the _rn forms: plain __hmul2 and __hadd2 may contract into one FMA).
+__device__ __forceinline__ void rope_pair(unsigned char* tile, int r, int c, const RopeTab& t) {
+  uint4* pa = reinterpret_cast<uint4*>(tile + sw128_offset(r, c));
+  uint4* pp = reinterpret_cast<uint4*>(tile + sw128_offset(r, c + kRows / 2));
+  uint4 xa = *pa, xp = *pp;
+  auto* a2 = reinterpret_cast<__nv_bfloat162*>(&xa);
+  auto* p2 = reinterpret_cast<__nv_bfloat162*>(&xp);
+  const auto* ca = reinterpret_cast<const __nv_bfloat162*>(&t.ca);
+  const auto* cp = reinterpret_cast<const __nv_bfloat162*>(&t.cp);
+  const auto* sa = reinterpret_cast<const __nv_bfloat162*>(&t.sa);
+  const auto* sp = reinterpret_cast<const __nv_bfloat162*>(&t.sp);
+#pragma unroll
+  for (int e = 0; e < kChunk / 2; ++e) {
+    const __nv_bfloat162 a = a2[e], b = p2[e];
+    a2[e] = __hadd2_rn(__hmul2_rn(a, ca[e]), __hmul2_rn(__hneg2(b), sa[e]));
+    p2[e] = __hadd2_rn(__hmul2_rn(b, cp[e]), __hmul2_rn(a, sp[e]));
+  }
+  *pa = xa;
+  *pp = xp;
+}
+
+struct Params {
+  const __nv_bfloat16* cq;  // RoPE tables, bf16 (N, 64): q's, then k's (null without RoPE)
+  const __nv_bfloat16* sq;
+  const __nv_bfloat16* ck;
+  const __nv_bfloat16* sk;
+  int N, n_valid;
+  int heads_per_group, heads;  // an item's head h: group h / heads_per_group, h % heads_per_group in it
+  int n_items, items;          // all items, and those a block takes in turn
+  float s_scale;
+};
+
+// One block: items [blockIdx.x * items, +items). Threads 0-383 are the
+// consumer warpgroups, then the producer warp and the RoPE warp (idle without
+// RoPE). Maps are rank 5: (inner,
+// rows, head in group, group, image); Q's, O's and row-form K's and V's
+// inner dimension is the head's 64 columns, a transposed operand's its keys.
+template <int kStage, bool kRope, bool kKT, bool kVT>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_batched(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap o_map, const Params P) {
+  static_assert(!kRope || (kStage == kStageFull && !kKT && !kVT),
+                "RoPE inside is built for the full stage on row-form K and V");
+  unsigned char* raw = dynamic_smem();
+  const uint32_t raw_addr = smem_u32(raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  unsigned char* sbase = raw + (base - raw_addr);
+  auto k_tile = [&](int slot, int kt) { return base + slot * kSlotBytes + kt * kTile; };
+  auto v_tile = [&](int slot, int kt) {
+    return base + slot * kSlotBytes + (kMaxTiles + kt) * kTile;
+  };
+  auto q_tile = [&](int w, int qs) { return base + kQBase + (w * kQSlots + qs) * kTile; };
+  const uint32_t bars = base + kBarBase;
+  auto kv_full = [&](int s) { return bars + 8u * s; };
+  auto kv_empty = [&](int s) { return bars + 8u * (kItemSlots + s); };
+  auto q_full = [&](int w, int qs) { return bars + 8u * (2 * kItemSlots + w * kQSlots + qs); };
+  auto q_empty = [&](int w, int qs) {
+    return bars + 8u * (2 * kItemSlots + kConsumers * kQSlots + w * kQSlots + qs);
+  };
+  auto k_roped = [&](int s) { return bars + 8u * (2 * kItemSlots + 2 * kConsumers * kQSlots + s); };
+
+  const int first = blockIdx.x * P.items;
+  const int n_mine = min(P.items, P.n_items - first);
+  const int n_tiles = (P.n_valid + kRows - 1) / kRows;  // key tiles past n_valid add nothing
+  const int n_blocks = (P.N + kRows - 1) / kRows;       // query blocks of an item
+  auto coords = [&](int item, int& hp, int& g, int& b) {
+    b = item / P.heads;
+    const int h = item % P.heads;
+    g = h / P.heads_per_group;
+    hp = h % P.heads_per_group;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kItemSlots; ++s) {
+      mbar_init(kv_full(s), 1);
+      mbar_init(kv_empty(s), kConsumerThreads / 32);  // one arrival a consumer warp
+      mbar_init(k_roped(s), 1);
+    }
+    for (int w = 0; w < kConsumers; ++w)
+      for (int qs = 0; qs < kQSlots; ++qs) {
+        mbar_init(q_full(w, qs), 1);
+        mbar_init(q_empty(w, qs), 1);  // the warpgroup's storing thread
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads + 32) {
+    // RoPE warp: ropes each item's live K rows in shared memory once its
+    // tiles land, and signals k_roped. The producer loads an item's K and V
+    // as soon as its slot is free (the consumers are then on the item
+    // before), so the RoPE runs beside their work. Chunk pairs kBatch a lane
+    // at a time: their tables load together, the first batch's before the
+    // wait for the tiles.
+    if constexpr (kRope) {
+      const int lane = threadIdx.x % 32;
+      constexpr int kBatch = 2;
+      const int pairs = P.n_valid * 4;
+      for (int t = 0; t < n_mine; ++t) {
+        const int slot = t % kItemSlots;
+        for (int i0 = 0; i0 < pairs; i0 += 32 * kBatch) {
+          RopeTab tab[kBatch];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int i = i0 + lane + 32 * u;
+            if (i < pairs) tab[u] = rope_tab(P.ck, P.sk, i / 4, (i % 4) * kChunk);
+          }
+          if (i0 == 0) mbar_wait(kv_full(slot), (t / kItemSlots) & 1);
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int i = i0 + lane + 32 * u, key = i / 4;
+            if (i < pairs)
+              rope_pair(sbase + (k_tile(slot, key / kRows) - base), key % kRows, (i % 4) * kChunk,
+                        tab[u]);
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) mbar_arrive(k_roped(slot));
+      }
+    }
+    return;
+  }
+  if (threadIdx.x >= kConsumerThreads) {
+    // Producer: one thread loads each item's K and V tiles into its slot,
+    // then its Q tiles into the rings of the warpgroups that take them.
+    if (threadIdx.x == kConsumerThreads) {
+      int lq[kConsumers] = {};
+      for (int t = 0; t < n_mine; ++t) {
+        int hp, g, b;
+        coords(first + t, hp, g, b);
+        const int slot = t % kItemSlots;
+        mbar_wait(kv_empty(slot), ((t / kItemSlots) & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(kv_full(slot), 2 * n_tiles * kTile);
+        for (int kt = 0; kt < n_tiles; ++kt) {
+          const int key0 = kt * kRows;
+          if (kKT)
+            tma_load5(k_tile(slot, kt), &k_map, kv_full(slot), key0, 0, hp, g, b);
+          else
+            tma_load5(k_tile(slot, kt), &k_map, kv_full(slot), 0, key0, hp, g, b);
+          if (kVT)
+            tma_load5(v_tile(slot, kt), &v_map, kv_full(slot), key0, 0, hp, g, b);
+          else
+            tma_load5(v_tile(slot, kt), &v_map, kv_full(slot), 0, key0, hp, g, b);
+        }
+        for (int j = 0; j < n_blocks; ++j) {
+          const int w = (t * n_blocks + j) % kConsumers;
+          const int qs = lq[w] % kQSlots;
+          mbar_wait(q_empty(w, qs), ((lq[w] / kQSlots) & 1) ^ 1);
+          mbar_expect_tx(q_full(w, qs), kTile);
+          tma_load5(q_tile(w, qs), &q_map, q_full(w, qs), 0, j * kRows, hp, g, b);
+          ++lq[w];
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroups.
+  const int tid = threadIdx.x;
+  const int w = tid / kWGThreads;
+  const int wtid = tid % kWGThreads;
+  const int warp = wtid / 32;
+  const int lane = tid % 32;
+  const int g8 = lane / 4;
+  const int t4 = lane % 4;
+  int lq = 0;
+
+  for (int t = 0; t < n_mine; ++t) {
+    int hp, g, b;
+    coords(first + t, hp, g, b);
+    const int slot = t % kItemSlots;
+    mbar_wait(kv_full(slot), (t / kItemSlots) & 1);
+    if constexpr (kRope) mbar_wait(k_roped(slot), (t / kItemSlots) & 1);  // K roped in place
+
+    for (int j = 0; j < n_blocks; ++j) {
+      if ((t * n_blocks + j) % kConsumers != w) continue;
+      const int qs = lq % kQSlots;
+      const uint32_t qa = q_tile(w, qs);
+      unsigned char* sq = sbase + (qa - base);
+      const int q0 = j * kRows;
+      mbar_wait(q_full(w, qs), (lq / kQSlots) & 1);
+      if constexpr (kRope) {
+        for (int i = wtid; i < kRows * 4; i += kWGThreads)
+          if (q0 + i / 4 < P.N)
+            rope_pair(sq, i / 4, (i % 4) * kChunk, rope_tab(P.cq, P.sq, q0 + i / 4, (i % 4) * kChunk));
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "n"(kWGThreads) : "memory");
+      }
+
+      // Two passes over the item's key tiles, one 64-key tile of scores at a
+      // time: the first takes the row max over every key, the second forms
+      // the scores again (the same products, so the same bits) for p =
+      // exp(s - m), its row sums and p.V. Accumulator element 4 j + e of a thread: row 16 warp +
+      // g8 + 8 (e / 2), key column 8 j + 2 t4 + (e & 1) of its tile.
+      float s[32];
+      auto issue_qk = [&](float (&d)[32], int kt) {
+        fence_regs(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t a = sw128_desc(qa + kk * 32, 16, 1024);
+          if constexpr (kKT)  // d rows of keys: MN-major, 16 rows of d a step
+            wgmma_ss<1>(d, a, sw128_desc(k_tile(slot, kt) + kk * 2048, kTile, 1024), kk > 0);
+          else  // key rows of d: K-major, 16 columns (32 bytes) a step
+            wgmma_ss<0>(d, a, sw128_desc(k_tile(slot, kt) + kk * 32, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+      };
+      // s times s_scale, then keys at or beyond n_valid -> -1e30 (only the
+      // last live tile holds any).
+      auto scale_mask = [&](float (&d)[32], int kt) {
+        if (P.s_scale != 1.f) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) d[i] *= P.s_scale;
+        }
+        if ((kt + 1) * kRows > P.n_valid) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (kt * kRows + 8 * jj + 2 * t4 + (e & 1) >= P.n_valid) d[4 * jj + e] = kMasked;
+        }
+      };
+
+      // Pass 1: the row max m of rows g8 and g8 + 8 over every key.
+      float m[2] = {-INFINITY, -INFINITY};
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        issue_qk(s, kt);
+        wgmma_wait<0>();
+        fence_regs(s);
+        scale_mask(s, kt);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], row_reduce<true>(s, r));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+      }
+
+      if constexpr (kStage == kStageQk) {
+        // The scores are used (their row max), so the products stay; a
+        // branch no argument takes keeps the max itself from being dropped.
+        if (P.n_items < 0 && m[0] == m[1]) sq[wtid] = 0;
+      } else {
+        // Pass 2: p = exp(s - m) in fp32, its row sums, P rounded to bf16
+        // as p.V's A fragments, O += P V(kt). p.V(kt) runs beside q.k^T(kt +
+        // 1), whose wait covers it before P is written again. exp(s - m) as
+        // 2^(s log2(e) - m log2(e)): one FFMA and one MUFU.
+        const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
+        float l[2] = {0.f, 0.f};
+        uint32_t p[4][4];
+        float acc[32];
+        for (int kt = 0; kt < n_tiles; ++kt) {
+          issue_qk(s, kt);
+          wgmma_wait<0>();
+          fence_regs(s);
+          scale_mask(s, kt);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], kLog2e, -ml[(i % 4) / 2]));
+#pragma unroll
+          for (int r = 0; r < 2; ++r) l[r] += row_reduce<false>(s, r);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            if constexpr (kVT)  // d rows of keys: K-major, 16 keys (32 bytes) a step
+              wgmma_m64n64k16<0>(acc, p[kk], sw128_desc(v_tile(slot, kt) + kk * 32, 16, 1024),
+                                 kt > 0 || kk > 0);
+            else  // key rows of d: MN-major, 16 key rows a step
+              wgmma_m64n64k16<1>(acc, p[kk], sw128_desc(v_tile(slot, kt) + kk * 2048, kTile, 1024),
+                                 kt > 0 || kk > 0);
+          }
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        }
+
+        // O / rowsum, rounded to bf16, into the Q tile (q.k^T has read it).
+        const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + g8 + 8 * r;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, 8 * jj) + 4 * t4) =
+                pack_bf16(acc[4 * jj + 2 * r] * inv[r], acc[4 * jj + 2 * r + 1] * inv[r]);
+        }
+      }
+      // (The qk stage stores the Q tile as it arrived: o = q.)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "n"(kWGThreads) : "memory");
+      if (wtid == 0) {
+        tma_store5(&o_map, qa, 0, q0, hp, g, b);  // the map clips rows at or beyond N
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(q_empty(w, qs));
+      }
+      ++lq;
+    }
+    // This warp's reads of the item's K and V are done (every wgmma waited).
+    if (lane == 0) mbar_arrive(kv_empty(slot));
+  }
+}
+
+// One operand's element strides (image, group, head in group, row) and its
+// dims: `inner` columns a row (the head's 64, or a transposed operand's keys)
+// of which `inner_extent` are read, and `rows` rows.
+struct Operand {
+  const void* base;
+  long long stride[4];
+  int inner_extent, rows;
+};
+
+// The rank-5 bf16 map of an operand: (inner, rows, head in group, group,
+// image), a box of 64 x 64, 128-byte swizzle, zeros out of bounds. A
+// dimension of size 1 is never stepped; its stride is set to a valid
+// 16-byte multiple. False if cuTensorMapEncodeTiled refuses it.
+bool encode_operand(CUtensorMap* map, const Operand& op, int heads_per_group, int groups,
+                    int images) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(op.inner_extent),
+                              static_cast<cuuint64_t>(op.rows),
+                              static_cast<cuuint64_t>(heads_per_group),
+                              static_cast<cuuint64_t>(groups), static_cast<cuuint64_t>(images)};
+  cuuint64_t strides[4];
+  for (int i = 0; i < 4; ++i) {
+    // op.stride: image, group, head in group, row; map dims 1-4: row, head, group, image
+    const long long s = op.stride[3 - i] * static_cast<long long>(sizeof(__nv_bfloat16));
+    strides[i] = static_cast<cuuint64_t>(dims[i + 1] == 1 ? 16 : s);
+    if (strides[i] % 16 || strides[i] == 0) return false;
+  }
+  const cuuint32_t box[5] = {kRows, kRows, 1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(op.base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int kStage, bool kRope, bool kKT, bool kVT>
+cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
+  const auto kernel = attention_batched<kStage, kRope, kKT, kVT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((p.n_items + p.items - 1) / p.items);
+  kernel<<<blocks, kThreads, kSmemBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry, bound with ctypes. q, k, v and o are bf16 operands of B images of
+// G groups of P heads (H = G P heads, B H items), each operand with its own
+// element strides (image, group, head in group, row): q and o rows of 64
+// columns (N rows), k and v rows of 64 (N rows) or, transposed, 64 rows of N
+// keys (k_transposed, v_transposed). cq, sq, ck, sk: bf16 (N, 64) RoPE
+// tables, all four or none (rope). stage: 0 full, 1 qk. items: the items a
+// block takes in turn. The option sets built: full with no RoPE (K and V
+// rows; K transposed; K and V transposed), full with RoPE (rows), qk (rows).
+// Returns the CUDA error code of the launch (0 on success);
+// cudaErrorInvalidValue for arguments outside what is built.
+extern "C" int cbas_attention_batched(const void* q, const void* k, const void* v, void* o,
+                                      const void* cq, const void* sq, const void* ck,
+                                      const void* sk, int B, int G, int P, int N, int n_valid,
+                                      int items, const long long* q_strides,
+                                      const long long* k_strides, const long long* v_strides,
+                                      const long long* o_strides, float s_scale, int stage,
+                                      int rope, int k_transposed, int v_transposed, void* stream) {
+  const long long n_items = static_cast<long long>(B) * G * P;
+  if (B <= 0 || G <= 0 || P <= 0 || N <= 0 || N > kMaxN || n_valid <= 0 || n_valid > N ||
+      items <= 0 || n_items > (1LL << 31) - 1 || (n_items + items - 1) / items > (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tables = cq != nullptr && sq != nullptr && ck != nullptr && sk != nullptr;
+  if (rope != tables) return static_cast<int>(cudaErrorInvalidValue);
+  Operand ops[4] = {
+      {q, {q_strides[0], q_strides[1], q_strides[2], q_strides[3]}, kRows, N},
+      {k, {k_strides[0], k_strides[1], k_strides[2], k_strides[3]},
+       k_transposed ? n_valid : kRows, k_transposed ? kRows : n_valid},
+      {v, {v_strides[0], v_strides[1], v_strides[2], v_strides[3]},
+       v_transposed ? n_valid : kRows, v_transposed ? kRows : n_valid},
+      {o, {o_strides[0], o_strides[1], o_strides[2], o_strides[3]}, kRows, N},
+  };
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i)
+    if (!encode_operand(&maps[i], ops[i], P, G, B))
+      return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{static_cast<const __nv_bfloat16*>(cq), static_cast<const __nv_bfloat16*>(sq),
+                 static_cast<const __nv_bfloat16*>(ck), static_cast<const __nv_bfloat16*>(sk),
+                 N, n_valid, P, G * P, static_cast<int>(n_items), items, s_scale};
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (stage == kStageFull && !rope && !k_transposed && !v_transposed)
+    err = launch<kStageFull, false, false, false>(maps, p, st);
+  else if (stage == kStageFull && rope && !k_transposed && !v_transposed)
+    err = launch<kStageFull, true, false, false>(maps, p, st);
+  else if (stage == kStageFull && !rope && k_transposed && !v_transposed)
+    err = launch<kStageFull, false, true, false>(maps, p, st);
+  else if (stage == kStageFull && !rope && k_transposed && v_transposed)
+    err = launch<kStageFull, false, true, true>(maps, p, st);
+  else if (stage == kStageQk && !rope && !k_transposed && !v_transposed)
+    err = launch<kStageQk, false, false, false>(maps, p, st);
+  return static_cast<int>(err);
+}

@@ -9,8 +9,8 @@ non-zero and prints no final line):
 1. environment: torch/CUDA versions, the card's name and power limit, and a
    fresh build of every kernel from ``cbas_tpu_torch/csrc`` (one nvcc per
    source, started together: the three attention kernels, the LayerNorm,
-   the memory floor and the attention body's stage variants), with each
-   kernel's registers and spills;
+   the memory floor, the attention body's stage variants, the batched
+   attention and the relayout), with each kernel's registers and spills;
 2. kernel: first the memory floor (``ops/memory_floor.py``, ``o = q + 0*k
    + 0*v``, replacing probe14's and probe15's ``dma_kernel``) against its
    plain version, bit for bit where the result is a number and NaN where it
@@ -85,6 +85,30 @@ non-zero and prints no final line):
    each case (``gpu_clocks``), and variant 0's time
    split into stages (dma - floor, qk - dma, nosm - qk, full - nosm, full -
    vext, full - vext_bf16exp);
+   Then the batched phase (``batched_phase``, the two kernels' launch counts
+   set to 0 before it and read after): the batched whole-row attention
+   (``ops/attention_batched.py``, ``csrc/attention_batched.cu``: an item's
+   whole K and V resident, an exact softmax, items batched a block) in the
+   option set of each head-major batched probe body, at the probe's own
+   shape: probe13's qk_kernel (packed blocks) and qk_batched_kernel (bit for
+   bit q) and full_batched_kernel (RoPE outside, and without; probe16's is
+   the same body) at (384, 12, 272 / 261, 64); probe21's kernel (RoPE
+   inside) on head-major views of one fused projection at (384, 12, 261,
+   64) with the model's tables; probe26's batched, batched_kt (K
+   transposed) and fatq_kt (flat q, K and V transposed) at (448, 12, 272 /
+   261, 64); probe26b's gbbatch at gb 4 (RoPE on and off) and gb 8 (RoPE),
+   flat; NaN in the dead k and v rows; each within ``batched_tolerance`` of
+   its plain version, timed between two reads of K3 (K2 for packed blocks,
+   K1 for flat inputs) beside its bound, the floor, SDPA with the key mask
+   (q . k^T by torch.matmul for the qk stage), the plain version and the
+   same call at one block an SM; probe13's dma_kernel is the floor phase's
+   (384*6, 272, 128) case. Then probe26's relayout (``ops/relayout.py``,
+   ``csrc/relayout.cu``) at (448, 272, 768), bit for bit, beside the
+   permute made contiguous and the floor; and probe21's model A/B:
+   dinov3-vitb16 at 256x256 and batch 128 through the port's _attention (K1)
+   and with ``batched_attention`` swapped in (11 batched launches a forward,
+   embeddings at cosine >= 0.999 of the K1 route's, frames/s in the order
+   K1, batched, batched, K1);
 3. encode, flat route: the main path at the full width of dinov3-vitb16
    (random weights from a numpy seed): 256x256 planes in two full batches
    and a partial one, 640x480 planes in one batch, then the head over the
@@ -192,7 +216,11 @@ numbers at probe14's blocks and at every other row, and the stage variants
 (``attention_variants``, replacing probe2.py's ``make_variant`` bodies and
 probe4.py's ``vext_kernel``) with their launches over the stage phase, pipe's
 numbers at K1's 256x256 shape with RoPE, every variant's there, and each
-case's times and split; the last line is
+case's times and split, and the batched kernel (``attention_batched``,
+replacing the head-major batched probes' bodies) with its launches over the
+batched phase by option set, probe21's case with RoPE inside as its numbers,
+every case's and the model A/B, and the relayout (``relayout``, replacing
+probe26's relayout_kt_kernel); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -467,7 +495,7 @@ def build_all(_cuda) -> dict:
         t = time.perf_counter()
         return name, (_cuda.build(name), time.perf_counter() - t)
 
-    names = (*KERNELS, LN_KERNEL, FLOOR_KERNEL, VARIANTS_KERNEL)
+    names = (*KERNELS, LN_KERNEL, FLOOR_KERNEL, VARIANTS_KERNEL, BATCHED_KERNEL, RELAYOUT_KERNEL)
     with ThreadPoolExecutor(len(names)) as pool:
         return dict(pool.map(one, names))
 
@@ -527,6 +555,11 @@ def kernel_label(mangled: str) -> str:
     name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else mangled
     if "ex2_bf16x2_table" in mangled:  # the stage variants' exponential table
         name = "ex2_bf16x2_table"
+    b = re.search(r"attention_batchedILi(\d)ELb([01])ELb([01])ELb([01])E", mangled)
+    if b:  # the batched kernel's option set
+        name = batched_label(("full", "qk")[int(b.group(1))], *(b.group(i) == "1" for i in (2, 3, 4)))
+    if "relayout_kt" in mangled:
+        name = "relayout_kt"
     r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", mangled)
     if r:  # the RoPE prologue: its dtype and the columns a thread takes
         name = f"rope_rows<{'f32' if r.group(1) == 'f' else 'bf16'}, {r.group(2)}>"
@@ -1280,6 +1313,540 @@ def variants_kernel_entry(stages) -> dict:
     }
 
 
+# The batched whole-row attention (source cbas_tpu_torch/csrc/attention_batched.cu,
+# a timing kernel beside K1-K3: an item's whole K and V resident, an exact
+# softmax, items batched a block) and the K-transposing relayout
+# (cbas_tpu_torch/csrc/relayout.cu): the bodies of the head-major batched
+# probes and probe26's relayout. Their own path is the batched phase, run with
+# their counts set to 0 before it and read after it.
+BATCHED_KERNEL, RELAYOUT_KERNEL = "attention_batched", "relayout"
+BATCHED_REPLACES = "benchmarks/attn_probes/probe13_batched_dot_256.py:101"
+BATCHED_SITES = tuple(f"benchmarks/attn_probes/{site}" for site in (
+    "probe13_batched_dot_256.py:134", "probe16_variants_marginal_256.py:83",
+    "probe21_batched_model_256.py:72", "probe26_layouts_256.py:90", "probe26_layouts_256.py:119",
+    "probe26_layouts_256.py:208", "probe26b_gbbatch_256.py:104"))
+RELAYOUT_REPLACES = "benchmarks/attn_probes/probe26_layouts_256.py:154"
+RELAYOUT_SITE = "benchmarks/attn_probes/probe26_layouts_256.py:163"
+# probe13's dma_kernel (:76) is the memory floor at its (384 * 6, 272, 128)
+# blocks: the floor phase's first case (FLOOR_SHAPES).
+BATCHED_FLOOR_CASE = "probe14/15 blocks (B*G, N, 128)"
+BATCHED_INPUT_SCALE = 0.3  # the probes: standard normal x 0.3
+# Its cases, each at its probe's own shape (B images, H heads of 64, N rows
+# of which n_valid live; dead k and v rows hold NaN). "inputs": "packed"
+# (B*G, N, 128) blocks read as head pairs; "headmajor" (B*H, N, 64); "flat"
+# (B, N, H*64) q, k, v and output; "fused" head-major views of one fused (B,
+# N, 3*H*64) projection (probe21's, with the model's RoPE tables); "kt"
+# head-major q and v with K transposed to (B*H, 64, N); "fatq_kt" flat q, K
+# and V transposed, a head-major output. "items": the items a block takes
+# (the probes' 16 heads a program; probe26's and 26b's gb images' heads).
+# "rope": None, "outside" (probe13's / probe16's rope_xla, then the kernel),
+# "inside" with probe21's scaled tables ("scaled") or probe26b's plain ones
+# ("plain"); "ropes": the RoPE settings timed. "scale": the softmax scale on
+# the fp32 scores (probe26, 26b), else in q or none.
+BATCHED_CASES = (
+    dict(what="probe13 qk_kernel", body="probe13_batched_dot_256.py:80", inputs="packed", B=384,
+         H=12, N=272, nv=272, items=16, stage="qk", rope=None, ropes=(False,), scale=False),
+    dict(what="probe13 qk_batched_kernel", body="probe13_batched_dot_256.py:94",
+         inputs="headmajor", B=384, H=12, N=272, nv=272, items=16, stage="qk", rope=None,
+         ropes=(False,), scale=False),
+    dict(what="probe13/16 full_batched_kernel", body="probe13_batched_dot_256.py:101, "
+         "probe16_variants_marginal_256.py:65", inputs="headmajor", B=384, H=12, N=272, nv=261,
+         items=16, stage="full", rope="outside", ropes=(True, False), scale=False),
+    dict(what="probe21 make_batched_kernel", body="probe21_batched_model_256.py:41",
+         inputs="fused", B=384, H=12, N=261, nv=261, items=16, stage="full", rope="scaled",
+         ropes=(True, False), scale=False),
+    dict(what="probe26 batched_kernel", body="probe26_layouts_256.py:72", inputs="headmajor",
+         B=448, H=12, N=272, nv=261, items=16, stage="full", rope=None, ropes=(False,),
+         scale=True),
+    dict(what="probe26 batched_kt_kernel", body="probe26_layouts_256.py:100", inputs="kt", B=448,
+         H=12, N=272, nv=261, items=16, stage="full", rope=None, ropes=(False,), scale=True),
+    dict(what="probe26 fatq_kt_kernel", body="probe26_layouts_256.py:182", inputs="fatq_kt",
+         B=448, H=12, N=272, nv=261, items=48, stage="full", rope=None, ropes=(False,),
+         scale=True),
+    dict(what="probe26b gbbatch_kernel gb 4", body="probe26b_gbbatch_256.py:59", inputs="flat",
+         B=448, H=12, N=272, nv=261, items=48, stage="full", rope="plain", ropes=(True, False),
+         scale=True),
+    dict(what="probe26b gbbatch_kernel gb 8", body="probe26b_gbbatch_256.py:59", inputs="flat",
+         B=448, H=12, N=272, nv=261, items=96, stage="full", rope="plain", ropes=(True,),
+         scale=True),
+)
+# The kernels line's headline: probe21's case with RoPE inside.
+BATCHED_HEADLINE = "probe21 make_batched_kernel"
+# The relayout's case: probe26's (448, 272, 768) flat k, with NaN in its dead rows.
+RELAYOUT_SHAPE = (448, 272, 12, 64, 261)
+# probe21's model case: dinov3-vitb16 at full width and depth, 256x256 at the
+# flat phase's batch, through the port's _attention (K1 on fused views) and
+# through the batched kernel with RoPE inside (vit._attention swapped in this
+# script, as probe21 swaps it); the embeddings' cosine against the K1 route.
+BATCHED_MODEL_MIN_COS = 0.999
+
+
+def batched_bound(stage, items, N, nv, d, rope) -> dict:
+    """The least time for a batched case's function: q.k^T (and p.V for the
+    full stage) over the live keys at the bf16 peak, against q and o (N rows),
+    k and v (n_valid rows) and, with RoPE inside, its four bf16 tables."""
+    flop = (2 if stage == "qk" else 4) * items * N * nv * d
+    nbytes = 2 * items * d * (2 * N + 2 * nv) + (4 * N * d * 2 if rope else 0)
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"gflop": flop / 1e9, "mbytes": nbytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def batched_tolerance(torch, ab, q, k, v, nv, score_scale, tables, k_transposed, v_transposed,
+                      want, extra_ds=None):
+    """The bound on |kernel - plain| of the full stage at each output element
+    (q's shape), for operands as ``ab.attention_batched`` takes them. Both
+    sides rope the same bf16 q and k (bf16 arithmetic, the same roundings) and
+    round p, the output and nothing else; they differ by the orders of their
+    fp32 sums and by their exponentials. So:
+
+    - each score by ds = d 2^-22 sum_i |q_i k_i| |scale| (each side's sum of
+      d exact products, at most 2 ulps of the running sum an add) plus 2^-23
+      |s| (the product by the scale on each side), and ``extra_ds`` (the CPU
+      tests' RoPE roundings);
+    - the row max by at most s_m, the largest ds of a live key of the row;
+    - each p = exp(s - m) by a factor within e^(+-e), e = ds + s_m + 2^-20
+      (1 + |s - m| + |m|) (the kernel's 2^(s log2(e) - m log2(e)): its FFMA,
+      the product m log2(e) and ex2.approx; the plain exp): its bf16 P lies
+      between the roundings of p e^-e and p e^e (0 apart where both round
+      alike), dP from the plain P;
+    - the row sum l (unrounded p) by a relative dl = sum p expm1(e) / l + nv
+      2^-22 (the two summation orders);
+    - o = (P . V) / l by (sum dP |v| + nv 2^-22 sum (P + dP) |v|) / (l (1 -
+      dl)) + |o| dl / (1 - dl) + 2^-21 |o| (the kernel's reciprocal and
+      product, the plain division); then the output's rounding."""
+    ulp = functools.partial(dtype_ulp, torch)
+    N, d = q.shape[-2:]
+    kh = k.transpose(-1, -2) if k_transposed else k
+    vh = v.transpose(-1, -2) if v_transposed else v
+    qh = q
+    if tables is not None:
+        cq, sq, ck, sk = tables
+        qh, kh = ab.rope_bf16(qh, cq, sq), ab.rope_bf16(kh, ck, sk)
+    live = torch.arange(N, device=q.device) < nv
+    qh = qh.float()
+    kh = torch.where(live[:, None], kh.float(), 0.0)
+    vh = torch.where(live[:, None], vh.float(), 0.0)
+    s = (qh @ kh.transpose(-1, -2)) * score_scale
+    ds = d * 2.0 ** -22 * abs(score_scale) * (qh.abs() @ kh.abs().transpose(-1, -2)) \
+        + 2.0 ** -23 * s.abs()
+    if extra_ds is not None:
+        ds = ds + extra_ds
+    ds = torch.where(live, ds, 0.0)
+    s = torch.where(live, s, ab.MASKED)
+    m = s.amax(-1, keepdim=True)
+    x = s - m
+    e = torch.where(live, ds + ds.amax(-1, keepdim=True) + 2.0 ** -20 * (1 + x.abs() + m.abs()),
+                    0.0)
+    p = torch.exp(x)
+    P = p.to(torch.bfloat16).float()
+    dP = torch.maximum((p * torch.exp(e)).to(torch.bfloat16).float() - P,
+                       P - (p * torch.exp(-e)).to(torch.bfloat16).float())
+    l = p.sum(-1, keepdim=True)
+    dl = (p * torch.expm1(e)).sum(-1, keepdim=True) / l + nv * 2.0 ** -22
+    va = vh.abs()
+    o = (P @ vh).abs() / l
+    dv = (dP @ va + nv * 2.0 ** -22 * ((P + dP) @ va)) / (l * (1 - dl)) + o * dl / (1 - dl) \
+        + 2.0 ** -21 * o
+    return dv + ulp(want.float().abs() + dv)
+
+
+def batched_check(torch, ab, case, q, k, v, score_scale, tables, got) -> dict:
+    """``got`` against the plain version: the qk stage bit for bit q, the full
+    stage within :func:`batched_tolerance`, in chunks of images whose scores
+    fit in 512 MiB of fp32."""
+    if case["stage"] == "qk":
+        ok = bool(torch.equal(got.view(torch.int16), q.view(torch.int16)))
+        return {"max_abs_err": float((got.float() - q.float()).abs().max()),
+                "tol": "bit-equal to q", "ok": ok}
+    N, nv, scale = q.shape[-2], case["nv"], score_scale
+    kt, vt = case["inputs"] in ("kt", "fatq_kt"), case["inputs"] == "fatq_kt"
+    per_image = q[0].numel() // q.shape[-1]  # the rows of one image's items
+    chunk = max(1, 2 ** 29 // (4 * per_image * N))
+    err, worst, ok = 0.0, 0.0, bool(torch.isfinite(got).all())
+    for b0 in range(0, q.shape[0], chunk):
+        part = [t[b0:b0 + chunk] for t in (q, k, v)]
+        want = ab.attention_batched_reference(*part, nv, scale, tables, k_transposed=kt,
+                                              v_transposed=vt)
+        tol = batched_tolerance(torch, ab, *part, nv, scale, tables, kt, vt, want)
+        e = (got[b0:b0 + chunk].float() - want.float()).abs()
+        err, worst = max(err, float(e.max())), max(worst, float((e / tol).max()))
+        ok = ok and bool((e <= tol).all())
+    return {"max_abs_err": err, "max_err_over_tol": worst,
+            "tol": "batched_tolerance (chip_smoke.py)", "ok": ok}
+
+
+def batched_inputs(torch, cfg, case, device="cuda") -> dict:
+    """A BATCHED_CASES case's operands, drawn on ``device`` from a seeded
+    generator (the probes' standard normal x 0.3, standard normal (N, 64)
+    tables; the model's tables and unscaled normals for probe21's fused
+    views), NaN in k's and v's rows at or past n_valid, in the case's
+    layout: {"q", "k", "v", "out", "cos", "sin", "heads": head-major (B, H,
+    N, 64) copies of q, k and v for K3 and SDPA, "flat": (B, N, H*64) ones for
+    K1 where the inputs are flat}."""
+    B, H, N, nv, d = case["B"], case["H"], case["N"], case["nv"], 64
+    gen = torch.Generator(device).manual_seed(SEED + 3)
+
+    def normal(*shape, scale=BATCHED_INPUT_SCALE):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    out = {"out": None}
+    if case["inputs"] == "fused":
+        qkv = normal(B, N, 3 * H * d, scale=1.0)
+        flat = [qkv[..., j * H * d:(j + 1) * H * d] for j in range(3)]
+        cos, sin = rope_full(torch, cfg, d, (16, 16), N, device)
+    else:
+        flat = [normal(B, N, H * d) for _ in range(3)]
+        cos, sin = (torch.randn(N, d, generator=gen, device=device) for _ in range(2))
+    for t in flat[1:]:
+        t[:, nv:] = float("nan")
+    heads = [t.view(B, N, H, d).transpose(1, 2) for t in flat]
+    out["heads"] = [t.contiguous() for t in heads]
+    if case["inputs"] in ("flat", "fused"):
+        out["q"], out["k"], out["v"] = heads  # views: flat strides, or the fused buffer's
+    elif case["inputs"] == "packed":  # (B*G, N, 128) blocks as (B, G, 2, N, 64) head pairs
+        blocks = [t.view(B, N, H // 2, 2 * d).transpose(1, 2).contiguous() for t in flat]
+        out["q"], out["k"], out["v"] = (t.view(B, H // 2, N, 2, d).transpose(2, 3) for t in blocks)
+        out["packed"] = blocks
+    else:
+        out["q"], out["k"], out["v"] = out["heads"]
+        transposed = [t.transpose(-1, -2).contiguous() for t in out["heads"]]  # (B, H, 64, N)
+        if case["inputs"] == "kt":
+            out["k"] = transposed[1]
+        if case["inputs"] == "fatq_kt":
+            out["q"], out["k"], out["v"] = heads[0], transposed[1], transposed[2]
+            out["out"] = torch.empty(B * H, N, d, dtype=torch.bfloat16,
+                                     device=device).view(B, H, N, d)
+    out["cos"], out["sin"] = cos, sin
+    return out
+
+
+def batched_calls(ab, case, inputs, rope):
+    """(kernel call, plain call, tables) of a case with RoPE or without: the
+    RoPE outside applied in plain torch before the kernel (probe13's and
+    probe16's jit'd rope_xla), or the kernel's bf16 tables."""
+    d = 64
+    scale = d ** -0.5
+    q, k, v, out = inputs["q"], inputs["k"], inputs["v"], inputs["out"]
+    cos, sin = inputs["cos"], inputs["sin"]
+    kw = dict(stage=case["stage"], k_transposed=case["inputs"] in ("kt", "fatq_kt"),
+              v_transposed=case["inputs"] == "fatq_kt")
+    nv, tables = case["nv"], None
+    s_scale = scale if case["scale"] else 1.0
+    if rope and case["rope"] in ("scaled", "plain"):
+        tables = ab.rope_tables(cos, sin, scale, d ** 0.5) if case["rope"] == "scaled" \
+            else ab.rope_tables(cos, sin)
+    elif not rope and case["rope"] == "scaled":
+        s_scale = scale  # without the tables, the scale goes on the scores
+    if rope and case["rope"] == "outside":
+        def kernel():
+            return ab.attention_batched(ab.rope_outside(q, cos, sin, scale),
+                                        ab.rope_outside(k, cos, sin), v, nv, s_scale,
+                                        items=case["items"], out=out, **kw)
+
+        def plain():
+            return ab.attention_batched_reference(ab.rope_outside(q, cos, sin, scale),
+                                                  ab.rope_outside(k, cos, sin), v, nv, s_scale,
+                                                  **kw)
+    else:
+        def kernel():
+            return ab.attention_batched(q, k, v, nv, s_scale, tables, items=case["items"],
+                                        out=out, **kw)
+
+        def plain():
+            return ab.attention_batched_reference(q, k, v, nv, s_scale, tables, **kw)
+    return kernel, plain, tables, s_scale
+
+
+def batched_case(torch, fa, ab, case, inputs, device="cuda") -> dict:
+    """One BATCHED_CASES case, RoPE on and off as it has them: the kernel
+    against its plain version (:func:`batched_check`; the RoPE outside on
+    both sides' inputs alike), then, on the card, timed between two reads of
+    K3 on the same head-major data, or K2 on packed blocks, or K1 on flat
+    inputs (baseline, kernel, kernel, baseline), beside its bound, the
+    floor at its bytes, the library call (SDPA with the key mask on
+    head-major copies, RoPE applied beforehand; for the qk stage q . k^T by
+    torch.matmul) and its plain version, the SM clock sampled around it."""
+    on_card = device == "cuda"
+    B, H, N, nv, d = case["B"], case["H"], case["N"], case["nv"], 64
+    scale = d ** -0.5
+    out = {"phase": "batched", "what": case["what"], "body": case["body"],
+           "inputs": case["inputs"], "shape": [B, H, N, d], "n_valid": nv,
+           "items": case["items"], "stage": case["stage"], "rope": case["rope"], "ropes": {}}
+    if on_card:
+        out["clocks_before"] = gpu_clocks()
+    cos, sin = inputs["cos"], inputs["sin"]
+    live_n = nv if nv < N else None
+    if case["inputs"] == "packed":
+        base_args, base = inputs["packed"], fa.fused_attention_packed
+        out["baseline"] = "K2 (packed blocks)"
+    elif case["inputs"] in ("flat", "fatq_kt"):
+        base_args = [t.transpose(1, 2).reshape(B, N, H * d) for t in inputs["heads"]]
+        base, out["baseline"] = fa.fused_attention_fat, "K1 (flat)"
+    else:
+        base_args, base = inputs["heads"], fa.fused_attention
+        out["baseline"] = "K3 (head-major)"
+    for rope in case["ropes"]:
+        kernel, plain, tables, s_scale = batched_calls(ab, case, inputs, rope)
+        before = ab.launches
+        got = kernel()
+        if on_card:
+            torch.cuda.synchronize()
+        q, k = inputs["q"], inputs["k"]
+        if rope and case["rope"] == "outside":
+            q, k = ab.rope_outside(q, cos, sin, scale), ab.rope_outside(k, cos, sin)
+        entry = batched_check(torch, ab, case, q, k, inputs["v"], s_scale, tables, got)
+        entry["launches"] = ab.launches - before
+        entry["ok"] = entry["ok"] and entry["launches"] == int(on_card)
+        if on_card:
+            tabs = (cos, sin) if rope else (None, None)
+
+            def baseline(tabs=tabs):
+                return base(*base_args, scale, live_n, *tabs)
+
+            reads = [time_ms(torch, f) for f in (baseline, kernel, kernel, baseline)]
+            entry.update({"ms": (reads[1] + reads[2]) / 2, "ms_reads": reads[1:3],
+                          "baseline_ms": (reads[0] + reads[3]) / 2},
+                         **batched_bound(case["stage"], B * H, N, nv, d, tables is not None))
+            # The same call with the items spread so that every SM takes one
+            # block (one wave): the probe's program size against the card's.
+            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+            entry["items_one_wave"] = -(-B * H // sms)
+            entry["ms_one_wave"] = time_ms(torch, batched_calls(
+                ab, dict(case, items=entry["items_one_wave"]), inputs, rope)[0])
+            entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+            entry["plain_ms"] = time_ms(torch, plain, iters=5, warmup=1)
+            entry["library_ms"] = batched_library_ms(torch, fa, case, inputs, rope)
+        out["ropes"]["rope" if rope else "no_rope"] = entry
+    out["ok"] = all(e["ok"] for e in out["ropes"].values())
+    if on_card:
+        out["floor_ms"] = floor_ms(torch, B * H * N * d, "bfloat16")
+        out["library"] = ("torch.matmul(q, k^T)" if case["stage"] == "qk" else
+                          "scaled_dot_product_attention, key mask")
+        out["ptxas"] = batched_ptxas(case, rope=case["rope"] in ("scaled", "plain"))
+        out["clocks_after"] = gpu_clocks()
+    return out
+
+
+def batched_library_ms(torch, fa, case, inputs, rope) -> float:
+    """The library call's ms on head-major contiguous copies: q . k^T by
+    torch.matmul for the qk stage, else SDPA with the key mask, RoPE applied
+    beforehand in fp32 and the scale passed in. The port never calls it."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    q, k, v = inputs["heads"]
+    if case["stage"] == "qk":
+        return time_ms(torch, lambda: torch.matmul(q, k.transpose(-1, -2)))
+    if rope:
+        cos, sin = inputs["cos"], inputs["sin"]
+        q, k = ((t.float() * cos + fa.rotate_half(t.float()) * sin).to(t.dtype) for t in (q, k))
+    mask = (torch.arange(q.shape[-2], device=q.device) < case["nv"])[None, None, None, :]
+    return time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask, scale=q.shape[-1] ** -0.5))
+
+
+def batched_ptxas(case, rope) -> str:
+    """Registers and spills of the kernel instantiation a case runs, from PTXAS."""
+    label = batched_label(case["stage"], rope, case["inputs"] in ("kt", "fatq_kt"),
+                          case["inputs"] == "fatq_kt")
+    return PTXAS.get(BATCHED_KERNEL, {}).get(label, "not in the build log")
+
+
+def batched_label(stage, rope, k_transposed, v_transposed) -> str:
+    """A batched kernel instantiation's name in :func:`ptxas_report`."""
+    from cbas_tpu_torch.ops.attention_batched import option_set
+
+    return f"batched<{option_set(stage, rope, k_transposed, v_transposed)}>"
+
+
+def relayout_case(torch, rl, device="cuda") -> dict:
+    """probe26's relayout at RELAYOUT_SHAPE on a flat k with NaN in its dead
+    rows, bit for bit against its plain version; on the card timed beside
+    the library call (the same permute made contiguous), the floor at its
+    bytes (q, k, v and o of half its elements) and its byte bound."""
+    B, N, H, d, nv = RELAYOUT_SHAPE
+    gen = torch.Generator(device).manual_seed(SEED + 4)
+    x = (torch.randn(B, N, H * d, generator=gen, device=device) * BATCHED_INPUT_SCALE).to(
+        torch.bfloat16)
+    x[:, nv:] = float("nan")
+    before = rl.launches
+    got = rl.relayout_kt(x, H)
+    want = rl.relayout_kt_reference(x, H)
+    out = {"phase": "batched_relayout", "what": "probe26 relayout_kt_kernel",
+           "body": "probe26_layouts_256.py:154", "shape": [B, N, H * d], "heads": H,
+           "bit_equal": bool(torch.equal(got.view(torch.int16), want.view(torch.int16))),
+           "shape_out": list(got.shape), "launches": rl.launches - before}
+    out["max_abs_err"] = 0.0 if out["bit_equal"] else float("nan")
+    out["ok"] = out["bit_equal"] and out["launches"] == int(device == "cuda")
+    if device == "cuda":
+        nbytes = 2 * x.numel() * x.element_size()
+        out["ms"] = time_ms(torch, lambda: rl.relayout_kt(x, H))
+        out["plain_ms"] = time_ms(torch, lambda: rl.relayout_kt_reference(x, H))
+        view = x.view(B, N, H, d)
+        out["library_ms"] = time_ms(torch, lambda: view.permute(0, 2, 3, 1).contiguous())
+        out["library"] = "x.view(B, N, H, d).permute(0, 2, 3, 1).contiguous()"
+        out["floor_ms"] = floor_ms(torch, x.numel() // 2, "bfloat16")
+        out["mbytes"], out["bound_ms"], out["bound_by"] = nbytes / 1e6, 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+        out["gbps"] = nbytes / out["ms"] / 1e6
+        out["ptxas"] = PTXAS.get(RELAYOUT_KERNEL, {}).get("relayout_kt", "not in the build log")
+    return out
+
+
+def batched_attention(params, prefix, x, cfg, rope):
+    """probe21's batched_attention on the port's model: ``vit._attention``
+    with its one q|k|v projection GEMM, the head-major views of its output
+    handed to the batched kernel with RoPE inside (probe21's tables: q's times
+    the scale, k's times sqrt(d) after it; the scale on the scores without
+    RoPE), the context back through the out-projection. Swapped in by
+    :func:`batched_model_case` only: no route of the package calls it."""
+    import torch.nn.functional as F
+
+    from cbas_tpu_torch.models import vit
+    from cbas_tpu_torch.ops import attention_batched as ab
+
+    B, N, _ = x.shape
+    hd = cfg.head_dim
+    _, _, out_name, out_bias = vit._attn_param_table(cfg, prefix)
+    weight, bias = vit._fused_qkv(params, prefix)
+    HD = weight.shape[0] // 3
+    qkv = F.linear(x, weight, bias)
+    vit._count_gemm("qkv")
+    q, k, v = (qkv[..., j * HD:(j + 1) * HD].view(B, N, HD // hd, hd).transpose(1, 2)
+               for j in range(3))
+    tables = ab.rope_tables(*rope, hd ** -0.5, hd ** 0.5) if rope is not None else None
+    ctx = ab.attention_batched(q, k, v, None, 1.0 if tables else hd ** -0.5, tables)
+    return vit._dense_reduce(params, out_name, ctx.transpose(1, 2).reshape(B, N, HD), out_bias,
+                             cfg.hidden_size)
+
+
+def batched_model_case(torch, enc, planes, batch, device="cuda", reps=4) -> dict:
+    """probe21's model A/B: ``enc`` over ``planes`` through the port's
+    ``_attention`` (K1 on fused views) and with :func:`batched_attention`
+    swapped in for it, in one process: the embeddings' cosine, the batched
+    kernel's launches a forward (one a full block: L - 1), and on the card
+    warm frames/s in the order K1, batched, batched, K1."""
+    from cbas_tpu_torch.models import vit
+    from cbas_tpu_torch.ops import attention_batched as ab
+
+    @contextlib.contextmanager
+    def swapped():
+        original = vit._attention
+        vit._attention = batched_attention
+        try:
+            yield
+        finally:
+            vit._attention = original
+
+    k1 = enc.encode_planes(planes[:batch], batch=batch).astype(np.float32)
+    before = ab.launches
+    with swapped():
+        got = enc.encode_planes(planes[:batch], batch=batch).astype(np.float32)
+    launches = ab.launches - before
+    cos = row_cosine(k1, got)
+    layers = enc.cfg.num_layers
+    out = {"phase": "batched_model", "what": "probe21 model A/B", "encoder": enc.identifier,
+           "frames": batch, "batch": batch, "launches_a_forward": launches,
+           "expected_launches_a_forward": (layers - 1) * int(device == "cuda"),
+           "min_cos_vs_k1": float(cos.min()), "tol_min_cos": BATCHED_MODEL_MIN_COS,
+           "finite": bool(np.isfinite(got).all())}
+    out["ok"] = out["finite"] and out["min_cos_vs_k1"] >= BATCHED_MODEL_MIN_COS \
+        and launches == out["expected_launches_a_forward"]
+    if device == "cuda":
+        reads = []
+        for route in ("K1", "batched", "batched", "K1"):
+            with (swapped() if route == "batched" else contextlib.nullcontext()):
+                reads.append(warm_fps(torch, enc, planes, batch, reps))
+        out["fps_reads"] = {"order": ["K1", "batched", "batched", "K1"], "fps": reads}
+        out["fps_k1"], out["fps_batched"] = (reads[0] + reads[3]) / 2, (reads[1] + reads[2]) / 2
+    return out
+
+
+def batched_phase(torch, cfg, device="cuda") -> dict:
+    """Every BATCHED_CASES case (:func:`batched_case`), the relayout
+    (:func:`relayout_case`) and probe21's model case
+    (:func:`batched_model_case`, dinov3-vitb16 at 256x256 and BATCH_256), the
+    kernels' launch counts set to 0 before and read after: {"cases",
+    "relayout", "model", "launches", "launches_relayout", "seconds"}. A
+    failed check, or a kernel never launched on the card, raises. (``device``
+    is "cpu" only in the CPU test, where the cases and the model are cut: the
+    plain versions on both sides, untimed.)"""
+    from cbas_tpu_torch.models.encoder import FrameEncoder
+    from cbas_tpu_torch.ops import attention_batched as ab
+    from cbas_tpu_torch.ops import flash_attention as fa
+    from cbas_tpu_torch.ops import relayout as rl
+
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    ab.launches, rl.launches = 0, 0
+    ab.launches_by_option.clear()
+    cases = []
+    for case in BATCHED_CASES:
+        inputs = batched_inputs(torch, cfg, case, device)
+        cases.append(batched_case(torch, fa, ab, case, inputs, device))
+        emit(cases[-1])
+        del inputs
+    relayout = relayout_case(torch, rl, device)
+    emit(relayout)
+    if on_card:
+        enc = FrameEncoder(ENCODER, cfg=cfg, random_init=True, device="cuda")
+        batch = BATCH_256
+    else:
+        enc, batch = FrameEncoder(ENCODER, cfg=cfg, random_init=True, device="cpu"), 2
+    planes = np.random.default_rng(SEED).integers(0, 256, (batch, 256, 256), np.uint8)
+    model = batched_model_case(torch, enc, planes, batch, device)
+    emit(model)
+    out = {"cases": cases, "relayout": relayout, "model": model,
+           "launches": dict(ab.launches_by_option), "launches_relayout": rl.launches,
+           "seconds": time.perf_counter() - t}
+    emit({"phase": "batched_summary", "seconds": out["seconds"], "launches": out["launches"],
+          "launches_relayout": rl.launches, "floor_case": BATCHED_FLOOR_CASE,
+          "ms": [{"what": c["what"], **{r: {key: e.get(key) for key in (
+              "ms", "ms_one_wave", "baseline_ms", "bound_ms", "plain_ms", "library_ms")}
+              for r, e in c["ropes"].items()}} for c in cases]})
+    bad = [c for c in cases + [relayout, model] if not c["ok"]]
+    if bad:
+        raise AssertionError(f"a batched case disagrees with its yardstick: {bad}")
+    if on_card and (not out["launches"] or not rl.launches):
+        raise AssertionError(f"the batched phase launched {out['launches']} and the relayout "
+                             f"{rl.launches} times")
+    return out
+
+
+def batched_kernel_entries(batched) -> list:
+    """The ``kernels`` line's entries of the batched kernel and the
+    relayout: their launches over the batched phase, the headline case's
+    numbers (BATCHED_HEADLINE, RoPE inside), every case's, and the model
+    A/B."""
+    case = next(c for c in batched["cases"] if c["what"] == BATCHED_HEADLINE)
+    head = case["ropes"]["rope"]
+    keys = ("launches", "max_abs_err", "max_err_over_tol", "ms", "baseline_ms", "plain_ms",
+            "bound_ms", "bound_by", "share_of_bound", "library_ms", "items_one_wave",
+            "ms_one_wave")
+    rel = batched["relayout"]
+    return [{
+        "name": BATCHED_KERNEL, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{BATCHED_KERNEL}.cu",
+        "replaces": BATCHED_REPLACES, "sites": list(BATCHED_SITES),
+        "launches": sum(batched["launches"].values()), "launches_by_option": batched["launches"],
+        "what": case["what"], "shape": case["shape"], "rope": "inside",
+        **{key: head[key] for key in keys if key != "launches"},
+        "floor_ms": case["floor_ms"], "library": case["library"], "ptxas": case["ptxas"],
+        "floor_case": BATCHED_FLOOR_CASE,
+        "cases": [{key: c[key] for key in ("what", "body", "inputs", "shape", "n_valid", "items",
+                                           "stage", "baseline", "floor_ms", "ptxas")}
+                  | {r: {key: e[key] for key in keys if key in e} for r, e in c["ropes"].items()}
+                  for c in batched["cases"]],
+        "model": batched["model"], "seconds": batched["seconds"],
+        "ptxas_all": list(PTXAS.get(BATCHED_KERNEL, {}).items()),
+    }, {
+        "name": RELAYOUT_KERNEL, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{RELAYOUT_KERNEL}.cu",
+        "replaces": RELAYOUT_REPLACES, "sites": [RELAYOUT_SITE],
+        "launches": batched["launches_relayout"], "shape": rel["shape"],
+        **{key: rel[key] for key in ("max_abs_err", "bit_equal", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "share_of_bound", "library_ms", "library",
+                                     "floor_ms", "gbps", "ptxas")},
+    }]
+
+
 def ln_tolerance(torch, x, want, w, b, two_pass: bool, bits: int):
     """LN_STAT_REL's bound on |y - want|, elementwise, for the LayerNorm
     ``want`` (fp32 values of the output dtype, ``bits`` significant bits)
@@ -1629,6 +2196,7 @@ def main() -> int:
     floor = floor_phase(torch)
     main_cases = kernel_phase(torch, fa, cfg)
     stages = stage_phase(torch, cfg)  # its own path: the variants' counts set to 0 before
+    batched = batched_phase(torch, cfg)  # its own path: the two kernels' counts set to 0 before
     ln_cases = ln_kernel_phase(torch)
 
     # 3 + 4. the flat route: encode at full width, then classify
@@ -1841,7 +2409,8 @@ def main() -> int:
         + [wide_kernel_entry(tools_line, wide_runs, wide_cases),
            ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
                            wide_runs),
-           floor_kernel_entry(floor), variants_kernel_entry(stages)]})
+           floor_kernel_entry(floor), variants_kernel_entry(stages),
+           *batched_kernel_entries(batched)]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -22,7 +22,30 @@ is an option set of one kernel (``csrc/attention_batched.cu``):
   head-major ``out``; its ``relayout_kt_kernel`` is ``ops/relayout.py``;
 - ``probe26b_gbbatch_256.py``'s ``gbbatch_kernel``: flat q, k, v and out,
   ``items`` = gb images x the heads, ``score_scale=d**-0.5``, RoPE inside
-  with the plain tables (``rope_tables(cos, sin)``) or none.
+  with the plain tables (``rope_tables(cos, sin)``) or none;
+- the flat probes, K1's TPU body per (image, head) with RoPE inside (q's
+  tables times the scale, k's plain, which at d 64 are probe21's tables):
+  ``probe18_fat768_256.py:107`` ``fat_kernel`` (``:47``) and
+  ``probe18b_unroll_256.py:158`` ``fat_kernel`` (``:47``) are ``"full"``
+  with ``tables`` at 48 items (gb 4 images) a block on flat views, their
+  ``pvt=True`` and probe18b's ``fat_kernel_unroll`` (``:104``) the same with
+  ``transposed_scores``; ``probe19_fat_gridpair_256.py:88`` ``kernel``
+  (``:39``) the same at 16 items on ``t.view(B, N, H // 2, 2, 64).permute(2,
+  0, 3, 1, 4)`` views (a block's items in (pair, image, head) order);
+  ``probe20_fat_model_256.py:95`` ``make_fat_kernel`` (``:40``, pvt off and
+  on) and ``probe21_batched_model_256.py:160`` ``make_fat_kernel`` (``:118``,
+  pvt) the two in the model (``chip_smoke.flat_model_case``); their
+  ``dma_kernel`` (probe18 ``:102``, probe18b ``:153``) is the memory floor;
+  ``probe24_pairrope_256.py:36``'s ``_fat_kernel_pairrope`` is K1's Pallas
+  body, ported as K1;
+- ``probe12_phase_split_256.py:139`` ``phase_kernel`` (``:49``) is
+  ``stage="split"`` with ``tables`` at 16 items a block on head-pair packed
+  views, ``transposed_scores`` for its ``pvt``, ``noexp`` for its ``noexp``.
+
+What bounds them on the card: the bytes of q, k, v and o (0.64 GB at 384
+images x 12 heads, N 272: 0.19 ms at 3.35 TB/s, against 0.09 ms of bf16
+FLOP), and each block's latency chain. The design, the shared memory and
+the registers of each option set are in the source's note.
 
 The function, per item (:func:`attention_batched_reference`, whose rounding
 points the kernel follows):
@@ -33,6 +56,11 @@ points the kernel follows):
   row's max; p = exp(s - m) in fp32; o = (bf16(p) . V) / sum(p), V's dead rows
   zero; rounded to bf16. An exact softmax: no running max.
 - ``"qk"``: o = q (the kernel forms every score and keeps it live).
+- ``"split"``: ``"full"``'s function, the scores formed once into shared
+  memory; ``noexp``: p = s - m, every key below N in the row sum (a dead one
+  adds -1e30 - m, so |o| is of order 1e-28).
+- ``transposed_scores``: s^T = k . q^T, its max and sums down the columns,
+  o^T = V^T . P^T: the same function (the probes' ``pvt``).
 
 Operands are (B, H, N, 64) views (head-major, or ``t.view(B, N, H, 64)
 .transpose(1, 2)`` of a flat tensor) or (B, G, P, N, 64) ones (head-pair
@@ -64,11 +92,14 @@ from cbas_tpu_torch.ops import flash_attention as fa
 
 HEAD_DIM = 64
 MAX_N = 320  # five 64-key tiles of K and V resident a block
-STAGES = ("full", "qk")
-# The option sets the kernel is built for: (stage, RoPE inside, k transposed,
-# v transposed).
-BUILT = {("full", False, False, False), ("full", True, False, False),
-         ("full", False, True, False), ("full", False, True, True), ("qk", False, False, False)}
+STAGES = ("full", "qk", "split")
+# The option sets the kernel is built for, each one a probe runs: (stage, RoPE
+# inside, k transposed, v transposed, scores transposed, noexp).
+BUILT = {("full", False, False, False, False, False), ("full", True, False, False, False, False),
+         ("full", False, True, False, False, False), ("full", False, True, True, False, False),
+         ("qk", False, False, False, False, False), ("full", True, False, False, True, False),
+         ("split", True, False, False, False, False), ("split", True, False, False, True, False),
+         ("split", True, False, False, False, True), ("split", True, False, False, True, True)}
 MASKED = -1e30
 
 launches = 0
@@ -76,10 +107,12 @@ launches_by_option: dict = {}
 _count_lock = threading.Lock()
 
 
-def option_set(stage: str, rope: bool, k_transposed: bool, v_transposed: bool) -> str:
+def option_set(stage: str, rope: bool, k_transposed: bool, v_transposed: bool,
+               transposed_scores: bool = False, noexp: bool = False) -> str:
     """The name an option set's launches are counted under, e.g. "full+rope",
-    "full+kT+vT", "qk"."""
-    return stage + "+rope" * rope + "+kT" * k_transposed + "+vT" * v_transposed
+    "full+kT+vT", "qk", "full+rope+sT", "split+rope+sT+noexp"."""
+    return (stage + "+rope" * rope + "+kT" * k_transposed + "+vT" * v_transposed
+            + "+sT" * transposed_scores + "+noexp" * noexp)
 
 
 def rope_bf16(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -125,11 +158,16 @@ def attention_batched_reference(
     stage: str = "full",
     k_transposed: bool = False,
     v_transposed: bool = False,
+    transposed_scores: bool = False,
+    noexp: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version, in q's shape and dtype (rounding points in the
     module docstring): RoPE in bf16 arithmetic, s in fp32, the exact softmax
-    in fp32, p rounded to bf16 before p . V, the row sum of the unrounded p,
-    the output rounded once."""
+    in fp32 (p = s - m under ``noexp``), p rounded to bf16 before p . V, the
+    row sum of the unrounded p, the output rounded once. "split" is the full
+    stage's function. ``transposed_scores`` forms s^T = k . q^T and reduces
+    down its columns, o^T = V^T . P^T: the same function in the transposed
+    orientation's own summation order."""
     if stage == "qk":
         return q.clone()
     N = q.shape[-2]
@@ -143,8 +181,15 @@ def attention_batched_reference(
     live = torch.arange(N, device=q.device) < nv
     kh = torch.where(live[:, None], kh.float(), 0.0)  # dead rows' NaN/Inf bits cannot leak
     vh = torch.where(live[:, None], vh.float(), 0.0)
+    if transposed_scores:  # keys down the rows
+        s = torch.where(live[:, None], (kh @ qh.float().transpose(-1, -2)) * score_scale, MASKED)
+        x = s - s.amax(dim=-2, keepdim=True)
+        p = x if noexp else torch.exp(x)
+        out = (vh.transpose(-1, -2) @ p.to(torch.bfloat16).float()) / p.sum(dim=-2, keepdim=True)
+        return out.transpose(-1, -2).to(q.dtype)
     s = torch.where(live, (qh.float() @ kh.transpose(-1, -2)) * score_scale, MASKED)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    x = s - s.amax(dim=-1, keepdim=True)
+    p = x if noexp else torch.exp(x)
     out = (p.to(torch.bfloat16).float() @ vh) / p.sum(dim=-1, keepdim=True)
     return out.to(q.dtype)
 
@@ -159,7 +204,7 @@ def _kernel():
     fn.restype = ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [strides] * 4 + [
-        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return fn
 
 
@@ -170,7 +215,7 @@ def _strides(t: torch.Tensor):
 
 
 def _launch(q5, k5, v5, o5, n_valid, score_scale, tables, stage, k_transposed, v_transposed,
-            items) -> None:
+            items, transposed_scores=False, noexp=False) -> None:
     """Launch the kernel on CUDA operands (5-dim views) into ``o5``, or raise."""
     if q5.device.type != "cuda":
         raise ValueError(f"the kernel path needs a CUDA tensor, not one on {q5.device}")
@@ -181,8 +226,9 @@ def _launch(q5, k5, v5, o5, n_valid, score_scale, tables, stage, k_transposed, v
             q5.data_ptr(), k5.data_ptr(), v5.data_ptr(), o5.data_ptr(), *ptrs, B, G, P, N,
             n_valid, items, *(_strides(t) for t in (q5, k5, v5, o5)), float(score_scale),
             STAGES.index(stage), int(tables is not None), int(k_transposed), int(v_transposed),
-            torch.cuda.current_stream().cuda_stream)
-    name = option_set(stage, tables is not None, k_transposed, v_transposed)
+            int(transposed_scores), int(noexp), torch.cuda.current_stream().cuda_stream)
+    name = option_set(stage, tables is not None, k_transposed, v_transposed, transposed_scores,
+                      noexp)
     if err:
         raise RuntimeError(f"attention_batched ({name}) launch failed with CUDA error {err}")
     _count_launch(name)
@@ -212,6 +258,8 @@ def attention_batched(
     stage: str = "full",
     k_transposed: bool = False,
     v_transposed: bool = False,
+    transposed_scores: bool = False,
+    noexp: bool = False,
     items: int = 16,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -222,7 +270,8 @@ def attention_batched(
     does not take, on every device."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, not {stage!r}")
-    option = (stage, tables is not None, bool(k_transposed), bool(v_transposed))
+    option = (stage, tables is not None, bool(k_transposed), bool(v_transposed),
+              bool(transposed_scores), bool(noexp))
     if option not in BUILT:
         raise ValueError(f"the kernel is not built for {option_set(*option)}")
     if q.dim() not in (4, 5):
@@ -261,9 +310,10 @@ def attention_batched(
             _check_operand(name, t)
     if q.device.type == "cpu":
         want = attention_batched_reference(q, k, v, nv, score_scale, tables, stage=stage,
-                                           k_transposed=k_transposed, v_transposed=v_transposed)
+                                           k_transposed=k_transposed, v_transposed=v_transposed,
+                                           transposed_scores=transposed_scores, noexp=noexp)
         return fa._in_dense_order(q, want) if out is None else out.copy_(want)
     o = fa._dense_like(q) if out is None else out
     _launch(_as5(q), _as5(k), _as5(v), _as5(o), nv, score_scale, tables, stage, k_transposed,
-            v_transposed, int(items))
+            v_transposed, int(items), transposed_scores, noexp)
     return o

@@ -328,15 +328,19 @@ FLOOR_KERNEL = "memory_floor"
 FLOOR_REPLACES = "benchmarks/attn_probes/probe14_dma_floor_256.py:40"
 FLOOR_SITES = ("benchmarks/attn_probes/probe14_dma_floor_256.py:51",
                "benchmarks/attn_probes/probe14_dma_floor_256.py:63",
-               "benchmarks/attn_probes/probe15_marginal_256.py:50")
+               "benchmarks/attn_probes/probe15_marginal_256.py:50",
+               "benchmarks/attn_probes/probe18_fat768_256.py:107",
+               "benchmarks/attn_probes/probe18b_unroll_256.py:158")
 # Its cases, (label, shape, dtype): the probes' own, (B*G, N, 128) bf16 blocks
 # of probe14's make_dma and probe15's f_dma and the same bytes flat (probe14's
 # make_dma_flat2d); then the bytes of each timed attention row (four (B*N,
 # H*d) tensors) and LayerNorm row (x and h read, x' and y written: four
 # (rows, D) tensors; the LayerNorm alone: half of that) of PERF.md, so each
-# row's bound at the peak rate has its measured floor beside it.
+# row's bound at the peak rate has its measured floor beside it. probe18's
+# and probe18b's dma_kernel (:102, :153) run at flat (B, N, 768) blocks.
 FLOOR_SHAPES = (("probe14/15 blocks (B*G, N, 128)", (384 * 6, 272, 128), "bfloat16"),
-                ("probe14 flat2d (rows, 128)", (384 * 6 * 272, 128), "bfloat16"))
+                ("probe14 flat2d (rows, 128)", (384 * 6 * 272, 128), "bfloat16"),
+                ("probe18/18b flat (B, N, 768)", (384, 272, 768), "bfloat16"))
 
 
 # The stage variants of the Hopper attention body (source
@@ -539,6 +543,9 @@ def comparable_name(mangled: str) -> str:
     kFull) dropped, and the hashes of the file's path that the compiler puts
     in an anonymous namespace's name, so two checkouts' reports compare."""
     name = re.sub(r"(attention_sm90ILi\d+ELi\d+E)Li0E", r"\1", mangled)
+    # the batched kernel's option sets without the transposed scores and
+    # noexp, as a checkout without those two template arguments names them
+    name = re.sub(r"(attention_batchedILi\dELb[01]ELb[01]ELb[01]E)Lb0ELb0E", r"\1", name)
     return re.sub(r"(_GLOBAL__N__)[0-9a-f]{8}(_\d+_\w+?_cu_)[0-9a-f]{8}", r"\1\2", name)
 
 
@@ -555,9 +562,11 @@ def kernel_label(mangled: str) -> str:
     name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else mangled
     if "ex2_bf16x2_table" in mangled:  # the stage variants' exponential table
         name = "ex2_bf16x2_table"
-    b = re.search(r"attention_batchedILi(\d)ELb([01])ELb([01])ELb([01])E", mangled)
+    b = re.search(r"attention_batchedILi(\d)ELb([01])ELb([01])ELb([01])E(?:Lb([01])ELb([01])E)?",
+                  mangled)
     if b:  # the batched kernel's option set
-        name = batched_label(("full", "qk")[int(b.group(1))], *(b.group(i) == "1" for i in (2, 3, 4)))
+        name = batched_label(("full", "qk", "split")[int(b.group(1))],
+                             *(b.group(i) == "1" for i in range(2, 7)))
     if "relayout_kt" in mangled:
         name = "relayout_kt"
     r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", mangled)
@@ -1228,6 +1237,13 @@ def stage_case(torch, fa, av, case, inputs, rope, device="cuda", plain=False,
         out["sdpa"] = sdpa_backend(kernels)
         copy = torch.empty_like(q)
         out["clone_ms"] = time_ms(torch, lambda: copy.copy_(q))  # o = q by one PyTorch call
+        # qk's and nosm's products by torch.matmul on head-major copies (no
+        # RoPE, no mask): q . k^T, and q . k^T then . V
+        qh, kh, vh = (av.to_heads(t, layout).contiguous() for t in (q, k, v))
+        out["matmul_qk_ms"] = time_ms(torch, lambda: torch.matmul(qh, kh.transpose(-1, -2)))
+        out["matmul_qk_pv_ms"] = time_ms(
+            torch, lambda: torch.matmul(torch.matmul(qh, kh.transpose(-1, -2)), vh))
+        del qh, kh, vh
         out["split_ms"] = {
             "dma - floor": ms["dma"] - out["floor_ms"], "qk - dma": ms["qk"] - ms["dma"],
             "nosm - qk": ms["nosm"] - ms["qk"], "full - nosm": full_ms - ms["nosm"],
@@ -1291,7 +1307,8 @@ def variants_kernel_entry(stages) -> dict:
     case = next(c for c in stages["cases"] if c["what"] == label and c["rope"])
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
             "v0_ms_beside")
-    library = {"dma": case["clone_ms"], "pipe": case["sdpa_ms"], "vext": case["sdpa_ms"],
+    library = {"dma": case["clone_ms"], "qk": case["matmul_qk_ms"],
+               "nosm": case["matmul_qk_pv_ms"], "pipe": case["sdpa_ms"], "vext": case["sdpa_ms"],
                "vext_bf16exp": case["sdpa_ms"]}
     variants = {name: {key: e[key] for key in keys} | {"library_ms": library.get(name)}
                 for name, e in case["variants"].items()}
@@ -1302,10 +1319,12 @@ def variants_kernel_entry(stages) -> dict:
         "launches_by_variant": stages["launches"], "variant": headline, "what": label,
         "shape": case["shape"], "rope": True, **variants[headline],
         "library": f"scaled_dot_product_attention ({case['sdpa']}), RoPE applied beforehand; "
-                   "dma: out.copy_(q); qk, nosm: none",
+                   "dma: out.copy_(q); qk: torch.matmul(q, k^T); nosm: torch.matmul(q, k^T) "
+                   "then . V (head-major copies, no RoPE)",
         "variants": variants,
         "cases": [{key: c[key] for key in ("what", "shape", "n_valid", "rope", "v0_ms",
-                                           "floor_ms", "bound_ms", "sdpa_ms", "split_ms")}
+                                           "floor_ms", "bound_ms", "sdpa_ms", "matmul_qk_ms",
+                                           "matmul_qk_pv_ms", "split_ms")}
                   | {"ms": {name: e["ms"] for name, e in c["variants"].items()}}
                   for c in stages["cases"]],
         "clocks": stages["clocks"], "ex2_bf16x2": stages["ex2"], "seconds": stages["seconds"],
@@ -1324,7 +1343,14 @@ BATCHED_REPLACES = "benchmarks/attn_probes/probe13_batched_dot_256.py:101"
 BATCHED_SITES = tuple(f"benchmarks/attn_probes/{site}" for site in (
     "probe13_batched_dot_256.py:134", "probe16_variants_marginal_256.py:83",
     "probe21_batched_model_256.py:72", "probe26_layouts_256.py:90", "probe26_layouts_256.py:119",
-    "probe26_layouts_256.py:208", "probe26b_gbbatch_256.py:104"))
+    "probe26_layouts_256.py:208", "probe26b_gbbatch_256.py:104", "probe18_fat768_256.py:107",
+    "probe18b_unroll_256.py:158", "probe19_fat_gridpair_256.py:88",
+    "probe20_fat_model_256.py:95", "probe21_batched_model_256.py:160",
+    "probe12_phase_split_256.py:139"))
+# probe24's _fat_kernel_pairrope (:36) runs through K1's pallas_call
+# (cbas_tpu/ops/flash_attention.py:728) and is K1's Pallas body line for line:
+# the K1 route of the flat model A/B.
+PAIRROPE_SITE = "benchmarks/attn_probes/probe24_pairrope_256.py:36"
 RELAYOUT_REPLACES = "benchmarks/attn_probes/probe26_layouts_256.py:154"
 RELAYOUT_SITE = "benchmarks/attn_probes/probe26_layouts_256.py:163"
 # probe13's dma_kernel (:76) is the memory floor at its (384 * 6, 272, 128)
@@ -1342,7 +1368,15 @@ BATCHED_INPUT_SCALE = 0.3  # the probes: standard normal x 0.3
 # "rope": None, "outside" (probe13's / probe16's rope_xla, then the kernel),
 # "inside" with probe21's scaled tables ("scaled") or probe26b's plain ones
 # ("plain"); "ropes": the RoPE settings timed. "scale": the softmax scale on
-# the fp32 scores (probe26, 26b), else in q or none.
+# the fp32 scores (probe26, 26b), else in q or none. The flat probes (18,
+# 18b, 19) and probe12 rope inside with q's tables times the scale and k's
+# plain ones, which at d 64 are probe21's ("scaled": bf16(cos 2^-3 2^3) =
+# bf16(cos)), on standard normal tables. "pairgrid": flat q, k, v and output
+# read as (G, B, 2, N, 64) views, so that a block's items run (pair, image,
+# head) as probe19's grid over head pairs does. probe20's and probe21's fat
+# kernels run in the model, on views of the fused projection at N 261 with
+# the model's tables: their cases time that call. "sT": the transposed scores
+# (the probes' pvt); "noexp": probe12's p = s - m.
 BATCHED_CASES = (
     dict(what="probe13 qk_kernel", body="probe13_batched_dot_256.py:80", inputs="packed", B=384,
          H=12, N=272, nv=272, items=16, stage="qk", rope=None, ropes=(False,), scale=False),
@@ -1369,6 +1403,28 @@ BATCHED_CASES = (
     dict(what="probe26b gbbatch_kernel gb 8", body="probe26b_gbbatch_256.py:59", inputs="flat",
          B=448, H=12, N=272, nv=261, items=96, stage="full", rope="plain", ropes=(True,),
          scale=True),
+    *(dict(what=f"{probe} {body} {pvt}", body=f"{file}:{line}", inputs="flat", B=384, H=12,
+           N=272, nv=261, items=48, stage="full", rope="scaled",
+           ropes=(True, False) if pvt == "std" else (True,), scale=False, sT=pvt != "std")
+      for probe, file, body, line, pvts in (
+          ("probe18", "probe18_fat768_256.py", "fat_kernel", 47, ("std", "pvt")),
+          ("probe18b", "probe18b_unroll_256.py", "fat_kernel", 47, ("std", "pvt")),
+          ("probe18b", "probe18b_unroll_256.py", "fat_kernel_unroll", 104, ("pvt",)))
+      for pvt in pvts),
+    *(dict(what=f"probe20/21 make_fat_kernel {pvt}",
+           body="probe20_fat_model_256.py:40, probe21_batched_model_256.py:118",
+           inputs="fused", B=384, H=12, N=261, nv=261, items=48, stage="full", rope="scaled",
+           ropes=(True,), scale=False, sT=pvt != "std")
+      for pvt in ("std", "pvt")),
+    *(dict(what=f"probe19 kernel {pvt}", body="probe19_fat_gridpair_256.py:39",
+           inputs="pairgrid", B=384, H=12, N=272, nv=261, items=16, stage="full", rope="scaled",
+           ropes=(True, False) if pvt == "std" else (True,), scale=False, sT=pvt != "std")
+      for pvt in ("std", "pvt")),
+    *(dict(what=f"probe12 phase_kernel {pvt}{', noexp' * noexp}",
+           body="probe12_phase_split_256.py:49", inputs="packed", B=384, H=12, N=272, nv=261,
+           items=16, stage="split", rope="scaled", ropes=(True,), scale=False, sT=pvt == "pvt",
+           noexp=noexp)
+      for noexp in (False, True) for pvt in ("std", "pvt")),
 )
 # The kernels line's headline: probe21's case with RoPE inside.
 BATCHED_HEADLINE = "probe21 make_batched_kernel"
@@ -1393,7 +1449,7 @@ def batched_bound(stage, items, N, nv, d, rope) -> dict:
 
 
 def batched_tolerance(torch, ab, q, k, v, nv, score_scale, tables, k_transposed, v_transposed,
-                      want, extra_ds=None):
+                      want, extra_ds=None, noexp=False):
     """The bound on |kernel - plain| of the full stage at each output element
     (q's shape), for operands as ``ab.attention_batched`` takes them. Both
     sides rope the same bf16 q and k (bf16 arithmetic, the same roundings) and
@@ -1414,7 +1470,15 @@ def batched_tolerance(torch, ab, q, k, v, nv, score_scale, tables, k_transposed,
       2^-22 (the two summation orders);
     - o = (P . V) / l by (sum dP |v| + nv 2^-22 sum (P + dP) |v|) / (l (1 -
       dl)) + |o| dl / (1 - dl) + 2^-21 |o| (the kernel's reciprocal and
-      product, the plain division); then the output's rounding."""
+      product, the plain division); then the output's rounding.
+
+    Under ``noexp`` (p = s - m, every key below N in the sum, the dead ones
+    at -1e30 - m) each live p moves by dp = ds + s_m + 2^-23 |s - m| (the
+    score, the max and each side's rounding of the difference), its bf16 P
+    lies between the roundings of p - dp and p + dp, and the sum of N terms
+    of one sign by a relative dl = sum dp / |l| + N 2^-22. The transposed
+    orientation is the same function: its sums run in another order, within
+    the same terms."""
     ulp = functools.partial(dtype_ulp, torch)
     N, d = q.shape[-2:]
     kh = k.transpose(-1, -2) if k_transposed else k
@@ -1436,18 +1500,27 @@ def batched_tolerance(torch, ab, q, k, v, nv, score_scale, tables, k_transposed,
     s = torch.where(live, s, ab.MASKED)
     m = s.amax(-1, keepdim=True)
     x = s - m
-    e = torch.where(live, ds + ds.amax(-1, keepdim=True) + 2.0 ** -20 * (1 + x.abs() + m.abs()),
-                    0.0)
-    p = torch.exp(x)
-    P = p.to(torch.bfloat16).float()
-    dP = torch.maximum((p * torch.exp(e)).to(torch.bfloat16).float() - P,
-                       P - (p * torch.exp(-e)).to(torch.bfloat16).float())
-    l = p.sum(-1, keepdim=True)
-    dl = (p * torch.expm1(e)).sum(-1, keepdim=True) / l + nv * 2.0 ** -22
+    if noexp:
+        p = x
+        dp = torch.where(live, ds + ds.amax(-1, keepdim=True) + 2.0 ** -23 * x.abs(), 0.0)
+        P = p.to(torch.bfloat16).float()
+        dP = torch.maximum((p + dp).to(torch.bfloat16).float() - P,
+                           P - (p - dp).to(torch.bfloat16).float())
+        l = p.sum(-1, keepdim=True).abs()
+        dl = dp.sum(-1, keepdim=True) / l + N * 2.0 ** -22
+    else:
+        e = torch.where(live, ds + ds.amax(-1, keepdim=True)
+                        + 2.0 ** -20 * (1 + x.abs() + m.abs()), 0.0)
+        p = torch.exp(x)
+        P = p.to(torch.bfloat16).float()
+        dP = torch.maximum((p * torch.exp(e)).to(torch.bfloat16).float() - P,
+                           P - (p * torch.exp(-e)).to(torch.bfloat16).float())
+        l = p.sum(-1, keepdim=True)
+        dl = (p * torch.expm1(e)).sum(-1, keepdim=True) / l + nv * 2.0 ** -22
     va = vh.abs()
     o = (P @ vh).abs() / l
-    dv = (dP @ va + nv * 2.0 ** -22 * ((P + dP) @ va)) / (l * (1 - dl)) + o * dl / (1 - dl) \
-        + 2.0 ** -21 * o
+    dv = (dP @ va + nv * 2.0 ** -22 * ((P.abs() + dP) @ va)) / (l * (1 - dl)) \
+        + o * dl / (1 - dl) + 2.0 ** -21 * o
     return dv + ulp(want.float().abs() + dv)
 
 
@@ -1461,14 +1534,16 @@ def batched_check(torch, ab, case, q, k, v, score_scale, tables, got) -> dict:
                 "tol": "bit-equal to q", "ok": ok}
     N, nv, scale = q.shape[-2], case["nv"], score_scale
     kt, vt = case["inputs"] in ("kt", "fatq_kt"), case["inputs"] == "fatq_kt"
+    st, noexp = case.get("sT", False), case.get("noexp", False)
     per_image = q[0].numel() // q.shape[-1]  # the rows of one image's items
     chunk = max(1, 2 ** 29 // (4 * per_image * N))
     err, worst, ok = 0.0, 0.0, bool(torch.isfinite(got).all())
     for b0 in range(0, q.shape[0], chunk):
         part = [t[b0:b0 + chunk] for t in (q, k, v)]
-        want = ab.attention_batched_reference(*part, nv, scale, tables, k_transposed=kt,
-                                              v_transposed=vt)
-        tol = batched_tolerance(torch, ab, *part, nv, scale, tables, kt, vt, want)
+        want = ab.attention_batched_reference(*part, nv, scale, tables, stage=case["stage"],
+                                              k_transposed=kt, v_transposed=vt,
+                                              transposed_scores=st, noexp=noexp)
+        tol = batched_tolerance(torch, ab, *part, nv, scale, tables, kt, vt, want, noexp=noexp)
         e = (got[b0:b0 + chunk].float() - want.float()).abs()
         err, worst = max(err, float(e.max())), max(worst, float((e / tol).max()))
         ok = ok and bool((e <= tol).all())
@@ -1483,7 +1558,8 @@ def batched_inputs(torch, cfg, case, device="cuda") -> dict:
     views), NaN in k's and v's rows at or past n_valid, in the case's
     layout: {"q", "k", "v", "out", "cos", "sin", "heads": head-major (B, H,
     N, 64) copies of q, k and v for K3 and SDPA, "flat": (B, N, H*64) ones for
-    K1 where the inputs are flat}."""
+    K1 where the inputs are flat}. "pairgrid" q, k, v: (G, B, 2, N, 64)
+    views of flat tensors, a block's items in (pair, image, head) order."""
     B, H, N, nv, d = case["B"], case["H"], case["N"], case["nv"], 64
     gen = torch.Generator(device).manual_seed(SEED + 3)
 
@@ -1504,6 +1580,9 @@ def batched_inputs(torch, cfg, case, device="cuda") -> dict:
     out["heads"] = [t.contiguous() for t in heads]
     if case["inputs"] in ("flat", "fused"):
         out["q"], out["k"], out["v"] = heads  # views: flat strides, or the fused buffer's
+    elif case["inputs"] == "pairgrid":  # (G, B, 2, N, 64) views of the flat tensors
+        out["q"], out["k"], out["v"] = (t.view(B, N, H // 2, 2, d).permute(2, 0, 3, 1, 4)
+                                        for t in flat)
     elif case["inputs"] == "packed":  # (B*G, N, 128) blocks as (B, G, 2, N, 64) head pairs
         blocks = [t.view(B, N, H // 2, 2 * d).transpose(1, 2).contiguous() for t in flat]
         out["q"], out["k"], out["v"] = (t.view(B, H // 2, N, 2, d).transpose(2, 3) for t in blocks)
@@ -1530,7 +1609,8 @@ def batched_calls(ab, case, inputs, rope):
     q, k, v, out = inputs["q"], inputs["k"], inputs["v"], inputs["out"]
     cos, sin = inputs["cos"], inputs["sin"]
     kw = dict(stage=case["stage"], k_transposed=case["inputs"] in ("kt", "fatq_kt"),
-              v_transposed=case["inputs"] == "fatq_kt")
+              v_transposed=case["inputs"] == "fatq_kt", transposed_scores=case.get("sT", False),
+              noexp=case.get("noexp", False))
     nv, tables = case["nv"], None
     s_scale = scale if case["scale"] else 1.0
     if rope and case["rope"] in ("scaled", "plain"):
@@ -1580,7 +1660,7 @@ def batched_case(torch, fa, ab, case, inputs, device="cuda") -> dict:
     if case["inputs"] == "packed":
         base_args, base = inputs["packed"], fa.fused_attention_packed
         out["baseline"] = "K2 (packed blocks)"
-    elif case["inputs"] in ("flat", "fatq_kt"):
+    elif case["inputs"] in ("flat", "fatq_kt", "pairgrid"):
         base_args = [t.transpose(1, 2).reshape(B, N, H * d) for t in inputs["heads"]]
         base, out["baseline"] = fa.fused_attention_fat, "K1 (flat)"
     else:
@@ -1616,12 +1696,14 @@ def batched_case(torch, fa, ab, case, inputs, device="cuda") -> dict:
                 ab, dict(case, items=entry["items_one_wave"]), inputs, rope)[0])
             entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
             entry["plain_ms"] = time_ms(torch, plain, iters=5, warmup=1)
-            entry["library_ms"] = batched_library_ms(torch, fa, case, inputs, rope)
+            entry["library_ms"] = (None if case.get("noexp") else
+                                   batched_library_ms(torch, fa, case, inputs, rope))
         out["ropes"]["rope" if rope else "no_rope"] = entry
     out["ok"] = all(e["ok"] for e in out["ropes"].values())
     if on_card:
         out["floor_ms"] = floor_ms(torch, B * H * N * d, "bfloat16")
         out["library"] = ("torch.matmul(q, k^T)" if case["stage"] == "qk" else
+                          "none: no PyTorch call takes p = s - m" if case.get("noexp") else
                           "scaled_dot_product_attention, key mask")
         out["ptxas"] = batched_ptxas(case, rope=case["rope"] in ("scaled", "plain"))
         out["clocks_after"] = gpu_clocks()
@@ -1647,15 +1729,17 @@ def batched_library_ms(torch, fa, case, inputs, rope) -> float:
 def batched_ptxas(case, rope) -> str:
     """Registers and spills of the kernel instantiation a case runs, from PTXAS."""
     label = batched_label(case["stage"], rope, case["inputs"] in ("kt", "fatq_kt"),
-                          case["inputs"] == "fatq_kt")
+                          case["inputs"] == "fatq_kt", case.get("sT", False),
+                          case.get("noexp", False))
     return PTXAS.get(BATCHED_KERNEL, {}).get(label, "not in the build log")
 
 
-def batched_label(stage, rope, k_transposed, v_transposed) -> str:
+def batched_label(stage, rope, k_transposed, v_transposed, transposed_scores=False,
+                  noexp=False) -> str:
     """A batched kernel instantiation's name in :func:`ptxas_report`."""
     from cbas_tpu_torch.ops.attention_batched import option_set
 
-    return f"batched<{option_set(stage, rope, k_transposed, v_transposed)}>"
+    return f"batched<{option_set(stage, rope, k_transposed, v_transposed, transposed_scores, noexp)}>"
 
 
 def relayout_case(torch, rl, device="cuda") -> dict:
@@ -1692,13 +1776,14 @@ def relayout_case(torch, rl, device="cuda") -> dict:
     return out
 
 
-def batched_attention(params, prefix, x, cfg, rope):
+def batched_attention(params, prefix, x, cfg, rope, items=16, transposed_scores=False):
     """probe21's batched_attention on the port's model: ``vit._attention``
     with its one q|k|v projection GEMM, the head-major views of its output
     handed to the batched kernel with RoPE inside (probe21's tables: q's times
     the scale, k's times sqrt(d) after it; the scale on the scores without
-    RoPE), the context back through the out-projection. Swapped in by
-    :func:`batched_model_case` only: no route of the package calls it."""
+    RoPE), ``items`` a block, the scores transposed where asked, the context
+    back through the out-projection. Swapped in by :func:`batched_model_case`
+    and :func:`flat_model_case` only: no route of the package calls it."""
     import torch.nn.functional as F
 
     from cbas_tpu_torch.models import vit
@@ -1714,9 +1799,23 @@ def batched_attention(params, prefix, x, cfg, rope):
     q, k, v = (qkv[..., j * HD:(j + 1) * HD].view(B, N, HD // hd, hd).transpose(1, 2)
                for j in range(3))
     tables = ab.rope_tables(*rope, hd ** -0.5, hd ** 0.5) if rope is not None else None
-    ctx = ab.attention_batched(q, k, v, None, 1.0 if tables else hd ** -0.5, tables)
+    ctx = ab.attention_batched(q, k, v, None, 1.0 if tables else hd ** -0.5, tables, items=items,
+                               transposed_scores=transposed_scores)
     return vit._dense_reduce(params, out_name, ctx.transpose(1, 2).reshape(B, N, HD), out_bias,
                              cfg.hidden_size)
+
+
+@contextlib.contextmanager
+def swapped_attention(fn):
+    """``vit._attention`` replaced by ``fn`` inside the block, restored after."""
+    from cbas_tpu_torch.models import vit
+
+    original = vit._attention
+    vit._attention = fn
+    try:
+        yield
+    finally:
+        vit._attention = original
 
 
 def batched_model_case(torch, enc, planes, batch, device="cuda", reps=4) -> dict:
@@ -1725,21 +1824,11 @@ def batched_model_case(torch, enc, planes, batch, device="cuda", reps=4) -> dict
     swapped in for it, in one process: the embeddings' cosine, the batched
     kernel's launches a forward (one a full block: L - 1), and on the card
     warm frames/s in the order K1, batched, batched, K1."""
-    from cbas_tpu_torch.models import vit
     from cbas_tpu_torch.ops import attention_batched as ab
-
-    @contextlib.contextmanager
-    def swapped():
-        original = vit._attention
-        vit._attention = batched_attention
-        try:
-            yield
-        finally:
-            vit._attention = original
 
     k1 = enc.encode_planes(planes[:batch], batch=batch).astype(np.float32)
     before = ab.launches
-    with swapped():
+    with swapped_attention(batched_attention):
         got = enc.encode_planes(planes[:batch], batch=batch).astype(np.float32)
     launches = ab.launches - before
     cos = row_cosine(k1, got)
@@ -1754,20 +1843,77 @@ def batched_model_case(torch, enc, planes, batch, device="cuda", reps=4) -> dict
     if device == "cuda":
         reads = []
         for route in ("K1", "batched", "batched", "K1"):
-            with (swapped() if route == "batched" else contextlib.nullcontext()):
+            with (swapped_attention(batched_attention) if route == "batched"
+                  else contextlib.nullcontext()):
                 reads.append(warm_fps(torch, enc, planes, batch, reps))
         out["fps_reads"] = {"order": ["K1", "batched", "batched", "K1"], "fps": reads}
         out["fps_k1"], out["fps_batched"] = (reads[0] + reads[3]) / 2, (reads[1] + reads[2]) / 2
     return out
 
 
+# The flat model A/B of probe20 (:95, pvt off and on), probe21 (:160, its fat
+# kernel: pvt) and probe24 (:36, K1's body): dinov3-vitb16 at full width and
+# depth, 256x256, at the probes' batch, through K1 (the port's _attention)
+# and the batched kernel on views of the fused projection at gb 4 images (48
+# items) a block, in the row orientation (full+rope) and the transposed one
+# (full+rope+sT). Reads: K1, std, sT, sT, std, K1.
+FLAT_MODEL_BATCH, FLAT_MODEL_ITEMS = 384, 48
+FLAT_MODEL_ROUTES = {"std": ("full+rope", False), "sT": ("full+rope+sT", True)}
+FLAT_MODEL_READS = ("K1", "std", "sT", "sT", "std", "K1")
+
+
+def flat_model_case(torch, enc, planes, batch, device="cuda", reps=4) -> dict:
+    """The flat model A/B (FLAT_MODEL_ROUTES against K1) in one process: each
+    route's embeddings' cosine against K1's, its option set's launches a
+    forward (L - 1), and on the card warm frames/s in FLAT_MODEL_READS'
+    order, each route's the mean of its two reads."""
+    from cbas_tpu_torch.ops import attention_batched as ab
+
+    fns = {name: functools.partial(batched_attention, items=FLAT_MODEL_ITEMS,
+                                   transposed_scores=st)
+           for name, (_, st) in FLAT_MODEL_ROUTES.items()}
+    k1 = enc.encode_planes(planes[:batch], batch=batch).astype(np.float32)
+    expected = (enc.cfg.num_layers - 1) * int(device == "cuda")
+    out = {"phase": "batched_flat_model", "what": "probe20/21/24 flat model A/B",
+           "sites": ["probe20_fat_model_256.py:95", "probe21_batched_model_256.py:160",
+                     PAIRROPE_SITE.split("/")[-1]],
+           "encoder": enc.identifier, "batch": batch, "items": FLAT_MODEL_ITEMS,
+           "expected_launches_a_forward": expected, "tol_min_cos": BATCHED_MODEL_MIN_COS,
+           "routes": {}}
+    for name, (option, _) in FLAT_MODEL_ROUTES.items():
+        before = dict(ab.launches_by_option)
+        with swapped_attention(fns[name]):
+            got = enc.encode_planes(planes[:batch], batch=batch).astype(np.float32)
+        launches = {o: n - before.get(o, 0) for o, n in ab.launches_by_option.items()
+                    if n != before.get(o, 0)}
+        r = {"option_set": option, "launches_a_forward": launches.get(option, 0),
+             "other_launches": {o: n for o, n in launches.items() if o != option},
+             "min_cos_vs_k1": float(row_cosine(k1, got).min()),
+             "finite": bool(np.isfinite(got).all())}
+        r["ok"] = r["finite"] and r["min_cos_vs_k1"] >= BATCHED_MODEL_MIN_COS \
+            and r["launches_a_forward"] == expected and not r["other_launches"]
+        out["routes"][name] = r
+    out["ok"] = all(r["ok"] for r in out["routes"].values())
+    if device == "cuda":
+        reads = []
+        for route in FLAT_MODEL_READS:
+            with (swapped_attention(fns[route]) if route in fns else contextlib.nullcontext()):
+                reads.append(warm_fps(torch, enc, planes, batch, reps))
+        out["fps_reads"] = {"order": list(FLAT_MODEL_READS), "fps": reads}
+        out["fps"] = {route: sum(f for r, f in zip(FLAT_MODEL_READS, reads) if r == route) / 2
+                      for route in dict.fromkeys(FLAT_MODEL_READS)}
+    return out
+
+
 def batched_phase(torch, cfg, device="cuda") -> dict:
     """Every BATCHED_CASES case (:func:`batched_case`), the relayout
-    (:func:`relayout_case`) and probe21's model case
-    (:func:`batched_model_case`, dinov3-vitb16 at 256x256 and BATCH_256), the
+    (:func:`relayout_case`), probe21's model case
+    (:func:`batched_model_case`, dinov3-vitb16 at 256x256 and BATCH_256) and
+    the flat model A/B (:func:`flat_model_case`, FLAT_MODEL_BATCH), the
     kernels' launch counts set to 0 before and read after: {"cases",
-    "relayout", "model", "launches", "launches_relayout", "seconds"}. A
-    failed check, or a kernel never launched on the card, raises. (``device``
+    "relayout", "model", "flat_model", "launches", "launches_relayout",
+    "seconds"}. A failed check, or a kernel or an option set of BUILT never
+    launched on the card, raises. (``device``
     is "cpu" only in the CPU test, where the cases and the model are cut: the
     plain versions on both sides, untimed.)"""
     from cbas_tpu_torch.models.encoder import FrameEncoder
@@ -1792,10 +1938,13 @@ def batched_phase(torch, cfg, device="cuda") -> dict:
         batch = BATCH_256
     else:
         enc, batch = FrameEncoder(ENCODER, cfg=cfg, random_init=True, device="cpu"), 2
-    planes = np.random.default_rng(SEED).integers(0, 256, (batch, 256, 256), np.uint8)
+    flat_batch = FLAT_MODEL_BATCH if on_card else batch
+    planes = np.random.default_rng(SEED).integers(0, 256, (flat_batch, 256, 256), np.uint8)
     model = batched_model_case(torch, enc, planes, batch, device)
     emit(model)
-    out = {"cases": cases, "relayout": relayout, "model": model,
+    flat_model = flat_model_case(torch, enc, planes, flat_batch, device)
+    emit(flat_model)
+    out = {"cases": cases, "relayout": relayout, "model": model, "flat_model": flat_model,
            "launches": dict(ab.launches_by_option), "launches_relayout": rl.launches,
            "seconds": time.perf_counter() - t}
     emit({"phase": "batched_summary", "seconds": out["seconds"], "launches": out["launches"],
@@ -1803,12 +1952,14 @@ def batched_phase(torch, cfg, device="cuda") -> dict:
           "ms": [{"what": c["what"], **{r: {key: e.get(key) for key in (
               "ms", "ms_one_wave", "baseline_ms", "bound_ms", "plain_ms", "library_ms")}
               for r, e in c["ropes"].items()}} for c in cases]})
-    bad = [c for c in cases + [relayout, model] if not c["ok"]]
+    bad = [c for c in cases + [relayout, model, flat_model] if not c["ok"]]
     if bad:
         raise AssertionError(f"a batched case disagrees with its yardstick: {bad}")
-    if on_card and (not out["launches"] or not rl.launches):
-        raise AssertionError(f"the batched phase launched {out['launches']} and the relayout "
-                             f"{rl.launches} times")
+    unlaunched = sorted(ab.option_set(*o) for o in ab.BUILT
+                        if ab.option_set(*o) not in out["launches"])
+    if on_card and (unlaunched or not rl.launches):
+        raise AssertionError(f"the batched phase launched {out['launches']} (never: "
+                             f"{unlaunched}) and the relayout {rl.launches} times")
     return out
 
 
@@ -1835,7 +1986,8 @@ def batched_kernel_entries(batched) -> list:
                                            "stage", "baseline", "floor_ms", "ptxas")}
                   | {r: {key: e[key] for key in keys if key in e} for r, e in c["ropes"].items()}
                   for c in batched["cases"]],
-        "model": batched["model"], "seconds": batched["seconds"],
+        "model": batched["model"], "flat_model": batched["flat_model"],
+        "pairrope_site": PAIRROPE_SITE, "seconds": batched["seconds"],
         "ptxas_all": list(PTXAS.get(BATCHED_KERNEL, {}).items()),
     }, {
         "name": RELAYOUT_KERNEL, "route": "cuda", "source": f"cbas_tpu_torch/csrc/{RELAYOUT_KERNEL}.cu",

@@ -520,6 +520,10 @@ def test_online_rescale_fault_needs_a_two_tile_row():
     ("table shape", "each table must be bf16"),
     ("misaligned base", "k starts at"),
     ("strided last dim", "the last dim must have stride 1"),
+    ("sT without tables", "not built for full\\+sT"),
+    ("split without tables", "not built for split"),
+    ("noexp on the full stage", "not built for full\\+rope\\+noexp"),
+    ("qk with sT", "not built for qk\\+sT"),
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     """On the CPU as on the card: the refusals come before the plain version.
@@ -559,6 +563,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, match):
         k = base[1:1 + q.numel()].view(q.shape)
     elif case == "strided last dim":
         v = torch.zeros(2, 4, 16, 128, dtype=torch.bfloat16)[..., ::2]
+    elif case == "sT without tables":
+        kw["transposed_scores"] = True
+    elif case == "split without tables":
+        kw["stage"] = "split"
+    elif case == "noexp on the full stage":
+        kw.update(noexp=True, tables=ab.rope_tables(torch.ones(16, 64), torch.zeros(16, 64)))
+    elif case == "qk with sT":
+        kw.update(stage="qk", transposed_scores=True)
     with pytest.raises(ValueError, match=match):
         ab.attention_batched(q, k, v, **kw)
 
@@ -590,7 +602,8 @@ def test_launches_count_kernel_launches_only(monkeypatch):
         ab._count_launch(name)
     assert ab.launches == 3 and ab.launches_by_option == {"full+rope": 2, "qk": 1}
     assert [ab.option_set(*o) for o in sorted(ab.BUILT)] == [
-        "full", "full+kT", "full+kT+vT", "full+rope", "qk"]
+        "full", "full+kT", "full+kT+vT", "full+rope", "full+rope+sT", "qk", "split+rope",
+        "split+rope+noexp", "split+rope+sT", "split+rope+sT+noexp"]
 
 
 def test_no_encode_route_calls_the_batched_kernel():
@@ -638,6 +651,10 @@ def test_chip_smoke_batched_phase_runs_on_cpu(monkeypatch):
             assert e["launches"] == 0
     assert out["relayout"]["bit_equal"] and out["model"]["ok"]
     assert out["model"]["min_cos_vs_k1"] >= chip_smoke.BATCHED_MODEL_MIN_COS
+    flat = out["flat_model"]  # probes 20, 21 and 24: both routes against K1's
+    assert flat["ok"] and set(flat["routes"]) == set(chip_smoke.FLAT_MODEL_ROUTES)
+    assert all(r["launches_a_forward"] == 0 and r["min_cos_vs_k1"] >= chip_smoke.BATCHED_MODEL_MIN_COS
+               for r in flat["routes"].values())
 
 
 def test_batched_cases_are_the_probes_shapes():
@@ -688,6 +705,14 @@ def test_ptxas_labels_name_the_option_sets():
     assert chip_smoke.kernel_label(
         "_ZN44_GLOBAL__N__ecdc4336_11_relayout_cu_9aa3d56e11relayout_ktEPKtPtiixx") == "relayout_kt"
     assert chip_smoke.batched_label("full", False, True, False) == "batched<full+kT>"
+    # the transposed scores and noexp, two template arguments more; a set
+    # without them compares equal to its name in a checkout before them
+    new = mangled.replace("ELb{}EEEv", "ELb{}ELb{}ELb{}EEEv")
+    assert chip_smoke.kernel_label(new.format(0, 1, 0, 0, 1, 0)) == "batched<full+rope+sT>"
+    assert chip_smoke.kernel_label(new.format(2, 1, 0, 0, 1, 1)) == "batched<split+rope+sT+noexp>"
+    assert chip_smoke.kernel_label(new.format(2, 1, 0, 0, 0, 0)) == "batched<split+rope>"
+    assert chip_smoke.comparable_name(new.format(0, 1, 0, 0, 0, 0)) == \
+        chip_smoke.comparable_name(mangled.format(0, 1, 0, 0))
 
 
 # ---------------------------------------------------------------------------

@@ -132,11 +132,13 @@ def test_chip_smoke_floor_phase_runs_on_cpu(monkeypatch):
 
 
 def test_floor_rows_cover_every_timed_row():
-    """The floor phase's rows: probe14's own two shapes first, then the
-    bytes of each main attention row in both dtypes and of the LayerNorm's
-    main rows."""
+    """The floor phase's rows: the probes' own shapes first (probe14's two,
+    probe18's flat blocks), then the bytes of each main attention row in both
+    dtypes and of the LayerNorm's main rows."""
     rows = chip_smoke.floor_rows()
-    assert rows[:2] == chip_smoke.FLOOR_SHAPES
+    assert rows[:len(chip_smoke.FLOOR_SHAPES)] == chip_smoke.FLOOR_SHAPES
+    assert [shape for _, shape, _ in chip_smoke.FLOOR_SHAPES] == [
+        (384 * 6, 272, 128), (384 * 6 * 272, 128), (384, 272, 768)]
     shapes = {(shape, dtype) for _, shape, dtype in rows}
     for B, N, H, d in chip_smoke.FUSED_SHAPES + chip_smoke.FUSED_SHAPES_7B:
         assert ((B * N, H * d), "bfloat16") in shapes and ((B * N, H * d), "float32") in shapes

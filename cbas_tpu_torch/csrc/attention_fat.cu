@@ -19,19 +19,23 @@
 // k, v and o (memory-bound: 205 MB at batch 128); at N = 1205 (640x480) the
 // N^2 score work on the tensor cores. bfloat16 takes the Hopper body
 // (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head);
-// float32, the parity instantiation, keeps attention_common.cuh's body.
+// float32 takes its fp32 counterpart (attention_sm90_tf32.cuh: the same ring
+// and wgmma in 3xTF32, K and V split and roped once a call by a prologue).
 
-#include "attention_sm90.cuh"
+#include "attention_sm90_tf32.cuh"
 
 // C entry, bound with ctypes, with the packed and head-major entries'
 // signature. dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, 64) fp32
 // tables or both null (no RoPE). head_dim must be 64. batch_stride and
 // row_stride are q's (k's and v's) element strides, o_batch_stride and
 // o_row_stride o's; the group strides are unused (one group of H heads), and
-// so is q_scratch. k_scratch is a buffer laid out like o for the roped keys,
-// needed by the Hopper body with tables (null otherwise).
-// *body is set to the body that ran (sm90_route). Returns the CUDA error code
-// of the launch (0 on success); the caller raises on anything else.
+// so is q_scratch. k_scratch is, in bfloat16, a buffer laid out like o for
+// the roped keys, needed with tables (null otherwise); in float32 the fp32
+// body's scratch, 4 * B * H * tf32::scratch_keys(n_valid) * 64 floats,
+// needed with or without tables. *body is set to the body that ran
+// (sm90_route: 1 or 3; the entry takes nothing else), *prologues to the
+// fp32 body's prologue launches it queued (0 or 1). Returns the CUDA error
+// code of the launch (0 on success); the caller raises on anything else.
 extern "C" int cbas_attention_fat(const void* q, const void* k, const void* v, void* o,
                                   const void* cos_t, const void* sin_t, void* /*q_scratch*/,
                                   void* k_scratch, int B, int N, int H, int head_dim,
@@ -39,15 +43,18 @@ extern "C" int cbas_attention_fat(const void* q, const void* k, const void* v, v
                                   long long /*group_stride*/, long long row_stride,
                                   long long o_batch_stride, long long /*o_group_stride*/,
                                   long long o_row_stride, int n_valid, float scale, int dtype,
-                                  void* stream, int* body) {
+                                  void* stream, int* body, int* prologues) {
   using namespace cbas_attention;
+  *prologues = 0;
   if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L{batch_stride, 0, H, row_stride};
   const Layout Lo{o_batch_stride, 0, H, o_row_stride};
   *body = sm90_route(dtype, head_dim);
-  if (*body)
+  if (*body == 1)
     return static_cast<int>(sm90::launch<64>(q, k, v, o, cos_t, sin_t, nullptr, k_scratch, B, N, H,
                                              64, L, Lo, n_valid, scale, stream));
-  return static_cast<int>(launch<64>(q, k, v, o, cos_t, sin_t, B, N, H, L, Lo, n_valid, scale,
-                                     dtype, stream));
+  if (*body == 3)
+    return static_cast<int>(tf32::launch<64>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L, Lo,
+                                             n_valid, scale, stream, prologues));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

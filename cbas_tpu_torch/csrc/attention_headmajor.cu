@@ -14,14 +14,17 @@
 //
 // What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
-// cores at N = 1205. Three bodies:
+// cores at N = 1205. Four bodies:
 // - bfloat16 at d = 64, 128, 192 and 256: the Hopper body
 //   (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head);
 //   and bfloat16 at any other d % 8 == 0 from 136 to 248, on the same body
 //   at the next of 192 and 256, its tensor maps at the head's own width
 //   (columns beyond it load as zeros, the store clips them);
-// - float32 at every d up to 256, and bfloat16 at the other multiples of 8
-//   up to 128: attention_common.cuh's body (its tiles outgrow static shared
+// - float32 at d = 64 and 128: its fp32 counterpart (attention_sm90_tf32.cuh:
+//   the same ring and maps, 3xTF32 on wgmma, K and V split and roped once a
+//   call by a prologue);
+// - float32 at every other d up to 256, and bfloat16 at the other multiples
+//   of 8 up to 128: attention_common.cuh's body (its tiles outgrow static shared
 //   memory above d = 64, head dims that are not a multiple of 16 are
 //   zero-filled to one in shared memory, and those whose half is not a
 //   multiple of 8 gather RoPE partners one element at a time: both cost only
@@ -41,6 +44,7 @@
 // scale folded in, one rounding to the input dtype, the plain version's
 // rounding points) and launches this kernel without tables and at scale 1.
 
+#include "attention_sm90_tf32.cuh"
 #include "attention_wide.cuh"
 
 namespace {
@@ -49,16 +53,23 @@ template <int HD>
 int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
         const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
         const cbas_attention::Layout& L, const cbas_attention::Layout& Lo, int n_valid,
-        float scale, int dtype, void* stream, int* body) {
+        float scale, int dtype, void* stream, int* body, int* prologues) {
   using namespace cbas_attention;
   *body = sm90_route(dtype, HD);
   if constexpr (HD == 64 || HD == 128 || HD == 192 || HD == 256) {
-    if (*body)
+    if (*body == 1)
       return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
                                                N, H, HD, L, Lo, n_valid, scale, stream));
   }
-  return static_cast<int>(launch<HD>(q, k, v, o, cos_t, sin_t, B, N, H, L, Lo, n_valid, scale,
-                                     dtype, stream));
+  if constexpr (HD == 64 || HD == 128) {  // both dtypes have a Hopper body here
+    if (*body == 3)
+      return static_cast<int>(tf32::launch<HD>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L, Lo,
+                                               n_valid, scale, stream, prologues));
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return static_cast<int>(launch<HD>(q, k, v, o, cos_t, sin_t, B, N, H, L, Lo, n_valid, scale,
+                                       dtype, stream));
+  }
 }
 
 }  // namespace
@@ -72,8 +83,12 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
 // dims in q's order). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are
 // (N, d) fp32 tables or both null. With tables the Hopper body needs
 // k_scratch, and at a padded width and in the wide body also q_scratch:
-// buffers laid out like o for the roped keys and queries (null otherwise). *body is set to the body that ran: 0 the common
-// body, 1 the Hopper body (sm90_route), 2 the wide body. Returns the CUDA
+// buffers laid out like o for the roped keys and queries (null otherwise).
+// In float32 at d = 64 and 128, k_scratch is the fp32 body's scratch, 4 * B
+// * H * tf32::scratch_keys(n_valid) * d floats, needed with or without
+// tables. *body is set to the body that ran: 0 the common body, 1 the Hopper
+// body (sm90_route), 2 the wide body, 3 the fp32 Hopper body; *prologues to
+// the fp32 body's prologue launches it queued (0 or 1). Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void* v, void* o,
                                         const void* cos_t, const void* sin_t, void* q_scratch,
@@ -82,14 +97,15 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
                                         long long row_stride, long long o_batch_stride,
                                         long long o_group_stride, long long o_row_stride,
                                         int n_valid, float scale, int dtype, void* stream,
-                                        int* body) {
+                                        int* body, int* prologues) {
   using namespace cbas_attention;
+  *prologues = 0;
   const Layout L{batch_stride, group_stride, 1, row_stride};
   const Layout Lo{o_batch_stride, o_group_stride, 1, o_row_stride};
 #define CBAS_HEAD_DIM(D)                                                                         \
   case D:                                                                                        \
     return run<D>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, L, Lo, n_valid, scale, \
-                  dtype, stream, body);
+                  dtype, stream, body, prologues);
   switch (head_dim) {
     CBAS_HEAD_DIM(8)
     CBAS_HEAD_DIM(16)
@@ -126,4 +142,27 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
                                              H, head_dim, L, Lo, n_valid, scale, stream));
   }
 #undef CBAS_HEAD_DIM
+}
+
+// C entry of the fp32 Hopper body's prologue alone (tf32::split_kv), bound
+// with ctypes: k and v head-major (B, H, N, head_dim) fp32 at the given
+// element strides (batch, head, row; the last dim contiguous), head_dim 64
+// or 128, split (and roped, with (N, head_dim) fp32 tables) into `scratch`,
+// 4 * B * H * tf32::scratch_keys(n_valid) * head_dim floats, as K3's fp32
+// launches write it before their attention kernel. Returns the CUDA error
+// code of the launch (0 on success).
+extern "C" int cbas_attention_tf32_prologue(const void* k, const void* v, void* scratch,
+                                            const void* cos_t, const void* sin_t, int B, int N,
+                                            int H, int head_dim, long long batch_stride,
+                                            long long group_stride, long long row_stride,
+                                            int n_valid, void* stream) {
+  using namespace cbas_attention;
+  const Layout L{batch_stride, group_stride, 1, row_stride};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (N <= 0 || n_valid > N) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim == 64)
+    return static_cast<int>(tf32::launch_split<64>(k, v, scratch, cos_t, sin_t, B, H, L, n_valid, st));
+  if (head_dim == 128)
+    return static_cast<int>(tf32::launch_split<128>(k, v, scratch, cos_t, sin_t, B, H, L, n_valid, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

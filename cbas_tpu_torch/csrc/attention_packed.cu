@@ -18,8 +18,9 @@
 // bfloat16 takes the Hopper body (attention_sm90.cuh: TMA ring, wgmma, RoPE
 // once per token and head), whose tensor maps are built from the same
 // strides: the packed view of a flat tensor gets K1's map with its heads in
-// pairs. float32, the parity instantiation, keeps attention_common.cuh's
-// body, which reads through the same Layout.
+// pairs. float32 takes its fp32 counterpart (attention_sm90_tf32.cuh: the
+// same ring and maps, 3xTF32 on wgmma, K and V split once a call by a
+// prologue that reads them through the same Layout).
 //
 // What bounds it on this card: what bounds K1, whose times it matches on
 // contiguous tensors and on views alike (chip_smoke.py, PERF.md §6): a
@@ -35,7 +36,7 @@
 // (CBAS_ATTN_FAT=0). The TPU-only transposed score orientation (pvt) is
 // not ported: one orientation serves.
 
-#include "attention_sm90.cuh"
+#include "attention_sm90_tf32.cuh"
 
 // C entry, bound with ctypes, with the flat and head-major entries'
 // signature. H is the head count (twice the pairs, so even); head_dim must be
@@ -43,10 +44,12 @@
 // and v's) element strides, the o_ ones o's: 16-byte multiples, the last dim
 // contiguous, o's dims in q's order. dtype: 0 = float32, 1 = bfloat16.
 // cos_t/sin_t are (N, 64) fp32 tables or both null. q_scratch is unused;
-// k_scratch is a buffer laid out like o for the roped keys, needed by the
-// Hopper body with tables (null otherwise).
-// *body is set to the body that ran (sm90_route). Returns the CUDA error
-// code of the launch.
+// k_scratch is, in bfloat16, a buffer laid out like o for the roped keys,
+// needed with tables (null otherwise); in float32 the fp32 body's scratch
+// (attention_fat.cu's entry says its size), needed either way.
+// *body is set to the body that ran (sm90_route: 1 or 3; the entry takes
+// nothing else), *prologues to the fp32 body's prologue launches it queued
+// (0 or 1). Returns the CUDA error code of the launch.
 extern "C" int cbas_attention_packed(const void* q, const void* k, const void* v, void* o,
                                      const void* cos_t, const void* sin_t, void* /*q_scratch*/,
                                      void* k_scratch, int B, int N, int H, int head_dim,
@@ -54,15 +57,18 @@ extern "C" int cbas_attention_packed(const void* q, const void* k, const void* v
                                      long long group_stride, long long row_stride,
                                      long long o_batch_stride, long long o_group_stride,
                                      long long o_row_stride, int n_valid, float scale, int dtype,
-                                     void* stream, int* body) {
+                                     void* stream, int* body, int* prologues) {
   using namespace cbas_attention;
+  *prologues = 0;
   if (head_dim != 64 || H % 2) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L{batch_stride, group_stride, 2, row_stride};
   const Layout Lo{o_batch_stride, o_group_stride, 2, o_row_stride};
   *body = sm90_route(dtype, head_dim);
-  if (*body)
+  if (*body == 1)
     return static_cast<int>(sm90::launch<64>(q, k, v, o, cos_t, sin_t, nullptr, k_scratch, B, N, H,
                                              64, L, Lo, n_valid, scale, stream));
-  return static_cast<int>(launch<64>(q, k, v, o, cos_t, sin_t, B, N, H, L, Lo, n_valid, scale,
-                                     dtype, stream));
+  if (*body == 3)
+    return static_cast<int>(tf32::launch<64>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L, Lo,
+                                             n_valid, scale, stream, prologues));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

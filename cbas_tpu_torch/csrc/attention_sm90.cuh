@@ -1,9 +1,10 @@
 // The Hopper body of the port's fused attention in bfloat16, for head dims
 // 64, 128, 192 and 256: K1 (flat, d = 64), K2 (head-pair packed, d = 64) and
 // K3 (head-major, d = 64, 128, 192 and 256) route here (attention_fat.cu,
-// attention_packed.cu, attention_headmajor.cu); fp32 and K3's other head
-// dims up to 256 stay on attention_common.cuh, K3's heads above 256 take
-// attention_wide.cuh. The tensor maps are built from the
+// attention_packed.cu, attention_headmajor.cu); fp32 at 64 and 128 takes
+// attention_sm90_tf32.cuh, fp32 at K3's other head dims up to 256 and
+// K3's other bf16 head dims stay on attention_common.cuh, K3's heads above
+// 256 take attention_wide.cuh. The tensor maps are built from the
 // caller's Layouts (strides), so one code path reads every layout, strided
 // views included, and writes the output dense.
 //
@@ -998,14 +999,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
 
 // Which body a (dtype, head dim) takes in every entry: 1 (this file's
 // Hopper body) for bfloat16 at d = 64, 128, 192 and 256 (an entry builds the
-// widths it takes: K1 and K2 only 64), else 0 (attention_common.cuh). K3's
-// heads above 256 take the wide body (attention_wide.cuh), which
+// widths it takes: K1 and K2 only 64), 3 (attention_sm90_tf32.cuh's fp32
+// Hopper body) for float32 at d = 64 and 128, else 0 (attention_common.cuh).
+// K3's heads above 256 take the wide body (attention_wide.cuh), which
 // attention_headmajor.cu reports as 2. ops/flash_attention.py::attention_body
 // mirrors it.
 inline int sm90_route(int dtype, int head_dim) {
-  return dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 192 || head_dim == 256)
-             ? 1
-             : 0;
+  if (dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 192 || head_dim == 256))
+    return 1;
+  if (dtype == 0 && (head_dim == 64 || head_dim == 128)) return 3;
+  return 0;
 }
 
 }  // namespace cbas_attention

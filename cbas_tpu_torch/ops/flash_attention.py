@@ -44,23 +44,33 @@ of the Hopper and wide bodies lies as the output does.
 - On a CPU tensor it runs its plain PyTorch version
   (``attention_{fat,packed,headmajor}_reference``).
 
-Three bodies serve the three entries (:func:`attention_body`):
+Four bodies serve the three entries (:func:`attention_body`):
 
 - "sm90": bfloat16 at head dims 64 (K1, K2, K3), 128, 192 and 256 (K3) takes
   the Hopper body (``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once
   per token and head, tensor maps built from the tensors' strides);
+- "sm90_f32": float32 at head dims 64 (K1, K2, K3) and 128 (K3) takes its
+  fp32 counterpart (``csrc/attention_sm90_tf32.cuh``: the same ring and
+  maps, every product as three TF32 products on wgmma, "3xTF32", with K and
+  V split, roped and V transposed once a call by a prologue into scratch
+  this module allocates; :func:`tf32_prologue_reference` is the prologue's
+  plain version, bit for bit);
 - "wide": K3's heads above 256, both dtypes, take the wide body
   (``csrc/attention_wide.cuh``: O in 384-column slices, the scores formed
   once a slice; bf16 on wgmma with two consumer warpgroups, fp32 on FMAs);
-- "common": float32 up to 256 and K3's other bf16 head dims (up to 128) take
-  ``csrc/attention_common.cuh``'s.
+- "common": float32 at K3's other widths up to 256 and K3's other bf16 head
+  dims (up to 128) take ``csrc/attention_common.cuh``'s.
 
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
 count kernel launches and nothing else, so a run can show which kernels its
 main path went through; ``launches_headmajor_by_dim`` splits K3's by the
 head dim the kernel ran at (the built width, for a head it runs padded),
 ``launches_sm90`` counts those of them all that ran the Hopper body, as the
-C entry reports it (``launches_sm90_by_kernel`` by entry), and
+C entry reports it (``launches_sm90_by_kernel`` by entry),
+``launches_sm90_f32`` (``launches_sm90_f32_by_kernel``) those that ran the
+fp32 Hopper body, ``launches_tf32_prologue`` the launches of its prologue
+(those the C entries report queuing, one with each of those, and one a
+:func:`tf32_prologue` call), and
 ``launches_wide`` those of K3 that ran the wide body. The shards of a
 device mesh launch from threads of their own, so every count is updated
 under one lock.
@@ -90,24 +100,39 @@ launches_headmajor = 0  # K3, fused_attention
 launches_headmajor_by_dim: dict = {}  # K3's launches by head dim
 launches_sm90 = 0       # launches of any entry that ran the Hopper body
 launches_sm90_by_kernel: dict = {}  # the same, by entry ("attention_fat", ...)
+launches_sm90_f32 = 0   # launches of any entry that ran the fp32 Hopper body
+launches_sm90_f32_by_kernel: dict = {}  # the same, by entry
+launches_tf32_prologue = 0  # launches of that body's prologue (csrc tf32::split_kv)
 launches_wide = 0       # K3's launches that ran the wide body (d > 256)
 _count_lock = threading.Lock()  # shard threads launch concurrently
 
 _SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
                    "attention_headmajor": (64, 128, 192, 256)}
-_BODIES = {0: "common", 1: "sm90", 2: "wide"}  # the C entries' *body codes
+_SM90_F32_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
+                       "attention_headmajor": (64, 128)}
+_BODIES = {0: "common", 1: "sm90", 2: "wide", 3: "sm90_f32"}  # the C entries' *body codes
+# The fp32 Hopper body's key tile (csrc/attention_sm90_tf32.cuh, kKeys):
+# its scratch holds n_valid keys rounded up to it (tf32_scratch_keys).
+TF32_KEY_TILE = 32
+# V^T's order of the keys of a group of 8 (the body's kSlotOfKey): position
+# p holds key TF32_KEY_ORDER[p], so that P's accumulator registers are p.V's
+# A fragments as they stand.
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     """The body entry ``kernel`` (``attention_fat``, ``attention_packed`` or
     ``attention_headmajor``) runs for ``dtype`` and ``head_dim``: "sm90" (the
-    Hopper body, bfloat16 at the head dims it is built for), "wide" (K3's
-    heads above 256, both dtypes) or "common". The C entries route by the
-    same rule and report the body they ran."""
+    Hopper body, bfloat16 at the head dims it is built for), "sm90_f32" (its
+    fp32 counterpart, float32 at 64 and, in K3, 128), "wide" (K3's heads
+    above 256, both dtypes) or "common". The C entries route by the same
+    rule and report the body they ran."""
     if kernel == "attention_headmajor" and head_dim > 256:
         return "wide"
     if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS.get(kernel, ()):
         return "sm90"
+    if dtype == torch.float32 and head_dim in _SM90_F32_HEAD_DIMS.get(kernel, ()):
+        return "sm90_f32"
     return "common"
 
 
@@ -146,6 +171,61 @@ def _attend(q, k, v, scale, nv, rope_cos, rope_sin, dtype) -> torch.Tensor:
     s = torch.where(live, qh @ kh.transpose(-1, -2), -1e30)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return (p.to(dtype).float() @ vh) / p.sum(dim=-1, keepdim=True)
+
+
+def tf32_scratch_keys(n_valid: int) -> int:
+    """The keys a head holds in the fp32 Hopper body's scratch: ``n_valid``
+    rounded up to the key tile (the rows past it are zeros)."""
+    return -(-n_valid // TF32_KEY_TILE) * TF32_KEY_TILE
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 fraction bits, to nearest, ties away
+    from zero), the low 13 bits zero: the kernel's integer operations on the
+    bits, ``(bits + 0x1000) & ~0x1fff``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """fp32 ``x`` as (hi, lo), both TF32 values: hi rounded from x, lo from
+    x - hi (exact in fp32), so x - hi - lo is below 2^-22 |x| in the normal
+    range. The fp32 Hopper body's split, bit for bit."""
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
+def tf32_prologue_reference(
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the fp32 Hopper body's prologue on
+    head-major (B, H, N, d) fp32 k and v: a (4, B, H, n_keys, d) fp32 tensor
+    (n_keys = :func:`tf32_scratch_keys`), its planes K_hi, K_lo (k roped with
+    the tables, then split: :func:`tf32_split`) and V^T_hi, V^T_lo, each of
+    those two laid out (B, H, d, n_keys): v transposed, the keys of each
+    group of 8 in TF32_KEY_ORDER, then split. Keys at or beyond ``n_valid``
+    are zeros in every plane. The kernel writes the same bits."""
+    B, H, N, d = k.shape
+    nv = N if n_valid is None else n_valid
+    n_keys = tf32_scratch_keys(nv)
+    kh = k[:, :, :nv].float()
+    if rope_cos is not None:
+        cos, sin = rope_cos[:nv].float(), rope_sin[:nv].float()
+        kh = kh * cos + rotate_half(kh) * sin
+    out = torch.zeros(4, B, H, n_keys, d, dtype=torch.float32, device=k.device)
+    out[0, :, :, :nv], out[1, :, :, :nv] = tf32_split(kh)
+    vz = torch.zeros(B, H, n_keys, d, dtype=torch.float32, device=v.device)
+    vz[:, :, :nv] = v[:, :, :nv]
+    order = torch.tensor([8 * (i // 8) + TF32_KEY_ORDER[i % 8] for i in range(n_keys)],
+                         device=v.device)
+    hi, lo = tf32_split(vz[:, :, order].transpose(-1, -2))
+    out[2].view(B, H, d, n_keys).copy_(hi)
+    out[3].view(B, H, d, n_keys).copy_(lo)
+    return out
 
 
 def attention_headmajor_reference(
@@ -209,14 +289,15 @@ def _kernel(name: str):
     """The C entry ``cbas_<name>`` of ``csrc/<name>.cu``, built at first use.
     All three share one signature: eight pointers (q, k, v, o, the tables,
     the q and k scratch), (B, N, H, head_dim), q's and then o's (batch,
-    group, row) element strides, n_valid, scale, dtype, the stream and the
-    body it ran."""
+    group, row) element strides, n_valid, scale, dtype, the stream, the
+    body it ran and the fp32 body's prologue launches it queued."""
     from cbas_tpu_torch.ops import _cuda
 
     fn = getattr(_cuda.load(name), f"cbas_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
     ]
     return fn
 
@@ -327,37 +408,44 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, width=None
         sin = rope_sin.to(torch.float32).contiguous()
     _require_contiguous(rope_cos=cos, rope_sin=sin)
     want = attention_body(name, q.dtype, width)
-    body = ctypes.c_int(-1)
+    body, prologues = ctypes.c_int(-1), ctypes.c_int(0)
     with torch.cuda.device(q.device):
         out = _dense_like(q)
         _check_strides(("out",) * 3, out, out, out, math.gcd(16, d * q.element_size()))
         # Roped keys (the Hopper body), and roped queries too where the
         # kernel cannot rope them itself (the wide body, a padded width),
         # laid out as the output is: dense, without a fused buffer's holes.
+        # The fp32 Hopper body's prologue writes K and V split (and K roped)
+        # into its own scratch, with tables or without.
         q_scratch = k_scratch = None
         if cos is not None and want in ("sm90", "wide"):
             k_scratch = _dense_like(q)
             if want == "wide" or width != d:
                 q_scratch = _dense_like(q)
+        if want == "sm90_f32":
+            k_scratch = torch.empty(4 * B * H * tf32_scratch_keys(nv) * width,
+                                    dtype=torch.float32, device=q.device)
         err = _kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in (cos, sin, q_scratch, k_scratch)),
             B, N, H, d, *_layout(q), *_layout(out), nv, float(scale), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(body),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(body), ctypes.byref(prologues),
         )
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
     ran = _BODIES.get(body.value, f"unknown ({body.value})")
     if ran != want:
         raise RuntimeError(f"{name} ran the {ran} body where attention_body says {want}")
-    _count_launch(name, width, ran)
+    _count_launch(name, width, ran, prologues.value)
     return out
 
 
-def _count_launch(name: str, d: int, body: str) -> None:
-    """One launch of entry ``name`` at head dim ``d`` through ``body``, in
-    the module's counters."""
+def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
+    """One launch of entry ``name`` at head dim ``d`` through ``body``, and
+    the ``prologues`` launches of the fp32 body's prologue its C entry
+    reported queuing, in the module's counters."""
     global launches, launches_packed, launches_headmajor, launches_sm90, launches_wide
+    global launches_sm90_f32, launches_tf32_prologue
     with _count_lock:
         if name == "attention_fat":
             launches += 1
@@ -369,8 +457,12 @@ def _count_launch(name: str, d: int, body: str) -> None:
         if body == "sm90":
             launches_sm90 += 1
             launches_sm90_by_kernel[name] = launches_sm90_by_kernel.get(name, 0) + 1
+        elif body == "sm90_f32":
+            launches_sm90_f32 += 1
+            launches_sm90_f32_by_kernel[name] = launches_sm90_f32_by_kernel.get(name, 0) + 1
         elif body == "wide":
             launches_wide += 1
+        launches_tf32_prologue += prologues
 
 
 def fused_attention_fat(
@@ -441,6 +533,62 @@ def fused_attention_packed(
                                                               rope_sin))
     return _launch("attention_packed", q2, k2, v2, scale, nv, rope_cos, rope_sin, B, N, 2 * G,
                    HEAD_DIM)
+
+
+@functools.lru_cache(maxsize=None)
+def _prologue_kernel():
+    """``cbas_attention_tf32_prologue`` of ``csrc/attention_headmajor.cu``:
+    the fp32 Hopper body's prologue alone."""
+    from cbas_tpu_torch.ops import _cuda
+
+    fn = _cuda.load("attention_headmajor").cbas_attention_tf32_prologue
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
+        ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def tf32_prologue(
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The fp32 Hopper body's prologue alone on head-major (B, H, N, d) fp32
+    k and v (d 64 or 128, any strides the kernels take): the (4, B, H,
+    n_keys, d) scratch that K1-K3's fp32 launches write before their
+    attention kernel. On a CPU tensor, :func:`tf32_prologue_reference`; on
+    a CUDA one, the kernel (``csrc/attention_sm90_tf32.cuh``, split_kv),
+    the same bits, or raise."""
+    if k.dim() != 4 or k.dtype != torch.float32 or k.shape[-1] not in (64, 128):
+        raise ValueError(f"expected head-major fp32 (B, H, N, 64 or 128) k, got "
+                         f"{tuple(k.shape)} {k.dtype}")
+    B, H, N, d = k.shape
+    nv = _check(k, k, v, N, d, n_valid, rope_cos, rope_sin)
+    _check_strides(("k", "k", "v"), k, k, v)
+    if k.device.type == "cpu":
+        return tf32_prologue_reference(k, v, nv, rope_cos, rope_sin)
+    if k.device.type != "cuda":
+        raise ValueError(f"tf32_prologue runs on cpu or cuda, not {k.device}")
+    cos = sin = None
+    if rope_cos is not None:
+        cos, sin = (t.to(torch.float32).contiguous() for t in (rope_cos, rope_sin))
+    _require_contiguous(rope_cos=cos, rope_sin=sin)
+    with torch.cuda.device(k.device):
+        out = torch.empty(4, B, H, tf32_scratch_keys(nv), d, dtype=torch.float32, device=k.device)
+        err = _prologue_kernel()(
+            k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (cos, sin)),
+            B, N, H, d, k.stride(0), k.stride(1), k.stride(2), nv,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"tf32_prologue kernel launch failed with CUDA error {err}")
+    global launches_tf32_prologue
+    with _count_lock:
+        launches_tf32_prologue += 1
+    return out
 
 
 def padded_head_dim(d: int) -> int:

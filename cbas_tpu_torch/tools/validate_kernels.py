@@ -9,12 +9,15 @@ PyTorch/CUDA upgrade or a kernel change:
 
 Exit code 0 = every geometry passes; without a CUDA device (and no
 ``--device cpu``) it raises naming CUDA. Expected envelopes on the card:
-the fp32 kernels multiply and add in fp32, so against fp64 they sit where
-the CPU does, not at a TPU's bf16-decomposed fp32 dot. On an NVIDIA H100
-80GB HBM3 at a 700.00 W power limit, the largest fp32 error at GEOMETRIES
-plus (2, 32, 261, 128, True) was 8.0e-7 (unfused fp32: 7.1e-7), held to
-``CARD_TOL_F32`` = 5e-6; the CPU keeps its 2e-5. The production bf16 path
-agreed with unfused bf16 to 1.2e-2 there (bound 3e-2).
+every geometry here has heads of 64 or 128, where the fp32 kernels run
+the fp32 Hopper body (``csrc/attention_sm90_tf32.cuh``): each fp32 product
+as three TF32 products on the tensor cores, summed in fp32, so against
+fp64 they sit where the CPU does, not at a TPU's bf16-decomposed fp32 dot.
+On an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, the largest fp32
+error at GEOMETRIES plus (2, 32, 261, 128, True) was 7.5e-7 (unfused
+fp32: 7.1e-7; the FMA body before it: 8.0e-7), held to ``CARD_TOL_F32`` =
+5e-6; the CPU keeps its 2e-5. The production bf16 path agreed with
+unfused bf16 to 1.2e-2 there (bound 3e-2).
 """
 
 from __future__ import annotations

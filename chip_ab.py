@@ -11,7 +11,10 @@ each:
 
 - kernel ms (CUDA events over 20 launches after 3 warm-up) of K1 (flat),
   K2 (head-pair packed) and K3 (head-major) in bf16 at the main paths'
-  shapes, with RoPE and without; and K3 at the widths no preset has: 192
+  shapes, with RoPE and without; K1 and K3 in fp32 at the fp32 main
+  paths' four shapes (``runtime.compute_dtype: float32``: dinov3-vitb16's
+  heads of 64 at 256x256 / 128 and 640x480 / 32, the ViT-7B width's heads
+  of 128 at 32 and 8); and K3 at the widths no preset has: 192
   and 256 (16 heads at ViT-7B's batch), 160 and 200 (run at 192 and
   256) and, in bf16
   and fp32, 320 and 384 (the wide body);
@@ -26,8 +29,10 @@ each:
 - warm encode frames/s: dinov3-vitb16 flat and packed (``CBAS_ATTN_FAT=0``)
   routes at 256x256 (batch 128) and 640x480 (batch 32); the DINOv3
   ViT-7B/16 width at depth 4 at 256x256 (batch 32) and 640x480 (batch 8);
-  and each of those forwards' ms a batch by CUDA events over 10 batches
-  queued back to back (the host clock's frames/s spread more);
+  the flat route and the ViT-7B width again in fp32 at the same batches
+  (TF32 off in the GEMMs); and each of those forwards' ms a batch by CUDA
+  events over 10 batches queued back to back (the host clock's frames/s
+  spread more);
 - a ``torch.profiler`` trace of one warm batch of each of those forwards
   (``trace_calls`` over 3 batches), its kernels summed by group
   (``KERNEL_GROUPS``: the LayerNorm kernel, attention, GEMMs, the rest) and
@@ -77,6 +82,10 @@ KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
     ("attention_headmajor", 4, 1205, 8, 384, (30, 40), "bfloat16"),
     ("attention_headmajor", 8, 261, 16, 320, (16, 16), "float32"),
     ("attention_headmajor", 4, 1205, 8, 384, (30, 40), "float32"),
+    ("attention_fat", 128, 261, 12, 64, (16, 16), "float32"),
+    ("attention_fat", 32, 1205, 12, 64, (30, 40), "float32"),
+    ("attention_headmajor", 32, 261, 32, 128, (16, 16), "float32"),
+    ("attention_headmajor", 8, 1205, 32, 128, (30, 40), "float32"),
 )
 # The head-major route's attention at the ViT-7B width, (B, N, H, d, patch
 # grid), bf16: head-major views of flat (B, N, H*d) projections in, K3, the
@@ -326,12 +335,26 @@ def measure(root: str, reads: int) -> dict:
     del os.environ["CBAS_ATTN_FAT"]
     del enc
     torch.cuda.empty_cache()
+    # fp32 forwards (runtime.compute_dtype: float32), full fp32 GEMMs.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    enc = FrameEncoder("dinov3-vitb16", random_init=True, compute_dtype=torch.float32,
+                       device="cuda")
+    fps(enc, planes_256, 128, "fp32 flat 256x256 fps")
+    fps(enc, planes_480, 32, "fp32 flat 640x480 fps")
+    del enc
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as ckpt:
         with open(os.path.join(ckpt, "config.json"), "w") as f:
             json.dump(VIT7B_CONFIG, f)
         enc = FrameEncoder(ckpt, random_init=True, device="cuda")
         fps(enc, planes_256, 32, "vit7b-width depth 4 256x256 fps")
         fps(enc, planes_480, 8, "vit7b-width depth 4 640x480 fps")
+        del enc
+        torch.cuda.empty_cache()
+        enc = FrameEncoder(ckpt, random_init=True, compute_dtype=torch.float32, device="cuda")
+        fps(enc, planes_256, 32, "fp32 vit7b-width depth 4 256x256 fps")
+        fps(enc, planes_480, 8, "fp32 vit7b-width depth 4 640x480 fps")
     return out
 
 
@@ -356,9 +379,10 @@ def build_logs(root: str) -> dict:
 
 
 def compare_ptxas(parent: str, change: str) -> dict:
-    """Registers, shared memory, stack and spills of every kernel the
-    parent's libraries hold, beside the same kernel in the change's: whether
-    each is the same, and the kernels only the change has."""
+    """Registers, shared memory, stack and spills of every kernel that both
+    checkouts' libraries hold, parent beside change: whether each is the
+    same; and the kernels only the change has, and those only the parent
+    has (a kernel the change no longer builds)."""
     with ThreadPoolExecutor(2) as pool:
         logs = dict(zip(("parent", "change"), pool.map(build_logs, (parent, change))))
     import chip_smoke
@@ -367,15 +391,17 @@ def compare_ptxas(parent: str, change: str) -> dict:
         return {chip_smoke.comparable_name(name): e
                 for name, e in chip_smoke.ptxas_entries(log).items()}
 
-    kernels, only_change = {}, {}
+    kernels, only_change, only_parent = {}, {}, {}
     for lib, log in logs["change"].items():
         now = entries(log)
         before = entries(logs["parent"].get(lib, ""))
         for name, props in before.items():
-            kernels.setdefault(lib, {})[name] = {"parent": props, "change": now.get(name),
-                                                 "same": props == now.get(name)}
+            if name in now:
+                kernels.setdefault(lib, {})[name] = {"parent": props, "change": now[name],
+                                                     "same": props == now[name]}
         only_change[lib] = {name: props for name, props in now.items() if name not in before}
-    return {"kernels": kernels, "only_in_change": only_change,
+        only_parent[lib] = sorted(name for name in before if name not in now)
+    return {"kernels": kernels, "only_in_change": only_change, "only_in_parent": only_parent,
             "missing_in_change": sorted(set(logs["parent"]) - set(logs["change"])),
             "all_same": all(k["same"] for lib in kernels.values() for k in lib.values())}
 

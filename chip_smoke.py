@@ -51,7 +51,9 @@ non-zero and prints no final line):
      timed with RoPE and without beside the same call on contiguous
      tensors, the bound, the floor and SDPA.
    bf16 at head dims 64 and 128 (and K3's 192 and 256) runs the Hopper body
-   (``attention_body``), the rest the common body; each case names the
+   (``attention_body``), fp32 at 64 and 128 its fp32 counterpart
+   (``attention_sm90_tf32.cuh``: 3xTF32 on wgmma, with a prologue that splits
+   K and V), the rest the common body; each case names the
    registers and spills of the kernel it ran (``-Xptxas -v``). At the main
    shapes (K2: on both inputs) each
    kernel is timed with RoPE and without, beside its plain version, its
@@ -59,8 +61,13 @@ non-zero and prints no final line):
    ``scaled_dot_product_attention`` on the same data (head-major, RoPE
    applied beforehand; the backend it picked is named by its kernels in a
    profiler trace). K1, K2 (views) and K3 (views, d 64 and 128) are also
-   timed in fp32 at the main shapes, the common body
-   (``runtime.compute_dtype: float32``). Then the LayerNorm kernel
+   timed in fp32 at the main shapes, the fp32 Hopper body
+   (``runtime.compute_dtype: float32``). Then the tf32 phase
+   (``tf32_phase``, the counts set to 0 before it and read after): that
+   body's prologue alone (``fa.tf32_prologue``) bit for bit against its
+   plain version at K1's and K3's main shapes on views of one fused
+   projection, RoPE on and off, and at 272 / 261 with NaN in the dead rows,
+   timed beside its byte bound and the floor. Then the LayerNorm kernel
    (``ops/layernorm.py``, fused with the residual add and layer scale)
    against its plain version: the residual bit for bit, y within
    LN_STAT_REL's bound, at the main paths' shapes (rows, D) = (33408, 768),
@@ -133,7 +140,10 @@ non-zero and prints no final line):
    320 and dinov3-vitl16 at batch 96 (full width and depth, random weights)
    through K1 and with ``pvt_attention`` swapped in (L - 1 launches a
    forward, embeddings at cosine >= 0.999 of K1's, frames/s K1, pvt, pvt,
-   K1);
+   K1); and probe23's call alone (``pvt_model_call``) at dinov3-vitb16's
+   (320, 12, 1205, 64) on views of one fused projection with the model's
+   tables, against its plain version, timed between two reads of K3 beside
+   its bound, the floor and SDPA;
 3. encode, flat route: the main path at the full width of dinov3-vitb16
    (random weights from a numpy seed): 256x256 planes in two full batches
    and a partial one, 640x480 planes in one batch, then the head over the
@@ -146,7 +156,9 @@ non-zero and prints no final line):
    beside the 227 of the forward with three projection GEMMs a block).
    Then
    warm frames/s, and accuracy against the port's CPU fp32 run on the same
-   weights;
+   weights; the fp32 encoder's warm frames/s, and a ``torch.profiler`` trace
+   of one fp32 batch at each geometry in a process of its own
+   (``fp32_trace``: kernels summed by ``chip_ab.py``'s KERNEL_GROUPS);
 4. classify: probabilities of a deltas head (seq_len 31) against the CPU run;
 5. encode, packed route: ``CBAS_ATTN_FAT=0``, one 256x256 batch and one
    640x480 batch through dinov3-vitb16: K2 only, on views of the
@@ -159,7 +171,9 @@ non-zero and prints no final line):
    projections: a profiler trace of one forward finds no copy kernel next
    to a K3 launch. Warm frames/s, and accuracy against the CPU fp32 run
    (its launches are the fp32 forward's, as are those of the flat and
-   packed routes' fp32 runs, checked a forward);
+   packed routes' fp32 runs, checked a forward: each through the fp32
+   Hopper body with one launch of its prologue), and the fp32 encoder's
+   warm frames/s;
 7. files: ``encode_file`` -> ``infer_h5`` on a synthetic clip, then
    ``run_training_job`` on a two-subject project built from encoded clips
    and ``infer_h5`` with the bundle it wrote, where h5py, pandas, OpenCV,
@@ -182,7 +196,8 @@ non-zero and prints no final line):
    named in the line with the package it lacks;
 10. tools: ``tools/validate_kernels.py`` on the card at its geometries plus
     (2, 32, 261, 128) with RoPE (K1, K2 and K3 in fp32 against an fp64
-    oracle, then K3 in bf16 at d = 128 through the Hopper body against
+    oracle, each through the fp32 Hopper body, then K3 in bf16 at d = 128
+    through the Hopper body against
     unfused bf16, and the LayerNorm kernel in bf16 on outlier rows,
     single-pass against two-pass and two-pass against float64), each error
     beside its tolerance and each kernel's launches by body; K3 at head dims it is not built at
@@ -232,7 +247,11 @@ of phase 10's runs, and its launches over phase 11's mesh encodes
 (``launches_mesh``) and (``fused_views``) its cases on views of one fused
 projection beside the same call on contiguous tensors, then K3's wide body (``attention_wide.cuh``) as an
 entry of its own, its launches those of phase 12 and its numbers those of
-phase 12's kernel case at d 320, and the LayerNorm kernel (``layernorm``,
+phase 12's kernel case at d 320, then the fp32 Hopper body
+(``attention_sm90_tf32``) with its launches on the fp32 forwards, its
+numbers at K1's 256x256 shape and every fp32 main-shape case,
+and its prologue (``split_kv``) with its launches and the tf32 phase's
+numbers, and the LayerNorm kernel (``layernorm``,
 replacing ``benchmarks/attn_probes/probe25_ln_256.py:51``) with its
 launches on every route, its numbers at (33408, 768) and its other timed
 cases, and the memory floor (``memory_floor``, replacing probe14's and
@@ -320,10 +339,16 @@ FUSED_SHAPES_7B = ((BATCH_7B_256, 261, 32, 128), (BATCH_7B_480, 1205, 32, 128))
 # The three kernels (source cbas_tpu_torch/csrc/<name>.cu) and the TPU kernel
 # each replaces.
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): the bound of a
-# kernel is the larger of its FLOP over the rate of its inputs' type (bf16 on
-# the tensor cores, fp32 outside them) and its bytes (each input read once,
-# each output written once) over the memory rate.
-PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# kernel is the larger of its FLOP over the rate of its inputs' type and its
+# bytes (each input read once, each output written once) over the memory
+# rate. bf16 runs on the tensor cores at PEAK_BF16_FLOPS. fp32 attention is
+# counted at the 3xTF32 rate, PEAK_TF32_FLOPS / 3: three TF32 products on the
+# tensor cores give an fp32-accurate one (attention_sm90_tf32.cuh), so the
+# card can do the fp32 work that fast, above the 67 TFLOP/s of its fp32 FMA
+# pipes, which a tensor-core body beats (its share of an FMA bound would
+# read over 100%).
+PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_PER_S = 989e12, 495e12, 3.35e12
+PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 KERNELS = {
     "attention_fat": "cbas_tpu/ops/flash_attention.py:553",
     "attention_packed": "cbas_tpu/ops/flash_attention.py:101",
@@ -602,6 +627,12 @@ def kernel_label(mangled: str) -> str:
         name = pvt_label(("std", "rounded", "vext")[int(p.group(1))], p.group(2) == "1")
     if "rope_k_rows" in mangled:  # its RoPE prologue
         name = "rope_k_rows"
+    f = re.search(r"attention_tf32ILi(\d+)ELi(\d+)E", mangled)
+    if f:  # the fp32 Hopper body: head dim, map rank
+        name = f"tf32<{f.group(1)}, {f.group(2)}>"
+    f = re.search(r"split_kvILi(\d+)E", mangled)
+    if f:  # its prologue: head dim
+        name = f"split_kv<{f.group(1)}>"
     if "relayout_kt" in mangled:
         name = "relayout_kt"
     r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", mangled)
@@ -635,14 +666,21 @@ def ptxas_report(log: str) -> list:
 
 def kernel_ptxas(fa, kernel, dtype, d) -> str:
     """Registers and spills of the kernel ``kernel`` runs at head dim ``d``
-    (K3: the width it pads to) in ``dtype``, from PTXAS."""
+    (K3: the width it pads to) in ``dtype``, from PTXAS (the fp32 Hopper
+    body's with its prologue's)."""
     width = fa.padded_head_dim(d) if kernel == "attention_headmajor" else d
     bf16 = str(dtype) == "torch.bfloat16"
     wide_bf16 = f"wide_bf16<{'resident' if d <= 1024 else 'streamed'} Q>"
+    body = fa.attention_body(kernel, dtype, width)
     prefix = {"sm90": f"sm90<{width}, ", "wide": wide_bf16 if bf16 else "wide_f32",
-              "common": f"{'bf16' if bf16 else 'f32'}<{width}>"}[fa.attention_body(kernel, dtype, width)]
-    found = [v for k, v in PTXAS.get(kernel, {}).items() if k.startswith(prefix)]
-    return found[0] if found else "not in the build log"
+              "sm90_f32": f"tf32<{width}, ",
+              "common": f"{'bf16' if bf16 else 'f32'}<{width}>"}[body]
+    found = [f"{k}: {v}" if body == "sm90_f32" else v
+             for k, v in PTXAS.get(kernel, {}).items() if k.startswith(prefix)]
+    if body == "sm90_f32":
+        found = ["; ".join(found + [f"{k}: {v}" for k, v in PTXAS.get(kernel, {}).items()
+                                    if k == f"split_kv<{width}>"])]
+    return found[0] if found and found[0] else "not in the build log"
 
 
 def rope_full(torch, cfg, head_dim, grid, n_tokens, device):
@@ -965,11 +1003,12 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
 def attention_bound(B, N, H, d, n_valid, rope, fp32=False) -> dict:
     """The least time the card could take for one fused attention: q.k^T
     and p.V over the live keys at the peak of the inputs' type (bf16 on the
-    tensor cores, fp32 outside them), against q and o (N rows), k and v
-    (n_valid rows) and the fp32 RoPE tables moved once."""
+    tensor cores; fp32 at the 3xTF32 rate, PEAK_F32_ACCURATE_FLOPS), against
+    q and o (N rows), k and v (n_valid rows) and the fp32 RoPE tables moved
+    once."""
     flop = 4 * B * H * N * n_valid * d
     nbytes = (4 if fp32 else 2) * B * H * d * (2 * N + 2 * n_valid) + (2 * N * d * 4 if rope else 0)
-    t_ops = flop / (PEAK_F32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    t_ops = flop / (PEAK_F32_ACCURATE_FLOPS if fp32 else PEAK_BF16_FLOPS)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return {"gflop": flop / 1e9, "mbytes": nbytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
@@ -1079,8 +1118,8 @@ def kernel_phase(torch, fa, cfg) -> dict:
             for b, n, g in ((b256, 261, g256), (b480, 1205, g480)))
         results += main[kernel]
     # fp32 (runtime.compute_dtype: float32) on the main paths' shapes, the
-    # common body: K1, K2 (views) and K3 (views) at d 64, and K3 (views) at
-    # the ViT-7B width.
+    # fp32 Hopper body: K1, K2 (views) and K3 (views) at d 64, and K3 (views)
+    # at the ViT-7B width.
     main["fp32"] = [
         kernel_case(torch, fa, cfg, kernel, b, H, n, d, g, f32, True,
                     view=kernel != "attention_fat")
@@ -1116,6 +1155,71 @@ def kernel_phase(torch, fa, cfg) -> dict:
     if bad:
         raise AssertionError(f"fused attention disagrees with its plain version: {bad}")
     return main
+
+
+# The fp32 Hopper body (csrc/attention_sm90_tf32.cuh; fp32 at head dims 64
+# and 128 in K1, K2 and K3). Its prologue (split_kv: K roped and split, V
+# transposed into the body's key order and split, once a call) alone at the
+# fp32 main paths' shapes, (B, N, H, d, n_valid): K1's and K3's, on
+# head-major views of one fused projection with the model's tables, then
+# 272 / 261 with NaN in the dead rows; bit for bit against its plain version,
+# RoPE on and off, timed beside its byte bound and the floor.
+TF32_PROLOGUE_CASES = ((BATCH_256, 261, 12, 64, None), (BATCH_480, 1205, 12, 64, None),
+                       (BATCH_7B_256, 261, 32, 128, None), (BATCH_7B_480, 1205, 32, 128, None),
+                       (4, 272, 12, 64, 261), (2, 272, 32, 128, 261))
+
+
+def tf32_prologue_case(torch, fa, cfg, B, N, H, d, n_valid, rope) -> dict:
+    """The prologue on the card against its plain version, bit for bit
+    (NaN in the dead rows must not reach its planes), timed beside its byte
+    bound (k and v read over the live rows, the tables, the four planes
+    written) and the memory floor at those bytes."""
+    rng = np.random.default_rng(SEED + 17)
+    qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to("cuda")
+    k, v = (qkv[..., j * H * d:(j + 1) * H * d].view(B, N, H, d).transpose(1, 2) for j in (1, 2))
+    nv = n_valid or N
+    if n_valid is not None:
+        k[:, :, nv:] = float("nan")
+        v[:, :, nv:] = float("nan")
+    cos, sin = rope_full(torch, cfg, d, (16, 16) if N < 1000 else (30, 40), N, "cuda") \
+        if rope else (None, None)
+    got = fa.tf32_prologue(k, v, n_valid, cos, sin)
+    want = fa.tf32_prologue_reference(k, v, n_valid, cos, sin)
+    torch.cuda.synchronize()
+    out = {"phase": "tf32_prologue", "shape": [B, N, H, d], "n_valid": n_valid, "rope": rope,
+           "inputs": "head-major views of one fused (B, N, 3*H*d) projection",
+           "bit_equal": bool(torch.equal(got, want)),
+           "max_abs_diff": float((got - want).abs().max()),
+           "planes": list(got.shape)}
+    out["ok"] = out["bit_equal"]
+    if n_valid is None:
+        out["ms"] = time_ms(torch, lambda: fa.tf32_prologue(k, v, n_valid, cos, sin))
+        out["plain_ms"] = time_ms(torch, lambda: fa.tf32_prologue_reference(k, v, n_valid, cos, sin),
+                                  iters=3, warmup=1)
+        nbytes = 4 * (2 * B * H * nv * d + got.numel()) + (2 * nv * d * 4 if rope else 0)
+        out.update({"mbytes": nbytes / 1e6, "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+                    "bound_by": "bytes", "gbps": nbytes / out["ms"] / 1e6,
+                    "floor_ms": floor_ms(torch, nbytes // 16, "float32")})
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def tf32_phase(torch, fa, cfg) -> dict:
+    """TF32_PROLOGUE_CASES (RoPE on and off), the prologue's launch count
+    set to 0 before and read after: {"prologue": cases, "launches"}. A case
+    that disagrees raises."""
+    fa.launches_tf32_prologue = 0
+    prologue = [tf32_prologue_case(torch, fa, cfg, *case, rope)
+                for case in TF32_PROLOGUE_CASES for rope in (True, False)]
+    out = {"prologue": prologue, "launches": {"tf32_prologue": fa.launches_tf32_prologue}}
+    for line in prologue:
+        emit(line)
+    emit({"phase": "tf32_summary", "launches": out["launches"]})
+    bad = [c for c in prologue if not c["ok"]]
+    if bad or not fa.launches_tf32_prologue:
+        raise AssertionError(f"the fp32 body's prologue disagrees: {bad}, "
+                             f"launches {out['launches']}")
+    return out
 
 
 # What gpu_clocks samples: the SM clock and power draw, then the temperature
@@ -2425,6 +2529,46 @@ def pvt_library(torch, fa, inputs) -> dict:
             "floor_ms": floor_ms(torch, B * H * N * 64, "bfloat16")}
 
 
+def pvt_model_call(torch, fa, ap, model="dinov3-vitb16", batch=320) -> dict:
+    """probe23's call alone, as :func:`pvt_attention` makes it in the model
+    A/B: the std form at gb 1 (one image's heads a block) on head-major views
+    of one fused (B, N, 3*H*64) bf16 projection at 640x480 (N 1205, every
+    key live) with the model's tables; against its plain version
+    (:func:`pvt_check`), timed between two reads of K3 on the same views
+    and tables (K3, kernel, kernel, K3), beside its bound, the memory floor at
+    its bytes and SDPA (RoPE applied beforehand)."""
+    from cbas_tpu_torch.models.vit import PRESETS
+    from cbas_tpu_torch.ops import attention_batched as ab
+
+    cfg = PRESETS[model]
+    H, d = cfg.num_heads, cfg.head_dim
+    N = cfg.num_prefix_tokens + 30 * 40
+    gen = torch.Generator("cuda").manual_seed(SEED + 18)
+    qkv = torch.randn(batch, N, 3 * H * d, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[..., j * H * d:(j + 1) * H * d].view(batch, N, H, d).transpose(1, 2)
+               for j in range(3))
+    cos, sin = rope_full(torch, cfg, d, (30, 40), N, "cuda")
+    tables = ab.rope_tables(cos, sin, d ** -0.5, d ** 0.5)
+    kernel = lambda: ap.attention_pvt(q, k, v, None, tables, items=H)  # noqa: E731
+    k3 = lambda: fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin)  # noqa: E731
+    before = ap.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    out = {"phase": "pvt_model_call", "what": "probe23 make_fat_kernel's kernel, the call alone",
+           "model": model, "shape": [batch, H, N, d], "items": H, "launches": ap.launches - before,
+           **pvt_check(torch, ap, {"form": "std", "bf16exp": False}, q, k, v, N, tables, got)}
+    out["max_abs_err_vs_k3"] = float((got.float() - k3().float()).abs().max())
+    reads = [time_ms(torch, f) for f in (k3, kernel, kernel, k3)]
+    out.update({"ms": (reads[1] + reads[2]) / 2, "ms_reads": reads[1:3],
+                "k3_ms": (reads[0] + reads[3]) / 2, **pvt_bound(batch * H, N, N, d),
+                "floor_ms": floor_ms(torch, batch * N * H * d, "bfloat16")})
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["library_ms"], kernels = library_case(torch, fa, q, k, v, d ** -0.5, cos, sin)
+    out["library"] = f"scaled_dot_product_attention ({sdpa_backend(kernels)})"
+    out["ok"] = out["ok"] and out["launches"] == 1
+    return out
+
+
 def pvt_rounds(torch, fa, ap, inputs) -> dict:
     """probe6: PVT_ROUNDS interleaved rounds of K2 and the std form at gp 8
     (PVT_ROUND_CALLS timed calls each after one warm-up), each round's
@@ -2541,13 +2685,16 @@ def pvt_phase(torch, models=PVT_MODELS, geometry=(480, 640), device="cuda") -> d
     for case in PVT_CASES:
         cases.append(pvt_case(torch, fa, ap, case, inputs, device, ex2_dev))
         emit(cases[-1])
-    library = rounds = None
+    library = rounds = model_call = None
     if on_card:
         library = pvt_library(torch, fa, inputs)
         rounds = pvt_rounds(torch, fa, ap, inputs)
         emit({"phase": "pvt_library", **library})
         emit(rounds)
     del inputs
+    if on_card:
+        model_call = pvt_model_call(torch, fa, ap)
+        emit(model_call)
     model_lines = []
     for model, batch in models:
         cfg = PRESETS[model] if isinstance(model, str) else model
@@ -2558,13 +2705,14 @@ def pvt_phase(torch, models=PVT_MODELS, geometry=(480, 640), device="cuda") -> d
         emit(model_lines[-1])
         del enc
     out = {"cases": cases, "library": library, "rounds": rounds, "models": model_lines,
-           "launches": dict(ap.launches_by_option), "seconds": time.perf_counter() - t}
+           "model_call": model_call, "launches": dict(ap.launches_by_option),
+           "seconds": time.perf_counter() - t}
     emit({"phase": "pvt_summary", "seconds": out["seconds"], "launches": out["launches"],
           "ms": [{"what": c["what"], **{key: c.get(key) for key in (
               "ms", "ms_one_wave", "k2_ms", "bound_ms", "plain_ms", "waves")}} for c in cases],
           "median_ratio_vs_k2": rounds["median_ratio"] if rounds else None,
           "model_fps": [m.get("fps") for m in model_lines]})
-    bad = [c for c in cases + model_lines if not c["ok"]]
+    bad = [c for c in cases + model_lines + [model_call or {"ok": True}] if not c["ok"]]
     if bad:
         raise AssertionError(f"a pvt case disagrees with its yardstick: {bad}")
     unlaunched = sorted(ap.option_set(*o) for o in ap.BUILT
@@ -2592,7 +2740,8 @@ def pvt_kernel_entry(pvt) -> dict:
         **pvt["library"], "ptxas": case["ptxas"],
         "cases": [{key: c.get(key) for key in ("what", "body", "option_set", "items") + keys}
                   for c in pvt["cases"]],
-        "rounds": pvt["rounds"], "models": pvt["models"], "seconds": pvt["seconds"],
+        "rounds": pvt["rounds"], "models": pvt["models"], "model_call": pvt["model_call"],
+        "seconds": pvt["seconds"],
         "ptxas_all": list(PTXAS.get(PVT_KERNEL, {}).items()),
     }
 
@@ -2768,9 +2917,10 @@ def reset_launches(fa) -> None:
     from cbas_tpu_torch.ops import layernorm as ln
 
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
-    fa.launches_wide = 0
+    fa.launches_wide = fa.launches_sm90_f32 = fa.launches_tf32_prologue = 0
     fa.launches_headmajor_by_dim.clear()
     fa.launches_sm90_by_kernel.clear()
+    fa.launches_sm90_f32_by_kernel.clear()
     ln.launches = 0
     for kind in vit.projection_gemms:
         vit.projection_gemms[kind] = 0
@@ -2778,7 +2928,9 @@ def reset_launches(fa) -> None:
 
 def read_launches(fa) -> dict:
     """Launches of each entry, under "sm90" those that ran the Hopper body
-    (by entry under "sm90_by_kernel"), under "wide" K3's that ran the wide
+    (by entry under "sm90_by_kernel"), under "sm90_f32" those that ran its
+    fp32 counterpart (by entry under "sm90_f32_by_kernel") and under
+    "tf32_prologue" that body's prologue, under "wide" K3's that ran the wide
     body, under "headmajor_by_dim" K3's split by the head dim it ran at,
     under "layernorm" the LayerNorm kernel's, and under "projection_gemms"
     the attention's projection GEMMs as ``models/vit.py`` counts them (a
@@ -2789,8 +2941,10 @@ def read_launches(fa) -> dict:
 
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
+            "sm90_f32": fa.launches_sm90_f32, "tf32_prologue": fa.launches_tf32_prologue,
             "wide": fa.launches_wide,
             "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
+            "sm90_f32_by_kernel": dict(fa.launches_sm90_f32_by_kernel),
             "headmajor_by_dim": dict(fa.launches_headmajor_by_dim),
             LN_KERNEL: ln.launches, "projection_gemms": dict(vit.projection_gemms)}
 
@@ -2811,15 +2965,18 @@ def projections_per_run(full_blocks: int, cls_blocks: int) -> dict:
 
 
 def check_launches(route, got, kernel, per_forward, forwards, sm90, ln_per,
-                   cls_blocks=None) -> dict:
+                   cls_blocks=None, sm90_f32=False) -> dict:
     """The route launched ``kernel`` ``per_forward`` times a forward, and no
     other attention kernel; each launch through the Hopper body if ``sm90``,
-    else none; the LayerNorm kernel ``ln_per`` times a forward; and one
-    projection GEMM a full block (``per_forward`` a forward) and one k|v
-    GEMM a CLS block (``cls_blocks``, one a forward unless given)."""
+    else none; each through the fp32 Hopper body, with one launch of its
+    prologue, if ``sm90_f32``, else none; the LayerNorm kernel ``ln_per``
+    times a forward; and one projection GEMM a full block (``per_forward`` a
+    forward) and one k|v GEMM a CLS block (``cls_blocks``, one a forward
+    unless given)."""
     want = {name: 0 for name in KERNELS}
     want[kernel] = per_forward * forwards
     want["sm90"] = want[kernel] if sm90 else 0
+    want["sm90_f32"] = want["tf32_prologue"] = want[kernel] if sm90_f32 else 0
     want[LN_KERNEL] = ln_per * forwards
     want["projection_gemms"] = projections_per_run(
         per_forward * forwards, forwards if cls_blocks is None else cls_blocks)
@@ -2902,12 +3059,107 @@ def accuracy_check(cpu, gpu32, planes, e_bf16, n, name, extra=None, fa=None) -> 
     return line
 
 
+FP32_TRACE_FLAG = "--fp32-trace"  # chip_smoke.py run as fp32_trace's own process
+
+
+def fp32_trace() -> dict:
+    """A ``torch.profiler`` trace of one warm fp32 dinov3-vitb16 batch
+    (``runtime.compute_dtype: float32``, the flat route) at 256x256 (batch
+    128) and 640x480 (batch 32), its kernels summed by ``chip_ab.py``'s
+    KERNEL_GROUPS, in a process of its own (this script with
+    FP32_TRACE_FLAG): a fresh process's trace holds its device events."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), FP32_TRACE_FLAG],
+                          capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode:
+        raise AssertionError(f"the fp32 trace's process failed ({proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def fp32_trace_main() -> int:
+    """FP32_TRACE_FLAG's run: the traces of :func:`fp32_trace`, printed as
+    one JSON line."""
+    import torch
+
+    import chip_ab
+    from cbas_tpu_torch.models.encoder import FrameEncoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    enc = FrameEncoder(ENCODER, random_init=True, compute_dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(SEED)
+    out = {"phase": "fp32_trace", "encoder": ENCODER, "dtype": "float32", "route": "flat (K1)",
+           "card": card_name_and_power()}
+    for label, shape, batch in (("256x256", (256, 256), BATCH_256), ("640x480", (480, 640), BATCH_480)):
+        planes = rng.integers(0, 256, (batch, *shape), np.uint8)
+        out[label] = {"batch": batch, **chip_ab.trace_groups(chip_ab.trace_calls(
+            torch, lambda planes=planes, batch=batch: enc.encode_planes_async(planes, batch=batch),
+            calls=3))}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def tf32_kernel_entries(main_cases, tf32, fp32_runs, tools_line) -> list:
+    """The ``kernels`` line's entries of the fp32 Hopper body
+    (``attention_sm90_tf32.cuh``) and of its prologue (split_kv): their
+    launches on the fp32 flat route's forward (and on every fp32 route and
+    in validate_kernels), the body's numbers at K1's 256x256 shape with RoPE
+    beside every fp32 main-shape case, the prologue's at
+    the same shape beside its other cases."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "ms_norope", "gflop", "mbytes", "share_of_bound", "floor_ms", "ptxas")
+    cases = main_cases["fp32"]
+    main = next(c for c in cases if c["name"] == "attention_fat" and c["N"] == 261)
+    if any(c["body"] != "sm90_f32" for c in cases):
+        raise AssertionError(f"an fp32 main-shape case ran another body: {cases}")
+    prologue = next(c for c in tf32["prologue"] if c["shape"][:3] == [BATCH_256, 261, 12]
+                    and c["rope"])
+    validate = tools_line["validate_kernels"]
+    return [{
+        "name": "attention_sm90_tf32", "route": "cuda",
+        "source": "cbas_tpu_torch/csrc/attention_sm90_tf32.cuh",
+        "replaces": KERNELS["attention_fat"],
+        "serves": [KERNELS[name] for name in KERNELS], "body": "sm90_f32",
+        "launches": fp32_runs["attention_fat"]["sm90_f32"],
+        "launches_by_route": {name: run["sm90_f32"] for name, run in fp32_runs.items()},
+        "launches_validate_kernels": validate["expected_launches"]["sm90_f32"],
+        **{key: main[key] for key in keys},
+        "shape": [main[x] for x in ("B", "N", "H", "head_dim")], "inputs": main["inputs"],
+        "cases": [{key: c[key] for key in keys}
+                  | {key: c[key] for key in ("name", "inputs", "B", "N", "H", "head_dim")}
+                  for c in cases],
+        "validate_kernels_max_f32_err": validate["max_f32_err"],
+    }, {
+        "name": "split_kv", "route": "cuda",
+        "source": "cbas_tpu_torch/csrc/attention_sm90_tf32.cuh",
+        "replaces": KERNELS["attention_fat"],
+        "what": "the fp32 body's prologue: K's RoPE (in _fat_kernel's body on the TPU), K and V "
+                "split into TF32 pairs, V transposed, once a call",
+        "launches": fp32_runs["attention_fat"]["tf32_prologue"],
+        "launches_by_route": {name: run["tf32_prologue"] for name, run in fp32_runs.items()},
+        "launches_phase": tf32["launches"]["tf32_prologue"],
+        "max_abs_err": prologue["max_abs_diff"], "bit_equal": prologue["bit_equal"],
+        **{key: prologue[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "mbytes",
+                                          "gbps", "floor_ms", "share_of_bound")},
+        "library_ms": None, "library": "none: no PyTorch call splits into TF32 pairs",
+        "shape": prologue["shape"], "rope": prologue["rope"],
+        "ptxas": [f"{k}: {v}" for k, v in PTXAS.get("attention_fat", {}).items()
+                  if k.startswith("split_kv")],
+        "cases": [{key: c.get(key) for key in ("shape", "n_valid", "rope", "bit_equal", "ms",
+                                                "plain_ms", "bound_ms", "gbps", "floor_ms")}
+                  for c in tf32["prologue"]],
+    }]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run.", file=sys.stderr)
         return 2
+    if FP32_TRACE_FLAG in sys.argv[1:]:
+        return fp32_trace_main()
     from cbas_tpu_torch.engine.classifier import ClassifierBundle
     from cbas_tpu_torch.engine.infer import InferenceSession
     from cbas_tpu_torch.models.encoder import FrameEncoder
@@ -2945,6 +3197,7 @@ def main() -> int:
     cfg = PRESETS[ENCODER]
     floor = floor_phase(torch)
     main_cases = kernel_phase(torch, fa, cfg)
+    tf32 = tf32_phase(torch, fa, cfg)  # its own path: the prologue's counts set to 0 before
     stages = stage_phase(torch, cfg)  # its own path: the variants' counts set to 0 before
     batched = batched_phase(torch, cfg)  # its own path: the two kernels' counts set to 0 before
     pvt = pvt_phase(torch)  # its own path: the kernel's counts set to 0 before
@@ -3008,7 +3261,14 @@ def main() -> int:
         reset_launches(fa)
         gpu32.encode_planes(planes_256[:N_CHECK_256])
         fp32_packed = read_launches(fa)
+    # Warm fp32 frames/s beside bf16's, and the trace of one fp32 batch.
+    emit({"phase": "encode_fp32", "route": "flat (K1)", "encoder": ENCODER, "dtype": "float32",
+          "body": fa.attention_body("attention_fat", torch.float32, 64),
+          "warm_fps_256": warm_fps(torch, gpu32, planes_256, BATCH_256, 3),
+          "warm_fps_480": warm_fps(torch, gpu32, planes_480, BATCH_480, 3),
+          "batch_256": BATCH_256, "batch_480": BATCH_480, "card": card})
     del cpu, gpu32
+    emit(fp32_trace())
 
     # 4. classify check
     ref_probs = InferenceSession(bundle, device="cpu").predict_frames(
@@ -3070,13 +3330,14 @@ def main() -> int:
     vit7b_launches, vit7b_line, fp32_headmajor = vit7b_phase(torch, fa, FrameEncoder,
                                                              init_vit_params, card)
     # Launches of one fp32 forward (runtime.compute_dtype: float32) on each
-    # route: the same kernel counts as bf16, none through the Hopper body.
+    # route: the same kernel counts as bf16, each through the fp32 Hopper
+    # body (with its prologue), none through the bf16 one.
     fp32_runs = {"attention_fat": fp32_flat, "attention_packed": fp32_packed,
                  "attention_headmajor": fp32_headmajor}
     for name, run in fp32_runs.items():
         depth = VIT7B_DEPTH if name == "attention_headmajor" else cfg.num_layers
         check_launches(f"{name} fp32", run, name, depth - 1, 1, sm90=False,
-                       ln_per=ln_per_forward(depth))
+                       ln_per=ln_per_forward(depth), sm90_f32=True)
     fp32_launches = {name: run[name] for name, run in fp32_runs.items()}
 
     # 7. files end to end, where the host has what the file paths need
@@ -3160,6 +3421,7 @@ def main() -> int:
         + [wide_kernel_entry(tools_line, wide_runs, wide_cases),
            ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
                            wide_runs),
+           *tf32_kernel_entries(main_cases, tf32, fp32_runs, tools_line),
            floor_kernel_entry(floor), variants_kernel_entry(stages),
            *batched_kernel_entries(batched), pvt_kernel_entry(pvt)]})
     emit({"ok": True, "device": {
@@ -3298,7 +3560,14 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
         fp32_launches = accuracy_check(cpu, gpu32, planes_256, emb_256, N_CHECK_7B, "256x256",
                                        {"model": "ViT-7B width, depth 4"},
                                        fa=fa)["fp32_launches"]
-        del cpu, gpu32
+        del cpu
+        emit({"phase": "encode_fp32", "route": "head-major (K3)",
+              "model": "ViT-7B width, depth 4", "dtype": "float32",
+              "body": fa.attention_body("attention_headmajor", torch.float32, 128),
+              "warm_fps_256": warm_fps(torch, gpu32, planes_256, BATCH_7B_256, 3),
+              "warm_fps_480": warm_fps(torch, gpu32, planes_480, BATCH_7B_480, 3),
+              "batch_256": BATCH_7B_256, "batch_480": BATCH_7B_480, "card": card})
+        del gpu32
         torch.cuda.empty_cache()
     return launches, line, fp32_launches
 
@@ -4112,7 +4381,9 @@ def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
 def validate_kernels_step(torch, fa, launches) -> dict:
     """``validate_kernels.main`` on the card at its geometries plus
     TOOLS_EXTRA_GEOMETRY: every check under its tolerance, K1, K2 and K3
-    launched as the geometries say, K3's bf16 check through the Hopper body."""
+    launched as the geometries say, K3's bf16 check through the Hopper body
+    and every fp32 check (all at head dims 64 and 128) through its fp32
+    counterpart."""
     import io
 
     from cbas_tpu_torch.tools import validate_kernels
@@ -4132,11 +4403,16 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     pairs = sum(1 for _, H, _, d, _ in geometries if d == 64 and H % 2 == 0)
     last_d = geometries[-1][3]
     sm90 = int(fa.attention_body("attention_headmajor", torch.bfloat16, last_d) == "sm90")
+    fp32 = sum(1 + 5 * (d == 64 and H % 2 == 0) for _, H, _, d, _ in geometries
+               if fa.attention_body("attention_headmajor", torch.float32, d) == "sm90_f32")
     want = {"attention_fat": 2 * pairs, "attention_packed": 2 * pairs,
             "attention_headmajor": len(geometries) + 1 + pairs, "sm90": sm90,
+            "sm90_f32": fp32, "tf32_prologue": fp32,
             LN_KERNEL: 2}  # its single-pass and two-pass LayerNorm checks
     by_body = {name: {"sm90": got["sm90_by_kernel"].get(name, 0),
-                      "common": got[name] - got["sm90_by_kernel"].get(name, 0)}
+                      "sm90_f32": got["sm90_f32_by_kernel"].get(name, 0),
+                      "common": got[name] - got["sm90_by_kernel"].get(name, 0)
+                      - got["sm90_f32_by_kernel"].get(name, 0)}
                for name in KERNELS}
     out = {"rc": rc, "geometries": geometries, "checks": records, "seconds": seconds,
            "launches_by_body": by_body, "expected_launches": want,

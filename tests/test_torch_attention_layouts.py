@@ -422,7 +422,7 @@ def test_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, cuda
     [
         (2, 4, 261, 100, None),  # pads to 104
         (2, 4, 272, 160, 261),   # pads to 192, pad keys masked
-        (1, 2, 140, 60, 130),    # pads to 64: the Hopper body in bf16
+        (1, 2, 140, 60, 130),    # pads to 64: the Hopper body (bf16) or its fp32 counterpart
         (1, 2, 100, 12, None),   # pads to 16
     ],
 )
@@ -665,7 +665,8 @@ def test_headmajor_copying_routes_take_any_strides(d, dtype):
 def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layout, cuda_device):
     """K2 against its plain version on contiguous tensors and on head-pair
     views of flat ones, NaN in the dead K/V rows; bf16 runs the Hopper body
-    (each call counts in launches_sm90), fp32 the common one."""
+    (each call counts in launches_sm90), fp32 its fp32 counterpart (each call
+    counts in launches_sm90_f32)."""
     dt = getattr(torch, dtype)
     _, (q, k, v) = _flat_and_pairs(B, G, N, 29, dt, cuda_device, n_valid)
     if layout == "contiguous":
@@ -674,9 +675,11 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
     if rope:
         cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, 64, seed=30))
     before, before_sm90 = fa.launches_packed, fa.launches_sm90
+    before_f32 = fa.launches_sm90_f32
     got = fa.fused_attention_packed(q, k, v, 0.125, n_valid, cos, sin)
     assert fa.launches_packed == before + 1
     assert fa.launches_sm90 == before_sm90 + (dt == torch.bfloat16)
+    assert fa.launches_sm90_f32 == before_f32 + (dt == torch.float32)
     assert got.stride() == q.stride()
     want = fa.attention_packed_reference(q, k, v, 0.125, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
@@ -688,14 +691,14 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
     "kernel,dtype,d,body",
     [
         ("attention_fat", torch.bfloat16, 64, "sm90"),
-        ("attention_fat", torch.float32, 64, "common"),
+        ("attention_fat", torch.float32, 64, "sm90_f32"),
         ("attention_headmajor", torch.bfloat16, 64, "sm90"),
         ("attention_headmajor", torch.bfloat16, 128, "sm90"),
-        ("attention_headmajor", torch.float32, 128, "common"),
+        ("attention_headmajor", torch.float32, 128, "sm90_f32"),
         ("attention_headmajor", torch.bfloat16, 96, "common"),
         ("attention_headmajor", torch.bfloat16, 40, "common"),
         ("attention_packed", torch.bfloat16, 64, "sm90"),
-        ("attention_packed", torch.float32, 64, "common"),
+        ("attention_packed", torch.float32, 64, "sm90_f32"),
         ("attention_headmajor", torch.bfloat16, 192, "sm90"),
         ("attention_headmajor", torch.bfloat16, 256, "sm90"),
         ("attention_headmajor", torch.float32, 192, "common"),
@@ -710,8 +713,9 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
 def test_attention_body_routing(kernel, dtype, d, body):
     """Which body an entry runs for (dtype, head dim), as the wrapper reports
     it without launching: the Hopper body for bf16 at d = 64 (every layout)
-    and 128, 192 and 256 (head-major), K3's wide body above 256 in both
-    dtypes, the common body otherwise."""
+    and 128, 192 and 256 (head-major), its fp32 counterpart for fp32 at
+    d = 64 (every layout) and 128 (head-major), K3's wide body above 256 in
+    both dtypes, the common body otherwise."""
     assert fa.attention_body(kernel, dtype, d) == body
 
 

@@ -194,6 +194,18 @@ non-zero and prints no final line):
    gate run on the host, two epochs of training, classification of every
    clip, and (with matplotlib) the ethogram. Each step the host cannot run is
    named in the line with the package it lacks;
+9b. shell: the backend as the port's desktop shell starts it
+   (``cbas_tpu_torch/shell/main.js``'s ``BACKEND_ARGS``, no ``--device``,
+   from the repository root, in a session of its own): its ready line
+   (``READY_RE``), ``get_cbas_status`` before any project, ``load_project``
+   on a copy of the demo project (recordings emptied where h5py is missing)
+   with the encoder then on cuda, ``GET /`` serving the frontend's page, and
+   SIGTERM to its process group, as the shell's ``stopBackend`` sends it:
+   the backend exits within 30 s and leaves no process of its group;
+9c. demo: ``cbas_tpu_torch/examples/end_to_end_demo.py`` on the card in a
+   temporary directory (its seconds and two mean probabilities, each above
+   0.5), where h5py, pandas, OpenCV, matplotlib and scikit-learn import,
+   else a line naming what is missing;
 10. tools: ``tools/validate_kernels.py`` on the card at its geometries plus
     (2, 32, 261, 128) with RoPE (K1, K2 and K3 in fp32 against an fp64
     oracle, each through the fp32 Hopper body, then K3 in bf16 at d = 128
@@ -3350,8 +3362,11 @@ def main() -> int:
     # 8. head training at full width, then its bundle through the serving path
     train_phase(torch, card, user_tf32, cfg.hidden_size)
 
-    # 9. the app over HTTP on the card
+    # 9. the app over HTTP on the card, then (9b) the backend as the desktop
+    # shell starts and stops it, and (9c) the scripted demo
     app_phase(torch, fa, card)
+    shell_phase(card)
+    demo_phase(card)
 
     # 10. the tools, K3 at padded, wide and odd widths and the CLS attention map
     tools_line = tools_phase(torch, fa, cfg, params, card, main_cases["padded_calls"])
@@ -4313,6 +4328,155 @@ def app_file_steps(port, api, proj, clip_rel, plots_missing) -> dict:
     if not plots_missing and len(rpc(port, "generate_ethogram", written[0], 10) or "") < 1000:
         raise AssertionError("app: generate_ethogram drew no PNG")
     return out
+
+
+# 9b. The desktop shell's backend contract: the port's shell
+# (cbas_tpu_torch/shell/main.js) spawns BACKEND_ARGS from the repository root
+# and scrapes the backend's stdout for READY_RE; stopBackend sends SIGTERM to
+# the backend's process group.
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+SHELL_MAIN_JS = os.path.join(REPO_ROOT, "cbas_tpu_torch", "shell", "main.js")
+SHELL_EXIT_S = 30  # the deadline of the backend's exit after SIGTERM
+
+
+def shell_contract() -> tuple:
+    """(READY_RE compiled, BACKEND_ARGS) as the port's shell defines them."""
+    with open(SHELL_MAIN_JS) as f:
+        src = f.read()
+    ready = re.search(r"const READY_RE = /(.+?)/;", src)
+    args = re.search(r"const BACKEND_ARGS = \[(.+?)\];", src)
+    if not ready or not args:
+        raise AssertionError(f"{SHELL_MAIN_JS} must define READY_RE and BACKEND_ARGS")
+    return (re.compile(ready.group(1).replace("\\/", "/")),
+            [a.strip().strip("'\"") for a in args.group(1).split(",")])
+
+
+def _pump(stream, lines) -> None:
+    """Every line of ``stream`` into the queue ``lines``, then None."""
+    for text in stream:
+        lines.put(text)
+    lines.put(None)
+
+
+def shell_phase(card, device="cuda") -> dict:
+    """Phase 9b: the backend started as the desktop shell starts it (its own
+    BACKEND_ARGS, from the repository root, PYTHONUNBUFFERED=1, a session of
+    its own), driven over HTTP on a copy of the demo project, then stopped as
+    the shell stops it: SIGTERM to its process group, which must leave no
+    process. Returns the phase line. (``device="cpu"`` appends ``--device
+    cpu``: only the CPU test of this function passes it.)"""
+    import queue
+    import shutil
+    import signal
+    import threading
+    import urllib.request
+
+    ready_re, backend_args = shell_contract()
+    argv = [sys.executable, *backend_args] + (["--device", "cpu"] if device == "cpu" else [])
+    line = {"phase": "shell", "backend_args": backend_args, "device": device}
+    with tempfile.TemporaryDirectory() as d:
+        proj = os.path.join(d, "demo")
+        shutil.copytree(DEMO_PROJECT, proj)
+        if host_missing(("h5py",)):
+            # Without h5py the encode worker could only fail each clip: queue none.
+            shutil.rmtree(os.path.join(proj, "recordings"))
+            os.makedirs(os.path.join(proj, "recordings"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=REPO_ROOT, env={**os.environ, "PYTHONUNBUFFERED": "1"},
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        lines = queue.Queue()
+        reader = threading.Thread(target=_pump, args=(proc.stdout, lines), daemon=True)
+        reader.start()
+        try:
+            url, seen = None, []
+            deadline = time.time() + APP_WAIT_S
+            while url is None:
+                try:
+                    text = lines.get(timeout=max(deadline - time.time(), 0))
+                except queue.Empty:
+                    raise AssertionError(f"shell: no ready line after {APP_WAIT_S} s") from None
+                if text is None:
+                    raise AssertionError(f"shell: the backend exited ({proc.wait()}) before "
+                                         f"its ready line: {''.join(seen[-20:])}")
+                seen.append(text)
+                match = ready_re.search(text)
+                url = match and match.group(1)
+            line["ready_s"] = time.perf_counter() - t0
+            port = int(url.rsplit(":", 1)[1])
+
+            if rpc(port, "get_cbas_status")["project_loaded"]:
+                raise AssertionError("shell: a project is loaded before load_project")
+            t = time.perf_counter()
+            if not rpc(port, "load_project", proj)["success"]:
+                raise AssertionError("shell: load_project failed")
+            line["load_s"] = time.perf_counter() - t
+            status = rpc(port, "get_cbas_status")
+            line["encoder_device"] = status["encoder_device"]
+            if not (status["project_loaded"] and status["encoder_ready"]
+                    and str(status["encoder_device"]).startswith(device)):
+                raise AssertionError(f"shell: the encoder is not ready on {device}: {status}")
+            with urllib.request.urlopen(url + "/", timeout=30) as resp:
+                if b"<html" not in resp.read().lower():
+                    raise AssertionError("shell: GET / served no page")
+        except BaseException:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise
+
+        # stopBackend: SIGTERM to the group, then nothing of it may be left
+        t = time.perf_counter()
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            line["returncode"] = proc.wait(timeout=SHELL_EXIT_S)
+        except subprocess.TimeoutExpired:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(f"shell: the backend outlived SIGTERM by {SHELL_EXIT_S} s") \
+                from None
+        line["exit_s"] = time.perf_counter() - t
+        reader.join(timeout=SHELL_EXIT_S)
+        try:
+            os.killpg(proc.pid, 0)
+        except ProcessLookupError:
+            pass
+        else:
+            os.killpg(proc.pid, signal.SIGKILL)
+            raise AssertionError("shell: a process of the backend's group outlived it")
+    if line["returncode"] not in (0, -signal.SIGTERM):
+        raise AssertionError(f"shell: the backend exited {line['returncode']} on SIGTERM")
+    line["card"] = card
+    line["ok"] = True
+    emit(line)
+    return line
+
+
+def demo_phase(card, device="cuda") -> dict:
+    """Phase 9c: the port's scripted demo
+    (``cbas_tpu_torch/examples/end_to_end_demo.py``) on ``device`` in a
+    temporary directory, where the host has the packages it needs; its
+    seconds and the two mean probabilities, each above 0.5. Returns the
+    phase line."""
+    from cbas_tpu_torch.examples import end_to_end_demo as demo
+
+    missing = host_missing(demo.REQUIRED)
+    if missing:
+        line = {"phase": "demo", "skipped": f"not installed: {', '.join(missing)}"}
+        emit(line)
+        return line
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(sys.stderr):
+        t = time.perf_counter()
+        got = demo.main(d, device)
+        seconds = time.perf_counter() - t
+    line = {"phase": "demo", "device": device, "demo_s": seconds, "p_active": got["p_active"],
+            "p_rest": got["p_rest"], "card": card}
+    if not (got["p_active"] > 0.5 and got["p_rest"] > 0.5):
+        raise AssertionError(f"demo: the head did not learn the two behaviours: {line}")
+    line["ok"] = True
+    emit(line)
+    return line
 
 
 # 10. The tools. validate_kernels runs its bf16 check at the last geometry it

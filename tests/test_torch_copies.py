@@ -1144,14 +1144,17 @@ SOURCE_HUNKS = {
 }
 
 
-def _changed_lines(path):
-    """The non-blank lines in which the copy of ``path`` differs from its
-    original, stripped and prefixed "-" (original) or "+" (copy)."""
+def _changed_lines(path, original_root="cbas_tpu", rename=True):
+    """The non-blank lines in which the copy ``cbas_tpu_torch/<path>``
+    differs from its original ``<original_root>/<path>``, stripped and
+    prefixed "-" (original) or "+" (copy). ``rename`` reads the copy's
+    ``cbas_tpu_torch`` as ``cbas_tpu``."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "cbas_tpu", path)) as f:
+    with open(os.path.join(root, original_root, path)) as f:
         original = f.read().splitlines()
     with open(os.path.join(root, "cbas_tpu_torch", path)) as f:
-        ours = [re.sub(r"\bcbas_tpu_torch\b", "cbas_tpu", line) for line in f.read().splitlines()]
+        ours = [re.sub(r"\bcbas_tpu_torch\b", "cbas_tpu", line) if rename else line
+                for line in f.read().splitlines()]
     matcher = difflib.SequenceMatcher(None, original, ours, autojunk=False)
     changed = []
     for tag, i1, i2, j1, j2 in matcher.get_opcodes():

@@ -1,6 +1,8 @@
 """cbas_tpu_torch imports nothing of jax or of cbas_tpu: no source names
-them, and its device, training and file paths run in an interpreter where
-importing cbas_tpu raises (the training path with jax and h5py blocked too).
+them (the scripted demo under ``examples/`` among them; its whole run with
+both blocked is in test_torch_demo.py), and its device, training and file
+paths run in an interpreter where importing cbas_tpu raises (the training
+path with jax and h5py blocked too).
 chip_smoke.py refuses to run without a CUDA device.
 
 conftest imports jax into every test process, so the import checks run in a
@@ -65,7 +67,8 @@ def _fresh_python(code: str) -> subprocess.CompletedProcess:
 def test_no_module_imports_jax():
     names = _modules()
     assert {"cbas_tpu_torch.ops.flash_attention", "cbas_tpu_torch.models.encoder",
-            "cbas_tpu_torch.engine.infer", "cbas_tpu_torch.engine.encode"} <= set(names)
+            "cbas_tpu_torch.engine.infer", "cbas_tpu_torch.engine.encode",
+            "cbas_tpu_torch.examples.end_to_end_demo"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -82,6 +85,7 @@ def test_no_source_imports_cbas_tpu():
     level or inside a function, names cbas_tpu or a submodule of it."""
     sources = _port_sources()
     assert len(sources) > 30
+    assert os.path.join(ROOT, "cbas_tpu_torch", "examples", "end_to_end_demo.py") in sources
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -11,29 +11,25 @@
 // softmax, o = p.V / rowsum written in the input dtype.
 //
 // One block per (64-query tile, head, image); a loop over 64-key tiles with
-// an online softmax (running max and sum, fp32 accumulator in registers).
-// Two instantiations per head dim, chosen by dtype:
-// - bfloat16 (production): 4 warps, 16 query rows each, tensor-core mma.sync
-//   m16n8k16 (bf16 in, fp32 accumulate) for q.k^T and p.V, fragments read
-//   from shared memory with ldmatrix. Roped and scaled q and k are rounded
-//   to bf16 once (in fp32 before that), and p is rounded to bf16 before p.V;
-//   the score and probability tiles stay in registers (the C fragment of
-//   q.k^T is the A fragment of p.V).
-// - float32 (parity): scalar fp32 FMAs, so it can be compared tightly; each
-//   of 256 threads owns a 4 x 4 micro-tile of the scores and 4 rows of the
-//   output.
+// an online softmax (running max and sum, fp32 accumulator in registers),
+// in bfloat16: 4 warps, 16 query rows each, tensor-core mma.sync m16n8k16
+// (bf16 in, fp32 accumulate) for q.k^T and p.V, fragments read from shared
+// memory with ldmatrix. Roped and scaled q and k are rounded to bf16 once
+// (in fp32 before that), and p is rounded to bf16 before p.V; the score and
+// probability tiles stay in registers (the C fragment of q.k^T is the A
+// fragment of p.V).
 //
-// Head dims: any multiple of 8 up to 256 in fp32, up to 128 in bf16 (bf16 at
-// 192 and 256 runs attention_sm90.cuh's body). The mma k-steps are 16 deep, so
+// Head dims: any multiple of 8 up to 128 (bf16 at 64, 128, 192 and 256 runs
+// attention_sm90.cuh's body, so K3 sends the other widths here). float32
+// runs attention_sm90_tf32.cuh and attention_sm90_tf32_wide.cuh up to 256
+// in every entry. The mma k-steps are 16 deep, so
 // the bf16 tiles are zero-filled in shared memory up to the next multiple of
 // 16: zero columns change neither q.k^T nor the live output columns. The
 // RoPE partner of column c is (c + hd/2) mod hd; when hd/2 is a multiple of
 // 8 a 16-byte chunk's partners form one chunk with one first-half flag,
 // otherwise (hd = 40, 56, ...) they are gathered one element at a time.
-// Shared memory is dynamic: at hd = 128 the bf16 tiles take 52 KB and the
-// fp32 tiles 99 KB, above the 48 KB a block may declare statically; at
-// hd = 256 the fp32 tiles take 193 KB, within the 227 KB a Hopper block may
-// opt into, so the 64-row query tile holds at every width.
+// Shared memory is dynamic: at hd = 128 the bf16 tiles take 52 KB, above
+// the 48 KB a block may declare statically.
 // Above hd = 256 K3 takes attention_wide.cuh's body, which takes hd at run
 // time.
 
@@ -107,171 +103,6 @@ __device__ __forceinline__ float rope(float x, float partner, bool first_half, f
                                       float s) {
   const float rot = first_half ? -partner : partner;
   return __fadd_rn(__fmul_rn(x, c), __fmul_rn(rot, s));
-}
-
-// ---------------------------------------------------------------------------
-// float32: scalar FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Threads = 256;  // 16 x 16 threads
-
-template <int HD>
-struct F32Tiles {
-  static constexpr int kCols = (HD + 15) / 16 * 16;  // columns held: 16 owners each
-  static constexpr int kLd = kCols + 1;              // padded: column walks hit distinct banks
-  static constexpr int kPLd = kTile + 1;             // the probability tile P's row stride
-  static constexpr int kKBuf = kLd > kPLd ? kLd : kPLd;  // K, then P, share one buffer
-  static constexpr size_t kSmemBytes = (2 * kLd + kKBuf) * kTile * sizeof(float);
-};
-
-// Copy rows [row0, row0 + 64) of one head into shared memory. Rows at or
-// beyond `live_rows`, and columns at or beyond HD, load as 0, whatever bits
-// they hold. With tables, RoPE is applied as the row loads; `scale`
-// multiplies the result.
-template <int HD>
-__device__ __forceinline__ void load_tile_f32(float* __restrict__ dst,
-                                              const float* __restrict__ head, int row0,
-                                              int live_rows, long long row_stride,
-                                              const float* __restrict__ cos_t,
-                                              const float* __restrict__ sin_t, float scale) {
-  using T = F32Tiles<HD>;
-  for (int i = threadIdx.x; i < kTile * T::kCols; i += kF32Threads) {
-    const int r = i / T::kCols;
-    const int c = i % T::kCols;
-    const int n = row0 + r;
-    float x = 0.f;
-    if (n < live_rows && c < HD) {
-      const float* row = head + static_cast<size_t>(n) * row_stride;
-      x = row[c];
-      if (cos_t != nullptr)
-        x = rope(x, row[rope_partner<HD>(c)], c < HD / 2, cos_t[n * HD + c], sin_t[n * HD + c]);
-      x *= scale;
-    }
-    dst[r * T::kLd + c] = x;
-  }
-}
-
-__device__ __forceinline__ float reduce16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float reduce16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y of image
-// blockIdx.z. Thread (ty, tx) owns score rows ty + 16 i and key columns
-// tx + 16 j, and output columns tx + 16 j, so a row's 16 owners sit in one
-// half-warp and reduce with shuffles.
-template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
-attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
-              Layout L, Layout Lo, int n_valid, float scale) {
-  using T = F32Tiles<HD>;
-  constexpr int kOutCols = T::kCols / 16;
-  float* sq = reinterpret_cast<float*>(dynamic_smem());  // Q tile, roped and scaled
-  float* sv = sq + kTile * T::kLd;                       // V tile
-  float* sk = sv + kTile * T::kLd;                       // K tile, then P
-
-  const int q0 = blockIdx.x * kTile;
-  const size_t head_off = head_offset<HD>(L);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  load_tile_f32<HD>(sq, q + head_off, q0, N, L.row_stride, cos_t, sin_t, scale);
-
-  float acc[4][kOutCols], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kOutCols; ++j) acc[i][j] = 0.f;
-  }
-
-  // Key tiles wholly beyond n_valid would add exact zeros: they are skipped.
-  const int n_key_tiles = (n_valid + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_key_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous step has finished reading P and V
-    load_tile_f32<HD>(sk, k + head_off, k0, n_valid, L.row_stride, cos_t, sin_t, 1.f);
-    load_tile_f32<HD>(sv, v + head_off, k0, n_valid, L.row_stride, nullptr, nullptr, 1.f);
-    __syncthreads();
-
-    float s[4][4] = {};
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sq[(ty + 16 * i) * T::kLd + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sk[(tx + 16 * j) * T::kLd + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= n_valid) s[i][j] = kMasked;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = reduce16_max(mx);
-      const float alpha = expf(m[i] - mx);  // 0 on the first tile (m = -inf)
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx + 16 * j < n_valid ? expf(s[i][j] - mx) : 0.f;
-        s[i][j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + reduce16_sum(rs);
-      m[i] = mx;
-#pragma unroll
-      for (int j = 0; j < kOutCols; ++j) acc[i][j] *= alpha;
-    }
-
-    __syncthreads();  // every thread is done reading K: its buffer takes P
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sk[(ty + 16 * i) * T::kPLd + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float p[4], w[kOutCols];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sk[(ty + 16 * i) * T::kPLd + c];
-#pragma unroll
-      for (int j = 0; j < kOutCols; ++j) w[j] = sv[c * T::kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kOutCols; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= N) continue;
-    const float inv = 1.f / l[i];
-    float* row = o + head_offset<HD>(Lo) + static_cast<size_t>(r) * Lo.row_stride;
-#pragma unroll
-    for (int j = 0; j < kOutCols; ++j)
-      if (tx + 16 * j < HD) row[tx + 16 * j] = acc[i][j] * inv;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -704,44 +535,27 @@ inline cudaError_t check_args(int B, int N, int H, const Layout& L, const Layout
 }
 
 // Launch one head dim's kernel on `stream`: q, k and v read through L, o
-// written through Lo. dtype: 0 = float32, 1 = bfloat16 (up to HD = 128).
-// cos_t/sin_t are (N, HD) fp32 tables or both null (no RoPE). Returns the
-// CUDA error of the launch (cudaSuccess when it was queued).
+// written through Lo. dtype: 1 = bfloat16 (float32, 0, runs the fp32 Hopper
+// bodies). cos_t/sin_t are (N, HD) fp32 tables or both null (no RoPE).
+// Returns the CUDA error of the launch (cudaSuccess when it was queued).
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                    const void* sin_t, int B, int N, int H, Layout L, Layout Lo, int n_valid,
                    float scale, int dtype, void* stream) {
-  static_assert(HD % 8 == 0 && HD <= kMaxHeadDim, "head dims are multiples of 8 up to 256");
+  static_assert(HD % 8 == 0 && HD <= 128, "head dims are multiples of 8 up to 128");
   const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
-  const auto* c = static_cast<const float*>(cos_t);
-  const auto* s = static_cast<const float*>(sin_t);
-  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype != 1) return cudaErrorInvalidValue;
   const dim3 grid((N + kTile - 1) / kTile, H, B);
-  if (dtype == 0) {
-    constexpr size_t bytes = F32Tiles<HD>::kSmemBytes;
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    attention_f32<HD><<<grid, kF32Threads, bytes, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), c, s, N, L, Lo, n_valid, scale);
-  } else if (dtype == 1) {
-    if constexpr (HD <= 128) {
-      constexpr size_t bytes = Bf16Tiles<HD>::kSmemBytes;
-      const cudaError_t err = cudaFuncSetAttribute(
-          attention_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      attention_bf16<HD><<<grid, kBf16Threads, bytes, st>>>(
-          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), c, s, N, L, Lo,
-          n_valid, scale);
-    } else {
-      return cudaErrorInvalidValue;  // bf16 above 128 runs attention_sm90.cuh's body
-    }
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  constexpr size_t bytes = Bf16Tiles<HD>::kSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  attention_bf16<HD><<<grid, kBf16Threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), N, L, Lo, n_valid,
+      scale);
   return cudaGetLastError();
 }
 

@@ -14,29 +14,32 @@
 //
 // What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
-// cores at N = 1205. Four bodies:
+// cores at N = 1205. Five bodies:
 // - bfloat16 at d = 64, 128, 192 and 256: the Hopper body
 //   (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head);
 //   and bfloat16 at any other d % 8 == 0 from 136 to 248, on the same body
 //   at the next of 192 and 256, its tensor maps at the head's own width
 //   (columns beyond it load as zeros, the store clips them);
-// - float32 at d = 64 and 128: its fp32 counterpart (attention_sm90_tf32.cuh:
-//   the same ring and maps, 3xTF32 on wgmma, K and V split and roped once a
-//   call by a prologue);
-// - float32 at every other d up to 256, and bfloat16 at the other multiples
-//   of 8 up to 128: attention_common.cuh's body (its tiles outgrow static shared
-//   memory above d = 64, head dims that are not a multiple of 16 are
-//   zero-filled to one in shared memory, and those whose half is not a
-//   multiple of 8 gather RoPE partners one element at a time: both cost only
-//   such rare widths);
+// - float32 at every multiple of 4 up to 128: its fp32 counterpart
+//   (attention_sm90_tf32.cuh: the same ring and maps, 3xTF32 on wgmma, K and
+//   V split and roped once a call by a prologue), at 64 or 128, maps at d;
+// - float32 at every multiple of 4 from 132 to 256: that body's wide form
+//   (attention_sm90_tf32_wide.cuh: two warpgroups, each owning half of d),
+//   at 192 or 256, maps at d;
+// - bfloat16 at the other multiples of 8 up to 128: attention_common.cuh's
+//   body (its tiles outgrow static shared memory above d = 64, head dims
+//   that are not a multiple of 16 are zero-filled to one in shared memory,
+//   and those whose half is not a multiple of 8 gather RoPE partners one
+//   element at a time: both cost only such rare widths);
 // - any d above 256, both dtypes: the wide body (attention_wide.cuh: O in
 //   384-column slices, the scores formed once a slice; bf16 on wgmma with
 //   two consumer warpgroups, fp32 on FMAs). It takes d at run time, so it
 //   adds two kernels to the build, not one per width.
 // Each instantiated width adds to the build, so the wrapper
 // (ops/flash_attention.py::fused_attention) zero-pads, in one copy, a head
-// of the widths no body reads in place (float32 at an unbuilt width up to
-// 256, bfloat16 at one that is not a multiple of 8) to the next built one.
+// of the widths no body reads in place (up to 256, float32 at one that is
+// not a multiple of 4, bfloat16 at one that is not a multiple of 8) to the
+// next built one.
 //
 // An odd d with RoPE tables: rotate-half pairs element i with i + d/2
 // rounded down (cbas_tpu/models/vit.py's concat(-t[d//2:], t[:d//2])), a
@@ -44,52 +47,76 @@
 // scale folded in, one rounding to the input dtype, the plain version's
 // rounding points) and launches this kernel without tables and at scale 1.
 
-#include "attention_sm90_tf32.cuh"
+#include "attention_sm90_tf32_wide.cuh"
 #include "attention_wide.cuh"
 
 namespace {
 
+// bfloat16 up to 256: the common body, or at 64, 128, 192 and 256 the
+// Hopper body (sm90_route). float32 never reaches this: the entry launches
+// the fp32 Hopper bodies first.
 template <int HD>
 int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
         const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
         const cbas_attention::Layout& L, const cbas_attention::Layout& Lo, int n_valid,
-        float scale, int dtype, void* stream, int* body, int* prologues) {
+        float scale, int dtype, void* stream, int* body) {
   using namespace cbas_attention;
   *body = sm90_route(dtype, HD);
-  if constexpr (HD == 64 || HD == 128 || HD == 192 || HD == 256) {
-    if (*body == 1)
-      return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
-                                               N, H, HD, L, Lo, n_valid, scale, stream));
-  }
-  if constexpr (HD == 64 || HD == 128) {  // both dtypes have a Hopper body here
-    if (*body == 3)
-      return static_cast<int>(tf32::launch<HD>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L, Lo,
-                                               n_valid, scale, stream, prologues));
-    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (HD % 64 == 0) {  // 64, 128, 192, 256: the Hopper body's, nothing else
+    if (*body != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
+                                             H, HD, L, Lo, n_valid, scale, stream));
   } else {
+    if (*body != 0) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch<HD>(q, k, v, o, cos_t, sin_t, B, N, H, L, Lo, n_valid, scale,
                                        dtype, stream));
   }
 }
 
+// float32 on an fp32 Hopper body (sm90_route 3 or 4), at the width
+// tf32_width(d) it is built at, maps at d.
+int run_tf32(const void* q, const void* k, const void* v, void* o, const void* cos_t,
+             const void* sin_t, void* k_scratch, int B, int N, int H, int d,
+             const cbas_attention::Layout& L, const cbas_attention::Layout& Lo, int n_valid,
+             float scale, void* stream, int* prologues) {
+  using namespace cbas_attention;
+  switch (tf32_width(d)) {
+    case 64:
+      return static_cast<int>(tf32::launch<64>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, d, L,
+                                               Lo, n_valid, scale, stream, prologues));
+    case 128:
+      return static_cast<int>(tf32::launch<128>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, d, L,
+                                                Lo, n_valid, scale, stream, prologues));
+    case 192:
+      return static_cast<int>(tf32_wide::launch<192>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H,
+                                                     d, L, Lo, n_valid, scale, stream, prologues));
+    case 256:
+      return static_cast<int>(tf32_wide::launch<256>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H,
+                                                     d, L, Lo, n_valid, scale, stream, prologues));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // C entry, bound with ctypes, with the flat and packed entries' signature.
-// head_dim is d: a multiple of 8 up to 128, 192 or 256; in bfloat16 any
+// head_dim is d: in bfloat16 a multiple of 8 up to 128, 192 or 256, or any
 // other multiple of 8 from 136 to 248 (the Hopper body at the next built
-// width, maps at d); or any d above 256 (the wide body, which takes tables
-// only at an even d). batch_stride, group_stride (between heads) and
-// row_stride are q's (k's and v's) element strides, the o_ ones o's (its
-// dims in q's order). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are
-// (N, d) fp32 tables or both null. With tables the Hopper body needs
-// k_scratch, and at a padded width and in the wide body also q_scratch:
-// buffers laid out like o for the roped keys and queries (null otherwise).
-// In float32 at d = 64 and 128, k_scratch is the fp32 body's scratch, 4 * B
-// * H * tf32::scratch_keys(n_valid) * d floats, needed with or without
-// tables. *body is set to the body that ran: 0 the common body, 1 the Hopper
-// body (sm90_route), 2 the wide body, 3 the fp32 Hopper body; *prologues to
-// the fp32 body's prologue launches it queued (0 or 1). Returns the CUDA
-// error code of the launch (0 on success).
+// width, maps at d); in float32 any multiple of 4 up to 256 (body 3 at 64
+// or 128, body 4 at 192 or 256, maps at d); or any d above 256 (the wide body, which takes tables only at an even
+// d). batch_stride, group_stride (between heads) and row_stride are q's
+// (k's and v's) element strides, the o_ ones o's (its dims in q's order).
+// dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or
+// both null. With tables the bf16 Hopper body needs k_scratch, and at a
+// padded width and in the wide body also q_scratch: buffers laid out like
+// o for the roped keys and queries (null otherwise). In float32 on body 3 or
+// 4, k_scratch is the prologue's scratch, 4 * B * H *
+// tf32::scratch_keys(n_valid) * tf32_width(d) floats, needed with or
+// without tables. *body is set to the body that ran: 0 the
+// common body, 1 the Hopper body (sm90_route), 2 the wide body, 3 the fp32
+// Hopper body, 4 its wide form (attention_sm90_tf32_wide.cuh); *prologues
+// to the fp32 bodies' prologue launches it queued (0 or 1). Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void* v, void* o,
                                         const void* cos_t, const void* sin_t, void* q_scratch,
                                         void* k_scratch, int B, int N, int H, int head_dim,
@@ -102,10 +129,16 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
   *prologues = 0;
   const Layout L{batch_stride, group_stride, 1, row_stride};
   const Layout Lo{o_batch_stride, o_group_stride, 1, o_row_stride};
+  const int route = sm90_route(dtype, head_dim);
+  if (route == 3 || route == 4) {
+    *body = route;
+    return run_tf32(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, head_dim, L, Lo, n_valid, scale,
+                    stream, prologues);
+  }
 #define CBAS_HEAD_DIM(D)                                                                         \
   case D:                                                                                        \
     return run<D>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, L, Lo, n_valid, scale, \
-                  dtype, stream, body, prologues);
+                  dtype, stream, body);
   switch (head_dim) {
     CBAS_HEAD_DIM(8)
     CBAS_HEAD_DIM(16)
@@ -144,13 +177,14 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
 #undef CBAS_HEAD_DIM
 }
 
-// C entry of the fp32 Hopper body's prologue alone (tf32::split_kv), bound
+// C entry of the fp32 Hopper bodies' prologue alone (tf32::split_kv), bound
 // with ctypes: k and v head-major (B, H, N, head_dim) fp32 at the given
-// element strides (batch, head, row; the last dim contiguous), head_dim 64
-// or 128, split (and roped, with (N, head_dim) fp32 tables) into `scratch`,
-// 4 * B * H * tf32::scratch_keys(n_valid) * head_dim floats, as K3's fp32
-// launches write it before their attention kernel. Returns the CUDA error
-// code of the launch (0 on success).
+// element strides (batch, head, row; the last dim contiguous), head_dim a
+// multiple of 4 up to 256, split (and roped, with (N, head_dim) fp32 tables)
+// into `scratch`, 4 * B * H * tf32::scratch_keys(n_valid) *
+// tf32_width(head_dim) floats, as K3's fp32 launches at that width write it
+// before their attention kernel. Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int cbas_attention_tf32_prologue(const void* k, const void* v, void* scratch,
                                             const void* cos_t, const void* sin_t, int B, int N,
                                             int H, int head_dim, long long batch_stride,
@@ -159,10 +193,17 @@ extern "C" int cbas_attention_tf32_prologue(const void* k, const void* v, void* 
   using namespace cbas_attention;
   const Layout L{batch_stride, group_stride, 1, row_stride};
   const auto st = static_cast<cudaStream_t>(stream);
+  const int d = head_dim;
   if (N <= 0 || n_valid > N) return static_cast<int>(cudaErrorInvalidValue);
-  if (head_dim == 64)
-    return static_cast<int>(tf32::launch_split<64>(k, v, scratch, cos_t, sin_t, B, H, L, n_valid, st));
-  if (head_dim == 128)
-    return static_cast<int>(tf32::launch_split<128>(k, v, scratch, cos_t, sin_t, B, H, L, n_valid, st));
+  switch (tf32_width(d)) {
+    case 64:
+      return static_cast<int>(tf32::launch_split<64>(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st));
+    case 128:
+      return static_cast<int>(tf32::launch_split<128>(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st));
+    case 192:
+      return static_cast<int>(tf32::launch_split<192>(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st));
+    case 256:
+      return static_cast<int>(tf32::launch_split<256>(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -68,7 +68,7 @@ extern "C" int cbas_attention_packed(const void* q, const void* k, const void* v
     return static_cast<int>(sm90::launch<64>(q, k, v, o, cos_t, sin_t, nullptr, k_scratch, B, N, H,
                                              64, L, Lo, n_valid, scale, stream));
   if (*body == 3)
-    return static_cast<int>(tf32::launch<64>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, L, Lo,
-                                             n_valid, scale, stream, prologues));
+    return static_cast<int>(tf32::launch<64>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, 64, L,
+                                             Lo, n_valid, scale, stream, prologues));
   return static_cast<int>(cudaErrorInvalidValue);
 }

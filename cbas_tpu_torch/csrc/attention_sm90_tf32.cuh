@@ -1,11 +1,14 @@
-// The Hopper body of the port's fused attention in float32, for head dims 64
-// and 128: K1 (flat, d = 64), K2 (head-pair packed, d = 64) and K3
-// (head-major, d = 64 and 128) route here (attention_fat.cu,
+// The Hopper body of the port's fused attention in float32, built at head
+// dims 64 and 128: K1 (flat, d = 64), K2 (head-pair packed, d = 64) and K3
+// (head-major, every multiple of 4 up to 128) route here (attention_fat.cu,
 // attention_packed.cu, attention_headmajor.cu). It serves the TPU kernels
 // cbas_tpu/ops/flash_attention.py::_fat_kernel, _packed_attn_kernel and
-// _attn_kernel in fp32 (preferred_element_type=jnp.float32). K3's other fp32
-// widths stay on attention_common.cuh's FMA body, and above 256 on the wide
-// body; bfloat16 takes attention_sm90.cuh.
+// _attn_kernel in fp32 (preferred_element_type=jnp.float32). A K3 head
+// narrower than the width it runs at (the next of 64 and 128) is read
+// through tensor maps at d: Q's columns beyond d load as zeros, O's are not
+// stored, the prologue writes zeros there. K3's fp32 widths from 132 to 256
+// take attention_sm90_tf32_wide.cuh (this file's arithmetic and prologue,
+// two warpgroups), above 256 the wide body; bfloat16 takes attention_sm90.cuh.
 //
 // The function is the other bodies' (optional rotate-half RoPE from fp32
 // tables, the scale folded into q, s = q.k^T, keys at or beyond n_valid
@@ -33,15 +36,19 @@
 //   [0, 2, 4, 6, 1, 3, 5, 7] (kSlotOfKey), and P's accumulator registers are
 //   p.V's A fragments as they stand, split in registers, with no shuffle.
 // - A prologue (split_kv) prepares K and V once a call: one launch writes
-//   K_hi, K_lo (roped when there are tables) and V^T_hi, V^T_lo (transposed,
-//   permuted) into scratch the wrapper allocates: 4 planes of
-//   B H n_keys d fp32, n_keys = n_valid rounded up to the key tile, keys at
-//   or beyond n_valid written as zeros (NaN bits in dead rows never reach
-//   shared memory; the score mask stays a select). ops/flash_attention.py::
+//   K_hi, K_lo (roped when there are tables, pairing column c with c + d/2)
+//   and V^T_hi, V^T_lo (transposed, permuted) into scratch the wrapper
+//   allocates: 4 planes of B H n_keys HD fp32, n_keys = n_valid rounded up
+//   to the key tile, keys at or beyond n_valid and columns from d to HD
+//   written as zeros (NaN bits in dead rows never reach shared memory; the
+//   score mask stays a select). ops/flash_attention.py::
 //   tf32_prologue_reference is its plain version, bit for bit.
 // - Q lands through the caller's strided tensor maps (map_shape, fp32,
 //   32-column 128-byte swizzle atoms); the consumer ropes, scales and splits
-//   it in place into Q_hi and Q_lo once a block. q.k^T reads Q from shared
+//   it in place into Q_hi and Q_lo once a block, pairing column c with
+//   c + d/2: at d = HD in 16-byte chunks, below HD with tables in 8-byte
+//   pairs (d/2 is even), the columns from d to HD split as the zeros they
+//   arrived as. q.k^T reads Q from shared
 //   memory (Q fragments held in registers across the loop were wrong in the
 //   bf16 body at d = 64, attention_sm90.cuh). P is split in registers each
 //   tile and is the register A operand of p.V.
@@ -225,63 +232,76 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 
 // --- the prologue --------------------------------------------------------------
 
+// V fp32 values as TF32 bits, stored in one 8- or 16-byte write.
+template <int V>
+__device__ __forceinline__ void store_bits(float* dst, const uint32_t (&x)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(x[0], x[1], x[2], x[3]);
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(x[0], x[1]);
+}
+
 // One block: keys [blockIdx.x * 32, +32) of head blockIdx.y of image
-// blockIdx.z. K is read through L (d = HD columns a head), roped with
-// tables, split and written to planes 0 (K_hi) and 1 (K_lo), each
-// (B, H, n_keys, HD); V is transposed through shared memory into the V^T
-// order (kSlotOfKey) and written, split, to planes 2 and 3, each
-// (B, H, HD, n_keys). Keys at or beyond n_valid are neither read nor left
-// unwritten: they are zeros in every plane.
-template <int HD>
+// blockIdx.z, of heads d wide (d % 4 == 0, d <= HD). K is read through L,
+// roped with tables (rotate-half pairs column c with c + d/2), split and
+// written to planes 0 (K_hi) and 1 (K_lo), each (B, H, n_keys, HD); V is
+// transposed through shared memory into the V^T order (kSlotOfKey) and
+// written, split, to planes 2 and 3, each (B, H, HD, n_keys). Columns d to
+// HD (rows of V^T) and keys at or beyond n_valid are neither read nor left
+// unwritten: they are zeros in every plane. V is 4 where d/2 is a multiple
+// of 4, else 2: the columns a thread takes at a time.
+template <int HD, int V>
 __global__ void __launch_bounds__(256)
 split_kv(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ out,
          const float* __restrict__ cos_t, const float* __restrict__ sin_t, int H, int n_keys,
-         int n_valid, Layout L, long long plane) {
+         int n_valid, int d, Layout L, long long plane) {
   __shared__ float vt[HD][kSplitKeys + 1];
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int key0 = blockIdx.x * kSplitKeys;
   const size_t head = static_cast<size_t>(b) * H + h;
+  const int half = d / 2;
 
-  // K: one thread takes 4 columns [c, c + 4) of the first half and their
-  // RoPE partners [c + HD/2, +4).
-  constexpr int kPairs = HD / 2 / kVec;
-  for (int i = threadIdx.x; i < kSplitKeys * kPairs; i += blockDim.x) {
-    const int r = i / kPairs;
-    const int c = (i % kPairs) * kVec;
+  // K: slot c (V columns) of a key takes columns [c, c + V) of the first
+  // half of d and their RoPE partners [c + d/2, +V); a slot past d/2 writes
+  // zeros to 2 V of the columns from d to HD.
+  constexpr int kSlots = HD / 2 / V;
+  for (int i = threadIdx.x; i < kSplitKeys * kSlots; i += blockDim.x) {
+    const int r = i / kSlots;
+    const int c = (i % kSlots) * V;
     const int n = key0 + r;
-    float xa[kVec] = {0.f, 0.f, 0.f, 0.f}, xp[kVec] = {0.f, 0.f, 0.f, 0.f};
-    if (n < n_valid) {
-      const float* row = k + token_offset(L, b, h, n, HD);
-      const float4 a4 = *reinterpret_cast<const float4*>(row + c);
-      const float4 p4 = *reinterpret_cast<const float4*>(row + c + HD / 2);
-      xa[0] = a4.x, xa[1] = a4.y, xa[2] = a4.z, xa[3] = a4.w;
-      xp[0] = p4.x, xp[1] = p4.y, xp[2] = p4.z, xp[3] = p4.w;
-      if (cos_t != nullptr) {
-        float ca[kVec], sa[kVec], cp[kVec], sp[kVec];
-        const size_t t = static_cast<size_t>(n) * HD + c;
-        load_table<kVec>(cos_t + t, ca);
-        load_table<kVec>(sin_t + t, sa);
-        load_table<kVec>(cos_t + t + HD / 2, cp);
-        load_table<kVec>(sin_t + t + HD / 2, sp);
+    float xa[V] = {}, xp[V] = {};
+    int ca = d + 2 * (c - half), cp = ca + V;  // a slot of zeros
+    if (c < half) {
+      ca = c, cp = c + half;
+      if (n < n_valid) {
+        const float* row = k + token_offset(L, b, h, n, d);
+        load_table<V>(row + ca, xa);
+        load_table<V>(row + cp, xp);
+        if (cos_t != nullptr) {
+          float cos_a[V], sin_a[V], cos_p[V], sin_p[V];
+          const size_t t = static_cast<size_t>(n) * d;
+          load_table<V>(cos_t + t + ca, cos_a);
+          load_table<V>(sin_t + t + ca, sin_a);
+          load_table<V>(cos_t + t + cp, cos_p);
+          load_table<V>(sin_t + t + cp, sin_p);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          const float a = xa[e];
-          xa[e] = rope(a, xp[e], true, ca[e], sa[e]);
-          xp[e] = rope(xp[e], a, false, cp[e], sp[e]);
+          for (int e = 0; e < V; ++e) {
+            const float a = xa[e];
+            xa[e] = rope(a, xp[e], true, cos_a[e], sin_a[e]);
+            xp[e] = rope(xp[e], a, false, cos_p[e], sin_p[e]);
+          }
         }
       }
     }
-    uint4 ha, la, hp, lp;
-    tf32_split(xa[0], ha.x, la.x), tf32_split(xa[1], ha.y, la.y);
-    tf32_split(xa[2], ha.z, la.z), tf32_split(xa[3], ha.w, la.w);
-    tf32_split(xp[0], hp.x, lp.x), tf32_split(xp[1], hp.y, lp.y);
-    tf32_split(xp[2], hp.z, lp.z), tf32_split(xp[3], hp.w, lp.w);
-    float* dst = out + (head * n_keys + n) * HD + c;
-    *reinterpret_cast<uint4*>(dst) = ha;
-    *reinterpret_cast<uint4*>(dst + HD / 2) = hp;
-    *reinterpret_cast<uint4*>(dst + plane) = la;
-    *reinterpret_cast<uint4*>(dst + plane + HD / 2) = lp;
+    uint32_t ha[V], la[V], hp[V], lp[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) tf32_split(xa[e], ha[e], la[e]), tf32_split(xp[e], hp[e], lp[e]);
+    float* dst = out + (head * n_keys + n) * HD;
+    store_bits<V>(dst + ca, ha);
+    store_bits<V>(dst + cp, hp);
+    store_bits<V>(dst + plane + ca, la);
+    store_bits<V>(dst + plane + cp, lp);
   }
 
   // V: 32 keys x HD into shared memory, transposed, each key at its slot.
@@ -291,7 +311,8 @@ split_kv(const float* __restrict__ k, const float* __restrict__ v, float* __rest
     const int c = (i % kQuads) * kVec;
     const int n = key0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n < n_valid) x = *reinterpret_cast<const float4*>(v + token_offset(L, b, h, n, HD) + c);
+    if (n < n_valid && c < d)
+      x = *reinterpret_cast<const float4*>(v + token_offset(L, b, h, n, d) + c);
     const int s = kSlotOfKey(r);
     vt[c][s] = x.x, vt[c + 1][s] = x.y, vt[c + 2][s] = x.z, vt[c + 3][s] = x.w;
   }
@@ -320,7 +341,7 @@ template <int HD, int kRank>
 __global__ void __launch_bounds__(Config<HD>::kThreads, Config<HD>::kMinBlocks)
 attention_tf32(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
-               const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
+               const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N, int d,
                int n_valid, int n_keys, int H, float scale, const MapAddress order) {
   using C = Config<HD>;
   constexpr int kKSteps = HD / 8;     // k-steps of q.k^T
@@ -407,8 +428,9 @@ attention_tf32(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   // 16-byte chunks, columns [c, c + 4) and their RoPE partners [c + HD/2,
   // +4), writes hi where the chunk was and lo at the same place in Q_lo. The
   // tables of a batch of pairs load while the TMA brings the tile. Rows at or
-  // beyond N arrived as zeros and split into zeros.
-  {
+  // beyond N arrived as zeros and split into zeros. Without tables the
+  // pairing only visits every column once, so it serves any d.
+  if (cos_t == nullptr || d == HD) {
     constexpr int kPairsPerRow = HD / 2 / kVec;
     constexpr int kPerThread = kRows * kPairsPerRow / kWGThreads;  // 4 or 8
     constexpr int kBatch = 2;
@@ -458,10 +480,52 @@ attention_tf32(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
         *reinterpret_cast<uint4*>(sq + C::kQBytes + op) = lp;
       }
     }
-    // The wgmma reads shared memory through the async proxy.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
+  } else {
+    // With tables below HD: slot c (2 columns) of a row takes columns
+    // [c, c + 2) of the first half of d and their partners [c + d/2, +2)
+    // (d/2 need not be a multiple of 4); a slot past d/2 splits 4 of the
+    // columns from d to HD, the zeros they arrived as.
+    constexpr int kSlots = HD / 4;
+    const int half = d / 2;
+    mbar_wait(q_full, 0);
+    for (int i = tid; i < kRows * kSlots; i += kWGThreads) {
+      const int r = i / kSlots;
+      const int c = 2 * (i % kSlots);
+      const int n = q0 + r;
+      int ca = d + 2 * (c - half), cp = ca + 2;  // a slot of zeros
+      if (c < half) ca = c, cp = c + half;
+      const uint32_t oa = sw128_f32(r, ca, C::kQAtomBytes);
+      const uint32_t op = sw128_f32(r, cp, C::kQAtomBytes);
+      const float2 a2 = *reinterpret_cast<const float2*>(sq + oa);
+      const float2 p2 = *reinterpret_cast<const float2*>(sq + op);
+      float xa[2] = {a2.x, a2.y}, xp[2] = {p2.x, p2.y};
+      if (c < half && n < N) {
+        float cos_a[2], sin_a[2], cos_p[2], sin_p[2];
+        const size_t row = static_cast<size_t>(n) * d;
+        load_table<2>(cos_t + row + ca, cos_a);
+        load_table<2>(sin_t + row + ca, sin_a);
+        load_table<2>(cos_t + row + cp, cos_p);
+        load_table<2>(sin_t + row + cp, sin_p);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = xa[e];
+          xa[e] = rope(a, xp[e], true, cos_a[e], sin_a[e]);
+          xp[e] = rope(xp[e], a, false, cos_p[e], sin_p[e]);
+        }
+      }
+      uint32_t ha[2], la[2], hp[2], lp[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        tf32_split(xa[e] * scale, ha[e], la[e]), tf32_split(xp[e] * scale, hp[e], lp[e]);
+      store_bits<2>(reinterpret_cast<float*>(sq + oa), ha);
+      store_bits<2>(reinterpret_cast<float*>(sq + op), hp);
+      store_bits<2>(reinterpret_cast<float*>(sq + C::kQBytes + oa), la);
+      store_bits<2>(reinterpret_cast<float*>(sq + C::kQBytes + op), lp);
+    }
   }
+  // The wgmma reads shared memory through the async proxy.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
 
   // Accumulator fragments (m64nNk8): element 4 j + e of a thread is row
   // 16 warp + g + 8 (e / 2), column 8 j + 2 t + (e & 1).
@@ -667,42 +731,47 @@ inline bool encode_plane_map(CUtensorMap* map, const float* base, long long inne
          CUDA_SUCCESS;
 }
 
-// The prologue alone on `stream`: k and v (d = HD, read through L) into
-// `scratch`, 4 planes of B H n_keys HD fp32 (n_keys = scratch_keys(n_valid)),
-// roped with tables (both null: not roped). Returns the CUDA error of the
-// launch.
+// The prologue alone on `stream`: k and v (heads d wide, d % 4 == 0 and
+// d <= HD, read through L) into `scratch`, 4 planes of B H n_keys HD fp32
+// (n_keys = scratch_keys(n_valid)), roped with tables (both null: not
+// roped). Returns the CUDA error of the launch.
 template <int HD>
 cudaError_t launch_split(const void* k, const void* v, void* scratch, const void* cos_t,
-                         const void* sin_t, int B, int H, const Layout& L, int n_valid,
+                         const void* sin_t, int B, int H, int d, const Layout& L, int n_valid,
                          cudaStream_t stream) {
   static_assert(kKeys % kSplitKeys == 0, "a prologue block fills whole key tiles");
   if (B <= 0 || H <= 0 || n_valid <= 0 || B > 65535 || H > 65535 || L.heads_per_group <= 0 ||
-      H % L.heads_per_group || scratch == nullptr || (cos_t == nullptr) != (sin_t == nullptr))
+      H % L.heads_per_group || scratch == nullptr || (cos_t == nullptr) != (sin_t == nullptr) ||
+      d <= 0 || d > HD || d % 4)
     return cudaErrorInvalidValue;
   const int n_keys = scratch_keys(n_valid);
   const long long plane = static_cast<long long>(B) * H * n_keys * HD;
-  split_kv<HD><<<dim3(n_keys / kSplitKeys, H, B), 256, 0, stream>>>(
+  const auto kernel = (d / 2) % 4 ? split_kv<HD, 2> : split_kv<HD, 4>;
+  kernel<<<dim3(n_keys / kSplitKeys, H, B), 256, 0, stream>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(scratch),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), H, n_keys, n_valid, L,
-      plane);
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), H, n_keys, n_valid, d,
+      L, plane);
   return cudaGetLastError();
 }
 
-// Launch the fp32 Hopper body on `stream`: the prologue (split_kv) into
-// `scratch` (4 planes of B H scratch_keys(n_valid) HD fp32, laid out by the
-// prologue), then the attention kernel. q, k and v lie as L says, o as Lo
-// says, in the same dim order (map_shape). *prologues counts the prologue's
-// launches that were queued (0 or 1). Returns the CUDA error of the
-// launches (cudaSuccess when both were queued).
+// Launch the fp32 Hopper body on `stream` over heads of width d (d % 4 ==
+// 0, d <= HD): the prologue (split_kv) into `scratch` (4 planes of B H
+// scratch_keys(n_valid) HD fp32, laid out by the prologue), then the
+// attention kernel. q, k and v lie as L says, o as Lo says, in the same dim
+// order (map_shape); Q's and O's maps are d wide, so Q's columns beyond d
+// load as zeros and O's are not stored, and the scratch's are zeros. Both
+// rope at d/2. *prologues counts the prologue's launches that were queued
+// (0 or 1). Returns the CUDA error of the launches (cudaSuccess when both
+// were queued).
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-                   const void* sin_t, void* scratch, int B, int N, int H, const Layout& L,
+                   const void* sin_t, void* scratch, int B, int N, int H, int d, const Layout& L,
                    const Layout& Lo, int n_valid, float scale, void* stream, int* prologues) {
   using C = Config<HD>;
   const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   const auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = launch_split<HD>(k, v, scratch, cos_t, sin_t, B, H, L, n_valid, st);
+  const cudaError_t err = launch_split<HD>(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st);
   if (err != cudaSuccess) return err;
   ++*prologues;
   const int n_keys = scratch_keys(n_valid);
@@ -710,7 +779,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
   const auto* planes = static_cast<const float*>(scratch);
   sm90::MapShape m;
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!sm90::map_shape(L, Lo, HD, B, N, H, &m) || !encode_rows_map(&q_map, q, m, N, false) ||
+  if (!sm90::map_shape(L, Lo, d, B, N, H, &m) || !encode_rows_map(&q_map, q, m, N, false) ||
       !encode_rows_map(&o_map, o, m, N, true) ||
       !encode_plane_map(&k_map, planes, HD, static_cast<long long>(B) * H * n_keys, kKeys, plane) ||
       !encode_plane_map(&v_map, planes + 2 * plane, n_keys, static_cast<long long>(B) * H * HD, HD,
@@ -723,7 +792,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
   const dim3 grid((N + kRows - 1) / kRows, H, B);
   kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(
       q_map, k_map, v_map, o_map, static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      N, n_valid, n_keys, H, scale, m.order);
+      N, d, n_valid, n_keys, H, scale, m.order);
   return cudaGetLastError();
 }
 

@@ -57,8 +57,8 @@
 // - Q stays in shared memory up to kMaxAtoms atoms (d = 1024), where Q, the
 //   rings and the partials fill the 227 KB a block may use; a wider head's
 //   Q atoms come through the rings with K's, each once per key tile.
-// - float32 stays on scalar FMAs (it is held to 5e-6 of an fp64 oracle, so
-//   no TF32), 256 threads as attention_common.cuh's fp32 body: the same
+// - float32 stays on scalar FMAs (it is held to 5e-6 of an fp64 oracle),
+//   256 threads, each owning a 4 x 4 micro-tile of the scores: the same
 //   slices, the scores accumulated over 64-column slices of Q and K staged
 //   through shared memory once per block, then p.V atom by atom of the slice.
 
@@ -484,6 +484,7 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
 // float32: scalar FMAs
 // ---------------------------------------------------------------------------
 
+constexpr int kF32Threads = 256;  // 16 x 16 threads
 constexpr int kLd = kTile + 1;  // a staged 64-column slice's row: column walks hit distinct banks
 constexpr size_t kF32SmemBytes = 3 * kTile * kLd * sizeof(float);  // Q, K then P, V
 
@@ -505,10 +506,24 @@ __device__ __forceinline__ void load_slice_f32(float* __restrict__ dst,
   }
 }
 
+// The max and the sum of x over the 16 threads of a half-warp.
+__device__ __forceinline__ float reduce16_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float reduce16_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 // One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y, O atoms
 // [6 s, 6 s + 6) of image b, where blockIdx.z = b * n_slices + s. Thread
 // (ty, tx) owns score rows ty + 16 i and key columns tx + 16 j, and output
-// columns 64 a + tx + 16 j of the slice's atom a, as in attention_f32. q and
+// columns 64 a + tx + 16 j of the slice's atom a, so a row's 16 owners sit
+// in one half-warp and reduce with shuffles. q and
 // k lie as Lqk says, v as L, o as Lo.
 __global__ void __launch_bounds__(kF32Threads)
 attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,

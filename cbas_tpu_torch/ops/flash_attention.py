@@ -12,13 +12,15 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
 - :func:`fused_attention` (K3): head-major (B, H, N, d), any d on the
   card. The kernel is built
   at every multiple of 8 up to 128, and at 192 and 256; a bf16 head of
-  another multiple of 8 up to 256 runs at the next of those, its tensor
-  maps at d (the columns beyond read as zeros); a head above 256 runs the
-  wide body, which takes d at run time. The rest is copied first: fp32 at
-  another width up to 256 and bf16 at one that is no multiple of 8 run
-  zero-padded to the next built width (:func:`pad_head_dim`), and an odd d
-  with RoPE tables is roped here and launched without them (rotate-half's
-  pairing of an odd d survives no pad).
+  another multiple of 8 up to 256 runs at the next of those, and an fp32
+  head of a multiple of 4 up to 256 at the next of 64, 128, 192 and 256
+  (:func:`tf32_width`), its tensor maps at d (the columns beyond read as
+  zeros); a head above 256 runs the wide body, which takes d at run time.
+  The rest is copied first: fp32 and bf16 at a width up to 256 that is no
+  multiple of 4 (fp32) or 8 (bf16) run zero-padded to the next built width
+  (:func:`pad_head_dim`), and an odd d with RoPE tables is roped here and
+  launched without them (rotate-half's pairing of an odd d survives no
+  pad).
 
 All three compute one function per head: optional rotate-half RoPE from fp32
 (N, d) tables, the scale on the q side, keys at or beyond ``n_valid`` masked,
@@ -44,22 +46,27 @@ of the Hopper and wide bodies lies as the output does.
 - On a CPU tensor it runs its plain PyTorch version
   (``attention_{fat,packed,headmajor}_reference``).
 
-Four bodies serve the three entries (:func:`attention_body`):
+Five bodies serve the three entries (:func:`attention_body`):
 
 - "sm90": bfloat16 at head dims 64 (K1, K2, K3), 128, 192 and 256 (K3) takes
   the Hopper body (``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once
   per token and head, tensor maps built from the tensors' strides);
-- "sm90_f32": float32 at head dims 64 (K1, K2, K3) and 128 (K3) takes its
-  fp32 counterpart (``csrc/attention_sm90_tf32.cuh``: the same ring and
-  maps, every product as three TF32 products on wgmma, "3xTF32", with K and
-  V split, roped and V transposed once a call by a prologue into scratch
-  this module allocates; :func:`tf32_prologue_reference` is the prologue's
-  plain version, bit for bit);
+- "sm90_f32": float32 at head dim 64 (K1, K2, K3) and, in K3, at every
+  multiple of 4 up to 128 (at 64 or 128, maps at d) takes its fp32
+  counterpart (``csrc/attention_sm90_tf32.cuh``: the same ring and maps,
+  every product as three TF32 products on wgmma, "3xTF32", with K and V
+  split, roped and V transposed once a call by a prologue into scratch this
+  module allocates; :func:`tf32_prologue_reference` is the prologue's plain
+  version, bit for bit);
+- "sm90_f32_wide": float32 in K3 at every multiple of 4 from 132 to 256 (at
+  192 or 256, maps at d) takes its wide form
+  (``csrc/attention_sm90_tf32_wide.cuh``: the same arithmetic and prologue,
+  two consumer warpgroups, each owning half of d, Q split in registers);
 - "wide": K3's heads above 256, both dtypes, take the wide body
   (``csrc/attention_wide.cuh``: O in 384-column slices, the scores formed
   once a slice; bf16 on wgmma with two consumer warpgroups, fp32 on FMAs);
-- "common": float32 at K3's other widths up to 256 and K3's other bf16 head
-  dims (up to 128) take ``csrc/attention_common.cuh``'s.
+- "common": K3's other bf16 head dims (up to 128) take
+  ``csrc/attention_common.cuh``'s (bf16 only).
 
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
 count kernel launches and nothing else, so a run can show which kernels its
@@ -68,8 +75,9 @@ head dim the kernel ran at (the built width, for a head it runs padded),
 ``launches_sm90`` counts those of them all that ran the Hopper body, as the
 C entry reports it (``launches_sm90_by_kernel`` by entry),
 ``launches_sm90_f32`` (``launches_sm90_f32_by_kernel``) those that ran the
-fp32 Hopper body, ``launches_tf32_prologue`` the launches of its prologue
-(those the C entries report queuing, one with each of those, and one a
+fp32 Hopper body, ``launches_sm90_f32_wide`` those of K3 that ran its wide
+form, ``launches_tf32_prologue`` the launches of their prologue (those the
+C entries report queuing, one with each of those, and one a
 :func:`tf32_prologue` call), and
 ``launches_wide`` those of K3 that ran the wide body. The shards of a
 device mesh launch from threads of their own, so every count is updated
@@ -102,15 +110,16 @@ launches_sm90 = 0       # launches of any entry that ran the Hopper body
 launches_sm90_by_kernel: dict = {}  # the same, by entry ("attention_fat", ...)
 launches_sm90_f32 = 0   # launches of any entry that ran the fp32 Hopper body
 launches_sm90_f32_by_kernel: dict = {}  # the same, by entry
-launches_tf32_prologue = 0  # launches of that body's prologue (csrc tf32::split_kv)
+launches_sm90_f32_wide = 0  # K3's launches that ran its wide form (d 132-256)
+launches_tf32_prologue = 0  # launches of those bodies' prologue (csrc tf32::split_kv)
 launches_wide = 0       # K3's launches that ran the wide body (d > 256)
 _count_lock = threading.Lock()  # shard threads launch concurrently
 
 _SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
                    "attention_headmajor": (64, 128, 192, 256)}
-_SM90_F32_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
-                       "attention_headmajor": (64, 128)}
-_BODIES = {0: "common", 1: "sm90", 2: "wide", 3: "sm90_f32"}  # the C entries' *body codes
+_SM90_F32_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,)}  # K3: tf32_width
+TF32_BODIES = ("sm90_f32", "sm90_f32_wide")
+_BODIES = {0: "common", 1: "sm90", 2: "wide", 3: "sm90_f32", 4: "sm90_f32_wide"}  # *body codes
 # The fp32 Hopper body's key tile (csrc/attention_sm90_tf32.cuh, kKeys):
 # its scratch holds n_valid keys rounded up to it (tf32_scratch_keys).
 TF32_KEY_TILE = 32
@@ -120,19 +129,29 @@ TF32_KEY_TILE = 32
 TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
+def tf32_width(d: int) -> int:
+    """The width an fp32 Hopper body runs a head of d <= 256 at, its maps at
+    d: the next of 64 and 128 ("sm90_f32") and 192 and 256 ("sm90_f32_wide")."""
+    return next(w for w in (64, 128, 192, 256) if w >= d)
+
+
 def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     """The body entry ``kernel`` (``attention_fat``, ``attention_packed`` or
     ``attention_headmajor``) runs for ``dtype`` and ``head_dim``: "sm90" (the
     Hopper body, bfloat16 at the head dims it is built for), "sm90_f32" (its
-    fp32 counterpart, float32 at 64 and, in K3, 128), "wide" (K3's heads
-    above 256, both dtypes) or "common". The C entries route by the same
-    rule and report the body they ran."""
+    fp32 counterpart: float32 at 64, and in K3 at every multiple of 4 up to
+    128), "sm90_f32_wide" (its wide form: float32 in K3
+    at every multiple of 4 from 132 to 256), "wide" (K3's heads above 256,
+    both dtypes) or "common". The C entries route by the same rule and
+    report the body they ran."""
     if kernel == "attention_headmajor" and head_dim > 256:
         return "wide"
     if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS.get(kernel, ()):
         return "sm90"
     if dtype == torch.float32 and head_dim in _SM90_F32_HEAD_DIMS.get(kernel, ()):
         return "sm90_f32"
+    if kernel == "attention_headmajor" and dtype == torch.float32 and head_dim % 4 == 0:
+        return "sm90_f32" if head_dim <= 128 else "sm90_f32_wide"
     return "common"
 
 
@@ -201,30 +220,34 @@ def tf32_prologue_reference(
     n_valid: Optional[int] = None,
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the fp32 Hopper body's prologue on
-    head-major (B, H, N, d) fp32 k and v: a (4, B, H, n_keys, d) fp32 tensor
-    (n_keys = :func:`tf32_scratch_keys`), its planes K_hi, K_lo (k roped with
-    the tables, then split: :func:`tf32_split`) and V^T_hi, V^T_lo, each of
-    those two laid out (B, H, d, n_keys): v transposed, the keys of each
-    group of 8 in TF32_KEY_ORDER, then split. Keys at or beyond ``n_valid``
+    """Plain PyTorch version of the fp32 Hopper bodies' prologue on
+    head-major (B, H, N, d) fp32 k and v, at the ``width`` >= d the body
+    runs at (d by default): a (4, B, H, n_keys, width) fp32 tensor (n_keys =
+    :func:`tf32_scratch_keys`), its planes K_hi, K_lo (k roped with the
+    (N, d) tables, rotate-half at d, then split: :func:`tf32_split`) and
+    V^T_hi, V^T_lo, each of those two laid out (B, H, width, n_keys): v
+    transposed, the keys of each group of 8 in TF32_KEY_ORDER, then split.
+    Keys at or beyond ``n_valid`` and columns (V^T rows) from d to ``width``
     are zeros in every plane. The kernel writes the same bits."""
     B, H, N, d = k.shape
+    w = d if width is None else width
     nv = N if n_valid is None else n_valid
     n_keys = tf32_scratch_keys(nv)
     kh = k[:, :, :nv].float()
     if rope_cos is not None:
         cos, sin = rope_cos[:nv].float(), rope_sin[:nv].float()
         kh = kh * cos + rotate_half(kh) * sin
-    out = torch.zeros(4, B, H, n_keys, d, dtype=torch.float32, device=k.device)
-    out[0, :, :, :nv], out[1, :, :, :nv] = tf32_split(kh)
-    vz = torch.zeros(B, H, n_keys, d, dtype=torch.float32, device=v.device)
-    vz[:, :, :nv] = v[:, :, :nv]
+    out = torch.zeros(4, B, H, n_keys, w, dtype=torch.float32, device=k.device)
+    out[0, :, :, :nv, :d], out[1, :, :, :nv, :d] = tf32_split(kh)
+    vz = torch.zeros(B, H, n_keys, w, dtype=torch.float32, device=v.device)
+    vz[:, :, :nv, :d] = v[:, :, :nv]
     order = torch.tensor([8 * (i // 8) + TF32_KEY_ORDER[i % 8] for i in range(n_keys)],
                          device=v.device)
     hi, lo = tf32_split(vz[:, :, order].transpose(-1, -2))
-    out[2].view(B, H, d, n_keys).copy_(hi)
-    out[3].view(B, H, d, n_keys).copy_(lo)
+    out[2].view(B, H, w, n_keys).copy_(hi)
+    out[3].view(B, H, w, n_keys).copy_(lo)
     return out
 
 
@@ -415,14 +438,15 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, width=None
         # Roped keys (the Hopper body), and roped queries too where the
         # kernel cannot rope them itself (the wide body, a padded width),
         # laid out as the output is: dense, without a fused buffer's holes.
-        # The fp32 Hopper body's prologue writes K and V split (and K roped)
-        # into its own scratch, with tables or without.
+        # The fp32 Hopper bodies' prologue writes K and V split (and K roped)
+        # into its own scratch, at the width they run at, with tables or
+        # without.
         q_scratch = k_scratch = None
         if cos is not None and want in ("sm90", "wide"):
             k_scratch = _dense_like(q)
             if want == "wide" or width != d:
                 q_scratch = _dense_like(q)
-        if want == "sm90_f32":
+        if want in TF32_BODIES:
             k_scratch = torch.empty(4 * B * H * tf32_scratch_keys(nv) * width,
                                     dtype=torch.float32, device=q.device)
         err = _kernel(name)(
@@ -445,7 +469,7 @@ def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
     the ``prologues`` launches of the fp32 body's prologue its C entry
     reported queuing, in the module's counters."""
     global launches, launches_packed, launches_headmajor, launches_sm90, launches_wide
-    global launches_sm90_f32, launches_tf32_prologue
+    global launches_sm90_f32, launches_sm90_f32_wide, launches_tf32_prologue
     with _count_lock:
         if name == "attention_fat":
             launches += 1
@@ -460,6 +484,8 @@ def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
         elif body == "sm90_f32":
             launches_sm90_f32 += 1
             launches_sm90_f32_by_kernel[name] = launches_sm90_f32_by_kernel.get(name, 0) + 1
+        elif body == "sm90_f32_wide":
+            launches_sm90_f32_wide += 1
         elif body == "wide":
             launches_wide += 1
         launches_tf32_prologue += prologues
@@ -538,7 +564,7 @@ def fused_attention_packed(
 @functools.lru_cache(maxsize=None)
 def _prologue_kernel():
     """``cbas_attention_tf32_prologue`` of ``csrc/attention_headmajor.cu``:
-    the fp32 Hopper body's prologue alone."""
+    the fp32 Hopper bodies' prologue alone."""
     from cbas_tpu_torch.ops import _cuda
 
     fn = _cuda.load("attention_headmajor").cbas_attention_tf32_prologue
@@ -555,20 +581,21 @@ def tf32_prologue(
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The fp32 Hopper body's prologue alone on head-major (B, H, N, d) fp32
-    k and v (d 64 or 128, any strides the kernels take): the (4, B, H,
-    n_keys, d) scratch that K1-K3's fp32 launches write before their
-    attention kernel. On a CPU tensor, :func:`tf32_prologue_reference`; on
-    a CUDA one, the kernel (``csrc/attention_sm90_tf32.cuh``, split_kv),
-    the same bits, or raise."""
-    if k.dim() != 4 or k.dtype != torch.float32 or k.shape[-1] not in (64, 128):
-        raise ValueError(f"expected head-major fp32 (B, H, N, 64 or 128) k, got "
-                         f"{tuple(k.shape)} {k.dtype}")
+    """The fp32 Hopper bodies' prologue alone on head-major (B, H, N, d) fp32
+    k and v (d a multiple of 4 up to 256, any strides the kernels take): the
+    (4, B, H, n_keys, :func:`tf32_width` (d)) scratch that K1-K3's fp32
+    launches write before their attention kernel. On a CPU tensor,
+    :func:`tf32_prologue_reference`; on a CUDA one, the kernel
+    (``csrc/attention_sm90_tf32.cuh``, split_kv), the same bits, or raise."""
+    if k.dim() != 4 or k.dtype != torch.float32 or k.shape[-1] % 4 or k.shape[-1] > 256:
+        raise ValueError(f"expected head-major fp32 (B, H, N, d) k, d a multiple of 4 up to "
+                         f"256, got {tuple(k.shape)} {k.dtype}")
     B, H, N, d = k.shape
+    width = tf32_width(d)
     nv = _check(k, k, v, N, d, n_valid, rope_cos, rope_sin)
     _check_strides(("k", "k", "v"), k, k, v)
     if k.device.type == "cpu":
-        return tf32_prologue_reference(k, v, nv, rope_cos, rope_sin)
+        return tf32_prologue_reference(k, v, nv, rope_cos, rope_sin, width)
     if k.device.type != "cuda":
         raise ValueError(f"tf32_prologue runs on cpu or cuda, not {k.device}")
     cos = sin = None
@@ -576,7 +603,8 @@ def tf32_prologue(
         cos, sin = (t.to(torch.float32).contiguous() for t in (rope_cos, rope_sin))
     _require_contiguous(rope_cos=cos, rope_sin=sin)
     with torch.cuda.device(k.device):
-        out = torch.empty(4, B, H, tf32_scratch_keys(nv), d, dtype=torch.float32, device=k.device)
+        out = torch.empty(4, B, H, tf32_scratch_keys(nv), width, dtype=torch.float32,
+                          device=k.device)
         err = _prologue_kernel()(
             k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in (cos, sin)),
@@ -598,6 +626,31 @@ def padded_head_dim(d: int) -> int:
         if width >= d:
             return width
     return d
+
+
+def headmajor_in_place(dtype: torch.dtype, d: int, rope: bool = False) -> bool:
+    """Whether K3 reads a d-wide head where it lies on the card (no pad
+    copy): at a built width, above 256, in bf16 at a multiple of 8 and in
+    fp32 wherever an fp32 Hopper body takes d (maps at d); never an odd d
+    with RoPE tables."""
+    if rope and d % 2:
+        return False
+    if d > 256 or d in HEADMAJOR_HEAD_DIMS:
+        return True
+    if dtype == torch.float32:
+        return attention_body("attention_headmajor", dtype, d) in TF32_BODIES
+    return d % 8 == 0
+
+
+def headmajor_width(dtype: torch.dtype, d: int) -> int:
+    """The width K3's kernel runs a d-wide head at (the key of
+    ``launches_headmajor_by_dim``): on an fp32 Hopper body
+    :func:`tf32_width`, else the next built width (:func:`padded_head_dim`);
+    for a head copied first, that of the width it is padded to."""
+    w = d if headmajor_in_place(dtype, d) else padded_head_dim(d)
+    if attention_body("attention_headmajor", dtype, w) in TF32_BODIES:
+        return tf32_width(w)
+    return padded_head_dim(w)
 
 
 def pad_head_dim(t: torch.Tensor, width: int, halves: bool) -> torch.Tensor:
@@ -648,11 +701,13 @@ def fused_attention(
     ``rope_cos``/``rope_sin`` are full-length (N, d) tables. On a CPU tensor
     the plain version runs. On the card the kernel reads q, k and v where
     they lie, and writes the output dense in q's dim order, at every d but
-    three cases below: the widths it is built at (multiples of 8 up to 128,
-    192 and 256), every d above 256 (the wide body), and in bf16 every other
-    multiple of 8 from 136 to 248 (the Hopper body at the next built width,
-    its tensor maps at d, so the columns beyond d read as zeros and no copy
-    pads the head). There q, k and v may be strided views, such as
+    the cases below (:func:`headmajor_in_place`): the widths it is built at
+    (multiples of 8 up to 128, 192 and 256), every d above 256 (the wide
+    body), in bf16 every other multiple of 8 from 136 to 248 (the Hopper
+    body at the next built width) and in fp32 every other multiple of 4 up
+    to 256 (an fp32 Hopper body at :func:`tf32_width`), those two with their
+    tensor maps at d, so the columns beyond d read as zeros and no copy pads
+    the head. There q, k and v may be strided views, such as
     ``t.view(B, N, H, d).transpose(1, 2)`` of a flat (B, N, H*d) column
     block of a fused projection, whose output is then
     ``empty(B, N, H, d).transpose(1, 2)`` and its ``transpose(1,
@@ -666,11 +721,11 @@ def fused_attention(
     Three cases still copy first, take any strides and return contiguous
     tensors:
 
-    - fp32 at a width up to 256 that is not built, and bf16 at one that is
-      not a multiple of 8 (its rows are not 16-byte multiples, which a
-      tensor map refuses): q, k and v (and the tables, half by half, with
-      RoPE) zero-padded to the next built width (:func:`pad_head_dim`), the
-      output sliced back, ``scale`` unchanged;
+    - fp32 at a width up to 256 that is not a multiple of 4, and bf16 at
+      one that is not a multiple of 8 (its rows are not 16-byte multiples,
+      which a tensor map refuses): q, k and v (and the tables, half by
+      half, with RoPE) zero-padded to the next built width
+      (:func:`pad_head_dim`), the output sliced back, ``scale`` unchanged;
     - an odd d with tables: q and k roped here (:func:`_rope_heads`, the
       scale folded into q) and the kernel run without tables at scale 1:
       rotate-half pairs element i of an odd head with element i + d // 2 for
@@ -680,10 +735,7 @@ def fused_attention(
         raise ValueError(f"expected head-major (B, H, N, d) tensors, got q of shape {tuple(q.shape)}")
     B, H, N, d = q.shape
     nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
-    width = padded_head_dim(d)
-    odd_rope = rope_cos is not None and d % 2 == 1
-    padded = width != d and not (q.dtype == torch.bfloat16 and d % 8 == 0)
-    in_place = not (odd_rope or padded)
+    in_place = headmajor_in_place(q.dtype, d, rope_cos is not None)
     if in_place:
         _check_strides(("q", "k", "v"), q, k, v, math.gcd(16, d * q.element_size()))
     if q.device.type == "cpu":
@@ -691,8 +743,9 @@ def fused_attention(
         return _in_dense_order(q, out) if in_place else out
     if in_place:
         return _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d,
-                       width)
-    if odd_rope:
+                       headmajor_width(q.dtype, d))
+    width = padded_head_dim(d)
+    if rope_cos is not None and d % 2 == 1:
         q = _rope_heads(q, rope_cos, rope_sin, scale)
         k = _rope_heads(k, rope_cos, rope_sin)
         scale, rope_cos, rope_sin = 1.0, None, None
@@ -703,7 +756,8 @@ def fused_attention(
             rope_cos, rope_sin = (pad_head_dim(t, width, True) for t in (rope_cos, rope_sin))
     q, k, v = (t.contiguous() for t in (q, k, v))
     _require_contiguous(q=q, k=k, v=v)
-    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, width)
+    out = _launch("attention_headmajor", q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, width,
+                  headmajor_width(q.dtype, width))
     return out if width == d else unpad_head_dim(out, d, halves)
 
 

@@ -17,7 +17,8 @@ each:
   of 128 at 32 and 8); and K3 at the widths no preset has: 192
   and 256 (16 heads at ViT-7B's batch), 160 and 200 (run at 192 and
   256) and, in bf16
-  and fp32, 320 and 384 (the wide body);
+  and fp32, 320 and 384 (the wide body); in fp32 also 16, 32, 136, 200
+  and 256 (16 heads, N 261) and 192 and 256 (N 1205);
 - the head-major route's attention at the ViT-7B width (``ROUTE_ROWS``):
   views of flat projections in, K3, the context back as (B, N, H*d), with
   RoPE and without; a checkout whose K3 refuses views copies q, k, v and
@@ -86,7 +87,10 @@ KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
     ("attention_fat", 32, 1205, 12, 64, (30, 40), "float32"),
     ("attention_headmajor", 32, 261, 32, 128, (16, 16), "float32"),
     ("attention_headmajor", 8, 1205, 32, 128, (30, 40), "float32"),
-)
+) + tuple(  # K3 in fp32 at widths no preset has
+    ("attention_headmajor", B, N, 16, d, (16, 16) if N == 261 else (30, 40), "float32")
+    for B, N, d in ((8, 261, 16), (8, 261, 32), (8, 261, 136), (8, 261, 200), (8, 261, 256),
+                    (4, 1205, 192), (4, 1205, 256)))
 # The head-major route's attention at the ViT-7B width, (B, N, H, d, patch
 # grid), bf16: head-major views of flat (B, N, H*d) projections in, K3, the
 # context back as (B, N, H*d). A checkout whose K3 refuses views runs its

@@ -34,7 +34,8 @@ non-zero and prints no final line):
    - K2 (head-pair packed) at its 6 pairs, on contiguous tensors and on
      head-pair views of flat ones (the packed route's operands);
    - K3 (head-major) at 32 heads of 128 (DINOv3 ViT-7B), at 3 heads of 64
-     (an odd head count), at head dims 96 and 40, and at head dims 192 and
+     (an odd head count), at head dims 96 and 40, at the small widths 8,
+     16, 24 and 32 and the odd 13 (padded to 16), and at head dims 192 and
      256, wider than any shipped preset's heads (timed at 16 heads); and on
      head-major views of flat tensors (the head-major route's operands) at
      d 64, 128, 192, 256 and 320, N 261, 329 and 1205 and 272 / 261 and
@@ -53,7 +54,11 @@ non-zero and prints no final line):
    bf16 at head dims 64 and 128 (and K3's 192 and 256) runs the Hopper body
    (``attention_body``), fp32 at 64 and 128 its fp32 counterpart
    (``attention_sm90_tf32.cuh``: 3xTF32 on wgmma, with a prologue that splits
-   K and V), the rest the common body; each case names the
+   K and V; K3's other fp32 multiples of 4 up to 128 too, and its wide form
+   ``attention_sm90_tf32_wide.cuh`` from 132 to 256), K3's other bf16 widths
+   up to 128 the common body; each case checks that the call launched its
+   entry once and, but on the common body, counted the launch under the body
+   it names, and names the
    registers and spills of the kernel it ran (``-Xptxas -v``). At the main
    shapes (K2: on both inputs) each
    kernel is timed with RoPE and without, beside its plain version, its
@@ -207,18 +212,20 @@ non-zero and prints no final line):
    0.5), where h5py, pandas, OpenCV, matplotlib and scikit-learn import,
    else a line naming what is missing;
 10. tools: ``tools/validate_kernels.py`` on the card at its geometries plus
-    (2, 32, 261, 128) with RoPE (K1, K2 and K3 in fp32 against an fp64
-    oracle, each through the fp32 Hopper body, then K3 in bf16 at d = 128
+    TOOLS_FP32_GEOMETRIES (K3 at d 192, 256 and 200) and (2, 32, 261, 128)
+    with RoPE (K1, K2 and K3 in fp32 against an fp64 oracle, each through
+    the fp32 Hopper body or its wide form, then K3 in bf16 at d = 128
     through the Hopper body against
     unfused bf16, and the LayerNorm kernel in bf16 on outlier rows,
     single-pass against two-pass and two-pass against float64), each error
     beside its tolerance and each kernel's launches by body; K3 at head dims it is not built at
-    (100, zero-padded to 104; 136, 160, 200 and 248, run at 192 or 256
-    with no copy in bf16 and zero-padded in fp32), bf16 and fp32, RoPE on
-    and off, against the plain version at d, timed beside the built width
-    and SDPA at d, with K3's launches and the CUDA kernels of one call (a
-    profiler trace: bf16 at a multiple of 8 runs one kernel, two with
-    RoPE); ``models/vit.py::cls_attention_map`` at dinov3-vitb16 (full
+    (100, zero-padded to 104 in bf16 and run at 128 in fp32; 136, 160, 200
+    and 248, run at 192 or 256; all with no copy but bf16 at 100), bf16 and
+    fp32, RoPE on and off, and in fp32 (8, 261, 16, 192 / 256) and (4, 1205,
+    16, 192 / 256), against the plain version at d, timed beside the built
+    width and SDPA at d, with K3's and its body's launches, the CUDA kernels
+    of one call (a profiler trace: bf16 at a multiple of 8 runs one kernel,
+    two with RoPE; fp32 two, the prologue and K3) and the SM clock; ``models/vit.py::cls_attention_map`` at dinov3-vitb16 (full
     width and depth, q/k weights x4 so the map is far from uniform) on 8
     frames of 256x256 in bf16, 11 K1 launches a call through the Hopper
     body, against the CPU fp32 run; and, where h5py, pandas, OpenCV and
@@ -247,7 +254,10 @@ non-zero and prints no final line):
     256x256 in bf16 each: K3 once a forward through the Hopper body at 192
     and 256 and the wide body at 320 (the counts set to 0 before each run
     and read after it), embeddings against the CPU fp32 run; then K3 alone
-    at the shape each encode gave it, against its plain version and timed.
+    at the shape each encode gave it, against its plain version and timed;
+    at 192 and 256 the encoder again in fp32 on 2 frames, K3 through the
+    fp32 Hopper body's wide form, embeddings within 1 fp16 ulp + 1e-4 of
+    the CPU fp32 run, and K3 alone in fp32 at that shape.
 
 The line before the last lists each kernel with its launches on its route,
 error, times, bound, registers and the library call's time (K2 and K3 on
@@ -263,7 +273,9 @@ phase 12's kernel case at d 320, then the fp32 Hopper body
 (``attention_sm90_tf32``) with its launches on the fp32 forwards, its
 numbers at K1's 256x256 shape and every fp32 main-shape case,
 and its prologue (``split_kv``) with its launches and the tf32 phase's
-numbers, and the LayerNorm kernel (``layernorm``,
+numbers, then its wide form (``attention_sm90_tf32_wide``) with its
+launches over phase 12's fp32 encodes, its numbers at phase 12's fp32 case
+at d 256 and phase 10's fp32 cases on it, and the LayerNorm kernel (``layernorm``,
 replacing ``benchmarks/attn_probes/probe25_ln_256.py:51``) with its
 launches on every route, its numbers at (33408, 768) and its other timed
 cases, and the memory floor (``memory_floor``, replacing probe14's and
@@ -333,6 +345,7 @@ WIDE_HEAD_DIMS, WIDE_HEADS = (192, 256), 16
 # such heads: this drives K3's Hopper body at 192 and 256 and its wide body
 # through FrameEncoder as a checkpoint of that shape would.
 WIDE_ENCODER_HEAD_DIMS, WIDE_ENCODER_HEADS, WIDE_ENCODER_DEPTH = (192, 256, 320), 8, 2
+WIDE_ENCODER_FP32_HEAD_DIMS = (192, 256)  # also run in fp32: the fp32 Hopper body's wide form
 WIDE_ENCODER_FRAMES = 32
 # K1, K2 and K3 on views of one fused (B, N, 3*H*d) q|k|v projection, the
 # operands every encode route hands them since the projection is one GEMM,
@@ -447,7 +460,7 @@ def floor_rows() -> tuple:
     rows = [(f"attention {B}x{N}x{H}x{d}", (B * N, H * d), dt) for B, N, H, d in attention
             for dt in ("bfloat16", "float32")]
     others = [(BATCH_7B_256, 261, WIDE_HEADS, d) for d in WIDE_HEAD_DIMS]
-    others += [(B, N, H, d) for B, N, H, d in PADDED_CASES + WIDE_ODD_CASES]
+    others += [(B, N, H, d) for B, N, H, d in PADDED_CASES + TF32_WIDE_CASES + WIDE_ODD_CASES]
     others += [(WIDE_ENCODER_FRAMES, 261, WIDE_ENCODER_HEADS, max(WIDE_ENCODER_HEAD_DIMS))]
     rows += [(f"attention {B}x{N}x{H}x{d}", (B * N, H * d), dt) for B, N, H, d in others
              for dt in ("bfloat16", "float32")]
@@ -639,12 +652,12 @@ def kernel_label(mangled: str) -> str:
         name = pvt_label(("std", "rounded", "vext")[int(p.group(1))], p.group(2) == "1")
     if "rope_k_rows" in mangled:  # its RoPE prologue
         name = "rope_k_rows"
-    f = re.search(r"attention_tf32ILi(\d+)ELi(\d+)E", mangled)
-    if f:  # the fp32 Hopper body: head dim, map rank
-        name = f"tf32<{f.group(1)}, {f.group(2)}>"
-    f = re.search(r"split_kvILi(\d+)E", mangled)
-    if f:  # its prologue: head dim
-        name = f"split_kv<{f.group(1)}>"
+    f = re.search(r"attention_tf32(_wide)?ILi(\d+)ELi(\d+)E", mangled)
+    if f:  # the fp32 Hopper body or its wide form: head dim, map rank
+        name = f"tf32{f.group(1) or ''}<{f.group(2)}, {f.group(3)}>"
+    f = re.search(r"split_kvILi(\d+)E(?:Li(\d)E)?", mangled)
+    if f:  # their prologue: head dim (and the columns a thread takes)
+        name = f"split_kv<{f.group(1)}{', ' + f.group(2) if f.group(2) else ''}>"
     if "relayout_kt" in mangled:
         name = "relayout_kt"
     r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", mangled)
@@ -678,20 +691,21 @@ def ptxas_report(log: str) -> list:
 
 def kernel_ptxas(fa, kernel, dtype, d) -> str:
     """Registers and spills of the kernel ``kernel`` runs at head dim ``d``
-    (K3: the width it pads to) in ``dtype``, from PTXAS (the fp32 Hopper
-    body's with its prologue's)."""
-    width = fa.padded_head_dim(d) if kernel == "attention_headmajor" else d
+    (K3: the width it runs at, ``headmajor_width``) in ``dtype``, from
+    PTXAS (the fp32 Hopper bodies' with their prologue's)."""
+    width = fa.headmajor_width(dtype, d) if kernel == "attention_headmajor" else d
     bf16 = str(dtype) == "torch.bfloat16"
     wide_bf16 = f"wide_bf16<{'resident' if d <= 1024 else 'streamed'} Q>"
     body = fa.attention_body(kernel, dtype, width)
+    tf32 = body in fa.TF32_BODIES
     prefix = {"sm90": f"sm90<{width}, ", "wide": wide_bf16 if bf16 else "wide_f32",
-              "sm90_f32": f"tf32<{width}, ",
-              "common": f"{'bf16' if bf16 else 'f32'}<{width}>"}[body]
-    found = [f"{k}: {v}" if body == "sm90_f32" else v
+              "sm90_f32": f"tf32<{width}, ", "sm90_f32_wide": f"tf32_wide<{width}, ",
+              "common": f"bf16<{width}>"}[body]
+    found = [f"{k}: {v}" if tf32 else v
              for k, v in PTXAS.get(kernel, {}).items() if k.startswith(prefix)]
-    if body == "sm90_f32":
+    if tf32:
         found = ["; ".join(found + [f"{k}: {v}" for k, v in PTXAS.get(kernel, {}).items()
-                                    if k == f"split_kv<{width}>"])]
+                                    if re.match(rf"split_kv<{width}[,>]", k)])]
     return found[0] if found and found[0] else "not in the build log"
 
 
@@ -920,6 +934,15 @@ def floor_chain(torch, device="cuda") -> dict:
     return out
 
 
+def entry_and_body_launches(fa) -> dict:
+    """The launch counts of each entry and of each body but the common one
+    (which has no counter of its own), by name."""
+    return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
+            "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
+            "sm90_f32": fa.launches_sm90_f32, "sm90_f32_wide": fa.launches_sm90_f32_wide,
+            "wide": fa.launches_wide}
+
+
 def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=None,
                 time_it=True, view=False, tables=None):
     """One fused-attention case on the card against its plain version, in
@@ -959,7 +982,12 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
     if rope:
         cos, sin = tables or rope_full(torch, cfg, d, grid, N, "cuda")
     scale = d ** -0.5
+    body = fa.attention_body(
+        kernel, dtype, fa.headmajor_width(dtype, d) if kernel == "attention_headmajor" else d)
+    before = entry_and_body_launches(fa)
     got = wrapper(q, k, v, scale, n_valid, cos, sin)
+    launched = {key: n - before[key] for key, n in entry_and_body_launches(fa).items()}
+    want_launched = {key: int(key in (kernel, body)) for key in launched}
     want = plain(q, k, v, scale, n_valid, cos, sin)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
@@ -971,12 +999,11 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         vmax = float(v[live].float().abs().max())
         tol = dtype_ulp(torch, want.float()) + KERNEL_BF16_VREL * vmax + KERNEL_BF16_FLOOR
         tol_text = f"1 bf16 ulp + 2^-8 max|v| ({KERNEL_BF16_VREL * vmax:.3g}) + {KERNEL_BF16_FLOOR}"
-    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all()) and launched == want_launched
     copies = [t.contiguous() for t in (q, k, v)]
-    # K3 copies and pads the heads it reads at no width of its own (fp32 at an
-    # unbuilt width): its output is then contiguous.
-    padded = kernel == "attention_headmajor" and fa.padded_head_dim(d) != d \
-        and not (dtype == torch.bfloat16 and d % 8 == 0)
+    # K3 copies and pads the heads it reads at no width of its own (fp32 off
+    # the multiples of 4, bf16 off those of 8): its output is then contiguous.
+    padded = kernel == "attention_headmajor" and not fa.headmajor_in_place(dtype, d, rope)
     if view:  # a dense output in q's dim order, the same bits as on contiguous copies
         ok = ok and bool(torch.equal(got, wrapper(*copies, scale, n_valid, cos, sin)))
         ok = ok and (got.is_contiguous() if padded else got.stride() == fa._dense_like(q).stride())
@@ -984,7 +1011,7 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
             flat = got.transpose(1, 2).reshape(B, N, H * d)
             ok = ok and flat.data_ptr() == got.data_ptr() and flat.is_contiguous()
     out = {
-        "phase": "kernel", "name": kernel, "body": fa.attention_body(kernel, dtype, d),
+        "phase": "kernel", "name": kernel, "body": body, "launches": launched,
         "inputs": ("views of one fused (B, N, 3*H*d) projection" if view == "fused"
                    else "views of flat tensors" if view else "contiguous"),
         "B": B, "N": N, "H": H, "head_dim": d,
@@ -1087,6 +1114,19 @@ def kernel_phase(torch, fa, cfg) -> dict:
     for d in (96, 40):  # a half that is no power of two; a dim no multiple of 16
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),), ropes=(True,),
               dead=((4, 272, 261, g256),))
+    # Small widths: fp32 on the fp32 Hopper body at 64, its tensor maps at d
+    # (a 32-column atom wholly beyond d at 8 to 32, RoPE pairing at d/2);
+    # then 13, no multiple of 4, copied and padded to 16 first (roped before
+    # the copy, with tables of random angles: the model's need d % 4 == 0).
+    for d in (8, 16, 24, 32):
+        sweep("attention_headmajor", 4, d, small=((2, 261, g256),), dead=((4, 272, 261, g256),))
+    for B, N, n_valid in ((2, 261, None), (4, 272, 261)):
+        ang = np.random.default_rng(SEED + 13).uniform(-np.pi, np.pi, (N, 13)).astype(np.float32)
+        tables = tuple(torch.from_numpy(f(ang)).to("cuda") for f in (np.cos, np.sin))
+        for dtype in (bf16, f32):
+            for rope in (False, True):
+                results.append(kernel_case(torch, fa, cfg, "attention_headmajor", B, 4, N, 13, g256,
+                                           dtype, rope, n_valid=n_valid, tables=tables))
     for d in (192, 256):  # wider than 128: the Hopper body in bf16
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),),
               dead=((2, 272, 261, g256),))
@@ -2930,6 +2970,7 @@ def reset_launches(fa) -> None:
 
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
     fa.launches_wide = fa.launches_sm90_f32 = fa.launches_tf32_prologue = 0
+    fa.launches_sm90_f32_wide = 0
     fa.launches_headmajor_by_dim.clear()
     fa.launches_sm90_by_kernel.clear()
     fa.launches_sm90_f32_by_kernel.clear()
@@ -2941,8 +2982,9 @@ def reset_launches(fa) -> None:
 def read_launches(fa) -> dict:
     """Launches of each entry, under "sm90" those that ran the Hopper body
     (by entry under "sm90_by_kernel"), under "sm90_f32" those that ran its
-    fp32 counterpart (by entry under "sm90_f32_by_kernel") and under
-    "tf32_prologue" that body's prologue, under "wide" K3's that ran the wide
+    fp32 counterpart (by entry under "sm90_f32_by_kernel"), under
+    "sm90_f32_wide" K3's that ran its wide form, under "tf32_prologue" their
+    prologue, under "wide" K3's that ran the wide
     body, under "headmajor_by_dim" K3's split by the head dim it ran at,
     under "layernorm" the LayerNorm kernel's, and under "projection_gemms"
     the attention's projection GEMMs as ``models/vit.py`` counts them (a
@@ -2953,8 +2995,8 @@ def read_launches(fa) -> dict:
 
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
-            "sm90_f32": fa.launches_sm90_f32, "tf32_prologue": fa.launches_tf32_prologue,
-            "wide": fa.launches_wide,
+            "sm90_f32": fa.launches_sm90_f32, "sm90_f32_wide": fa.launches_sm90_f32_wide,
+            "tf32_prologue": fa.launches_tf32_prologue, "wide": fa.launches_wide,
             "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
             "sm90_f32_by_kernel": dict(fa.launches_sm90_f32_by_kernel),
             "headmajor_by_dim": dict(fa.launches_headmajor_by_dim),
@@ -2989,6 +3031,7 @@ def check_launches(route, got, kernel, per_forward, forwards, sm90, ln_per,
     want[kernel] = per_forward * forwards
     want["sm90"] = want[kernel] if sm90 else 0
     want["sm90_f32"] = want["tf32_prologue"] = want[kernel] if sm90_f32 else 0
+    want["sm90_f32_wide"] = 0
     want[LN_KERNEL] = ln_per * forwards
     want["projection_gemms"] = projections_per_run(
         per_forward * forwards, forwards if cls_blocks is None else cls_blocks)
@@ -3381,7 +3424,8 @@ def main() -> int:
         emit({"phase": "mesh_multi_gpu", "skipped": "one CUDA device visible"})
 
     # 12. K3's Hopper body at 192 and 256 and its wide body through the encoder
-    wide_runs, wide_cases = wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card)
+    wide_runs, wide_cases, wide_runs32, wide_cases32 = wide_heads_phase(
+        torch, fa, FrameEncoder, init_vit_params, card)
 
     route_launches = {
         "attention_fat": flat_launches, "attention_packed": packed_launches,
@@ -3437,6 +3481,7 @@ def main() -> int:
            ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
                            wide_runs),
            *tf32_kernel_entries(main_cases, tf32, fp32_runs, tools_line),
+           tf32_wide_kernel_entry(tools_line, wide_runs32, wide_cases32),
            floor_kernel_entry(floor), variants_kernel_entry(stages),
            *batched_kernel_entries(batched), pvt_kernel_entry(pvt)]})
     emit({"ok": True, "device": {
@@ -3595,11 +3640,15 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
     body at 320; the embeddings against the CPU fp32 run. Then K3 alone at
     the shape that path gives it (the frames as the batch, the encoder's
     heads, tokens and RoPE tables) against its plain version, timed, after
-    the launches are read. Returns ({head dim: launches}, {head dim: that
-    kernel case})."""
+    the launches are read. At WIDE_ENCODER_FP32_HEAD_DIMS the same encoder
+    in fp32 too (``runtime.compute_dtype: float32``): K3 through the fp32
+    Hopper body's wide form, the embeddings within the fp32 encode bound of
+    the CPU run, and K3 alone in fp32 at that shape. Returns ({head dim:
+    launches}, {head dim: that kernel case}, {head dim: the fp32 launches},
+    {head dim: the fp32 kernel case})."""
     planes = np.random.default_rng(SEED + 12).integers(0, 256, (WIDE_ENCODER_FRAMES, 256, 256),
                                                        np.uint8)
-    runs, cases = {}, {}
+    runs, cases, runs32, cases32 = {}, {}, {}, {}
     for d in WIDE_ENCODER_HEAD_DIMS:
         hidden = WIDE_ENCODER_HEADS * d
         with tempfile.TemporaryDirectory() as ckpt:
@@ -3641,8 +3690,12 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
             params = init_vit_params(SEED, enc.cfg)
             del enc
             cpu = FrameEncoder(ckpt, params=params, compute_dtype=torch.float32, device="cpu")
-            cos = row_cosine(emb[:N_CHECK_7B], cpu.encode_planes(planes[:N_CHECK_7B]))
+            ref = cpu.encode_planes(planes[:N_CHECK_7B]).astype(np.float32)
+            cos = row_cosine(emb[:N_CHECK_7B], ref)
             del cpu
+            if d in WIDE_ENCODER_FP32_HEAD_DIMS:
+                runs32[d], cases32[d] = wide_heads_fp32(torch, fa, FrameEncoder, ckpt, params,
+                                                        planes, ref, d, card)
         line = {"phase": "encode_wide_heads", "route": "head-major (K3)", "body": body,
                 "model": f"{WIDE_ENCODER_HEADS} heads x {d} (hidden {hidden}, gated MLP "
                          f"{2 * hidden}), depth {WIDE_ENCODER_DEPTH}, random weights",
@@ -3656,7 +3709,51 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
             raise AssertionError(f"{d}-wide heads: embeddings disagree with the CPU fp32 run")
         runs[d], cases[d] = got, case
         torch.cuda.empty_cache()
-    return runs, cases
+    return runs, cases, runs32, cases32
+
+
+def wide_heads_fp32(torch, fa, FrameEncoder, ckpt, params, planes, ref, d, card) -> tuple:
+    """Phase 12 in fp32 at d: the encoder at ``ckpt`` with ``params`` in
+    fp32 on the card, its counts set to 0 before N_CHECK_7B frames and read
+    after: K3 once a forward, each launch through the fp32 Hopper body's
+    wide form with one launch of its prologue; the embeddings within 1 fp16
+    ulp + 1e-4 of the CPU fp32 run ``ref``. Then K3 alone in fp32 at the
+    shape that path gives it, against its plain version, timed. Returns
+    (launches, that kernel case)."""
+    enc = FrameEncoder(ckpt, params=params, compute_dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches(fa)
+    g32 = enc.encode_planes(planes[:N_CHECK_7B]).astype(np.float32)
+    got = read_launches(fa)
+    body = fa.attention_body("attention_headmajor", torch.float32, d)
+    per = WIDE_ENCODER_DEPTH - 1  # one forward; the CLS-only last block is plain
+    want = {"attention_fat": 0, "attention_packed": 0, "attention_headmajor": per,
+            "sm90": 0, "sm90_f32": 0, "sm90_f32_wide": per, "tf32_prologue": per, "wide": 0,
+            "headmajor_by_dim": {fa.tf32_width(d): per}}
+    if body != "sm90_f32_wide" or {key: got[key] for key in want} != want:
+        raise AssertionError(f"fp32 {d}-wide heads launched {got} on {body}, expected {want}")
+    err = np.abs(g32 - ref)
+    ulp = np.spacing(np.abs(ref).astype(np.float16)).astype(np.float32)
+    grid = (256 // enc.cfg.patch_size,) * 2
+    fps = warm_fps(torch, enc, planes, WIDE_ENCODER_FRAMES, 3)
+    case = kernel_case(torch, fa, enc.cfg, "attention_headmajor", WIDE_ENCODER_FRAMES,
+                       WIDE_ENCODER_HEADS, enc.cfg.num_prefix_tokens + grid[0] * grid[1], d, grid,
+                       torch.float32, True)
+    case["phase"] = "kernel_wide_heads_fp32"
+    emit(case)
+    line = {"phase": "encode_wide_heads_fp32", "route": "head-major (K3)", "body": body,
+            "head_dim": d, "dtype": "float32", "frames": N_CHECK_7B, "launches": got,
+            "expected_launches": want, "fp32_max_abs_err": float(err.max()),
+            "fp32_max_fp16_ulps": float((err / ulp).max()),
+            "fp32_tol": f"{ENCODE_FP32_ULPS} fp16 ulp + {ENCODE_FP32_FLOOR}",
+            "warm_fps_256": fps, "card": card,
+            "ok": bool(np.isfinite(g32).all() and g32.shape == ref.shape
+                       and (err <= ENCODE_FP32_ULPS * ulp + ENCODE_FP32_FLOOR).all())}
+    emit(line)
+    if not line["ok"] or not case["ok"] or case["body"] != body:
+        raise AssertionError(f"fp32 {d}-wide heads disagree: {line}, {case}")
+    del enc
+    return got, case
 
 
 def ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
@@ -3727,6 +3824,36 @@ def wide_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
         "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
         "share_of_bound": main["bound_ms"] / main["ms"],
         "other_cases": cases,
+    }
+
+
+def tf32_wide_kernel_entry(tools_line, runs32, cases32) -> dict:
+    """The ``kernels`` line's entry for the fp32 Hopper body's wide form
+    (``attention_sm90_tf32_wide.cuh``): its launches over phase 12's fp32
+    encodes at 192- and 256-wide heads, its numbers from phase 12's fp32
+    kernel case at 256 (the shape that encode gives it), phase 10's fp32
+    cases on it beside them, and validate_kernels' launches and largest
+    error at TOOLS_FP32_GEOMETRIES."""
+    main = cases32[max(cases32)]
+    if main["body"] != "sm90_f32_wide":
+        raise AssertionError(f"phase 12's fp32 heads ran the {main['body']} body")
+    validate = tools_line["validate_kernels"]
+    return {
+        "name": "attention_sm90_tf32_wide", "route": "cuda",
+        "source": "cbas_tpu_torch/csrc/attention_sm90_tf32_wide.cuh",
+        "replaces": KERNELS["attention_headmajor"], "body": "sm90_f32_wide",
+        "launches": sum(run["sm90_f32_wide"] for run in runs32.values()),
+        "launches_by_head_dim": {d: run["sm90_f32_wide"] for d, run in runs32.items()},
+        "launches_validate_kernels": validate["expected_launches"]["sm90_f32_wide"],
+        **{key: main[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "ms_norope", "gflop", "mbytes", "floor_ms", "ptxas", "share_of_bound")},
+        "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
+        "at_other_shapes": [c for c in tools_line["padded_timings"]
+                            if c["body"] == "sm90_f32_wide"]
+        + [{key: c[key] for key in ("head_dim", "ms", "ms_norope", "max_abs_err", "bound_ms")}
+           for d, c in cases32.items() if c is not main],
+        "validate_kernels_max_f32_err": validate["max_f32_err_wide"],
     }
 
 
@@ -4483,11 +4610,27 @@ def demo_phase(card, device="cuda") -> dict:
 # is given, so this one, DINOv3 ViT-7B's heads, sends K3 in bf16 through the
 # Hopper body.
 TOOLS_EXTRA_GEOMETRY = (2, 32, 261, 128, True)
-# K3 at head dims it is not built at, (B, N, H, d): the card pads 100 to 104
-# (one copy a tensor), and in bf16 runs 136 and 160 at 192 and 200 and 248
-# at 256 with no copy (the tensor maps at d; fp32 still pads them).
+# Before it, fp32 K3 through the fp32 Hopper body's wide form at the widths
+# it is built at and at one it reads on maps at d (200 at 256), each held
+# to fp64 within CARD_TOL_F32.
+TOOLS_FP32_GEOMETRIES = ((2, 8, 261, 192, True), (2, 8, 261, 256, False), (2, 8, 261, 200, True))
+# K3 at head dims it is not built at, (B, N, H, d): in bf16 the card pads
+# 100 to 104 (one copy a tensor) and runs 136 and 160 at 192 and 200 and
+# 248 at 256 with no copy (the tensor maps at d); in fp32 it runs 100 at
+# 128 on the fp32 Hopper body and the rest at 192 and 256 on its wide form,
+# all with no copy.
 PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 136), (8, 261, 16, 160), (8, 261, 16, 200),
                 (8, 261, 16, 248), (4, 1205, 16, 100))
+# fp32 only, beside them: the wide form at the widths it is built at, at
+# N 261 and at 640x480's 1205 tokens.
+TF32_WIDE_CASES = ((8, 261, 16, 192), (8, 261, 16, 256), (4, 1205, 16, 192), (4, 1205, 16, 256))
+
+
+def padded_runs(torch) -> list:
+    """(B, N, H, d, dtype) of phase 10's padded-width cases: PADDED_CASES in
+    bf16 and fp32, then TF32_WIDE_CASES in fp32."""
+    return [(*case, dtype) for case in PADDED_CASES for dtype in (torch.bfloat16, torch.float32)] \
+        + [(*case, torch.float32) for case in TF32_WIDE_CASES]
 # K3 at the head dims it refused on the card before, (B, N, H, d), with RoPE:
 # wider than 256 (the wide body, d at run time) and odd (q and k roped before
 # the launch, then zero-padded). d 320 and 384 take the model's tables at
@@ -4523,7 +4666,7 @@ def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
         "ms", "built_width_ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "floor_ms",
         "gflop", "mbytes", "library_ms", "library", "ptxas", "k3_launches_per_call",
-        "kernels_per_call")} for c in cases]
+        "body_launches_per_call", "kernels_per_call", "gpu_clocks")} for c in cases]
     wide = wide_odd_cases(torch, fa, cfg)
     line["wide_odd_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
@@ -4544,15 +4687,16 @@ def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
 
 def validate_kernels_step(torch, fa, launches) -> dict:
     """``validate_kernels.main`` on the card at its geometries plus
-    TOOLS_EXTRA_GEOMETRY: every check under its tolerance, K1, K2 and K3
-    launched as the geometries say, K3's bf16 check through the Hopper body
-    and every fp32 check (all at head dims 64 and 128) through its fp32
-    counterpart."""
+    TOOLS_FP32_GEOMETRIES and TOOLS_EXTRA_GEOMETRY: every check under its
+    tolerance, K1, K2 and K3 launched as the geometries say, K3's bf16 check
+    through the Hopper body and every fp32 check through the fp32 Hopper
+    body (head dims 64 and 128) or its wide form (192, 200, 256)."""
     import io
 
     from cbas_tpu_torch.tools import validate_kernels
 
-    geometries = list(validate_kernels.GEOMETRIES) + [TOOLS_EXTRA_GEOMETRY]
+    geometries = list(validate_kernels.GEOMETRIES) + list(TOOLS_FP32_GEOMETRIES) \
+        + [TOOLS_EXTRA_GEOMETRY]
     records, printed = [], io.StringIO()
     torch.cuda.synchronize()
     reset_launches(fa)
@@ -4569,19 +4713,26 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     sm90 = int(fa.attention_body("attention_headmajor", torch.bfloat16, last_d) == "sm90")
     fp32 = sum(1 + 5 * (d == 64 and H % 2 == 0) for _, H, _, d, _ in geometries
                if fa.attention_body("attention_headmajor", torch.float32, d) == "sm90_f32")
+    fp32_wide = sum(1 for _, _, _, d, _ in geometries
+                    if fa.attention_body("attention_headmajor", torch.float32, d) == "sm90_f32_wide")
     want = {"attention_fat": 2 * pairs, "attention_packed": 2 * pairs,
             "attention_headmajor": len(geometries) + 1 + pairs, "sm90": sm90,
-            "sm90_f32": fp32, "tf32_prologue": fp32,
+            "sm90_f32": fp32, "sm90_f32_wide": fp32_wide, "tf32_prologue": fp32 + fp32_wide,
             LN_KERNEL: 2}  # its single-pass and two-pass LayerNorm checks
+    wide = {"attention_headmajor": got["sm90_f32_wide"]}
     by_body = {name: {"sm90": got["sm90_by_kernel"].get(name, 0),
                       "sm90_f32": got["sm90_f32_by_kernel"].get(name, 0),
+                      "sm90_f32_wide": wide.get(name, 0),
                       "common": got[name] - got["sm90_by_kernel"].get(name, 0)
-                      - got["sm90_f32_by_kernel"].get(name, 0)}
+                      - got["sm90_f32_by_kernel"].get(name, 0) - wide.get(name, 0)}
                for name in KERNELS}
     out = {"rc": rc, "geometries": geometries, "checks": records, "seconds": seconds,
            "launches_by_body": by_body, "expected_launches": want,
            "tol_f32": validate_kernels.CARD_TOL_F32,
            "max_f32_err": max(r["err"] for r in records if "vs fp64" in r["check"]),
+           "max_f32_err_wide": max(r["err"] for r in records if "vs fp64" in r["check"]
+                                   and any(f" d{d} " in r["check"]
+                                           for _, _, _, d, _ in TOOLS_FP32_GEOMETRIES)),
            "printed": printed.getvalue().splitlines()}
     bad = [r for r in records if not r["ok"]]
     if rc != 0 or bad or not records:
@@ -4592,42 +4743,43 @@ def validate_kernels_step(torch, fa, launches) -> dict:
 
 
 def padded_calls(torch, fa, cfg) -> dict:
-    """``calls_launches`` at each of PADDED_CASES, bf16 and fp32, RoPE off
-    and on, keyed (N, d, dtype, rope). Taken in phase 2: after phases 8 and
-    9 the profiler's traces hold no device events on the card's machine."""
+    """``calls_launches`` at each of :func:`padded_runs`, RoPE off and on,
+    keyed (N, d, dtype, rope). Taken in phase 2: after phases 8 and 9 the
+    profiler's traces hold no device events on the card's machine."""
     return {(N, d, str(dtype), rope): calls_launches(
                 torch, fa, cfg, B, H, N, d, (16, 16) if N == 261 else (30, 40), dtype, rope)
-            for B, N, H, d in PADDED_CASES for dtype in (torch.bfloat16, torch.float32)
-            for rope in (False, True)}
+            for B, N, H, d, dtype in padded_runs(torch) for rope in (False, True)}
 
 
 def padded_cases(torch, fa, cfg, calls) -> list:
-    """K3 at PADDED_CASES' head dims, bf16 and fp32, RoPE off and on: each
-    against the plain version at d, timed beside the kernel at the width it
-    pads to (on tensors already padded) and SDPA at d, with the kernels one
-    call launches (K3's counter, and every CUDA kernel of a profiler trace
-    of one call: ``calls``, from :func:`padded_calls`). bf16 at a multiple
-    of 8 runs with no copy: one kernel a call, two with RoPE (the prologue,
-    then K3)."""
+    """K3 at :func:`padded_runs`' head dims, RoPE off and on: each against
+    the plain version at d, timed beside the kernel at the width it runs at
+    (on tensors padded to it beforehand) and SDPA at d, with the kernels one
+    call launches (K3's counter, the counter of the body it ran, and every
+    CUDA kernel of a profiler trace of one call: ``calls``, from
+    :func:`padded_calls`) and the SM clock. bf16 at a multiple of 8 runs
+    with no copy: one kernel a call, two with RoPE (the prologue, then K3);
+    fp32 at a multiple of 4 too: two, the fp32 bodies' prologue, then K3."""
     cases = []
-    for B, N, H, d in PADDED_CASES:
+    for B, N, H, d, dtype in padded_runs(torch):
         grid = (16, 16) if N == 261 else (30, 40)
-        width = fa.padded_head_dim(d)
-        for dtype in (torch.bfloat16, torch.float32):
-            for rope in (False, True):
-                case = kernel_case(torch, fa, cfg, "attention_headmajor", B, H, N, d, grid,
-                                   dtype, rope)
-                case["body"] = fa.attention_body("attention_headmajor", dtype, width)
-                case["padded_to"] = width
-                case.update(calls[(N, d, str(dtype), rope)])
-                if dtype == torch.bfloat16 and d % 8 == 0:
-                    case["ok"] = case["ok"] and case["kernels_per_call"] == 1 + rope and not any(
+        width = fa.headmajor_width(dtype, d)
+        for rope in (False, True):
+            case = kernel_case(torch, fa, cfg, "attention_headmajor", B, H, N, d, grid, dtype,
+                               rope)
+            case["body"] = fa.attention_body("attention_headmajor", dtype, width)
+            case["padded_to"] = width
+            case.update(calls[(N, d, str(dtype), rope)])
+            if fa.headmajor_in_place(dtype, d, rope):
+                want = 2 if case["body"] in fa.TF32_BODIES else 1 + rope
+                case["ok"] = case["ok"] and case["kernels_per_call"] == want \
+                    and case["body_launches_per_call"] == 1 and not any(
                         COPY_KERNEL.search(name) for name in case["kernel_names"])
-                case["built_width_ms"] = built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype,
-                                                        rope)
-                case["phase"] = "kernel_padded"
-                emit(case)
-                cases.append(case)
+            case["built_width_ms"] = built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype, rope)
+            case["gpu_clocks"] = gpu_clocks()
+            case["phase"] = "kernel_padded"
+            emit(case)
+            cases.append(case)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K3 at padded widths disagrees with its plain version: {bad}")
@@ -4659,24 +4811,29 @@ def wide_odd_cases(torch, fa, cfg) -> list:
 
 
 def calls_launches(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> dict:
-    """K3's launches in one call at d (its counter) and the CUDA kernels the
-    call ran (a profiler trace), by name."""
+    """K3's launches in one call at d (its counter, and the counter of the
+    body it runs there: the Hopper body's, the fp32 bodies', the wide
+    body's, or for the common body K3's own) and the CUDA kernels the call
+    ran (a profiler trace), by name."""
     rng = np.random.default_rng(SEED)
     q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32)).to("cuda", dtype)
                for _ in range(3))
     cos, sin = rope_full(torch, cfg, d, grid, N, "cuda") if rope else (None, None)
-    before = fa.launches_headmajor
+    body = fa.attention_body("attention_headmajor", dtype, fa.headmajor_width(dtype, d))
+    counter = {"common": "attention_headmajor"}.get(body, body)
+    before = read_launches(fa)
     fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin)
-    launches = fa.launches_headmajor - before
+    after = read_launches(fa)
     names = trace_kernels(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin))
-    return {"k3_launches_per_call": launches, "kernels_per_call": len(names),
-            "kernel_names": [name[:120] for name in names]}
+    return {"k3_launches_per_call": after["attention_headmajor"] - before["attention_headmajor"],
+            "body_launches_per_call": after[counter] - before[counter],
+            "kernels_per_call": len(names), "kernel_names": [name[:120] for name in names]}
 
 
 def built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> float:
-    """K3's time at the width ``d`` pads to, on tensors padded beforehand
-    (no pad or slice in the timed call)."""
-    width = fa.padded_head_dim(d)
+    """K3's time at the width it runs ``d`` at, on tensors padded to it
+    beforehand (no pad or slice in the timed call)."""
+    width = fa.headmajor_width(dtype, d)
     rng = np.random.default_rng(SEED)
     q, k, v = (fa.pad_head_dim(torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
                                .to("cuda", dtype), width, rope) for _ in range(3))

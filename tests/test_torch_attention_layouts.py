@@ -248,7 +248,7 @@ def test_wide_and_odd_rope_kernel_matches_plain_on_card(B, H, N, d, n_valid, rop
     if rope:
         ang = np.random.default_rng(52).standard_normal((N, d)).astype(np.float32)
         cos, sin = (torch.from_numpy(f(ang)).to(cuda_device) for f in (np.cos, np.sin))
-    width = fa.padded_head_dim(d)
+    width = fa.headmajor_width(dt, d)
     before = fa.launches_headmajor_by_dim.get(width, 0)
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
     assert fa.launches_headmajor_by_dim[width] == before + 1
@@ -404,10 +404,11 @@ def test_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, cuda
         k[:, :, n_valid:] = float("nan")
         v[:, :, n_valid:] = float("nan")
     cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=28))
-    before = fa.launches_headmajor, fa.launches_headmajor_by_dim.get(d, 0)
+    width = fa.headmajor_width(dt, d)  # fp32 at 40 and 96: the fp32 Hopper body at 64 / 128
+    before = fa.launches_headmajor, fa.launches_headmajor_by_dim.get(width, 0)
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
-    assert (fa.launches_headmajor, fa.launches_headmajor_by_dim[d]) == (before[0] + 1,
-                                                                       before[1] + 1)
+    assert (fa.launches_headmajor, fa.launches_headmajor_by_dim[width]) == (before[0] + 1,
+                                                                           before[1] + 1)
     want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
     assert bool(torch.isfinite(got).all())
@@ -436,7 +437,7 @@ def test_padded_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtyp
     cos = sin = None
     if rope:
         cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=45))
-    width = fa.padded_head_dim(d)
+    width = fa.headmajor_width(dt, d)
     before = fa.launches_headmajor_by_dim.get(width, 0)
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
     assert fa.launches_headmajor_by_dim[width] == before + 1
@@ -453,9 +454,10 @@ def test_padded_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtyp
                                        (1216, 1205)])
 @pytest.mark.parametrize("d", [192, 256, 200, 320, 384, 257, 301, 1040, 1100])
 def test_redesigned_headmajor_bodies_match_plain_on_card(d, N, n_valid, rope, dtype, cuda_device):
-    """K3's Hopper body at d 192 and 256 (200 pads to 256), and its wide
-    body above 256 (257 and 301 odd: staged without the TMA, roped before
-    the launch; 1040 and 1100 wider than a resident Q: Q streamed, 1100
+    """K3's Hopper body at d 192 and 256 (200 runs at 256; in fp32 the fp32
+    Hopper body's wide form), and its wide body above 256 (257 and 301 odd:
+    staged without the TMA, roped before the launch; 1040 and 1100 wider
+    than a resident Q: Q streamed, 1100
     staged without the TMA), against the plain version, NaN in the dead K/V
     rows; the launch counters say which body ran."""
     dt = getattr(torch, dtype)
@@ -468,16 +470,18 @@ def test_redesigned_headmajor_bodies_match_plain_on_card(d, N, n_valid, rope, dt
     if rope:
         ang = np.random.default_rng(54).standard_normal((N, d)).astype(np.float32)
         cos, sin = (torch.from_numpy(f(ang)).to(cuda_device) for f in (np.cos, np.sin))
-    width = fa.padded_head_dim(d)
+    width = fa.headmajor_width(dt, d)
     body = fa.attention_body("attention_headmajor", dt, width)
-    assert body == ("wide" if d > 256 else "sm90" if dt == torch.bfloat16 else "common")
+    assert body == ("wide" if d > 256 else "sm90" if dt == torch.bfloat16 else "sm90_f32_wide")
 
     def counts():
-        return fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90, fa.launches_wide
+        return (fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90, fa.launches_wide,
+                fa.launches_sm90_f32_wide)
 
     before = counts()
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
-    assert counts() == (before[0] + 1, before[1] + (body == "sm90"), before[2] + (body == "wide"))
+    assert counts() == (before[0] + 1, before[1] + (body == "sm90"), before[2] + (body == "wide"),
+                        before[3] + (body == "sm90_f32_wide"))
     want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
     assert got.shape == (B, H, N, d) and bool(torch.isfinite(got).all())
@@ -564,8 +568,8 @@ def test_headmajor_views_equal_contiguous_copies(dtype, rope, n_valid, d):
     """K3 on head-major views of flat tensors gives bit for bit what it gives
     on their contiguous copies, NaN in the dead K/V rows included, and
     returns the views' strides: the head-major route's context goes back to
-    (B, N, H*d) without a copy. (fp32 at 160 and 200 is copied and padded
-    on the card, and so returns a contiguous tensor; at 330 a row is no
+    (B, N, H*d) without a copy. (fp32 at 160 and 200 runs on maps at d
+    since the fp32 Hopper bodies take those widths; at 330 a row is no
     16-byte multiple, so the strides need only be multiples of 4 bytes in
     bf16 and 8 in fp32, what the wide body's staged loads take.)"""
     B, H, N = 2, 3, 70
@@ -577,7 +581,7 @@ def test_headmajor_views_equal_contiguous_copies(dtype, rope, n_valid, d):
     want = fa.fused_attention(*copies, d ** -0.5, n_valid, cos, sin)
     assert want.is_contiguous() and bool(torch.isfinite(got).all())
     assert torch.equal(got, want)
-    if dtype == torch.float32 and fa.padded_head_dim(d) != d:
+    if not fa.headmajor_in_place(dtype, d, rope):
         assert got.is_contiguous()
     else:
         assert got.stride() == views[0].stride()
@@ -639,10 +643,10 @@ def test_headmajor_wrapper_refuses_strides_the_kernel_does_not_take(case, match)
         fa.fused_attention(q, k, v, 0.1)
 
 
-@pytest.mark.parametrize("d,dtype", [(100, torch.bfloat16), (160, torch.float32), (13, torch.float32)])
+@pytest.mark.parametrize("d,dtype", [(100, torch.bfloat16), (162, torch.float32), (13, torch.float32)])
 def test_headmajor_copying_routes_take_any_strides(d, dtype):
     """The widths the card still copies first (bf16 not a multiple of 8, fp32
-    at an unbuilt width, an odd d with tables) take strides the in-place
+    not a multiple of 4, an odd d with tables) take strides the in-place
     rule refuses, here q, k and v with three different ones."""
     B, H, N = 1, 2, 20
     flat, views = _flat_and_heads(B, H, N, d, 39, dtype)
@@ -701,8 +705,8 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
         ("attention_packed", torch.float32, 64, "sm90_f32"),
         ("attention_headmajor", torch.bfloat16, 192, "sm90"),
         ("attention_headmajor", torch.bfloat16, 256, "sm90"),
-        ("attention_headmajor", torch.float32, 192, "common"),
-        ("attention_headmajor", torch.float32, 256, "common"),
+        ("attention_headmajor", torch.float32, 192, "sm90_f32_wide"),
+        ("attention_headmajor", torch.float32, 256, "sm90_f32_wide"),
         ("attention_headmajor", torch.bfloat16, 257, "wide"),
         ("attention_headmajor", torch.bfloat16, 320, "wide"),
         ("attention_headmajor", torch.float32, 320, "wide"),
@@ -719,12 +723,12 @@ def test_attention_body_routing(kernel, dtype, d, body):
     assert fa.attention_body(kernel, dtype, d) == body
 
 
-@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "sm90"), (torch.float32, "common")])
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "sm90"), (torch.float32, "sm90_f32_wide")])
 @pytest.mark.parametrize("d", [136, 160, 184, 192, 200, 232, 248, 256])
 def test_widths_above_128_pad_onto_the_hopper_body_in_bf16(d, dtype, body):
     """A head from 136 to 256 runs at 192 or 256, the Hopper body's widths in
-    bf16 (fp32 stays on the common body there); above 256 the wide body runs
-    at d itself."""
+    bf16 and its fp32 wide form's in fp32; above 256 the wide body runs at d
+    itself."""
     width = fa.padded_head_dim(d)
     assert width == (192 if d <= 192 else 256)
     assert fa.attention_body("attention_headmajor", dtype, width) == body

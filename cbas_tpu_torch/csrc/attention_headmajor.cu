@@ -1,6 +1,6 @@
 // K3: fused attention forward over the head-major (B, H, N, d) layout, for
 // Hopper (sm_90a), built at every multiple of 8 up to 128, and 192 and 256,
-// with a wide body for any d above 256 (d a run-time argument).
+// with a wide body in each dtype for any d above 256 (d a run-time argument).
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention): the JAX package's route for every head dim other
@@ -14,7 +14,7 @@
 //
 // What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
-// cores at N = 1205. Five bodies:
+// cores at N = 1205. Six bodies:
 // - bfloat16 at d = 64, 128, 192 and 256: the Hopper body
 //   (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head);
 //   and bfloat16 at any other d % 8 == 0 from 136 to 248, on the same body
@@ -26,14 +26,17 @@
 // - float32 at every multiple of 4 from 132 to 256: that body's wide form
 //   (attention_sm90_tf32_wide.cuh: two warpgroups, each owning half of d),
 //   at 192 or 256, maps at d;
+// - float32 at any d above 256: its slices body
+//   (attention_sm90_tf32_slices.cuh: the same arithmetic, O in 384-column
+//   slices, d at run time, Q staged without the TMA);
 // - bfloat16 at the other multiples of 8 up to 128: attention_common.cuh's
 //   body (its tiles outgrow static shared memory above d = 64, head dims
 //   that are not a multiple of 16 are zero-filled to one in shared memory,
 //   and those whose half is not a multiple of 8 gather RoPE partners one
 //   element at a time: both cost only such rare widths);
-// - any d above 256, both dtypes: the wide body (attention_wide.cuh: O in
-//   384-column slices, the scores formed once a slice; bf16 on wgmma with
-//   two consumer warpgroups, fp32 on FMAs). It takes d at run time, so it
+// - bfloat16 at any d above 256: the wide body (attention_wide.cuh: O in
+//   384-column slices, the scores formed once a slice, on wgmma with two
+//   consumer warpgroups). It and the slices body take d at run time, so each
 //   adds two kernels to the build, not one per width.
 // Each instantiated width adds to the build, so the wrapper
 // (ops/flash_attention.py::fused_attention) zero-pads, in one copy, a head
@@ -47,7 +50,7 @@
 // scale folded in, one rounding to the input dtype, the plain version's
 // rounding points) and launches this kernel without tables and at scale 1.
 
-#include "attention_sm90_tf32_wide.cuh"
+#include "attention_sm90_tf32_slices.cuh"
 #include "attention_wide.cuh"
 
 namespace {
@@ -73,8 +76,8 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
   }
 }
 
-// float32 on an fp32 Hopper body (sm90_route 3 or 4), at the width
-// tf32_width(d) it is built at, maps at d.
+// float32 on an fp32 Hopper body (sm90_route 3, 4 or 5), at the width
+// tf32_width(d) it is built at, maps at d; above 256 the slices body at d.
 int run_tf32(const void* q, const void* k, const void* v, void* o, const void* cos_t,
              const void* sin_t, void* k_scratch, int B, int N, int H, int d,
              const cbas_attention::Layout& L, const cbas_attention::Layout& Lo, int n_valid,
@@ -94,7 +97,8 @@ int run_tf32(const void* q, const void* k, const void* v, void* o, const void* c
       return static_cast<int>(tf32_wide::launch<256>(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H,
                                                      d, L, Lo, n_valid, scale, stream, prologues));
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tf32_slices::launch(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, d, L,
+                                              Lo, n_valid, scale, stream, prologues));
 }
 
 }  // namespace
@@ -103,18 +107,20 @@ int run_tf32(const void* q, const void* k, const void* v, void* o, const void* c
 // head_dim is d: in bfloat16 a multiple of 8 up to 128, 192 or 256, or any
 // other multiple of 8 from 136 to 248 (the Hopper body at the next built
 // width, maps at d); in float32 any multiple of 4 up to 256 (body 3 at 64
-// or 128, body 4 at 192 or 256, maps at d); or any d above 256 (the wide body, which takes tables only at an even
-// d). batch_stride, group_stride (between heads) and row_stride are q's
-// (k's and v's) element strides, the o_ ones o's (its dims in q's order).
+// or 128, body 4 at 192 or 256, maps at d); or any d above 256 (bf16 the
+// wide body, fp32 body 5; both take tables only at an even d).
+// batch_stride, group_stride (between heads) and row_stride are q's (k's and
+// v's) element strides, the o_ ones o's (its dims in q's order).
 // dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or
 // both null. With tables the bf16 Hopper body needs k_scratch, and at a
 // padded width and in the wide body also q_scratch: buffers laid out like
-// o for the roped keys and queries (null otherwise). In float32 on body 3 or
-// 4, k_scratch is the prologue's scratch, 4 * B * H *
+// o for the roped keys and queries (null otherwise). In float32 (bodies 3,
+// 4 and 5), k_scratch is the prologue's scratch, 4 * B * H *
 // tf32::scratch_keys(n_valid) * tf32_width(d) floats, needed with or
 // without tables. *body is set to the body that ran: 0 the
 // common body, 1 the Hopper body (sm90_route), 2 the wide body, 3 the fp32
-// Hopper body, 4 its wide form (attention_sm90_tf32_wide.cuh); *prologues
+// Hopper body, 4 its wide form (attention_sm90_tf32_wide.cuh), 5 its slices
+// body (attention_sm90_tf32_slices.cuh); *prologues
 // to the fp32 bodies' prologue launches it queued (0 or 1). Returns the
 // CUDA error code of the launch (0 on success).
 extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void* v, void* o,
@@ -130,7 +136,7 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
   const Layout L{batch_stride, group_stride, 1, row_stride};
   const Layout Lo{o_batch_stride, o_group_stride, 1, o_row_stride};
   const int route = sm90_route(dtype, head_dim);
-  if (route == 3 || route == 4) {
+  if (route >= 3) {
     *body = route;
     return run_tf32(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, head_dim, L, Lo, n_valid, scale,
                     stream, prologues);
@@ -161,9 +167,9 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
     default:
       if (head_dim > kMaxHeadDim) {
         *body = 2;
+        if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
         return static_cast<int>(wide::launch(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
-                                             N, H, head_dim, L, Lo, n_valid, scale, dtype,
-                                             stream));
+                                             N, H, head_dim, L, Lo, n_valid, scale, stream));
       }
       if (dtype != 1 || head_dim <= 128 || head_dim % kChunk)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -180,7 +186,8 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
 // C entry of the fp32 Hopper bodies' prologue alone (tf32::split_kv), bound
 // with ctypes: k and v head-major (B, H, N, head_dim) fp32 at the given
 // element strides (batch, head, row; the last dim contiguous), head_dim a
-// multiple of 4 up to 256, split (and roped, with (N, head_dim) fp32 tables)
+// multiple of 4 up to 256 or any above (split_kv_wide), split (and roped,
+// with (N, head_dim) fp32 tables, which need an even head_dim)
 // into `scratch`, 4 * B * H * tf32::scratch_keys(n_valid) *
 // tf32_width(head_dim) floats, as K3's fp32 launches at that width write it
 // before their attention kernel. Returns the CUDA error code of the launch
@@ -205,5 +212,5 @@ extern "C" int cbas_attention_tf32_prologue(const void* k, const void* v, void* 
     case 256:
       return static_cast<int>(tf32::launch_split<256>(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st));
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tf32_slices::launch_split(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st));
 }

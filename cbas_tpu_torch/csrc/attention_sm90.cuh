@@ -189,6 +189,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// A position in a ring walked without a division (the wide bodies'): the
+// stage and the phase of its barriers.
+struct RingCursor {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int stages) {
+    if (++stage == stages) stage = 0, phase ^= 1;
+  }
+};
+
 // --- TMA -------------------------------------------------------------------
 
 // How a tensor map of rank 4 or 5 is addressed: map dimension d + 1 of row
@@ -999,21 +1009,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
 
 // The width an fp32 Hopper body runs a d-wide head at (maps at d): the next
 // of 64 and 128 (attention_sm90_tf32.cuh) and 192 and 256
-// (attention_sm90_tf32_wide.cuh).
-inline int tf32_width(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256; }
+// (attention_sm90_tf32_wide.cuh); above 256 the width of the slices body's
+// scratch (attention_sm90_tf32_slices.cuh), d rounded up to 64.
+inline int tf32_width(int d) {
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : d <= 256 ? 256 : (d + 63) / 64 * 64;
+}
 
 // Which body a (dtype, head dim) takes in every entry: 1 (this file's
 // Hopper body) for bfloat16 at d = 64, 128, 192 and 256 (an entry builds the
 // widths it takes: K1 and K2 only 64); 3 (attention_sm90_tf32.cuh's fp32
-// Hopper body) for float32 at a multiple of 4 up to 128 and 4 (its wide
-// form, attention_sm90_tf32_wide.cuh) at one from 132 to 256; else 0
-// (attention_common.cuh, bfloat16 only). K3's heads above 256 take the wide
-// body (attention_wide.cuh), which attention_headmajor.cu reports as 2.
+// Hopper body) for float32 at a multiple of 4 up to 128, 4 (its wide form,
+// attention_sm90_tf32_wide.cuh) at one from 132 to 256 and 5 (its slices
+// body, attention_sm90_tf32_slices.cuh) at any d above 256; else 0
+// (attention_common.cuh, bfloat16 only). K3's bf16 heads above 256 take the
+// wide body (attention_wide.cuh), which attention_headmajor.cu reports as 2.
 // ops/flash_attention.py::attention_body mirrors it.
 inline int sm90_route(int dtype, int head_dim) {
   if (dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 192 || head_dim == 256))
     return 1;
-  if (dtype == 0 && head_dim > 0 && head_dim % 4 == 0 && head_dim <= 256)
+  if (dtype == 0 && head_dim > 256) return 5;
+  if (dtype == 0 && head_dim > 0 && head_dim % 4 == 0)
     return head_dim > 128 ? 4 : 3;
   return 0;
 }

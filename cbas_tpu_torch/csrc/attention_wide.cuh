@@ -1,25 +1,24 @@
 // K3's wide body: fused attention over head-major (B, H, N, d) heads wider
-// than 256, d a run-time argument, in bfloat16 and float32. Only
-// attention_headmajor.cu includes it.
+// than 256, d a run-time argument, in bfloat16 (float32 at those widths runs
+// attention_sm90_tf32_slices.cuh). Only attention_headmajor.cu includes it.
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention) at d > 256: the same function as the other bodies
 // (optional rotate-half RoPE from (N, d) fp32 tables, the scale on the q
 // side, keys at or beyond n_valid masked by select and their K and V rows
-// read as zeros, an exact fp32 softmax, the output in the input dtype), with
-// the same rounding points: roped and scaled q rounded to the dtype once,
-// roped k once, p before p.V, fp32 row sums.
+// read as zeros, an exact fp32 softmax, the output in bf16), with the same
+// rounding points: roped and scaled q rounded to bf16 once, roped k once, p
+// before p.V, fp32 row sums.
 //
 // What bounds it on this card: the bytes of q, k, v and o at N = 261 and the
-// 4 N^2 d FLOP of q.k^T and p.V at N = 1205 (bf16 on the tensor cores); in
-// fp32 the 67 TFLOP/s of the FMA pipes. What stands in the way: a 64-row
-// tile this wide outgrows one warpgroup's registers (O alone is d / 2 fp32
-// registers a thread) and, in fp32, shared memory. What the design does:
+// 4 N^2 d FLOP of q.k^T and p.V at N = 1205 on the tensor cores. What stands
+// in the way: a 64-row tile this wide outgrows one warpgroup's registers (O
+// alone is d / 2 fp32 registers a thread). What the design does:
 //
 // - O in slices of kSliceAtoms 64-column atoms (W = 384 columns). A block
 //   owns 64 query rows and one slice, so the scores of a (query tile, key
 //   tile) are formed ceil(d / 384) times: once for every d up to 384.
-// - bf16: two consumer warpgroups of 64 query rows, 256 threads. Q is
+// - Two consumer warpgroups of 64 query rows, 256 threads. Q is
 //   loaded once (all of d, resident). Warpgroup w forms the partial q.k^T
 //   over atoms w, w + 2, ... (wgmma m64n64k16, both operands in shared
 //   memory); the two partials meet in shared memory and each warpgroup adds
@@ -57,10 +56,6 @@
 // - Q stays in shared memory up to kMaxAtoms atoms (d = 1024), where Q, the
 //   rings and the partials fill the 227 KB a block may use; a wider head's
 //   Q atoms come through the rings with K's, each once per key tile.
-// - float32 stays on scalar FMAs (it is held to 5e-6 of an fp64 oracle),
-//   256 threads, each owning a 4 x 4 micro-tile of the scores: the same
-//   slices, the scores accumulated over 64-column slices of Q and K staged
-//   through shared memory once per block, then p.V atom by atom of the slice.
 
 #pragma once
 
@@ -71,6 +66,7 @@ namespace wide {
 
 using sm90::kAtom;
 using sm90::kAtomBytes;
+using sm90::RingCursor;
 using sm90::kBlockN;
 using sm90::kWGRows;
 using sm90::kWGThreads;
@@ -87,14 +83,14 @@ constexpr int kThreads = kConsumers * kWGThreads;
 // Stages of a warpgroup's ring, one atom each: 8 hold a key tile ahead at d = 384.
 constexpr int kMaxSlots = 8;
 constexpr int kMinSlots = 4;
-constexpr int kMaxAtoms = 16;  // bf16: Q resident up to d = 1024, streamed above
+constexpr int kMaxAtoms = 16;  // Q resident up to d = 1024, streamed above
 constexpr int kPartialBytes = kWGRows * kBlockN * 4;  // one warpgroup's partial scores
 
 // A warpgroup's full and empty barrier a stage and Q's, and the partials' three.
 constexpr int kBarriers = kConsumers * (2 * kMaxSlots + 1) + 3;
 constexpr size_t kSmemMax = 232448;  // the 227 KB a Hopper block may opt into
 
-// Dynamic shared memory of a bf16 block whose Q is `atoms` atoms and whose
+// Dynamic shared memory of a block whose Q is `atoms` atoms and whose
 // rings have `slots` stages each: 1024 bytes of slack to align the tiles to
 // the swizzle's period, Q, the rings, the two partial score tiles, the
 // barriers.
@@ -122,10 +118,6 @@ __device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16: wgmma, two consumer warpgroups, each feeding its own ring
-// ---------------------------------------------------------------------------
-
 // The atom at columns [col0, col0 + 64) of rows [row0, row0 + 64) of one
 // head, staged by the 128 threads of a warpgroup into shared memory at `dst`
 // in the TMA's 128-byte-swizzled layout, for rows that are not 16-byte
@@ -149,15 +141,6 @@ __device__ __forceinline__ void stage_atom(unsigned char* dst,
     *reinterpret_cast<uint32_t*>(dst + sm90::sw128_offset(r, c) + 2 * (c % kChunk)) = x;
   }
 }
-
-// A position in a ring: the stage and the phase of its barriers.
-struct RingCursor {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next(int stages) {
-    if (++stage == stages) stage = 0, phase ^= 1;
-  }
-};
 
 // One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y, O atoms
 // [6 s, 6 s + 6) of image b, where blockIdx.z = b * n_slices + s. Warps 0-3
@@ -481,172 +464,6 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Threads = 256;  // 16 x 16 threads
-constexpr int kLd = kTile + 1;  // a staged 64-column slice's row: column walks hit distinct banks
-constexpr size_t kF32SmemBytes = 3 * kTile * kLd * sizeof(float);  // Q, K then P, V
-
-// Columns [col0, col0 + 64) of rows [row0, row0 + 64) of one head into shared
-// memory, times `scale`. Rows at or beyond live_rows, and columns at or
-// beyond hd, load as 0.
-__device__ __forceinline__ void load_slice_f32(float* __restrict__ dst,
-                                               const float* __restrict__ head, int row0,
-                                               int live_rows, long long row_stride, int col0,
-                                               int hd, float scale) {
-  for (int i = threadIdx.x; i < kTile * kTile; i += kF32Threads) {
-    const int r = i / kTile;
-    const int c = i % kTile;
-    const int n = row0 + r;
-    float x = 0.f;
-    if (n < live_rows && col0 + c < hd)
-      x = head[static_cast<size_t>(n) * row_stride + col0 + c] * scale;
-    dst[r * kLd + c] = x;
-  }
-}
-
-// The max and the sum of x over the 16 threads of a half-warp.
-__device__ __forceinline__ float reduce16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float reduce16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y, O atoms
-// [6 s, 6 s + 6) of image b, where blockIdx.z = b * n_slices + s. Thread
-// (ty, tx) owns score rows ty + 16 i and key columns tx + 16 j, and output
-// columns 64 a + tx + 16 j of the slice's atom a, so a row's 16 owners sit
-// in one half-warp and reduce with shuffles. q and
-// k lie as Lqk says, v as L, o as Lo.
-__global__ void __launch_bounds__(kF32Threads)
-attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, int N, int hd, int n_slices,
-                   Layout Lqk, Layout L, Layout Lo, int n_valid, float scale) {
-  float* sq = reinterpret_cast<float*>(dynamic_smem());  // a slice of Q, scaled
-  float* sk = sq + kTile * kLd;                          // a slice of K, then P
-  float* sv = sk + kTile * kLd;                          // an atom of the slice of V
-
-  const int atoms = (hd + kAtom - 1) / kAtom;
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z / n_slices;
-  const int atom0 = (blockIdx.z % n_slices) * kSliceAtoms;
-  const int slice_atoms = min(kSliceAtoms, atoms - atom0);
-  auto head_off = [&](const Layout& X) {  // this head's first row (one head a group)
-    return static_cast<size_t>(b) * X.batch_stride + static_cast<size_t>(h) * X.group_stride;
-  };
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  float acc[4][4 * kSliceAtoms], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4 * kSliceAtoms; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_key_tiles = (n_valid + kTile - 1) / kTile;  // tiles past n_valid add zeros
-  for (int kt = 0; kt < n_key_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    float s[4][4] = {};
-    for (int d0 = 0; d0 < hd; d0 += kTile) {
-      __syncthreads();  // every thread is done with the previous slices (and P, V)
-      load_slice_f32(sq, q + head_off(Lqk), q0, N, Lqk.row_stride, d0, hd, scale);
-      load_slice_f32(sk, k + head_off(Lqk), k0, n_valid, Lqk.row_stride, d0, hd, 1.f);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kTile; ++d) {
-        float a[4], bk[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sq[(ty + 16 * i) * kLd + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = sk[(tx + 16 * j) * kLd + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= n_valid) s[i][j] = kMasked;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = reduce16_max(mx);
-      const float alpha = expf(m[i] - mx);  // 0 on the first tile (m = -inf)
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx + 16 * j < n_valid ? expf(s[i][j] - mx) : 0.f;
-        s[i][j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + reduce16_sum(rs);
-      m[i] = mx;
-#pragma unroll
-      for (int j = 0; j < 4 * kSliceAtoms; ++j) acc[i][j] *= alpha;
-    }
-
-    __syncthreads();  // every thread is done reading the K slice: its buffer takes P
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sk[(ty + 16 * i) * kLd + tx + 16 * j] = s[i][j];
-    // p.V, one atom of the slice of V at a time (slice_atoms is the block's).
-#pragma unroll
-    for (int sa = 0; sa < kSliceAtoms; ++sa) {
-      if (sa >= slice_atoms) break;
-      if (sa > 0) __syncthreads();  // every thread is done reading the last atom of V
-      load_slice_f32(sv, v + head_off(L), k0, n_valid, L.row_stride, (atom0 + sa) * kAtom, hd,
-                     1.f);
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < kTile; ++c) {
-        float p[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = sk[(ty + 16 * i) * kLd + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = sv[c * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][4 * sa + j] = fmaf(p[i], w[j], acc[i][4 * sa + j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= N) continue;
-    const float inv = 1.f / l[i];
-    float* row = o + head_off(Lo) + static_cast<size_t>(r) * Lo.row_stride;
-#pragma unroll
-    for (int sa = 0; sa < kSliceAtoms; ++sa) {
-      if (sa >= slice_atoms) break;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = (atom0 + sa) * kAtom + tx + 16 * j;
-        if (col < hd) row[col] = acc[i][4 * sa + j] * inv;
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -654,10 +471,11 @@ attention_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
 // like the output (Lo), by one launch of the shared prologue (rope_rows); q
 // and k then point at the scratch, Lqk becomes Lo and the scale is 1.
 // Returns the launch's CUDA error.
-template <typename T>
-cudaError_t rope_first(const T*& q, const T*& k, void* q_scratch, void* k_scratch,
-                       const float* cos_t, const float* sin_t, int B, int N, int H, int hd,
-                       Layout& Lqk, const Layout& Lo, int n_valid, float& scale, cudaStream_t st) {
+inline cudaError_t rope_first(const __nv_bfloat16*& q, const __nv_bfloat16*& k, void* q_scratch,
+                              void* k_scratch, const float* cos_t, const float* sin_t, int B, int N,
+                              int H, int hd, Layout& Lqk, const Layout& Lo, int n_valid,
+                              float& scale, cudaStream_t st) {
+  using T = __nv_bfloat16;
   if (cos_t == nullptr) return cudaSuccess;
   auto* qs = static_cast<T*>(q_scratch);
   auto* ks = static_cast<T*>(k_scratch);
@@ -668,23 +486,22 @@ cudaError_t rope_first(const T*& q, const T*& k, void* q_scratch, void* k_scratc
   return err;
 }
 
-// Launch the wide body on `stream`: any hd above kMaxHeadDim, head-major
-// heads wherever L puts them (one head a group; contiguous tensors and views
-// of flat or fused projections alike), the output where Lo puts it (dense
-// in L's dim order). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are
-// (N, hd) fp32 tables, which need an even hd and two scratch buffers laid
-// out like the output (roped q, roped k), or both null. Returns the CUDA
-// error of the launches (cudaSuccess when all were queued).
+// Launch the wide body on `stream`: bfloat16 heads of any hd above
+// kMaxHeadDim, head-major wherever L puts them (one head a group; contiguous
+// tensors and views of flat or fused projections alike), the output where Lo
+// puts it (dense in L's dim order). cos_t/sin_t are (N, hd) fp32 tables,
+// which need an even hd and two scratch buffers laid out like the output
+// (roped q, roped k), or both null. Returns the CUDA error of the launches
+// (cudaSuccess when all were queued).
 inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                           const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
                           int hd, const Layout& L, const Layout& Lo, int n_valid, float scale,
-                          int dtype, void* stream) {
+                          void* stream) {
   const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   const int atoms = (hd + kAtom - 1) / kAtom;
   const int n_slices = (atoms + kSliceAtoms - 1) / kSliceAtoms;
-  if (hd <= kMaxHeadDim || (dtype != 0 && dtype != 1) ||
-      (cos_t == nullptr) != (sin_t == nullptr) ||
+  if (hd <= kMaxHeadDim || (cos_t == nullptr) != (sin_t == nullptr) ||
       (cos_t != nullptr && (hd % 2 || q_scratch == nullptr || k_scratch == nullptr)) ||
       L.heads_per_group != 1 || static_cast<long long>(B) * n_slices > 65535)
     return cudaErrorInvalidValue;
@@ -693,25 +510,11 @@ inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, 
   const auto* s = static_cast<const float*>(sin_t);
   const dim3 grid((N + kTile - 1) / kTile, H, B * n_slices);
   Layout Lqk = L;  // where q and k lie: L, or Lo once roped into the scratch
-  cudaError_t err;
-  if (dtype == 0) {
-    const auto* qf = static_cast<const float*>(q);
-    const auto* kf = static_cast<const float*>(k);
-    err = rope_first(qf, kf, q_scratch, k_scratch, c, s, B, N, H, hd, Lqk, Lo, n_valid, scale,
-                     st);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(attention_wide_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kF32SmemBytes));
-    if (err != cudaSuccess) return err;
-    attention_wide_f32<<<grid, kF32Threads, kF32SmemBytes, st>>>(
-        qf, kf, static_cast<const float*>(v), static_cast<float*>(o), N, hd, n_slices, Lqk, L, Lo,
-        n_valid, scale);
-    return cudaGetLastError();
-  }
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  err = rope_first(qb, kb, q_scratch, k_scratch, c, s, B, N, H, hd, Lqk, Lo, n_valid, scale, st);
+  cudaError_t err =
+      rope_first(qb, kb, q_scratch, k_scratch, c, s, B, N, H, hd, Lqk, Lo, n_valid, scale, st);
   if (err != cudaSuccess) return err;
   // The TMA takes rows at 16-byte multiples: d % 8 == 0 (the wrapper checks
   // the strides and base addresses); the warpgroups stage other widths

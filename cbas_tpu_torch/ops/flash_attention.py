@@ -15,7 +15,8 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
   another multiple of 8 up to 256 runs at the next of those, and an fp32
   head of a multiple of 4 up to 256 at the next of 64, 128, 192 and 256
   (:func:`tf32_width`), its tensor maps at d (the columns beyond read as
-  zeros); a head above 256 runs the wide body, which takes d at run time.
+  zeros); a head above 256 runs a body that takes d at run time (the wide
+  body in bf16, the fp32 slices body in fp32).
   The rest is copied first: fp32 and bf16 at a width up to 256 that is no
   multiple of 4 (fp32) or 8 (bf16) run zero-padded to the next built width
   (:func:`pad_head_dim`), and an odd d with RoPE tables is roped here and
@@ -46,7 +47,7 @@ of the Hopper and wide bodies lies as the output does.
 - On a CPU tensor it runs its plain PyTorch version
   (``attention_{fat,packed,headmajor}_reference``).
 
-Five bodies serve the three entries (:func:`attention_body`):
+Six bodies serve the three entries (:func:`attention_body`):
 
 - "sm90": bfloat16 at head dims 64 (K1, K2, K3), 128, 192 and 256 (K3) takes
   the Hopper body (``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once
@@ -62,9 +63,14 @@ Five bodies serve the three entries (:func:`attention_body`):
   192 or 256, maps at d) takes its wide form
   (``csrc/attention_sm90_tf32_wide.cuh``: the same arithmetic and prologue,
   two consumer warpgroups, each owning half of d, Q split in registers);
-- "wide": K3's heads above 256, both dtypes, take the wide body
+- "sm90_f32_slices": float32 in K3 at any d above 256 takes its slices body
+  (``csrc/attention_sm90_tf32_slices.cuh``: the same arithmetic, O in
+  384-column slices, two consumer warpgroups each forming q.k^T over half
+  of d's atoms, Q staged without the TMA, the prologue at d rounded up to
+  64);
+- "wide": K3's bf16 heads above 256 take the wide body
   (``csrc/attention_wide.cuh``: O in 384-column slices, the scores formed
-  once a slice; bf16 on wgmma with two consumer warpgroups, fp32 on FMAs);
+  once a slice, on wgmma with two consumer warpgroups);
 - "common": K3's other bf16 head dims (up to 128) take
   ``csrc/attention_common.cuh``'s (bf16 only).
 
@@ -76,7 +82,8 @@ head dim the kernel ran at (the built width, for a head it runs padded),
 C entry reports it (``launches_sm90_by_kernel`` by entry),
 ``launches_sm90_f32`` (``launches_sm90_f32_by_kernel``) those that ran the
 fp32 Hopper body, ``launches_sm90_f32_wide`` those of K3 that ran its wide
-form, ``launches_tf32_prologue`` the launches of their prologue (those the
+form, ``launches_sm90_f32_slices`` those that ran its slices body,
+``launches_tf32_prologue`` the launches of their prologue (those the
 C entries report queuing, one with each of those, and one a
 :func:`tf32_prologue` call), and
 ``launches_wide`` those of K3 that ran the wide body. The shards of a
@@ -111,15 +118,17 @@ launches_sm90_by_kernel: dict = {}  # the same, by entry ("attention_fat", ...)
 launches_sm90_f32 = 0   # launches of any entry that ran the fp32 Hopper body
 launches_sm90_f32_by_kernel: dict = {}  # the same, by entry
 launches_sm90_f32_wide = 0  # K3's launches that ran its wide form (d 132-256)
-launches_tf32_prologue = 0  # launches of those bodies' prologue (csrc tf32::split_kv)
-launches_wide = 0       # K3's launches that ran the wide body (d > 256)
+launches_sm90_f32_slices = 0  # K3's launches that ran its slices body (fp32, d > 256)
+launches_tf32_prologue = 0  # launches of those bodies' prologue (csrc split_kv, split_kv_wide)
+launches_wide = 0       # K3's launches that ran the wide body (bf16, d > 256)
 _count_lock = threading.Lock()  # shard threads launch concurrently
 
 _SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
                    "attention_headmajor": (64, 128, 192, 256)}
 _SM90_F32_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,)}  # K3: tf32_width
-TF32_BODIES = ("sm90_f32", "sm90_f32_wide")
-_BODIES = {0: "common", 1: "sm90", 2: "wide", 3: "sm90_f32", 4: "sm90_f32_wide"}  # *body codes
+TF32_BODIES = ("sm90_f32", "sm90_f32_wide", "sm90_f32_slices")
+_BODIES = {0: "common", 1: "sm90", 2: "wide", 3: "sm90_f32", 4: "sm90_f32_wide",
+           5: "sm90_f32_slices"}  # *body codes
 # The fp32 Hopper body's key tile (csrc/attention_sm90_tf32.cuh, kKeys):
 # its scratch holds n_valid keys rounded up to it (tf32_scratch_keys).
 TF32_KEY_TILE = 32
@@ -127,11 +136,18 @@ TF32_KEY_TILE = 32
 # p holds key TF32_KEY_ORDER[p], so that P's accumulator registers are p.V's
 # A fragments as they stand.
 TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+# O's columns a block of the fp32 slices body owns (csrc/
+# attention_sm90_tf32_slices.cuh): the scores are formed once a slice.
+TF32_SLICE_COLS = 384
 
 
 def tf32_width(d: int) -> int:
-    """The width an fp32 Hopper body runs a head of d <= 256 at, its maps at
-    d: the next of 64 and 128 ("sm90_f32") and 192 and 256 ("sm90_f32_wide")."""
+    """The width of an fp32 Hopper body's prologue scratch at head dim d: up
+    to 256 the width the body runs at, its maps at d, the next of 64 and 128
+    ("sm90_f32") and 192 and 256 ("sm90_f32_wide"); above, d rounded up to
+    64 ("sm90_f32_slices", which runs at d itself)."""
+    if d > 256:
+        return -(-d // 64) * 64
     return next(w for w in (64, 128, 192, 256) if w >= d)
 
 
@@ -140,12 +156,12 @@ def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     ``attention_headmajor``) runs for ``dtype`` and ``head_dim``: "sm90" (the
     Hopper body, bfloat16 at the head dims it is built for), "sm90_f32" (its
     fp32 counterpart: float32 at 64, and in K3 at every multiple of 4 up to
-    128), "sm90_f32_wide" (its wide form: float32 in K3
-    at every multiple of 4 from 132 to 256), "wide" (K3's heads above 256,
-    both dtypes) or "common". The C entries route by the same rule and
-    report the body they ran."""
+    128), "sm90_f32_wide" (its wide form: float32 in K3 at every multiple
+    of 4 from 132 to 256), "sm90_f32_slices" (its slices body: float32 in K3
+    at any d above 256), "wide" (K3's bf16 heads above 256) or "common". The
+    C entries route by the same rule and report the body they ran."""
     if kernel == "attention_headmajor" and head_dim > 256:
-        return "wide"
+        return "sm90_f32_slices" if dtype == torch.float32 else "wide"
     if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS.get(kernel, ()):
         return "sm90"
     if dtype == torch.float32 and head_dim in _SM90_F32_HEAD_DIMS.get(kernel, ()):
@@ -447,7 +463,7 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, width=None
             if want == "wide" or width != d:
                 q_scratch = _dense_like(q)
         if want in TF32_BODIES:
-            k_scratch = torch.empty(4 * B * H * tf32_scratch_keys(nv) * width,
+            k_scratch = torch.empty(4 * B * H * tf32_scratch_keys(nv) * tf32_width(width),
                                     dtype=torch.float32, device=q.device)
         err = _kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -469,7 +485,8 @@ def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
     the ``prologues`` launches of the fp32 body's prologue its C entry
     reported queuing, in the module's counters."""
     global launches, launches_packed, launches_headmajor, launches_sm90, launches_wide
-    global launches_sm90_f32, launches_sm90_f32_wide, launches_tf32_prologue
+    global launches_sm90_f32, launches_sm90_f32_wide, launches_sm90_f32_slices
+    global launches_tf32_prologue
     with _count_lock:
         if name == "attention_fat":
             launches += 1
@@ -486,6 +503,8 @@ def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
             launches_sm90_f32_by_kernel[name] = launches_sm90_f32_by_kernel.get(name, 0) + 1
         elif body == "sm90_f32_wide":
             launches_sm90_f32_wide += 1
+        elif body == "sm90_f32_slices":
+            launches_sm90_f32_slices += 1
         elif body == "wide":
             launches_wide += 1
         launches_tf32_prologue += prologues
@@ -582,18 +601,22 @@ def tf32_prologue(
     rope_sin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The fp32 Hopper bodies' prologue alone on head-major (B, H, N, d) fp32
-    k and v (d a multiple of 4 up to 256, any strides the kernels take): the
-    (4, B, H, n_keys, :func:`tf32_width` (d)) scratch that K1-K3's fp32
-    launches write before their attention kernel. On a CPU tensor,
-    :func:`tf32_prologue_reference`; on a CUDA one, the kernel
-    (``csrc/attention_sm90_tf32.cuh``, split_kv), the same bits, or raise."""
-    if k.dim() != 4 or k.dtype != torch.float32 or k.shape[-1] % 4 or k.shape[-1] > 256:
+    k and v (d a multiple of 4 up to 256, or any d above; any strides the
+    kernels take; tables need an even d): the (4, B, H, n_keys,
+    :func:`tf32_width` (d)) scratch that K1-K3's fp32 launches write before
+    their attention kernel. On a CPU tensor, :func:`tf32_prologue_reference`;
+    on a CUDA one, the kernel (``csrc/attention_sm90_tf32.cuh``'s split_kv,
+    above 256 ``attention_sm90_tf32_slices.cuh``'s split_kv_wide), the same
+    bits, or raise."""
+    if k.dim() != 4 or k.dtype != torch.float32 or (k.shape[-1] % 4 and k.shape[-1] <= 256):
         raise ValueError(f"expected head-major fp32 (B, H, N, d) k, d a multiple of 4 up to "
-                         f"256, got {tuple(k.shape)} {k.dtype}")
+                         f"256 or any d above, got {tuple(k.shape)} {k.dtype}")
     B, H, N, d = k.shape
     width = tf32_width(d)
     nv = _check(k, k, v, N, d, n_valid, rope_cos, rope_sin)
-    _check_strides(("k", "k", "v"), k, k, v)
+    if rope_cos is not None and d % 2:
+        raise ValueError(f"RoPE tables need an even head dim, got {d}")
+    _check_strides(("k", "k", "v"), k, k, v, math.gcd(16, d * k.element_size()))
     if k.device.type == "cpu":
         return tf32_prologue_reference(k, v, nv, rope_cos, rope_sin, width)
     if k.device.type != "cuda":
@@ -621,7 +644,8 @@ def tf32_prologue(
 
 def padded_head_dim(d: int) -> int:
     """The width K3 runs a d-wide head at: the smallest built head dim that
-    is at least d, or d itself above 256 (the wide body takes any d)."""
+    is at least d, or d itself above 256 (the wide and slices bodies take
+    any d)."""
     for width in HEADMAJOR_HEAD_DIMS:
         if width >= d:
             return width
@@ -644,11 +668,12 @@ def headmajor_in_place(dtype: torch.dtype, d: int, rope: bool = False) -> bool:
 
 def headmajor_width(dtype: torch.dtype, d: int) -> int:
     """The width K3's kernel runs a d-wide head at (the key of
-    ``launches_headmajor_by_dim``): on an fp32 Hopper body
-    :func:`tf32_width`, else the next built width (:func:`padded_head_dim`);
-    for a head copied first, that of the width it is padded to."""
+    ``launches_headmajor_by_dim``): on an fp32 Hopper body up to 256
+    :func:`tf32_width`, else the next built width (:func:`padded_head_dim`;
+    d itself above 256); for a head copied first, that of the width it is
+    padded to."""
     w = d if headmajor_in_place(dtype, d) else padded_head_dim(d)
-    if attention_body("attention_headmajor", dtype, w) in TF32_BODIES:
+    if w <= 256 and attention_body("attention_headmajor", dtype, w) in TF32_BODIES:
         return tf32_width(w)
     return padded_head_dim(w)
 
@@ -703,7 +728,8 @@ def fused_attention(
     they lie, and writes the output dense in q's dim order, at every d but
     the cases below (:func:`headmajor_in_place`): the widths it is built at
     (multiples of 8 up to 128, 192 and 256), every d above 256 (the wide
-    body), in bf16 every other multiple of 8 from 136 to 248 (the Hopper
+    body in bf16, the fp32 slices body in fp32), in bf16 every other
+    multiple of 8 from 136 to 248 (the Hopper
     body at the next built width) and in fp32 every other multiple of 4 up
     to 256 (an fp32 Hopper body at :func:`tf32_width`), those two with their
     tensor maps at d, so the columns beyond d read as zeros and no copy pads
@@ -714,7 +740,7 @@ def fused_attention(
     2).reshape(B, N, H*d)`` a view: one set of strides for the three, the
     last dim contiguous, the
     other strides multiples of 16 bytes (of the largest power of two up to
-    16 that divides a row's bytes, for the wide body's rows that are not
+    16 that divides a row's bytes, for the rows above 256 that are not
     16-byte multiples), 16-byte aligned base addresses, no overlap (raises
     ``ValueError`` otherwise, on every device).
 

@@ -18,7 +18,9 @@ each:
   and 256 (16 heads at ViT-7B's batch), 160 and 200 (run at 192 and
   256) and, in bf16
   and fp32, 320 and 384 (the wide body); in fp32 also 16, 32, 136, 200
-  and 256 (16 heads, N 261) and 192 and 256 (N 1205);
+  and 256 (16 heads, N 261) and 192 and 256 (N 1205); each fp32 row above
+  256 with the SM clock, power and temperature after its reads
+  (``chip_smoke.gpu_clocks``);
 - the head-major route's attention at the ViT-7B width (``ROUTE_ROWS``):
   views of flat projections in, K3, the context back as (B, N, H*d), with
   RoPE and without; a checkout whose K3 refuses views copies q, k, v and
@@ -240,6 +242,8 @@ def measure(root: str, reads: int) -> dict:
             fp32 = " fp32" if dtype == "float32" else ""
             label = f"{kernel} {B}x{N}x{H}x{d} rope={rope}{fp32} ms"
             out[label] = [chip_smoke.time_ms(torch, fn) for _ in range(reads)]
+            if fp32 and d > 256:  # the SM clock and power right after the reads
+                out[label.replace(" ms", " gpu_clocks")] = chip_smoke.gpu_clocks()
         del q, k, v
     for B, N, H, d, grid in ROUTE_ROWS:
         flat = [torch.from_numpy(rng.standard_normal((B, N, H * d), np.float32))

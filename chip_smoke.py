@@ -54,8 +54,9 @@ non-zero and prints no final line):
    bf16 at head dims 64 and 128 (and K3's 192 and 256) runs the Hopper body
    (``attention_body``), fp32 at 64 and 128 its fp32 counterpart
    (``attention_sm90_tf32.cuh``: 3xTF32 on wgmma, with a prologue that splits
-   K and V; K3's other fp32 multiples of 4 up to 128 too, and its wide form
-   ``attention_sm90_tf32_wide.cuh`` from 132 to 256), K3's other bf16 widths
+   K and V; K3's other fp32 multiples of 4 up to 128 too, its wide form
+   ``attention_sm90_tf32_wide.cuh`` from 132 to 256 and its slices body
+   ``attention_sm90_tf32_slices.cuh`` above 256), K3's other bf16 widths
    up to 128 the common body; each case checks that the call launched its
    entry once and, but on the common body, counted the launch under the body
    it names, and names the
@@ -212,17 +213,19 @@ non-zero and prints no final line):
    0.5), where h5py, pandas, OpenCV, matplotlib and scikit-learn import,
    else a line naming what is missing;
 10. tools: ``tools/validate_kernels.py`` on the card at its geometries plus
-    TOOLS_FP32_GEOMETRIES (K3 at d 192, 256 and 200) and (2, 32, 261, 128)
-    with RoPE (K1, K2 and K3 in fp32 against an fp64 oracle, each through
-    the fp32 Hopper body or its wide form, then K3 in bf16 at d = 128
+    TOOLS_FP32_GEOMETRIES (K3 at d 192, 256, 200, 320 and 384) and (2, 32,
+    261, 128) with RoPE (K1, K2 and K3 in fp32 against an fp64 oracle, each
+    through the fp32 Hopper body, its wide form or, at 320 and 384, its
+    slices body, then K3 in bf16 at d = 128
     through the Hopper body against
     unfused bf16, and the LayerNorm kernel in bf16 on outlier rows,
     single-pass against two-pass and two-pass against float64), each error
     beside its tolerance and each kernel's launches by body; K3 at head dims it is not built at
     (100, zero-padded to 104 in bf16 and run at 128 in fp32; 136, 160, 200
     and 248, run at 192 or 256; all with no copy but bf16 at 100), bf16 and
-    fp32, RoPE on and off, and in fp32 (8, 261, 16, 192 / 256) and (4, 1205,
-    16, 192 / 256), against the plain version at d, timed beside the built
+    fp32, RoPE on and off, and in fp32 (8, 261, 16, 192 / 256), (4, 1205,
+    16, 192 / 256) and (8, 261, 16, 16 / 32), against the plain version at
+    d, timed beside the built
     width and SDPA at d, with K3's and its body's launches, the CUDA kernels
     of one call (a profiler trace: bf16 at a multiple of 8 runs one kernel,
     two with RoPE; fp32 two, the prologue and K3) and the SM clock; ``models/vit.py::cls_attention_map`` at dinov3-vitb16 (full
@@ -234,9 +237,14 @@ non-zero and prints no final line):
     ``tools/soak.py`` with two cameras for half a minute at full size
     (otherwise a ``skipped`` entry names what is missing). Then K3 at the
     head dims it refused on the card before: (8, 261, 16, 320) and (4, 1205,
-    8, 384) on the wide body, (8, 261, 16, 65) with RoPE tables, bf16 and
-    fp32, each against the plain version and timed beside its bound and SDPA;
-    the padded, wide and odd cases name the body they ran and its registers;
+    8, 384) on the wide body in bf16 and the fp32 slices body in fp32, (8,
+    261, 16, 65) with RoPE tables, bf16 and fp32, and in fp32 (2, 272, 4,
+    301) with 261 live keys, NaN in the dead rows (the slices body without
+    the TMA), each against the plain version and timed beside its bound and
+    SDPA, the slices body's cases also with their slices, the FLOP of the
+    scores formed again a slice, and its prologue timed beside its byte
+    bound; the padded, wide and odd cases name the body they ran and its
+    registers;
 11. mesh: the device mesh in one process, one thread a shard, over logical
     shards of cuda:0 (``runtime_mesh()`` is None on one card and is
     printed): dinov3-vitb16 at full width over (data 2, model 2) and (1, 4),
@@ -255,9 +263,10 @@ non-zero and prints no final line):
     and 256 and the wide body at 320 (the counts set to 0 before each run
     and read after it), embeddings against the CPU fp32 run; then K3 alone
     at the shape each encode gave it, against its plain version and timed;
-    at 192 and 256 the encoder again in fp32 on 2 frames, K3 through the
-    fp32 Hopper body's wide form, embeddings within 1 fp16 ulp + 1e-4 of
-    the CPU fp32 run, and K3 alone in fp32 at that shape.
+    at 192, 256 and 320 the encoder again in fp32 on 2 frames, K3 through
+    the fp32 Hopper body's wide form (its slices body at 320) with one
+    launch of their prologue a forward, embeddings within 1 fp16 ulp + 1e-4
+    of the CPU fp32 run, and K3 alone in fp32 at that shape.
 
 The line before the last lists each kernel with its launches on its route,
 error, times, bound, registers and the library call's time (K2 and K3 on
@@ -267,15 +276,19 @@ dims 192 and 256, at phase 10's padded, wide and odd widths, with their
 launches counted over the encode routes' runs and phase 12's), the launches
 of phase 10's runs, and its launches over phase 11's mesh encodes
 (``launches_mesh``) and (``fused_views``) its cases on views of one fused
-projection beside the same call on contiguous tensors, then K3's wide body (``attention_wide.cuh``) as an
-entry of its own, its launches those of phase 12 and its numbers those of
-phase 12's kernel case at d 320, then the fp32 Hopper body
+projection beside the same call on contiguous tensors, then K3's wide body
+(``attention_wide.cuh``, bf16) as an entry of its own, its launches those
+of phase 12 and its numbers those of phase 12's kernel case at d 320, then
+the fp32 Hopper body
 (``attention_sm90_tf32``) with its launches on the fp32 forwards, its
 numbers at K1's 256x256 shape and every fp32 main-shape case,
 and its prologue (``split_kv``) with its launches and the tf32 phase's
 numbers, then its wide form (``attention_sm90_tf32_wide``) with its
 launches over phase 12's fp32 encodes, its numbers at phase 12's fp32 case
-at d 256 and phase 10's fp32 cases on it, and the LayerNorm kernel (``layernorm``,
+at d 256 and phase 10's fp32 cases on it, then its slices body
+(``attention_sm90_tf32_slices``) with its launches over phase 12's fp32
+encode at 320, its numbers at that encode's shape and phase 10's fp32
+cases above 256, and the LayerNorm kernel (``layernorm``,
 replacing ``benchmarks/attn_probes/probe25_ln_256.py:51``) with its
 launches on every route, its numbers at (33408, 768) and its other timed
 cases, and the memory floor (``memory_floor``, replacing probe14's and
@@ -345,7 +358,9 @@ WIDE_HEAD_DIMS, WIDE_HEADS = (192, 256), 16
 # such heads: this drives K3's Hopper body at 192 and 256 and its wide body
 # through FrameEncoder as a checkpoint of that shape would.
 WIDE_ENCODER_HEAD_DIMS, WIDE_ENCODER_HEADS, WIDE_ENCODER_DEPTH = (192, 256, 320), 8, 2
-WIDE_ENCODER_FP32_HEAD_DIMS = (192, 256)  # also run in fp32: the fp32 Hopper body's wide form
+# Also run in fp32: the fp32 Hopper body's wide form at 192 and 256, its
+# slices body at 320.
+WIDE_ENCODER_FP32_HEAD_DIMS = (192, 256, 320)
 WIDE_ENCODER_FRAMES = 32
 # K1, K2 and K3 on views of one fused (B, N, 3*H*d) q|k|v projection, the
 # operands every encode route hands them since the projection is one GEMM,
@@ -460,7 +475,9 @@ def floor_rows() -> tuple:
     rows = [(f"attention {B}x{N}x{H}x{d}", (B * N, H * d), dt) for B, N, H, d in attention
             for dt in ("bfloat16", "float32")]
     others = [(BATCH_7B_256, 261, WIDE_HEADS, d) for d in WIDE_HEAD_DIMS]
-    others += [(B, N, H, d) for B, N, H, d in PADDED_CASES + TF32_WIDE_CASES + WIDE_ODD_CASES]
+    others += [(B, N, H, d) for B, N, H, d in
+               PADDED_CASES + TF32_WIDE_CASES + TF32_SMALL_CASES + WIDE_ODD_CASES]
+    others += [(B, N, H, d) for B, N, H, d, _ in WIDE_ODD_FP32_CASES]
     others += [(WIDE_ENCODER_FRAMES, 261, WIDE_ENCODER_HEADS, max(WIDE_ENCODER_HEAD_DIMS))]
     rows += [(f"attention {B}x{N}x{H}x{d}", (B * N, H * d), dt) for B, N, H, d in others
              for dt in ("bfloat16", "float32")]
@@ -655,9 +672,15 @@ def kernel_label(mangled: str) -> str:
     f = re.search(r"attention_tf32(_wide)?ILi(\d+)ELi(\d+)E", mangled)
     if f:  # the fp32 Hopper body or its wide form: head dim, map rank
         name = f"tf32{f.group(1) or ''}<{f.group(2)}, {f.group(3)}>"
+    f = re.search(r"attention_tf32_slicesILb([01])E", mangled)
+    if f:  # its slices body: Q resident (d <= 576) or streamed
+        name = f"tf32_slices<{'resident' if f.group(1) == '1' else 'streamed'} Q>"
     f = re.search(r"split_kvILi(\d+)E(?:Li(\d)E)?", mangled)
     if f:  # their prologue: head dim (and the columns a thread takes)
         name = f"split_kv<{f.group(1)}{', ' + f.group(2) if f.group(2) else ''}>"
+    f = re.search(r"split_kv_wideILi(\d)E", mangled)
+    if f:  # the slices body's prologue: the columns a thread takes
+        name = f"split_kv_wide<{f.group(1)}>"
     if "relayout_kt" in mangled:
         name = "relayout_kt"
     r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", mangled)
@@ -668,14 +691,9 @@ def kernel_label(mangled: str) -> str:
         dtype = "f32" if n.group(2) == "f" else "bf16"
         name = (f"ln_rows<{dtype}, V{n.group(3)}, C{n.group(4)}>" if n.group(3)
                 else f"ln_stream<{dtype}>")
-    w = re.search(r"(attention_wide_bf16|attention_wide_f32)(?:I(f|13__nv_bfloat16|Lb[01])E)?",
-                  mangled)
-    if w:  # the wide body and its prologue: d at run time, not a template argument
-        name = w.group(1).replace("attention_", "")
-        if w.group(2) in ("Lb1", "Lb0"):  # Q resident, or streamed above d = 1024
-            name += "<resident Q>" if w.group(2) == "Lb1" else "<streamed Q>"
-        elif w.group(2):
-            name += f"<{'f32' if w.group(2) == 'f' else 'bf16'}>"
+    w = re.search(r"attention_wide_bf16I(Lb[01])E", mangled)
+    if w:  # the (bf16) wide body: d at run time; Q resident, or streamed above d = 1024
+        name = f"wide_bf16<{'resident' if w.group(1) == 'Lb1' else 'streamed'} Q>"
     return name
 
 
@@ -694,18 +712,19 @@ def kernel_ptxas(fa, kernel, dtype, d) -> str:
     (K3: the width it runs at, ``headmajor_width``) in ``dtype``, from
     PTXAS (the fp32 Hopper bodies' with their prologue's)."""
     width = fa.headmajor_width(dtype, d) if kernel == "attention_headmajor" else d
-    bf16 = str(dtype) == "torch.bfloat16"
     wide_bf16 = f"wide_bf16<{'resident' if d <= 1024 else 'streamed'} Q>"
     body = fa.attention_body(kernel, dtype, width)
     tf32 = body in fa.TF32_BODIES
-    prefix = {"sm90": f"sm90<{width}, ", "wide": wide_bf16 if bf16 else "wide_f32",
-              "sm90_f32": f"tf32<{width}, ", "sm90_f32_wide": f"tf32_wide<{width}, ",
+    slices = f"tf32_slices<{'resident' if d <= 576 else 'streamed'} Q>"
+    prefix = {"sm90": f"sm90<{width}, ", "wide": wide_bf16, "sm90_f32": f"tf32<{width}, ",
+              "sm90_f32_wide": f"tf32_wide<{width}, ", "sm90_f32_slices": slices,
               "common": f"bf16<{width}>"}[body]
+    prologue = r"split_kv_wide<" if body == "sm90_f32_slices" else rf"split_kv<{width}[,>]"
     found = [f"{k}: {v}" if tf32 else v
              for k, v in PTXAS.get(kernel, {}).items() if k.startswith(prefix)]
     if tf32:
         found = ["; ".join(found + [f"{k}: {v}" for k, v in PTXAS.get(kernel, {}).items()
-                                    if re.match(rf"split_kv<{width}[,>]", k)])]
+                                    if re.match(prologue, k)])]
     return found[0] if found and found[0] else "not in the build log"
 
 
@@ -940,7 +959,7 @@ def entry_and_body_launches(fa) -> dict:
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
             "sm90_f32": fa.launches_sm90_f32, "sm90_f32_wide": fa.launches_sm90_f32_wide,
-            "wide": fa.launches_wide}
+            "sm90_f32_slices": fa.launches_sm90_f32_slices, "wide": fa.launches_wide}
 
 
 def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=None,
@@ -2970,7 +2989,7 @@ def reset_launches(fa) -> None:
 
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
     fa.launches_wide = fa.launches_sm90_f32 = fa.launches_tf32_prologue = 0
-    fa.launches_sm90_f32_wide = 0
+    fa.launches_sm90_f32_wide = fa.launches_sm90_f32_slices = 0
     fa.launches_headmajor_by_dim.clear()
     fa.launches_sm90_by_kernel.clear()
     fa.launches_sm90_f32_by_kernel.clear()
@@ -2983,8 +3002,9 @@ def read_launches(fa) -> dict:
     """Launches of each entry, under "sm90" those that ran the Hopper body
     (by entry under "sm90_by_kernel"), under "sm90_f32" those that ran its
     fp32 counterpart (by entry under "sm90_f32_by_kernel"), under
-    "sm90_f32_wide" K3's that ran its wide form, under "tf32_prologue" their
-    prologue, under "wide" K3's that ran the wide
+    "sm90_f32_wide" K3's that ran its wide form, under "sm90_f32_slices"
+    K3's that ran its slices body, under "tf32_prologue" their prologue,
+    under "wide" K3's that ran the (bf16) wide
     body, under "headmajor_by_dim" K3's split by the head dim it ran at,
     under "layernorm" the LayerNorm kernel's, and under "projection_gemms"
     the attention's projection GEMMs as ``models/vit.py`` counts them (a
@@ -2996,6 +3016,7 @@ def read_launches(fa) -> dict:
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
             "sm90_f32": fa.launches_sm90_f32, "sm90_f32_wide": fa.launches_sm90_f32_wide,
+            "sm90_f32_slices": fa.launches_sm90_f32_slices,
             "tf32_prologue": fa.launches_tf32_prologue, "wide": fa.launches_wide,
             "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
             "sm90_f32_by_kernel": dict(fa.launches_sm90_f32_by_kernel),
@@ -3031,7 +3052,7 @@ def check_launches(route, got, kernel, per_forward, forwards, sm90, ln_per,
     want[kernel] = per_forward * forwards
     want["sm90"] = want[kernel] if sm90 else 0
     want["sm90_f32"] = want["tf32_prologue"] = want[kernel] if sm90_f32 else 0
-    want["sm90_f32_wide"] = 0
+    want["sm90_f32_wide"] = want["sm90_f32_slices"] = 0
     want[LN_KERNEL] = ln_per * forwards
     want["projection_gemms"] = projections_per_run(
         per_forward * forwards, forwards if cls_blocks is None else cls_blocks)
@@ -3482,6 +3503,7 @@ def main() -> int:
                            wide_runs),
            *tf32_kernel_entries(main_cases, tf32, fp32_runs, tools_line),
            tf32_wide_kernel_entry(tools_line, wide_runs32, wide_cases32),
+           tf32_slices_kernel_entry(tools_line, wide_runs32, wide_cases32),
            floor_kernel_entry(floor), variants_kernel_entry(stages),
            *batched_kernel_entries(batched), pvt_kernel_entry(pvt)]})
     emit({"ok": True, "device": {
@@ -3495,21 +3517,27 @@ COPY_KERNEL = re.compile(r"copy|memcpy", re.IGNORECASE)
 
 
 TRACE_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
-TRACE_TRIES = 3  # traces taken of one call at most, while they hold no event
+TRACE_TRIES = 6  # traces taken of one call at most, while they hold no event
 
 
-def trace_kernels(torch, fn) -> list:
+def trace_kernels(torch, fn, traces=1) -> list:
     """The names of the CUDA kernels (and copies) one call of ``fn`` ran, in
     the order they started, from a ``torch.profiler`` trace. The trace
     opens with a marker kernel (``torch.cuda._sleep``), left out of the
     list: on the card's machine a trace may lose its first device event,
-    which then is the marker's, not one of ``fn``'s. It may also lose every
-    event of ``fn``; every call traced here launches a kernel, so a trace
-    that holds none is taken again, TRACE_TRIES times in all (its callers
-    read their launch counters before it)."""
+    which then is the marker's, not one of ``fn``'s. It may also lose some
+    or every event of ``fn`` (both seen on the card); a lost event is never
+    an added one, so the call is traced ``traces`` times and the trace with
+    the most events kept, and while the traces hold none, again after a
+    pause that grows each time, TRACE_TRIES times in all (every call traced
+    here launches a kernel; its callers read their launch counters before
+    it). Three empty traces in a row were seen in phase 2."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(TRACE_TRIES):
+    best = []
+    for i in range(TRACE_TRIES):
+        if i >= traces:
+            time.sleep(0.1 * i)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
@@ -3518,9 +3546,11 @@ def trace_kernels(torch, fn) -> list:
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                   and TRACE_MARKER not in e.name]
-        if events:
+        if len(events) > len(best):
+            best = events
+        if best and i + 1 >= traces:
             break
-    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+    return [e.name for e in sorted(best, key=lambda e: e.time_range.start)]
 
 
 def copies_around(kernels, marker, prologue="rope_rows") -> dict:
@@ -3716,7 +3746,8 @@ def wide_heads_fp32(torch, fa, FrameEncoder, ckpt, params, planes, ref, d, card)
     """Phase 12 in fp32 at d: the encoder at ``ckpt`` with ``params`` in
     fp32 on the card, its counts set to 0 before N_CHECK_7B frames and read
     after: K3 once a forward, each launch through the fp32 Hopper body's
-    wide form with one launch of its prologue; the embeddings within 1 fp16
+    wide form (d up to 256) or its slices body (above) with one launch of
+    their prologue; the embeddings within 1 fp16
     ulp + 1e-4 of the CPU fp32 run ``ref``. Then K3 alone in fp32 at the
     shape that path gives it, against its plain version, timed. Returns
     (launches, that kernel case)."""
@@ -3728,9 +3759,11 @@ def wide_heads_fp32(torch, fa, FrameEncoder, ckpt, params, planes, ref, d, card)
     body = fa.attention_body("attention_headmajor", torch.float32, d)
     per = WIDE_ENCODER_DEPTH - 1  # one forward; the CLS-only last block is plain
     want = {"attention_fat": 0, "attention_packed": 0, "attention_headmajor": per,
-            "sm90": 0, "sm90_f32": 0, "sm90_f32_wide": per, "tf32_prologue": per, "wide": 0,
-            "headmajor_by_dim": {fa.tf32_width(d): per}}
-    if body != "sm90_f32_wide" or {key: got[key] for key in want} != want:
+            "sm90": 0, "sm90_f32": 0, "sm90_f32_wide": per * (body == "sm90_f32_wide"),
+            "sm90_f32_slices": per * (body == "sm90_f32_slices"), "tf32_prologue": per,
+            "wide": 0, "headmajor_by_dim": {fa.headmajor_width(torch.float32, d): per}}
+    if body != ("sm90_f32_wide" if d <= 256 else "sm90_f32_slices") \
+            or {key: got[key] for key in want} != want:
         raise AssertionError(f"fp32 {d}-wide heads launched {got} on {body}, expected {want}")
     err = np.abs(g32 - ref)
     ulp = np.spacing(np.abs(ref).astype(np.float16)).astype(np.float32)
@@ -3834,6 +3867,7 @@ def tf32_wide_kernel_entry(tools_line, runs32, cases32) -> dict:
     kernel case at 256 (the shape that encode gives it), phase 10's fp32
     cases on it beside them, and validate_kernels' launches and largest
     error at TOOLS_FP32_GEOMETRIES."""
+    cases32 = {d: c for d, c in cases32.items() if d <= 256}
     main = cases32[max(cases32)]
     if main["body"] != "sm90_f32_wide":
         raise AssertionError(f"phase 12's fp32 heads ran the {main['body']} body")
@@ -3843,7 +3877,8 @@ def tf32_wide_kernel_entry(tools_line, runs32, cases32) -> dict:
         "source": "cbas_tpu_torch/csrc/attention_sm90_tf32_wide.cuh",
         "replaces": KERNELS["attention_headmajor"], "body": "sm90_f32_wide",
         "launches": sum(run["sm90_f32_wide"] for run in runs32.values()),
-        "launches_by_head_dim": {d: run["sm90_f32_wide"] for d, run in runs32.items()},
+        "launches_by_head_dim": {d: run["sm90_f32_wide"] for d, run in runs32.items()
+                                 if d in cases32},
         "launches_validate_kernels": validate["expected_launches"]["sm90_f32_wide"],
         **{key: main[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
@@ -3854,6 +3889,35 @@ def tf32_wide_kernel_entry(tools_line, runs32, cases32) -> dict:
         + [{key: c[key] for key in ("head_dim", "ms", "ms_norope", "max_abs_err", "bound_ms")}
            for d, c in cases32.items() if c is not main],
         "validate_kernels_max_f32_err": validate["max_f32_err_wide"],
+    }
+
+
+def tf32_slices_kernel_entry(tools_line, runs32, cases32) -> dict:
+    """The ``kernels`` line's entry for the fp32 Hopper body's slices form
+    (``attention_sm90_tf32_slices.cuh``, fp32 heads above 256): its launches
+    over phase 12's fp32 encode at 320-wide heads (the main path), its
+    numbers from phase 12's fp32 kernel case at 320 (the shape that encode
+    gives it), phase 10's fp32 cases on it beside them (with its slices,
+    their extra FLOP and its prologue), and validate_kernels' launches and
+    largest error at 320 and 384."""
+    main = cases32[max(cases32)]
+    if main["body"] != "sm90_f32_slices":
+        raise AssertionError(f"phase 12's widest fp32 heads ran the {main['body']} body")
+    validate = tools_line["validate_kernels"]
+    return {
+        "name": "attention_sm90_tf32_slices", "route": "cuda",
+        "source": "cbas_tpu_torch/csrc/attention_sm90_tf32_slices.cuh",
+        "replaces": KERNELS["attention_headmajor"], "body": "sm90_f32_slices",
+        "launches": sum(run["sm90_f32_slices"] for run in runs32.values()),
+        "launches_prologue": sum(run["tf32_prologue"] for d, run in runs32.items() if d > 256),
+        "launches_validate_kernels": validate["expected_launches"]["sm90_f32_slices"],
+        **{key: main[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "ms_norope", "gflop", "mbytes", "floor_ms", "ptxas", "share_of_bound")},
+        "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
+        "at_other_shapes": [c for c in tools_line["wide_odd_timings"]
+                            if c["body"] == "sm90_f32_slices"],
+        "validate_kernels_max_f32_err": validate["max_f32_err_slices"],
     }
 
 
@@ -4611,9 +4675,10 @@ def demo_phase(card, device="cuda") -> dict:
 # Hopper body.
 TOOLS_EXTRA_GEOMETRY = (2, 32, 261, 128, True)
 # Before it, fp32 K3 through the fp32 Hopper body's wide form at the widths
-# it is built at and at one it reads on maps at d (200 at 256), each held
-# to fp64 within CARD_TOL_F32.
-TOOLS_FP32_GEOMETRIES = ((2, 8, 261, 192, True), (2, 8, 261, 256, False), (2, 8, 261, 200, True))
+# it is built at and at one it reads on maps at d (200 at 256), and through
+# its slices body at 320 and 384, each held to fp64 within CARD_TOL_F32.
+TOOLS_FP32_GEOMETRIES = ((2, 8, 261, 192, True), (2, 8, 261, 256, False), (2, 8, 261, 200, True),
+                         (2, 8, 261, 320, True), (2, 4, 261, 384, False))
 # K3 at head dims it is not built at, (B, N, H, d): in bf16 the card pads
 # 100 to 104 (one copy a tensor) and runs 136 and 160 at 192 and 200 and
 # 248 at 256 with no copy (the tensor maps at d); in fp32 it runs 100 at
@@ -4624,18 +4689,25 @@ PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 136), (8, 261, 16, 160), (8, 261
 # fp32 only, beside them: the wide form at the widths it is built at, at
 # N 261 and at 640x480's 1205 tokens.
 TF32_WIDE_CASES = ((8, 261, 16, 192), (8, 261, 16, 256), (4, 1205, 16, 192), (4, 1205, 16, 256))
+# and the fp32 body at 64 at small widths on maps at d, beside their floor,
+# SDPA and plain version.
+TF32_SMALL_CASES = ((8, 261, 16, 16), (8, 261, 16, 32))
 
 
 def padded_runs(torch) -> list:
     """(B, N, H, d, dtype) of phase 10's padded-width cases: PADDED_CASES in
-    bf16 and fp32, then TF32_WIDE_CASES in fp32."""
+    bf16 and fp32, then TF32_WIDE_CASES and TF32_SMALL_CASES in fp32."""
     return [(*case, dtype) for case in PADDED_CASES for dtype in (torch.bfloat16, torch.float32)] \
-        + [(*case, torch.float32) for case in TF32_WIDE_CASES]
+        + [(*case, torch.float32) for case in TF32_WIDE_CASES + TF32_SMALL_CASES]
 # K3 at the head dims it refused on the card before, (B, N, H, d), with RoPE:
 # wider than 256 (the wide body, d at run time) and odd (q and k roped before
 # the launch, then zero-padded). d 320 and 384 take the model's tables at
 # that width; d 65 random angles (the model's tables need a multiple of 4).
 WIDE_ODD_CASES = ((8, 261, 16, 320), (4, 1205, 8, 384), (8, 261, 16, 65))
+# fp32 only, beside them, (B, N, H, d, n_valid): an odd d above 256 on the
+# fp32 slices body, Q staged without the TMA (rows no 16-byte multiple), NaN
+# in the dead K/V rows, roped by the wrapper before the launch.
+WIDE_ODD_FP32_CASES = ((2, 272, 4, 301, 261),)
 # The CLS attention map at dinov3-vitb16 on 8 frames of 256x256. Every q and
 # k projection weight is scaled by 4, so the random-weight map is far from
 # uniform (the line reports its cosine to the uniform map); unscaled, each
@@ -4669,9 +4741,10 @@ def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
         "body_launches_per_call", "kernels_per_call", "gpu_clocks")} for c in cases]
     wide = wide_odd_cases(torch, fa, cfg)
     line["wide_odd_timings"] = [{key: c[key] for key in (
-        "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
-        "ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "floor_ms", "gflop", "mbytes",
-        "library_ms", "library", "ptxas")} for c in wide]
+        "B", "N", "H", "head_dim", "n_valid", "padded_to", "dtype", "rope", "body",
+        "max_abs_err", "tol", "ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+        "gflop", "mbytes", "library_ms", "library", "ptxas")}
+        | {key: c[key] for key in SLICES_KEYS if key in c} for c in wide]
     line["cls_attention_map"] = attention_map_step(torch, fa, cfg, params, line["launches"])
     missing = host_missing(("h5py", "pandas", "cv2", "matplotlib"))
     if missing:
@@ -4690,7 +4763,8 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     TOOLS_FP32_GEOMETRIES and TOOLS_EXTRA_GEOMETRY: every check under its
     tolerance, K1, K2 and K3 launched as the geometries say, K3's bf16 check
     through the Hopper body and every fp32 check through the fp32 Hopper
-    body (head dims 64 and 128) or its wide form (192, 200, 256)."""
+    body (head dims 64 and 128), its wide form (192, 200, 256) or its slices
+    body (320, 384)."""
     import io
 
     from cbas_tpu_torch.tools import validate_kernels
@@ -4713,26 +4787,34 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     sm90 = int(fa.attention_body("attention_headmajor", torch.bfloat16, last_d) == "sm90")
     fp32 = sum(1 + 5 * (d == 64 and H % 2 == 0) for _, H, _, d, _ in geometries
                if fa.attention_body("attention_headmajor", torch.float32, d) == "sm90_f32")
-    fp32_wide = sum(1 for _, _, _, d, _ in geometries
-                    if fa.attention_body("attention_headmajor", torch.float32, d) == "sm90_f32_wide")
+    fp32_wide, fp32_slices = (
+        sum(1 for _, _, _, d, _ in geometries
+            if fa.attention_body("attention_headmajor", torch.float32, d) == body)
+        for body in ("sm90_f32_wide", "sm90_f32_slices"))
     want = {"attention_fat": 2 * pairs, "attention_packed": 2 * pairs,
             "attention_headmajor": len(geometries) + 1 + pairs, "sm90": sm90,
-            "sm90_f32": fp32, "sm90_f32_wide": fp32_wide, "tf32_prologue": fp32 + fp32_wide,
+            "sm90_f32": fp32, "sm90_f32_wide": fp32_wide, "sm90_f32_slices": fp32_slices,
+            "tf32_prologue": fp32 + fp32_wide + fp32_slices,
             LN_KERNEL: 2}  # its single-pass and two-pass LayerNorm checks
-    wide = {"attention_headmajor": got["sm90_f32_wide"]}
+    k3_only = {"sm90_f32_wide": got["sm90_f32_wide"], "sm90_f32_slices": got["sm90_f32_slices"]}
     by_body = {name: {"sm90": got["sm90_by_kernel"].get(name, 0),
                       "sm90_f32": got["sm90_f32_by_kernel"].get(name, 0),
-                      "sm90_f32_wide": wide.get(name, 0),
+                      **{body: n if name == "attention_headmajor" else 0
+                         for body, n in k3_only.items()},
                       "common": got[name] - got["sm90_by_kernel"].get(name, 0)
-                      - got["sm90_f32_by_kernel"].get(name, 0) - wide.get(name, 0)}
+                      - got["sm90_f32_by_kernel"].get(name, 0)
+                      - (sum(k3_only.values()) if name == "attention_headmajor" else 0)}
                for name in KERNELS}
+    f32_errs = {body: [r["err"] for r in records if "vs fp64" in r["check"] and any(
+                    f" d{d} " in r["check"] for _, _, _, d, _ in TOOLS_FP32_GEOMETRIES
+                    if fa.attention_body("attention_headmajor", torch.float32, d) == body)]
+                for body in k3_only}
     out = {"rc": rc, "geometries": geometries, "checks": records, "seconds": seconds,
            "launches_by_body": by_body, "expected_launches": want,
            "tol_f32": validate_kernels.CARD_TOL_F32,
            "max_f32_err": max(r["err"] for r in records if "vs fp64" in r["check"]),
-           "max_f32_err_wide": max(r["err"] for r in records if "vs fp64" in r["check"]
-                                   and any(f" d{d} " in r["check"]
-                                           for _, _, _, d, _ in TOOLS_FP32_GEOMETRIES)),
+           "max_f32_err_wide": max(f32_errs["sm90_f32_wide"]),
+           "max_f32_err_slices": max(f32_errs["sm90_f32_slices"]),
            "printed": printed.getvalue().splitlines()}
     bad = [r for r in records if not r["ok"]]
     if rc != 0 or bad or not records:
@@ -4787,27 +4869,64 @@ def padded_cases(torch, fa, cfg, calls) -> list:
 
 
 def wide_odd_cases(torch, fa, cfg) -> list:
-    """K3 at WIDE_ODD_CASES' head dims, bf16 and fp32, with RoPE tables:
-    each against the plain version at d, timed beside its bound and SDPA at
-    d (RoPE applied beforehand)."""
+    """K3 at WIDE_ODD_CASES' head dims, bf16 and fp32, and at
+    WIDE_ODD_FP32_CASES' in fp32, with RoPE tables: each against the plain
+    version at d, timed beside its bound and SDPA at d (RoPE applied
+    beforehand); the fp32 slices body's cases with its slices, the FLOP its
+    repeated scores add and its prologue (:func:`slices_case`)."""
+    runs = [(B, N, H, d, None, dtype) for B, N, H, d in WIDE_ODD_CASES
+            for dtype in (torch.bfloat16, torch.float32)]
+    runs += [(*case, torch.float32) for case in WIDE_ODD_FP32_CASES]
     cases = []
-    for B, N, H, d in WIDE_ODD_CASES:
+    for B, N, H, d, n_valid, dtype in runs:
         grid = (16, 16) if N == 261 else (30, 40)
         tables = None
         if d % 4:
             ang = np.random.default_rng(SEED + 11).uniform(-np.pi, np.pi, (N, d)).astype(np.float32)
             tables = tuple(torch.from_numpy(f(ang)).to("cuda") for f in (np.cos, np.sin))
-        for dtype in (torch.bfloat16, torch.float32):
-            case = kernel_case(torch, fa, cfg, "attention_headmajor", B, H, N, d, grid, dtype,
-                               True, tables=tables)
-            case["padded_to"] = fa.padded_head_dim(d)
-            case["phase"] = "kernel_wide_odd"
-            emit(case)
-            cases.append(case)
+        case = kernel_case(torch, fa, cfg, "attention_headmajor", B, H, N, d, grid, dtype,
+                           True, n_valid=n_valid, tables=tables)
+        case["padded_to"] = fa.padded_head_dim(d)
+        if case["body"] == "sm90_f32_slices":
+            case.update(slices_case(torch, fa, cfg, B, N, H, d, n_valid, grid))
+        case["phase"] = "kernel_wide_odd"
+        emit(case)
+        cases.append(case)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K3 at wide or odd head dims disagrees with its plain version: {bad}")
     return cases
+
+
+SLICES_KEYS = ("slices", "slice_cols", "slice_extra_gflop", "bound_ms_with_slices",
+               "prologue_ms", "prologue_norope_ms", "prologue_bound_ms", "prologue_gbps")
+
+
+def slices_case(torch, fa, cfg, B, N, H, d, n_valid, grid) -> dict:
+    """What the fp32 slices body adds to a K3 case at (B, N, H, d): its
+    slices of O (``fa.TF32_SLICE_COLS`` columns a block), the FLOP of the
+    scores formed once a slice beyond the first (the bound counts them
+    once; ``bound_ms_with_slices`` counts them all), and its prologue alone
+    (``fa.tf32_prologue``) on inputs of that shape, with the model's tables
+    at an even d, timed beside its byte bound (k and v read once, the four
+    planes of the scratch written once)."""
+    nv = n_valid or N
+    slices = -(-d // fa.TF32_SLICE_COLS)
+    extra = 2 * B * H * N * nv * d * (slices - 1)
+    rng = np.random.default_rng(SEED)
+    k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32)).to("cuda")
+            for _ in range(2))
+    cos = sin = None
+    if d % 2 == 0:
+        cos, sin = rope_full(torch, cfg, d, grid, N, "cuda")
+    nbytes = 4 * B * H * (2 * nv * d + 4 * fa.tf32_scratch_keys(nv) * fa.tf32_width(d))
+    ms = time_ms(torch, lambda: fa.tf32_prologue(k, v, n_valid, cos, sin))
+    return {"slices": slices, "slice_cols": fa.TF32_SLICE_COLS, "slice_extra_gflop": extra / 1e9,
+            "bound_ms_with_slices": 1e3 * (4 * B * H * N * nv * d + extra) / PEAK_F32_ACCURATE_FLOPS,
+            "prologue_ms": ms,
+            "prologue_norope_ms": time_ms(torch, lambda: fa.tf32_prologue(k, v, n_valid)),
+            "prologue_bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+            "prologue_gbps": nbytes / ms / 1e6}
 
 
 def calls_launches(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> dict:
@@ -4824,7 +4943,8 @@ def calls_launches(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> dict:
     before = read_launches(fa)
     fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin)
     after = read_launches(fa)
-    names = trace_kernels(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin))
+    names = trace_kernels(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin),
+                          traces=2)
     return {"k3_launches_per_call": after["attention_headmajor"] - before["attention_headmajor"],
             "body_launches_per_call": after[counter] - before[counter],
             "kernels_per_call": len(names), "kernel_names": [name[:120] for name in names]}

@@ -218,7 +218,8 @@ def test_odd_rope_detour_equals_plain_version(d, dtype):
 
 @pytest.mark.parametrize("d", [257, 320, 384, 1000])
 def test_heads_above_256_run_at_their_own_width(d):
-    """Above 256 the card runs the wide body at d itself: no padding."""
+    """Above 256 the card runs the wide body (bf16) or the slices body
+    (fp32) at d itself: no padding."""
     assert fa.padded_head_dim(d) == d
 
 
@@ -455,7 +456,8 @@ def test_padded_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtyp
 @pytest.mark.parametrize("d", [192, 256, 200, 320, 384, 257, 301, 1040, 1100])
 def test_redesigned_headmajor_bodies_match_plain_on_card(d, N, n_valid, rope, dtype, cuda_device):
     """K3's Hopper body at d 192 and 256 (200 runs at 256; in fp32 the fp32
-    Hopper body's wide form), and its wide body above 256 (257 and 301 odd:
+    Hopper body's wide form), and above 256 its wide body (bf16) and the
+    fp32 slices body (257 and 301 odd:
     staged without the TMA, roped before the launch; 1040 and 1100 wider
     than a resident Q: Q streamed, 1100
     staged without the TMA), against the plain version, NaN in the dead K/V
@@ -472,16 +474,18 @@ def test_redesigned_headmajor_bodies_match_plain_on_card(d, N, n_valid, rope, dt
         cos, sin = (torch.from_numpy(f(ang)).to(cuda_device) for f in (np.cos, np.sin))
     width = fa.headmajor_width(dt, d)
     body = fa.attention_body("attention_headmajor", dt, width)
-    assert body == ("wide" if d > 256 else "sm90" if dt == torch.bfloat16 else "sm90_f32_wide")
+    assert body == ("sm90" if dt == torch.bfloat16 and d <= 256 else "wide" if dt == torch.bfloat16
+                    else "sm90_f32_wide" if d <= 256 else "sm90_f32_slices")
 
     def counts():
         return (fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90, fa.launches_wide,
-                fa.launches_sm90_f32_wide)
+                fa.launches_sm90_f32_wide, fa.launches_sm90_f32_slices)
 
     before = counts()
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
     assert counts() == (before[0] + 1, before[1] + (body == "sm90"), before[2] + (body == "wide"),
-                        before[3] + (body == "sm90_f32_wide"))
+                        before[3] + (body == "sm90_f32_wide"),
+                        before[4] + (body == "sm90_f32_slices"))
     want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
     assert got.shape == (B, H, N, d) and bool(torch.isfinite(got).all())
@@ -709,17 +713,17 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
         ("attention_headmajor", torch.float32, 256, "sm90_f32_wide"),
         ("attention_headmajor", torch.bfloat16, 257, "wide"),
         ("attention_headmajor", torch.bfloat16, 320, "wide"),
-        ("attention_headmajor", torch.float32, 320, "wide"),
-        ("attention_headmajor", torch.float32, 384, "wide"),
-        ("attention_headmajor", torch.float32, 1000, "wide"),
+        ("attention_headmajor", torch.float32, 320, "sm90_f32_slices"),
+        ("attention_headmajor", torch.float32, 384, "sm90_f32_slices"),
+        ("attention_headmajor", torch.float32, 1000, "sm90_f32_slices"),
     ],
 )
 def test_attention_body_routing(kernel, dtype, d, body):
     """Which body an entry runs for (dtype, head dim), as the wrapper reports
     it without launching: the Hopper body for bf16 at d = 64 (every layout)
     and 128, 192 and 256 (head-major), its fp32 counterpart for fp32 at
-    d = 64 (every layout) and 128 (head-major), K3's wide body above 256 in
-    both dtypes, the common body otherwise."""
+    d = 64 (every layout) and 128 (head-major), above 256 K3's wide body in
+    bf16 and its fp32 slices body in fp32, the common body otherwise."""
     assert fa.attention_body(kernel, dtype, d) == body
 
 
@@ -727,12 +731,13 @@ def test_attention_body_routing(kernel, dtype, d, body):
 @pytest.mark.parametrize("d", [136, 160, 184, 192, 200, 232, 248, 256])
 def test_widths_above_128_pad_onto_the_hopper_body_in_bf16(d, dtype, body):
     """A head from 136 to 256 runs at 192 or 256, the Hopper body's widths in
-    bf16 and its fp32 wide form's in fp32; above 256 the wide body runs at d
-    itself."""
+    bf16 and its fp32 wide form's in fp32; above 256 the wide body (bf16) or
+    the fp32 slices body runs at d itself."""
     width = fa.padded_head_dim(d)
     assert width == (192 if d <= 192 else 256)
     assert fa.attention_body("attention_headmajor", dtype, width) == body
-    assert fa.attention_body("attention_headmajor", dtype, fa.padded_head_dim(d + 256)) == "wide"
+    above = "wide" if dtype == torch.bfloat16 else "sm90_f32_slices"
+    assert fa.attention_body("attention_headmajor", dtype, fa.padded_head_dim(d + 256)) == above
 
 
 def test_cpu_tensors_never_count_as_hopper_launches():

@@ -365,7 +365,7 @@ def test_fp32_at_64_and_128_routes_to_the_tf32_body(kernel, d):
 
 # Every fp32 width's body in K3: the fp32 Hopper body up to 128 and its wide
 # form to 256 at every multiple of 4; off the multiples of 4 the route pads
-# first, to a built width; the wide body above 256.
+# first, to a built width; the slices body above 256.
 FP32_BODIES = {d: "sm90_f32" if d <= 128 else "sm90_f32_wide" for d in range(4, 257, 4)}
 
 
@@ -374,11 +374,11 @@ FP32_BODIES = {d: "sm90_f32" if d <= 128 else "sm90_f32_wide" for d in range(4, 
 def test_other_fp32_widths_stay_on_the_common_body(d):
     """Each fp32 width's body (the name predates the fp32 Hopper bodies'
     other widths, when all of these stayed on the common body, which now
-    runs no fp32): FP32_BODIES, reported without launching, and the wide
+    runs no fp32): FP32_BODIES, reported without launching, and the slices
     body 256 above."""
     assert fa.attention_body("attention_headmajor", torch.float32, d) == FP32_BODIES[d]
     assert fa.headmajor_in_place(torch.float32, d)
-    assert fa.attention_body("attention_headmajor", torch.float32, d + 256) == "wide"
+    assert fa.attention_body("attention_headmajor", torch.float32, d + 256) == "sm90_f32_slices"
 
 
 def test_scratch_keys_round_up_to_the_key_tile():
@@ -395,9 +395,11 @@ def test_cpu_prologue_is_its_plain_version_and_counts_no_launch():
 
 def test_prologue_rejects_what_the_kernel_does_not_take():
     """The prologue takes fp32 heads of a multiple of 4 up to 256 (96 since
-    the fp32 bodies read other widths through maps at d): not 98, not 260,
-    not bf16."""
-    for d in (98, 260):
+    the fp32 bodies read other widths through maps at d) and, since the
+    slices body, any width above 256 (260 at 320): not 98, not 254, not
+    bf16."""
+    assert fa.tf32_prologue(torch.zeros(1, 2, 8, 260), torch.zeros(1, 2, 8, 260)).shape[-1] == 320
+    for d in (98, 254):
         with pytest.raises(ValueError, match="multiple of 4 up to 256"):
             fa.tf32_prologue(torch.zeros(1, 2, 8, d), torch.zeros(1, 2, 8, d))
     with pytest.raises(ValueError, match="multiple of 4 up to 256"):

@@ -49,7 +49,7 @@ BLOCK_CBAS_TPU = (
 
 def _port_sources():
     """Every .py of the port, and the scripts that drive it on the card."""
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py")]
+    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "chip_ab.py", "chip_slices.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "cbas_tpu_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return out
@@ -72,7 +72,7 @@ def test_no_module_imports_jax():
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
-        "import chip_smoke, chip_ab\n"
+        "import chip_smoke, chip_ab, chip_slices\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
     )
     proc = _fresh_python(code)

@@ -1,6 +1,7 @@
 // K3: fused attention forward over the head-major (B, H, N, d) layout, for
-// Hopper (sm_90a), built at every multiple of 8 up to 128, and 192 and 256,
-// with a wide body in each dtype for any d above 256 (d a run-time argument).
+// Hopper (sm_90a), at any d: the bf16 Hopper body built at 64, 128, 192 and
+// 256, the fp32 bodies at the same widths, and in each dtype a body that
+// takes d at run time above 256.
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention): the JAX package's route for every head dim other
@@ -14,12 +15,17 @@
 //
 // What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
-// cores at N = 1205. Six bodies:
-// - bfloat16 at d = 64, 128, 192 and 256: the Hopper body
-//   (attention_sm90.cuh: TMA ring, wgmma, RoPE once per token and head);
-//   and bfloat16 at any other d % 8 == 0 from 136 to 248, on the same body
-//   at the next of 192 and 256, its tensor maps at the head's own width
-//   (columns beyond it load as zeros, the store clips them);
+// cores at N = 1205. Five bodies:
+// - bfloat16 at every d up to 256: the Hopper body (attention_sm90.cuh: TMA
+//   ring, wgmma, RoPE once per token and head) at the next of 64, 128, 192
+//   and 256, in place. At d % 16 == 0 its tensor maps read the heads at d
+//   (columns beyond load as zeros, the store clips them; with tables the
+//   RoPE prologue ropes q and k first where d is below the built width).
+//   At any other d a row is no 32-byte multiple, which a tensor map
+//   refuses (d % 8 != 0) or reads slowly: one staging launch (stage_rows,
+//   attention_common.cuh) copies q, k and v, roped with tables, into
+//   scratch rows of d rounded up to 16, and the body's epilogue writes O
+//   with plain stores (launch_staged);
 // - float32 at every multiple of 4 up to 128: its fp32 counterpart
 //   (attention_sm90_tf32.cuh: the same ring and maps, 3xTF32 on wgmma, K and
 //   V split and roped once a call by a prologue), at 64 or 128, maps at d;
@@ -29,51 +35,35 @@
 // - float32 at any d above 256: its slices body
 //   (attention_sm90_tf32_slices.cuh: the same arithmetic, O in 384-column
 //   slices, d at run time, Q staged without the TMA);
-// - bfloat16 at the other multiples of 8 up to 128: attention_common.cuh's
-//   body (its tiles outgrow static shared memory above d = 64, head dims
-//   that are not a multiple of 16 are zero-filled to one in shared memory,
-//   and those whose half is not a multiple of 8 gather RoPE partners one
-//   element at a time: both cost only such rare widths);
 // - bfloat16 at any d above 256: the wide body (attention_wide.cuh: O in
 //   384-column slices, the scores formed once a slice, on wgmma with two
-//   consumer warpgroups). It and the slices body take d at run time, so each
-//   adds two kernels to the build, not one per width.
-// Each instantiated width adds to the build, so the wrapper
-// (ops/flash_attention.py::fused_attention) zero-pads, in one copy, a head
-// of the widths no body reads in place (up to 256, float32 at one that is
-// not a multiple of 4, bfloat16 at one that is not a multiple of 8) to the
-// next built one.
-//
-// An odd d with RoPE tables: rotate-half pairs element i with i + d/2
-// rounded down (cbas_tpu/models/vit.py's concat(-t[d//2:], t[:d//2])), a
-// pairing no zero pad keeps. The wrapper ropes q and k itself (fp32, q's
-// scale folded in, one rounding to the input dtype, the plain version's
-// rounding points) and launches this kernel without tables and at scale 1.
+//   consumer warpgroups; an odd d's RoPE by the staging launch).
+// The wrapper (ops/flash_attention.py::fused_attention) still copies one
+// case first: float32 up to 256 at a d that is no multiple of 4, zero-padded
+// to the next one (and, with RoPE tables at an odd d, roped there first:
+// rotate-half pairs element i with i + d/2 rounded down, a pairing no zero
+// pad keeps).
 
 #include "attention_sm90_tf32_slices.cuh"
 #include "attention_wide.cuh"
 
 namespace {
 
-// bfloat16 up to 256: the common body, or at 64, 128, 192 and 256 the
-// Hopper body (sm90_route). float32 never reaches this: the entry launches
-// the fp32 Hopper bodies first.
+// bfloat16 up to 256 on the Hopper body built at HD = sm90_width(d): in
+// place on maps at d (d % 16 == 0), or through the staging launch, which
+// *prologues counts.
 template <int HD>
 int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-        const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
+        const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
         const cbas_attention::Layout& L, const cbas_attention::Layout& Lo, int n_valid,
-        float scale, int dtype, void* stream, int* body) {
+        float scale, void* stream, int* prologues) {
   using namespace cbas_attention;
-  *body = sm90_route(dtype, HD);
-  if constexpr (HD % 64 == 0) {  // 64, 128, 192, 256: the Hopper body's, nothing else
-    if (*body != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (d % sm90::kStageUnit == 0)
     return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
-                                             H, HD, L, Lo, n_valid, scale, stream));
-  } else {
-    if (*body != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch<HD>(q, k, v, o, cos_t, sin_t, B, N, H, L, Lo, n_valid, scale,
-                                       dtype, stream));
-  }
+                                             H, d, L, Lo, n_valid, scale, stream));
+  *prologues = 1;
+  return static_cast<int>(sm90::launch_staged<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch,
+                                                  B, N, H, d, L, Lo, n_valid, scale, stream));
 }
 
 // float32 on an fp32 Hopper body (sm90_route 3, 4 or 5), at the width
@@ -104,25 +94,28 @@ int run_tf32(const void* q, const void* k, const void* v, void* o, const void* c
 }  // namespace
 
 // C entry, bound with ctypes, with the flat and packed entries' signature.
-// head_dim is d: in bfloat16 a multiple of 8 up to 128, 192 or 256, or any
-// other multiple of 8 from 136 to 248 (the Hopper body at the next built
-// width, maps at d); in float32 any multiple of 4 up to 256 (body 3 at 64
-// or 128, body 4 at 192 or 256, maps at d); or any d above 256 (bf16 the
-// wide body, fp32 body 5; both take tables only at an even d).
-// batch_stride, group_stride (between heads) and row_stride are q's (k's and
-// v's) element strides, the o_ ones o's (its dims in q's order).
-// dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t are (N, d) fp32 tables or
-// both null. With tables the bf16 Hopper body needs k_scratch, and at a
-// padded width and in the wide body also q_scratch: buffers laid out like
-// o for the roped keys and queries (null otherwise). In float32 (bodies 3,
-// 4 and 5), k_scratch is the prologue's scratch, 4 * B * H *
-// tf32::scratch_keys(n_valid) * tf32_width(d) floats, needed with or
-// without tables. *body is set to the body that ran: 0 the
-// common body, 1 the Hopper body (sm90_route), 2 the wide body, 3 the fp32
-// Hopper body, 4 its wide form (attention_sm90_tf32_wide.cuh), 5 its slices
-// body (attention_sm90_tf32_slices.cuh); *prologues
-// to the fp32 bodies' prologue launches it queued (0 or 1). Returns the
-// CUDA error code of the launch (0 on success).
+// head_dim is d, any d >= 1 (float32 up to 256 a multiple of 4). Tables at
+// an odd d: bfloat16 only. batch_stride, group_stride (between heads) and
+// row_stride are q's (k's and v's) element strides, the o_ ones o's (its
+// dims in q's order, dense). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t
+// are (N, d) fp32 tables or both null. Scratch, by body:
+// - bfloat16 up to 256 at d % 16 == 0: with tables k_scratch, and at d below
+//   sm90_width(d) also q_scratch, laid out like o (roped keys and queries);
+//   null otherwise;
+// - bfloat16 up to 256 at any other d: q_scratch of B * H * N * w and
+//   k_scratch of 2 * B * H * N * w elements, w = d rounded up to 16 (the
+//   staged q, and k and v), with tables or without;
+// - bfloat16 above 256: with tables q_scratch and k_scratch laid out like o;
+// - float32 (bodies 3, 4 and 5): k_scratch is the prologue's scratch,
+//   4 * B * H * tf32::scratch_keys(n_valid) * tf32_width(d) floats, with
+//   tables or without.
+// *body is set to the body that ran: 1 the Hopper body (sm90_route), 2 the
+// wide body, 3 the fp32 Hopper body, 4 its wide form
+// (attention_sm90_tf32_wide.cuh), 5 its slices body
+// (attention_sm90_tf32_slices.cuh); *prologues to the launches it queued
+// before the attention kernel besides the RoPE prologue (0 or 1): the fp32
+// bodies' split_kv, or bf16's staging pass (stage_rows). Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void* v, void* o,
                                         const void* cos_t, const void* sin_t, void* q_scratch,
                                         void* k_scratch, int B, int N, int H, int head_dim,
@@ -135,52 +128,34 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
   *prologues = 0;
   const Layout L{batch_stride, group_stride, 1, row_stride};
   const Layout Lo{o_batch_stride, o_group_stride, 1, o_row_stride};
-  const int route = sm90_route(dtype, head_dim);
-  if (route >= 3) {
-    *body = route;
-    return run_tf32(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, head_dim, L, Lo, n_valid, scale,
-                    stream, prologues);
-  }
-#define CBAS_HEAD_DIM(D)                                                                         \
-  case D:                                                                                        \
-    return run<D>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, L, Lo, n_valid, scale, \
-                  dtype, stream, body);
-  switch (head_dim) {
-    CBAS_HEAD_DIM(8)
-    CBAS_HEAD_DIM(16)
-    CBAS_HEAD_DIM(24)
-    CBAS_HEAD_DIM(32)
-    CBAS_HEAD_DIM(40)
-    CBAS_HEAD_DIM(48)
-    CBAS_HEAD_DIM(56)
-    CBAS_HEAD_DIM(64)
-    CBAS_HEAD_DIM(72)
-    CBAS_HEAD_DIM(80)
-    CBAS_HEAD_DIM(88)
-    CBAS_HEAD_DIM(96)
-    CBAS_HEAD_DIM(104)
-    CBAS_HEAD_DIM(112)
-    CBAS_HEAD_DIM(120)
-    CBAS_HEAD_DIM(128)
-    CBAS_HEAD_DIM(192)
-    CBAS_HEAD_DIM(256)
-    default:
-      if (head_dim > kMaxHeadDim) {
-        *body = 2;
-        if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-        return static_cast<int>(wide::launch(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
-                                             N, H, head_dim, L, Lo, n_valid, scale, stream));
+  const int d = head_dim;
+  *body = sm90_route(dtype, d);
+  switch (*body) {
+    case 1:
+      switch (sm90_width(d)) {
+        case 64:
+          return run<64>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                         n_valid, scale, stream, prologues);
+        case 128:
+          return run<128>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                          n_valid, scale, stream, prologues);
+        case 192:
+          return run<192>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                          n_valid, scale, stream, prologues);
+        default:
+          return run<256>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                          n_valid, scale, stream, prologues);
       }
-      if (dtype != 1 || head_dim <= 128 || head_dim % kChunk)
-        return static_cast<int>(cudaErrorInvalidValue);
-      *body = 1;
-      return static_cast<int>(
-          head_dim < 192 ? sm90::launch<192>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
-                                             H, head_dim, L, Lo, n_valid, scale, stream)
-                         : sm90::launch<256>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
-                                             H, head_dim, L, Lo, n_valid, scale, stream));
+    case 2:
+      return static_cast<int>(wide::launch(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H,
+                                           d, L, Lo, n_valid, scale, stream, prologues));
+    case 3:
+    case 4:
+    case 5:
+      return run_tf32(q, k, v, o, cos_t, sin_t, k_scratch, B, N, H, d, L, Lo, n_valid, scale,
+                      stream, prologues);
   }
-#undef CBAS_HEAD_DIM
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // C entry of the fp32 Hopper bodies' prologue alone (tf32::split_kv), bound
@@ -213,4 +188,38 @@ extern "C" int cbas_attention_tf32_prologue(const void* k, const void* v, void* 
       return static_cast<int>(tf32::launch_split<256>(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st));
   }
   return static_cast<int>(tf32_slices::launch_split(k, v, scratch, cos_t, sin_t, B, H, d, L, n_valid, st));
+}
+
+// C entry of the bf16 staging pass alone (stage_rows, as launch_staged runs
+// it before the Hopper body), bound with ctypes: q, k and v head-major
+// (B, H, N, head_dim) bf16 at the given element strides (batch, head, row;
+// the last dim contiguous), at any alignment, into `out`, a contiguous
+// (3, B, H, N, w) bf16 tensor, w = head_dim rounded up to 16: q roped with
+// the (N, head_dim) fp32 tables (or not, both null) and times `scale`, k
+// roped, v as it is, rows of k and v at or beyond n_valid not written, the
+// columns from head_dim on zeros. Returns the CUDA error code of the launch
+// (0 on success).
+extern "C" int cbas_attention_bf16_stage(const void* q, const void* k, const void* v, void* out,
+                                         const void* cos_t, const void* sin_t, int B, int N, int H,
+                                         int head_dim, long long batch_stride,
+                                         long long group_stride, long long row_stride,
+                                         int n_valid, float scale, void* stream) {
+  using namespace cbas_attention;
+  using T = __nv_bfloat16;
+  const int d = head_dim;
+  const int w = (d + sm90::kStageUnit - 1) / sm90::kStageUnit * sm90::kStageUnit;
+  const Layout L{batch_stride, group_stride, 1, row_stride};
+  const Layout Ls{static_cast<long long>(H) * N * w, static_cast<long long>(N) * w, 1, w};
+  if (check_args(B, N, H, L, Ls, n_valid) != cudaSuccess || d <= 0 ||
+      (cos_t == nullptr) != (sin_t == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t plane = static_cast<size_t>(B) * H * N * w;
+  T* qs = static_cast<T*>(out);
+  const bool rope = cos_t != nullptr;
+  return static_cast<int>(launch_stage<T>(
+      StageJob<T>{static_cast<const T*>(q), qs, N, scale, rope},
+      StageJob<T>{static_cast<const T*>(k), qs + plane, n_valid, 1.f, rope},
+      StageJob<T>{static_cast<const T*>(v), qs + 2 * plane, n_valid, 1.f, false}, 3,
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), B, H, d, w, L, Ls,
+      static_cast<cudaStream_t>(stream)));
 }

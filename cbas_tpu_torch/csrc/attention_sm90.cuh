@@ -1,17 +1,18 @@
-// The Hopper body of the port's fused attention in bfloat16, for head dims
-// 64, 128, 192 and 256: K1 (flat, d = 64), K2 (head-pair packed, d = 64) and
-// K3 (head-major, d = 64, 128, 192 and 256) route here (attention_fat.cu,
-// attention_packed.cu, attention_headmajor.cu); fp32 at 64 and 128 takes
-// attention_sm90_tf32.cuh, fp32 at K3's other head dims up to 256 and
-// K3's other bf16 head dims stay on attention_common.cuh, K3's heads above
-// 256 take attention_wide.cuh. The tensor maps are built from the
+// The Hopper body of the port's fused attention in bfloat16, built at head
+// dims 64, 128, 192 and 256: K1 (flat, d = 64), K2 (head-pair packed,
+// d = 64) and K3 (head-major, every d up to 256, at the next of those
+// widths) route here (attention_fat.cu, attention_packed.cu,
+// attention_headmajor.cu); fp32 takes attention_sm90_tf32*.cuh, K3's bf16
+// heads above 256 attention_wide.cuh. The tensor maps are built from the
 // caller's Layouts (strides), so one code path reads every layout, strided
 // views included, and writes the output dense.
 //
-// Same function and rounding points as attention_common.cuh's bf16 body:
-// RoPE in fp32, one rounding of roped, scaled q and of roped k to bf16, p
-// rounded to bf16 before p.V, fp32 row sums, keys at or beyond n_valid masked
-// by select. What this design does about what held that body back:
+// The function and rounding points are attention_common.cuh's: RoPE in
+// fp32, one rounding of roped, scaled q and of roped k to bf16, p rounded to
+// bf16 before p.V, fp32 row sums, keys at or beyond n_valid masked by
+// select. What the design does about what held back the port's first
+// body (an mma.sync loop whose threads loaded each tile themselves, deleted
+// since):
 //
 // - Copies in flight. One producer warp issues TMA loads
 //   (cp.async.bulk.tensor) of the 64-key tiles K(0), V(0), K(1), V(1), ...
@@ -67,15 +68,30 @@
 //
 // At d = 192 and 256 (K3; the TPU kernel cbas_tpu/ops/flash_attention.py::
 // _attn_kernel at those widths) the same body runs with 3 and 4 swizzle
-// atoms, each its own TMA box and its own n = 64 product. A bf16 head of
-// another width d from 136 to 248 (d % 8 == 0) runs at the next of them,
-// with no copy: its maps' innermost extent is d, so the columns from d to
-// the built width load as zeros and the store of O clips them (launch).
-// What bounds it there: the bytes of q, k, v and o at N = 261, and
-// registers: O alone is HD / 2 fp32 registers a consumer thread (96, 128)
-// before the scores (32) and P (16), so blocks an SM are fewer
-// (Config::kMinBlocks). Q 24-32 KB and a 24-32 KB ring stage keep two blocks
-// an SM within shared memory.
+// atoms, each its own TMA box and its own n = 64 product. What bounds it
+// there: the bytes of q, k, v and o at N = 261, and registers: O alone is
+// HD / 2 fp32 registers a consumer thread (96, 128) before the scores (32)
+// and P (16), so blocks an SM are fewer (Config::kMinBlocks). Q 24-32 KB and
+// a 24-32 KB ring stage keep two blocks an SM within shared memory.
+//
+// K3's other widths, in place (no pad copy, no RoPE outside a kernel): a
+// head of width d runs at the next built width HD (HD - 64 < d < HD).
+// - d % 16 == 0 (launch): the maps read the heads where they lie, their
+//   innermost extent d, so the columns from d to HD load as zeros and the
+//   store of O clips them. With tables, rope_rows ropes q (times the scale)
+//   and k into scratch first, since the block's rotation pairs column c
+//   with c + HD/2, not c + d/2.
+// - otherwise (launch_staged): a row of d elements is no 32-byte multiple.
+//   A tensor map refuses rows that are no 16-byte multiple, and reads those
+//   of an odd number of 16-byte units (d % 16 == 8) slowly: the rows and
+//   the box's last column end off the 32-byte sectors. One staging launch
+//   (stage_rows, attention_common.cuh) copies q (roped, times the scale),
+//   k (roped) and v through their strides into scratch rows of d rounded up
+//   to 16 (kStageUnit), zeros from d; the maps read the scratch at that
+//   width, and the epilogue writes O through the output's Layout with plain
+//   stores of the widest unit the rows allow (kStagedOut).
+//   Two launches a call, against the 5-7 of the copies that padded such a
+//   head before (PERF.md).
 //
 // Compile-time variants (kVariant, attention_variants.cu). Variant 0 (kFull)
 // is the function above, the only one K1, K2 and K3 run. The others port the
@@ -90,6 +106,8 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: the driver entry is fetched at run time)
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace cbas_attention {
@@ -100,6 +118,10 @@ constexpr int kWGRows = 64;     // query rows per consumer warpgroup
 constexpr int kWGThreads = 128;
 constexpr int kAtom = 64;       // bf16 columns in one 128-byte swizzle atom
 constexpr int kAtomBytes = kBlockN * 128;  // one 64-row atom of a K or V tile
+// The columns a row of the staging scratch is rounded up to (32 bytes), and
+// so the widths K3 reads in place: on maps whose rows, or whose last column,
+// end off a 32-byte boundary the body ran 1.2-2.3x its time (PERF.md).
+constexpr int kStageUnit = 16;
 
 template <int HD>
 struct Config {
@@ -399,17 +421,55 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
   return (c / kAtom) * kAtomBytes + 128 * r + 16 * (((c % kAtom) / kChunk) ^ (r % 8));
 }
 
+// Where the staged form (kStagedOut) writes O: rows of d elements through
+// Lo, `unit` elements (1, 2 or 4, dividing d, Lo's strides and o's address)
+// a store. The other forms write through their O map and ignore it.
+struct PlainOut {
+  __nv_bfloat16* o;
+  Layout Lo;
+  int d;
+  int unit;
+};
+
+// Rows [q0, q0 + 64) of head h of image b, staged in the swizzled tile at
+// `tile`, to `out` (rows at or beyond N are not written), by the 128 threads
+// of a warpgroup (tid its thread): a store a thread in turn, `unit` elements
+// each, which lie in one 16-byte chunk of the tile.
+__device__ __forceinline__ void store_rows(const unsigned char* tile, const PlainOut& out, int b,
+                                           int h, int q0, int N, int tid) {
+  auto rows = [&](auto width) {
+    constexpr int V = decltype(width)::value;
+    using P = Pack<__nv_bfloat16, V>;
+    const int per_row = out.d / V;
+    const int live = min(kWGRows, N - q0);
+    for (int i = tid; i < live * per_row; i += kWGThreads) {
+      const int r = i / per_row;
+      const int c = (i - r * per_row) * V;
+      *reinterpret_cast<P*>(out.o + token_offset(out.Lo, b, h, q0 + r, out.d) + c) =
+          *reinterpret_cast<const P*>(tile + sw128_offset(r, c) + 2 * (c % kChunk));
+    }
+  };
+  if (out.unit == 4)
+    rows(std::integral_constant<int, 4>{});
+  else if (out.unit == 2)
+    rows(std::integral_constant<int, 2>{});
+  else
+    rows(std::integral_constant<int, 1>{});
+}
+
 // One block: query rows [blockIdx.x * 64, +64) of head blockIdx.y of image
 // blockIdx.z. Warps 0-3 are the consumer warpgroup, warp 4 the producer.
 // The four maps share one dim order and so one MapAddress; Q's and O's maps
 // have N rows, K's and V's n_valid. kVariant selects the consumer's work
-// (Variant); the producer is the same in all.
-template <int HD, int kRank, int kVariant = kFull>
+// (Variant); the producer is the same in all. kStagedOut (variant kFull
+// only): O goes through `out` with plain stores, not through o_map.
+template <int HD, int kRank, int kVariant = kFull, bool kStagedOut = false>
 __global__ void __launch_bounds__(Config<HD>::kThreads, Config<HD>::kMinBlocks)
 attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
                const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
-               int n_valid, float scale, const MapAddress order) {
+               int n_valid, float scale, const MapAddress order, const PlainOut out) {
+  static_assert(!kStagedOut || kVariant == kFull, "the staged form is the attention function");
   using C = Config<HD>;
   constexpr int kKSteps = HD / 16;
   constexpr bool kRowSumProduct = kVariant == kVext || kVariant == kVextBf16Exp;
@@ -492,7 +552,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
     // Rope and scale the Q tile in place, as the shared-memory A operand of
     // q.k^T: each thread takes pairs of 16-byte chunks, columns [c, c + 8) of
     // the first half and their RoPE partners [c + HD/2, +8), and rounds each
-    // value to bf16 once, as rope_chunk does. The tables of a batch of pairs
+    // value to bf16 once, as rope_rows does. The tables of a batch of pairs
     // load while the TMA brings the tile. Rows at or beyond N arrived as zeros
     // and stay so.
     {
@@ -778,6 +838,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   // has read it for the last time) in the same swizzled layout, then written
   // by one TMA store a 64-column atom; the map clips rows at or beyond N.
   // kQk and kNoSoftmax do not divide; kDma stores the Q tile as it arrived.
+  // kStagedOut: the warpgroup writes the tile's d columns through `out`.
   if constexpr (kVariant != kDma) {
     float inv[2] = {1.f, 1.f};
     if constexpr (kRowSumProduct) {
@@ -795,6 +856,11 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
           *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, kAtom * a + 8 * j) + 4 * t) =
               pack_bf16(acc[a][4 * j + 2 * r] * inv[r], acc[a][4 * j + 2 * r + 1] * inv[r]);
     }
+  }
+  if constexpr (kStagedOut) {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
+    store_rows(sq, out, b, h, q0, N, tid);
+    return;
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
@@ -1001,36 +1067,112 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
   kernel<<<grid, C::kThreads, smem, st>>>(q_map, k_map, v_map, o_map, c, s, N, n_valid, scale,
-                                          m.order);
+                                          m.order, PlainOut{});
+  return cudaGetLastError();
+}
+
+// Lo's strides with rows of d elements made w wide: the Layout of scratch
+// dense in Lo's dim order (Lo is dense, so each stride of a dimension
+// longer than 1 is a multiple of d; false if not).
+inline bool widen(const Layout& Lo, int d, int w, int B, int N, int H, Layout* Ls) {
+  const auto scaled = [&](long long s, int n, long long* to) {
+    *to = s / d * w;
+    return n == 1 || s % d == 0;
+  };
+  Ls->heads_per_group = Lo.heads_per_group;
+  return scaled(Lo.batch_stride, B, &Ls->batch_stride) &&
+         scaled(Lo.group_stride, H / Lo.heads_per_group, &Ls->group_stride) &&
+         scaled(Lo.row_stride, N, &Ls->row_stride);
+}
+
+// Launch the Hopper body (bf16) on heads of width d whose rows are no
+// 32-byte multiples (d % kStageUnit != 0, HD - 64 < d < HD, one head a
+// group: K3), in place: one staging launch (stage_rows)
+// writes q (roped with tables, times the scale) into `q_scratch` and k
+// (roped) and v into the two planes of `k_scratch`, read through L at the
+// alignment they have, into rows of w = d rounded up to kStageUnit laid out as the
+// output is (Lo's dim order, widen), the columns from d zeros; each scratch
+// plane holds B * H * N * w elements. Then the attention kernel over maps
+// of the scratch at w (from w to HD the columns load as zeros), without
+// tables at scale 1, its epilogue writing O's d columns through Lo with
+// plain stores (kStagedOut). Returns the CUDA error of the launches (cudaSuccess when
+// both were queued).
+template <int HD>
+cudaError_t launch_staged(const void* q, const void* k, const void* v, void* o,
+                          const void* cos_t, const void* sin_t, void* q_scratch, void* k_scratch,
+                          int B, int N, int H, int d, const Layout& L, const Layout& Lo,
+                          int n_valid, float scale, void* stream) {
+  using C = Config<HD>;
+  using T = __nv_bfloat16;
+  const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
+  if (bad != cudaSuccess) return bad;
+  const int w = (d + kStageUnit - 1) / kStageUnit * kStageUnit;
+  Layout Ls;
+  if (d > HD || d <= HD - kAtom || d % kStageUnit == 0 || L.heads_per_group != 1 ||
+      q_scratch == nullptr || k_scratch == nullptr || (cos_t == nullptr) != (sin_t == nullptr) ||
+      !widen(Lo, d, w, B, N, H, &Ls))
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const float*>(cos_t);
+  const auto* s = static_cast<const float*>(sin_t);
+  T* qs = static_cast<T*>(q_scratch);
+  T* ks = static_cast<T*>(k_scratch);
+  T* vs = ks + static_cast<size_t>(B) * H * N * w;
+  const bool rope = c != nullptr;
+  cudaError_t err = launch_stage<T>(StageJob<T>{static_cast<const T*>(q), qs, N, scale, rope},
+                                    StageJob<T>{static_cast<const T*>(k), ks, n_valid, 1.f, rope},
+                                    StageJob<T>{static_cast<const T*>(v), vs, n_valid, 1.f, false},
+                                    3, c, s, B, H, d, w, L, Ls, st);
+  if (err != cudaSuccess) return err;
+  // The maps at w: every stride a 32-byte multiple, and the staging pass
+  // wrote zeros in the columns from d to w.
+  MapShape m;
+  if (!map_shape(Ls, Ls, w, B, N, H, &m) || m.order.rank != 4) return cudaErrorInvalidValue;
+  CUtensorMap q_map, k_map, v_map, o_map{};
+  if (!encode_map(&q_map, qs, m, N) || !encode_map(&k_map, ks, m, n_valid) ||
+      !encode_map(&v_map, vs, m, n_valid))
+    return cudaErrorInvalidValue;
+  int unit = 4;
+  while (unit > 1 && (d % unit || Lo.row_stride % unit || Lo.group_stride % unit ||
+                      Lo.batch_stride % unit || reinterpret_cast<uintptr_t>(o) % (2 * unit)))
+    unit /= 2;
+  const auto kernel = attention_sm90<HD, 4, kFull, true>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::kSmemBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(q_map, k_map, v_map, o_map, nullptr, nullptr, N,
+                                                   n_valid, 1.f, m.order,
+                                                   PlainOut{static_cast<T*>(o), Lo, d, unit});
   return cudaGetLastError();
 }
 
 }  // namespace sm90
 
-// The width an fp32 Hopper body runs a d-wide head at (maps at d): the next
-// of 64 and 128 (attention_sm90_tf32.cuh) and 192 and 256
-// (attention_sm90_tf32_wide.cuh); above 256 the width of the slices body's
-// scratch (attention_sm90_tf32_slices.cuh), d rounded up to 64.
-inline int tf32_width(int d) {
-  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : d <= 256 ? 256 : (d + 63) / 64 * 64;
-}
+// The width a Hopper body is built at that runs a d-wide head (d up to
+// 256): the next of 64, 128, 192 and 256, its maps at d.
+inline int sm90_width(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256; }
 
-// Which body a (dtype, head dim) takes in every entry: 1 (this file's
-// Hopper body) for bfloat16 at d = 64, 128, 192 and 256 (an entry builds the
-// widths it takes: K1 and K2 only 64); 3 (attention_sm90_tf32.cuh's fp32
-// Hopper body) for float32 at a multiple of 4 up to 128, 4 (its wide form,
-// attention_sm90_tf32_wide.cuh) at one from 132 to 256 and 5 (its slices
-// body, attention_sm90_tf32_slices.cuh) at any d above 256; else 0
-// (attention_common.cuh, bfloat16 only). K3's bf16 heads above 256 take the
-// wide body (attention_wide.cuh), which attention_headmajor.cu reports as 2.
-// ops/flash_attention.py::attention_body mirrors it.
+// The width an fp32 Hopper body runs a d-wide head at (maps at d):
+// sm90_width, the next of 64 and 128 (attention_sm90_tf32.cuh) and 192 and
+// 256 (attention_sm90_tf32_wide.cuh); above 256 the width of the slices
+// body's scratch (attention_sm90_tf32_slices.cuh), d rounded up to 64.
+inline int tf32_width(int d) { return d <= 256 ? sm90_width(d) : (d + 63) / 64 * 64; }
+
+// Which body a (dtype, head dim) takes in every entry (K1 and K2 take only
+// d = 64): 1 (this file's Hopper body) for bfloat16 up to 256, at
+// sm90_width(d); 2 (K3's wide body, attention_wide.cuh) for bfloat16 above
+// 256; 3 (attention_sm90_tf32.cuh's fp32 Hopper body) for float32 at a
+// multiple of 4 up to 128, 4 (its wide form, attention_sm90_tf32_wide.cuh)
+// at one from 132 to 256 and 5 (its slices body,
+// attention_sm90_tf32_slices.cuh) at any d above 256; -1 (no body) for
+// anything else. ops/flash_attention.py::attention_body mirrors it.
 inline int sm90_route(int dtype, int head_dim) {
-  if (dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 192 || head_dim == 256))
-    return 1;
+  if (dtype == 1 && head_dim > 0) return head_dim <= kMaxHeadDim ? 1 : 2;
   if (dtype == 0 && head_dim > 256) return 5;
   if (dtype == 0 && head_dim > 0 && head_dim % 4 == 0)
     return head_dim > 128 ? 4 : 3;
-  return 0;
+  return -1;
 }
 
 }  // namespace cbas_attention

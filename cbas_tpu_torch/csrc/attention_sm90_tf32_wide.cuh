@@ -5,8 +5,8 @@
 // attention_headmajor.cu includes it.
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
-// (entry fused_attention) in fp32 at those widths, where the port ran
-// attention_common.cuh's scalar FMAs on a copy padded to 192 or 256. The
+// (entry fused_attention) in fp32 at those widths, where the port ran its
+// first body's scalar FMAs (since deleted) on a copy padded to 192 or 256. The
 // function and its rounding points are attention_sm90_tf32.cuh's (3xTF32:
 // every fp32 operand split by tf32_split into TF32 hi and lo, every product
 // lo.hi + hi.lo + hi.hi on wgmma .tf32, q.k^T's small products and each

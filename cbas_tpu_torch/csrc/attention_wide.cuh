@@ -42,8 +42,12 @@
 //   (rope_rows, attention_common.cuh; the Hopper body's too) writes q (the
 //   scale folded in) and k roped, each value rounded once, in one launch to
 //   two scratch buffers laid out like the output, and the attention kernel
-//   reads those through the output's Layout. Without tables the consumers scale Q in
-//   shared memory as it lands (one rounding, as with tables).
+//   reads those through the output's Layout. At an odd d the staging pass
+//   (stage_rows, attention_common.cuh) writes the same two buffers, pairing
+//   column i with i + d/2 rounded down (and the columns above the first
+//   d - d/2 with i - (d - d/2)), rotate-half's pairing of an odd head.
+//   Without tables the consumers scale Q in shared memory as it lands (one
+//   rounding, as with tables).
 // - Any layout of one head a group: the heads lie where the Layouts'
 //   strides put them (contiguous head-major tensors, or head-major views of
 //   flat (B, N, H*d) or fused (B, N, 3 H*d) projections); the TMA maps and
@@ -468,20 +472,28 @@ attention_wide_bf16(const __grid_constant__ CUtensorMap q_map,
 // ---------------------------------------------------------------------------
 
 // With tables, q (times the scale) and k roped into the scratch, laid out
-// like the output (Lo), by one launch of the shared prologue (rope_rows); q
-// and k then point at the scratch, Lqk becomes Lo and the scale is 1.
-// Returns the launch's CUDA error.
+// like the output (Lo), by one launch: the shared prologue (rope_rows) at an
+// even hd, the staging pass (stage_rows, rows hd wide; counted in
+// *prologues) at an odd one. q and k then point at the scratch, Lqk becomes
+// Lo and the scale is 1. Returns the launch's CUDA error.
 inline cudaError_t rope_first(const __nv_bfloat16*& q, const __nv_bfloat16*& k, void* q_scratch,
                               void* k_scratch, const float* cos_t, const float* sin_t, int B, int N,
                               int H, int hd, Layout& Lqk, const Layout& Lo, int n_valid,
-                              float& scale, cudaStream_t st) {
+                              float& scale, cudaStream_t st, int* prologues) {
   using T = __nv_bfloat16;
   if (cos_t == nullptr) return cudaSuccess;
   auto* qs = static_cast<T*>(q_scratch);
   auto* ks = static_cast<T*>(k_scratch);
-  const cudaError_t err = launch_rope<T>(RopeJob<T>{q, qs, N, scale},
-                                         RopeJob<T>{k, ks, n_valid, 1.f}, 2, cos_t, sin_t, B, H,
-                                         hd, Lqk, Lo, st);
+  cudaError_t err;
+  if (hd % 2) {
+    const StageJob<T> qj{q, qs, N, scale, true};
+    err = launch_stage<T>(qj, StageJob<T>{k, ks, n_valid, 1.f, true}, qj, 2, cos_t, sin_t, B, H,
+                          hd, hd, Lqk, Lo, st);
+    *prologues = 1;
+  } else {
+    err = launch_rope<T>(RopeJob<T>{q, qs, N, scale}, RopeJob<T>{k, ks, n_valid, 1.f}, 2, cos_t,
+                         sin_t, B, H, hd, Lqk, Lo, st);
+  }
   q = qs, k = ks, Lqk = Lo, scale = 1.f;
   return err;
 }
@@ -490,19 +502,20 @@ inline cudaError_t rope_first(const __nv_bfloat16*& q, const __nv_bfloat16*& k, 
 // kMaxHeadDim, head-major wherever L puts them (one head a group; contiguous
 // tensors and views of flat or fused projections alike), the output where Lo
 // puts it (dense in L's dim order). cos_t/sin_t are (N, hd) fp32 tables,
-// which need an even hd and two scratch buffers laid out like the output
-// (roped q, roped k), or both null. Returns the CUDA error of the launches
+// which need two scratch buffers laid out like the output (roped q, roped
+// k), or both null. *prologues is set to the staging launches queued (1 at
+// an odd hd with tables, else 0). Returns the CUDA error of the launches
 // (cudaSuccess when all were queued).
 inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                           const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H,
                           int hd, const Layout& L, const Layout& Lo, int n_valid, float scale,
-                          void* stream) {
+                          void* stream, int* prologues) {
   const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   const int atoms = (hd + kAtom - 1) / kAtom;
   const int n_slices = (atoms + kSliceAtoms - 1) / kSliceAtoms;
   if (hd <= kMaxHeadDim || (cos_t == nullptr) != (sin_t == nullptr) ||
-      (cos_t != nullptr && (hd % 2 || q_scratch == nullptr || k_scratch == nullptr)) ||
+      (cos_t != nullptr && (q_scratch == nullptr || k_scratch == nullptr)) ||
       L.heads_per_group != 1 || static_cast<long long>(B) * n_slices > 65535)
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
@@ -514,7 +527,8 @@ inline cudaError_t launch(const void* q, const void* k, const void* v, void* o, 
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   cudaError_t err =
-      rope_first(qb, kb, q_scratch, k_scratch, c, s, B, N, H, hd, Lqk, Lo, n_valid, scale, st);
+      rope_first(qb, kb, q_scratch, k_scratch, c, s, B, N, H, hd, Lqk, Lo, n_valid, scale, st,
+                 prologues);
   if (err != cudaSuccess) return err;
   // The TMA takes rows at 16-byte multiples: d % 8 == 0 (the wrapper checks
   // the strides and base addresses); the warpgroups stage other widths

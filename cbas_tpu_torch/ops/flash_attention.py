@@ -10,18 +10,17 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
 - :func:`fused_attention_packed` (K2): head-pair packed (B, H/2, N, 128),
   two 64-wide heads side by side on the last dim.
 - :func:`fused_attention` (K3): head-major (B, H, N, d), any d on the
-  card. The kernel is built
-  at every multiple of 8 up to 128, and at 192 and 256; a bf16 head of
-  another multiple of 8 up to 256 runs at the next of those, and an fp32
-  head of a multiple of 4 up to 256 at the next of 64, 128, 192 and 256
-  (:func:`tf32_width`), its tensor maps at d (the columns beyond read as
-  zeros); a head above 256 runs a body that takes d at run time (the wide
-  body in bf16, the fp32 slices body in fp32).
-  The rest is copied first: fp32 and bf16 at a width up to 256 that is no
-  multiple of 4 (fp32) or 8 (bf16) run zero-padded to the next built width
-  (:func:`pad_head_dim`), and an odd d with RoPE tables is roped here and
-  launched without them (rotate-half's pairing of an odd d survives no
-  pad).
+  card. Its bodies are built at 64, 128, 192 and 256, and a head of width
+  d up to 256 runs at the next of those (:func:`headmajor_width`), its
+  tensor maps at d (the columns beyond read as zeros); a head above 256
+  runs a body that takes d at run time (the wide body in bf16, the fp32
+  slices body in fp32). Every bf16 head is read in place: one whose rows
+  are no 32-byte multiple (d % 16 != 0) goes through one staging launch
+  first (:func:`bf16_stage_reference` is its plain version), which also
+  ropes an odd d. fp32 still copies one case: a width up to 256 that is no
+  multiple of 4 runs zero-padded to the next multiple of 4
+  (:func:`pad_head_dim`), roped here first at an odd d with tables
+  (rotate-half's pairing of an odd d survives no pad).
 
 All three compute one function per head: optional rotate-half RoPE from fp32
 (N, d) tables, the scale on the q side, keys at or beyond ``n_valid`` masked,
@@ -47,11 +46,13 @@ of the Hopper and wide bodies lies as the output does.
 - On a CPU tensor it runs its plain PyTorch version
   (``attention_{fat,packed,headmajor}_reference``).
 
-Six bodies serve the three entries (:func:`attention_body`):
+Five bodies serve the three entries (:func:`attention_body`):
 
-- "sm90": bfloat16 at head dims 64 (K1, K2, K3), 128, 192 and 256 (K3) takes
-  the Hopper body (``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once
-  per token and head, tensor maps built from the tensors' strides);
+- "sm90": bfloat16 at head dim 64 (K1, K2) and in K3 at every d up to 256
+  (at the next of 64, 128, 192 and 256) takes the Hopper body
+  (``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once per token and
+  head, tensor maps built from the tensors' strides; at d % 16 != 0 over
+  scratch that a staging launch fills, O written with plain stores);
 - "sm90_f32": float32 at head dim 64 (K1, K2, K3) and, in K3, at every
   multiple of 4 up to 128 (at 64 or 128, maps at d) takes its fp32
   counterpart (``csrc/attention_sm90_tf32.cuh``: the same ring and maps,
@@ -70,9 +71,7 @@ Six bodies serve the three entries (:func:`attention_body`):
   64);
 - "wide": K3's bf16 heads above 256 take the wide body
   (``csrc/attention_wide.cuh``: O in 384-column slices, the scores formed
-  once a slice, on wgmma with two consumer warpgroups);
-- "common": K3's other bf16 head dims (up to 128) take
-  ``csrc/attention_common.cuh``'s (bf16 only).
+  once a slice, on wgmma with two consumer warpgroups).
 
 ``launches`` (K1), ``launches_packed`` (K2) and ``launches_headmajor`` (K3)
 count kernel launches and nothing else, so a run can show which kernels its
@@ -85,8 +84,11 @@ fp32 Hopper body, ``launches_sm90_f32_wide`` those of K3 that ran its wide
 form, ``launches_sm90_f32_slices`` those that ran its slices body,
 ``launches_tf32_prologue`` the launches of their prologue (those the
 C entries report queuing, one with each of those, and one a
-:func:`tf32_prologue` call), and
-``launches_wide`` those of K3 that ran the wide body. The shards of a
+:func:`tf32_prologue` call),
+``launches_wide`` those of K3 that ran the wide body, and
+``launches_stage`` the launches of bf16's staging pass (one with each K3
+call at a d % 16 != 0 up to 256, and above 256 at an odd d with tables, as
+the C entry reports them, and one a :func:`bf16_stage` call). The shards of a
 device mesh launch from threads of their own, so every count is updated
 under one lock.
 """
@@ -103,10 +105,9 @@ from typing import Optional
 import torch
 
 HEAD_DIM = 64       # K1's and K2's head width
-# K3's built head dims: every multiple of 8 up to 128 (no public DINO
-# checkpoint is wider), and 192 and 256; each instantiated width adds to the
-# kernel's build, so other widths up to 256 run zero-padded to the next one.
-HEADMAJOR_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
+# The head dims K3's bodies are built at up to 256: a head of width d runs at
+# the next of them, its tensor maps at d; above 256, at d itself.
+HEADMAJOR_HEAD_DIMS = (64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0            # K1, fused_attention_fat
@@ -121,14 +122,17 @@ launches_sm90_f32_wide = 0  # K3's launches that ran its wide form (d 132-256)
 launches_sm90_f32_slices = 0  # K3's launches that ran its slices body (fp32, d > 256)
 launches_tf32_prologue = 0  # launches of those bodies' prologue (csrc split_kv, split_kv_wide)
 launches_wide = 0       # K3's launches that ran the wide body (bf16, d > 256)
+launches_stage = 0      # launches of bf16's staging pass (csrc stage_rows)
 _count_lock = threading.Lock()  # shard threads launch concurrently
 
-_SM90_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,),
-                   "attention_headmajor": (64, 128, 192, 256)}
-_SM90_F32_HEAD_DIMS = {"attention_fat": (64,), "attention_packed": (64,)}  # K3: tf32_width
 TF32_BODIES = ("sm90_f32", "sm90_f32_wide", "sm90_f32_slices")
-_BODIES = {0: "common", 1: "sm90", 2: "wide", 3: "sm90_f32", 4: "sm90_f32_wide",
+_BODIES = {1: "sm90", 2: "wide", 3: "sm90_f32", 4: "sm90_f32_wide",
            5: "sm90_f32_slices"}  # *body codes
+# The rows of bf16's staging scratch hold d rounded up to this (32 bytes):
+# on tensor maps whose rows, or whose last column, end off a 32-byte
+# boundary the Hopper body ran 1.2-2.3x its time (PERF.md), so a bf16 head
+# at a d that is no multiple of it is staged.
+STAGE_ROW_UNIT = 16
 # The fp32 Hopper body's key tile (csrc/attention_sm90_tf32.cuh, kKeys):
 # its scratch holds n_valid keys rounded up to it (tf32_scratch_keys).
 TF32_KEY_TILE = 32
@@ -148,27 +152,32 @@ def tf32_width(d: int) -> int:
     64 ("sm90_f32_slices", which runs at d itself)."""
     if d > 256:
         return -(-d // 64) * 64
-    return next(w for w in (64, 128, 192, 256) if w >= d)
+    return next(w for w in HEADMAJOR_HEAD_DIMS if w >= d)
 
 
 def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     """The body entry ``kernel`` (``attention_fat``, ``attention_packed`` or
     ``attention_headmajor``) runs for ``dtype`` and ``head_dim``: "sm90" (the
-    Hopper body, bfloat16 at the head dims it is built for), "sm90_f32" (its
-    fp32 counterpart: float32 at 64, and in K3 at every multiple of 4 up to
-    128), "sm90_f32_wide" (its wide form: float32 in K3 at every multiple
-    of 4 from 132 to 256), "sm90_f32_slices" (its slices body: float32 in K3
-    at any d above 256), "wide" (K3's bf16 heads above 256) or "common". The
-    C entries route by the same rule and report the body they ran."""
-    if kernel == "attention_headmajor" and head_dim > 256:
-        return "sm90_f32_slices" if dtype == torch.float32 else "wide"
-    if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS.get(kernel, ()):
-        return "sm90"
-    if dtype == torch.float32 and head_dim in _SM90_F32_HEAD_DIMS.get(kernel, ()):
-        return "sm90_f32"
-    if kernel == "attention_headmajor" and dtype == torch.float32 and head_dim % 4 == 0:
+    Hopper body: bfloat16 at 64, and in K3 at every d up to 256), "sm90_f32"
+    (its fp32 counterpart: float32 at 64, and in K3 at every d up to 128),
+    "sm90_f32_wide" (its wide form: float32 in K3 from 129 to 256),
+    "sm90_f32_slices" (its slices body: float32 in K3 above 256) or "wide"
+    (K3's bf16 heads above 256). fp32 runs a d that is no multiple of 4
+    padded to one, on the body of that width. The C entries route by the
+    same rule and report the body they ran. Raises ``ValueError`` for what
+    no body takes: another dtype, or K1 and K2 at a d other than 64."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"no attention body takes {dtype}")
+    f32 = dtype == torch.float32
+    if kernel == "attention_headmajor" and head_dim > 0:
+        if head_dim > 256:
+            return "sm90_f32_slices" if f32 else "wide"
+        if not f32:
+            return "sm90"
         return "sm90_f32" if head_dim <= 128 else "sm90_f32_wide"
-    return "common"
+    if kernel in ("attention_fat", "attention_packed") and head_dim == HEAD_DIM:
+        return "sm90_f32" if f32 else "sm90"
+    raise ValueError(f"{kernel} takes no head dim {head_dim}")
 
 
 def use_fat_attention() -> bool:
@@ -390,12 +399,12 @@ def _require_contiguous(**tensors) -> None:
             raise ValueError(f"{arg} must be contiguous and 16-byte aligned")
 
 
-def _check_strides(names, q, k, v, unit: int = 16) -> None:
+def _check_strides(names, q, k, v, unit: int = 16, base: int = 16) -> None:
     """What the kernels take besides contiguous tensors: q, k and v (called
     ``names`` in the messages) with one set of strides, the last dim
     contiguous, every other stride (of a dim longer than 1) a multiple of
-    ``unit`` bytes and each base address a 16-byte multiple (the tensor
-    maps' rule, at the default unit), and no two elements at one address.
+    ``unit`` bytes and each base address a multiple of ``base`` bytes (the
+    tensor maps' rule, at the defaults), and no two elements at one address.
     The output (:func:`_dense_like`) is held to the same rule."""
     if not q.stride() == k.stride() == v.stride():
         raise ValueError(
@@ -415,8 +424,8 @@ def _check_strides(names, q, k, v, unit: int = 16) -> None:
             raise ValueError(f"stride {stride} of dim {dim} overlaps the elements within it")
         extent += stride * (n - 1)
     for arg, t in zip(names, (q, k, v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{arg} starts at {t.data_ptr():#x}, not a 16-byte multiple")
+        if t.data_ptr() % base:
+            raise ValueError(f"{arg} starts at {t.data_ptr():#x}, not a {base}-byte multiple")
 
 
 def _layout(t: torch.Tensor) -> tuple:
@@ -452,13 +461,20 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, width=None
         out = _dense_like(q)
         _check_strides(("out",) * 3, out, out, out, math.gcd(16, d * q.element_size()))
         # Roped keys (the Hopper body), and roped queries too where the
-        # kernel cannot rope them itself (the wide body, a padded width),
-        # laid out as the output is: dense, without a fused buffer's holes.
-        # The fp32 Hopper bodies' prologue writes K and V split (and K roped)
-        # into its own scratch, at the width they run at, with tables or
-        # without.
+        # kernel cannot rope them itself (the wide body, d below the width it
+        # runs at), laid out as the output is: dense, without a fused
+        # buffer's holes. Rows that are no 32-byte multiple (bf16 up to 256)
+        # are staged instead, with tables or without: q into q_scratch, k
+        # and v into two planes of k_scratch, rows of stage_width(d). The
+        # fp32 Hopper bodies' prologue writes K and V
+        # split (and K roped) into its own scratch, at the width they run
+        # at, with tables or without.
         q_scratch = k_scratch = None
-        if cos is not None and want in ("sm90", "wide"):
+        if want == "sm90" and headmajor_staged(q.dtype, d):
+            plane = B * H * N * stage_width(d)
+            q_scratch = torch.empty(plane, dtype=q.dtype, device=q.device)
+            k_scratch = torch.empty(2 * plane, dtype=q.dtype, device=q.device)
+        elif cos is not None and want in ("sm90", "wide"):
             k_scratch = _dense_like(q)
             if want == "wide" or width != d:
                 q_scratch = _dense_like(q)
@@ -482,11 +498,12 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, width=None
 
 def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
     """One launch of entry ``name`` at head dim ``d`` through ``body``, and
-    the ``prologues`` launches of the fp32 body's prologue its C entry
-    reported queuing, in the module's counters."""
+    the ``prologues`` launches its C entry reported queuing before it (the
+    fp32 bodies' prologue, or bf16's staging pass), in the module's
+    counters."""
     global launches, launches_packed, launches_headmajor, launches_sm90, launches_wide
     global launches_sm90_f32, launches_sm90_f32_wide, launches_sm90_f32_slices
-    global launches_tf32_prologue
+    global launches_tf32_prologue, launches_stage
     with _count_lock:
         if name == "attention_fat":
             launches += 1
@@ -507,7 +524,10 @@ def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
             launches_sm90_f32_slices += 1
         elif body == "wide":
             launches_wide += 1
-        launches_tf32_prologue += prologues
+        if body in TF32_BODIES:
+            launches_tf32_prologue += prologues
+        else:
+            launches_stage += prologues
 
 
 def fused_attention_fat(
@@ -643,39 +663,44 @@ def tf32_prologue(
 
 
 def padded_head_dim(d: int) -> int:
-    """The width K3 runs a d-wide head at: the smallest built head dim that
-    is at least d, or d itself above 256 (the wide and slices bodies take
-    any d)."""
-    for width in HEADMAJOR_HEAD_DIMS:
-        if width >= d:
-            return width
-    return d
+    """The width an fp32 head of width d that K3 copies first is padded to:
+    up to 256, d rounded up to a multiple of 4 (the fp32 Hopper bodies read
+    that in place); above 256, d itself (the slices body takes any d)."""
+    return d if d > 256 else -(-d // 4) * 4
 
 
 def headmajor_in_place(dtype: torch.dtype, d: int, rope: bool = False) -> bool:
     """Whether K3 reads a d-wide head where it lies on the card (no pad
-    copy): at a built width, above 256, in bf16 at a multiple of 8 and in
-    fp32 wherever an fp32 Hopper body takes d (maps at d); never an odd d
-    with RoPE tables."""
+    copy, no RoPE outside a kernel): in bf16 at every d; in fp32 at every
+    multiple of 4 and above 256, but never at an odd d with RoPE tables."""
+    if dtype == torch.bfloat16:
+        return True
     if rope and d % 2:
         return False
-    if d > 256 or d in HEADMAJOR_HEAD_DIMS:
-        return True
-    if dtype == torch.float32:
-        return attention_body("attention_headmajor", dtype, d) in TF32_BODIES
-    return d % 8 == 0
+    return d > 256 or d % 4 == 0
+
+
+def headmajor_staged(dtype: torch.dtype, d: int, rope: bool = False) -> bool:
+    """Whether a K3 call on the card launches bf16's staging pass before its
+    attention kernel (``launches_stage``): up to 256 at a d whose rows are no
+    32-byte multiple (d % 16 != 0), above 256 at an odd d with RoPE tables."""
+    if dtype != torch.bfloat16:
+        return False
+    return bool(d % STAGE_ROW_UNIT) if d <= 256 else rope and d % 2 == 1
+
+
+def stage_width(d: int) -> int:
+    """The elements a row of bf16's staging scratch holds: d rounded up to
+    STAGE_ROW_UNIT."""
+    return -(-d // STAGE_ROW_UNIT) * STAGE_ROW_UNIT
 
 
 def headmajor_width(dtype: torch.dtype, d: int) -> int:
     """The width K3's kernel runs a d-wide head at (the key of
-    ``launches_headmajor_by_dim``): on an fp32 Hopper body up to 256
-    :func:`tf32_width`, else the next built width (:func:`padded_head_dim`;
-    d itself above 256); for a head copied first, that of the width it is
-    padded to."""
-    w = d if headmajor_in_place(dtype, d) else padded_head_dim(d)
-    if w <= 256 and attention_body("attention_headmajor", dtype, w) in TF32_BODIES:
-        return tf32_width(w)
-    return padded_head_dim(w)
+    ``launches_headmajor_by_dim``): up to 256 the next of
+    HEADMAJOR_HEAD_DIMS (:func:`tf32_width`; fp32 pads a width that is no
+    multiple of 4 below it first), d itself above."""
+    return d if d > 256 else tf32_width(d)
 
 
 def pad_head_dim(t: torch.Tensor, width: int, halves: bool) -> torch.Tensor:
@@ -711,6 +736,98 @@ def _rope_heads(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return ((x * cos.float() + rotate_half(x) * sin.float()) * scale).to(t.dtype)
 
 
+def bf16_stage_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3's bf16 staging pass on head-major (B, H,
+    N, d) q, k and v: a (3, B, H, N, width) tensor in q's dtype (``width``
+    >= d, by default :func:`stage_width`), its planes q roped
+    with the (N, d) tables (rotate-half at any d, :func:`rotate_half`) and
+    times ``scale``, k roped, v as it is, each rounded once from fp32 as
+    :func:`attention_headmajor_reference` rounds them; rows of k and v at
+    or beyond ``n_valid`` and the columns from d on are zeros. Without
+    tables k and v pass bit for bit. The kernel writes the same bits."""
+    B, H, N, d = q.shape
+    w = stage_width(d) if width is None else width
+    nv = N if n_valid is None else n_valid
+    out = torch.zeros(3, B, H, N, w, dtype=q.dtype, device=q.device)
+    qh, kh = q.float(), k[:, :, :nv].float()
+    if rope_cos is not None:
+        cos, sin = rope_cos.float(), rope_sin.float()
+        qh = qh * cos + rotate_half(qh) * sin
+        kh = kh * cos[:nv] + rotate_half(kh) * sin[:nv]
+    out[0, ..., :d] = (qh * scale).to(q.dtype)
+    out[1, :, :, :nv, :d] = kh.to(q.dtype) if rope_cos is not None else k[:, :, :nv]
+    out[2, :, :, :nv, :d] = v[:, :, :nv]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_kernel():
+    """``cbas_attention_bf16_stage`` of ``csrc/attention_headmajor.cu``: the
+    staging pass alone."""
+    from cbas_tpu_torch.ops import _cuda
+
+    fn = _cuda.load("attention_headmajor").cbas_attention_bf16_stage
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def bf16_stage(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K3's bf16 staging pass alone on head-major (B, H, N, d) bf16 q, k and
+    v (one set of strides, the last dim contiguous, any alignment): the
+    (3, B, H, N, :func:`stage_width` (d)) tensor that K3 stages into
+    before its attention kernel at a d % 16 != 0 (there laid out in q's dim
+    order). On a CPU tensor, :func:`bf16_stage_reference`; on a CUDA one,
+    the kernel (``csrc/attention_common.cuh``'s stage_rows), the same bits,
+    or raise."""
+    if q.dim() != 4 or q.dtype != torch.bfloat16:
+        raise ValueError(f"expected head-major bf16 (B, H, N, d) q, got {tuple(q.shape)} {q.dtype}")
+    B, H, N, d = q.shape
+    nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
+    _check_strides(("q", "k", "v"), q, k, v, math.gcd(16, 2 * d), 2)
+    if q.device.type == "cpu":
+        return bf16_stage_reference(q, k, v, scale, nv, rope_cos, rope_sin)
+    if q.device.type != "cuda":
+        raise ValueError(f"bf16_stage runs on cpu or cuda, not {q.device}")
+    cos = sin = None
+    if rope_cos is not None:
+        cos, sin = (t.to(torch.float32).contiguous() for t in (rope_cos, rope_sin))
+    _require_contiguous(rope_cos=cos, rope_sin=sin)
+    with torch.cuda.device(q.device):
+        out = torch.empty(3, B, H, N, stage_width(d), dtype=q.dtype, device=q.device)
+        out[1:, :, :, nv:] = 0  # rows the pass does not write
+        err = _stage_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (cos, sin)),
+            B, N, H, d, q.stride(0), q.stride(1), q.stride(2), nv, float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"bf16_stage kernel launch failed with CUDA error {err}")
+    global launches_stage
+    with _count_lock:
+        launches_stage += 1
+    return out
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -726,36 +843,31 @@ def fused_attention(
     ``rope_cos``/``rope_sin`` are full-length (N, d) tables. On a CPU tensor
     the plain version runs. On the card the kernel reads q, k and v where
     they lie, and writes the output dense in q's dim order, at every d but
-    the cases below (:func:`headmajor_in_place`): the widths it is built at
-    (multiples of 8 up to 128, 192 and 256), every d above 256 (the wide
-    body in bf16, the fp32 slices body in fp32), in bf16 every other
-    multiple of 8 from 136 to 248 (the Hopper
-    body at the next built width) and in fp32 every other multiple of 4 up
-    to 256 (an fp32 Hopper body at :func:`tf32_width`), those two with their
-    tensor maps at d, so the columns beyond d read as zeros and no copy pads
-    the head. There q, k and v may be strided views, such as
-    ``t.view(B, N, H, d).transpose(1, 2)`` of a flat (B, N, H*d) column
-    block of a fused projection, whose output is then
+    one case below (:func:`headmajor_in_place`): up to 256 at the next of
+    HEADMAJOR_HEAD_DIMS with its tensor maps at d, so the columns beyond d
+    read as zeros and no copy pads the head (bf16 rows that are no 32-byte
+    multiple, d % 16 != 0, go through one staging launch into scratch
+    first, RoPE with it at any d); above 256 at d (the wide body in bf16,
+    the fp32 slices body in fp32). There q, k and v may be strided views,
+    such as ``t.view(B, N, H, d).transpose(1, 2)`` of a flat (B, N, H*d)
+    column block of a fused projection, whose output is then
     ``empty(B, N, H, d).transpose(1, 2)`` and its ``transpose(1,
     2).reshape(B, N, H*d)`` a view: one set of strides for the three, the
-    last dim contiguous, the
-    other strides multiples of 16 bytes (of the largest power of two up to
-    16 that divides a row's bytes, for the rows above 256 that are not
-    16-byte multiples), 16-byte aligned base addresses, no overlap (raises
-    ``ValueError`` otherwise, on every device).
+    last dim contiguous, the other strides multiples of 16 bytes (of the
+    largest power of two up to 16 that divides a row's bytes, for rows that
+    are not 16-byte multiples), base addresses multiples of 16 bytes (in
+    bf16, of that power of two), no overlap (raises ``ValueError``
+    otherwise, on every device).
 
-    Three cases still copy first, take any strides and return contiguous
-    tensors:
-
-    - fp32 at a width up to 256 that is not a multiple of 4, and bf16 at
-      one that is not a multiple of 8 (its rows are not 16-byte multiples,
-      which a tensor map refuses): q, k and v (and the tables, half by
-      half, with RoPE) zero-padded to the next built width
-      (:func:`pad_head_dim`), the output sliced back, ``scale`` unchanged;
-    - an odd d with tables: q and k roped here (:func:`_rope_heads`, the
-      scale folded into q) and the kernel run without tables at scale 1:
-      rotate-half pairs element i of an odd head with element i + d // 2 for
-      i <= d // 2 and with i - d // 2 - 1 above, a pairing no zero pad keeps.
+    fp32 at a width up to 256 that is no multiple of 4 still copies first,
+    takes any strides and returns a contiguous tensor: q, k and v (and the
+    tables, half by half, with RoPE) zero-padded to the next multiple of 4
+    (:func:`pad_head_dim`), the output sliced back, ``scale`` unchanged; at
+    an odd d with tables, q and k roped here first (:func:`_rope_heads`, the
+    scale folded into q) and the kernel run without tables at scale 1:
+    rotate-half pairs element i of an odd head with element i + d // 2 for
+    i <= d // 2 and with i - d // 2 - 1 above, a pairing no zero pad keeps.
+    The same holds above 256 at an odd d with tables (roped here, no pad).
     """
     if q.dim() != 4:
         raise ValueError(f"expected head-major (B, H, N, d) tensors, got q of shape {tuple(q.shape)}")
@@ -763,7 +875,8 @@ def fused_attention(
     nv = _check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
     in_place = headmajor_in_place(q.dtype, d, rope_cos is not None)
     if in_place:
-        _check_strides(("q", "k", "v"), q, k, v, math.gcd(16, d * q.element_size()))
+        unit = math.gcd(16, d * q.element_size())
+        _check_strides(("q", "k", "v"), q, k, v, unit, unit if q.dtype == torch.bfloat16 else 16)
     if q.device.type == "cpu":
         out = attention_headmajor_reference(q, k, v, scale, nv, rope_cos, rope_sin)
         return _in_dense_order(q, out) if in_place else out

@@ -40,7 +40,10 @@ PLANE = 64
 
 def measure(n: int, per_device_batch: int, iters: int, device="cuda") -> dict:
     """Mean step time of the DP encode over ``n`` shards (one device, no
-    mesh, at n = 1)."""
+    mesh, at n = 1): wall seconds (``step_s``) and the process's CPU
+    seconds, every thread's (``cpu_step_s``: on logical CPU shards the cost
+    of the work itself, which the scheduler's delays on busy cores leave
+    out)."""
     from cbas_tpu_torch.models.encoder import FrameEncoder
     from cbas_tpu_torch.models.vit import ViTConfig, init_vit_params
     from cbas_tpu_torch.parallel.mesh import make_mesh
@@ -60,12 +63,12 @@ def measure(n: int, per_device_batch: int, iters: int, device="cuda") -> dict:
     batch = per_device_batch * n
     planes = np.random.default_rng(0).integers(0, 256, (batch, PLANE, PLANE), np.uint8)
     enc.encode_planes(planes)  # warm: geometry state, kernel builds
-    t0 = time.perf_counter()
+    t0, c0 = time.perf_counter(), time.process_time()
     for _ in range(iters):
         enc.encode_planes(planes)  # ends in a device-to-host copy
     dt = (time.perf_counter() - t0) / iters
     return {"devices": n, "device": str(devices[0]), "batch": batch, "step_s": dt,
-            "frames_per_s_total": batch / dt}
+            "cpu_step_s": (time.process_time() - c0) / iters, "frames_per_s_total": batch / dt}
 
 
 def main(argv=None) -> int:

@@ -18,15 +18,20 @@ each:
   and 256 (16 heads at ViT-7B's batch), 160 and 200 (run at 192 and
   256) and, in bf16
   and fp32, 320 and 384 (the wide body); in fp32 also 16, 32, 136, 200
-  and 256 (16 heads, N 261) and 192 and 256 (N 1205); each fp32 row above
+  and 256 (16 heads, N 261) and 192 and 256 (N 1205); in bf16 also 32,
+  96 and 100 (N 261), 96, 100 and 150 (N 1205) and 65 (N 261: at an odd d
+  with RoPE), 16 heads, the widths that K3's first bf16 body or a pad copy
+  took before the staging pass; each fp32 row above
   256 with the SM clock, power and temperature after its reads
-  (``chip_smoke.gpu_clocks``);
+  (``chip_smoke.gpu_clocks``); tables of random angles where the model's
+  rule builds none (d % 4 != 0, ``case_tables``);
 - the head-major route's attention at the ViT-7B width (``ROUTE_ROWS``):
   views of flat projections in, K3, the context back as (B, N, H*d), with
   RoPE and without; a checkout whose K3 refuses views copies q, k, v and
   the context there, as its route did;
 - a ``torch.profiler`` trace of K3 at ``TRACE_ROWS`` (the width 160 run
-  at 192, and 192 itself): each CUDA kernel's launches and device ms per
+  at 192, 192 itself, and 100, a row of 200 bytes): each CUDA kernel's
+  launches and device ms per
   call, the device's busy ms per call, the host's ms to issue one call and
   the CUDA-event ms per call, read once (not a list, so not summarized);
 - warm encode frames/s: dinov3-vitb16 flat and packed (``CBAS_ATTN_FAT=0``)
@@ -51,6 +56,13 @@ each:
   views' strides, holes and all);
 - on a checkout that has it, the memory floor at probe14's (384*6, 272,
   128) bf16 blocks and at ``FUSED_ROWS``' bytes, and ``out.copy_(q)`` there.
+
+With ``--widths`` each run reads only K3 in bf16 at ``WIDTH_ROWS`` (no
+RoPE, contiguous): the call's ms by CUDA events and, from a
+``torch.profiler`` trace, the device ms of each kernel it ran (the Hopper
+body, and a staging pass where the checkout stages that width), so two
+checkouts that read a width in place or through scratch compare kernel by
+kernel (about 2 minutes a run).
 
 Prints one JSON line per run, then a summary line: for each metric the
 median and range of the parent's reads and of the change's, and the card's
@@ -92,7 +104,11 @@ KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
 ) + tuple(  # K3 in fp32 at widths no preset has
     ("attention_headmajor", B, N, 16, d, (16, 16) if N == 261 else (30, 40), "float32")
     for B, N, d in ((8, 261, 16), (8, 261, 32), (8, 261, 136), (8, 261, 200), (8, 261, 256),
-                    (4, 1205, 192), (4, 1205, 256)))
+                    (4, 1205, 192), (4, 1205, 256))
+) + tuple(  # K3 in bf16 at the widths its first bf16 body or a pad copy took before staging
+    ("attention_headmajor", B, N, 16, d, (16, 16) if N == 261 else (30, 40), "bfloat16")
+    for B, N, d in ((8, 261, 32), (8, 261, 96), (8, 261, 100), (4, 1205, 96), (4, 1205, 100),
+                    (4, 1205, 150), (8, 261, 65)))
 # The head-major route's attention at the ViT-7B width, (B, N, H, d, patch
 # grid), bf16: head-major views of flat (B, N, H*d) projections in, K3, the
 # context back as (B, N, H*d). A checkout whose K3 refuses views runs its
@@ -103,6 +119,8 @@ TRACE_ROWS = (  # (B, N, H, d, patch grid, RoPE), K3 in bf16
     (8, 261, 16, 160, (16, 16), True),
     (8, 261, 16, 160, (16, 16), False),
     (8, 261, 16, 192, (16, 16), True),
+    (8, 261, 16, 100, (16, 16), True),
+    (8, 261, 16, 100, (16, 16), False),
 )
 TRACE_CALLS = 20
 # The LayerNorm kernel's rows, (rows, D): dinov3-vitb16 at 256x256 batch 128
@@ -124,6 +142,11 @@ FUSED_ROWS = (
     ("attention_headmajor", 128, 261, 12, 64, (16, 16)),
     ("attention_headmajor", 32, 261, 32, 128, (16, 16)),
 )
+# ``--widths``: K3 in bf16 at 640x480's 1205 tokens and 16 heads, at widths
+# on both sides of the rows a tensor map reads whole 32-byte sectors of (d %
+# 16 == 0) and of those it refuses (d % 8 != 0).
+WIDTH_ROWS = tuple((4, 1205, 16, d) for d in (40, 64, 88, 96, 100, 104, 120, 128, 150, 152, 160,
+                                             192, 200, 256))
 VIT7B_CONFIG = {
     "model_type": "dinov3_vit", "hidden_size": 4096, "num_attention_heads": 32,
     "intermediate_size": 8192, "use_gated_mlp": True, "patch_size": 16,
@@ -137,6 +160,18 @@ def card_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def case_tables(torch, chip_smoke, cfg, d, grid, N):
+    """(N, d) RoPE tables: the model's (``chip_smoke.rope_full``) where its
+    rule builds them (d % 4 == 0), else cos and sin of random angles from a
+    seed (``chip_smoke.head_tables``'s, which a parent may not have)."""
+    import numpy as np
+
+    if d % 4 == 0:
+        return chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda")
+    ang = np.random.default_rng(11).uniform(-np.pi, np.pi, (N, d)).astype(np.float32)
+    return tuple(torch.from_numpy(f(ang)).to("cuda") for f in (np.cos, np.sin))
 
 
 def trace_calls(torch, fn, calls: int = TRACE_CALLS) -> dict:
@@ -235,10 +270,10 @@ def measure(root: str, reads: int) -> dict:
                  "attention_headmajor": (B, H, N, d)}[kernel]
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
                    .to("cuda", getattr(torch, dtype)) for _ in range(3))
-        cos, sin = chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda")
+        cos, sin = case_tables(torch, chip_smoke, cfg, d, grid, N)
         for rope in (True, False):
-            tables = (cos, sin) if rope else (None, None)
-            fn = lambda: wrappers[kernel](q, k, v, d ** -0.5, None, *tables)  # noqa: E731
+            pair = (cos, sin) if rope else (None, None)
+            fn = lambda: wrappers[kernel](q, k, v, d ** -0.5, None, *pair)  # noqa: E731
             fp32 = " fp32" if dtype == "float32" else ""
             label = f"{kernel} {B}x{N}x{H}x{d} rope={rope}{fp32} ms"
             out[label] = [chip_smoke.time_ms(torch, fn) for _ in range(reads)]
@@ -271,9 +306,9 @@ def measure(root: str, reads: int) -> dict:
     for B, N, H, d, grid, rope in TRACE_ROWS:
         q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
                    .to("cuda", torch.bfloat16) for _ in range(3))
-        tables = chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda") if rope else (None, None)
+        pair = case_tables(torch, chip_smoke, cfg, d, grid, N) if rope else (None, None)
         out[f"trace attention_headmajor {B}x{N}x{H}x{d} rope={rope}"] = trace_calls(
-            torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, *tables))  # noqa: B023
+            torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, *pair))  # noqa: B023
         del q, k, v
 
     if has_ln:
@@ -366,6 +401,34 @@ def measure(root: str, reads: int) -> dict:
     return out
 
 
+def measure_widths(root: str, reads: int) -> dict:
+    """K3 in bf16 at WIDTH_ROWS in the checkout at ``root``: the call's ms
+    (``reads`` reads) and each kernel's device ms per call in one trace
+    (``trace_calls``), keyed by the kernel's short name."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from cbas_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab: no CUDA device is visible")
+    out = {"root": os.path.dirname(os.path.dirname(fa.__file__))}
+    rng = np.random.default_rng(0)
+    for B, N, H, d in WIDTH_ROWS:
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        label = f"width {B}x{N}x{H}x{d}"
+        fn = lambda: fa.fused_attention(q, k, v, d ** -0.5)  # noqa: E731
+        out[f"{label} ms"] = [chip_smoke.time_ms(torch, fn) for _ in range(reads)]
+        for name, k_ in trace_calls(torch, fn)["kernels"].items():
+            kind = "staging" if "stage_rows" in name else "body" if "attention" in name else "other"
+            out.setdefault(f"{label} {kind} device ms", [0.0])[0] += k_["device_ms_per_call"]
+        del q, k, v
+    return out
+
+
 def build_logs(root: str) -> dict:
     """Build every kernel of the checkout at ``root`` (one nvcc a source, in
     parallel, in a process of that checkout) and read each library's
@@ -420,10 +483,13 @@ def main() -> int:
     ap.add_argument("--reads", type=int, default=3)
     ap.add_argument("--ptxas", action="store_true",
                     help="compare the two checkouts' ptxas reports only (no card needed)")
+    ap.add_argument("--widths", action="store_true",
+                    help="read K3 in bf16 at WIDTH_ROWS only, kernel by kernel")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one run, in the checkout at this root
     args = ap.parse_args()
     if args.measure:
-        print(json.dumps(measure(os.path.abspath(args.measure), args.reads)), flush=True)
+        run = measure_widths if args.widths else measure
+        print(json.dumps(run(os.path.abspath(args.measure), args.reads)), flush=True)
         return 0
     if not args.parent:
         ap.error("--parent is required")
@@ -438,7 +504,7 @@ def main() -> int:
                        ("parent", args.parent)):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--measure", os.path.abspath(root),
-             "--reads", str(args.reads)],
+             "--reads", str(args.reads)] + (["--widths"] if args.widths else []),
             capture_output=True, text=True, cwd=os.path.abspath(root),
         )
         if proc.returncode:

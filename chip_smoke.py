@@ -35,7 +35,8 @@ non-zero and prints no final line):
      head-pair views of flat ones (the packed route's operands);
    - K3 (head-major) at 32 heads of 128 (DINOv3 ViT-7B), at 3 heads of 64
      (an odd head count), at head dims 96 and 40, at the small widths 8,
-     16, 24 and 32 and the odd 13 (padded to 16), and at head dims 192 and
+     16, 24 and 32 and the odd 13 (in bf16 8, 24 and 13 staged at 64; fp32
+     13 padded to 16), and at head dims 192 and
      256, wider than any shipped preset's heads (timed at 16 heads); and on
      head-major views of flat tensors (the head-major route's operands) at
      d 64, 128, 192, 256 and 320, N 261, 329 and 1205 and 272 / 261 and
@@ -51,15 +52,15 @@ non-zero and prints no final line):
      also at the ViT-7B width's (32, 261, 32, 128) and (8, 1205, 32, 128),
      timed with RoPE and without beside the same call on contiguous
      tensors, the bound, the floor and SDPA.
-   bf16 at head dims 64 and 128 (and K3's 192 and 256) runs the Hopper body
-   (``attention_body``), fp32 at 64 and 128 its fp32 counterpart
+   bf16 at head dim 64 (and K3's every d up to 256, at the next of 64, 128,
+   192 and 256; a d % 16 != 0 through its staging launch) runs the Hopper
+   body (``attention_body``), fp32 at 64 and 128 its fp32 counterpart
    (``attention_sm90_tf32.cuh``: 3xTF32 on wgmma, with a prologue that splits
    K and V; K3's other fp32 multiples of 4 up to 128 too, its wide form
    ``attention_sm90_tf32_wide.cuh`` from 132 to 256 and its slices body
-   ``attention_sm90_tf32_slices.cuh`` above 256), K3's other bf16 widths
-   up to 128 the common body; each case checks that the call launched its
-   entry once and, but on the common body, counted the launch under the body
-   it names, and names the
+   ``attention_sm90_tf32_slices.cuh`` above 256); each case checks that the
+   call launched its entry once, counted the launch under the body it
+   names and, where it stages, one staging launch, and names the
    registers and spills of the kernel it ran (``-Xptxas -v``). At the main
    shapes (K2: on both inputs) each
    kernel is timed with RoPE and without, beside its plain version, its
@@ -221,14 +222,16 @@ non-zero and prints no final line):
     unfused bf16, and the LayerNorm kernel in bf16 on outlier rows,
     single-pass against two-pass and two-pass against float64), each error
     beside its tolerance and each kernel's launches by body; K3 at head dims it is not built at
-    (100, zero-padded to 104 in bf16 and run at 128 in fp32; 136, 160, 200
-    and 248, run at 192 or 256; all with no copy but bf16 at 100), bf16 and
-    fp32, RoPE on and off, and in fp32 (8, 261, 16, 192 / 256), (4, 1205,
-    16, 192 / 256) and (8, 261, 16, 16 / 32), against the plain version at
-    d, timed beside the built
-    width and SDPA at d, with K3's and its body's launches, the CUDA kernels
-    of one call (a profiler trace: bf16 at a multiple of 8 runs one kernel,
-    two with RoPE; fp32 two, the prologue and K3) and the SM clock; ``models/vit.py::cls_attention_map`` at dinov3-vitb16 (full
+    (100, run at 128: staged in bf16, maps at d in fp32; 136, 160, 200 and
+    248, run at 192 or 256), bf16 and fp32, in bf16 at
+    ``BF16_WIDTH_CASES`` (32 and 96 at N 261 and 1205, 150 at 1205), RoPE
+    on and off, and in fp32 (8, 261, 16, 192 / 256), (4, 1205, 16, 192 /
+    256) and (8, 261, 16, 16 / 32), against the plain version at d, timed
+    beside the built width and SDPA at d, with K3's and its body's launches,
+    the CUDA kernels of one call (a profiler trace: bf16 at a multiple of
+    16 runs one kernel, two with RoPE; at any other d two, the staging pass
+    and K3; fp32 two, the prologue and K3; no copy kernel) and the SM
+    clock; ``models/vit.py::cls_attention_map`` at dinov3-vitb16 (full
     width and depth, q/k weights x4 so the map is far from uniform) on 8
     frames of 256x256 in bf16, 11 K1 launches a call through the Hopper
     body, against the CPU fp32 run; and, where h5py, pandas, OpenCV and
@@ -238,7 +241,8 @@ non-zero and prints no final line):
     (otherwise a ``skipped`` entry names what is missing). Then K3 at the
     head dims it refused on the card before: (8, 261, 16, 320) and (4, 1205,
     8, 384) on the wide body in bf16 and the fp32 slices body in fp32, (8,
-    261, 16, 65) with RoPE tables, bf16 and fp32, and in fp32 (2, 272, 4,
+    261, 16, 65) with RoPE tables, bf16 (the staging launch ropes it) and
+    fp32 (roped in torch first), and in fp32 (2, 272, 4,
     301) with 261 live keys, NaN in the dead rows (the slices body without
     the TMA), each against the plain version and timed beside its bound and
     SDPA, the slices body's cases also with their slices, the FLOP of the
@@ -257,12 +261,16 @@ non-zero and prints no final line):
     shards of one card they record that the path runs, not scaling. With
     two cards or more the phase runs again over distinct cards
     (``mesh_multi_gpu``), else that line says it was skipped;
-12. wide heads: encoders of 8 heads of 192, 256 and 320 at depth 2 (random
-    weights, opened from a checkpoint directory's config.json), 32 frames of
-    256x256 in bf16 each: K3 once a forward through the Hopper body at 192
-    and 256 and the wide body at 320 (the counts set to 0 before each run
-    and read after it), embeddings against the CPU fp32 run; then K3 alone
-    at the shape each encode gave it, against its plain version and timed;
+12. wide heads: encoders of 8 heads of 96, 100, 192, 256 and 320 at depth
+    2 (random weights, opened from a checkpoint directory's config.json), 32
+    frames of 256x256 in bf16 each: K3 once a forward through the Hopper
+    body at 96 (at 128, maps at d), 100 (at 128, with one staging launch a
+    forward), 192 and 256 and the wide body at 320 (the counts set to 0
+    before each run and read after it), a profiler trace of one forward
+    with no copy kernel next to K3, embeddings against the CPU fp32 run;
+    then K3 alone at the shape each encode gave it, against its plain
+    version and timed, and at 100 the staging pass alone, bit for bit its
+    plain version;
     at 192, 256 and 320 the encoder again in fp32 on 2 frames, K3 through
     the fp32 Hopper body's wide form (its slices body at 320) with one
     launch of their prologue a forward, embeddings within 1 fp16 ulp + 1e-4
@@ -279,6 +287,9 @@ of phase 10's runs, and its launches over phase 11's mesh encodes
 projection beside the same call on contiguous tensors, then K3's wide body
 (``attention_wide.cuh``, bf16) as an entry of its own, its launches those
 of phase 12 and its numbers those of phase 12's kernel case at d 320, then
+bf16's staging pass (``stage_rows``) with its launches over phase 12's
+encodes and its numbers at phase 12's d 100, phase 10's staged cases
+beside them, then
 the fp32 Hopper body
 (``attention_sm90_tf32``) with its launches on the fp32 forwards, its
 numbers at K1's 256x256 shape and every fp32 main-shape case,
@@ -351,13 +362,15 @@ N_CHECK_7B = 2
 # no shipped preset has such heads. Their launches on the encode routes are
 # counted all the same (``launches_on_main_path``).
 WIDE_HEAD_DIMS, WIDE_HEADS = (192, 256), 16
-# 12. The same widths and one above 256 through the encoder: checkpoint
-# directories whose config.json has 8 heads of 192, 256 and 320 (hidden 1536,
-# 2048 and 2560, gated MLP twice the hidden width, the ViT-7B config's other
-# fields) at depth 2, random weights from SEED. No public DINO checkpoint has
-# such heads: this drives K3's Hopper body at 192 and 256 and its wide body
-# through FrameEncoder as a checkpoint of that shape would.
-WIDE_ENCODER_HEAD_DIMS, WIDE_ENCODER_HEADS, WIDE_ENCODER_DEPTH = (192, 256, 320), 8, 2
+# 12. These widths, two below 128 and one above 256 through the encoder:
+# checkpoint directories whose config.json has 8 heads of 96, 100, 192, 256
+# and 320 (hidden 768, 800, 1536, 2048 and 2560, gated MLP twice the hidden
+# width, the ViT-7B config's other fields) at depth 2, random weights from
+# SEED. No public DINO checkpoint has such heads: this drives K3's Hopper
+# body at 128 on maps at 96, through its staging launch at 100 (the model's
+# tables: 100 % 4 == 0), at 192 and 256, and its wide body, through
+# FrameEncoder as a checkpoint of that shape would.
+WIDE_ENCODER_HEAD_DIMS, WIDE_ENCODER_HEADS, WIDE_ENCODER_DEPTH = (96, 100, 192, 256, 320), 8, 2
 # Also run in fp32: the fp32 Hopper body's wide form at 192 and 256, its
 # slices body at 320.
 WIDE_ENCODER_FP32_HEAD_DIMS = (192, 256, 320)
@@ -637,9 +650,13 @@ def ptxas_entries(log: str) -> dict:
 def comparable_name(mangled: str) -> str:
     """A kernel's mangled name as a checkout without the Hopper body's
     variants gives it: variant 0's template argument (``attention_sm90.cuh``'s
-    kFull) dropped, and the hashes of the file's path that the compiler puts
+    kFull) dropped, the staged form's when it is off (kStagedOut false)
+    and its output argument (PlainOut), and the hashes of the file's path
+    that the compiler puts
     in an anonymous namespace's name, so two checkouts' reports compare."""
-    name = re.sub(r"(attention_sm90ILi\d+ELi\d+E)Li0E", r"\1", mangled)
+    name = re.sub(r"(attention_sm90ILi\d+ELi\d+ELi\d+E)Lb0E", r"\1", mangled)
+    name = re.sub(r"(attention_sm90ILi\d+ELi\d+E)Li0E", r"\1", name)
+    name = name.replace("NS0_8PlainOutE", "")  # the staged form's argument, unused by the others
     # the batched kernel's option sets without the transposed scores and
     # noexp, as a checkout without those two template arguments names them
     name = re.sub(r"(attention_batchedILi\dELb[01]ELb[01]ELb[01]E)Lb0ELb0E", r"\1", name)
@@ -648,14 +665,17 @@ def comparable_name(mangled: str) -> str:
 
 def kernel_label(mangled: str) -> str:
     """A short name for a kernel of the port: its body and template
-    arguments ("sm90<64, 4, pipe>", "rope_rows<bf16, 8>", ...)."""
+    arguments ("sm90<64, 4, pipe>", "sm90<128, 4, staged>", "rope_rows<bf16, 8>",
+    "stage_rows<bf16, 8, 4>", ...)."""
     k = re.search(r"(attention_bf16|attention_f32|attention_sm90)ILi(\d+)E"
-                  r"(?:Li(\d+)E)?(?:Li(\d+)E)?", mangled)
+                  r"(?:Li(\d+)E)?(?:Li(\d+)E)?(Lb1E)?", mangled)
     args = ", ".join(x for x in k.groups()[1:3] if x) if k else ""
     if k and k.group(4) and k.group(4) != "0":  # a stage variant (enum Variant, from 1)
         from cbas_tpu_torch.ops.attention_variants import VARIANTS
 
         args += f", {VARIANTS[int(k.group(4)) - 1]}"
+    if k and k.group(5):  # the staged form (kStagedOut): O by plain stores
+        args += ", staged"
     name = f"{k.group(1).replace('attention_', '')}<{args}>" if k else mangled
     if "ex2_bf16x2_table" in mangled:  # the stage variants' exponential table
         name = "ex2_bf16x2_table"
@@ -683,9 +703,11 @@ def kernel_label(mangled: str) -> str:
         name = f"split_kv_wide<{f.group(1)}>"
     if "relayout_kt" in mangled:
         name = "relayout_kt"
-    r = re.search(r"rope_rowsI(f|13__nv_bfloat16)Li(\d+)E", mangled)
-    if r:  # the RoPE prologue: its dtype and the columns a thread takes
-        name = f"rope_rows<{'f32' if r.group(1) == 'f' else 'bf16'}, {r.group(2)}>"
+    r = re.search(r"(rope_rows|stage_rows)I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?", mangled)
+    if r:  # the RoPE prologue or the staging pass: its dtype, the columns a thread
+        # takes (and, staging, the columns a load reads)
+        load = f", {r.group(4)}" if r.group(4) else ""
+        name = f"{r.group(1)}<{'f32' if r.group(2) == 'f' else 'bf16'}, {r.group(3)}{load}>"
     n = re.search(r"(add_ln_rows|add_ln_stream)I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?", mangled)
     if n:  # the LayerNorm: its dtype, and the elements a chunk and the chunks a thread
         dtype = "f32" if n.group(2) == "f" else "bf16"
@@ -710,18 +732,20 @@ def ptxas_report(log: str) -> list:
 def kernel_ptxas(fa, kernel, dtype, d) -> str:
     """Registers and spills of the kernel ``kernel`` runs at head dim ``d``
     (K3: the width it runs at, ``headmajor_width``) in ``dtype``, from
-    PTXAS (the fp32 Hopper bodies' with their prologue's)."""
+    PTXAS (the fp32 Hopper bodies' with their prologue's; the bf16 Hopper
+    body's staged form where a row is no 32-byte multiple)."""
     width = fa.headmajor_width(dtype, d) if kernel == "attention_headmajor" else d
     wide_bf16 = f"wide_bf16<{'resident' if d <= 1024 else 'streamed'} Q>"
     body = fa.attention_body(kernel, dtype, width)
     tf32 = body in fa.TF32_BODIES
     slices = f"tf32_slices<{'resident' if d <= 576 else 'streamed'} Q>"
     prefix = {"sm90": f"sm90<{width}, ", "wide": wide_bf16, "sm90_f32": f"tf32<{width}, ",
-              "sm90_f32_wide": f"tf32_wide<{width}, ", "sm90_f32_slices": slices,
-              "common": f"bf16<{width}>"}[body]
+              "sm90_f32_wide": f"tf32_wide<{width}, ", "sm90_f32_slices": slices}[body]
     prologue = r"split_kv_wide<" if body == "sm90_f32_slices" else rf"split_kv<{width}[,>]"
+    staged = body == "sm90" and fa.headmajor_staged(dtype, d)
     found = [f"{k}: {v}" if tf32 else v
-             for k, v in PTXAS.get(kernel, {}).items() if k.startswith(prefix)]
+             for k, v in PTXAS.get(kernel, {}).items()
+             if k.startswith(prefix) and k.endswith(", staged>") == staged]
     if tf32:
         found = ["; ".join(found + [f"{k}: {v}" for k, v in PTXAS.get(kernel, {}).items()
                                     if re.match(prologue, k)])]
@@ -741,6 +765,16 @@ def rope_full(torch, cfg, head_dim, grid, n_tokens, device):
     cos = torch.cat([torch.ones(p, head_dim), cos, torch.zeros(pad, head_dim)])
     sin = torch.cat([torch.zeros(p, head_dim), sin, torch.zeros(pad, head_dim)])
     return cos.to(device), sin.to(device)
+
+
+def head_tables(torch, cfg, head_dim, grid, n_tokens, device="cuda"):
+    """RoPE tables for a case at ``head_dim``: the model's (:func:`rope_full`)
+    where its rule builds them (a multiple of 4), else tables of random
+    angles from a seed, one angle a column (rotate-half at any width)."""
+    if head_dim % 4 == 0:
+        return rope_full(torch, cfg, head_dim, grid, n_tokens, device)
+    ang = np.random.default_rng(SEED + 11).uniform(-np.pi, np.pi, (n_tokens, head_dim))
+    return tuple(torch.from_numpy(f(ang.astype(np.float32))).to(device) for f in (np.cos, np.sin))
 
 
 # The memory floor's time at each (elements a tensor, dtype) the floor phase
@@ -954,12 +988,13 @@ def floor_chain(torch, device="cuda") -> dict:
 
 
 def entry_and_body_launches(fa) -> dict:
-    """The launch counts of each entry and of each body but the common one
-    (which has no counter of its own), by name."""
+    """The launch counts of each entry, of each body and of bf16's staging
+    pass ("staging"), by name."""
     return {"attention_fat": fa.launches, "attention_packed": fa.launches_packed,
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
             "sm90_f32": fa.launches_sm90_f32, "sm90_f32_wide": fa.launches_sm90_f32_wide,
-            "sm90_f32_slices": fa.launches_sm90_f32_slices, "wide": fa.launches_wide}
+            "sm90_f32_slices": fa.launches_sm90_f32_slices, "wide": fa.launches_wide,
+            "staging": fa.launches_stage}
 
 
 def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=None,
@@ -999,7 +1034,7 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
         v[dead] = float("nan")
     cos = sin = None
     if rope:
-        cos, sin = tables or rope_full(torch, cfg, d, grid, N, "cuda")
+        cos, sin = tables or head_tables(torch, cfg, d, grid, N)
     scale = d ** -0.5
     body = fa.attention_body(
         kernel, dtype, fa.headmajor_width(dtype, d) if kernel == "attention_headmajor" else d)
@@ -1007,6 +1042,8 @@ def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=N
     got = wrapper(q, k, v, scale, n_valid, cos, sin)
     launched = {key: n - before[key] for key, n in entry_and_body_launches(fa).items()}
     want_launched = {key: int(key in (kernel, body)) for key in launched}
+    want_launched["staging"] = int(kernel == "attention_headmajor"
+                                 and fa.headmajor_staged(dtype, d, rope))
     want = plain(q, k, v, scale, n_valid, cos, sin)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
@@ -1133,10 +1170,13 @@ def kernel_phase(torch, fa, cfg) -> dict:
     for d in (96, 40):  # a half that is no power of two; a dim no multiple of 16
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),), ropes=(True,),
               dead=((4, 272, 261, g256),))
-    # Small widths: fp32 on the fp32 Hopper body at 64, its tensor maps at d
-    # (a 32-column atom wholly beyond d at 8 to 32, RoPE pairing at d/2);
-    # then 13, no multiple of 4, copied and padded to 16 first (roped before
-    # the copy, with tables of random angles: the model's need d % 4 == 0).
+    # Small widths: bf16 on the Hopper body at 64 (8 and 24 staged, 16 and
+    # 32 on maps at d) and fp32 on its fp32 counterpart, the tensor maps at
+    # d (a 32-column atom wholly beyond d at 8 to 32, RoPE pairing at d/2);
+    # then 13 with tables of
+    # random angles (the model's need d % 4 == 0): in bf16 through the
+    # staging launch at 64, in fp32 no multiple of 4, so copied and padded
+    # to 16 first (and roped before the copy).
     for d in (8, 16, 24, 32):
         sweep("attention_headmajor", 4, d, small=((2, 261, g256),), dead=((4, 272, 261, g256),))
     for B, N, n_valid in ((2, 261, None), (4, 272, 261)):
@@ -2989,7 +3029,7 @@ def reset_launches(fa) -> None:
 
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
     fa.launches_wide = fa.launches_sm90_f32 = fa.launches_tf32_prologue = 0
-    fa.launches_sm90_f32_wide = fa.launches_sm90_f32_slices = 0
+    fa.launches_sm90_f32_wide = fa.launches_sm90_f32_slices = fa.launches_stage = 0
     fa.launches_headmajor_by_dim.clear()
     fa.launches_sm90_by_kernel.clear()
     fa.launches_sm90_f32_by_kernel.clear()
@@ -3004,8 +3044,8 @@ def read_launches(fa) -> dict:
     fp32 counterpart (by entry under "sm90_f32_by_kernel"), under
     "sm90_f32_wide" K3's that ran its wide form, under "sm90_f32_slices"
     K3's that ran its slices body, under "tf32_prologue" their prologue,
-    under "wide" K3's that ran the (bf16) wide
-    body, under "headmajor_by_dim" K3's split by the head dim it ran at,
+    under "wide" K3's that ran the (bf16) wide body, under "staging" bf16's
+    staging pass, under "headmajor_by_dim" K3's split by the head dim it ran at,
     under "layernorm" the LayerNorm kernel's, and under "projection_gemms"
     the attention's projection GEMMs as ``models/vit.py`` counts them (a
     full block's fused q|k|v, the CLS block's q and k|v; counted on every
@@ -3018,7 +3058,7 @@ def read_launches(fa) -> dict:
             "sm90_f32": fa.launches_sm90_f32, "sm90_f32_wide": fa.launches_sm90_f32_wide,
             "sm90_f32_slices": fa.launches_sm90_f32_slices,
             "tf32_prologue": fa.launches_tf32_prologue, "wide": fa.launches_wide,
-            "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
+            "staging": fa.launches_stage, "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
             "sm90_f32_by_kernel": dict(fa.launches_sm90_f32_by_kernel),
             "headmajor_by_dim": dict(fa.launches_headmajor_by_dim),
             LN_KERNEL: ln.launches, "projection_gemms": dict(vit.projection_gemms)}
@@ -3402,9 +3442,11 @@ def main() -> int:
         if not ok:
             raise AssertionError("the packed route's embeddings disagree with the flat route's")
 
-    # 6. the ViT-7B-width encode through K3
+    # 6. the ViT-7B-width encode through K3, then the traces of phase 12's
+    # forwards (after phases 8 and 9 the profiler records no device events)
     vit7b_launches, vit7b_line, fp32_headmajor = vit7b_phase(torch, fa, FrameEncoder,
                                                              init_vit_params, card)
+    wide_traces = wide_heads_traces(torch, fa, FrameEncoder)
     # Launches of one fp32 forward (runtime.compute_dtype: float32) on each
     # route: the same kernel counts as bf16, each through the fp32 Hopper
     # body (with its prologue), none through the bf16 one.
@@ -3446,7 +3488,7 @@ def main() -> int:
 
     # 12. K3's Hopper body at 192 and 256 and its wide body through the encoder
     wide_runs, wide_cases, wide_runs32, wide_cases32 = wide_heads_phase(
-        torch, fa, FrameEncoder, init_vit_params, card)
+        torch, fa, FrameEncoder, init_vit_params, card, wide_traces)
 
     route_launches = {
         "attention_fat": flat_launches, "attention_packed": packed_launches,
@@ -3499,6 +3541,7 @@ def main() -> int:
         "launches_tools": {run: launches[name] for run, launches in tools_line["launches"].items()},
     } for name, replaces in KERNELS.items()]
         + [wide_kernel_entry(tools_line, wide_runs, wide_cases),
+           staging_kernel_entry(tools_line, wide_runs, wide_cases),
            ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
                            wide_runs),
            *tf32_kernel_entries(main_cases, tf32, fp32_runs, tools_line),
@@ -3553,10 +3596,10 @@ def trace_kernels(torch, fn, traces=1) -> list:
     return [e.name for e in sorted(best, key=lambda e: e.time_range.start)]
 
 
-def copies_around(kernels, marker, prologue="rope_rows") -> dict:
+def copies_around(kernels, marker, prologues=("rope_rows", "stage_rows")) -> dict:
     """Of a kernel trace: the copy kernels in all, the launches of kernels
     whose name holds ``marker``, and the copy kernels that run next to one
-    of them (right before it, past its ``prologue``, or right after it),
+    of them (right before it, past its ``prologues``, or right after it),
     with the names of those neighbours."""
     hits, around, neighbours = 0, 0, set()
     for i, name in enumerate(kernels):
@@ -3564,7 +3607,7 @@ def copies_around(kernels, marker, prologue="rope_rows") -> dict:
             continue
         hits += 1
         j = i - 1
-        while j >= 0 and prologue in kernels[j]:
+        while j >= 0 and any(p in kernels[j] for p in prologues):
             j -= 1
         for k in (j, i + 1):
             while 0 <= k < len(kernels) and COPY_KERNEL.search(kernels[k]):
@@ -3662,31 +3705,69 @@ def vit7b_phase(torch, fa, FrameEncoder, init_vit_params, card):
     return launches, line, fp32_launches
 
 
-def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
+def write_wide_config(ckpt, d) -> int:
+    """A checkpoint directory's config.json for phase 12's encoder at
+    d-wide heads (WIDE_ENCODER_HEADS of them, WIDE_ENCODER_DEPTH blocks, the
+    ViT-7B config's other fields); returns its hidden width."""
+    hidden = WIDE_ENCODER_HEADS * d
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump({**VIT7B_CONFIG, "hidden_size": hidden,
+                   "num_attention_heads": WIDE_ENCODER_HEADS, "intermediate_size": 2 * hidden,
+                   "num_hidden_layers": WIDE_ENCODER_DEPTH}, f)
+    return hidden
+
+
+def wide_heads_planes():
+    return np.random.default_rng(SEED + 12).integers(0, 256, (WIDE_ENCODER_FRAMES, 256, 256),
+                                                     np.uint8)
+
+
+def wide_heads_traces(torch, fa, FrameEncoder) -> dict:
+    """A profiler trace of one bf16 forward of phase 12's encoder at each of
+    WIDE_ENCODER_HEAD_DIMS, taken before phases 8 and 9 (after them the
+    profiler's traces on the card's machine hold no device events; phase 12
+    reads these): {head dim: :func:`copies_around` K3's launches}. A trace
+    that misses a K3 launch is taken again (PERF.md §7)."""
+    planes = wide_heads_planes()
+    out = {}
+    for d in WIDE_ENCODER_HEAD_DIMS:
+        with tempfile.TemporaryDirectory() as ckpt:
+            write_wide_config(ckpt, d)
+            enc = FrameEncoder(ckpt, random_init=True, device="cuda")
+            body = fa.attention_body("attention_headmajor", torch.bfloat16, d)
+            marker = "attention_sm90" if body == "sm90" else "attention_wide_bf16"
+            enc.encode_planes(planes)  # warm: the geometry's state
+            for _ in range(TRACE_TRIES):
+                out[d] = copies_around(trace_kernels(torch, lambda: enc.encode_planes_async(
+                    planes, batch=WIDE_ENCODER_FRAMES)), marker)  # noqa: B023
+                if out[d]["launches"] == WIDE_ENCODER_DEPTH - 1:
+                    break
+            del enc
+    return out
+
+
+def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card, traces) -> tuple:
     """Phase 12: an encoder at each of WIDE_ENCODER_HEAD_DIMS (8 heads, depth
     2, opened from a checkpoint directory's config.json with random weights)
-    on WIDE_ENCODER_FRAMES frames of 256x256 in bf16: K3 once a forward, at
-    the head dim itself, through the Hopper body at 192 and 256 and the wide
-    body at 320; the embeddings against the CPU fp32 run. Then K3 alone at
-    the shape that path gives it (the frames as the batch, the encoder's
-    heads, tokens and RoPE tables) against its plain version, timed, after
-    the launches are read. At WIDE_ENCODER_FP32_HEAD_DIMS the same encoder
+    on WIDE_ENCODER_FRAMES frames of 256x256 in bf16: K3 once a forward
+    through the Hopper body up to 256 (with one staging launch where a row
+    is no 16-byte multiple) and the wide body at 320, no copy kernel next to
+    it in a profiler trace of one forward; the embeddings against the CPU
+    fp32 run. Then K3 alone at the shape that path gives it (the frames as
+    the batch, the encoder's heads, tokens and RoPE tables) against its
+    plain version, timed, after the launches are read, and where it stages
+    the staging pass alone (:func:`staging_case`). At
+    WIDE_ENCODER_FP32_HEAD_DIMS the same encoder
     in fp32 too (``runtime.compute_dtype: float32``): K3 through the fp32
     Hopper body's wide form, the embeddings within the fp32 encode bound of
     the CPU run, and K3 alone in fp32 at that shape. Returns ({head dim:
     launches}, {head dim: that kernel case}, {head dim: the fp32 launches},
     {head dim: the fp32 kernel case})."""
-    planes = np.random.default_rng(SEED + 12).integers(0, 256, (WIDE_ENCODER_FRAMES, 256, 256),
-                                                       np.uint8)
+    planes = wide_heads_planes()
     runs, cases, runs32, cases32 = {}, {}, {}, {}
     for d in WIDE_ENCODER_HEAD_DIMS:
-        hidden = WIDE_ENCODER_HEADS * d
         with tempfile.TemporaryDirectory() as ckpt:
-            with open(os.path.join(ckpt, "config.json"), "w") as f:
-                json.dump({**VIT7B_CONFIG, "hidden_size": hidden,
-                           "num_attention_heads": WIDE_ENCODER_HEADS,
-                           "intermediate_size": 2 * hidden,
-                           "num_hidden_layers": WIDE_ENCODER_DEPTH}, f)
+            hidden = write_wide_config(ckpt, d)
             enc = FrameEncoder(ckpt, random_init=True, device="cuda")
             if enc.cfg.head_dim != d:
                 raise AssertionError(f"config with {d}-wide heads resolved to {enc.cfg}")
@@ -3700,7 +3781,8 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
             per = (WIDE_ENCODER_DEPTH - 1) * forwards  # the CLS-only last block is plain
             want = {"attention_fat": 0, "attention_packed": 0, "attention_headmajor": per,
                     "sm90": per * (body == "sm90"), "wide": per * (body == "wide"),
-                    "headmajor_by_dim": {d: per},
+                    "staging": per * fa.headmajor_staged(torch.bfloat16, d, True),
+                    "headmajor_by_dim": {fa.headmajor_width(torch.bfloat16, d): per},
                     LN_KERNEL: ln_per_forward(WIDE_ENCODER_DEPTH) * forwards,
                     "projection_gemms": projections_per_run(per, forwards)}
             if {key: got[key] for key in want} != want:
@@ -3708,11 +3790,19 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
             if emb.shape != (WIDE_ENCODER_FRAMES, hidden) or not np.isfinite(emb).all():
                 raise AssertionError(f"{d}-wide heads: embeddings {emb.shape}, "
                                      f"finite={np.isfinite(emb).all()}")
+            # One forward traced (before phase 8: :func:`wide_heads_traces`):
+            # no copy kernel next to K3, past its RoPE prologue or staging pass.
+            copies = traces[d]
+            if copies["launches"] != WIDE_ENCODER_DEPTH - 1 or copies["copies_around"]:
+                raise AssertionError(f"{d}-wide heads: copies next to K3: {copies}")
             fps = warm_fps(torch, enc, planes, WIDE_ENCODER_FRAMES, 3)
             grid = (256 // enc.cfg.patch_size,) * 2
+            n_tokens = enc.cfg.num_prefix_tokens + grid[0] * grid[1]
             case = kernel_case(torch, fa, enc.cfg, "attention_headmajor", WIDE_ENCODER_FRAMES,
-                               WIDE_ENCODER_HEADS, enc.cfg.num_prefix_tokens + grid[0] * grid[1],
-                               d, grid, torch.bfloat16, True)
+                               WIDE_ENCODER_HEADS, n_tokens, d, grid, torch.bfloat16, True)
+            if fa.headmajor_staged(torch.bfloat16, d, True):
+                case.update(staging_case(torch, fa, enc.cfg, WIDE_ENCODER_FRAMES, n_tokens,
+                                       WIDE_ENCODER_HEADS, d, grid, True))
             case["phase"] = "kernel_wide_heads"
             emit(case)
             if not case["ok"] or case["body"] != body:
@@ -3731,6 +3821,7 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card) -> tuple:
                          f"{2 * hidden}), depth {WIDE_ENCODER_DEPTH}, random weights",
                 "dtype": "bfloat16", "frames": WIDE_ENCODER_FRAMES, "forwards": forwards,
                 "launches": got, "expected_launches": want, "main_path_s": path_s,
+                "one_forward_trace": copies,
                 "warm_fps_256": fps, "bf16_min_cos_vs_cpu_fp32": float(cos.min()),
                 "tol_min_cos": ENCODE_BF16_MIN_COS, "card": card,
                 "ok": bool(cos.min() >= ENCODE_BF16_MIN_COS)}
@@ -3857,6 +3948,37 @@ def wide_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
         "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
         "share_of_bound": main["bound_ms"] / main["ms"],
         "other_cases": cases,
+    }
+
+
+def staging_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
+    """The ``kernels`` line's entry for bf16's staging pass (``stage_rows``
+    in ``attention_common.cuh``, part of K3's port): its launches over phase
+    12's encodes (one a forward at 100), its numbers at phase 12's d 100
+    (the pass alone, bit for bit its plain version), and phase 10's staged
+    cases beside them."""
+    staged = {d: c for d, c in wide_cases.items() if "staging_ms" in c}
+    if not staged:
+        raise AssertionError("phase 12 ran no staged head")
+    main = staged[min(staged)]
+    others = [c for c in tools_line["padded_timings"] + tools_line["wide_odd_timings"]
+              if "staging_ms" in c]
+    return {
+        "name": "attention_bf16_stage", "route": "cuda",
+        "source": "cbas_tpu_torch/csrc/attention_common.cuh",
+        "replaces": KERNELS["attention_headmajor"],
+        "launches": sum(run["staging"] for run in wide_runs.values()),
+        "launches_by_head_dim": {d: run["staging"] for d, run in wide_runs.items()},
+        "max_abs_err": 0.0 if main["staging_bit_equal"] else float("nan"),
+        "ms": main["staging_ms"], "ms_norope": main["staging_norope_ms"],
+        "plain_ms": main["staging_plain_ms"], "bound_ms": main["staging_bound_ms"],
+        "bound_by": "bytes", "gbps": main["staging_gbps"], "library_ms": None,
+        "library": "none: no one PyTorch call pads, ropes and scales three tensors",
+        "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
+        "ptxas": [f"{k}: {v}" for k, v in PTXAS.get("attention_headmajor", {}).items()
+                  if k.startswith("stage_rows<")],
+        "at_other_shapes": [{key: c[key] for key in ("B", "N", "H", "head_dim", "rope")
+                             + STAGING_KEYS} for c in others],
     }
 
 
@@ -4679,13 +4801,17 @@ TOOLS_EXTRA_GEOMETRY = (2, 32, 261, 128, True)
 # its slices body at 320 and 384, each held to fp64 within CARD_TOL_F32.
 TOOLS_FP32_GEOMETRIES = ((2, 8, 261, 192, True), (2, 8, 261, 256, False), (2, 8, 261, 200, True),
                          (2, 8, 261, 320, True), (2, 4, 261, 384, False))
-# K3 at head dims it is not built at, (B, N, H, d): in bf16 the card pads
-# 100 to 104 (one copy a tensor) and runs 136 and 160 at 192 and 200 and
-# 248 at 256 with no copy (the tensor maps at d); in fp32 it runs 100 at
-# 128 on the fp32 Hopper body and the rest at 192 and 256 on its wide form,
-# all with no copy.
+# K3 at head dims it is not built at, (B, N, H, d), all with no copy: in
+# bf16 the card runs 100 at 128 through the staging launch (rows of 200
+# bytes) and 136 and 160 at 192 and 200 and 248 at 256 on maps at d; in
+# fp32 it runs 100 at 128 on the fp32 Hopper body and the rest at 192 and
+# 256 on its wide form.
 PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 136), (8, 261, 16, 160), (8, 261, 16, 200),
                 (8, 261, 16, 248), (4, 1205, 16, 100))
+# bf16 only, beside them: multiples of 8 below 128 other than 64 (32 and 96,
+# on maps at d at 64 and 128) at N 261 and 1205, and 150 (no multiple of 8,
+# staged, at 192) at N 1205.
+BF16_WIDTH_CASES = ((8, 261, 16, 32), (8, 261, 16, 96), (4, 1205, 16, 96), (4, 1205, 16, 150))
 # fp32 only, beside them: the wide form at the widths it is built at, at
 # N 261 and at 640x480's 1205 tokens.
 TF32_WIDE_CASES = ((8, 261, 16, 192), (8, 261, 16, 256), (4, 1205, 16, 192), (4, 1205, 16, 256))
@@ -4696,13 +4822,15 @@ TF32_SMALL_CASES = ((8, 261, 16, 16), (8, 261, 16, 32))
 
 def padded_runs(torch) -> list:
     """(B, N, H, d, dtype) of phase 10's padded-width cases: PADDED_CASES in
-    bf16 and fp32, then TF32_WIDE_CASES and TF32_SMALL_CASES in fp32."""
+    bf16 and fp32, BF16_WIDTH_CASES in bf16, then TF32_WIDE_CASES and
+    TF32_SMALL_CASES in fp32."""
     return [(*case, dtype) for case in PADDED_CASES for dtype in (torch.bfloat16, torch.float32)] \
+        + [(*case, torch.bfloat16) for case in BF16_WIDTH_CASES] \
         + [(*case, torch.float32) for case in TF32_WIDE_CASES + TF32_SMALL_CASES]
 # K3 at the head dims it refused on the card before, (B, N, H, d), with RoPE:
-# wider than 256 (the wide body, d at run time) and odd (q and k roped before
-# the launch, then zero-padded). d 320 and 384 take the model's tables at
-# that width; d 65 random angles (the model's tables need a multiple of 4).
+# wider than 256 (the wide body, d at run time) and odd (bf16: roped by the
+# staging launch, fp32: by the wrapper, then zero-padded). d 320 and 384 take
+# the model's tables at that width; d 65 random angles (``head_tables``).
 WIDE_ODD_CASES = ((8, 261, 16, 320), (4, 1205, 8, 384), (8, 261, 16, 65))
 # fp32 only, beside them, (B, N, H, d, n_valid): an odd d above 256 on the
 # fp32 slices body, Q staged without the TMA (rows no 16-byte multiple), NaN
@@ -4738,13 +4866,15 @@ def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
         "ms", "built_width_ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "floor_ms",
         "gflop", "mbytes", "library_ms", "library", "ptxas", "k3_launches_per_call",
-        "body_launches_per_call", "kernels_per_call", "gpu_clocks")} for c in cases]
+        "body_launches_per_call", "staging_launches_per_call", "kernels_per_call",
+        "gpu_clocks")}
+        | {key: c[key] for key in STAGING_KEYS if key in c} for c in cases]
     wide = wide_odd_cases(torch, fa, cfg)
     line["wide_odd_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "n_valid", "padded_to", "dtype", "rope", "body",
         "max_abs_err", "tol", "ms", "ms_norope", "plain_ms", "bound_ms", "bound_by", "floor_ms",
         "gflop", "mbytes", "library_ms", "library", "ptxas")}
-        | {key: c[key] for key in SLICES_KEYS if key in c} for c in wide]
+        | {key: c[key] for key in SLICES_KEYS + STAGING_KEYS if key in c} for c in wide]
     line["cls_attention_map"] = attention_map_step(torch, fa, cfg, params, line["launches"])
     missing = host_missing(("h5py", "pandas", "cv2", "matplotlib"))
     if missing:
@@ -4796,19 +4926,18 @@ def validate_kernels_step(torch, fa, launches) -> dict:
             "sm90_f32": fp32, "sm90_f32_wide": fp32_wide, "sm90_f32_slices": fp32_slices,
             "tf32_prologue": fp32 + fp32_wide + fp32_slices,
             LN_KERNEL: 2}  # its single-pass and two-pass LayerNorm checks
-    k3_only = {"sm90_f32_wide": got["sm90_f32_wide"], "sm90_f32_slices": got["sm90_f32_slices"]}
+    k3_only = {"sm90_f32_wide": got["sm90_f32_wide"], "sm90_f32_slices": got["sm90_f32_slices"],
+               "wide": got["wide"]}
     by_body = {name: {"sm90": got["sm90_by_kernel"].get(name, 0),
                       "sm90_f32": got["sm90_f32_by_kernel"].get(name, 0),
                       **{body: n if name == "attention_headmajor" else 0
-                         for body, n in k3_only.items()},
-                      "common": got[name] - got["sm90_by_kernel"].get(name, 0)
-                      - got["sm90_f32_by_kernel"].get(name, 0)
-                      - (sum(k3_only.values()) if name == "attention_headmajor" else 0)}
+                         for body, n in k3_only.items()}}
                for name in KERNELS}
+    unreported = {name: got[name] - sum(by_body[name].values()) for name in KERNELS}
     f32_errs = {body: [r["err"] for r in records if "vs fp64" in r["check"] and any(
                     f" d{d} " in r["check"] for _, _, _, d, _ in TOOLS_FP32_GEOMETRIES
                     if fa.attention_body("attention_headmajor", torch.float32, d) == body)]
-                for body in k3_only}
+                for body in ("sm90_f32_wide", "sm90_f32_slices")}
     out = {"rc": rc, "geometries": geometries, "checks": records, "seconds": seconds,
            "launches_by_body": by_body, "expected_launches": want,
            "tol_f32": validate_kernels.CARD_TOL_F32,
@@ -4819,31 +4948,35 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     bad = [r for r in records if not r["ok"]]
     if rc != 0 or bad or not records:
         raise AssertionError(f"validate_kernels failed on the card (rc {rc}): {bad}")
-    if {name: got[name] for name in want} != want or by_body["attention_headmajor"]["sm90"] != sm90:
+    if {name: got[name] for name in want} != want or by_body["attention_headmajor"]["sm90"] != sm90 \
+            or any(unreported.values()):
         raise AssertionError(f"validate_kernels launched {got}, expected {want}")
     return out
 
 
-def padded_calls(torch, fa, cfg) -> dict:
-    """``calls_launches`` at each of :func:`padded_runs`, RoPE off and on,
-    keyed (N, d, dtype, rope). Taken in phase 2: after phases 8 and 9 the
-    profiler's traces hold no device events on the card's machine."""
+def padded_calls(torch, fa, cfg, runs=None) -> dict:
+    """``calls_launches`` at each of ``runs`` (:func:`padded_runs` by
+    default), RoPE off and on, keyed (N, d, dtype, rope). Taken in phase 2:
+    after phases 8 and 9 the profiler's traces hold no device events on the
+    card's machine."""
     return {(N, d, str(dtype), rope): calls_launches(
                 torch, fa, cfg, B, H, N, d, (16, 16) if N == 261 else (30, 40), dtype, rope)
-            for B, N, H, d, dtype in padded_runs(torch) for rope in (False, True)}
+            for B, N, H, d, dtype in runs or padded_runs(torch) for rope in (False, True)}
 
 
-def padded_cases(torch, fa, cfg, calls) -> list:
+def padded_cases(torch, fa, cfg, calls, runs=None) -> list:
     """K3 at :func:`padded_runs`' head dims, RoPE off and on: each against
     the plain version at d, timed beside the kernel at the width it runs at
     (on tensors padded to it beforehand) and SDPA at d, with the kernels one
     call launches (K3's counter, the counter of the body it ran, and every
     CUDA kernel of a profiler trace of one call: ``calls``, from
-    :func:`padded_calls`) and the SM clock. bf16 at a multiple of 8 runs
-    with no copy: one kernel a call, two with RoPE (the prologue, then K3);
-    fp32 at a multiple of 4 too: two, the fp32 bodies' prologue, then K3."""
+    :func:`padded_calls`) and the SM clock. Every bf16 width runs with no
+    copy: at a multiple of 16 one kernel a call, two with RoPE (the
+    prologue, then K3); at another d two, the staging pass, then K3 (its
+    time alone beside: :func:`staging_case`); fp32 at a multiple of 4 too:
+    two, the fp32 bodies' prologue, then K3."""
     cases = []
-    for B, N, H, d, dtype in padded_runs(torch):
+    for B, N, H, d, dtype in runs or padded_runs(torch):
         grid = (16, 16) if N == 261 else (30, 40)
         width = fa.headmajor_width(dtype, d)
         for rope in (False, True):
@@ -4852,11 +4985,15 @@ def padded_cases(torch, fa, cfg, calls) -> list:
             case["body"] = fa.attention_body("attention_headmajor", dtype, width)
             case["padded_to"] = width
             case.update(calls[(N, d, str(dtype), rope)])
+            staged = fa.headmajor_staged(dtype, d, rope)
             if fa.headmajor_in_place(dtype, d, rope):
-                want = 2 if case["body"] in fa.TF32_BODIES else 1 + rope
+                want = 2 if case["body"] in fa.TF32_BODIES or staged else 1 + rope
                 case["ok"] = case["ok"] and case["kernels_per_call"] == want \
-                    and case["body_launches_per_call"] == 1 and not any(
+                    and case["body_launches_per_call"] == 1 \
+                    and case["staging_launches_per_call"] == staged and not any(
                         COPY_KERNEL.search(name) for name in case["kernel_names"])
+            if staged:
+                case.update(staging_case(torch, fa, cfg, B, N, H, d, grid, rope))
             case["built_width_ms"] = built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype, rope)
             case["gpu_clocks"] = gpu_clocks()
             case["phase"] = "kernel_padded"
@@ -4880,15 +5017,14 @@ def wide_odd_cases(torch, fa, cfg) -> list:
     cases = []
     for B, N, H, d, n_valid, dtype in runs:
         grid = (16, 16) if N == 261 else (30, 40)
-        tables = None
-        if d % 4:
-            ang = np.random.default_rng(SEED + 11).uniform(-np.pi, np.pi, (N, d)).astype(np.float32)
-            tables = tuple(torch.from_numpy(f(ang)).to("cuda") for f in (np.cos, np.sin))
         case = kernel_case(torch, fa, cfg, "attention_headmajor", B, H, N, d, grid, dtype,
-                           True, n_valid=n_valid, tables=tables)
-        case["padded_to"] = fa.padded_head_dim(d)
+                           True, n_valid=n_valid)
+        case["padded_to"] = fa.headmajor_width(dtype, d) if fa.headmajor_in_place(
+            dtype, d, True) else fa.padded_head_dim(d)
         if case["body"] == "sm90_f32_slices":
             case.update(slices_case(torch, fa, cfg, B, N, H, d, n_valid, grid))
+        if fa.headmajor_staged(dtype, d, True):
+            case.update(staging_case(torch, fa, cfg, B, N, H, d, grid, True))
         case["phase"] = "kernel_wide_odd"
         emit(case)
         cases.append(case)
@@ -4929,24 +5065,61 @@ def slices_case(torch, fa, cfg, B, N, H, d, n_valid, grid) -> dict:
             "prologue_gbps": nbytes / ms / 1e6}
 
 
+STAGING_KEYS = ("staging_ms", "staging_norope_ms", "staging_plain_ms", "staging_bound_ms",
+                "staging_gbps", "staging_bit_equal")
+
+
+def staging_bytes(B, N, H, d, w, rope) -> int:
+    """What bf16's staging pass must move at (B, N, H, d): q, k and v read
+    once, their scratch rows of w elements (``fa.stage_width``) written
+    once, and with RoPE the (N, d) fp32 tables read once."""
+    return 2 * 3 * B * H * N * (d + w) + (2 * N * d * 4 if rope else 0)
+
+
+def staging_case(torch, fa, cfg, B, N, H, d, grid, rope) -> dict:
+    """bf16's staging pass alone (``fa.bf16_stage``) at (B, N, H, d) on
+    head-major views of one fused projection, with the case's tables where
+    ``rope``: bit for bit its plain version, timed beside its byte bound
+    and the plain version (no one PyTorch call stages three tensors)."""
+    rng = np.random.default_rng(SEED)
+    qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to(
+        "cuda", torch.bfloat16)
+    q, k, v = (qkv[..., j * H * d:(j + 1) * H * d].view(B, N, H, d).transpose(1, 2)
+               for j in range(3))
+    cos, sin = head_tables(torch, cfg, d, grid, N) if rope else (None, None)
+    scale = d ** -0.5
+    got = fa.bf16_stage(q, k, v, scale, None, cos, sin)
+    equal = bool(torch.equal(got, fa.bf16_stage_reference(q, k, v, scale, None, cos, sin)))
+    if not equal:
+        raise AssertionError(f"the staging pass at {(B, N, H, d)} leaves its plain version")
+    ms = time_ms(torch, lambda: fa.bf16_stage(q, k, v, scale, None, cos, sin))
+    nbytes = staging_bytes(B, N, H, d, fa.stage_width(d), rope)
+    return {"staging_ms": ms,
+            "staging_norope_ms": time_ms(torch, lambda: fa.bf16_stage(q, k, v, scale)),
+            "staging_plain_ms": time_ms(torch, lambda: fa.bf16_stage_reference(
+                q, k, v, scale, None, cos, sin)),
+            "staging_bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "staging_gbps": nbytes / ms / 1e6,
+            "staging_bit_equal": equal}
+
+
 def calls_launches(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> dict:
-    """K3's launches in one call at d (its counter, and the counter of the
-    body it runs there: the Hopper body's, the fp32 bodies', the wide
-    body's, or for the common body K3's own) and the CUDA kernels the call
-    ran (a profiler trace), by name."""
+    """K3's launches in one call at d (its counter, the counter of the body
+    it runs there: the Hopper body's, the fp32 bodies' or the wide body's,
+    and the staging pass's) and the CUDA kernels the call ran (a profiler
+    trace), by name."""
     rng = np.random.default_rng(SEED)
     q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32)).to("cuda", dtype)
                for _ in range(3))
-    cos, sin = rope_full(torch, cfg, d, grid, N, "cuda") if rope else (None, None)
+    cos, sin = head_tables(torch, cfg, d, grid, N) if rope else (None, None)
     body = fa.attention_body("attention_headmajor", dtype, fa.headmajor_width(dtype, d))
-    counter = {"common": "attention_headmajor"}.get(body, body)
     before = read_launches(fa)
     fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin)
     after = read_launches(fa)
     names = trace_kernels(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin),
                           traces=2)
     return {"k3_launches_per_call": after["attention_headmajor"] - before["attention_headmajor"],
-            "body_launches_per_call": after[counter] - before[counter],
+            "body_launches_per_call": after[body] - before[body],
+            "staging_launches_per_call": after["staging"] - before["staging"],
             "kernels_per_call": len(names), "kernel_names": [name[:120] for name in names]}
 
 
@@ -4959,7 +5132,7 @@ def built_width_ms(torch, fa, cfg, B, H, N, d, grid, dtype, rope) -> float:
                                .to("cuda", dtype), width, rope) for _ in range(3))
     cos = sin = None
     if rope:
-        cos, sin = (fa.pad_head_dim(t, width, True) for t in rope_full(torch, cfg, d, grid, N, "cuda"))
+        cos, sin = (fa.pad_head_dim(t, width, True) for t in head_tables(torch, cfg, d, grid, N))
     return time_ms(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin))
 
 
@@ -5076,7 +5249,13 @@ def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
             with h5py.File(encode_file(enc, inproc), "r") as f:
                 rows = f["cls"][:]
             if rows.shape != fleet_rows.shape or not np.array_equal(rows, fleet_rows):
-                raise AssertionError(f"encode_fleet: {h5} differs from the in-process encode")
+                differ = (np.abs(rows.astype(np.float32) - fleet_rows).max(axis=1) > 0
+                          if rows.shape == fleet_rows.shape else None)
+                raise AssertionError(
+                    f"encode_fleet: {h5} differs from the in-process encode: shapes "
+                    f"{rows.shape} / {fleet_rows.shape}, rows that differ "
+                    f"{None if differ is None else np.flatnonzero(differ)[:20].tolist()}, "
+                    f"{torch.get_num_threads()} intra-op threads here, fleet lines {lines}")
             max_diff = max(max_diff, float(np.abs(rows.astype(np.float32) - fleet_rows).max()))
     return {"clips": FLEET_CLIPS, "frames": FLEET_FRAMES, "workers": 1, "device": device,
             "dtype": dtype, "wall_s": fleet_s, "summary": lines[-1],

@@ -95,9 +95,10 @@ def test_headmajor_reference_matches_jax(B, H, N, d, n_valid, rope):
 @pytest.mark.parametrize("rope", [False, True])
 @pytest.mark.parametrize("d", [12, 36, 100, 136, 160, 200])
 def test_headmajor_at_widths_the_kernel_pads_matches_jax(d, rope):
-    """Head dims K3 is not built at (the card pads them to the next built
-    width: 136 and 160 to 192, 200 to 256, the Hopper body in bf16) against
-    the JAX kernel, which takes any d, with NaN in the dead K/V rows."""
+    """Head dims K3 is not built at (the card runs them at the next of 64,
+    128, 192 and 256, its maps at d; in bf16 12, 36 and 100 through the
+    staging launch, in fp32 they are multiples of 4) against the JAX kernel,
+    which takes any d, with NaN in the dead K/V rows."""
     B, H, N, n_valid = 1, 2, 80, 70
     q, k, v = _inputs((B, H, N, d), seed=40)
     k[:, :, n_valid:] = np.nan
@@ -110,15 +111,18 @@ def test_headmajor_at_widths_the_kernel_pads_matches_jax(d, rope):
 
 
 @pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("d", [12, 36, 100, 136, 160, 200, 248])
+@pytest.mark.parametrize("d", [6, 14, 38, 98, 130, 162, 254])
 def test_plain_version_on_padded_heads_equals_it_at_d(d, rope):
-    """What the card runs for a width K3 is not built at: q, k, v (and the
-    tables, half by half) zero-padded to the next built width, attention
-    there, the output sliced back. The plain version through that detour
-    equals the plain version at d."""
+    """What the card runs for an fp32 width that is no multiple of 4 (the
+    one head K3 still copies): q, k, v (and the tables, half by half)
+    zero-padded to the next multiple of 4, attention there, the output
+    sliced back. The plain version through that detour equals the plain
+    version at d."""
     width = fa.padded_head_dim(d)
-    assert width in fa.HEADMAJOR_HEAD_DIMS and width > d
+    assert width % 4 == 0 and d < width < d + 4
     assert fa.padded_head_dim(width) == width
+    assert not fa.headmajor_in_place(torch.float32, d) and fa.headmajor_in_place(torch.float32,
+                                                                                  width)
     N, n_valid = 90, 83
     q, k, v = (torch.from_numpy(t) for t in _inputs((2, 3, N, d), seed=42))
     cos = sin = None
@@ -202,17 +206,24 @@ def test_wide_and_odd_rope_heads_match_jax(d, rope, n_valid, dtype):
 def test_odd_rope_detour_equals_plain_version(d, dtype):
     """What the card runs for an odd head with tables: q and k roped
     beforehand (the scale folded into q, one rounding to the dtype), then
-    attention without tables at scale 1. The plain version through that
-    detour equals the plain version with tables bit for bit: both round at
-    the same points."""
+    attention without tables at scale 1 (fp32: by the wrapper in torch;
+    bf16: by the staging launch, whose plain version writes rows rounded up
+    to 8 below 256 and of d above, the wide body's scratch). The plain
+    version through that detour equals the plain version with tables bit for
+    bit: both round at the same points."""
     N, n_valid = 70, 61
     q, k, v = (torch.from_numpy(t).to(dtype) for t in _inputs((2, 3, N, d), seed=49))
     ang = torch.from_numpy(np.random.default_rng(50).standard_normal((N, d)).astype(np.float32))
     cos, sin = torch.cos(ang), torch.sin(ang)
     scale = d ** -0.5
     want = fa.attention_headmajor_reference(q, k, v, scale, n_valid, cos, sin)
-    got = fa.attention_headmajor_reference(
-        fa._rope_heads(q, cos, sin, scale), fa._rope_heads(k, cos, sin), v, 1.0, n_valid)
+    if dtype == torch.bfloat16:
+        staged = fa.bf16_stage_reference(q, k, v, scale, n_valid, cos, sin,
+                                         width=d if d > 256 else None)[..., :d]
+        got = fa.attention_headmajor_reference(*staged, 1.0, n_valid)
+    else:
+        got = fa.attention_headmajor_reference(
+            fa._rope_heads(q, cos, sin, scale), fa._rope_heads(k, cos, sin), v, 1.0, n_valid)
     assert torch.equal(got, want)
 
 
@@ -233,7 +244,7 @@ def test_heads_above_256_run_at_their_own_width(d):
         (2, 4, 272, 320, 261, False),    # pad keys masked, NaN in the dead rows
         (2, 4, 140, 384, 130, True),
         (1, 2, 100, 257, 90, False),     # an odd d above 256, no tables
-        (8, 16, 261, 65, None, True),    # odd with tables: roped before the launch
+        (8, 16, 261, 65, None, True),    # odd with tables: the staging launch ropes (bf16)
         (2, 4, 272, 97, 261, True),
         (1, 2, 140, 301, 130, True),     # odd above 256 with tables
     ],
@@ -422,10 +433,10 @@ def test_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, cuda
 @pytest.mark.parametrize(
     "B,H,N,d,n_valid",
     [
-        (2, 4, 261, 100, None),  # pads to 104
-        (2, 4, 272, 160, 261),   # pads to 192, pad keys masked
-        (1, 2, 140, 60, 130),    # pads to 64: the Hopper body (bf16) or its fp32 counterpart
-        (1, 2, 100, 12, None),   # pads to 16
+        (2, 4, 261, 100, None),  # at 128: bf16 staged (rows of 200 bytes), fp32 maps at d
+        (2, 4, 272, 160, 261),   # at 192, pad keys masked
+        (1, 2, 140, 60, 130),    # at 64: the Hopper body (bf16) or its fp32 counterpart
+        (1, 2, 100, 12, None),   # at 64: bf16 staged
     ],
 )
 def test_padded_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtype, rope,
@@ -649,14 +660,20 @@ def test_headmajor_wrapper_refuses_strides_the_kernel_does_not_take(case, match)
 
 @pytest.mark.parametrize("d,dtype", [(100, torch.bfloat16), (162, torch.float32), (13, torch.float32)])
 def test_headmajor_copying_routes_take_any_strides(d, dtype):
-    """The widths the card still copies first (bf16 not a multiple of 8, fp32
-    not a multiple of 4, an odd d with tables) take strides the in-place
-    rule refuses, here q, k and v with three different ones."""
+    """The widths the card still copies first (fp32 not a multiple of 4, an
+    odd d with tables) take strides the in-place rule refuses, here q, k and
+    v with three different ones. bf16 copies at no width (d 100 goes through
+    the staging launch in place): the in-place rule refuses those strides
+    there, and takes one set of them at rows of 200 bytes."""
     B, H, N = 1, 2, 20
     flat, views = _flat_and_heads(B, H, N, d, 39, dtype)
     q, k, v = views[0], views[1].contiguous(), views[2][..., ::1]
     cos, sin = (torch.from_numpy(t) for t in _rope(N, d - d % 2, seed=40)) if d % 2 == 0 else (
         torch.ones(N, d), torch.zeros(N, d))
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="must share strides"):
+            fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin)
+        q, k, v = views
     got = fa.fused_attention(q, k, v, d ** -0.5, None, cos, sin)
     want = fa.attention_headmajor_reference(*(t.contiguous() for t in (q, k, v)), d ** -0.5, None,
                                             cos, sin)
@@ -703,8 +720,8 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
         ("attention_headmajor", torch.bfloat16, 64, "sm90"),
         ("attention_headmajor", torch.bfloat16, 128, "sm90"),
         ("attention_headmajor", torch.float32, 128, "sm90_f32"),
-        ("attention_headmajor", torch.bfloat16, 96, "common"),
-        ("attention_headmajor", torch.bfloat16, 40, "common"),
+        ("attention_headmajor", torch.bfloat16, 96, "sm90"),
+        ("attention_headmajor", torch.bfloat16, 40, "sm90"),
         ("attention_packed", torch.bfloat16, 64, "sm90"),
         ("attention_packed", torch.float32, 64, "sm90_f32"),
         ("attention_headmajor", torch.bfloat16, 192, "sm90"),
@@ -721,9 +738,10 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
 def test_attention_body_routing(kernel, dtype, d, body):
     """Which body an entry runs for (dtype, head dim), as the wrapper reports
     it without launching: the Hopper body for bf16 at d = 64 (every layout)
-    and 128, 192 and 256 (head-major), its fp32 counterpart for fp32 at
-    d = 64 (every layout) and 128 (head-major), above 256 K3's wide body in
-    bf16 and its fp32 slices body in fp32, the common body otherwise."""
+    and at every d up to 256 (head-major: 40 and 96 too, on maps at d), its
+    fp32 counterpart for fp32 at d = 64 (every layout) and 128 (head-major),
+    above 256 K3's wide body in bf16 and its fp32 slices body in fp32; no
+    entry returns another body."""
     assert fa.attention_body(kernel, dtype, d) == body
 
 
@@ -733,11 +751,12 @@ def test_widths_above_128_pad_onto_the_hopper_body_in_bf16(d, dtype, body):
     """A head from 136 to 256 runs at 192 or 256, the Hopper body's widths in
     bf16 and its fp32 wide form's in fp32; above 256 the wide body (bf16) or
     the fp32 slices body runs at d itself."""
-    width = fa.padded_head_dim(d)
+    width = fa.headmajor_width(dtype, d)
     assert width == (192 if d <= 192 else 256)
     assert fa.attention_body("attention_headmajor", dtype, width) == body
     above = "wide" if dtype == torch.bfloat16 else "sm90_f32_slices"
-    assert fa.attention_body("attention_headmajor", dtype, fa.padded_head_dim(d + 256)) == above
+    assert fa.headmajor_width(dtype, d + 256) == d + 256
+    assert fa.attention_body("attention_headmajor", dtype, d + 256) == above
 
 
 def test_cpu_tensors_never_count_as_hopper_launches():
@@ -811,14 +830,11 @@ def test_headmajor_views_match_plain_on_card(d, N, n_valid, rope, dtype, cuda_de
 
 def _cuda_kernels(torch_mod, fn) -> list:
     """The names of the CUDA kernels one call of ``fn`` ran, from a
-    ``torch.profiler`` trace."""
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` trace (``chip_smoke.trace_kernels``: on the card's
+    machine a trace may lose its events, so an empty one is taken again)."""
+    import chip_smoke
 
-    torch_mod.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch_mod.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch_mod.autograd.DeviceType.CUDA]
+    return chip_smoke.trace_kernels(torch_mod, fn)
 
 
 @pytest.mark.cuda
@@ -829,16 +845,18 @@ def _cuda_kernels(torch_mod, fn) -> list:
 def test_map_padded_widths_run_without_copies_on_card(d, N, n_valid, rope, layout, cuda_device):
     """bf16 heads of the multiples of 8 from 136 to 248 that K3 is not built
     at run on the Hopper body at the next built width with no pad or slice:
-    one kernel a call without RoPE and two with (the RoPE prologue, then
-    the attention kernel), by the counters and by a profiler trace; against
-    the plain version, NaN in the dead K/V rows."""
+    at a multiple of 16 (160) one kernel a call without RoPE and two with
+    (the RoPE prologue, then the attention kernel), at the others (136,
+    200, 248: rows off a 32-byte boundary) two, the staging pass then the
+    attention kernel, by the counters and by a profiler trace; against the
+    plain version, NaN in the dead K/V rows."""
     B, H = (2, 4) if N < 1000 else (1, 3)
     _, views = _flat_and_heads(B, H, N, d, 57, torch.bfloat16, cuda_device, n_valid)
     q, k, v = views if layout == "view of flat" else [t.contiguous() for t in views]
     cos = sin = None
     if rope:
         cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=58))
-    width = fa.padded_head_dim(d)
+    width = fa.headmajor_width(torch.bfloat16, d)
     assert width in (192, 256)
 
     def counts():
@@ -853,6 +871,9 @@ def test_map_padded_widths_run_without_copies_on_card(d, N, n_valid, rope, layou
     assert bool(torch.isfinite(got).all())
     assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
     kernels = _cuda_kernels(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin))
-    assert len(kernels) == 1 + rope, kernels
+    staged = fa.headmajor_staged(torch.bfloat16, d, rope)
+    assert staged == (d % 16 != 0)
+    assert len(kernels) == (2 if staged else 1 + rope), kernels
     assert sum("attention_sm90" in name for name in kernels) == 1, kernels
-    assert sum("rope_rows" in name for name in kernels) == rope, kernels
+    assert sum("rope_rows" in name for name in kernels) == (rope and not staged), kernels
+    assert sum("stage_rows" in name for name in kernels) == staged, kernels

@@ -183,11 +183,11 @@ def test_fp32_multiples_of_4_run_in_place_at_their_width(d, width, body):
     assert fa.headmajor_width(torch.float32, d) == width
 
 
-@pytest.mark.parametrize("d,copied_to,width", [(13, 16, 64), (98, 104, 128), (99, 104, 128),
-                                               (130, 192, 192), (254, 256, 256)])
+@pytest.mark.parametrize("d,copied_to,width", [(13, 16, 64), (98, 100, 128), (99, 100, 128),
+                                               (130, 132, 192), (254, 256, 256)])
 def test_fp32_widths_off_multiples_of_4_pad_then_run_there(d, copied_to, width):
-    """Other fp32 widths up to 256 are copied, zero-padded to the next built
-    width, which then runs on an fp32 Hopper body at its width."""
+    """Other fp32 widths up to 256 are copied, zero-padded to the next
+    multiple of 4, which then runs on an fp32 Hopper body at its width."""
     assert not fa.headmajor_in_place(torch.float32, d)
     assert fa.padded_head_dim(d) == copied_to
     assert fa.headmajor_width(torch.float32, d) == width

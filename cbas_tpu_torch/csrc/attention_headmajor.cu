@@ -1,7 +1,7 @@
 // K3: fused attention forward over the head-major (B, H, N, d) layout, for
-// Hopper (sm_90a), at any d: the bf16 Hopper body built at 64, 128, 192 and
-// 256, the fp32 bodies at the same widths, and in each dtype a body that
-// takes d at run time above 256.
+// Hopper (sm_90a), at any d: the bf16 bodies built at 64, 128 and 192 (one
+// consumer warpgroup) and 256 (two), the fp32 bodies at the same widths,
+// and in each dtype a body that takes d at run time above 256.
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention): the JAX package's route for every head dim other
@@ -15,10 +15,18 @@
 //
 // What bounds it on this card: at d = 128 (DINOv3 ViT-7B's 32 heads) the
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
-// cores at N = 1205. Five bodies:
-// - bfloat16 at every d up to 256: the Hopper body (attention_sm90.cuh: TMA
-//   ring, wgmma, RoPE once per token and head) at the next of 64, 128, 192
-//   and 256, in place. At d % 16 == 0 its tensor maps read the heads at d
+// cores at N = 1205. Six bodies:
+// - bfloat16 at every d up to 192: the Hopper body (attention_sm90.cuh: TMA
+//   ring, wgmma, RoPE once per token and head) at the next of 64, 128 and
+//   192, in place; from 193 to 256 the two-consumer body
+//   (attention_sm90_ws.cuh: a producer warpgroup handing its registers by
+//   setmaxnreg to two consumer warpgroups of 64 rows that take turns on the
+//   tensor cores) at 256, which ran 20-34% faster at every timed row of that
+//   width, so the one-warpgroup body is no longer built at 256. The rule is
+//   measured (PERF.md): at 192 the two-consumer body tied at N = 1205 and
+//   lost 5-9% of device time at N = 261, where the last 128-row block of
+//   each head has one live consumer. Both read the same input forms: at
+//   d % 16 == 0 their tensor maps read the heads at d
 //   (columns beyond load as zeros, the store clips them; with tables the
 //   RoPE prologue ropes q and k first where d is below the built width).
 //   At any other d a row is no 32-byte multiple, which a tensor map
@@ -45,25 +53,38 @@
 // pad keeps).
 
 #include "attention_sm90_tf32_slices.cuh"
+#include "attention_sm90_ws.cuh"
 #include "attention_wide.cuh"
 
 namespace {
 
-// bfloat16 up to 256 on the Hopper body built at HD = sm90_width(d): in
-// place on maps at d (d % 16 == 0), or through the staging launch, which
-// *prologues counts.
+// bfloat16 at HD = sm90_width(d): up to 192 on the Hopper body, from 193 to
+// 256 on the two-consumer body (sm90_route 1 and 6); in place on maps at d
+// (d % 16 == 0), or through the staging launch, which *prologues counts.
 template <int HD>
 int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
         const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
         const cbas_attention::Layout& L, const cbas_attention::Layout& Lo, int n_valid,
         float scale, void* stream, int* prologues) {
   using namespace cbas_attention;
-  if (d % sm90::kStageUnit == 0)
-    return static_cast<int>(sm90::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N,
-                                             H, d, L, Lo, n_valid, scale, stream));
-  *prologues = 1;
-  return static_cast<int>(sm90::launch_staged<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch,
-                                                  B, N, H, d, L, Lo, n_valid, scale, stream));
+  cudaError_t err;
+  if (d % sm90::kStageUnit == 0) {
+    if constexpr (HD == 256)
+      err = sm90_ws::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                                n_valid, scale, stream);
+    else
+      err = sm90::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                             n_valid, scale, stream);
+  } else {
+    *prologues = 1;
+    if constexpr (HD == 256)
+      err = sm90_ws::launch_staged<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d,
+                                       L, Lo, n_valid, scale, stream);
+    else
+      err = sm90::launch_staged<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L,
+                                    Lo, n_valid, scale, stream);
+  }
+  return static_cast<int>(err);
 }
 
 // float32 on an fp32 Hopper body (sm90_route 3, 4 or 5), at the width
@@ -109,10 +130,11 @@ int run_tf32(const void* q, const void* k, const void* v, void* o, const void* c
 // - float32 (bodies 3, 4 and 5): k_scratch is the prologue's scratch,
 //   4 * B * H * tf32::scratch_keys(n_valid) * tf32_width(d) floats, with
 //   tables or without.
-// *body is set to the body that ran: 1 the Hopper body (sm90_route), 2 the
+// *body is set to the body that ran (sm90_route): 1 the Hopper body, 2 the
 // wide body, 3 the fp32 Hopper body, 4 its wide form
 // (attention_sm90_tf32_wide.cuh), 5 its slices body
-// (attention_sm90_tf32_slices.cuh); *prologues to the launches it queued
+// (attention_sm90_tf32_slices.cuh), 6 the two-consumer body
+// (attention_sm90_ws.cuh); *prologues to the launches it queued
 // before the attention kernel besides the RoPE prologue (0 or 1): the fp32
 // bodies' split_kv, or bf16's staging pass (stage_rows). Returns the CUDA
 // error code of the launch (0 on success).
@@ -132,6 +154,7 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
   *body = sm90_route(dtype, d);
   switch (*body) {
     case 1:
+    case 6:
       switch (sm90_width(d)) {
         case 64:
           return run<64>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,

@@ -1,9 +1,9 @@
 // The Hopper body of the port's fused attention in bfloat16, built at head
-// dims 64, 128, 192 and 256: K1 (flat, d = 64), K2 (head-pair packed,
-// d = 64) and K3 (head-major, every d up to 256, at the next of those
-// widths) route here (attention_fat.cu, attention_packed.cu,
-// attention_headmajor.cu); fp32 takes attention_sm90_tf32*.cuh, K3's bf16
-// heads above 256 attention_wide.cuh. The tensor maps are built from the
+// dims 64, 128 and 192: K1 (flat, d = 64), K2 (head-pair packed, d = 64)
+// and K3 (head-major, every d up to 192, at the next of those widths) route
+// here (attention_fat.cu, attention_packed.cu, attention_headmajor.cu);
+// fp32 takes attention_sm90_tf32*.cuh, K3's bf16 heads from 193 to 256 the
+// two-consumer body (attention_sm90_ws.cuh), above 256 attention_wide.cuh. The tensor maps are built from the
 // caller's Layouts (strides), so one code path reads every layout, strided
 // views included, and writes the output dense.
 //
@@ -66,16 +66,21 @@
 // V re-reads of the 19 query blocks of a head also load L2 (2.25 GB at
 // 640x480 for K1).
 //
-// At d = 192 and 256 (K3; the TPU kernel cbas_tpu/ops/flash_attention.py::
-// _attn_kernel at those widths) the same body runs with 3 and 4 swizzle
-// atoms, each its own TMA box and its own n = 64 product. What bounds it
-// there: the bytes of q, k, v and o at N = 261, and registers: O alone is
-// HD / 2 fp32 registers a consumer thread (96, 128) before the scores (32)
-// and P (16), so blocks an SM are fewer (Config::kMinBlocks). Q 24-32 KB and
-// a 24-32 KB ring stage keep two blocks an SM within shared memory.
+// At d = 192 (K3; the TPU kernel cbas_tpu/ops/flash_attention.py::
+// _attn_kernel at that width) the same body runs with 3 swizzle atoms, each
+// its own TMA box and its own n = 64 product. What bounds it there: the
+// bytes of q, k, v and o at N = 261, and registers: O alone is 96 fp32
+// registers a consumer thread before the scores (32) and P (16), so 2
+// blocks an SM (Config::kMinBlocks). At 256 (128 registers of O, one block
+// an SM) the two-consumer body (attention_sm90_ws.cuh) ran 20-34% faster at
+// every timed row and took that width's place; at 192, where 2 blocks an SM
+// already run two consumer warpgroups, it tied at N = 1205 and lost 5-9%
+// of device time at N = 261, so 192 stays here (PERF.md).
 //
 // K3's other widths, in place (no pad copy, no RoPE outside a kernel): a
-// head of width d runs at the next built width HD (HD - 64 < d < HD).
+// head of width d runs at the next built width HD (HD - 64 < d < HD); the
+// two-consumer body reads the same forms through the same set-up (prepare,
+// prepare_staged).
 // - d % 16 == 0 (launch): the maps read the heads where they lie, their
 //   innermost extent d, so the columns from d to HD load as zeros and the
 //   store of O clips them. With tables, rope_rows ropes q (times the scale)
@@ -125,8 +130,8 @@ constexpr int kStageUnit = 16;
 
 template <int HD>
 struct Config {
-  static_assert(HD == 64 || HD == 128 || HD == 192 || HD == 256,
-                "the Hopper body takes head dims 64, 128, 192 and 256");
+  static_assert(HD == 64 || HD == 128 || HD == 192,
+                "the Hopper body takes head dims 64, 128 and 192");
   static constexpr int kAtoms = HD / kAtom;
   // One consumer warpgroup a block, a 2-stage ring and registers capped for
   // 4 blocks an SM at d = 64, 3 at d = 128. The kernel is bound by latency,
@@ -134,15 +139,14 @@ struct Config {
   // shapes this ran faster than two warpgroups sharing a 128-row block, and
   // than 3- and 4-stage rings, which cost blocks an SM (or registers) for
   // loads that a 2-stage ring already has in flight (PERF.md). At d = 192
-  // and 256 the O accumulator alone is 96 and 128 registers a thread: one
-  // warpgroup a block takes 158 and 194 registers, so 2 blocks an SM at 192
-  // and 1 at 256 (an SM sub-partition holds 3 warps of up to 168 registers).
-  // Two consumer warpgroups on a 128-row block, with thread 0 refilling a
-  // shared 4-stage ring and no producer warp, ran slower at both widths;
-  // FA3's shape, a producer handing registers to two consumer warpgroups by
-  // setmaxnreg, is not measured (PERF.md).
+  // the O accumulator alone is 96 registers a thread: one warpgroup a block
+  // takes 158 registers, so 2 blocks an SM (an SM sub-partition holds 3
+  // warps of up to 168 registers). Two consumer warpgroups on a 128-row
+  // block with thread 0 refilling a shared ring ran slower; FA3's shape, a
+  // producer warpgroup handing its registers to two consumer warpgroups by
+  // setmaxnreg (attention_sm90_ws.cuh), ties at 192 and takes 256 (PERF.md).
   static constexpr int kSlots = 2;
-  static constexpr int kMinBlocks = HD == 64 ? 4 : HD == 128 ? 3 : HD == 192 ? 2 : 1;
+  static constexpr int kMinBlocks = HD == 64 ? 4 : HD == 128 ? 3 : 2;
   static constexpr int kThreads = kWGThreads + 32;        // + the producer warp
   static constexpr int kTileBytes = kAtoms * kAtomBytes;  // one K or V tile
   static constexpr int kQBytes = kAtoms * kAtomBytes;      // the Q tile, swizzled like K
@@ -1013,35 +1017,48 @@ inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, in
          CUDA_SUCCESS;
 }
 
-// Launch the Hopper body (bf16) on `stream` over heads of width d, built at
-// HD >= d: the maps' innermost extent is d, so columns d..HD-1 of every box
-// load as zeros (they add nothing to q.k^T or p.V) and the store of O clips
-// them; no copy pads a head. With tables, the RoPE prologue (rope_rows)
+// What a launch of a bf16 Hopper body needs besides its kernel and grid:
+// the four tensor maps, their MapAddress, the tables and scale the kernel
+// applies to its own Q rows, and (the staged form) where O goes by plain
+// stores. Filled by prepare or prepare_staged, which also queue the pass
+// that runs before the attention kernel; the one-warpgroup body below and
+// the two-consumer body (attention_sm90_ws.cuh) launch from it.
+struct Prepared {
+  CUtensorMap q_map, k_map, v_map, o_map;
+  MapAddress order;
+  const float* cos_t;
+  const float* sin_t;
+  float scale;
+  PlainOut out;
+};
+
+// Over heads of width d for a body built at HD >= d: the maps'
+// innermost extent is d, so columns d..HD-1 of every box load as zeros
+// (they add nothing to q.k^T or p.V) and the store of O clips them; no copy
+// pads a head. With tables (and `rope`), the RoPE prologue (rope_rows)
 // first: at d == HD it ropes k into `k_scratch` and the attention kernel
 // ropes its Q tiles itself; at d < HD, whose in-kernel rotation would pair
 // column c with c + HD/2 instead of c + d/2, it ropes q (times the scale)
 // into `q_scratch` and k into `k_scratch`, and the attention kernel runs
-// without tables at scale 1. q, k and v lie as L says; o and the scratch as
-// Lo says, in the same dim order (map_shape). kVariant other than kFull
-// runs at d == HD only, and kDma without the prologue (it ropes nothing).
-// Returns the CUDA error of the launches (cudaSuccess when all were queued).
-template <int HD, int kVariant = kFull>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
-                   const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
-                   const Layout& L, const Layout& Lo, int n_valid, float scale, void* stream) {
-  using C = Config<HD>;
+// without tables at scale 1. Without `rope` the tables are ignored. q, k and
+// v lie as L says; o and the scratch as Lo says, in the same dim order
+// (map_shape). Returns the CUDA error of the queued prologue, or
+// cudaErrorInvalidValue for arguments no map takes. (A template, so that a
+// library builds the prologue's kernels only where it launches a body.)
+template <typename T = __nv_bfloat16>
+cudaError_t prepare(int HD, const void* q, const void* k, const void* v, void* o,
+                    const void* cos_t, const void* sin_t, void* q_scratch, void* k_scratch,
+                    int B, int N, int H, int d, const Layout& L, const Layout& Lo,
+                    int n_valid, float scale, bool rope, cudaStream_t st, Prepared* p) {
   const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   if (d > HD || d <= HD - kAtom || d % kChunk) return cudaErrorInvalidValue;
-  if (kVariant != kFull && d != HD) return cudaErrorInvalidValue;
-  const auto* c = kVariant == kDma ? nullptr : static_cast<const float*>(cos_t);
-  const auto* s = kVariant == kDma ? nullptr : static_cast<const float*>(sin_t);
-  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = rope ? static_cast<const float*>(cos_t) : nullptr;
+  const auto* s = rope ? static_cast<const float*>(sin_t) : nullptr;
   const void* q_in = q;
   const void* k_in = k;
   bool q_roped = false;  // q_in, and k_in with tables, are scratch laid out as Lo
   if (c != nullptr) {
-    using T = __nv_bfloat16;
     const bool padded = d < HD;
     if (k_scratch == nullptr || (padded && q_scratch == nullptr)) return cudaErrorInvalidValue;
     const RopeJob<T> kj{static_cast<const T*>(k), static_cast<T*>(k_scratch), n_valid, 1.f};
@@ -1053,22 +1070,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
     if (padded) q_in = q_scratch, q_roped = true, c = s = nullptr, scale = 1.f;
   }
   MapShape m;
-  CUtensorMap q_map, k_map, v_map, o_map;
-  if (!map_shape(L, Lo, d, B, N, H, &m) || !encode_map(&q_map, q_in, m, N, q_roped) ||
-      !encode_map(&o_map, o, m, N, true) || !encode_map(&k_map, k_in, m, n_valid, k_in != k) ||
-      !encode_map(&v_map, v, m, n_valid))
+  if (!map_shape(L, Lo, d, B, N, H, &m) || !encode_map(&p->q_map, q_in, m, N, q_roped) ||
+      !encode_map(&p->o_map, o, m, N, true) ||
+      !encode_map(&p->k_map, k_in, m, n_valid, k_in != k) ||
+      !encode_map(&p->v_map, v, m, n_valid))
     return cudaErrorInvalidValue;
-  const auto kernel = m.order.rank == 5 ? attention_sm90<HD, 5, kVariant>
-                                         : attention_sm90<HD, 4, kVariant>;
-  constexpr size_t smem =
-      C::kSmemBytes + (kVariant == kVext || kVariant == kVextBf16Exp ? kOnesBytes : 0);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
-  kernel<<<grid, C::kThreads, smem, st>>>(q_map, k_map, v_map, o_map, c, s, N, n_valid, scale,
-                                          m.order, PlainOut{});
-  return cudaGetLastError();
+  p->order = m.order;
+  p->cos_t = c, p->sin_t = s, p->scale = scale;
+  p->out = PlainOut{};
+  return cudaSuccess;
 }
 
 // Lo's strides with rows of d elements made w wide: the Layout of scratch
@@ -1085,25 +1095,23 @@ inline bool widen(const Layout& Lo, int d, int w, int B, int N, int H, Layout* L
          scaled(Lo.row_stride, N, &Ls->row_stride);
 }
 
-// Launch the Hopper body (bf16) on heads of width d whose rows are no
-// 32-byte multiples (d % kStageUnit != 0, HD - 64 < d < HD, one head a
-// group: K3), in place: one staging launch (stage_rows)
-// writes q (roped with tables, times the scale) into `q_scratch` and k
-// (roped) and v into the two planes of `k_scratch`, read through L at the
-// alignment they have, into rows of w = d rounded up to kStageUnit laid out as the
-// output is (Lo's dim order, widen), the columns from d zeros; each scratch
-// plane holds B * H * N * w elements. Then the attention kernel over maps
-// of the scratch at w (from w to HD the columns load as zeros), without
-// tables at scale 1, its epilogue writing O's d columns through Lo with
-// plain stores (kStagedOut). Returns the CUDA error of the launches (cudaSuccess when
-// both were queued).
-template <int HD>
-cudaError_t launch_staged(const void* q, const void* k, const void* v, void* o,
-                          const void* cos_t, const void* sin_t, void* q_scratch, void* k_scratch,
-                          int B, int N, int H, int d, const Layout& L, const Layout& Lo,
-                          int n_valid, float scale, void* stream) {
-  using C = Config<HD>;
-  using T = __nv_bfloat16;
+// Over heads of width d whose rows are no 32-byte multiples (d % kStageUnit
+// != 0, HD - 64 < d < HD, one head a group: K3), in place: one staging
+// launch (stage_rows) writes q (roped with tables, times the scale) into
+// `q_scratch` and k (roped) and v into the two planes of `k_scratch`, read
+// through L at the alignment they have, into rows of w = d rounded up to
+// kStageUnit laid out as the output is (Lo's dim order, widen), the columns
+// from d zeros; each scratch plane holds B * H * N * w elements. The maps
+// read the scratch at w (from w to HD the columns load as zeros), the
+// kernel runs without tables at scale 1 and its epilogue writes O's d
+// columns through Lo with plain stores (kStagedOut, `out`). Returns the
+// CUDA error of the queued staging launch, or cudaErrorInvalidValue.
+template <typename T = __nv_bfloat16>
+cudaError_t prepare_staged(int HD, const void* q, const void* k, const void* v, void* o,
+                           const void* cos_t, const void* sin_t, void* q_scratch,
+                           void* k_scratch, int B, int N, int H, int d, const Layout& L,
+                           const Layout& Lo, int n_valid, float scale, cudaStream_t st,
+                           Prepared* p) {
   const cudaError_t bad = check_args(B, N, H, L, Lo, n_valid);
   if (bad != cudaSuccess) return bad;
   const int w = (d + kStageUnit - 1) / kStageUnit * kStageUnit;
@@ -1112,38 +1120,87 @@ cudaError_t launch_staged(const void* q, const void* k, const void* v, void* o,
       q_scratch == nullptr || k_scratch == nullptr || (cos_t == nullptr) != (sin_t == nullptr) ||
       !widen(Lo, d, w, B, N, H, &Ls))
     return cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
   const auto* c = static_cast<const float*>(cos_t);
   const auto* s = static_cast<const float*>(sin_t);
   T* qs = static_cast<T*>(q_scratch);
   T* ks = static_cast<T*>(k_scratch);
   T* vs = ks + static_cast<size_t>(B) * H * N * w;
   const bool rope = c != nullptr;
-  cudaError_t err = launch_stage<T>(StageJob<T>{static_cast<const T*>(q), qs, N, scale, rope},
-                                    StageJob<T>{static_cast<const T*>(k), ks, n_valid, 1.f, rope},
-                                    StageJob<T>{static_cast<const T*>(v), vs, n_valid, 1.f, false},
-                                    3, c, s, B, H, d, w, L, Ls, st);
+  const cudaError_t err =
+      launch_stage<T>(StageJob<T>{static_cast<const T*>(q), qs, N, scale, rope},
+                      StageJob<T>{static_cast<const T*>(k), ks, n_valid, 1.f, rope},
+                      StageJob<T>{static_cast<const T*>(v), vs, n_valid, 1.f, false}, 3, c, s, B,
+                      H, d, w, L, Ls, st);
   if (err != cudaSuccess) return err;
   // The maps at w: every stride a 32-byte multiple, and the staging pass
   // wrote zeros in the columns from d to w.
   MapShape m;
   if (!map_shape(Ls, Ls, w, B, N, H, &m) || m.order.rank != 4) return cudaErrorInvalidValue;
-  CUtensorMap q_map, k_map, v_map, o_map{};
-  if (!encode_map(&q_map, qs, m, N) || !encode_map(&k_map, ks, m, n_valid) ||
-      !encode_map(&v_map, vs, m, n_valid))
+  p->o_map = CUtensorMap{};
+  if (!encode_map(&p->q_map, qs, m, N) || !encode_map(&p->k_map, ks, m, n_valid) ||
+      !encode_map(&p->v_map, vs, m, n_valid))
     return cudaErrorInvalidValue;
   int unit = 4;
   while (unit > 1 && (d % unit || Lo.row_stride % unit || Lo.group_stride % unit ||
                       Lo.batch_stride % unit || reinterpret_cast<uintptr_t>(o) % (2 * unit)))
     unit /= 2;
+  p->order = m.order;
+  p->cos_t = p->sin_t = nullptr, p->scale = 1.f;
+  p->out = PlainOut{static_cast<T*>(o), Lo, d, unit};
+  return cudaSuccess;
+}
+
+// Launch the Hopper body (bf16) on `stream` over heads of width d, built at
+// HD >= d, as prepare sets it up (its RoPE prologue first, with tables).
+// kVariant other than kFull runs at d == HD only, and kDma without the
+// prologue (it ropes nothing). Returns the CUDA error of the launches
+// (cudaSuccess when all were queued).
+template <int HD, int kVariant = kFull>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
+                   const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
+                   const Layout& L, const Layout& Lo, int n_valid, float scale, void* stream) {
+  using C = Config<HD>;
+  if (kVariant != kFull && d != HD) return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  Prepared p;
+  cudaError_t err = prepare(HD, q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L,
+                            Lo, n_valid, scale, kVariant != kDma, st, &p);
+  if (err != cudaSuccess) return err;
+  const auto kernel = p.order.rank == 5 ? attention_sm90<HD, 5, kVariant>
+                                        : attention_sm90<HD, 4, kVariant>;
+  constexpr size_t smem =
+      C::kSmemBytes + (kVariant == kVext || kVariant == kVextBf16Exp ? kOnesBytes : 0);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
+  kernel<<<grid, C::kThreads, smem, st>>>(p.q_map, p.k_map, p.v_map, p.o_map, p.cos_t, p.sin_t,
+                                          N, n_valid, p.scale, p.order, p.out);
+  return cudaGetLastError();
+}
+
+// Launch the Hopper body (bf16) on heads of width d whose rows are no
+// 32-byte multiples, as prepare_staged sets it up: the staging launch, then
+// the attention kernel's staged form (kStagedOut). Returns the CUDA error
+// of the launches (cudaSuccess when both were queued).
+template <int HD>
+cudaError_t launch_staged(const void* q, const void* k, const void* v, void* o,
+                          const void* cos_t, const void* sin_t, void* q_scratch, void* k_scratch,
+                          int B, int N, int H, int d, const Layout& L, const Layout& Lo,
+                          int n_valid, float scale, void* stream) {
+  using C = Config<HD>;
+  const auto st = static_cast<cudaStream_t>(stream);
+  Prepared p;
+  cudaError_t err = prepare_staged(HD, q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H,
+                                   d, L, Lo, n_valid, scale, st, &p);
+  if (err != cudaSuccess) return err;
   const auto kernel = attention_sm90<HD, 4, kFull, true>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(C::kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
-  kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(q_map, k_map, v_map, o_map, nullptr, nullptr, N,
-                                                   n_valid, 1.f, m.order,
-                                                   PlainOut{static_cast<T*>(o), Lo, d, unit});
+  kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(p.q_map, p.k_map, p.v_map, p.o_map, nullptr,
+                                                   nullptr, N, n_valid, 1.f, p.order, p.out);
   return cudaGetLastError();
 }
 
@@ -1160,15 +1217,18 @@ inline int sm90_width(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ?
 inline int tf32_width(int d) { return d <= 256 ? sm90_width(d) : (d + 63) / 64 * 64; }
 
 // Which body a (dtype, head dim) takes in every entry (K1 and K2 take only
-// d = 64): 1 (this file's Hopper body) for bfloat16 up to 256, at
-// sm90_width(d); 2 (K3's wide body, attention_wide.cuh) for bfloat16 above
-// 256; 3 (attention_sm90_tf32.cuh's fp32 Hopper body) for float32 at a
-// multiple of 4 up to 128, 4 (its wide form, attention_sm90_tf32_wide.cuh)
-// at one from 132 to 256 and 5 (its slices body,
-// attention_sm90_tf32_slices.cuh) at any d above 256; -1 (no body) for
-// anything else. ops/flash_attention.py::attention_body mirrors it.
+// d = 64): 1 (this file's Hopper body) for bfloat16 up to 192, at
+// sm90_width(d); 6 (the two-consumer body, attention_sm90_ws.cuh) for
+// bfloat16 from 193 to 256, at 256 (from 129 to 192 the Hopper body at 192:
+// the measured rule above Config); 2 (K3's wide body,
+// attention_wide.cuh) for bfloat16 above 256; 3 (attention_sm90_tf32.cuh's
+// fp32 Hopper body) for float32 at a multiple of 4 up to 128, 4 (its wide
+// form, attention_sm90_tf32_wide.cuh) at one from 132 to 256 and 5 (its
+// slices body, attention_sm90_tf32_slices.cuh) at any d above 256; -1 (no
+// body) for anything else. ops/flash_attention.py::attention_body mirrors
+// it.
 inline int sm90_route(int dtype, int head_dim) {
-  if (dtype == 1 && head_dim > 0) return head_dim <= kMaxHeadDim ? 1 : 2;
+  if (dtype == 1 && head_dim > 0) return head_dim <= 192 ? 1 : head_dim <= kMaxHeadDim ? 6 : 2;
   if (dtype == 0 && head_dim > 256) return 5;
   if (dtype == 0 && head_dim > 0 && head_dim % 4 == 0)
     return head_dim > 128 ? 4 : 3;

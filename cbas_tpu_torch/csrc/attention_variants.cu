@@ -27,8 +27,12 @@
 // Built at head dims 64 (K1's flat and K2's packed layouts, K3's head-major)
 // and 128 (K3), bfloat16 only: the widths the main path's variant-0 body runs
 // at the probes' and the encoders' shapes.
+//
+// Beside them, the two-consumer body (attention_sm90_ws.cuh) at 128 as a
+// timing case no route calls (cbas_attention_ws_variant): K3 runs the
+// one-warpgroup body there, and this times the two side by side.
 
-#include "attention_sm90.cuh"
+#include "attention_sm90_ws.cuh"
 
 namespace {
 
@@ -63,6 +67,34 @@ __global__ void ex2_bf16x2_table(uint32_t* out) {
 }
 
 }  // namespace
+
+// C entry, bound with ctypes: K3's signature (attention_headmajor.cu) up to
+// the stream, bf16 head-major (B, H, N, d) only, on the two-consumer body
+// built at 128: 64 < d <= 128, d % 16 == 0 (maps at d, no staging), maps of
+// rank 4 (every head-major layout K3 takes but contiguous packed). Scratch
+// as K3's at that width. Returns the CUDA error code of the launches (0 on
+// success; cudaErrorInvalidValue for what it does not take).
+extern "C" int cbas_attention_ws_variant(const void* q, const void* k, const void* v, void* o,
+                                         const void* cos_t, const void* sin_t, void* q_scratch,
+                                         void* k_scratch, int B, int N, int H, int head_dim,
+                                         long long batch_stride, long long group_stride,
+                                         long long row_stride, long long o_batch_stride,
+                                         long long o_group_stride, long long o_row_stride,
+                                         int n_valid, float scale, void* stream) {
+  using namespace cbas_attention;
+  const int d = head_dim;
+  if (d <= 64 || d > 128 || d % sm90::kStageUnit != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L{batch_stride, group_stride, 1, row_stride};
+  const Layout Lo{o_batch_stride, o_group_stride, 1, o_row_stride};
+  const auto st = static_cast<cudaStream_t>(stream);
+  sm90::Prepared p;
+  const cudaError_t err = sm90::prepare(128, q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B,
+                                        N, H, d, L, Lo, n_valid, scale, true, st, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.order.rank != 4) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sm90_ws::run_kernel<128, 4, false>(p, B, N, H, n_valid, st));
+}
 
 // C entry, bound with ctypes: writes the 65536 bf16 results of
 // ex2.approx.ftz.bf16x2 (the exponential of kVextBf16Exp), indexed by the

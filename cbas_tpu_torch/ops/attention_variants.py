@@ -383,3 +383,74 @@ def attention_variant(
         return fa._in_dense_order(q, attention_variant_reference(
             q, k, v, scale, nv, rope_cos, rope_sin, variant=variant, layout=layout))
     return _launch(variant, layout, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d)
+
+
+# The two-consumer body (csrc/attention_sm90_ws.cuh) at 128 as a timing case
+# beside K3's one-warpgroup body at that width.
+WS_WIDTH = 128
+launches_ws = 0  # launches of ws_attention's kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _ws_kernel():
+    """The C entry ``cbas_attention_ws_variant`` of ``csrc/attention_variants.cu``:
+    K3's signature up to the stream."""
+    from cbas_tpu_torch.ops import _cuda
+
+    fn = _cuda.load("attention_variants").cbas_attention_ws_variant
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def ws_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    n_valid: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K3's function (``fa.fused_attention``) on head-major (B, H, N, d) bf16
+    q, k and v through the two-consumer body built at 128. No route calls
+    it: it times the body beside K3's one-warpgroup body at that width.
+    64 < d <= 128 with d % 16 == 0 (maps at d, no staging); strides under
+    K3's rule, the maps of rank 4 (not contiguous packed). On a CPU tensor
+    the plain K3; on a CUDA one the kernel, or raise."""
+    if q.dim() != 4 or q.dtype != torch.bfloat16:
+        raise ValueError(f"expected head-major bf16 (B, H, N, d), got {tuple(q.shape)} {q.dtype}")
+    B, H, N, d = q.shape
+    if not WS_WIDTH - 64 < d <= WS_WIDTH or d % 16:
+        raise ValueError(f"the two-consumer body's timing entry takes d from {WS_WIDTH - 48} to "
+                         f"{WS_WIDTH} in steps of 16, not {d}")
+    nv = fa._check(q, k, v, N, d, n_valid, rope_cos, rope_sin)
+    fa._check_strides(("q", "k", "v"), q, k, v, 16, 16)
+    if q.device.type == "cpu":
+        return fa._in_dense_order(q, fa.attention_headmajor_reference(
+            q, k, v, scale, nv, rope_cos, rope_sin))
+    if q.device.type != "cuda":
+        raise ValueError(f"ws_attention runs on cpu or cuda, not {q.device}")
+    cos = sin = None
+    if rope_cos is not None:
+        cos, sin = (t.to(torch.float32).contiguous() for t in (rope_cos, rope_sin))
+    fa._require_contiguous(rope_cos=cos, rope_sin=sin)
+    with torch.cuda.device(q.device):
+        out = fa._dense_like(q)
+        q_scratch = k_scratch = None
+        if cos is not None:  # the RoPE prologue's scratch, as K3 allocates it
+            k_scratch = fa._dense_like(q)
+            q_scratch = fa._dense_like(q) if d < WS_WIDTH else None
+        err = _ws_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (cos, sin, q_scratch, k_scratch)),
+            B, N, H, d, *fa._layout(q), *fa._layout(out), nv, float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"ws_attention failed with CUDA error {err}")
+    global launches_ws
+    with _count_lock:
+        launches_ws += 1
+    return out

@@ -46,13 +46,20 @@ of the Hopper and wide bodies lies as the output does.
 - On a CPU tensor it runs its plain PyTorch version
   (``attention_{fat,packed,headmajor}_reference``).
 
-Five bodies serve the three entries (:func:`attention_body`):
+Six bodies serve the three entries (:func:`attention_body`):
 
-- "sm90": bfloat16 at head dim 64 (K1, K2) and in K3 at every d up to 256
-  (at the next of 64, 128, 192 and 256) takes the Hopper body
+- "sm90": bfloat16 at head dim 64 (K1, K2) and in K3 at every d up to 192
+  (at the next of 64, 128 and 192) takes the Hopper body
   (``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once per token and
   head, tensor maps built from the tensors' strides; at d % 16 != 0 over
   scratch that a staging launch fills, O written with plain stores);
+- "sm90_ws": bfloat16 in K3 from 193 to 256 (at 256) takes the
+  two-consumer body (``csrc/attention_sm90_ws.cuh``: the same maps, RoPE
+  and staging, with a producer warpgroup handing its registers by
+  ``setmaxnreg`` to two consumer warpgroups of 64 query rows that take
+  turns on the tensor cores, 128 rows a block): it ran 20-34% faster at
+  every timed row at 256, and at 192 tied or lost (PERF.md), so 129-192
+  stay on "sm90";
 - "sm90_f32": float32 at head dim 64 (K1, K2, K3) and, in K3, at every
   multiple of 4 up to 128 (at 64 or 128, maps at d) takes its fp32
   counterpart (``csrc/attention_sm90_tf32.cuh``: the same ring and maps,
@@ -85,7 +92,8 @@ form, ``launches_sm90_f32_slices`` those that ran its slices body,
 ``launches_tf32_prologue`` the launches of their prologue (those the
 C entries report queuing, one with each of those, and one a
 :func:`tf32_prologue` call),
-``launches_wide`` those of K3 that ran the wide body, and
+``launches_wide`` those of K3 that ran the wide body, ``launches_sm90_ws``
+those of K3 that ran the two-consumer body, and
 ``launches_stage`` the launches of bf16's staging pass (one with each K3
 call at a d % 16 != 0 up to 256, and above 256 at an odd d with tables, as
 the C entry reports them, and one a :func:`bf16_stage` call). The shards of a
@@ -122,12 +130,14 @@ launches_sm90_f32_wide = 0  # K3's launches that ran its wide form (d 132-256)
 launches_sm90_f32_slices = 0  # K3's launches that ran its slices body (fp32, d > 256)
 launches_tf32_prologue = 0  # launches of those bodies' prologue (csrc split_kv, split_kv_wide)
 launches_wide = 0       # K3's launches that ran the wide body (bf16, d > 256)
+launches_sm90_ws = 0    # K3's launches that ran the two-consumer body (bf16, d 193-256)
 launches_stage = 0      # launches of bf16's staging pass (csrc stage_rows)
 _count_lock = threading.Lock()  # shard threads launch concurrently
 
 TF32_BODIES = ("sm90_f32", "sm90_f32_wide", "sm90_f32_slices")
 _BODIES = {1: "sm90", 2: "wide", 3: "sm90_f32", 4: "sm90_f32_wide",
-           5: "sm90_f32_slices"}  # *body codes
+           5: "sm90_f32_slices", 6: "sm90_ws"}  # *body codes
+BF16_BODIES = ("sm90", "sm90_ws")  # the bf16 bodies up to 256 (RoPE prologue, staging)
 # The rows of bf16's staging scratch hold d rounded up to this (32 bytes):
 # on tensor maps whose rows, or whose last column, end off a 32-byte
 # boundary the Hopper body ran 1.2-2.3x its time (PERF.md), so a bf16 head
@@ -158,7 +168,8 @@ def tf32_width(d: int) -> int:
 def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     """The body entry ``kernel`` (``attention_fat``, ``attention_packed`` or
     ``attention_headmajor``) runs for ``dtype`` and ``head_dim``: "sm90" (the
-    Hopper body: bfloat16 at 64, and in K3 at every d up to 256), "sm90_f32"
+    Hopper body: bfloat16 at 64, and in K3 at every d up to 192), "sm90_ws"
+    (the two-consumer body: bfloat16 in K3 from 193 to 256), "sm90_f32"
     (its fp32 counterpart: float32 at 64, and in K3 at every d up to 128),
     "sm90_f32_wide" (its wide form: float32 in K3 from 129 to 256),
     "sm90_f32_slices" (its slices body: float32 in K3 above 256) or "wide"
@@ -173,7 +184,7 @@ def attention_body(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
         if head_dim > 256:
             return "sm90_f32_slices" if f32 else "wide"
         if not f32:
-            return "sm90"
+            return "sm90" if head_dim <= 192 else "sm90_ws"
         return "sm90_f32" if head_dim <= 128 else "sm90_f32_wide"
     if kernel in ("attention_fat", "attention_packed") and head_dim == HEAD_DIM:
         return "sm90_f32" if f32 else "sm90"
@@ -470,11 +481,11 @@ def _launch(name, q, k, v, scale, nv, rope_cos, rope_sin, B, N, H, d, width=None
         # split (and K roped) into its own scratch, at the width they run
         # at, with tables or without.
         q_scratch = k_scratch = None
-        if want == "sm90" and headmajor_staged(q.dtype, d):
+        if want in BF16_BODIES and headmajor_staged(q.dtype, d):
             plane = B * H * N * stage_width(d)
             q_scratch = torch.empty(plane, dtype=q.dtype, device=q.device)
             k_scratch = torch.empty(2 * plane, dtype=q.dtype, device=q.device)
-        elif cos is not None and want in ("sm90", "wide"):
+        elif cos is not None and want in BF16_BODIES + ("wide",):
             k_scratch = _dense_like(q)
             if want == "wide" or width != d:
                 q_scratch = _dense_like(q)
@@ -503,7 +514,7 @@ def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
     counters."""
     global launches, launches_packed, launches_headmajor, launches_sm90, launches_wide
     global launches_sm90_f32, launches_sm90_f32_wide, launches_sm90_f32_slices
-    global launches_tf32_prologue, launches_stage
+    global launches_tf32_prologue, launches_stage, launches_sm90_ws
     with _count_lock:
         if name == "attention_fat":
             launches += 1
@@ -524,6 +535,8 @@ def _count_launch(name: str, d: int, body: str, prologues: int = 0) -> None:
             launches_sm90_f32_slices += 1
         elif body == "wide":
             launches_wide += 1
+        elif body == "sm90_ws":
+            launches_sm90_ws += 1
         if body in TF32_BODIES:
             launches_tf32_prologue += prologues
         else:

@@ -21,16 +21,27 @@ each:
   and 256 (16 heads, N 261) and 192 and 256 (N 1205); in bf16 also 32,
   96 and 100 (N 261), 96, 100 and 150 (N 1205) and 65 (N 261: at an odd d
   with RoPE), 16 heads, the widths that K3's first bf16 body or a pad copy
-  took before the staging pass; each fp32 row above
-  256 with the SM clock, power and temperature after its reads
-  (``chip_smoke.gpu_clocks``); tables of random angles where the model's
-  rule builds none (d % 4 != 0, ``case_tables``);
+  took before the staging pass; in bf16 at 640x480's 1205 tokens and 16
+  heads also 160, 192, 200, 248 and 256, and at 261 tokens, 16 heads and
+  batch 32 also 136 and 160: the widths the two-consumer body takes
+  (``attention_sm90_ws.cuh``); each row with the SM clock, power and
+  temperature after its reads (``chip_smoke.gpu_clocks``), and each bf16 K3
+  row from 160 up with ``scaled_dot_product_attention``'s ms on the same
+  tensors (RoPE applied beforehand, ``sdpa_ms``) beside it; tables of
+  random angles where the model's rule builds none (d % 4 != 0,
+  ``case_tables``);
+- on a checkout that has it (the change's side), the two-consumer body as
+  a timing case no route calls (``attention_variants.ws_attention``) at
+  ``WS_ROWS``: built at 128 beside K3's one-warpgroup body at the ViT-7B
+  width's two shapes, with RoPE and without;
 - the head-major route's attention at the ViT-7B width (``ROUTE_ROWS``):
   views of flat projections in, K3, the context back as (B, N, H*d), with
   RoPE and without; a checkout whose K3 refuses views copies q, k, v and
   the context there, as its route did;
-- a ``torch.profiler`` trace of K3 at ``TRACE_ROWS`` (the width 160 run
-  at 192, 192 itself, and 100, a row of 200 bytes): each CUDA kernel's
+- a ``torch.profiler`` trace of K3 at ``TRACE_ROWS`` (the widths 160,
+  192 and 256 at batch 32 and 192 at 1205 tokens, the width 160 run at 192
+  and 192 itself at batch 8, and 100, a row of 200 bytes; with
+  ``--kernels`` too): each CUDA kernel's
   launches and device ms per
   call, the device's busy ms per call, the host's ms to issue one call and
   the CUDA-event ms per call, read once (not a list, so not summarized);
@@ -56,6 +67,11 @@ each:
   views' strides, holes and all);
 - on a checkout that has it, the memory floor at probe14's (384*6, 272,
   128) bf16 blocks and at ``FUSED_ROWS``' bytes, and ``out.copy_(q)`` there.
+
+With ``--kernels`` each run reads only the kernel rows and the
+two-consumer body's timing cases (a few minutes a run); ``--only B,N,H,d
+...`` keeps only the kernel and timing rows of those shapes. ``--out PATH``
+also writes every line to PATH, so a long summary line is kept whole.
 
 With ``--widths`` each run reads only K3 in bf16 at ``WIDTH_ROWS`` (no
 RoPE, contiguous): the call's ms by CUDA events and, from a
@@ -108,7 +124,12 @@ KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
 ) + tuple(  # K3 in bf16 at the widths its first bf16 body or a pad copy took before staging
     ("attention_headmajor", B, N, 16, d, (16, 16) if N == 261 else (30, 40), "bfloat16")
     for B, N, d in ((8, 261, 32), (8, 261, 96), (8, 261, 100), (4, 1205, 96), (4, 1205, 100),
-                    (4, 1205, 150), (8, 261, 65)))
+                    (4, 1205, 150), (8, 261, 65), (4, 1205, 160), (4, 1205, 192), (4, 1205, 200),
+                    (4, 1205, 248), (4, 1205, 256), (32, 261, 136), (32, 261, 160)))
+# The two-consumer body as a timing case (``attention_variants.ws_attention``),
+# (B, N, H, d): at 128, where K3 runs the one-warpgroup body, at the ViT-7B
+# width's shapes (RoPE on and off).
+WS_ROWS = ((32, 261, 32, 128), (8, 1205, 32, 128))
 # The head-major route's attention at the ViT-7B width, (B, N, H, d, patch
 # grid), bf16: head-major views of flat (B, N, H*d) projections in, K3, the
 # context back as (B, N, H*d). A checkout whose K3 refuses views runs its
@@ -116,6 +137,10 @@ KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
 # copied back.
 ROUTE_ROWS = ((32, 261, 32, 128, (16, 16)), (8, 1205, 32, 128, (30, 40)))
 TRACE_ROWS = (  # (B, N, H, d, patch grid, RoPE), K3 in bf16
+    (32, 261, 16, 160, (16, 16), False),
+    (32, 261, 16, 192, (16, 16), False),
+    (32, 261, 16, 256, (16, 16), False),
+    (4, 1205, 16, 192, (30, 40), False),
     (8, 261, 16, 160, (16, 16), True),
     (8, 261, 16, 160, (16, 16), False),
     (8, 261, 16, 192, (16, 16), True),
@@ -172,6 +197,20 @@ def case_tables(torch, chip_smoke, cfg, d, grid, N):
         return chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda")
     ang = np.random.default_rng(11).uniform(-np.pi, np.pi, (N, d)).astype(np.float32)
     return tuple(torch.from_numpy(f(ang)).to("cuda") for f in (np.cos, np.sin))
+
+
+def sdpa_ms(torch, chip_smoke, q, k, v, scale, cos, sin) -> float:
+    """``scaled_dot_product_attention``'s ms on q, k and v (head-major,
+    contiguous), q and k roped beforehand in fp32 and rounded to their
+    dtype where there are tables: the yardstick, timed as the kernels are."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    if cos is not None:
+        q, k = ((t.float() * cos + torch.cat([-t[..., t.shape[-1] // 2:],
+                                               t[..., :t.shape[-1] // 2]], -1).float() * sin)
+                .to(t.dtype) for t in (q, k))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return chip_smoke.time_ms(torch, lambda: sdpa(q, k, v, scale=scale))
 
 
 def trace_calls(torch, fn, calls: int = TRACE_CALLS) -> dict:
@@ -238,8 +277,10 @@ def trace_groups(trace: dict) -> dict:
             "gemms_by_shape": trace["gemms_by_shape"]}
 
 
-def measure(root: str, reads: int) -> dict:
-    """Every metric of the checkout at ``root``, ``reads`` reads each."""
+def measure(root: str, reads: int, kernels_only: bool = False, only=None) -> dict:
+    """Every metric of the checkout at ``root``, ``reads`` reads each (with
+    ``kernels_only``, KERNEL_ROWS and WS_ROWS alone; with ``only``, a set of
+    (B, N, H, d), those of their rows alone)."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -266,6 +307,8 @@ def measure(root: str, reads: int) -> dict:
                 "attention_headmajor": fa.fused_attention}
     rng = np.random.default_rng(0)
     for kernel, B, N, H, d, grid, dtype in KERNEL_ROWS:
+        if only and (B, N, H, d) not in only:
+            continue
         shape = {"attention_fat": (B, N, H * d), "attention_packed": (B, H // 2, N, 2 * d),
                  "attention_headmajor": (B, H, N, d)}[kernel]
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
@@ -277,9 +320,24 @@ def measure(root: str, reads: int) -> dict:
             fp32 = " fp32" if dtype == "float32" else ""
             label = f"{kernel} {B}x{N}x{H}x{d} rope={rope}{fp32} ms"
             out[label] = [chip_smoke.time_ms(torch, fn) for _ in range(reads)]
-            if fp32 and d > 256:  # the SM clock and power right after the reads
-                out[label.replace(" ms", " gpu_clocks")] = chip_smoke.gpu_clocks()
+            # the SM clock and power right after the reads
+            out[label.replace(" ms", " gpu_clocks")] = chip_smoke.gpu_clocks()
+            if kernel == "attention_headmajor" and not fp32 and d >= 160:
+                out[label.replace(" ms", " sdpa_ms")] = [
+                    sdpa_ms(torch, chip_smoke, q, k, v, d ** -0.5, *pair) for _ in range(reads)]
         del q, k, v
+    ws_rows(torch, chip_smoke, cfg, rng, reads, out, only)
+    for B, N, H, d, grid, rope in TRACE_ROWS:
+        if only and (B, N, H, d) not in only:
+            continue
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        pair = case_tables(torch, chip_smoke, cfg, d, grid, N) if rope else (None, None)
+        out[f"trace attention_headmajor {B}x{N}x{H}x{d} rope={rope}"] = trace_calls(
+            torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, *pair))  # noqa: B023
+        del q, k, v
+    if kernels_only:
+        return out
     for B, N, H, d, grid in ROUTE_ROWS:
         flat = [torch.from_numpy(rng.standard_normal((B, N, H * d), np.float32))
                 .to("cuda", torch.bfloat16) for _ in range(3)]
@@ -303,13 +361,6 @@ def measure(root: str, reads: int) -> dict:
                           for _ in range(reads)]
         out[f"K3 route {B}x{N}x{H}x{d} copies q, k, v and the context"] = copies
         del flat, views
-    for B, N, H, d, grid, rope in TRACE_ROWS:
-        q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
-                   .to("cuda", torch.bfloat16) for _ in range(3))
-        pair = case_tables(torch, chip_smoke, cfg, d, grid, N) if rope else (None, None)
-        out[f"trace attention_headmajor {B}x{N}x{H}x{d} rope={rope}"] = trace_calls(
-            torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, None, *pair))  # noqa: B023
-        del q, k, v
 
     if has_ln:
         from cbas_tpu_torch.ops import layernorm as ln
@@ -401,6 +452,32 @@ def measure(root: str, reads: int) -> dict:
     return out
 
 
+def ws_rows(torch, chip_smoke, cfg, rng, reads, out, only=None) -> None:
+    """The two-consumer body's timing cases at WS_ROWS (those in ``only``,
+    where given) into ``out``, on a checkout whose ``attention_variants``
+    has ``ws_attention``."""
+    import numpy as np
+
+    from cbas_tpu_torch.ops import attention_variants as av
+
+    if not hasattr(av, "ws_attention"):
+        return
+    for B, N, H, d in WS_ROWS:
+        if only and (B, N, H, d) not in only:
+            continue
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        grid = (16, 16) if N == 261 else (30, 40)
+        tables = case_tables(torch, chip_smoke, cfg, d, grid, N)
+        for rope in (True, False):
+            pair = tables if rope else (None, None)
+            out[f"ws_attention {B}x{N}x{H}x{d} rope={rope} ms"] = [
+                chip_smoke.time_ms(torch, lambda: av.ws_attention(  # noqa: B023
+                    q, k, v, d ** -0.5, None, *pair)) for _ in range(reads)]  # noqa: B023
+        out[f"ws_attention {B}x{N}x{H}x{d} gpu_clocks"] = chip_smoke.gpu_clocks()
+        del q, k, v
+
+
 def measure_widths(root: str, reads: int) -> dict:
     """K3 in bf16 at WIDTH_ROWS in the checkout at ``root``: the call's ms
     (``reads`` reads) and each kernel's device ms per call in one trace
@@ -485,11 +562,19 @@ def main() -> int:
                     help="compare the two checkouts' ptxas reports only (no card needed)")
     ap.add_argument("--widths", action="store_true",
                     help="read K3 in bf16 at WIDTH_ROWS only, kernel by kernel")
+    ap.add_argument("--kernels", action="store_true",
+                    help="read KERNEL_ROWS and WS_ROWS only")
+    ap.add_argument("--only", nargs="+", default=None, metavar="B,N,H,d",
+                    help="with --kernels: only the rows of these shapes")
+    ap.add_argument("--out", help="also write every line to this file")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one run, in the checkout at this root
     args = ap.parse_args()
     if args.measure:
-        run = measure_widths if args.widths else measure
-        print(json.dumps(run(os.path.abspath(args.measure), args.reads)), flush=True)
+        root = os.path.abspath(args.measure)
+        only = {tuple(int(x) for x in shape.split(",")) for shape in args.only or ()}
+        run = measure_widths(root, args.reads) if args.widths else measure(
+            root, args.reads, args.kernels, only)
+        print(json.dumps(run), flush=True)
         return 0
     if not args.parent:
         ap.error("--parent is required")
@@ -498,13 +583,24 @@ def main() -> int:
         print(json.dumps(compare_ptxas(os.path.abspath(args.parent), here)), flush=True)
         return 0
     card = card_name_and_power()
-    print(card, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    out = open(args.out, "w") if args.out else None
+
+    def say(line):
+        print(line, flush=True)
+        if out:
+            print(line, file=out, flush=True)
+
+    say(card)
     runs = []
     for side, root in (("parent", args.parent), ("change", here), ("change", here),
                        ("parent", args.parent)):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--measure", os.path.abspath(root),
-             "--reads", str(args.reads)] + (["--widths"] if args.widths else []),
+             "--reads", str(args.reads)] + (["--widths"] if args.widths else [])
+            + (["--kernels"] if args.kernels else [])
+            + (["--only", *args.only] if args.only else []),
             capture_output=True, text=True, cwd=os.path.abspath(root),
         )
         if proc.returncode:
@@ -512,7 +608,7 @@ def main() -> int:
             raise SystemExit(f"the {side} run failed ({proc.returncode})")
         run = json.loads(proc.stdout.strip().splitlines()[-1])
         run["side"] = side
-        print(json.dumps(run), flush=True)
+        say(json.dumps(run))
         runs.append(run)
     summary = {"card": card, "order": [r["side"] for r in runs], "metrics": {}}
     keys = list(dict.fromkeys(key for r in runs for key in r))
@@ -523,7 +619,7 @@ def main() -> int:
             if reads:
                 summary["metrics"].setdefault(key, {})[side] = {
                     "median": statistics.median(reads), "min": min(reads), "max": max(reads)}
-    print(json.dumps(summary), flush=True)
+    say(json.dumps(summary))
     return 0
 
 

@@ -52,9 +52,10 @@ non-zero and prints no final line):
      also at the ViT-7B width's (32, 261, 32, 128) and (8, 1205, 32, 128),
      timed with RoPE and without beside the same call on contiguous
      tensors, the bound, the floor and SDPA.
-   bf16 at head dim 64 (and K3's every d up to 256, at the next of 64, 128,
-   192 and 256; a d % 16 != 0 through its staging launch) runs the Hopper
-   body (``attention_body``), fp32 at 64 and 128 its fp32 counterpart
+   bf16 at head dim 64 (and K3's every d up to 192, at the next of 64, 128
+   and 192; a d % 16 != 0 through its staging launch) runs the Hopper body
+   (``attention_body``), K3's bf16 d from 193 to 256 the two-consumer body
+   (``attention_sm90_ws.cuh``, at 256), fp32 at 64 and 128 its fp32 counterpart
    (``attention_sm90_tf32.cuh``: 3xTF32 on wgmma, with a prologue that splits
    K and V; K3's other fp32 multiples of 4 up to 128 too, its wide form
    ``attention_sm90_tf32_wide.cuh`` from 132 to 256 and its slices body
@@ -238,7 +239,14 @@ non-zero and prints no final line):
     matplotlib import, ``tools/encode_fleet.py`` with one worker over two
     clips (its H5s against an in-process ``encode_file``) and
     ``tools/soak.py`` with two cameras for half a minute at full size
-    (otherwise a ``skipped`` entry names what is missing). Then K3 at the
+    (otherwise a ``skipped`` entry names what is missing; the fleet's
+    encodes both at FLEET_THREADS intra-op threads). Before the padded
+    widths, K3 in bf16 at the cuda tests' set for the two-consumer body
+    (``ws_cases_step``: d 136, 160, 192, 200 and 256, N 261 and 1205 and
+    272 / 261 and 1216 / 1205 with NaN in the dead rows, RoPE on and off,
+    contiguous and fused views), each against the plain version, its
+    launches counted by body name: the two-consumer body at 200 and 256,
+    the Hopper body (the measured rule) at the others. Then K3 at the
     head dims it refused on the card before: (8, 261, 16, 320) and (4, 1205,
     8, 384) on the wide body in bf16 and the fp32 slices body in fp32, (8,
     261, 16, 65) with RoPE tables, bf16 (the staging launch ropes it) and
@@ -265,7 +273,8 @@ non-zero and prints no final line):
     2 (random weights, opened from a checkpoint directory's config.json), 32
     frames of 256x256 in bf16 each: K3 once a forward through the Hopper
     body at 96 (at 128, maps at d), 100 (at 128, with one staging launch a
-    forward), 192 and 256 and the wide body at 320 (the counts set to 0
+    forward) and 192, the two-consumer body at 256 and the wide body at 320
+    (the counts set to 0
     before each run and read after it), a profiler trace of one forward
     with no copy kernel next to K3, embeddings against the CPU fp32 run;
     then K3 alone at the shape each encode gave it, against its plain
@@ -284,7 +293,12 @@ dims 192 and 256, at phase 10's padded, wide and odd widths, with their
 launches counted over the encode routes' runs and phase 12's), the launches
 of phase 10's runs, and its launches over phase 11's mesh encodes
 (``launches_mesh``) and (``fused_views``) its cases on views of one fused
-projection beside the same call on contiguous tensors, then K3's wide body
+projection beside the same call on contiguous tensors, then K3's
+two-consumer body (``attention_sm90_ws.cuh``) as an entry of its own, its
+launches those of phase 12 (one a forward at 256), its numbers those of
+phase 12's kernel case at 256, with ptxas's report of each build of it
+(registers at entry, no spill, no "setmaxnreg ignored") and phase 10's
+cases, then K3's wide body
 (``attention_wide.cuh``, bf16) as an entry of its own, its launches those
 of phase 12 and its numbers those of phase 12's kernel case at d 320, then
 bf16's staging pass (``stage_rows``) with its launches over phase 12's
@@ -568,8 +582,15 @@ TRAIN_MIN_F1 = 0.9
 SERVE_TOL = 1e-5
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line on stdout; on stderr the seconds since the script
+    started and the line's phase, so a run's time splits by phase."""
     print(json.dumps(obj), flush=True)
+    print(f"[{time.perf_counter() - _START:.1f} s] {obj.get('phase', 'result')}", file=sys.stderr,
+          flush=True)
 
 
 def card_name_and_power() -> str:
@@ -622,16 +643,21 @@ PTXAS: dict = {}
 def ptxas_entries(log: str) -> dict:
     """Each kernel of a ``-Xptxas -v`` log, in its order: {mangled name:
     {"registers", "smem", "stack", "spill_stores", "spill_loads",
-    "wgmma_serialized"}}; the last is whether ptxas says it serialized the
-    kernel's wgmma instructions (its note C7512)."""
+    "wgmma_serialized"}}: whether ptxas says it serialized the kernel's
+    wgmma instructions (its note C7512); and "setmaxnreg_ignored": True
+    where it ignored the kernel's setmaxnreg (its warning C7508: no
+    register count known at entry)."""
     out, name = {}, None
     serialized = set(re.findall(r"wgmma\.mma_async instructions are serialized .* for the "
                                 r"function '(\w+)'", log))
+    ignored = set(re.findall(r"setmaxnreg ignored[^\n]*?'(\w+)'", log))
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
             out[name] = {"wgmma_serialized": name in serialized}
+            if name in ignored:  # (absent otherwise, so a parent's report compares)
+                out[name]["setmaxnreg_ignored"] = True
             continue
         if name is None:
             continue
@@ -713,6 +739,9 @@ def kernel_label(mangled: str) -> str:
         dtype = "f32" if n.group(2) == "f" else "bf16"
         name = (f"ln_rows<{dtype}, V{n.group(3)}, C{n.group(4)}>" if n.group(3)
                 else f"ln_stream<{dtype}>")
+    s = re.search(r"attention_sm90_wsILi(\d+)ELi(\d)ELb([01])E", mangled)
+    if s:  # the two-consumer body: head dim, map rank, the staged form
+        name = f"sm90_ws<{s.group(1)}, {s.group(2)}{', staged' if s.group(3) == '1' else ''}>"
     w = re.search(r"attention_wide_bf16I(Lb[01])E", mangled)
     if w:  # the (bf16) wide body: d at run time; Q resident, or streamed above d = 1024
         name = f"wide_bf16<{'resident' if w.group(1) == 'Lb1' else 'streamed'} Q>"
@@ -722,10 +751,12 @@ def kernel_label(mangled: str) -> str:
 def ptxas_report(log: str) -> list:
     """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log
     (:func:`ptxas_entries`), as "<kernel label>: N regs, S/L spill" strings,
-    with ", wgmma serialized" where ptxas serialized its wgmma instructions."""
+    with ", wgmma serialized" where ptxas serialized its wgmma instructions
+    and ", setmaxnreg ignored" where it ignored its setmaxnreg."""
     return [f"{kernel_label(name)}: {e['registers']} regs, "
             f"{e.get('spill_stores', '?')}/{e.get('spill_loads', '?')} spill"
             + (", wgmma serialized" if e["wgmma_serialized"] else "")
+            + (", setmaxnreg ignored" if e.get("setmaxnreg_ignored") else "")
             for name, e in ptxas_entries(log).items() if "registers" in e]
 
 
@@ -739,10 +770,11 @@ def kernel_ptxas(fa, kernel, dtype, d) -> str:
     body = fa.attention_body(kernel, dtype, width)
     tf32 = body in fa.TF32_BODIES
     slices = f"tf32_slices<{'resident' if d <= 576 else 'streamed'} Q>"
-    prefix = {"sm90": f"sm90<{width}, ", "wide": wide_bf16, "sm90_f32": f"tf32<{width}, ",
+    prefix = {"sm90": f"sm90<{width}, ", "sm90_ws": f"sm90_ws<{width}, ", "wide": wide_bf16,
+              "sm90_f32": f"tf32<{width}, ",
               "sm90_f32_wide": f"tf32_wide<{width}, ", "sm90_f32_slices": slices}[body]
     prologue = r"split_kv_wide<" if body == "sm90_f32_slices" else rf"split_kv<{width}[,>]"
-    staged = body == "sm90" and fa.headmajor_staged(dtype, d)
+    staged = body in fa.BF16_BODIES and fa.headmajor_staged(dtype, d)
     found = [f"{k}: {v}" if tf32 else v
              for k, v in PTXAS.get(kernel, {}).items()
              if k.startswith(prefix) and k.endswith(", staged>") == staged]
@@ -994,7 +1026,7 @@ def entry_and_body_launches(fa) -> dict:
             "attention_headmajor": fa.launches_headmajor, "sm90": fa.launches_sm90,
             "sm90_f32": fa.launches_sm90_f32, "sm90_f32_wide": fa.launches_sm90_f32_wide,
             "sm90_f32_slices": fa.launches_sm90_f32_slices, "wide": fa.launches_wide,
-            "staging": fa.launches_stage}
+            "sm90_ws": fa.launches_sm90_ws, "staging": fa.launches_stage}
 
 
 def kernel_case(torch, fa, cfg, kernel, B, H, N, d, grid, dtype, rope, n_valid=None,
@@ -3030,6 +3062,7 @@ def reset_launches(fa) -> None:
     fa.launches = fa.launches_packed = fa.launches_headmajor = fa.launches_sm90 = 0
     fa.launches_wide = fa.launches_sm90_f32 = fa.launches_tf32_prologue = 0
     fa.launches_sm90_f32_wide = fa.launches_sm90_f32_slices = fa.launches_stage = 0
+    fa.launches_sm90_ws = 0
     fa.launches_headmajor_by_dim.clear()
     fa.launches_sm90_by_kernel.clear()
     fa.launches_sm90_f32_by_kernel.clear()
@@ -3044,7 +3077,8 @@ def read_launches(fa) -> dict:
     fp32 counterpart (by entry under "sm90_f32_by_kernel"), under
     "sm90_f32_wide" K3's that ran its wide form, under "sm90_f32_slices"
     K3's that ran its slices body, under "tf32_prologue" their prologue,
-    under "wide" K3's that ran the (bf16) wide body, under "staging" bf16's
+    under "wide" K3's that ran the (bf16) wide body, under "sm90_ws" K3's
+    that ran the two-consumer body, under "staging" bf16's
     staging pass, under "headmajor_by_dim" K3's split by the head dim it ran at,
     under "layernorm" the LayerNorm kernel's, and under "projection_gemms"
     the attention's projection GEMMs as ``models/vit.py`` counts them (a
@@ -3058,7 +3092,8 @@ def read_launches(fa) -> dict:
             "sm90_f32": fa.launches_sm90_f32, "sm90_f32_wide": fa.launches_sm90_f32_wide,
             "sm90_f32_slices": fa.launches_sm90_f32_slices,
             "tf32_prologue": fa.launches_tf32_prologue, "wide": fa.launches_wide,
-            "staging": fa.launches_stage, "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
+            "sm90_ws": fa.launches_sm90_ws, "staging": fa.launches_stage,
+            "sm90_by_kernel": dict(fa.launches_sm90_by_kernel),
             "sm90_f32_by_kernel": dict(fa.launches_sm90_f32_by_kernel),
             "headmajor_by_dim": dict(fa.launches_headmajor_by_dim),
             LN_KERNEL: ln.launches, "projection_gemms": dict(vit.projection_gemms)}
@@ -3092,7 +3127,7 @@ def check_launches(route, got, kernel, per_forward, forwards, sm90, ln_per,
     want[kernel] = per_forward * forwards
     want["sm90"] = want[kernel] if sm90 else 0
     want["sm90_f32"] = want["tf32_prologue"] = want[kernel] if sm90_f32 else 0
-    want["sm90_f32_wide"] = want["sm90_f32_slices"] = 0
+    want["sm90_f32_wide"] = want["sm90_f32_slices"] = want["sm90_ws"] = 0
     want[LN_KERNEL] = ln_per * forwards
     want["projection_gemms"] = projections_per_run(
         per_forward * forwards, forwards if cls_blocks is None else cls_blocks)
@@ -3540,7 +3575,8 @@ def main() -> int:
         "launches_mesh": mesh_launches[name],
         "launches_tools": {run: launches[name] for run, launches in tools_line["launches"].items()},
     } for name, replaces in KERNELS.items()]
-        + [wide_kernel_entry(tools_line, wide_runs, wide_cases),
+        + [ws_kernel_entry(tools_line, wide_runs, wide_cases),
+           wide_kernel_entry(tools_line, wide_runs, wide_cases),
            staging_kernel_entry(tools_line, wide_runs, wide_cases),
            ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
                            wide_runs),
@@ -3561,14 +3597,20 @@ COPY_KERNEL = re.compile(r"copy|memcpy", re.IGNORECASE)
 
 TRACE_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
 TRACE_TRIES = 6  # traces taken of one call at most, while they hold no event
+# Marker kernels that open a trace, and the host's pause after them: a trace
+# on the card's machine may lose its first device events (the first two of
+# every trace after some hundred card tests in one process), so markers and
+# a pause stand in front of the call's own.
+TRACE_LEAD, TRACE_LEAD_PAUSE_S = 16, 0.01
 
 
 def trace_kernels(torch, fn, traces=1) -> list:
     """The names of the CUDA kernels (and copies) one call of ``fn`` ran, in
     the order they started, from a ``torch.profiler`` trace. The trace
-    opens with a marker kernel (``torch.cuda._sleep``), left out of the
-    list: on the card's machine a trace may lose its first device event,
-    which then is the marker's, not one of ``fn``'s. It may also lose some
+    opens with TRACE_LEAD marker kernels (``torch.cuda._sleep``) and a pause
+    of the host, the markers left out of the list: on the card's machine a
+    trace loses its first device events, which then are the markers', not
+    ``fn``'s. It may also lose some
     or every event of ``fn`` (both seen on the card); a lost event is never
     an added one, so the call is traced ``traces`` times and the trace with
     the most events kept, and while the traces hold none, again after a
@@ -3583,8 +3625,10 @@ def trace_kernels(torch, fn, traces=1) -> list:
             time.sleep(0.1 * i)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(TRACE_LEAD):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
+            time.sleep(TRACE_LEAD_PAUSE_S)
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
@@ -3735,7 +3779,7 @@ def wide_heads_traces(torch, fa, FrameEncoder) -> dict:
             write_wide_config(ckpt, d)
             enc = FrameEncoder(ckpt, random_init=True, device="cuda")
             body = fa.attention_body("attention_headmajor", torch.bfloat16, d)
-            marker = "attention_sm90" if body == "sm90" else "attention_wide_bf16"
+            marker = "attention_sm90" if body in fa.BF16_BODIES else "attention_wide_bf16"
             enc.encode_planes(planes)  # warm: the geometry's state
             for _ in range(TRACE_TRIES):
                 out[d] = copies_around(trace_kernels(torch, lambda: enc.encode_planes_async(
@@ -3781,6 +3825,7 @@ def wide_heads_phase(torch, fa, FrameEncoder, init_vit_params, card, traces) -> 
             per = (WIDE_ENCODER_DEPTH - 1) * forwards  # the CLS-only last block is plain
             want = {"attention_fat": 0, "attention_packed": 0, "attention_headmajor": per,
                     "sm90": per * (body == "sm90"), "wide": per * (body == "wide"),
+                    "sm90_ws": per * (body == "sm90_ws"),
                     "staging": per * fa.headmajor_staged(torch.bfloat16, d, True),
                     "headmajor_by_dim": {fa.headmajor_width(torch.bfloat16, d): per},
                     LN_KERNEL: ln_per_forward(WIDE_ENCODER_DEPTH) * forwards,
@@ -3948,6 +3993,58 @@ def wide_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
         "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
         "share_of_bound": main["bound_ms"] / main["ms"],
         "other_cases": cases,
+    }
+
+
+WS_SOURCE = "cbas_tpu_torch/csrc/attention_sm90_ws.cuh"
+
+
+def ws_registers() -> dict:
+    """ptxas's report of each build of the two-consumer body in the
+    libraries built (PTXAS), {"<library>: <label>": {"registers_at_entry",
+    "spill_stores", "spill_loads", "setmaxnreg_ignored"}}: the registers
+    it gives a thread at entry (its ``__launch_bounds__``), its spill bytes,
+    and whether it warned that it ignored the kernel's setmaxnreg (C7508).
+    Raises where a build spills or that warning appeared, or none was
+    built."""
+    out = {}
+    for lib, reports in PTXAS.items():
+        for label, report in reports.items():
+            if label.startswith("sm90_ws<"):
+                m = re.match(r"(\d+) regs, (\d+)/(\d+) spill", report)
+                out[f"{lib}: {label}"] = {
+                    "registers_at_entry": int(m[1]), "spill_stores": int(m[2]),
+                    "spill_loads": int(m[3]), "setmaxnreg_ignored": "setmaxnreg ignored" in report}
+    bad = {k: r for k, r in out.items()
+           if r["spill_stores"] or r["spill_loads"] or r["setmaxnreg_ignored"]}
+    if not out or bad:
+        raise AssertionError(f"the two-consumer body's ptxas reports: {bad or 'none built'}")
+    return out
+
+
+def ws_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
+    """The ``kernels`` line's entry for the two-consumer body
+    (``attention_sm90_ws.cuh``, K3's bf16 heads from 193 to 256): its
+    launches over phase 12's encodes (one a forward at 256-wide heads), its
+    numbers from phase 12's kernel case at 256 (the shape that encode gives
+    it), ptxas's report of each build of it, phase 10's cases
+    (``ws_cases_step``) and its timed padded-width cases beside them."""
+    main = wide_cases[256]
+    if main["body"] != "sm90_ws":
+        raise AssertionError(f"phase 12's 256-wide heads ran the {main['body']} body")
+    return {
+        "name": "attention_headmajor_sm90_ws", "route": "cuda", "source": WS_SOURCE,
+        "replaces": KERNELS["attention_headmajor"],
+        "launches": sum(run["sm90_ws"] for run in wide_runs.values()),
+        "launches_by_head_dim": {d: run["sm90_ws"] for d, run in wide_runs.items()},
+        "body": "sm90_ws", **{key: main[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "ms_norope", "gflop", "mbytes", "floor_ms", "ptxas")},
+        "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
+        "share_of_bound": main["bound_ms"] / main["ms"],
+        "ptxas_builds": ws_registers(),
+        "card_cases": tools_line["ws_cases"],
+        "padded_cases": [c for c in tools_line["padded_timings"] if c["body"] == "sm90_ws"],
     }
 
 
@@ -4812,6 +4909,14 @@ PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 136), (8, 261, 16, 160), (8, 261
 # on maps at d at 64 and 128) at N 261 and 1205, and 150 (no multiple of 8,
 # staged, at 192) at N 1205.
 BF16_WIDTH_CASES = ((8, 261, 16, 32), (8, 261, 16, 96), (4, 1205, 16, 96), (4, 1205, 16, 150))
+# K3 in bf16 at the card tests' set for the two-consumer body (bf16 K3 from
+# 193 to 256; 129-192 keep the Hopper body): 136 and 200 staged (rows off
+# 32 bytes), 160 on maps at d below its width, 192 and 256 at theirs; N 261
+# and 1205 and 272 / 261 and 1216 / 1205 with NaN in the dead rows; RoPE on
+# and off; contiguous tensors and head-major views of one fused projection
+# (``ws_cases_step``).
+WS_CASE_DIMS = (136, 160, 192, 200, 256)
+WS_CASE_ROWS = ((261, None), (272, 261), (1205, None), (1216, 1205))
 # fp32 only, beside them: the wide form at the widths it is built at, at
 # N 261 and at 640x480's 1205 tokens.
 TF32_WIDE_CASES = ((8, 261, 16, 192), (8, 261, 16, 256), (4, 1205, 16, 192), (4, 1205, 16, 256))
@@ -4848,8 +4953,12 @@ MAP_FRAMES, MAP_QK_GAIN = 8, 4.0
 #   bound).
 MAP_ATOL_OF_MAX, MAP_MIN_COS = 0.1, 0.99
 # encode_fleet over two clips, and soak at full size, where the host has
-# h5py, pandas, OpenCV and matplotlib.
+# h5py, pandas, OpenCV and matplotlib. Both of the fleet step's encodes (the
+# fleet's worker and the in-process one it is held against, bit for bit)
+# run at FLEET_THREADS intra-op threads, with MKL's and OpenMP's dynamic
+# teams off, so no side picks its team at run time.
 FLEET_CLIPS, FLEET_FRAMES = 2, 100
+FLEET_THREADS = 2
 SOAK_CAMERAS, SOAK_MINUTES = 2, 0.5
 
 
@@ -4860,7 +4969,9 @@ def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
     the phase line, with the padded cases' timings and the launches of each
     run for the kernels line."""
     line = {"phase": "tools", "card": card, "launches": {}}
+    t = time.perf_counter()
     line["validate_kernels"] = validate_kernels_step(torch, fa, line["launches"])
+    line["ws_cases"] = ws_cases_step(torch, fa, cfg, line["launches"])
     cases = padded_cases(torch, fa, cfg, calls)
     line["padded_timings"] = [{key: c[key] for key in (
         "B", "N", "H", "head_dim", "padded_to", "dtype", "rope", "body", "max_abs_err", "tol",
@@ -4883,6 +4994,7 @@ def tools_phase(torch, fa, cfg, params, card, calls) -> dict:
     else:
         line["encode_fleet"] = fleet_step()
         line["soak"] = soak_step()
+    line["seconds"] = time.perf_counter() - t
     line["ok"] = True
     emit(line)
     return line
@@ -4927,7 +5039,7 @@ def validate_kernels_step(torch, fa, launches) -> dict:
             "tf32_prologue": fp32 + fp32_wide + fp32_slices,
             LN_KERNEL: 2}  # its single-pass and two-pass LayerNorm checks
     k3_only = {"sm90_f32_wide": got["sm90_f32_wide"], "sm90_f32_slices": got["sm90_f32_slices"],
-               "wide": got["wide"]}
+               "wide": got["wide"], "sm90_ws": got["sm90_ws"]}
     by_body = {name: {"sm90": got["sm90_by_kernel"].get(name, 0),
                       "sm90_f32": got["sm90_f32_by_kernel"].get(name, 0),
                       **{body: n if name == "attention_headmajor" else 0
@@ -4951,6 +5063,52 @@ def validate_kernels_step(torch, fa, launches) -> dict:
     if {name: got[name] for name in want} != want or by_body["attention_headmajor"]["sm90"] != sm90 \
             or any(unreported.values()):
         raise AssertionError(f"validate_kernels launched {got}, expected {want}")
+    return out
+
+
+def ws_cases_step(torch, fa, cfg, launches) -> dict:
+    """K3 in bf16 at WS_CASE_DIMS x WS_CASE_ROWS, RoPE on and off, on
+    contiguous tensors and on views of one fused projection (3 heads),
+    untimed (:func:`kernel_case`: one staging launch with a call where d %
+    16 != 0, a view case calling K3 twice), with the counts set to 0 before
+    the cases and read after them (``launches["ws_cases"]``): each call
+    through the body K3 routes d to, the two-consumer body from 193 to 256
+    and the Hopper body below, counted by body name; every case against the
+    plain version within kernel_case's bf16 bound (one bf16 ulp of the
+    result + 2^-8 max|v| + 1e-5, no looser than the cuda tests'
+    ``_card_tolerance``, which allows 2^-7 of the result)."""
+    t = time.perf_counter()
+    reset_launches(fa)
+    cases = []
+    for d in WS_CASE_DIMS:
+        for N, n_valid in WS_CASE_ROWS:
+            B, grid = (2, (16, 16)) if N < 1000 else (1, (30, 40))
+            for rope in (False, True):
+                for view in (False, "fused"):
+                    cases.append(kernel_case(torch, fa, cfg, "attention_headmajor", B, 3, N, d,
+                                             grid, torch.bfloat16, rope, n_valid=n_valid,
+                                             time_it=False, view=view))
+    got = read_launches(fa)
+    launches["ws_cases"] = got
+    want = {"attention_headmajor": 0, "sm90_ws": 0, "sm90": 0, "wide": 0, "staging": 0}
+    for c in cases:
+        n = 2 if c["inputs"] != "contiguous" else 1
+        want["attention_headmajor"] += n
+        want[fa.attention_body("attention_headmajor", torch.bfloat16, c["head_dim"])] += n
+        want["staging"] += n * fa.headmajor_staged(torch.bfloat16, c["head_dim"], c["rope"])
+    worst = max(cases, key=lambda c: c["max_abs_err"])
+    out = {"cases": len(cases), "head_dims": list(WS_CASE_DIMS),
+           "rows": [list(r) for r in WS_CASE_ROWS], "launches": got, "expected_launches": want,
+           "max_abs_err": worst["max_abs_err"],
+           "worst": {key: worst[key] for key in ("name", "B", "N", "H", "head_dim", "n_valid",
+                                                 "rope", "inputs", "max_abs_err", "tol")},
+           "ptxas": sorted({c["ptxas"] for c in cases}), "seconds": time.perf_counter() - t}
+    bad = [c for c in cases if not c["ok"] or c["body"] != fa.attention_body(
+        "attention_headmajor", torch.bfloat16, c["head_dim"])]
+    if bad or {key: got[key] for key in want} != want:
+        raise AssertionError(f"K3's cases at the two-consumer body's set: {bad}; launched {got}, "
+                             f"expected {want}")
+    emit({"phase": "kernel_ws_cases", **out})
     return out
 
 
@@ -5184,8 +5342,9 @@ def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
     """``encode_fleet`` with one worker over FLEET_CLIPS 256x256 clips in a
     fresh project whose encoder is ``encoder_dir`` (default: dinov3-vitb16
     with random weights from SEED, saved as a checkpoint): every H5 stamped
-    and equal to an in-process ``encode_file`` on ``device``. (``device`` is
-    "cpu" only in the CPU test of this function.)"""
+    and equal to an in-process ``encode_file`` on ``device``, both at
+    FLEET_THREADS intra-op threads. (``device`` is "cpu" only in the CPU
+    test of this function.)"""
     import shutil
 
     import h5py
@@ -5225,6 +5384,8 @@ def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
             videos.append(video)
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+        env.update(OMP_NUM_THREADS=str(FLEET_THREADS), MKL_NUM_THREADS=str(FLEET_THREADS),
+                   MKL_DYNAMIC="FALSE", OMP_DYNAMIC="FALSE")
         cmd = [sys.executable, "-m", "cbas_tpu_torch.tools.encode_fleet", "--project",
                project.path, "--workers", "1"] + (["--force-cpu"] if device == "cpu" else [])
         t = time.perf_counter()
@@ -5237,29 +5398,46 @@ def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
         ident = Project(project.path).encoder_model_identifier
         enc = FrameEncoder(ident, device=device, compute_dtype=getattr(torch, dtype))
         max_diff = 0.0
+        threads = torch.get_num_threads()
+        torch.set_num_threads(FLEET_THREADS)
+        try:
+            rows_of = {video: _in_process_rows(encode_file, enc, d, video) for video in videos}
+        finally:
+            torch.set_num_threads(threads)
         for video in videos:
             h5 = video.replace(".mp4", "_cls.h5")
             if not hdf5_store.is_stamp_valid(h5, ident):
                 raise AssertionError(f"encode_fleet: {h5} is not stamped by {ident}")
             with h5py.File(h5, "r") as f:
                 fleet_rows = f["cls"][:]
-            inproc = os.path.join(d, "inproc", os.path.basename(video))
-            os.makedirs(os.path.dirname(inproc), exist_ok=True)
-            shutil.copyfile(video, inproc)
-            with h5py.File(encode_file(enc, inproc), "r") as f:
-                rows = f["cls"][:]
+            rows = rows_of[video]
             if rows.shape != fleet_rows.shape or not np.array_equal(rows, fleet_rows):
-                differ = (np.abs(rows.astype(np.float32) - fleet_rows).max(axis=1) > 0
+                by_row = (np.abs(rows.astype(np.float32) - fleet_rows).max(axis=1)
                           if rows.shape == fleet_rows.shape else None)
                 raise AssertionError(
                     f"encode_fleet: {h5} differs from the in-process encode: shapes "
                     f"{rows.shape} / {fleet_rows.shape}, rows that differ "
-                    f"{None if differ is None else np.flatnonzero(differ)[:20].tolist()}, "
-                    f"{torch.get_num_threads()} intra-op threads here, fleet lines {lines}")
+                    f"{None if by_row is None else np.flatnonzero(by_row)[:20].tolist()}, "
+                    f"by up to {None if by_row is None else float(by_row.max())}, "
+                    f"{FLEET_THREADS} intra-op threads each side, fleet lines {lines}")
             max_diff = max(max_diff, float(np.abs(rows.astype(np.float32) - fleet_rows).max()))
     return {"clips": FLEET_CLIPS, "frames": FLEET_FRAMES, "workers": 1, "device": device,
             "dtype": dtype, "wall_s": fleet_s, "summary": lines[-1],
             "max_abs_diff_vs_in_process": max_diff, "ok": True}
+
+
+def _in_process_rows(encode_file, enc, d, video):
+    """``encode_file`` of a copy of ``video`` under ``d``, in this process:
+    the H5's CLS rows."""
+    import shutil
+
+    import h5py
+
+    inproc = os.path.join(d, "inproc", os.path.basename(video))
+    os.makedirs(os.path.dirname(inproc), exist_ok=True)
+    shutil.copyfile(video, inproc)
+    with h5py.File(encode_file(enc, inproc), "r") as f:
+        return f["cls"][:]
 
 
 def soak_step(device="cuda", **soak_kw) -> dict:

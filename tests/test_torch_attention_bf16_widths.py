@@ -1,9 +1,11 @@
 """K3 in bfloat16 at every head dim: the routing, the staging pass's plain
 version and the plain K3 against the JAX package's, on the CPU.
 
-Every bf16 head of width d up to 256 runs the Hopper body
-(``csrc/attention_sm90.cuh``) at the next of 64, 128, 192 and 256 with its
-tensor maps at d, in place: no pad copy and no RoPE in torch. A row of d
+Every bf16 head of width d up to 192 runs the Hopper body
+(``csrc/attention_sm90.cuh``) at the next of 64, 128 and 192, and every one
+from 193 to 256 the two-consumer body (``csrc/attention_sm90_ws.cuh``) at
+256, with their tensor maps at d, in place: no pad copy and no RoPE in
+torch. A row of d
 elements that is no 32-byte multiple (d % 16 != 0) goes through one staging
 launch first (``stage_rows``, ``csrc/attention_common.cuh``), which copies q
 (roped, times the scale), k (roped) and v into scratch rows of d rounded up
@@ -34,8 +36,9 @@ KERNELS = ("attention_fat", "attention_packed", "attention_headmajor")
 # (B, H, N, d, n_valid, RoPE): phase 10's bf16 widths (32, 96, 100, 150) and
 # an odd one with RoPE (65) at a small size, n_valid < N with NaN in the dead
 # rows.
+# Then the two-consumer body's widths with RoPE: 200 (staged) and 256.
 JAX_CASES = [(1, 2, 80, d, 70, rope) for d in (32, 96, 100, 150) for rope in (False, True)] + [
-    (1, 2, 80, 65, 70, True)]
+    (1, 2, 80, 65, 70, True), (1, 2, 80, 200, 70, True), (1, 2, 80, 256, 70, True)]
 
 
 @pytest.fixture
@@ -63,13 +66,14 @@ def _built(d):
 
 @pytest.mark.parametrize("rope", [False, True])
 def test_every_bf16_width_runs_in_place_on_the_hopper_or_wide_body(rope):
-    """d 1-300: up to 256 the Hopper body at the next of 64, 128, 192 and
-    256, above 256 the wide body at d; every width in place (no pad copy,
-    no RoPE in torch), with tables and without."""
+    """d 1-300: up to 192 the Hopper body at the next of 64, 128 and 192,
+    from 193 to 256 the two-consumer body at 256, above 256 the wide body
+    at d; every width in place (no pad copy, no RoPE in torch), with tables
+    and without."""
     for d in range(1, 301):
         width = fa.headmajor_width(BF16, d)
         assert width == (_built(d) if d <= 256 else d), d
-        body = "sm90" if d <= 256 else "wide"
+        body = "sm90" if d <= 192 else "sm90_ws" if d <= 256 else "wide"
         assert fa.attention_body("attention_headmajor", BF16, width) == body, d
         assert fa.attention_body("attention_headmajor", BF16, d) == body, d
         assert fa.headmajor_in_place(BF16, d, rope), d
@@ -77,11 +81,11 @@ def test_every_bf16_width_runs_in_place_on_the_hopper_or_wide_body(rope):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_no_entry_names_a_body_outside_the_five(dtype):
-    """``attention_body`` returns one of the five bodies the C entries
+    """``attention_body`` returns one of the six bodies the C entries
     report, or raises for what no entry takes (K1 and K2 off d 64); the
     common body is gone."""
     bodies = set(fa._BODIES.values())
-    assert bodies == {"sm90", "wide", "sm90_f32", "sm90_f32_wide", "sm90_f32_slices"}
+    assert bodies == {"sm90", "sm90_ws", "wide", "sm90_f32", "sm90_f32_wide", "sm90_f32_slices"}
     for kernel in KERNELS:
         for d in range(1, 301):
             if kernel != "attention_headmajor" and d != fa.HEAD_DIM:
@@ -91,6 +95,47 @@ def test_no_entry_names_a_body_outside_the_five(dtype):
             assert fa.attention_body(kernel, dtype, d) in bodies, (kernel, d)
     with pytest.raises(ValueError, match="no attention body"):
         fa.attention_body("attention_headmajor", torch.float16, 64)
+
+
+@pytest.mark.parametrize("d", [136, 160, 192, 200, 248, 256])
+def test_bf16_k3_from_129_to_256_routes_by_the_measured_rule(d):
+    """K3's bf16 heads from 129 to 192 keep the Hopper body at 192, those
+    from 193 to 256 take the two-consumer body at 256 (by their width and by
+    the width they run at); fp32 keeps its wide form at both."""
+    width = fa.headmajor_width(BF16, d)
+    assert width == (192 if d <= 192 else 256)
+    body = "sm90" if d <= 192 else "sm90_ws"
+    assert fa.attention_body("attention_headmajor", BF16, d) == body
+    assert fa.attention_body("attention_headmajor", BF16, width) == body
+    assert fa.attention_body("attention_headmajor", torch.float32, width) == "sm90_f32_wide"
+    assert fa.headmajor_staged(BF16, d) == (d % 16 != 0)
+
+
+@pytest.mark.parametrize("kernel,d", [("attention_fat", 64), ("attention_packed", 64),
+                                      ("attention_headmajor", 32), ("attention_headmajor", 64),
+                                      ("attention_headmajor", 96), ("attention_headmajor", 100),
+                                      ("attention_headmajor", 128)])
+def test_bf16_up_to_128_and_k1_k2_keep_the_hopper_body(kernel, d):
+    """K1, K2 and K3's bf16 heads up to 128 keep the one-warpgroup Hopper
+    body."""
+    assert fa.attention_body(kernel, BF16, d) == "sm90"
+
+
+def test_two_consumer_launches_count_apart(monkeypatch):
+    """A K3 launch through the two-consumer body counts under its own
+    counter (and its staging launch under the staging pass's), never under
+    the Hopper body's."""
+    for name in ("launches_stage", "launches_sm90", "launches_sm90_ws", "launches_headmajor"):
+        monkeypatch.setattr(fa, name, 0)
+    monkeypatch.setattr(fa, "launches_headmajor_by_dim", {})
+    monkeypatch.setattr(fa, "launches_sm90_by_kernel", {})
+    fa._count_launch("attention_headmajor", 256, "sm90_ws", 1)
+    fa._count_launch("attention_headmajor", 256, "sm90_ws", 0)
+    fa._count_launch("attention_headmajor", 192, "sm90", 0)
+    assert (fa.launches_sm90_ws, fa.launches_sm90, fa.launches_stage,
+            fa.launches_headmajor) == (2, 1, 1, 3)
+    assert fa.launches_headmajor_by_dim == {256: 2, 192: 1}
+    assert fa._BODIES[6] == "sm90_ws" and fa.BF16_BODIES == ("sm90", "sm90_ws")
 
 
 @pytest.mark.parametrize("rope", [False, True])
@@ -231,9 +276,10 @@ def test_bf16_widths_match_plain_on_card(B, H, N, d, n_valid, rope, layout, cuda
     before, against the plain version, NaN in the dead K/V rows, on
     contiguous tensors and on head-major views of one fused (B, N, 3*H*d)
     projection (at H 3 and 5 and an odd d, bases at 2-byte alignment only):
-    one K3 launch through the Hopper body (the wide body above 256), a
-    staging launch where a row is no 32-byte multiple (above 256: at an odd
-    d with tables), no copy kernel, the output dense in q's dim order."""
+    one K3 launch through the Hopper body (the two-consumer body from 193 to
+    256, the wide body above), a staging launch where a row is no 32-byte
+    multiple (above 256: at an odd d with tables), no copy kernel, the
+    output dense in q's dim order."""
     rng = np.random.default_rng(68)
     if layout == "fused views":
         qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to(
@@ -250,18 +296,20 @@ def test_bf16_widths_match_plain_on_card(B, H, N, d, n_valid, rope, layout, cuda
     if rope:
         cos, sin = (t.to(cuda_device) for t in _tables(N, d, seed=69))
     width = fa.headmajor_width(BF16, d)
-    body = "sm90" if d <= 256 else "wide"
+    body = "sm90" if d <= 192 else "sm90_ws" if d <= 256 else "wide"
+    assert fa.attention_body("attention_headmajor", BF16, width) == body
     staged = fa.headmajor_staged(BF16, d, rope)
     assert staged == (d % 16 != 0 if d <= 256 else (rope and d % 2 == 1))
 
     def counts():
         return (fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90, fa.launches_wide,
-                fa.launches_stage)
+                fa.launches_stage, fa.launches_sm90_ws)
 
     before = counts()
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
     assert counts() == (before[0] + 1, before[1] + (body == "sm90"),
-                        before[2] + (body == "wide"), before[3] + staged)
+                        before[2] + (body == "wide"), before[3] + staged,
+                        before[4] + (body == "sm90_ws"))
     assert got.shape == (B, H, N, d) and got.stride() == fa._dense_like(q).stride()
     want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
@@ -275,6 +323,171 @@ def test_bf16_widths_match_plain_on_card(B, H, N, d, n_valid, rope, layout, cuda
     assert sum("stage_rows" in name for name in kernels) == staged, kernels
     if d <= 256:
         assert len(kernels) == (2 if staged else 1 + rope), kernels
+
+
+# The two-consumer body's set: 136 and 200 staged, 160 on maps at d below its
+# width, 192 and 256 at theirs; N 261 and 1205, and 272 / 261 and 1216 / 1205
+# with NaN in the dead rows. K3 runs 193-256 on it and 129-192 on the Hopper
+# body (the measured rule).
+WS_CARD_DIMS = (136, 160, 192, 200, 256)
+WS_CARD_ROWS = [(261, None), (272, 261), (1205, None), (1216, 1205)]
+
+
+def _card_heads(B, H, N, d, n_valid, layout, seed, device):
+    """Head-major bf16 q, k, v on ``device``, contiguous or (``layout``
+    "fused views") views of one fused (B, N, 3*H*d) projection, NaN in the
+    K/V rows from ``n_valid``."""
+    rng = np.random.default_rng(seed)
+    if layout == "fused views":
+        qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to(
+            device, BF16)
+        q, k, v = (qkv[..., j * H * d:(j + 1) * H * d].view(B, N, H, d).transpose(1, 2)
+                   for j in range(3))
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32)).to(
+            device, BF16) for _ in range(3))
+    if n_valid is not None:
+        k[:, :, n_valid:] = float("nan")
+        v[:, :, n_valid:] = float("nan")
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "fused views"])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("N,n_valid", WS_CARD_ROWS)
+@pytest.mark.parametrize("d", WS_CARD_DIMS)
+def test_two_consumer_body_matches_plain_on_card(d, N, n_valid, rope, layout, cuda_device):
+    """K3 in bf16 at the two-consumer body's set against the plain version
+    within ``_card_tolerance``, NaN in the dead K/V rows, on contiguous
+    tensors and on head-major views of one fused projection (the same bits
+    on both): one launch a call through the body the rule routes d to (the
+    two-consumer body from 193 to 256, the Hopper body below), none through
+    the other, and one staging launch with it at d % 16 != 0."""
+    B, H = (2, 3) if N < 1000 else (1, 3)
+    q, k, v = _card_heads(B, H, N, d, n_valid, layout, 72, cuda_device)
+    cos = sin = None
+    if rope:
+        cos, sin = (t.to(cuda_device) for t in _tables(N, d, seed=73))
+    body = fa.attention_body("attention_headmajor", BF16, d)
+    assert body == ("sm90_ws" if d > 192 else "sm90")
+    staged = fa.headmajor_staged(BF16, d, rope)
+
+    def counts():
+        return fa.launches_sm90_ws, fa.launches_sm90, fa.launches_stage
+
+    before = counts()
+    got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
+    assert counts() == (before[0] + (body == "sm90_ws"), before[1] + (body == "sm90"),
+                        before[2] + staged)
+    assert got.shape == (B, H, N, d) and got.stride() == fa._dense_like(q).stride()
+    want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
+    copies = [t.contiguous() for t in (q, k, v)]
+    assert torch.equal(got, fa.fused_attention(*copies, d ** -0.5, n_valid, cos, sin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "fused views"])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("N,n_valid", [(261, None), (1216, 1205)])
+@pytest.mark.parametrize("d", [96, 128])
+def test_two_consumer_timing_entry_matches_plain_on_card(d, N, n_valid, rope, layout,
+                                                         cuda_device):
+    """The two-consumer body built at 128 (``attention_variants.ws_attention``,
+    a timing case no route calls) against the plain version within
+    ``_card_tolerance``, at d 128 and on maps at d below it (96), NaN in the
+    dead K/V rows, the same bits on views of one fused projection as on
+    contiguous copies, one launch of its own counter a call."""
+    from cbas_tpu_torch.ops import attention_variants as av
+
+    B, H = (2, 3) if N < 1000 else (1, 3)
+    q, k, v = _card_heads(B, H, N, d, n_valid, layout, 76, cuda_device)
+    cos = sin = None
+    if rope:
+        cos, sin = (t.to(cuda_device) for t in _tables(N, d, seed=77))
+    before = av.launches_ws
+    got = av.ws_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
+    assert av.launches_ws == before + 1
+    assert got.shape == (B, H, N, d) and got.stride() == fa._dense_like(q).stride()
+    want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
+    copies = [t.contiguous() for t in (q, k, v)]
+    assert torch.equal(got, av.ws_attention(*copies, d ** -0.5, n_valid, cos, sin))
+
+
+def test_ws_attention_on_the_cpu_and_its_refusals():
+    """The two-consumer body's timing entry (``attention_variants.
+    ws_attention``, which no route calls) is the plain K3 on CPU tensors at
+    the widths its build at 128 takes on maps at d (80-128 in steps of 16);
+    it refuses rows that would need the staging pass, widths outside those,
+    and fp32."""
+    from cbas_tpu_torch.ops import attention_variants as av
+
+    q, k, v = _inputs((1, 2, 40, 128), seed=74)
+    cos, sin = _tables(40, 128, seed=75)
+    want = fa.attention_headmajor_reference(q, k, v, 0.1, 33, cos, sin)
+    assert torch.equal(av.ws_attention(q, k, v, 0.1, 33, cos, sin), want)
+    narrow = [t[..., :96] for t in (q, k, v)]  # maps at d below the width
+    assert torch.equal(av.ws_attention(*narrow, 0.1, 33),
+                       fa.attention_headmajor_reference(*narrow, 0.1, 33))
+    for d in (64, 100, 136):  # below the width's range, rows of 200 bytes, above 128
+        q2, k2, v2 = _inputs((1, 2, 40, d), seed=78)
+        with pytest.raises(ValueError, match="timing entry takes"):
+            av.ws_attention(q2, k2, v2, 0.1)
+    with pytest.raises(ValueError, match="bf16"):
+        av.ws_attention(*(t.float() for t in (q, k, v)), 0.1)
+
+
+def test_chip_smoke_names_the_two_consumer_kernels():
+    """``chip_smoke.py``'s labels, ptxas lookup and ptxas record know the
+    two-consumer body: its head dim, map rank and staged form, and ptxas's
+    registers at entry, spills and "setmaxnreg ignored" warning for each
+    build, raising on a spill or that warning."""
+    import chip_smoke
+
+    stem = ("_ZN14cbas_attention7sm90_ws17attention_sm90_wsILi{}ELi{}ELb{}EEEv14CUtensorMap"
+            "_stS2_S2_S2_PKfS4_iifNS_4sm9010MapAddressENS5_8PlainOutE")
+    assert chip_smoke.kernel_label(stem.format(256, 4, 0)) == "sm90_ws<256, 4>"
+    assert chip_smoke.kernel_label(stem.format(256, 5, 0)) == "sm90_ws<256, 5>"
+    assert chip_smoke.kernel_label(stem.format(256, 4, 1)) == "sm90_ws<256, 4, staged>"
+    assert chip_smoke.kernel_label(stem.format(128, 4, 0)) == "sm90_ws<128, 4>"
+    log = (f"ptxas warning : (C7508) Potential Performance Loss: setmaxnreg ignored; unable to "
+           f"determine register count at entry for function '{stem.format(256, 4, 0)}'\n"
+           f"ptxas info    : Compiling entry function '{stem.format(256, 4, 0)}' for 'sm_90a'\n"
+           "ptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n")
+    assert chip_smoke.ptxas_report(log) == ["sm90_ws<256, 4>: 168 regs, 0/0 spill, "
+                                            "setmaxnreg ignored"]
+    saved = dict(chip_smoke.PTXAS)
+    reports = {"sm90_ws<256, 4>": "168 regs, 0/0 spill", "sm90_ws<256, 4, staged>":
+               "168 regs, 0/0 spill", "sm90<192, 4>": "158 regs, 0/0 spill"}
+    chip_smoke.PTXAS.clear()
+    chip_smoke.PTXAS["attention_headmajor"] = reports
+    try:
+        assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 256) == "168 regs, 0/0 spill"
+        assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 248) == \
+            reports["sm90_ws<256, 4, staged>"]
+        assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 160) == \
+            reports["sm90<192, 4>"]
+        assert chip_smoke.ws_registers() == {
+            f"attention_headmajor: {label}": {"registers_at_entry": 168, "spill_stores": 0,
+                                              "spill_loads": 0, "setmaxnreg_ignored": False}
+            for label in ("sm90_ws<256, 4>", "sm90_ws<256, 4, staged>")}
+        reports["sm90_ws<256, 4>"] = "168 regs, 0/0 spill, setmaxnreg ignored"
+        with pytest.raises(AssertionError, match="ptxas"):
+            chip_smoke.ws_registers()
+        reports["sm90_ws<256, 4>"] = "168 regs, 8/8 spill"
+        with pytest.raises(AssertionError, match="ptxas"):
+            chip_smoke.ws_registers()
+    finally:
+        chip_smoke.PTXAS.clear()
+        chip_smoke.PTXAS.update(saved)
 
 
 @pytest.mark.cuda

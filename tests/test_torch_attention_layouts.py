@@ -466,8 +466,9 @@ def test_padded_headmajor_kernel_matches_plain_on_card(B, H, N, d, n_valid, dtyp
                                        (1216, 1205)])
 @pytest.mark.parametrize("d", [192, 256, 200, 320, 384, 257, 301, 1040, 1100])
 def test_redesigned_headmajor_bodies_match_plain_on_card(d, N, n_valid, rope, dtype, cuda_device):
-    """K3's Hopper body at d 192 and 256 (200 runs at 256; in fp32 the fp32
-    Hopper body's wide form), and above 256 its wide body (bf16) and the
+    """K3's Hopper body at d 192 and its two-consumer body at 256 (200 runs
+    at 256; in fp32 the fp32 Hopper body's wide form), and above 256 its
+    wide body (bf16) and the
     fp32 slices body (257 and 301 odd:
     staged without the TMA, roped before the launch; 1040 and 1100 wider
     than a resident Q: Q streamed, 1100
@@ -485,18 +486,19 @@ def test_redesigned_headmajor_bodies_match_plain_on_card(d, N, n_valid, rope, dt
         cos, sin = (torch.from_numpy(f(ang)).to(cuda_device) for f in (np.cos, np.sin))
     width = fa.headmajor_width(dt, d)
     body = fa.attention_body("attention_headmajor", dt, width)
-    assert body == ("sm90" if dt == torch.bfloat16 and d <= 256 else "wide" if dt == torch.bfloat16
-                    else "sm90_f32_wide" if d <= 256 else "sm90_f32_slices")
+    bf16 = "sm90" if d <= 192 else "sm90_ws" if d <= 256 else "wide"
+    assert body == (bf16 if dt == torch.bfloat16 else "sm90_f32_wide" if d <= 256
+                    else "sm90_f32_slices")
 
     def counts():
-        return (fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90, fa.launches_wide,
-                fa.launches_sm90_f32_wide, fa.launches_sm90_f32_slices)
+        return (fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90_ws, fa.launches_wide,
+                fa.launches_sm90_f32_wide, fa.launches_sm90_f32_slices, fa.launches_sm90)
 
     before = counts()
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)
-    assert counts() == (before[0] + 1, before[1] + (body == "sm90"), before[2] + (body == "wide"),
-                        before[3] + (body == "sm90_f32_wide"),
-                        before[4] + (body == "sm90_f32_slices"))
+    assert counts() == (before[0] + 1, before[1] + (body == "sm90_ws"),
+                        before[2] + (body == "wide"), before[3] + (body == "sm90_f32_wide"),
+                        before[4] + (body == "sm90_f32_slices"), before[5] + (body == "sm90"))
     want = fa.attention_headmajor_reference(q, k, v, d ** -0.5, n_valid, cos, sin)
     err = (got.float() - want.float()).abs()
     assert got.shape == (B, H, N, d) and bool(torch.isfinite(got).all())
@@ -725,7 +727,7 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
         ("attention_packed", torch.bfloat16, 64, "sm90"),
         ("attention_packed", torch.float32, 64, "sm90_f32"),
         ("attention_headmajor", torch.bfloat16, 192, "sm90"),
-        ("attention_headmajor", torch.bfloat16, 256, "sm90"),
+        ("attention_headmajor", torch.bfloat16, 256, "sm90_ws"),
         ("attention_headmajor", torch.float32, 192, "sm90_f32_wide"),
         ("attention_headmajor", torch.float32, 256, "sm90_f32_wide"),
         ("attention_headmajor", torch.bfloat16, 257, "wide"),
@@ -738,7 +740,8 @@ def test_packed_kernel_matches_plain_on_card(B, G, N, n_valid, dtype, rope, layo
 def test_attention_body_routing(kernel, dtype, d, body):
     """Which body an entry runs for (dtype, head dim), as the wrapper reports
     it without launching: the Hopper body for bf16 at d = 64 (every layout)
-    and at every d up to 256 (head-major: 40 and 96 too, on maps at d), its
+    and at every d up to 192 (head-major: 40 and 96 too, on maps at d), the
+    two-consumer body for bf16 in K3 from 193 to 256, its
     fp32 counterpart for fp32 at d = 64 (every layout) and 128 (head-major),
     above 256 K3's wide body in bf16 and its fp32 slices body in fp32; no
     entry returns another body."""
@@ -748,12 +751,13 @@ def test_attention_body_routing(kernel, dtype, d, body):
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "sm90"), (torch.float32, "sm90_f32_wide")])
 @pytest.mark.parametrize("d", [136, 160, 184, 192, 200, 232, 248, 256])
 def test_widths_above_128_pad_onto_the_hopper_body_in_bf16(d, dtype, body):
-    """A head from 136 to 256 runs at 192 or 256, the Hopper body's widths in
-    bf16 and its fp32 wide form's in fp32; above 256 the wide body (bf16) or
-    the fp32 slices body runs at d itself."""
+    """A head from 136 to 256 runs at 192 or 256, in bf16 the Hopper body's
+    192 and the two-consumer body's 256, in fp32 the fp32 wide form's; above
+    256 the wide body (bf16) or the fp32 slices body runs at d itself."""
     width = fa.headmajor_width(dtype, d)
     assert width == (192 if d <= 192 else 256)
-    assert fa.attention_body("attention_headmajor", dtype, width) == body
+    want = "sm90_ws" if dtype == torch.bfloat16 and width == 256 else body
+    assert fa.attention_body("attention_headmajor", dtype, width) == want
     above = "wide" if dtype == torch.bfloat16 else "sm90_f32_slices"
     assert fa.headmajor_width(dtype, d + 256) == d + 256
     assert fa.attention_body("attention_headmajor", dtype, d + 256) == above
@@ -844,7 +848,8 @@ def _cuda_kernels(torch_mod, fn) -> list:
 @pytest.mark.parametrize("d", [136, 160, 200, 248])
 def test_map_padded_widths_run_without_copies_on_card(d, N, n_valid, rope, layout, cuda_device):
     """bf16 heads of the multiples of 8 from 136 to 248 that K3 is not built
-    at run on the Hopper body at the next built width with no pad or slice:
+    at run on the body of the next built width (the Hopper body at 192, the
+    two-consumer body at 256) with no pad or slice:
     at a multiple of 16 (160) one kernel a call without RoPE and two with
     (the RoPE prologue, then the attention kernel), at the others (136,
     200, 248: rows off a 32-byte boundary) two, the staging pass then the
@@ -860,7 +865,8 @@ def test_map_padded_widths_run_without_copies_on_card(d, N, n_valid, rope, layou
     assert width in (192, 256)
 
     def counts():
-        return fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90
+        body = fa.attention_body("attention_headmajor", torch.bfloat16, width)
+        return fa.launches_headmajor_by_dim.get(width, 0), getattr(fa, f"launches_{body}")
 
     before = counts()
     got = fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin)

@@ -24,8 +24,9 @@
 //   roped with tables (rotate-half at any d, odd included), q times the
 //   scale. The Hopper body reads heads whose rows are no 32-byte multiples
 //   (d % 16 != 0) this way, at w = d rounded up to 16, since a tensor map
-//   refuses rows that are no 16-byte multiple and reads the others slowly;
-//   the wide body ropes an odd d with it (w = d).
+//   refuses rows that are no 16-byte multiple and it reads the others
+//   slowly; the two-consumer body only those no 16-byte multiple (d % 8 !=
+//   0); the wide body ropes an odd d with it (w = d).
 
 #pragma once
 

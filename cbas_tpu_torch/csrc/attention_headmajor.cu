@@ -1,7 +1,8 @@
 // K3: fused attention forward over the head-major (B, H, N, d) layout, for
-// Hopper (sm_90a), at any d: the bf16 bodies built at 64, 128 and 192 (one
-// consumer warpgroup) and 256 (two), the fp32 bodies at the same widths,
-// and in each dtype a body that takes d at run time above 256.
+// Hopper (sm_90a), at any d: the bf16 bodies built at 64, 96, 128, 160 and
+// 192 (one consumer warpgroup) and 224 and 256 (two), the fp32 bodies at
+// 64, 128, 192 and 256, and in each dtype a body that takes d at run time
+// above 256.
 //
 // Replaces the TPU kernel cbas_tpu/ops/flash_attention.py::_attn_kernel
 // (entry fused_attention): the JAX package's route for every head dim other
@@ -17,23 +18,25 @@
 // bytes of q, k, v and o at N = 261 and the N^2 score work on the tensor
 // cores at N = 1205. Six bodies:
 // - bfloat16 at every d up to 192: the Hopper body (attention_sm90.cuh: TMA
-//   ring, wgmma, RoPE once per token and head) at the next of 64, 128 and
-//   192, in place; from 193 to 256 the two-consumer body
-//   (attention_sm90_ws.cuh: a producer warpgroup handing its registers by
-//   setmaxnreg to two consumer warpgroups of 64 rows that take turns on the
-//   tensor cores) at 256, which ran 20-34% faster at every timed row of that
-//   width, so the one-warpgroup body is no longer built at 256. The rule is
-//   measured (PERF.md): at 192 the two-consumer body tied at N = 1205 and
-//   lost 5-9% of device time at N = 261, where the last 128-row block of
-//   each head has one live consumer. Both read the same input forms: at
-//   d % 16 == 0 their tensor maps read the heads at d
-//   (columns beyond load as zeros, the store clips them; with tables the
-//   RoPE prologue ropes q and k first where d is below the built width).
-//   At any other d a row is no 32-byte multiple, which a tensor map
-//   refuses (d % 8 != 0) or reads slowly: one staging launch (stage_rows,
-//   attention_common.cuh) copies q, k and v, roped with tables, into
-//   scratch rows of d rounded up to 16, and the body's epilogue writes O
-//   with plain stores (launch_staged);
+//   ring, wgmma, RoPE once per token and head) at the next of 64, 96, 128,
+//   160 and 192 (bf16_width: each product at d rounded up to 32 columns),
+//   in place; from 193 to 256 the two-consumer body (attention_sm90_ws.cuh:
+//   a producer warpgroup handing its registers by setmaxnreg to two
+//   consumer warpgroups of 64 rows that take turns on the tensor cores) at
+//   224 or 256; at 256 it ran 20-34% faster at every timed row, so the
+//   one-warpgroup body is not built above 192. The rule is measured
+//   (PERF.md): at 192 the two-consumer body tied at N = 1205 and lost 5-9%
+//   of device time at N = 261, where the last 128-row block of each head
+//   has one live consumer. Both read the same input forms: their tensor
+//   maps read the heads at d (columns beyond load as zeros, the store clips
+//   them; with tables the RoPE prologue ropes q and k first where d is
+//   below the built width) where the body reads such rows fast: the Hopper
+//   body at d % 16 == 0, the two-consumer body at d % 8 == 0 (rows off 32
+//   bytes, d % 16 == 8, ran there within 5% of the staged route's body; O
+//   by TMA stores at 256, by 16-byte stores at 224). At any other d one
+//   staging launch (stage_rows, attention_common.cuh) copies q, k and v,
+//   roped with tables, into scratch rows of d rounded up to 16, and the
+//   body's epilogue writes O with plain stores (launch_staged);
 // - float32 at every multiple of 4 up to 128: its fp32 counterpart
 //   (attention_sm90_tf32.cuh: the same ring and maps, 3xTF32 on wgmma, K and
 //   V split and roped once a call by a prologue), at 64 or 128, maps at d;
@@ -58,18 +61,21 @@
 
 namespace {
 
-// bfloat16 at HD = sm90_width(d): up to 192 on the Hopper body, from 193 to
+// bfloat16 at HD = bf16_width(d): up to 192 on the Hopper body, from 193 to
 // 256 on the two-consumer body (sm90_route 1 and 6); in place on maps at d
-// (d % 16 == 0), or through the staging launch, which *prologues counts.
+// where the body reads such rows fast (the Hopper body at d % 16 == 0, the
+// two-consumer body at d % 8 == 0: sm90_ws::kRowUnit), or through the
+// staging launch, which *prologues counts.
 template <int HD>
 int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
         const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
         const cbas_attention::Layout& L, const cbas_attention::Layout& Lo, int n_valid,
         float scale, void* stream, int* prologues) {
   using namespace cbas_attention;
+  constexpr bool ws = HD > 192;
   cudaError_t err;
-  if (d % sm90::kStageUnit == 0) {
-    if constexpr (HD == 256)
+  if (d % (ws ? sm90_ws::kRowUnit : sm90::kStageUnit) == 0) {
+    if constexpr (ws)
       err = sm90_ws::launch<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
                                 n_valid, scale, stream);
     else
@@ -77,7 +83,7 @@ int run(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                              n_valid, scale, stream);
   } else {
     *prologues = 1;
-    if constexpr (HD == 256)
+    if constexpr (ws)
       err = sm90_ws::launch_staged<HD>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d,
                                        L, Lo, n_valid, scale, stream);
     else
@@ -120,9 +126,9 @@ int run_tf32(const void* q, const void* k, const void* v, void* o, const void* c
 // row_stride are q's (k's and v's) element strides, the o_ ones o's (its
 // dims in q's order, dense). dtype: 0 = float32, 1 = bfloat16. cos_t/sin_t
 // are (N, d) fp32 tables or both null. Scratch, by body:
-// - bfloat16 up to 256 at d % 16 == 0: with tables k_scratch, and at d below
-//   sm90_width(d) also q_scratch, laid out like o (roped keys and queries);
-//   null otherwise;
+// - bfloat16 up to 256 read in place (d % 16 == 0 up to 192, d % 8 == 0
+//   above): with tables k_scratch, and at d below bf16_width(d) also
+//   q_scratch, laid out like o (roped keys and queries); null otherwise;
 // - bfloat16 up to 256 at any other d: q_scratch of B * H * N * w and
 //   k_scratch of 2 * B * H * N * w elements, w = d rounded up to 16 (the
 //   staged q, and k and v), with tables or without;
@@ -155,20 +161,30 @@ extern "C" int cbas_attention_headmajor(const void* q, const void* k, const void
   switch (*body) {
     case 1:
     case 6:
-      switch (sm90_width(d)) {
+      switch (bf16_width(d)) {
         case 64:
           return run<64>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                         n_valid, scale, stream, prologues);
+        case 96:
+          return run<96>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
                          n_valid, scale, stream, prologues);
         case 128:
           return run<128>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
                           n_valid, scale, stream, prologues);
+        case 160:
+          return run<160>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                          n_valid, scale, stream, prologues);
         case 192:
           return run<192>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
                           n_valid, scale, stream, prologues);
-        default:
+        case 224:
+          return run<224>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
+                          n_valid, scale, stream, prologues);
+        case 256:
           return run<256>(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H, d, L, Lo,
                           n_valid, scale, stream, prologues);
       }
+      break;
     case 2:
       return static_cast<int>(wide::launch(q, k, v, o, cos_t, sin_t, q_scratch, k_scratch, B, N, H,
                                            d, L, Lo, n_valid, scale, stream, prologues));

@@ -1,7 +1,8 @@
 // The Hopper body of the port's fused attention in bfloat16, built at head
-// dims 64, 128 and 192: K1 (flat, d = 64), K2 (head-pair packed, d = 64)
-// and K3 (head-major, every d up to 192, at the next of those widths) route
-// here (attention_fat.cu, attention_packed.cu, attention_headmajor.cu);
+// dims 64, 96, 128, 160 and 192: K1 (flat, d = 64), K2 (head-pair packed,
+// d = 64) and K3 (head-major, every d up to 192, at the next of those
+// widths) route here (attention_fat.cu, attention_packed.cu,
+// attention_headmajor.cu);
 // fp32 takes attention_sm90_tf32*.cuh, K3's bf16 heads from 193 to 256 the
 // two-consumer body (attention_sm90_ws.cuh), above 256 attention_wide.cuh. The tensor maps are built from the
 // caller's Layouts (strides), so one code path reads every layout, strided
@@ -77,10 +78,17 @@
 // already run two consumer warpgroups, it tied at N = 1205 and lost 5-9%
 // of device time at N = 261, so 192 stays here (PERF.md).
 //
+// At 96 and 160 (and the two-consumer body's 224) the products run at the
+// head's own width, not the next multiple of 64: q.k^T takes HD / 16
+// k-steps and p.V one n = 32 product for O's last 32 columns, over V in
+// 32-column boxes in the 64-byte swizzle (Tiles), as FlashAttention-3
+// builds its Hopper kernel at 96; a 96-wide head ran 4/3 of its products
+// on the 128 build before, a 160-wide one 6/5 on the 192 build (PERF.md).
+//
 // K3's other widths, in place (no pad copy, no RoPE outside a kernel): a
-// head of width d runs at the next built width HD (HD - 64 < d < HD); the
-// two-consumer body reads the same forms through the same set-up (prepare,
-// prepare_staged).
+// head of width d runs at the next built width HD (HD - 32 < d < HD above
+// 64, bf16_width); the two-consumer body reads the same forms through the same
+// set-up (prepare, prepare_staged).
 // - d % 16 == 0 (launch): the maps read the heads where they lie, their
 //   innermost extent d, so the columns from d to HD load as zeros and the
 //   store of O clips them. With tables, rope_rows ropes q (times the scale)
@@ -96,7 +104,9 @@
 //   width, and the epilogue writes O through the output's Layout with plain
 //   stores of the widest unit the rows allow (kStagedOut).
 //   Two launches a call, against the 5-7 of the copies that padded such a
-//   head before (PERF.md).
+//   head before (PERF.md). The two-consumer body reads rows of an odd
+//   number of 16-byte units in place (attention_sm90_ws.cuh, kRowUnit): its
+//   4-stage ring ran them within 5% of the staged body's time.
 //
 // Compile-time variants (kVariant, attention_variants.cu). Variant 0 (kFull)
 // is the function above, the only one K1, K2 and K3 run. The others port the
@@ -123,18 +133,46 @@ constexpr int kWGRows = 64;     // query rows per consumer warpgroup
 constexpr int kWGThreads = 128;
 constexpr int kAtom = 64;       // bf16 columns in one 128-byte swizzle atom
 constexpr int kAtomBytes = kBlockN * 128;  // one 64-row atom of a K or V tile
+constexpr int kHalfAtom = 32;   // bf16 columns in one 64-byte swizzle atom
+constexpr int kHalfAtomBytes = kBlockN * 64;  // one 64-row atom of that width
 // The columns a row of the staging scratch is rounded up to (32 bytes), and
 // so the widths K3 reads in place: on maps whose rows, or whose last column,
 // end off a 32-byte boundary the body ran 1.2-2.3x its time (PERF.md).
 constexpr int kStageUnit = 16;
 
+// The tiles of a body built at HD, a multiple of 32. Q, K and O's staging
+// tile are 64-column boxes in the 128-byte swizzle, the last one half read
+// where HD is an odd number of 32-column halves (96, 160, 224, kHalf):
+// q.k^T runs HD / 16 k-steps, so it reads that box's first 64 bytes of each
+// row and never the zeros beyond. V, the MN-major B of p.V, is cut along
+// its columns into one product an atom, and a 128-byte-swizzled atom cannot
+// be cut in half along N: V's whole atoms land as at the other widths, its
+// last 32 columns in one 32-column box in the 64-byte swizzle, read by an
+// n = 32 product. That box comes through a map of its own, which such a
+// build takes in the O map's place: its epilogue writes O with 16-byte
+// stores through the output's Layout (PlainOut), which ran as fast as the
+// TMA store (PERF.md). (V in 32-column boxes throughout, with no second
+// map, ran rows off 32 bytes 18% over the aligned width's time at 224.)
 template <int HD>
-struct Config {
-  static_assert(HD == 64 || HD == 128 || HD == 192,
-                "the Hopper body takes head dims 64, 128 and 192");
-  static constexpr int kAtoms = HD / kAtom;
+struct Tiles {
+  static_assert(HD % kHalfAtom == 0, "a body is built at a multiple of 32");
+  static constexpr int kAtoms = HD / kAtom;              // whole 64-column atoms
+  static constexpr bool kHalf = HD % kAtom != 0;         // and a 32-column half
+  static constexpr int kBoxes = kAtoms + (kHalf ? 1 : 0);  // Q's, K's and O's 64-column boxes
+  static constexpr int kTileBytes = kBoxes * kAtomBytes;  // one K tile, a ring stage
+  // V's transaction bytes: its whole atoms and (kHalf) its last 32 columns.
+  static constexpr int kVBytes = kAtoms * kAtomBytes + (kHalf ? kHalfAtomBytes : 0);
+};
+
+template <int HD>
+struct Config : Tiles<HD> {
+  static_assert(HD == 64 || HD == 96 || HD == 128 || HD == 160 || HD == 192,
+                "the Hopper body takes head dims 64, 96, 128, 160 and 192");
+  using Tiles<HD>::kBoxes;
   // One consumer warpgroup a block, a 2-stage ring and registers capped for
-  // 4 blocks an SM at d = 64, 3 at d = 128. The kernel is bound by latency,
+  // 4 blocks an SM at d = 64, 3 at d = 96 and 128, 2 at 160 and 192 (96 at
+  // 4 and 160 at 3 spilled and had their wgmmas serialized: ptxas on the
+  // card, PERF.md). The kernel is bound by latency,
   // so independent blocks an SM are what helps: on an H100 at the main
   // shapes this ran faster than two warpgroups sharing a 128-row block, and
   // than 3- and 4-stage rings, which cost blocks an SM (or registers) for
@@ -146,10 +184,10 @@ struct Config {
   // producer warpgroup handing its registers to two consumer warpgroups by
   // setmaxnreg (attention_sm90_ws.cuh), ties at 192 and takes 256 (PERF.md).
   static constexpr int kSlots = 2;
-  static constexpr int kMinBlocks = HD == 64 ? 4 : HD == 128 ? 3 : 2;
+  static constexpr int kMinBlocks = HD == 64 ? 4 : HD <= 128 ? 3 : 2;
   static constexpr int kThreads = kWGThreads + 32;        // + the producer warp
-  static constexpr int kTileBytes = kAtoms * kAtomBytes;  // one K or V tile
-  static constexpr int kQBytes = kAtoms * kAtomBytes;      // the Q tile, swizzled like K
+  using Tiles<HD>::kTileBytes;
+  static constexpr int kQBytes = kBoxes * kAtomBytes;      // the Q tile, swizzled like K
   // 1024 bytes of slack to align the tiles to the 128-byte swizzle's period.
   static constexpr size_t kSmemBytes = 1024 + kQBytes + kSlots * kTileBytes + (2 * kSlots + 1) * 8;
 };
@@ -308,6 +346,13 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
 }
 
+// The same for a 64-byte-swizzled operand (layout 2, SW64).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(2) << 62;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -379,6 +424,47 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TransB));
 }
 
+// d (64 x 32, fp32) = a (64 x 16, bf16, registers) . b (16 x 32, bf16, shared
+// memory through `desc`) + (accumulate ? d : 0); TransB as above.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TransB));
+}
+
+// O's columns from one V tile: acc[a] += p . V's columns [64 a, +64), each
+// whole atom an n = 64 product over its 128-byte-swizzled box (a 16-key
+// step 16 rows, 2048 bytes, down it; 8-row groups 1024 bytes apart), and at
+// a build with a half atom (Tiles::kHalf) half += p . V's columns
+// [64 kAtoms, +32), an n = 32 product over the 64-byte-swizzled box after
+// them (a step 1024 bytes, groups 512 apart).
+template <int kAtoms, bool kHalf, int R>
+__device__ __forceinline__ void issue_pv_atoms(float (&acc)[kAtoms][32], float (&half)[R],
+                                               const uint32_t (&p)[4][4], uint32_t v_tile) {
+#pragma unroll
+  for (int a = 0; a < kAtoms; ++a)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16<1>(acc[a], p[kk],
+                         sw128_desc(v_tile + a * kAtomBytes + kk * 2048, kAtomBytes, 1024), 1);
+  if constexpr (kHalf) {
+    static_assert(R == 16, "the half atom's accumulator is m64n32");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n32k16<1>(half, p[kk],
+                         sw64_desc(v_tile + kAtoms * kAtomBytes + kk * 1024, kHalfAtomBytes, 512),
+                         1);
+  }
+}
+
 // The same product with a from shared memory too, through `desc_a` (K-major).
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
                                                    uint64_t desc_b, int accumulate) {
@@ -426,8 +512,9 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
 }
 
 // Where the staged form (kStagedOut) writes O: rows of d elements through
-// Lo, `unit` elements (1, 2 or 4, dividing d, Lo's strides and o's address)
-// a store. The other forms write through their O map and ignore it.
+// Lo, `unit` elements (1, 2, 4 or, the two-consumer body's, 8: dividing d,
+// Lo's strides and o's address) a store. The other forms write through
+// their O map and ignore it.
 struct PlainOut {
   __nv_bfloat16* o;
   Layout Lo;
@@ -438,7 +525,8 @@ struct PlainOut {
 // Rows [q0, q0 + 64) of head h of image b, staged in the swizzled tile at
 // `tile`, to `out` (rows at or beyond N are not written), by the 128 threads
 // of a warpgroup (tid its thread): a store a thread in turn, `unit` elements
-// each, which lie in one 16-byte chunk of the tile.
+// each (up to kWidest), which lie in one 16-byte chunk of the tile.
+template <int kWidest = 4>
 __device__ __forceinline__ void store_rows(const unsigned char* tile, const PlainOut& out, int b,
                                            int h, int q0, int N, int tid) {
   auto rows = [&](auto width) {
@@ -453,6 +541,9 @@ __device__ __forceinline__ void store_rows(const unsigned char* tile, const Plai
           *reinterpret_cast<const P*>(tile + sw128_offset(r, c) + 2 * (c % kChunk));
     }
   };
+  if constexpr (kWidest == 8) {
+    if (out.unit == 8) return rows(std::integral_constant<int, 8>{});
+  }
   if (out.unit == 4)
     rows(std::integral_constant<int, 4>{});
   else if (out.unit == 2)
@@ -465,16 +556,21 @@ __device__ __forceinline__ void store_rows(const unsigned char* tile, const Plai
 // blockIdx.z. Warps 0-3 are the consumer warpgroup, warp 4 the producer.
 // The four maps share one dim order and so one MapAddress; Q's and O's maps
 // have N rows, K's and V's n_valid. kVariant selects the consumer's work
-// (Variant); the producer is the same in all. kStagedOut (variant kFull
-// only): O goes through `out` with plain stores, not through o_map.
+// (Variant); the producer is the same in all. kStagedOut (the staged form,
+// variant kFull only): O goes through `out` with plain stores, not through
+// the O map. At a build with a half atom (Tiles::kHalf) o_or_vhalf_map is
+// V's last 32 columns' map and O always goes through `out`, 16 bytes a store
+// where its rows allow; at the other builds it is O's map.
 template <int HD, int kRank, int kVariant = kFull, bool kStagedOut = false>
 __global__ void __launch_bounds__(Config<HD>::kThreads, Config<HD>::kMinBlocks)
 attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-               const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap o_or_vhalf_map,
                const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N,
                int n_valid, float scale, const MapAddress order, const PlainOut out) {
   static_assert(!kStagedOut || kVariant == kFull, "the staged form is the attention function");
   using C = Config<HD>;
+  static_assert(kVariant == kFull || !C::kHalf, "the variants are built at 64 and 128");
   constexpr int kKSteps = HD / 16;
   constexpr bool kRowSumProduct = kVariant == kVext || kVariant == kVextBf16Exp;
 
@@ -515,15 +611,26 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       const HeadTiles tiles(order, h, b);
       mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-      for (int a = 0; a < C::kAtoms; ++a)
+      for (int a = 0; a < C::kBoxes; ++a)
         tma_load<kRank>(q_tile + a * kAtomBytes, &q_map, q_full, tiles, a * kAtom, q0);
       for (int i = 0; i < 2 * n_tiles; ++i) {
         const int row = (i / 2) * kBlockN;
         const CUtensorMap* map = i % 2 ? &v_map : &k_map;
         mbar_wait(empty(i), ((i / C::kSlots) & 1) ^ 1);  // round 0 passes at once
+        if constexpr (C::kHalf) {
+          if (i % 2) {  // V: its whole atoms, then its last 32 columns (Tiles)
+            mbar_expect_tx(full(i), C::kVBytes);
+#pragma unroll
+            for (int a = 0; a < C::kAtoms; ++a)
+              tma_load<kRank>(stage(i) + a * kAtomBytes, map, full(i), tiles, a * kAtom, row);
+            tma_load<kRank>(stage(i) + C::kAtoms * kAtomBytes, &o_or_vhalf_map, full(i), tiles,
+                            C::kAtoms * kAtom, row);
+            continue;
+          }
+        }
         mbar_expect_tx(full(i), C::kTileBytes);
 #pragma unroll
-        for (int a = 0; a < C::kAtoms; ++a)
+        for (int a = 0; a < C::kBoxes; ++a)
           tma_load<kRank>(stage(i) + a * kAtomBytes, map, full(i), tiles, a * kAtom, row);
       }
     }
@@ -561,13 +668,14 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
     // and stay so.
     {
       constexpr int kPairsPerRow = HD / 2 / kChunk;
-      constexpr int kPerThread = kWGRows * kPairsPerRow / kWGThreads;  // 2 or 4
+      constexpr int kPerThread = kWGRows * kPairsPerRow / kWGThreads;  // 2 to 6
       constexpr int kBatch = 2;
 #pragma unroll
       for (int p0 = 0; p0 < kPerThread; p0 += kBatch) {
         float4 tab[kBatch][8];  // cos, then sin, of the chunk and of its partner
 #pragma unroll
         for (int pb = 0; pb < kBatch; ++pb) {
+          if (p0 + pb >= kPerThread) break;  // an odd count (96, 160): the last batch is one
           const int i = tid + (p0 + pb) * kWGThreads;
           const int n = q0 + i / kPairsPerRow;
           const int c = (i % kPairsPerRow) * kChunk;
@@ -583,6 +691,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
         if (p0 == 0) mbar_wait(q_full, 0);
 #pragma unroll
         for (int pb = 0; pb < kBatch; ++pb) {
+          if (p0 + pb >= kPerThread) break;
           const int i = tid + (p0 + pb) * kWGThreads;
           const int r = i / kPairsPerRow;
           const int c = (i % kPairsPerRow) * kChunk;
@@ -631,6 +740,11 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   for (int a = 0; a < C::kAtoms; ++a)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+  // O's last 32 columns where HD is an odd number of halves (m64n32k16:
+  // element 4 j + e as above, j < 4).
+  float acc_h[C::kHalf ? 16 : 1];
+#pragma unroll
+  for (int i = 0; i < (C::kHalf ? 16 : 1); ++i) acc_h[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
   float l[2] = {0.f, 0.f};              // running sum
   // The row-sum variants' running sums, from p.1 (m64n8: elements 0 and 1
@@ -666,14 +780,10 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
     wait_full(2 * kt + 1);
 #pragma unroll
     for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+    if constexpr (C::kHalf) fence_regs(acc_h);
     if constexpr (kRowSumProduct) fence_regs(lsum);
     wgmma_fence();
-#pragma unroll
-    for (int a = 0; a < C::kAtoms; ++a)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16<1>(acc[a], p[kk],
-                           sw128_desc(v_tile + a * kAtomBytes + kk * 2048, kAtomBytes, 1024), 1);
+    issue_pv_atoms<C::kAtoms, C::kHalf>(acc, acc_h, p, v_tile);
     if constexpr (kRowSumProduct) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_m64n8k16(lsum, p[kk], plain_desc(ones, 128, 256), 1);
@@ -748,6 +858,10 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       for (int a = 0; a < C::kAtoms; ++a)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[a][i] *= alpha[(i % 4) / 2];
+      if constexpr (C::kHalf) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc_h[i] *= alpha[(i % 4) / 2];
+      }
       if constexpr (kRowSumProduct) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) lsum[i] *= alpha[i / 2];
@@ -833,6 +947,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       wgmma_wait<0>();
 #pragma unroll
       for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+      if constexpr (C::kHalf) fence_regs(acc_h);
       if constexpr (kRowSumProduct) fence_regs(lsum);
       release(2 * kt + 1);
     }
@@ -859,11 +974,17 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
         for (int j = 0; j < 8; ++j)
           *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, kAtom * a + 8 * j) + 4 * t) =
               pack_bf16(acc[a][4 * j + 2 * r] * inv[r], acc[a][4 * j + 2 * r + 1] * inv[r]);
+      if constexpr (C::kHalf) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, kAtom * C::kAtoms + 8 * j) + 4 * t) =
+              pack_bf16(acc_h[4 * j + 2 * r] * inv[r], acc_h[4 * j + 2 * r + 1] * inv[r]);
+      }
     }
   }
-  if constexpr (kStagedOut) {
+  if constexpr (kStagedOut || C::kHalf) {
     asm volatile("bar.sync 1, %0;\n" ::"n"(kWGThreads) : "memory");
-    store_rows(sq, out, b, h, q0, N, tid);
+    store_rows<C::kHalf ? 8 : 4>(sq, out, b, h, q0, N, tid);
     return;
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -871,8 +992,8 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   if (tid == 0) {
     const HeadTiles tiles(order, h, b);
 #pragma unroll
-    for (int a = 0; a < C::kAtoms; ++a)
-      tma_store<kRank>(&o_map, q_tile + a * kAtomBytes, tiles, a * kAtom, q0);
+    for (int a = 0; a < C::kBoxes; ++a)
+      tma_store<kRank>(&o_or_vhalf_map, q_tile + a * kAtomBytes, tiles, a * kAtom, q0);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // smem read: may exit
   }
@@ -994,11 +1115,12 @@ inline bool map_shape(const Layout& L, const Layout& Lo, int d, int B, int N, in
 
 // The bf16 map of one of Q, K, V or O, covering `rows` rows of each head,
 // at the inputs' strides or (`out`) the output's; a box of one 64-column
-// atom by 64 rows, 128-byte swizzle, zeros out of bounds. The driver refuses
-// a base address or a stride that is not a 16-byte multiple (the wrapper
-// checks both first).
+// atom by 64 rows, 128-byte swizzle, or (`cols` kHalfAtom: V's last 32
+// columns at a build with a half atom, Tiles) of 32 columns, 64-byte
+// swizzle; zeros out of bounds. The driver refuses a base address or a
+// stride that is not a 16-byte multiple (the wrapper checks both first).
 inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, int rows,
-                       bool out = false) {
+                       bool out = false, int cols = kAtom) {
   const long long* stride = out ? m.out_stride : m.stride;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
@@ -1008,11 +1130,12 @@ inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, in
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   for (int d = 0; d < rank; ++d) {
     dims[d] = static_cast<cuuint64_t>(d == rows_dim ? rows : m.size[d]);
-    box[d] = d == 0 ? kAtom : d == rows_dim ? kBlockN : 1;
+    box[d] = d == 0 ? cols : d == rows_dim ? kBlockN : 1;
     if (d > 0) strides[d - 1] = static_cast<cuuint64_t>(stride[d]) * sizeof(__nv_bfloat16);
   }
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == kAtom ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
@@ -1024,13 +1147,25 @@ inline bool encode_map(CUtensorMap* map, const void* base, const MapShape& m, in
 // that runs before the attention kernel; the one-warpgroup body below and
 // the two-consumer body (attention_sm90_ws.cuh) launch from it.
 struct Prepared {
-  CUtensorMap q_map, k_map, v_map, o_map;
+  CUtensorMap q_map, k_map, v_map;
+  CUtensorMap o_or_vhalf_map;  // O's map, or V's last 32 columns' at a half atom (Tiles)
   MapAddress order;
   const float* cos_t;
   const float* sin_t;
   float scale;
   PlainOut out;
 };
+
+// Where plain stores write O's rows of d elements through Lo: the widest
+// unit up to `widest` elements that divides d and Lo's strides, and to whose
+// bytes o is aligned.
+inline PlainOut plain_out(void* o, const Layout& Lo, int d, int widest) {
+  int unit = widest;
+  while (unit > 1 && (d % unit || Lo.row_stride % unit || Lo.group_stride % unit ||
+                      Lo.batch_stride % unit || reinterpret_cast<uintptr_t>(o) % (2 * unit)))
+    unit /= 2;
+  return PlainOut{static_cast<__nv_bfloat16*>(o), Lo, d, unit};
+}
 
 // Over heads of width d for a body built at HD >= d: the maps'
 // innermost extent is d, so columns d..HD-1 of every box load as zeros
@@ -1042,8 +1177,9 @@ struct Prepared {
 // into `q_scratch` and k into `k_scratch`, and the attention kernel runs
 // without tables at scale 1. Without `rope` the tables are ignored. q, k and
 // v lie as L says; o and the scratch as Lo says, in the same dim order
-// (map_shape). Returns the CUDA error of the queued prologue, or
-// cudaErrorInvalidValue for arguments no map takes. (A template, so that a
+// (map_shape). At a build with a half atom o_or_vhalf_map is V's last 32
+// columns' map and `out` says where O goes (Tiles). Returns the CUDA error of the
+// queued prologue, or cudaErrorInvalidValue for arguments no map takes. (A template, so that a
 // library builds the prologue's kernels only where it launches a body.)
 template <typename T = __nv_bfloat16>
 cudaError_t prepare(int HD, const void* q, const void* k, const void* v, void* o,
@@ -1069,15 +1205,19 @@ cudaError_t prepare(int HD, const void* q, const void* k, const void* v, void* o
     k_in = k_scratch;
     if (padded) q_in = q_scratch, q_roped = true, c = s = nullptr, scale = 1.f;
   }
+  // A build with a half atom takes V's last 32 columns in O's map's place and
+  // writes O with plain stores (Tiles).
+  const bool half = HD % kAtom != 0;
   MapShape m;
   if (!map_shape(L, Lo, d, B, N, H, &m) || !encode_map(&p->q_map, q_in, m, N, q_roped) ||
-      !encode_map(&p->o_map, o, m, N, true) ||
+      !(half ? encode_map(&p->o_or_vhalf_map, v, m, n_valid, false, kHalfAtom)
+             : encode_map(&p->o_or_vhalf_map, o, m, N, true)) ||
       !encode_map(&p->k_map, k_in, m, n_valid, k_in != k) ||
       !encode_map(&p->v_map, v, m, n_valid))
     return cudaErrorInvalidValue;
   p->order = m.order;
   p->cos_t = c, p->sin_t = s, p->scale = scale;
-  p->out = PlainOut{};
+  p->out = half ? plain_out(o, Lo, d, 8) : PlainOut{};
   return cudaSuccess;
 }
 
@@ -1136,17 +1276,14 @@ cudaError_t prepare_staged(int HD, const void* q, const void* k, const void* v, 
   // wrote zeros in the columns from d to w.
   MapShape m;
   if (!map_shape(Ls, Ls, w, B, N, H, &m) || m.order.rank != 4) return cudaErrorInvalidValue;
-  p->o_map = CUtensorMap{};
+  p->o_or_vhalf_map = CUtensorMap{};  // (V's last 32 columns at a build with a half atom)
   if (!encode_map(&p->q_map, qs, m, N) || !encode_map(&p->k_map, ks, m, n_valid) ||
-      !encode_map(&p->v_map, vs, m, n_valid))
+      !encode_map(&p->v_map, vs, m, n_valid) ||
+      (HD % kAtom && !encode_map(&p->o_or_vhalf_map, vs, m, n_valid, false, kHalfAtom)))
     return cudaErrorInvalidValue;
-  int unit = 4;
-  while (unit > 1 && (d % unit || Lo.row_stride % unit || Lo.group_stride % unit ||
-                      Lo.batch_stride % unit || reinterpret_cast<uintptr_t>(o) % (2 * unit)))
-    unit /= 2;
   p->order = m.order;
   p->cos_t = p->sin_t = nullptr, p->scale = 1.f;
-  p->out = PlainOut{static_cast<T*>(o), Lo, d, unit};
+  p->out = plain_out(o, Lo, d, 4);
   return cudaSuccess;
 }
 
@@ -1174,8 +1311,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
-  kernel<<<grid, C::kThreads, smem, st>>>(p.q_map, p.k_map, p.v_map, p.o_map, p.cos_t, p.sin_t,
-                                          N, n_valid, p.scale, p.order, p.out);
+  kernel<<<grid, C::kThreads, smem, st>>>(p.q_map, p.k_map, p.v_map, p.o_or_vhalf_map, p.cos_t,
+                                          p.sin_t, N, n_valid, p.scale, p.order, p.out);
   return cudaGetLastError();
 }
 
@@ -1199,27 +1336,40 @@ cudaError_t launch_staged(const void* q, const void* k, const void* v, void* o,
                              static_cast<int>(C::kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
-  kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(p.q_map, p.k_map, p.v_map, p.o_map, nullptr,
-                                                   nullptr, N, n_valid, 1.f, p.order, p.out);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(p.q_map, p.k_map, p.v_map, p.o_or_vhalf_map,
+                                                   nullptr, nullptr, N, n_valid, 1.f, p.order, p.out);
   return cudaGetLastError();
 }
 
 }  // namespace sm90
 
-// The width a Hopper body is built at that runs a d-wide head (d up to
-// 256): the next of 64, 128, 192 and 256, its maps at d.
-inline int sm90_width(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256; }
+// The widths the bf16 Hopper bodies are built at up to 256: this file's at
+// 64 to 192, the two-consumer body's (attention_sm90_ws.cuh) at 224 and 256.
+// Each product runs at the head's own width to the next 32 columns, as
+// FlashAttention-3's Hopper kernel is built at 64, 96, 128, 192 and 256.
+// ops/flash_attention.py's BF16_HEAD_DIMS lists them.
+constexpr int kBf16Widths[] = {64, 96, 128, 160, 192, 224, 256};
 
-// The width an fp32 Hopper body runs a d-wide head at (maps at d):
-// sm90_width, the next of 64 and 128 (attention_sm90_tf32.cuh) and 192 and
-// 256 (attention_sm90_tf32_wide.cuh); above 256 the width of the slices
-// body's scratch (attention_sm90_tf32_slices.cuh), d rounded up to 64.
-inline int tf32_width(int d) { return d <= 256 ? sm90_width(d) : (d + 63) / 64 * 64; }
+// The width a bf16 Hopper body runs a d-wide head at (d up to 256), its maps
+// at d: the first of kBf16Widths at or above d.
+inline int bf16_width(int d) {
+  for (const int w : kBf16Widths)
+    if (d <= w) return w;
+  return -1;
+}
+
+// The width an fp32 Hopper body runs a d-wide head at (maps at d): the next
+// of 64 and 128 (attention_sm90_tf32.cuh) and 192 and 256
+// (attention_sm90_tf32_wide.cuh); above 256 the width of the slices body's
+// scratch (attention_sm90_tf32_slices.cuh), d rounded up to 64.
+inline int tf32_width(int d) {
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : d <= 256 ? 256 : (d + 63) / 64 * 64;
+}
 
 // Which body a (dtype, head dim) takes in every entry (K1 and K2 take only
 // d = 64): 1 (this file's Hopper body) for bfloat16 up to 192, at
-// sm90_width(d); 6 (the two-consumer body, attention_sm90_ws.cuh) for
-// bfloat16 from 193 to 256, at 256 (from 129 to 192 the Hopper body at 192:
+// bf16_width(d); 6 (the two-consumer body, attention_sm90_ws.cuh) for
+// bfloat16 from 193 to 256, at 224 or 256 (from 129 to 192 the Hopper body:
 // the measured rule above Config); 2 (K3's wide body,
 // attention_wide.cuh) for bfloat16 above 256; 3 (attention_sm90_tf32.cuh's
 // fp32 Hopper body) for float32 at a multiple of 4 up to 128, 4 (its wide

@@ -3,7 +3,9 @@
 // consumer warpgroups of 64 query rows each, which take turns on the tensor
 // cores ("ping-pong"), so that one warpgroup's softmax runs while the
 // other's q.k^T and p.V are in flight. K3's bf16 heads of width 193-256 run
-// here (attention_headmajor.cu), at 256, their maps at d; K1, K2 and every
+// here (attention_headmajor.cu), at 224 or 256 (the products at the head's
+// width to the next 32 columns: at 224 p.V's last 32 columns are one n = 32
+// product, attention_sm90.cuh's Tiles), their maps at d; K1, K2 and every
 // d up to 192 keep attention_sm90.cuh's one-warpgroup body, which tied or
 // won at 192 (PERF.md: at N = 261 this body's last block of each head has
 // one live consumer), so this body is not built there. Built at 128 too, as
@@ -19,10 +21,10 @@
 // input form of the one-warpgroup body at these widths is taken unchanged
 // in meaning, through the same set-up (attention_sm90.cuh's prepare and
 // prepare_staged): rank-4 and rank-5 maps from the caller's strides; maps
-// at d when d % 16 == 0 (the columns from d load as zeros, the store clips
-// them); the staged form when d % 16 != 0 (O by plain stores,
-// kStagedOut); RoPE in the block at d == HD (Q) and by rope_rows before it
-// (K; and Q at d < HD).
+// at d (the columns from d load as zeros, the store clips them), here at
+// every d % 8 == 0 (kRowUnit: rows off 32 bytes too), the staged form only
+// at d % 8 != 0 (O by plain stores, kStagedOut); RoPE in the block at d ==
+// HD (Q) and by rope_rows before it (K; and Q at d < HD).
 //
 // What bounded the one-warpgroup body at these widths, and what this design
 // does about it:
@@ -71,6 +73,7 @@ namespace sm90_ws {
 using sm90::ex2;
 using sm90::fence_regs;
 using sm90::HeadTiles;
+using sm90::issue_pv_atoms;
 using sm90::kAtom;
 using sm90::kAtomBytes;
 using sm90::kBlockN;
@@ -111,12 +114,18 @@ static_assert(kProducerRegs * kWGThreads + kConsumerRegs * kConsumers * kWGThrea
 constexpr int kSchedBar = 1;
 constexpr int kWGBar = 3;
 constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory on an H100
+// The rows this body reads in place on maps at d: every d % 8 == 0 (rows of
+// whole 16-byte units, which a tensor map takes). Its 4-stage ring hides
+// the rows of an odd number of 16-byte units that the one-warpgroup body's
+// 2-stage ring read 1.2-2.3x slower (PERF.md), so only a d % 8 != 0 goes
+// through the staging launch here.
+constexpr int kRowUnit = 8;
 
 template <int HD>
-struct Config {
-  static_assert(HD == 128 || HD == 256, "the two-consumer body takes 128 and 256");
-  static constexpr int kAtoms = HD / kAtom;
-  static constexpr int kTileBytes = kAtoms * kAtomBytes;   // one K or V tile, one Q half
+struct Config : sm90::Tiles<HD> {
+  static_assert(HD == 128 || HD == 224 || HD == 256,
+                "the two-consumer body takes 128, 224 and 256");
+  using sm90::Tiles<HD>::kTileBytes;  // one K tile, a ring stage, one Q half
   static constexpr int kQBytes = kConsumers * kTileBytes;  // the block's Q rows
   // The ring's stages, chosen on the card (PERF.md): at 256, 2 and 3 ran
   // 12-31% slower than 4, and 5 the same; at 128, 8 and 12 the same as 4.
@@ -150,13 +159,16 @@ __device__ __forceinline__ void fence_p(uint32_t (&p)[4][4]) {
 
 // One block: query rows [blockIdx.x * 128, +128) of head blockIdx.y of image
 // blockIdx.z. The maps and their MapAddress as attention_sm90's.
-// kStagedOut: O goes through `out` with plain stores, not through o_map.
+// kStagedOut (the staged form): O goes through `out` with plain stores, not
+// through the O map. At 224 (a half atom, sm90::Tiles) o_or_vhalf_map is V's
+// last 32 columns' map and O always goes through `out`; at 256 it is O's.
 template <int HD, int kRank, bool kStagedOut>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
-                  const __grid_constant__ CUtensorMap o_map, const float* __restrict__ cos_t,
+                  const __grid_constant__ CUtensorMap o_or_vhalf_map,
+                  const float* __restrict__ cos_t,
                   const float* __restrict__ sin_t, int N, int n_valid, float scale,
                   const MapAddress order, const PlainOut out) {
   using C = Config<HD>;
@@ -198,7 +210,7 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
       for (int c = 0; c < live; ++c) {
         mbar_expect_tx(q_full(c), C::kTileBytes);
 #pragma unroll
-        for (int a = 0; a < C::kAtoms; ++a)
+        for (int a = 0; a < C::kBoxes; ++a)
           tma_load<kRank>(q_tile + c * C::kTileBytes + a * kAtomBytes, &q_map, q_full(c), tiles,
                           a * kAtom, q0 + c * kWGRows);
       }
@@ -208,10 +220,21 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
         const int row = (i / 2) * kBlockN;
         const CUtensorMap* map = i % 2 ? &v_map : &k_map;
         mbar_wait(empty(s), phase ^ 1);  // round 0 passes at once
-        mbar_expect_tx(full(s), C::kTileBytes);
+        bool v_half = false;  // V at a half atom: its whole atoms, then its last 32 columns
+        if constexpr (C::kHalf) v_half = i % 2;  // (sm90::Tiles)
+        if (v_half) {
+          mbar_expect_tx(full(s), C::kVBytes);
 #pragma unroll
-        for (int a = 0; a < C::kAtoms; ++a)
-          tma_load<kRank>(stage(s) + a * kAtomBytes, map, full(s), tiles, a * kAtom, row);
+          for (int a = 0; a < C::kAtoms; ++a)
+            tma_load<kRank>(stage(s) + a * kAtomBytes, map, full(s), tiles, a * kAtom, row);
+          tma_load<kRank>(stage(s) + C::kAtoms * kAtomBytes, &o_or_vhalf_map, full(s), tiles,
+                          C::kAtoms * kAtom, row);
+        } else {
+          mbar_expect_tx(full(s), C::kTileBytes);
+#pragma unroll
+          for (int a = 0; a < C::kBoxes; ++a)
+            tma_load<kRank>(stage(s) + a * kAtomBytes, map, full(s), tiles, a * kAtom, row);
+        }
         if (++s == slots) s = 0, phase ^= 1;
       }
     }
@@ -252,13 +275,14 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
       // rows). Rows at or beyond N arrived as zeros and stay so.
       {
         constexpr int kPairsPerRow = HD / 2 / kChunk;
-        constexpr int kPerThread = kWGRows * kPairsPerRow / kWGThreads;
+        constexpr int kPerThread = kWGRows * kPairsPerRow / kWGThreads;  // 4, 7 or 8
         constexpr int kBatch = 2;
 #pragma unroll
         for (int p0 = 0; p0 < kPerThread; p0 += kBatch) {
           float4 tab[kBatch][8];  // cos, then sin, of the chunk and of its partner
 #pragma unroll
           for (int pb = 0; pb < kBatch; ++pb) {
+            if (p0 + pb >= kPerThread) break;  // at 224 the last batch is one
             const int i = tid + (p0 + pb) * kWGThreads;
             const int n = r0 + i / kPairsPerRow;
             const int col = (i % kPairsPerRow) * kChunk;
@@ -276,6 +300,7 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
           if (p0 == 0) mbar_wait(q_full(c), 0);
 #pragma unroll
           for (int pb = 0; pb < kBatch; ++pb) {
+            if (p0 + pb >= kPerThread) break;
             const int i = tid + (p0 + pb) * kWGThreads;
             const int r = i / kPairsPerRow;
             const int col = (i % kPairsPerRow) * kChunk;
@@ -319,6 +344,10 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
       for (int a = 0; a < C::kAtoms; ++a)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+      // O's last 32 columns at 224 (m64n32k16: element 4 j + e as above, j < 4).
+      float acc_h[C::kHalf ? 16 : 1];
+#pragma unroll
+      for (int i = 0; i < (C::kHalf ? 16 : 1); ++i) acc_h[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
       float l[2] = {0.f, 0.f};              // running sum
       float sc[32];                         // one tile's scores, then their exponentials
@@ -347,20 +376,16 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
         wgmma_commit();
       };
       // O += P V of the tile at vc, issued and committed (MN-major V, each
-      // 64-column atom its own n = 64 product).
+      // 64-column atom its own n = 64 product, at 224 the last 32 columns an
+      // n = 32 one: sm90::issue_pv_atoms).
       auto issue_pv = [&]() {
         const uint32_t v_tile = stage(vc.stage);
         mbar_wait(full(vc.stage), vc.phase);
 #pragma unroll
         for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+        if constexpr (C::kHalf) fence_regs(acc_h);
         wgmma_fence();
-#pragma unroll
-        for (int a = 0; a < C::kAtoms; ++a)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_m64n64k16<1>(acc[a], p[kk],
-                               sw128_desc(v_tile + a * kAtomBytes + kk * 2048, kAtomBytes, 1024),
-                               1);
+        issue_pv_atoms<C::kAtoms, C::kHalf>(acc, acc_h, p, v_tile);
         wgmma_commit();
       };
       // The online softmax of tile kt's scores in sc, in place: keys at or
@@ -413,12 +438,17 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
           for (int a = 0; a < C::kAtoms; ++a)
 #pragma unroll
             for (int i = 0; i < 32; ++i) acc[a][i] *= alpha[(i % 4) / 2];
+          if constexpr (C::kHalf) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i) acc_h[i] *= alpha[(i % 4) / 2];
+          }
         }
       };
       auto pv_done = [&]() {
         wgmma_wait<0>();
 #pragma unroll
         for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+        if constexpr (C::kHalf) fence_regs(acc_h);
         fence_p(p);
         release(vc);
         vc.next();
@@ -460,7 +490,8 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
       // O / rowsum, rounded to bf16, staged in the warpgroup's Q rows (its
       // q.k^T has read them for the last time) in the same swizzled layout,
       // then written by one TMA store a 64-column atom (the map clips rows
-      // at or beyond N), or through `out` with plain stores (kStagedOut).
+      // at or beyond N), or through `out` with plain stores (kStagedOut; at 224
+      // always).
       const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -471,18 +502,25 @@ attention_sm90_ws(const __grid_constant__ CUtensorMap q_map,
           for (int j = 0; j < 8; ++j)
             *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, kAtom * a + 8 * j) + 4 * t) =
                 pack_bf16(acc[a][4 * j + 2 * r] * inv[r], acc[a][4 * j + 2 * r + 1] * inv[r]);
+        if constexpr (C::kHalf) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<uint32_t*>(sq + sw128_offset(row, kAtom * C::kAtoms + 8 * j) +
+                                         4 * t) =
+                pack_bf16(acc_h[4 * j + 2 * r] * inv[r], acc_h[4 * j + 2 * r + 1] * inv[r]);
+        }
       }
-      if constexpr (kStagedOut) {
+      if constexpr (kStagedOut || C::kHalf) {
         sync_wg();
-        store_rows(sq, out, b, h, r0, N, tid);
+        store_rows<8>(sq, out, b, h, r0, N, tid);
       } else {
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         sync_wg();
         if (tid == 0) {
           const HeadTiles tiles(order, h, b);
 #pragma unroll
-          for (int a = 0; a < C::kAtoms; ++a)
-            tma_store<kRank>(&o_map, q_half + a * kAtomBytes, tiles, a * kAtom, r0);
+          for (int a = 0; a < C::kBoxes; ++a)
+            tma_store<kRank>(&o_or_vhalf_map, q_half + a * kAtomBytes, tiles, a * kAtom, r0);
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
           asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // smem read: may exit
         }
@@ -501,15 +539,17 @@ cudaError_t run_kernel(const Prepared& p, int B, int N, int H, int n_valid, cuda
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kBlockM - 1) / kBlockM, H, B);
-  kernel<<<grid, kThreads, smem, st>>>(p.q_map, p.k_map, p.v_map, p.o_map, p.cos_t, p.sin_t, N,
-                                       n_valid, p.scale, p.order, p.out);
+  kernel<<<grid, kThreads, smem, st>>>(p.q_map, p.k_map, p.v_map, p.o_or_vhalf_map, p.cos_t,
+                                       p.sin_t, N, n_valid, p.scale, p.order, p.out);
   return cudaGetLastError();
 }
 
 // Launch the body (bf16) on `stream` over heads of width d, HD - 64 < d <=
-// HD, d % 8 == 0, on maps at d, as attention_sm90.cuh's prepare sets it up
-// (its RoPE prologue first, with tables). Returns the CUDA error of the launches (cudaSuccess when all were
-// queued).
+// HD, d % kRowUnit == 0, in place on maps at d, as attention_sm90.cuh's
+// prepare sets it up (its RoPE prologue first, with tables): at 256 O goes
+// by TMA stores on its map at d, rows of an odd number of 16-byte units
+// (d % 16 == 8) too; at 224 by 16-byte plain stores (sm90::Tiles). Returns
+// the CUDA error of the launches (cudaSuccess when all were queued).
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                    const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
@@ -523,8 +563,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
                            : run_kernel<HD, 4, false>(p, B, N, H, n_valid, st);
 }
 
-// Launch it on heads whose rows are no 32-byte multiples (d % 16 != 0), as
-// prepare_staged sets it up: the staging launch, then the staged form
+// Launch it on heads whose rows are no 16-byte multiples (d % kRowUnit != 0),
+// as prepare_staged sets it up: the staging launch, then the staged form
 // (kStagedOut). Returns the CUDA error of the launches.
 template <int HD>
 cudaError_t launch_staged(const void* q, const void* k, const void* v, void* o,

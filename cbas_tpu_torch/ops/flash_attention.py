@@ -10,14 +10,17 @@ their names and argument order (the TPU-only ``block_q``, ``interpret`` and
 - :func:`fused_attention_packed` (K2): head-pair packed (B, H/2, N, 128),
   two 64-wide heads side by side on the last dim.
 - :func:`fused_attention` (K3): head-major (B, H, N, d), any d on the
-  card. Its bodies are built at 64, 128, 192 and 256, and a head of width
-  d up to 256 runs at the next of those (:func:`headmajor_width`), its
-  tensor maps at d (the columns beyond read as zeros); a head above 256
-  runs a body that takes d at run time (the wide body in bf16, the fp32
-  slices body in fp32). Every bf16 head is read in place: one whose rows
-  are no 32-byte multiple (d % 16 != 0) goes through one staging launch
-  first (:func:`bf16_stage_reference` is its plain version), which also
-  ropes an odd d. fp32 still copies one case: a width up to 256 that is no
+  card. Its bf16 bodies are built at 64, 96, 128, 160, 192, 224 and 256
+  (BF16_HEAD_DIMS), its fp32 ones at 64, 128, 192 and 256
+  (HEADMAJOR_HEAD_DIMS), and a head of width d up to 256 runs at the next
+  of those (:func:`headmajor_width`), its tensor maps at d (the columns
+  beyond read as zeros); a head above 256 runs a body that takes d at run
+  time (the wide body in bf16, the fp32 slices body in fp32). Every bf16
+  head is read in place: up to 192 one whose rows are no 32-byte multiple
+  (d % 16 != 0), from 193 to 256 one whose rows are no 16-byte multiple
+  (d % 8 != 0), goes through one staging launch first
+  (:func:`bf16_stage_reference` is its plain version), which also ropes an
+  odd d. fp32 still copies one case: a width up to 256 that is no
   multiple of 4 runs zero-padded to the next multiple of 4
   (:func:`pad_head_dim`), roped here first at an odd d with tables
   (rotate-half's pairing of an odd d survives no pad).
@@ -49,15 +52,18 @@ of the Hopper and wide bodies lies as the output does.
 Six bodies serve the three entries (:func:`attention_body`):
 
 - "sm90": bfloat16 at head dim 64 (K1, K2) and in K3 at every d up to 192
-  (at the next of 64, 128 and 192) takes the Hopper body
+  (at the next of 64, 96, 128, 160 and 192) takes the Hopper body
   (``csrc/attention_sm90.cuh``: TMA ring, wgmma, RoPE once per token and
-  head, tensor maps built from the tensors' strides; at d % 16 != 0 over
-  scratch that a staging launch fills, O written with plain stores);
-- "sm90_ws": bfloat16 in K3 from 193 to 256 (at 256) takes the
+  head, tensor maps built from the tensors' strides, each product at the
+  built width, so 96 and 160 run 3/4 and 5/6 of the products of 128 and
+  192; at d % 16 != 0 over scratch that a staging launch fills, O written
+  with plain stores);
+- "sm90_ws": bfloat16 in K3 from 193 to 256 (at 224 or 256) takes the
   two-consumer body (``csrc/attention_sm90_ws.cuh``: the same maps, RoPE
   and staging, with a producer warpgroup handing its registers by
   ``setmaxnreg`` to two consumer warpgroups of 64 query rows that take
-  turns on the tensor cores, 128 rows a block): it ran 20-34% faster at
+  turns on the tensor cores, 128 rows a block; rows off 32 bytes, d % 16
+  == 8, on maps at d, only d % 8 != 0 staged): it ran 20-34% faster at
   every timed row at 256, and at 192 tied or lost (PERF.md), so 129-192
   stay on "sm90";
 - "sm90_f32": float32 at head dim 64 (K1, K2, K3) and, in K3, at every
@@ -95,8 +101,8 @@ C entries report queuing, one with each of those, and one a
 ``launches_wide`` those of K3 that ran the wide body, ``launches_sm90_ws``
 those of K3 that ran the two-consumer body, and
 ``launches_stage`` the launches of bf16's staging pass (one with each K3
-call at a d % 16 != 0 up to 256, and above 256 at an odd d with tables, as
-the C entry reports them, and one a :func:`bf16_stage` call). The shards of a
+call where :func:`headmajor_staged` says so, as the C entry reports them,
+and one a :func:`bf16_stage` call). The shards of a
 device mesh launch from threads of their own, so every count is updated
 under one lock.
 """
@@ -113,9 +119,12 @@ from typing import Optional
 import torch
 
 HEAD_DIM = 64       # K1's and K2's head width
-# The head dims K3's bodies are built at up to 256: a head of width d runs at
-# the next of them, its tensor maps at d; above 256, at d itself.
+# The head dims K3's fp32 bodies are built at up to 256: a head of width d
+# runs at the next of them, its tensor maps at d; above 256, at d itself.
 HEADMAJOR_HEAD_DIMS = (64, 128, 192, 256)
+# The same for K3's bf16 bodies (csrc/attention_sm90.cuh's kBf16Widths): 64
+# to 192 the Hopper body, 224 and 256 the two-consumer body.
+BF16_HEAD_DIMS = (64, 96, 128, 160, 192, 224, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0            # K1, fused_attention_fat
@@ -143,6 +152,10 @@ BF16_BODIES = ("sm90", "sm90_ws")  # the bf16 bodies up to 256 (RoPE prologue, s
 # boundary the Hopper body ran 1.2-2.3x its time (PERF.md), so a bf16 head
 # at a d that is no multiple of it is staged.
 STAGE_ROW_UNIT = 16
+# The two-consumer body (bf16 from 193 to 256) reads rows of any whole
+# number of 16-byte units in place (csrc/attention_sm90_ws.cuh's kRowUnit):
+# only a d that is no multiple of it is staged there.
+WS_ROW_UNIT = 8
 # The fp32 Hopper body's key tile (csrc/attention_sm90_tf32.cuh, kKeys):
 # its scratch holds n_valid keys rounded up to it (tf32_scratch_keys).
 TF32_KEY_TILE = 32
@@ -695,11 +708,14 @@ def headmajor_in_place(dtype: torch.dtype, d: int, rope: bool = False) -> bool:
 
 def headmajor_staged(dtype: torch.dtype, d: int, rope: bool = False) -> bool:
     """Whether a K3 call on the card launches bf16's staging pass before its
-    attention kernel (``launches_stage``): up to 256 at a d whose rows are no
-    32-byte multiple (d % 16 != 0), above 256 at an odd d with RoPE tables."""
+    attention kernel (``launches_stage``): up to 192 at a d whose rows are no
+    32-byte multiple (d % 16 != 0), from 193 to 256 at one whose rows are no
+    16-byte multiple (d % 8 != 0), above 256 at an odd d with RoPE tables."""
     if dtype != torch.bfloat16:
         return False
-    return bool(d % STAGE_ROW_UNIT) if d <= 256 else rope and d % 2 == 1
+    if d > 256:
+        return rope and d % 2 == 1
+    return bool(d % (STAGE_ROW_UNIT if d <= 192 else WS_ROW_UNIT))
 
 
 def stage_width(d: int) -> int:
@@ -710,10 +726,14 @@ def stage_width(d: int) -> int:
 
 def headmajor_width(dtype: torch.dtype, d: int) -> int:
     """The width K3's kernel runs a d-wide head at (the key of
-    ``launches_headmajor_by_dim``): up to 256 the next of
-    HEADMAJOR_HEAD_DIMS (:func:`tf32_width`; fp32 pads a width that is no
-    multiple of 4 below it first), d itself above."""
-    return d if d > 256 else tf32_width(d)
+    ``launches_headmajor_by_dim``): up to 256 the next of BF16_HEAD_DIMS in
+    bf16, of HEADMAJOR_HEAD_DIMS in fp32 (:func:`tf32_width`; fp32 pads a
+    width that is no multiple of 4 below it first), d itself above."""
+    if d > 256:
+        return d
+    if dtype == torch.bfloat16:
+        return next(w for w in BF16_HEAD_DIMS if w >= d)
+    return tf32_width(d)
 
 
 def pad_head_dim(t: torch.Tensor, width: int, halves: bool) -> torch.Tensor:
@@ -807,8 +827,8 @@ def bf16_stage(
     """K3's bf16 staging pass alone on head-major (B, H, N, d) bf16 q, k and
     v (one set of strides, the last dim contiguous, any alignment): the
     (3, B, H, N, :func:`stage_width` (d)) tensor that K3 stages into
-    before its attention kernel at a d % 16 != 0 (there laid out in q's dim
-    order). On a CPU tensor, :func:`bf16_stage_reference`; on a CUDA one,
+    before its attention kernel where :func:`headmajor_staged` says so
+    (there laid out in q's dim order). On a CPU tensor, :func:`bf16_stage_reference`; on a CUDA one,
     the kernel (``csrc/attention_common.cuh``'s stage_rows), the same bits,
     or raise."""
     if q.dim() != 4 or q.dtype != torch.bfloat16:
@@ -857,10 +877,11 @@ def fused_attention(
     the plain version runs. On the card the kernel reads q, k and v where
     they lie, and writes the output dense in q's dim order, at every d but
     one case below (:func:`headmajor_in_place`): up to 256 at the next of
-    HEADMAJOR_HEAD_DIMS with its tensor maps at d, so the columns beyond d
-    read as zeros and no copy pads the head (bf16 rows that are no 32-byte
-    multiple, d % 16 != 0, go through one staging launch into scratch
-    first, RoPE with it at any d); above 256 at d (the wide body in bf16,
+    BF16_HEAD_DIMS (fp32: HEADMAJOR_HEAD_DIMS) with its tensor maps at d,
+    so the columns beyond d read as zeros and no copy pads the head (bf16
+    rows that the body does not read in place, :func:`headmajor_staged`, go
+    through one staging launch into scratch first, RoPE with it at any d);
+    above 256 at d (the wide body in bf16,
     the fp32 slices body in fp32). There q, k and v may be strided views,
     such as ``t.view(B, N, H, d).transpose(1, 2)`` of a flat (B, N, H*d)
     column block of a fused projection, whose output is then

@@ -10,8 +10,8 @@ clocks or its host falls on both sides). Each run reads, ``--reads`` times
 each:
 
 - kernel ms (CUDA events over 20 launches after 3 warm-up) of K1 (flat),
-  K2 (head-pair packed) and K3 (head-major) in bf16 at the main paths'
-  shapes, with RoPE and without; K1 and K3 in fp32 at the fp32 main
+  K2 (head-pair packed) and K3 (head-major, at d 64 too) in bf16 at the
+  main paths' shapes, with RoPE and without; K1 and K3 in fp32 at the fp32 main
   paths' four shapes (``runtime.compute_dtype: float32``: dinov3-vitb16's
   heads of 64 at 256x256 / 128 and 640x480 / 32, the ViT-7B width's heads
   of 128 at 32 and 8); and K3 at the widths no preset has: 192
@@ -24,10 +24,13 @@ each:
   took before the staging pass; in bf16 at 640x480's 1205 tokens and 16
   heads also 160, 192, 200, 248 and 256, and at 261 tokens, 16 heads and
   batch 32 also 136 and 160: the widths the two-consumer body takes
-  (``attention_sm90_ws.cuh``); each row with the SM clock, power and
-  temperature after its reads (``chip_smoke.gpu_clocks``), and each bf16 K3
-  row from 160 up with ``scaled_dot_product_attention``'s ms on the same
-  tensors (RoPE applied beforehand, ``sdpa_ms``) beside it; tables of
+  (``attention_sm90_ws.cuh``), and 224 and 232 (at 224 and 256); each row
+  with the SM clock, power and temperature after its reads
+  (``chip_smoke.gpu_clocks``), and each bf16 K3 row from 96 up with
+  ``scaled_dot_product_attention``'s ms on the same tensors (RoPE applied
+  beforehand, ``sdpa_ms``), the plain version's ms with RoPE
+  (``plain_ms``) and the memory floor at the row's bytes (``floor_ms``,
+  once) beside it; tables of
   random angles where the model's rule builds none (d % 4 != 0,
   ``case_tables``);
 - on a checkout that has it (the change's side), the two-consumer body as
@@ -70,7 +73,8 @@ each:
 
 With ``--kernels`` each run reads only the kernel rows and the
 two-consumer body's timing cases (a few minutes a run); ``--only B,N,H,d
-...`` keeps only the kernel and timing rows of those shapes. ``--out PATH``
+...`` keeps only the kernel and timing rows of those shapes (with
+``--widths``, only those width rows). ``--out PATH``
 also writes every line to PATH, so a long summary line is kept whole.
 
 With ``--widths`` each run reads only K3 in bf16 at ``WIDTH_ROWS`` (no
@@ -103,6 +107,8 @@ KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
     ("attention_fat", 32, 1205, 12, 64, (30, 40), "bfloat16"),
     ("attention_packed", 128, 261, 12, 64, (16, 16), "bfloat16"),
     ("attention_packed", 32, 1205, 12, 64, (30, 40), "bfloat16"),
+    ("attention_headmajor", 128, 261, 12, 64, (16, 16), "bfloat16"),
+    ("attention_headmajor", 32, 1205, 12, 64, (30, 40), "bfloat16"),
     ("attention_headmajor", 32, 261, 32, 128, (16, 16), "bfloat16"),
     ("attention_headmajor", 8, 1205, 32, 128, (30, 40), "bfloat16"),
     ("attention_headmajor", 32, 261, 16, 192, (16, 16), "bfloat16"),
@@ -125,7 +131,8 @@ KERNEL_ROWS = (  # (entry, B, N, H, d, patch grid, dtype)
     ("attention_headmajor", B, N, 16, d, (16, 16) if N == 261 else (30, 40), "bfloat16")
     for B, N, d in ((8, 261, 32), (8, 261, 96), (8, 261, 100), (4, 1205, 96), (4, 1205, 100),
                     (4, 1205, 150), (8, 261, 65), (4, 1205, 160), (4, 1205, 192), (4, 1205, 200),
-                    (4, 1205, 248), (4, 1205, 256), (32, 261, 136), (32, 261, 160)))
+                    (4, 1205, 224), (4, 1205, 232), (4, 1205, 248), (4, 1205, 256), (32, 261, 136),
+                    (32, 261, 160)))
 # The two-consumer body as a timing case (``attention_variants.ws_attention``),
 # (B, N, H, d): at 128, where K3 runs the one-warpgroup body, at the ViT-7B
 # width's shapes (RoPE on and off).
@@ -171,7 +178,7 @@ FUSED_ROWS = (
 # on both sides of the rows a tensor map reads whole 32-byte sectors of (d %
 # 16 == 0) and of those it refuses (d % 8 != 0).
 WIDTH_ROWS = tuple((4, 1205, 16, d) for d in (40, 64, 88, 96, 100, 104, 120, 128, 150, 152, 160,
-                                             192, 200, 256))
+                                             192, 200, 224, 232, 248, 256))
 VIT7B_CONFIG = {
     "model_type": "dinov3_vit", "hidden_size": 4096, "num_attention_heads": 32,
     "intermediate_size": 8192, "use_gated_mlp": True, "patch_size": 16,
@@ -322,9 +329,17 @@ def measure(root: str, reads: int, kernels_only: bool = False, only=None) -> dic
             out[label] = [chip_smoke.time_ms(torch, fn) for _ in range(reads)]
             # the SM clock and power right after the reads
             out[label.replace(" ms", " gpu_clocks")] = chip_smoke.gpu_clocks()
-            if kernel == "attention_headmajor" and not fp32 and d >= 160:
+            if kernel == "attention_headmajor" and not fp32 and d >= 96:
                 out[label.replace(" ms", " sdpa_ms")] = [
                     sdpa_ms(torch, chip_smoke, q, k, v, d ** -0.5, *pair) for _ in range(reads)]
+                if rope:  # the plain version, the kernel's function with its tables
+                    out[label.replace(" ms", " plain_ms")] = [chip_smoke.time_ms(
+                        torch, lambda: fa.attention_headmajor_reference(  # noqa: B023
+                            q, k, v, d ** -0.5, None, *pair)) for _ in range(reads)]
+        if kernel == "attention_headmajor" and dtype == "bfloat16" and d >= 96 and \
+                hasattr(chip_smoke, "floor_ms"):  # the memory floor at the row's bytes
+            out[f"{kernel} {B}x{N}x{H}x{d} floor_ms"] = [
+                chip_smoke.floor_ms(torch, B * N * H * d, dtype)]
         del q, k, v
     ws_rows(torch, chip_smoke, cfg, rng, reads, out, only)
     for B, N, H, d, grid, rope in TRACE_ROWS:
@@ -478,10 +493,11 @@ def ws_rows(torch, chip_smoke, cfg, rng, reads, out, only=None) -> None:
         del q, k, v
 
 
-def measure_widths(root: str, reads: int) -> dict:
-    """K3 in bf16 at WIDTH_ROWS in the checkout at ``root``: the call's ms
-    (``reads`` reads) and each kernel's device ms per call in one trace
-    (``trace_calls``), keyed by the kernel's short name."""
+def measure_widths(root: str, reads: int, only=None) -> dict:
+    """K3 in bf16 at WIDTH_ROWS (those in ``only``, where given) in the
+    checkout at ``root``: the call's ms (``reads`` reads) and each kernel's
+    device ms per call in one trace (``trace_calls``), keyed by the kernel's
+    short name."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -494,6 +510,8 @@ def measure_widths(root: str, reads: int) -> dict:
     out = {"root": os.path.dirname(os.path.dirname(fa.__file__))}
     rng = np.random.default_rng(0)
     for B, N, H, d in WIDTH_ROWS:
+        if only and (B, N, H, d) not in only:
+            continue
         q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, d), np.float32))
                    .to("cuda", torch.bfloat16) for _ in range(3))
         label = f"width {B}x{N}x{H}x{d}"
@@ -565,14 +583,14 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="read KERNEL_ROWS and WS_ROWS only")
     ap.add_argument("--only", nargs="+", default=None, metavar="B,N,H,d",
-                    help="with --kernels: only the rows of these shapes")
+                    help="with --kernels or --widths: only the rows of these shapes")
     ap.add_argument("--out", help="also write every line to this file")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one run, in the checkout at this root
     args = ap.parse_args()
     if args.measure:
         root = os.path.abspath(args.measure)
         only = {tuple(int(x) for x in shape.split(",")) for shape in args.only or ()}
-        run = measure_widths(root, args.reads) if args.widths else measure(
+        run = measure_widths(root, args.reads, only) if args.widths else measure(
             root, args.reads, args.kernels, only)
         print(json.dumps(run), flush=True)
         return 0

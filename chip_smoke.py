@@ -52,10 +52,11 @@ non-zero and prints no final line):
      also at the ViT-7B width's (32, 261, 32, 128) and (8, 1205, 32, 128),
      timed with RoPE and without beside the same call on contiguous
      tensors, the bound, the floor and SDPA.
-   bf16 at head dim 64 (and K3's every d up to 192, at the next of 64, 128
-   and 192; a d % 16 != 0 through its staging launch) runs the Hopper body
-   (``attention_body``), K3's bf16 d from 193 to 256 the two-consumer body
-   (``attention_sm90_ws.cuh``, at 256), fp32 at 64 and 128 its fp32 counterpart
+   bf16 at head dim 64 (and K3's every d up to 192, at the next of 64, 96,
+   128, 160 and 192; a d % 16 != 0 through its staging launch) runs the
+   Hopper body (``attention_body``), K3's bf16 d from 193 to 256 the
+   two-consumer body (``attention_sm90_ws.cuh``, at 224 or 256; only a d %
+   8 != 0 staged), fp32 at 64 and 128 its fp32 counterpart
    (``attention_sm90_tf32.cuh``: 3xTF32 on wgmma, with a prologue that splits
    K and V; K3's other fp32 multiples of 4 up to 128 too, its wide form
    ``attention_sm90_tf32_wide.cuh`` from 132 to 256 and its slices body
@@ -222,9 +223,10 @@ non-zero and prints no final line):
     through the Hopper body against
     unfused bf16, and the LayerNorm kernel in bf16 on outlier rows,
     single-pass against two-pass and two-pass against float64), each error
-    beside its tolerance and each kernel's launches by body; K3 at head dims it is not built at
-    (100, run at 128: staged in bf16, maps at d in fp32; 136, 160, 200 and
-    248, run at 192 or 256), bf16 and fp32, in bf16 at
+    beside its tolerance and each kernel's launches by body; K3 at head dims
+    between its builds (100, run at 128: staged in bf16, maps at d in fp32;
+    136, 160, 200 and 248, run in bf16 at 160, 160, 224 and 256, 136 staged,
+    in fp32 at 192 or 256), bf16 and fp32, in bf16 at
     ``BF16_WIDTH_CASES`` (32 and 96 at N 261 and 1205, 150 at 1205), RoPE
     on and off, and in fp32 (8, 261, 16, 192 / 256), (4, 1205, 16, 192 /
     256) and (8, 261, 16, 16 / 32), against the plain version at d, timed
@@ -241,12 +243,14 @@ non-zero and prints no final line):
     ``tools/soak.py`` with two cameras for half a minute at full size
     (otherwise a ``skipped`` entry names what is missing; the fleet's
     encodes both at FLEET_THREADS intra-op threads). Before the padded
-    widths, K3 in bf16 at the cuda tests' set for the two-consumer body
-    (``ws_cases_step``: d 136, 160, 192, 200 and 256, N 261 and 1205 and
-    272 / 261 and 1216 / 1205 with NaN in the dead rows, RoPE on and off,
-    contiguous and fused views), each against the plain version, its
-    launches counted by body name: the two-consumer body at 200 and 256,
-    the Hopper body (the measured rule) at the others. Then K3 at the
+    widths, K3 in bf16 at the cuda tests' set for the widths between the
+    builds and the two-consumer body (``ws_cases_step``: d 96, 136, 160,
+    192, 200, 224, 232, 248 and 256, N 261 and 1205 and 272 / 261 and 1216
+    / 1205 with NaN in the dead rows, RoPE on and off, contiguous and fused
+    views), each against the plain version, its launches counted by body
+    name: the two-consumer body from 200 up, the Hopper body (the measured
+    rule) at the others, no staging launch at 200, 232 and 248 (rows off 32
+    bytes read in place). Then K3 at the
     head dims it refused on the card before: (8, 261, 16, 320) and (4, 1205,
     8, 384) on the wide body in bf16 and the fp32 slices body in fp32, (8,
     261, 16, 65) with RoPE tables, bf16 (the staging launch ropes it) and
@@ -269,11 +273,12 @@ non-zero and prints no final line):
     shards of one card they record that the path runs, not scaling. With
     two cards or more the phase runs again over distinct cards
     (``mesh_multi_gpu``), else that line says it was skipped;
-12. wide heads: encoders of 8 heads of 96, 100, 192, 256 and 320 at depth
-    2 (random weights, opened from a checkpoint directory's config.json), 32
-    frames of 256x256 in bf16 each: K3 once a forward through the Hopper
-    body at 96 (at 128, maps at d), 100 (at 128, with one staging launch a
-    forward) and 192, the two-consumer body at 256 and the wide body at 320
+12. wide heads: encoders of 8 heads of 96, 100, 192, 224, 256 and 320 at
+    depth 2 (random weights, opened from a checkpoint directory's
+    config.json), 32 frames of 256x256 in bf16 each: K3 once a forward
+    through the Hopper body at 96 (its own build), 100 (at 128, with one
+    staging launch a forward) and 192, the two-consumer body at 224 and 256
+    and the wide body at 320
     (the counts set to 0
     before each run and read after it), a profiler trace of one forward
     with no copy kernel next to K3, embeddings against the CPU fp32 run;
@@ -377,14 +382,16 @@ N_CHECK_7B = 2
 # counted all the same (``launches_on_main_path``).
 WIDE_HEAD_DIMS, WIDE_HEADS = (192, 256), 16
 # 12. These widths, two below 128 and one above 256 through the encoder:
-# checkpoint directories whose config.json has 8 heads of 96, 100, 192, 256
-# and 320 (hidden 768, 800, 1536, 2048 and 2560, gated MLP twice the hidden
-# width, the ViT-7B config's other fields) at depth 2, random weights from
-# SEED. No public DINO checkpoint has such heads: this drives K3's Hopper
-# body at 128 on maps at 96, through its staging launch at 100 (the model's
-# tables: 100 % 4 == 0), at 192 and 256, and its wide body, through
-# FrameEncoder as a checkpoint of that shape would.
-WIDE_ENCODER_HEAD_DIMS, WIDE_ENCODER_HEADS, WIDE_ENCODER_DEPTH = (96, 100, 192, 256, 320), 8, 2
+# checkpoint directories whose config.json has 8 heads of 96, 100, 192, 224,
+# 256 and 320 (hidden 768, 800, 1536, 1792, 2048 and 2560, gated MLP twice
+# the hidden width, the ViT-7B config's other fields) at depth 2, random
+# weights from SEED. No public DINO checkpoint has such heads: this drives
+# K3's Hopper body at its 96 build, through its staging launch at 100 (at
+# 128; the model's tables: 100 % 4 == 0) and at 192, its two-consumer body
+# at 224 and 256, and its wide body, through FrameEncoder as a checkpoint of
+# that shape would.
+WIDE_ENCODER_HEAD_DIMS = (96, 100, 192, 224, 256, 320)
+WIDE_ENCODER_HEADS, WIDE_ENCODER_DEPTH = 8, 2
 # Also run in fp32: the fp32 Hopper body's wide form at 192 and 256, its
 # slices body at 320.
 WIDE_ENCODER_FP32_HEAD_DIMS = (192, 256, 320)
@@ -4022,6 +4029,35 @@ def ws_registers() -> dict:
     return out
 
 
+# The bf16 Hopper bodies' builds at the widths between 64, 128 and 192 and
+# the two-consumer body's: map rank 4 and 5, and the staged form.
+BF16_BUILDS = tuple(f"{body}<{w}, {form}>" for body, widths in (("sm90", (96, 160)),
+                                                                 ("sm90_ws", (224, 256)))
+                    for w in widths for form in ("4", "5", "4, staged"))
+
+
+def bf16_builds() -> dict:
+    """ptxas's report of each BF16_BUILDS kernel in K3's library (PTXAS),
+    {"attention_headmajor: <label>": {"registers", "spill_stores",
+    "spill_loads", "wgmma_serialized", "setmaxnreg_ignored"}}. Raises where
+    a build spills, has its wgmmas serialized or its setmaxnreg ignored
+    (C7508), or is missing."""
+    out = {}
+    for label, report in PTXAS.get("attention_headmajor", {}).items():
+        if label in BF16_BUILDS:
+            m = re.match(r"(\d+) regs, (\d+)/(\d+) spill", report)
+            out[f"attention_headmajor: {label}"] = {
+                "registers": int(m[1]), "spill_stores": int(m[2]), "spill_loads": int(m[3]),
+                "wgmma_serialized": "wgmma serialized" in report,
+                "setmaxnreg_ignored": "setmaxnreg ignored" in report}
+    missing = [b for b in BF16_BUILDS if f"attention_headmajor: {b}" not in out]
+    bad = {k: r for k, r in out.items() if r["spill_stores"] or r["spill_loads"]
+           or r["wgmma_serialized"] or r["setmaxnreg_ignored"]}
+    if missing or bad:
+        raise AssertionError(f"the bf16 bodies' ptxas reports: {bad}; not built: {missing}")
+    return out
+
+
 def ws_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
     """The ``kernels`` line's entry for the two-consumer body
     (``attention_sm90_ws.cuh``, K3's bf16 heads from 193 to 256): its
@@ -4043,6 +4079,7 @@ def ws_kernel_entry(tools_line, wide_runs, wide_cases) -> dict:
         "shape": [main[x] for x in ("B", "N", "H", "head_dim")],
         "share_of_bound": main["bound_ms"] / main["ms"],
         "ptxas_builds": ws_registers(),
+        "ptxas_bf16_builds": bf16_builds(),
         "card_cases": tools_line["ws_cases"],
         "padded_cases": [c for c in tools_line["padded_timings"] if c["body"] == "sm90_ws"],
     }
@@ -4898,24 +4935,27 @@ TOOLS_EXTRA_GEOMETRY = (2, 32, 261, 128, True)
 # its slices body at 320 and 384, each held to fp64 within CARD_TOL_F32.
 TOOLS_FP32_GEOMETRIES = ((2, 8, 261, 192, True), (2, 8, 261, 256, False), (2, 8, 261, 200, True),
                          (2, 8, 261, 320, True), (2, 4, 261, 384, False))
-# K3 at head dims it is not built at, (B, N, H, d), all with no copy: in
-# bf16 the card runs 100 at 128 through the staging launch (rows of 200
-# bytes) and 136 and 160 at 192 and 200 and 248 at 256 on maps at d; in
-# fp32 it runs 100 at 128 on the fp32 Hopper body and the rest at 192 and
-# 256 on its wide form.
+# K3 at head dims between its builds, (B, N, H, d), all with no copy: in
+# bf16 the card runs 100 at 128 and 136 at 160 through the staging launch
+# (rows off 32 bytes below 193), 160 at its own build and 200 and 248 at 224
+# and 256 on maps at d (rows off 32 bytes read in place); in fp32 it runs
+# 100 at 128 on the fp32 Hopper body and the rest at 192 and 256 on its wide
+# form.
 PADDED_CASES = ((8, 261, 16, 100), (8, 261, 16, 136), (8, 261, 16, 160), (8, 261, 16, 200),
                 (8, 261, 16, 248), (4, 1205, 16, 100))
-# bf16 only, beside them: multiples of 8 below 128 other than 64 (32 and 96,
-# on maps at d at 64 and 128) at N 261 and 1205, and 150 (no multiple of 8,
-# staged, at 192) at N 1205.
+# bf16 only, beside them: multiples of 8 below 128 other than 64 (32 on maps
+# at d at 64, 96 at its own build) at N 261 and 1205, and 150 (no multiple
+# of 8, staged, at 160) at N 1205.
 BF16_WIDTH_CASES = ((8, 261, 16, 32), (8, 261, 16, 96), (4, 1205, 16, 96), (4, 1205, 16, 150))
-# K3 in bf16 at the card tests' set for the two-consumer body (bf16 K3 from
-# 193 to 256; 129-192 keep the Hopper body): 136 and 200 staged (rows off
-# 32 bytes), 160 on maps at d below its width, 192 and 256 at theirs; N 261
-# and 1205 and 272 / 261 and 1216 / 1205 with NaN in the dead rows; RoPE on
-# and off; contiguous tensors and head-major views of one fused projection
+# K3 in bf16 at the card tests' set for the widths between the builds and
+# the two-consumer body (bf16 K3 from 193 to 256; 129-192 keep the Hopper
+# body): 96, 160 and 224 at their own builds, 136 staged (a row off 32 bytes
+# below 193), 200, 232 and 248 read in place (rows off 32 bytes on the
+# two-consumer body, at 224 and 256), 192 and 256 at theirs; N 261 and 1205
+# and 272 / 261 and 1216 / 1205 with NaN in the dead rows; RoPE on and off;
+# contiguous tensors and head-major views of one fused projection
 # (``ws_cases_step``).
-WS_CASE_DIMS = (136, 160, 192, 200, 256)
+WS_CASE_DIMS = (96, 136, 160, 192, 200, 224, 232, 248, 256)
 WS_CASE_ROWS = ((261, None), (272, 261), (1205, None), (1216, 1205))
 # fp32 only, beside them: the wide form at the widths it is built at, at
 # N 261 and at 640x480's 1205 tokens.
@@ -5069,8 +5109,10 @@ def validate_kernels_step(torch, fa, launches) -> dict:
 def ws_cases_step(torch, fa, cfg, launches) -> dict:
     """K3 in bf16 at WS_CASE_DIMS x WS_CASE_ROWS, RoPE on and off, on
     contiguous tensors and on views of one fused projection (3 heads),
-    untimed (:func:`kernel_case`: one staging launch with a call where d %
-    16 != 0, a view case calling K3 twice), with the counts set to 0 before
+    untimed (:func:`kernel_case`: one staging launch with a call where
+    ``fa.headmajor_staged``, d % 16 != 0 below 193 and d % 8 != 0 above, so
+    none at 200, 232 and 248; a view case calling K3 twice), with the
+    counts set to 0 before
     the cases and read after them (``launches["ws_cases"]``): each call
     through the body K3 routes d to, the two-consumer body from 193 to 256
     and the Hopper body below, counted by body name; every case against the
@@ -5097,7 +5139,12 @@ def ws_cases_step(torch, fa, cfg, launches) -> dict:
         want[fa.attention_body("attention_headmajor", torch.bfloat16, c["head_dim"])] += n
         want["staging"] += n * fa.headmajor_staged(torch.bfloat16, c["head_dim"], c["rope"])
     worst = max(cases, key=lambda c: c["max_abs_err"])
+    # the two-consumer body's rows read in place: no call stages
+    in_place = [c for c in cases if 193 <= c["head_dim"] < 256 and c["head_dim"] % 8 == 0]
+    staged_in_place = sum(c["launches"]["staging"] for c in in_place)
     out = {"cases": len(cases), "head_dims": list(WS_CASE_DIMS),
+           "in_place_193_255_calls": len(in_place),
+           "in_place_193_255_staging_launches": staged_in_place,
            "rows": [list(r) for r in WS_CASE_ROWS], "launches": got, "expected_launches": want,
            "max_abs_err": worst["max_abs_err"],
            "worst": {key: worst[key] for key in ("name", "B", "N", "H", "head_dim", "n_valid",
@@ -5105,9 +5152,9 @@ def ws_cases_step(torch, fa, cfg, launches) -> dict:
            "ptxas": sorted({c["ptxas"] for c in cases}), "seconds": time.perf_counter() - t}
     bad = [c for c in cases if not c["ok"] or c["body"] != fa.attention_body(
         "attention_headmajor", torch.bfloat16, c["head_dim"])]
-    if bad or {key: got[key] for key in want} != want:
+    if bad or {key: got[key] for key in want} != want or staged_in_place:
         raise AssertionError(f"K3's cases at the two-consumer body's set: {bad}; launched {got}, "
-                             f"expected {want}")
+                             f"expected {want}; staging at 193-255: {staged_in_place}")
     emit({"phase": "kernel_ws_cases", **out})
     return out
 
@@ -5382,10 +5429,7 @@ def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
             os.makedirs(os.path.dirname(video))
             write_clip(video, FLEET_FRAMES, SEED + 20 + i)
             videos.append(video)
-        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
-        env.update(OMP_NUM_THREADS=str(FLEET_THREADS), MKL_NUM_THREADS=str(FLEET_THREADS),
-                   MKL_DYNAMIC="FALSE", OMP_DYNAMIC="FALSE")
+        env = fleet_env(os.path.dirname(os.path.abspath(__file__)))
         cmd = [sys.executable, "-m", "cbas_tpu_torch.tools.encode_fleet", "--project",
                project.path, "--workers", "1"] + (["--force-cpu"] if device == "cpu" else [])
         t = time.perf_counter()
@@ -5398,12 +5442,8 @@ def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
         ident = Project(project.path).encoder_model_identifier
         enc = FrameEncoder(ident, device=device, compute_dtype=getattr(torch, dtype))
         max_diff = 0.0
-        threads = torch.get_num_threads()
-        torch.set_num_threads(FLEET_THREADS)
-        try:
+        with fleet_threads(torch) as pinned:
             rows_of = {video: _in_process_rows(encode_file, enc, d, video) for video in videos}
-        finally:
-            torch.set_num_threads(threads)
         for video in videos:
             h5 = video.replace(".mp4", "_cls.h5")
             if not hdf5_store.is_stamp_valid(h5, ident):
@@ -5419,11 +5459,81 @@ def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
                     f"{rows.shape} / {fleet_rows.shape}, rows that differ "
                     f"{None if by_row is None else np.flatnonzero(by_row)[:20].tolist()}, "
                     f"by up to {None if by_row is None else float(by_row.max())}, "
-                    f"{FLEET_THREADS} intra-op threads each side, fleet lines {lines}")
+                    f"{FLEET_THREADS} intra-op threads each side, in-process settings "
+                    f"{pinned}, fleet lines {lines}")
             max_diff = max(max_diff, float(np.abs(rows.astype(np.float32) - fleet_rows).max()))
     return {"clips": FLEET_CLIPS, "frames": FLEET_FRAMES, "workers": 1, "device": device,
             "dtype": dtype, "wall_s": fleet_s, "summary": lines[-1],
-            "max_abs_diff_vs_in_process": max_diff, "ok": True}
+            "max_abs_diff_vs_in_process": max_diff, "in_process": pinned, "ok": True}
+
+
+def fleet_env(root) -> dict:
+    """The environment of ``encode_fleet``'s workers: this process's without
+    PYTHONPATH, the repository at ``root`` on it, FLEET_THREADS intra-op
+    threads for OpenMP and MKL and both libraries' dynamic teams off, so no
+    worker picks a smaller team (and another summation order) under load."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    env.update(OMP_NUM_THREADS=str(FLEET_THREADS), MKL_NUM_THREADS=str(FLEET_THREADS),
+               MKL_DYNAMIC="FALSE", OMP_DYNAMIC="FALSE")
+    return env
+
+
+def _omp_dynamic():
+    """(omp_get_dynamic, omp_set_dynamic, where) of the OpenMP runtime torch
+    runs its intra-op threads on: the one torch ships in its lib directory
+    (libgomp, libiomp5 or libomp), opened by path, which is the copy torch
+    has loaded (a library loaded with local symbols is invisible to a lookup
+    in the process's global ones), else the process's global symbols; None
+    where neither exports them. ``where`` is the library's path, or
+    "global"."""
+    import ctypes
+    import glob
+
+    import torch
+
+    lib_dir = os.path.join(os.path.dirname(torch.__file__), "lib")
+    paths = [p for pattern in ("libgomp*.so*", "libiomp5*.so*", "libomp*.so*")
+             for p in sorted(glob.glob(os.path.join(lib_dir, pattern)))]
+    for path in paths + [None]:
+        try:
+            lib = ctypes.CDLL(path)
+            get, put = lib.omp_get_dynamic, lib.omp_set_dynamic
+        except (OSError, AttributeError):
+            continue
+        get.restype, put.argtypes = ctypes.c_int, [ctypes.c_int]
+        return get, put, path or "global"
+    return None
+
+
+@contextlib.contextmanager
+def fleet_threads(torch):
+    """This process's encodes held to the workers' settings (``fleet_env``):
+    FLEET_THREADS intra-op threads, MKL_DYNAMIC and OMP_DYNAMIC "FALSE" in
+    the environment (read only where MKL or OpenMP starts after this: both
+    have started in a process that has run torch on the CPU, so there they
+    change nothing), and OpenMP's dynamic team off in this thread through
+    ``omp_set_dynamic`` (:func:`_omp_dynamic`); all restored after. Yields
+    what was pinned, for a failure's message and the fleet step's record:
+    {"threads", "omp_runtime" (the library, or None where no runtime was
+    found and the dynamic team was left as it was), "omp_dynamic_before",
+    "omp_dynamic_inside" (omp_get_dynamic() before and inside the block)}."""
+    threads = torch.get_num_threads()
+    omp = _omp_dynamic()
+    dynamic = omp[0]() if omp else None
+    with contextlib.ExitStack() as stack:
+        for name in ("MKL_DYNAMIC", "OMP_DYNAMIC"):
+            stack.enter_context(env_var(name, "FALSE"))
+        torch.set_num_threads(FLEET_THREADS)
+        if omp:
+            omp[1](0)
+        try:
+            yield {"threads": torch.get_num_threads(), "omp_runtime": omp[2] if omp else None,
+                   "omp_dynamic_before": dynamic, "omp_dynamic_inside": omp[0]() if omp else None}
+        finally:
+            torch.set_num_threads(threads)
+            if omp:
+                omp[1](dynamic)
 
 
 def _in_process_rows(encode_file, enc, d, video):

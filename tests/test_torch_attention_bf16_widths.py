@@ -2,11 +2,12 @@
 version and the plain K3 against the JAX package's, on the CPU.
 
 Every bf16 head of width d up to 192 runs the Hopper body
-(``csrc/attention_sm90.cuh``) at the next of 64, 128 and 192, and every one
-from 193 to 256 the two-consumer body (``csrc/attention_sm90_ws.cuh``) at
-256, with their tensor maps at d, in place: no pad copy and no RoPE in
-torch. A row of d
-elements that is no 32-byte multiple (d % 16 != 0) goes through one staging
+(``csrc/attention_sm90.cuh``) at the next of 64, 96, 128, 160 and 192, and
+every one from 193 to 256 the two-consumer body
+(``csrc/attention_sm90_ws.cuh``) at 224 or 256, with their tensor maps at
+d, in place: no pad copy and no RoPE in torch. Up to 192 a row of d
+elements that is no 32-byte multiple (d % 16 != 0), from 193 to 256 one
+that is no 16-byte multiple (d % 8 != 0), goes through one staging
 launch first (``stage_rows``, ``csrc/attention_common.cuh``), which copies q
 (roped, times the scale), k (roped) and v into scratch rows of d rounded up
 to 16; above 256 the wide body ropes an odd d with the same pass. The
@@ -61,15 +62,15 @@ def _tables(N, d, seed):
 
 
 def _built(d):
-    return next(w for w in fa.HEADMAJOR_HEAD_DIMS if w >= d)
+    return next(w for w in fa.BF16_HEAD_DIMS if w >= d)
 
 
 @pytest.mark.parametrize("rope", [False, True])
 def test_every_bf16_width_runs_in_place_on_the_hopper_or_wide_body(rope):
-    """d 1-300: up to 192 the Hopper body at the next of 64, 128 and 192,
-    from 193 to 256 the two-consumer body at 256, above 256 the wide body
-    at d; every width in place (no pad copy, no RoPE in torch), with tables
-    and without."""
+    """d 1-300: up to 192 the Hopper body at the next of 64, 96, 128, 160
+    and 192, from 193 to 256 the two-consumer body at 224 or 256, above 256
+    the wide body at d; every width in place (no pad copy, no RoPE in
+    torch), with tables and without."""
     for d in range(1, 301):
         width = fa.headmajor_width(BF16, d)
         assert width == (_built(d) if d <= 256 else d), d
@@ -99,16 +100,19 @@ def test_no_entry_names_a_body_outside_the_five(dtype):
 
 @pytest.mark.parametrize("d", [136, 160, 192, 200, 248, 256])
 def test_bf16_k3_from_129_to_256_routes_by_the_measured_rule(d):
-    """K3's bf16 heads from 129 to 192 keep the Hopper body at 192, those
-    from 193 to 256 take the two-consumer body at 256 (by their width and by
-    the width they run at); fp32 keeps its wide form at both."""
+    """K3's bf16 heads from 129 to 192 keep the Hopper body, at 160 or 192,
+    those from 193 to 256 take the two-consumer body at 224 or 256 (by
+    their width and by the width they run at); fp32 keeps its wide form at
+    192 and 256. Rows off 32 bytes are staged on the Hopper body (136) and
+    read in place on the two-consumer body (200, 248)."""
     width = fa.headmajor_width(BF16, d)
-    assert width == (192 if d <= 192 else 256)
+    assert width == {136: 160, 160: 160, 192: 192, 200: 224, 248: 256, 256: 256}[d]
     body = "sm90" if d <= 192 else "sm90_ws"
     assert fa.attention_body("attention_headmajor", BF16, d) == body
     assert fa.attention_body("attention_headmajor", BF16, width) == body
-    assert fa.attention_body("attention_headmajor", torch.float32, width) == "sm90_f32_wide"
-    assert fa.headmajor_staged(BF16, d) == (d % 16 != 0)
+    assert fa.attention_body("attention_headmajor", torch.float32,
+                             fa.headmajor_width(torch.float32, d)) == "sm90_f32_wide"
+    assert fa.headmajor_staged(BF16, d) == (d % 16 != 0 if d <= 192 else d % 8 != 0)
 
 
 @pytest.mark.parametrize("kernel,d", [("attention_fat", 64), ("attention_packed", 64),
@@ -264,7 +268,12 @@ def _cuda_kernels(fn) -> list:
 
 CARD_CASES = [(8, 16, 261, 32, None), (8, 16, 261, 96, None), (4, 16, 1205, 96, None),
               (4, 16, 1205, 150, None), (8, 16, 261, 100, None), (2, 3, 272, 100, 261),
-              (2, 3, 272, 65, 261), (1, 3, 140, 13, 130), (1, 5, 140, 301, 130)]
+              (2, 3, 272, 65, 261), (1, 3, 140, 13, 130), (1, 5, 140, 301, 130),
+              # the widths between the builds: 160 and 224 at their own, 200, 232
+              # and 248 read in place (rows off 32 bytes), 216 (d % 16 == 8 at 224)
+              (4, 16, 1205, 160, None), (2, 3, 272, 160, 261), (2, 3, 272, 200, 261),
+              (4, 16, 1205, 224, None), (2, 3, 272, 216, 261), (2, 3, 272, 232, 261),
+              (4, 16, 1205, 248, None)]
 
 
 @pytest.mark.cuda
@@ -273,13 +282,14 @@ CARD_CASES = [(8, 16, 261, 32, None), (8, 16, 261, 96, None), (4, 16, 1205, 96, 
 @pytest.mark.parametrize("B,H,N,d,n_valid", CARD_CASES)
 def test_bf16_widths_match_plain_on_card(B, H, N, d, n_valid, rope, layout, cuda_device):
     """K3 in bf16 at the widths the common body or the pad copies took
-    before, against the plain version, NaN in the dead K/V rows, on
-    contiguous tensors and on head-major views of one fused (B, N, 3*H*d)
-    projection (at H 3 and 5 and an odd d, bases at 2-byte alignment only):
-    one K3 launch through the Hopper body (the two-consumer body from 193 to
-    256, the wide body above), a staging launch where a row is no 32-byte
-    multiple (above 256: at an odd d with tables), no copy kernel, the
-    output dense in q's dim order."""
+    before, and those between the builds, against the plain version, NaN in
+    the dead K/V rows, on contiguous tensors and on head-major views of one
+    fused (B, N, 3*H*d) projection (at H 3 and 5 and an odd d, bases at
+    2-byte alignment only): one K3 launch through the Hopper body (the
+    two-consumer body from 193 to 256, the wide body above), a staging
+    launch where ``headmajor_staged`` says so (a row no 32-byte multiple up
+    to 192, no 16-byte multiple from 193 to 256, an odd d with tables above
+    256), no copy kernel, the output dense in q's dim order."""
     rng = np.random.default_rng(68)
     if layout == "fused views":
         qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to(
@@ -299,7 +309,8 @@ def test_bf16_widths_match_plain_on_card(B, H, N, d, n_valid, rope, layout, cuda
     body = "sm90" if d <= 192 else "sm90_ws" if d <= 256 else "wide"
     assert fa.attention_body("attention_headmajor", BF16, width) == body
     staged = fa.headmajor_staged(BF16, d, rope)
-    assert staged == (d % 16 != 0 if d <= 256 else (rope and d % 2 == 1))
+    assert staged == (d % 16 != 0 if d <= 192 else d % 8 != 0 if d <= 256
+                      else (rope and d % 2 == 1))
 
     def counts():
         return (fa.launches_headmajor_by_dim.get(width, 0), fa.launches_sm90, fa.launches_wide,
@@ -325,11 +336,13 @@ def test_bf16_widths_match_plain_on_card(B, H, N, d, n_valid, rope, layout, cuda
         assert len(kernels) == (2 if staged else 1 + rope), kernels
 
 
-# The two-consumer body's set: 136 and 200 staged, 160 on maps at d below its
-# width, 192 and 256 at theirs; N 261 and 1205, and 272 / 261 and 1216 / 1205
-# with NaN in the dead rows. K3 runs 193-256 on it and 129-192 on the Hopper
-# body (the measured rule).
-WS_CARD_DIMS = (136, 160, 192, 200, 256)
+# The two-consumer body's set and the widths between the builds: 136 staged
+# (a row off 32 bytes on the Hopper body), 96, 160 and 224 at their own
+# builds, 200, 232 and 248 in place (rows off 32 bytes on the two-consumer
+# body), 192 and 256 at theirs; N 261 and 1205, and 272 / 261 and 1216 /
+# 1205 with NaN in the dead rows. K3 runs 193-256 on it and 129-192 on the
+# Hopper body (the measured rule).
+WS_CARD_DIMS = (96, 136, 160, 192, 200, 224, 232, 248, 256)
 WS_CARD_ROWS = [(261, None), (272, 261), (1205, None), (1216, 1205)]
 
 
@@ -363,7 +376,8 @@ def test_two_consumer_body_matches_plain_on_card(d, N, n_valid, rope, layout, cu
     tensors and on head-major views of one fused projection (the same bits
     on both): one launch a call through the body the rule routes d to (the
     two-consumer body from 193 to 256, the Hopper body below), none through
-    the other, and one staging launch with it at d % 16 != 0."""
+    the other, and one staging launch with it where ``headmajor_staged``
+    says so (136 here; none at 200, 232 and 248)."""
     B, H = (2, 3) if N < 1000 else (1, 3)
     q, k, v = _card_heads(B, H, N, d, n_valid, layout, 72, cuda_device)
     cos = sin = None
@@ -472,8 +486,8 @@ def test_chip_smoke_names_the_two_consumer_kernels():
     try:
         assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 256) == "168 regs, 0/0 spill"
         assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 248) == \
-            reports["sm90_ws<256, 4, staged>"]
-        assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 160) == \
+            reports["sm90_ws<256, 4>"]  # rows off 32 bytes: in place, O by TMA stores
+        assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 176) == \
             reports["sm90<192, 4>"]
         assert chip_smoke.ws_registers() == {
             f"attention_headmajor: {label}": {"registers_at_entry": 168, "spill_stores": 0,
@@ -529,11 +543,13 @@ def test_chip_smoke_names_the_staged_kernels():
         == chip_smoke.comparable_name("_ZN14cbas_attention4sm9014attention_sm90ILi64ELi4ELi0EEE" + args)
     assert chip_smoke.kernel_label(
         "_ZN13cbas_attention10stage_rowsI13__nv_bfloat16Li8ELi4EEEvv") == "stage_rows<bf16, 8, 4>"
-    log = {"sm90<128, 4>": "168 regs, 0/0 spill", "sm90<128, 4, staged>": "170 regs, 0/0 spill"}
+    log = {"sm90<128, 4>": "168 regs, 0/0 spill", "sm90<128, 4, staged>": "170 regs, 0/0 spill",
+           "sm90<96, 4>": "150 regs, 0/0 spill"}
     saved = dict(chip_smoke.PTXAS)
     chip_smoke.PTXAS["attention_headmajor"] = log
     try:
-        assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 96) == log["sm90<128, 4>"]
+        assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 112) == log["sm90<128, 4>"]
+        assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 96) == log["sm90<96, 4>"]
         assert chip_smoke.kernel_ptxas(fa, "attention_headmajor", BF16, 100) == \
             log["sm90<128, 4, staged>"]
     finally:

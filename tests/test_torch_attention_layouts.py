@@ -751,12 +751,16 @@ def test_attention_body_routing(kernel, dtype, d, body):
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "sm90"), (torch.float32, "sm90_f32_wide")])
 @pytest.mark.parametrize("d", [136, 160, 184, 192, 200, 232, 248, 256])
 def test_widths_above_128_pad_onto_the_hopper_body_in_bf16(d, dtype, body):
-    """A head from 136 to 256 runs at 192 or 256, in bf16 the Hopper body's
-    192 and the two-consumer body's 256, in fp32 the fp32 wide form's; above
-    256 the wide body (bf16) or the fp32 slices body runs at d itself."""
+    """A head from 136 to 256 runs, in bf16, at d rounded up to 32: the
+    Hopper body's 160 and 192 and the two-consumer body's 224 and 256; in
+    fp32 at 192 or 256, the fp32 wide form's; above 256 the wide body
+    (bf16) or the fp32 slices body runs at d itself."""
     width = fa.headmajor_width(dtype, d)
-    assert width == (192 if d <= 192 else 256)
-    want = "sm90_ws" if dtype == torch.bfloat16 and width == 256 else body
+    if dtype == torch.bfloat16:
+        assert width == -(-d // 32) * 32
+    else:
+        assert width == (192 if d <= 192 else 256)
+    want = "sm90_ws" if dtype == torch.bfloat16 and width > 192 else body
     assert fa.attention_body("attention_headmajor", dtype, width) == want
     above = "wide" if dtype == torch.bfloat16 else "sm90_f32_slices"
     assert fa.headmajor_width(dtype, d + 256) == d + 256
@@ -847,14 +851,15 @@ def _cuda_kernels(torch_mod, fn) -> list:
 @pytest.mark.parametrize("N,n_valid", [(261, None), (272, 261), (1205, None)])
 @pytest.mark.parametrize("d", [136, 160, 200, 248])
 def test_map_padded_widths_run_without_copies_on_card(d, N, n_valid, rope, layout, cuda_device):
-    """bf16 heads of the multiples of 8 from 136 to 248 that K3 is not built
-    at run on the body of the next built width (the Hopper body at 192, the
-    two-consumer body at 256) with no pad or slice:
-    at a multiple of 16 (160) one kernel a call without RoPE and two with
-    (the RoPE prologue, then the attention kernel), at the others (136,
-    200, 248: rows off a 32-byte boundary) two, the staging pass then the
-    attention kernel, by the counters and by a profiler trace; against the
-    plain version, NaN in the dead K/V rows."""
+    """bf16 heads of the multiples of 8 from 136 to 248 run on the body of
+    the next built width (the Hopper body at 160, 160 its own; the
+    two-consumer body at 224 and 256) with no pad or slice: read in place
+    (160; 200 and 248, rows off a 32-byte boundary on the two-consumer
+    body) one kernel a call without RoPE and two with (the RoPE prologue,
+    then the attention kernel), staged (136: a row off a 32-byte boundary
+    below 193) two, the staging pass then the attention kernel, by the
+    counters and by a profiler trace; against the plain version, NaN in the
+    dead K/V rows."""
     B, H = (2, 4) if N < 1000 else (1, 3)
     _, views = _flat_and_heads(B, H, N, d, 57, torch.bfloat16, cuda_device, n_valid)
     q, k, v = views if layout == "view of flat" else [t.contiguous() for t in views]
@@ -862,7 +867,7 @@ def test_map_padded_widths_run_without_copies_on_card(d, N, n_valid, rope, layou
     if rope:
         cos, sin = (torch.from_numpy(t).to(cuda_device) for t in _rope(N, d, seed=58))
     width = fa.headmajor_width(torch.bfloat16, d)
-    assert width in (192, 256)
+    assert width == {136: 160, 160: 160, 200: 224, 248: 256}[d]
 
     def counts():
         body = fa.attention_body("attention_headmajor", torch.bfloat16, width)
@@ -878,7 +883,7 @@ def test_map_padded_widths_run_without_copies_on_card(d, N, n_valid, rope, layou
     assert bool((err <= _card_tolerance(got, want, v, n_valid, N)).all()), float(err.max())
     kernels = _cuda_kernels(torch, lambda: fa.fused_attention(q, k, v, d ** -0.5, n_valid, cos, sin))
     staged = fa.headmajor_staged(torch.bfloat16, d, rope)
-    assert staged == (d % 16 != 0)
+    assert staged == (d == 136)
     assert len(kernels) == (2 if staged else 1 + rope), kernels
     assert sum("attention_sm90" in name for name in kernels) == 1, kernels
     assert sum("rope_rows" in name for name in kernels) == (rope and not staged), kernels

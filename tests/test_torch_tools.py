@@ -254,11 +254,42 @@ def test_claim_heartbeat_keeps_live_lease_from_aging_out(tmp_path):
 
 
 def _fleet(root, *args):
+    """encode_fleet over the project at ``root``, its workers in the fleet
+    step's environment (``chip_smoke.fleet_env``: FLEET_THREADS intra-op
+    threads, MKL's and OpenMP's dynamic teams off)."""
     proc = subprocess.run(
         [sys.executable, "-m", "cbas_tpu_torch.tools.encode_fleet", "--project", root, *args],
-        capture_output=True, text=True, timeout=600, env=_env(),
+        capture_output=True, text=True, timeout=600, env=chip_smoke.fleet_env(ROOT),
     )
     return proc, [json.loads(line) for line in proc.stdout.strip().splitlines()]
+
+
+def _onednn_matmul(tmp_path):
+    """The oneDNN kernel this process runs a bf16 matmul with (its verbose
+    line, which names the ISA: AMX and AVX-512 kernels round differently),
+    read from the file descriptor oneDNN writes it to."""
+    path = tmp_path / "onednn_verbose.txt"
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    saved = os.dup(1)
+    os.dup2(fd, 1)
+    try:
+        with torch.backends.mkldnn.verbose(torch.backends.mkldnn.VERBOSE_ON):
+            a = torch.ones(64, 64, dtype=torch.bfloat16)
+            a @ a
+    finally:
+        os.dup2(saved, 1)
+        os.close(fd)
+        os.close(saved)
+    return [x for x in path.read_text().splitlines() if ",exec," in x][:1]
+
+
+def _fleet_ok(proc, lines):
+    """The fleet's exit code and the error lines its workers printed, with
+    the end of its standard error, as an assertion's message."""
+    errors = [line for line in lines if "error" in line]
+    assert proc.returncode == 0 and not errors, (
+        f"encode_fleet rc {proc.returncode}, worker errors {errors}, "
+        f"stderr {proc.stderr[-4000:]}")
 
 
 def test_two_cpu_workers_drain_the_demo_project(tmp_path):
@@ -273,7 +304,7 @@ def test_two_cpu_workers_drain_the_demo_project(tmp_path):
     root = str(tmp_path / "demo")
     shutil.copytree(DEMO, root)
     proc, lines = _fleet(root, "--workers", "2", "--force-cpu", "--batch", "64")
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    _fleet_ok(proc, lines)
     summary = lines[-1]
     assert summary["fleet_done"] and summary["workers"] == 2
     assert summary["videos"] == 8 and summary["still_stale"] == 0
@@ -287,36 +318,59 @@ def test_two_cpu_workers_drain_the_demo_project(tmp_path):
     assert [f for _, _, fs in os.walk(root) for f in fs if f.endswith(".claim")] == []
 
     # the same encode in this process: the project's encode settings and
-    # dtype, chunks of 64, at the workers' thread count (this process keeps
-    # whatever count earlier tests in it left), its own count restored after
+    # dtype, chunks of 64, held to the workers' settings (chip_smoke's
+    # fleet_threads: their thread count, dynamic teams off; this process
+    # keeps whatever earlier tests in it left, restored after)
     settings = proj.settings
     enc = FrameEncoder(proj.encoder_model_identifier, device="cpu",
                        compute_dtype=getattr(torch, settings.runtime.compute_dtype))
     cfg = dataclasses.replace(settings.encode, chunk_frames=64)
     inproc = tmp_path / "inproc"
-    threads = torch.get_num_threads()
-    torch.set_num_threads(int(_env()["OMP_NUM_THREADS"]))
-    try:
+    with chip_smoke.fleet_threads(torch) as pinned:
         for i, line in enumerate(per_file):
             video = str(inproc / f"v{i}" / os.path.basename(line["video"]))
             os.makedirs(os.path.dirname(video))
             shutil.copyfile(line["video"], video)
             with h5py.File(encode_file(enc, video, config=cfg), "r") as a, \
                     h5py.File(line["h5"], "r") as b:
-                assert a["cls"].dtype == b["cls"].dtype
-                assert np.array_equal(a["cls"][:], b["cls"][:])
+                want, got = a["cls"][:], b["cls"][:]
+                assert want.dtype == got.dtype and want.shape == got.shape
+                if not np.array_equal(want, got):
+                    by_row = np.abs(want.astype(np.float32) - got.astype(np.float32)).max(axis=1)
+                    rows = np.flatnonzero(by_row)
+                    pytest.fail(f"{line['h5']} differs from the in-process encode in "
+                                f"{len(rows)} of {len(by_row)} rows, "
+                                f"{rows[:20].tolist()} by up to {by_row[rows[:20]].tolist()} "
+                                f"(largest |value| {float(np.abs(want).max())}); this "
+                                f"process's bf16 matmul kernel {_onednn_matmul(tmp_path)}; "
+                                f"its settings {pinned}; fleet lines {lines}")
                 assert b.attrs["encoder_model_identifier"] == a.attrs["encoder_model_identifier"]
-    finally:
-        torch.set_num_threads(threads)
 
     proc, lines = _fleet(root, "--workers", "2", "--force-cpu", "--model", "demo_behaviors_model")
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    _fleet_ok(proc, lines)
     assert lines[-1]["still_stale"] == 0
     csvs = [line for line in lines if "csv" in line]
     assert len(csvs) == 8 and all(os.path.exists(line["csv"]) for line in csvs)
     assert sum(w["classified"] for w in lines if "worker_done" in w) == 8
     assert [f for _, _, fs in os.walk(root) for f in fs
             if f.endswith((".claim", ".csv.tmp")) or f.startswith(".encode_fleet_")] == []
+
+
+def test_fleet_threads_pins_this_process_and_restores_it():
+    """chip_smoke.fleet_threads finds the OpenMP runtime torch ships, turns
+    its dynamic team off and holds FLEET_THREADS intra-op threads inside the
+    block, says so in what it yields, and restores both after."""
+    threads = torch.get_num_threads()
+    omp = chip_smoke._omp_dynamic()
+    assert omp is not None
+    before = omp[0]()
+    with chip_smoke.fleet_threads(torch) as pinned:
+        assert torch.get_num_threads() == chip_smoke.FLEET_THREADS
+        assert omp[0]() == 0
+        assert os.environ["OMP_DYNAMIC"] == os.environ["MKL_DYNAMIC"] == "FALSE"
+    assert pinned == {"threads": chip_smoke.FLEET_THREADS, "omp_runtime": omp[2],
+                      "omp_dynamic_before": before, "omp_dynamic_inside": 0}
+    assert torch.get_num_threads() == threads and omp[0]() == before
 
 
 def test_chip_smoke_fleet_step_runs_on_cpu():

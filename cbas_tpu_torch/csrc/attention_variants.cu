@@ -14,9 +14,11 @@
 //   ones column so that p.V also gives the row sums, as kVext, and with its
 //   bf16 exponential (bf16exp=True) as kVextBf16Exp.
 // On the TPU a variant was a kernel of its own; here each is a compile-time
-// branch of the one body K1-K3 run, so the producer warp, the TMA ring, the
-// tensor maps and the store are the same in all and the difference of two
-// variants' times is the cost of the stage one has and the other lacks.
+// branch of the one-warpgroup Hopper body, so the producer warp, the TMA
+// ring, the tensor maps and the store are the same in all and the difference
+// of two variants' times is the cost of the stage one has and the other
+// lacks. They time that body's loop, the one K1-K3 run, and not the
+// persistent body's (attention_sm90_persistent.cuh, a timing case).
 //
 // What bounds it on this card: what bounds K1-K3 (attention_sm90.cuh): the
 // latency of one warpgroup's chain of wgmma, softmax and wgmma a key tile.

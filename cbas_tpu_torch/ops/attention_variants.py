@@ -9,13 +9,16 @@ kernel's stages one at a time at its 640x480 shape:
 - ``probe4.py`` (``make_variant``): ``vext_kernel`` with ``bf16exp`` off
   (``"vext"``) and on (``"vext_bf16exp"``).
 
-On the card each is a compile-time variant of the one body K1, K2 and K3 run
+On the card each is a compile-time variant of the one-warpgroup Hopper body
 (``csrc/attention_sm90.cuh``, enum ``Variant``; the C entry
 ``csrc/attention_variants.cu``): the producer warp, the TMA ring, the tensor
 maps and the store are the same, and each variant drops or changes one stage
 of the consumer, so the difference of two variants' times is one stage's
-cost. No encode route calls them; ``chip_smoke.py``'s stage phase times them
-beside variant 0 (K1-K3 themselves).
+cost. They time the one-warpgroup body's loop, the one K1-K3 run (variant 0
+is that body itself), and not the persistent body's
+(``csrc/attention_sm90_persistent.cuh``, a timing case of its own). No
+encode route calls them; ``chip_smoke.py``'s stage phase times them beside
+variant 0.
 
 The functions, on each head of q, k and v (rounding points in
 :func:`attention_variant_reference`):

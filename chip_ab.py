@@ -59,6 +59,10 @@ each:
   (``trace_calls`` over 3 batches), its kernels summed by group
   (``KERNEL_GROUPS``: the LayerNorm kernel, attention, GEMMs, the rest) and
   its GEMMs by input shape, read once;
+- on a checkout that has it, the persistent body (``attention_persistent``)
+  on each FUSED_ROWS row's fused views, RoPE on and off, right after the
+  route's own reads there, with its grid and whether it gave the route's
+  bits (with ``--kernels`` too);
 - on a checkout that has it (so on the change's side only), the LayerNorm
   kernel at ``LN_ROWS``: ms beside its plain version and the library call
   (``chip_smoke.ln_case``);
@@ -72,7 +76,9 @@ each:
   128) bf16 blocks and at ``FUSED_ROWS``' bytes, and ``out.copy_(q)`` there.
 
 With ``--kernels`` each run reads only the kernel rows and the
-two-consumer body's timing cases (a few minutes a run); ``--only B,N,H,d
+two-consumer body's timing cases (a few minutes a run); with ``--models``
+only the bf16 encodes' warm frames/s and ms a batch (dinov3-vitb16 flat, the
+ViT-7B width at depth 4); ``--only B,N,H,d
 ...`` keeps only the kernel and timing rows of those shapes (with
 ``--widths``, only those width rows). ``--out PATH``
 also writes every line to PATH, so a long summary line is kept whole.
@@ -165,14 +171,29 @@ LN_ROWS = ((128 * 261, 768), (32 * 1205, 768), (32 * 261, 4096), (8 * 1205, 4096
 KERNEL_GROUPS = (("layernorm kernel", ("add_ln_",)), ("attention", ("attention",)),
                  ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")))
 # K1, K2 and K3 on views of one fused projection, (entry, B, N, H, d, patch
-# grid): dinov3-vitb16 at 256x256 / 128 and 640x480 / 32, and K3 at the
-# ViT-7B width's 256x256 / 32.
+# grid), the operands the routes pass: dinov3-vitb16 at 256x256 / 128 and
+# 640x480 / 32 in each entry, and K3 at the ViT-7B width's 256x256 / 32 and
+# 640x480 / 8. Read in every mode (``--kernels`` too), RoPE on and off, with
+# the SM clock after each row, SDPA, the plain version (with RoPE) and the
+# memory floor beside them; with RoPE also on contiguous copies.
 FUSED_ROWS = (
     ("attention_fat", 128, 261, 12, 64, (16, 16)),
     ("attention_fat", 32, 1205, 12, 64, (30, 40)),
     ("attention_packed", 128, 261, 12, 64, (16, 16)),
+    ("attention_packed", 32, 1205, 12, 64, (30, 40)),
     ("attention_headmajor", 128, 261, 12, 64, (16, 16)),
+    ("attention_headmajor", 32, 1205, 12, 64, (30, 40)),
     ("attention_headmajor", 32, 261, 32, 128, (16, 16)),
+    ("attention_headmajor", 8, 1205, 32, 128, (30, 40)),
+)
+# The stage variants' ``dma`` form (``attention_variants``: the body's loads
+# and stores alone) on the same fused views, (layout, B, N, H, d, patch
+# grid): K1's two shapes and the ViT-7B width's.
+DMA_ROWS = (
+    ("fat", 128, 261, 12, 64, (16, 16)),
+    ("fat", 32, 1205, 12, 64, (30, 40)),
+    ("headmajor", 32, 261, 32, 128, (16, 16)),
+    ("headmajor", 8, 1205, 32, 128, (30, 40)),
 )
 # ``--widths``: K3 in bf16 at 640x480's 1205 tokens and 16 heads, at widths
 # on both sides of the rows a tensor map reads whole 32-byte sectors of (d %
@@ -284,10 +305,13 @@ def trace_groups(trace: dict) -> dict:
             "gemms_by_shape": trace["gemms_by_shape"]}
 
 
-def measure(root: str, reads: int, kernels_only: bool = False, only=None) -> dict:
+def measure(root: str, reads: int, kernels_only: bool = False, only=None,
+            models_only: bool = False) -> dict:
     """Every metric of the checkout at ``root``, ``reads`` reads each (with
     ``kernels_only``, KERNEL_ROWS and WS_ROWS alone; with ``only``, a set of
-    (B, N, H, d), those of their rows alone)."""
+    (B, N, H, d), those of their rows alone; with ``models_only``, the bf16
+    encodes' frames/s alone: dinov3-vitb16 flat at 256x256 / 128 and 640x480
+    / 32, the ViT-7B width at depth 4 at 256x256 / 32 and 640x480 / 8)."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -308,6 +332,8 @@ def measure(root: str, reads: int, kernels_only: bool = False, only=None) -> dic
         _cuda.build(name)
     out = {"root": os.path.dirname(os.path.dirname(fa.__file__)), "build_s": time.perf_counter() - t}
 
+    if models_only:
+        return model_rows(torch, chip_smoke, FrameEncoder, reads, out)
     cfg = PRESETS["dinov3-vitb16"]
     wrappers = {"attention_fat": fa.fused_attention_fat,
                 "attention_packed": fa.fused_attention_packed,
@@ -341,6 +367,7 @@ def measure(root: str, reads: int, kernels_only: bool = False, only=None) -> dic
             out[f"{kernel} {B}x{N}x{H}x{d} floor_ms"] = [
                 chip_smoke.floor_ms(torch, B * N * H * d, dtype)]
         del q, k, v
+    fused_rows(torch, chip_smoke, cfg, wrappers, rng, reads, out, only)
     ws_rows(torch, chip_smoke, cfg, rng, reads, out, only)
     for B, N, H, d, grid, rope in TRACE_ROWS:
         if only and (B, N, H, d) not in only:
@@ -391,24 +418,6 @@ def measure(root: str, reads: int, kernels_only: bool = False, only=None) -> dic
                     out[f"layernorm {rows}x{D} bf16 fused {key}"].append(case[key])
             out[f"layernorm {rows}x{D} bound ms"] = case["bound_ms"]
 
-    for kernel, B, N, H, d, grid in FUSED_ROWS:
-        qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to(
-            "cuda", torch.bfloat16)
-        views = [qkv[..., j * H * d:(j + 1) * H * d] for j in range(3)]
-        if kernel != "attention_fat":
-            group = 2 if kernel == "attention_packed" else 1
-            views = [t.view(B, N, H // group, group * d).transpose(1, 2) for t in views]
-        copies = [t.contiguous() for t in views]
-        tables = chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda")
-        try:
-            wrappers[kernel](*views, d ** -0.5, None, *tables)
-        except ValueError:  # a wrapper that takes contiguous tensors only
-            continue
-        for label, ops in (("fused views", views), ("contiguous", copies)):
-            out[f"{kernel} {B}x{N}x{H}x{d} {label} rope=True ms"] = [
-                chip_smoke.time_ms(torch, lambda ops=ops: wrappers[kernel](  # noqa: B023
-                    *ops, d ** -0.5, None, *tables)) for _ in range(reads)]
-        del qkv, views, copies
     if os.path.exists(os.path.join(root, "cbas_tpu_torch", "ops", "memory_floor.py")):
         from cbas_tpu_torch.ops import memory_floor as mf
 
@@ -464,6 +473,135 @@ def measure(root: str, reads: int, kernels_only: bool = False, only=None) -> dic
         enc = FrameEncoder(ckpt, random_init=True, compute_dtype=torch.float32, device="cuda")
         fps(enc, planes_256, 32, "fp32 vit7b-width depth 4 256x256 fps")
         fps(enc, planes_480, 8, "fp32 vit7b-width depth 4 640x480 fps")
+    return out
+
+
+def fused_views(torch, rng, layout, B, N, H, d):
+    """q, k and v as views of one fused (B, N, 3*H*d) bf16 projection, in
+    ``layout`` ("fat", "packed" or "headmajor"): the operands the routes
+    pass."""
+    import numpy as np
+
+    qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to(
+        "cuda", torch.bfloat16)
+    views = [qkv[..., j * H * d:(j + 1) * H * d] for j in range(3)]
+    if layout != "fat":
+        group = 2 if layout == "packed" else 1
+        views = [t.view(B, N, H // group, group * d).transpose(1, 2) for t in views]
+    return views
+
+
+def fused_rows(torch, chip_smoke, cfg, wrappers, rng, reads, out, only=None) -> None:
+    """FUSED_ROWS and DMA_ROWS (those in ``only``, where given) into
+    ``out``: each entry on fused views with RoPE and without, the SM clock
+    after the row's reads, with RoPE also on contiguous copies; SDPA on
+    head-major copies (RoPE applied first), the plain version with RoPE and
+    the memory floor at the row's bytes; on a checkout that has it, the
+    persistent body on the same views, RoPE on and off, with its grid and
+    whether it gave the route's bits; then the ``dma`` stage variant on the
+    same views."""
+    from cbas_tpu_torch.ops import attention_variants as av
+    from cbas_tpu_torch.ops import flash_attention as fa
+
+    try:
+        from cbas_tpu_torch.ops import attention_persistent as ap
+    except ImportError:  # a checkout without the persistent body
+        ap = None
+
+    layouts = {"attention_fat": "fat", "attention_packed": "packed",
+               "attention_headmajor": "headmajor"}
+    plains = {"attention_fat": fa.attention_fat_reference,
+              "attention_packed": fa.attention_packed_reference,
+              "attention_headmajor": fa.attention_headmajor_reference}
+    for kernel, B, N, H, d, grid in FUSED_ROWS:
+        if only and (B, N, H, d) not in only:
+            continue
+        views = fused_views(torch, rng, layouts[kernel], B, N, H, d)
+        copies = [t.contiguous() for t in views]
+        tables = chip_smoke.rope_full(torch, cfg, d, grid, N, "cuda")
+        try:
+            wrappers[kernel](*views, d ** -0.5, None, *tables)
+        except ValueError:  # a wrapper that takes contiguous tensors only
+            continue
+        row = f"{kernel} {B}x{N}x{H}x{d}"
+        for rope in (True, False):
+            pair = tables if rope else (None, None)
+            out[f"{row} fused views rope={rope} ms"] = [
+                chip_smoke.time_ms(torch, lambda: wrappers[kernel](  # noqa: B023
+                    *views, d ** -0.5, None, *pair)) for _ in range(reads)]
+        out[f"{row} fused views gpu_clocks"] = chip_smoke.gpu_clocks()
+        if ap is not None:  # the persistent body on the same views
+            layout = layouts[kernel]
+            prow = f"persistent {layout} {B}x{N}x{H}x{d}"
+            for rope in (True, False):
+                pair = tables if rope else (None, None)
+                out[f"{prow} fused views rope={rope} ms"] = [
+                    chip_smoke.time_ms(torch, lambda: ap.persistent_attention(  # noqa: B023
+                        *views, d ** -0.5, None, *pair, layout=layout))  # noqa: B023
+                    for _ in range(reads)]
+            out[f"{prow} blocks"] = ap.last_blocks
+            out[f"{prow} bit_equal_route"] = bool(torch.equal(
+                ap.persistent_attention(*views, d ** -0.5, None, *tables, layout=layout),
+                wrappers[kernel](*views, d ** -0.5, None, *tables)))
+            out[f"{prow} gpu_clocks"] = chip_smoke.gpu_clocks()
+        out[f"{row} contiguous rope=True ms"] = [
+            chip_smoke.time_ms(torch, lambda: wrappers[kernel](  # noqa: B023
+                *copies, d ** -0.5, None, *tables)) for _ in range(reads)]
+        flat = copies if kernel != "attention_packed" else [  # packed pairs back to (B, N, H*d)
+            c.transpose(1, 2).reshape(B, N, H * d) for c in copies]
+        hm = flat if kernel == "attention_headmajor" else [  # head-major (B, H, N, d)
+            t.reshape(B, N, H, d).transpose(1, 2) for t in flat]
+        for rope in (True, False):
+            pair = tables if rope else (None, None)
+            out[f"{row} fused views rope={rope} sdpa_ms"] = [
+                sdpa_ms(torch, chip_smoke, *hm, d ** -0.5, *pair) for _ in range(reads)]
+        out[f"{row} fused views rope=True plain_ms"] = [chip_smoke.time_ms(
+            torch, lambda: plains[kernel](*views, d ** -0.5, None, *tables))]  # noqa: B023
+        if hasattr(chip_smoke, "floor_ms"):
+            out[f"{row} floor_ms"] = [chip_smoke.floor_ms(torch, B * N * H * d, "bfloat16")]
+        if hasattr(chip_smoke, "attention_bound"):
+            for rope in (True, False):
+                out[f"{row} rope={rope} bound"] = chip_smoke.attention_bound(B, N, H, d, N, rope)
+        del views, copies, hm
+    for layout, B, N, H, d, grid in DMA_ROWS:
+        if only and (B, N, H, d) not in only:
+            continue
+        views = fused_views(torch, rng, layout, B, N, H, d)
+        out[f"dma variant {layout} {B}x{N}x{H}x{d} fused views ms"] = [
+            chip_smoke.time_ms(torch, lambda: av.attention_variant(  # noqa: B023
+                *views, d ** -0.5, variant="dma", layout=layout)) for _ in range(reads)]  # noqa: B023
+        out[f"dma variant {layout} {B}x{N}x{H}x{d} gpu_clocks"] = chip_smoke.gpu_clocks()
+        del views
+
+
+def model_rows(torch, chip_smoke, FrameEncoder, reads, out) -> dict:
+    """``measure``'s ``models_only`` reads into ``out``: warm frames/s and
+    the CUDA-event ms a batch of the bf16 encodes, the SM clock after each."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    planes_256 = rng.integers(0, 256, (128, 256, 256), np.uint8)
+    planes_480 = rng.integers(0, 256, (32, 480, 640), np.uint8)
+
+    def fps(enc, planes, batch, label):
+        enc.encode_planes(planes[:batch], batch=batch)  # warm
+        out[label] = [chip_smoke.warm_fps(torch, enc, planes, batch, 3) for _ in range(reads)]
+        out[label.replace("fps", "ms a batch (events)")] = [chip_smoke.time_ms(
+            torch, lambda: enc.encode_planes_async(planes[:batch], batch=batch), iters=10)
+            for _ in range(reads)]
+        out[label.replace("fps", "gpu_clocks")] = chip_smoke.gpu_clocks()
+
+    enc = FrameEncoder("dinov3-vitb16", random_init=True, device="cuda")
+    fps(enc, planes_256, 128, "flat 256x256 fps")
+    fps(enc, planes_480, 32, "flat 640x480 fps")
+    del enc
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt:
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(VIT7B_CONFIG, f)
+        enc = FrameEncoder(ckpt, random_init=True, device="cuda")
+        fps(enc, planes_256, 32, "vit7b-width depth 4 256x256 fps")
+        fps(enc, planes_480, 8, "vit7b-width depth 4 640x480 fps")
     return out
 
 
@@ -582,6 +720,8 @@ def main() -> int:
                     help="read K3 in bf16 at WIDTH_ROWS only, kernel by kernel")
     ap.add_argument("--kernels", action="store_true",
                     help="read KERNEL_ROWS and WS_ROWS only")
+    ap.add_argument("--models", action="store_true",
+                    help="read the bf16 encodes' frames/s only")
     ap.add_argument("--only", nargs="+", default=None, metavar="B,N,H,d",
                     help="with --kernels or --widths: only the rows of these shapes")
     ap.add_argument("--out", help="also write every line to this file")
@@ -591,7 +731,7 @@ def main() -> int:
         root = os.path.abspath(args.measure)
         only = {tuple(int(x) for x in shape.split(",")) for shape in args.only or ()}
         run = measure_widths(root, args.reads, only) if args.widths else measure(
-            root, args.reads, args.kernels, only)
+            root, args.reads, args.kernels, only, args.models)
         print(json.dumps(run), flush=True)
         return 0
     if not args.parent:
@@ -618,6 +758,7 @@ def main() -> int:
             [sys.executable, os.path.abspath(__file__), "--measure", os.path.abspath(root),
              "--reads", str(args.reads)] + (["--widths"] if args.widths else [])
             + (["--kernels"] if args.kernels else [])
+            + (["--models"] if args.models else [])
             + (["--only", *args.only] if args.only else []),
             capture_output=True, text=True, cwd=os.path.abspath(root),
         )

@@ -637,7 +637,7 @@ def build_all(_cuda) -> dict:
         return name, (_cuda.build(name), time.perf_counter() - t)
 
     names = (*KERNELS, LN_KERNEL, FLOOR_KERNEL, VARIANTS_KERNEL, BATCHED_KERNEL, RELAYOUT_KERNEL,
-             PVT_KERNEL)
+             PVT_KERNEL, PERSISTENT_KERNEL)
     with ThreadPoolExecutor(len(names)) as pool:
         return dict(pool.map(one, names))
 
@@ -651,12 +651,12 @@ def ptxas_entries(log: str) -> dict:
     """Each kernel of a ``-Xptxas -v`` log, in its order: {mangled name:
     {"registers", "smem", "stack", "spill_stores", "spill_loads",
     "wgmma_serialized"}}: whether ptxas says it serialized the kernel's
-    wgmma instructions (its note C7512); and "setmaxnreg_ignored": True
+    wgmma instructions (its notes C7511 and C7512); and "setmaxnreg_ignored": True
     where it ignored the kernel's setmaxnreg (its warning C7508: no
     register count known at entry)."""
     out, name = {}, None
-    serialized = set(re.findall(r"wgmma\.mma_async instructions are serialized .* for the "
-                                r"function '(\w+)'", log))
+    serialized = set(re.findall(r"wgmma\.mma_async instructions are serialized .* (?:for|in) "
+                                r"the function '(\w+)'", log))
     ignored = set(re.findall(r"setmaxnreg ignored[^\n]*?'(\w+)'", log))
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -746,6 +746,9 @@ def kernel_label(mangled: str) -> str:
         dtype = "f32" if n.group(2) == "f" else "bf16"
         name = (f"ln_rows<{dtype}, V{n.group(3)}, C{n.group(4)}>" if n.group(3)
                 else f"ln_stream<{dtype}>")
+    s = re.search(r"attention_sm90_persistentILi(\d+)ELi(\d)ELi(\d)ELi(\d)E", mangled)
+    if s:  # the persistent body: head dim, map rank, ring stages, blocks an SM
+        name = f"sm90_persistent<{s.group(1)}, {s.group(2)}, {s.group(3)} stages, {s.group(4)} blocks>"
     s = re.search(r"attention_sm90_wsILi(\d+)ELi(\d)ELb([01])E", mangled)
     if s:  # the two-consumer body: head dim, map rank, the staged form
         name = f"sm90_ws<{s.group(1)}, {s.group(2)}{', staged' if s.group(3) == '1' else ''}>"
@@ -1729,6 +1732,123 @@ def variants_kernel_entry(stages) -> dict:
                   for c in stages["cases"]],
         "clocks": stages["clocks"], "ex2_bf16x2": stages["ex2"], "seconds": stages["seconds"],
         "ptxas": list(PTXAS.get(VARIANTS_KERNEL, {}).items()),
+    }
+
+
+# The persistent bf16 Hopper body at d 64 and 128 (source cbas_tpu_torch/csrc/
+# attention_sm90_persistent.cuh, its entry csrc/attention_persistent.cu), a
+# timing case no route calls: it measured slower than the one-warpgroup body
+# K1-K3 run (PERF.md §6, PR 24). Its own path is its phase, run with its
+# entry's count set to 0 before it and read after it: at the main paths' four
+# shapes, on the inputs the kernel phase timed K1 and K3 on there (views of
+# one fused projection, the model's tables), against the plain version and,
+# bit for bit, against K1's or K3's wrapper; only the persistent body is
+# timed here, the route's, the plain version's, SDPA's and the floor's times
+# are the kernel phase's on the same inputs.
+PERSISTENT_KERNEL = "attention_persistent"
+PERSISTENT_SOURCE = "cbas_tpu_torch/csrc/attention_sm90_persistent.cuh"
+PERSISTENT_REPLACES = "cbas_tpu/ops/flash_attention.py:728"
+PERSISTENT_SITES = ("cbas_tpu/ops/flash_attention.py:728", "cbas_tpu/ops/flash_attention.py:522",
+                    "cbas_tpu/ops/flash_attention.py:393")
+PERSISTENT_SHAPES = (("attention_fat", BATCH_256, 261, 12, 64, (16, 16)),
+                     ("attention_fat", BATCH_480, 1205, 12, 64, (30, 40)),
+                     ("attention_headmajor", BATCH_7B_256, 261, 32, 128, (16, 16)),
+                     ("attention_headmajor", BATCH_7B_480, 1205, 32, 128, (30, 40)))
+# The numbers a persistent case takes from the kernel phase's case of its
+# route at the same shape and inputs: {the persistent case's key: the
+# kernel case's}.
+PERSISTENT_FROM_ROUTE = {"one_warpgroup_ms": "ms", "one_warpgroup_ms_norope": "ms_norope",
+                         "plain_ms": "plain_ms", "floor_ms": "floor_ms",
+                         "library_ms": "library_ms", "library": "library"}
+
+
+def persistent_case(torch, fa, ap, cfg, kernel, B, N, H, d, grid, route_case) -> dict:
+    """The persistent body at one shape, on kernel_case's inputs there (views
+    of one fused (B, N, 3*H*d) projection, the model's RoPE tables): against
+    the plain version (KERNEL_BF16 tolerance) and bit for bit against the
+    route's wrapper, one launch of the entry counted, timed with RoPE and
+    without; ``route_case``, the kernel phase's case of that wrapper on the
+    same inputs, gives the times beside it (PERSISTENT_FROM_ROUTE)."""
+    layout = {"attention_fat": "fat", "attention_headmajor": "headmajor"}[kernel]
+    wrapper, plain = {
+        "attention_fat": (fa.fused_attention_fat, fa.attention_fat_reference),
+        "attention_headmajor": (fa.fused_attention, fa.attention_headmajor_reference)}[kernel]
+    rng = np.random.default_rng(SEED)  # kernel_case's inputs
+    qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * d), np.float32)).to(
+        "cuda", torch.bfloat16)
+    q, k, v = (qkv[..., j * H * d:(j + 1) * H * d] for j in range(3))
+    if layout == "headmajor":
+        q, k, v = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
+    cos, sin = head_tables(torch, cfg, d, grid, N)
+    scale = d ** -0.5
+
+    def run(tables=(cos, sin)):
+        return ap.persistent_attention(q, k, v, scale, None, *tables, layout=layout)
+
+    before = ap.launches
+    got = run()
+    launched, blocks = ap.launches - before, ap.last_blocks
+    route = wrapper(q, k, v, scale, None, cos, sin)
+    want = plain(q, k, v, scale, None, cos, sin)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    vmax = float(v.float().abs().max())
+    tol = dtype_ulp(torch, want.float()) + KERNEL_BF16_VREL * vmax + KERNEL_BF16_FLOOR
+    out = {"phase": "persistent", "name": kernel, "layout": layout, "shape": [B, N, H, d],
+           "inputs": "views of one fused (B, N, 3*H*d) projection", "rope": True,
+           "max_abs_err": float(err.max()),
+           "tol": f"1 bf16 ulp + 2^-8 max|v| ({KERNEL_BF16_VREL * vmax:.3g}) + {KERNEL_BF16_FLOOR}",
+           "bit_equal_one_warpgroup": bool(torch.equal(got, route)),
+           "finite": bool(torch.isfinite(got).all()), "blocks": blocks, "launches": launched}
+    out["ok"] = out["finite"] and bool((err <= tol).all()) and out["bit_equal_one_warpgroup"] \
+        and launched == 1
+    out["ms"] = time_ms(torch, run)
+    out["ms_norope"] = time_ms(torch, lambda: run((None, None)))
+    out.update({key: route_case[theirs] for key, theirs in PERSISTENT_FROM_ROUTE.items()})
+    out.update(attention_bound(B, N, H, d, N, True))
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["clocks"] = gpu_clocks()
+    return out
+
+
+def persistent_phase(torch, fa, cfg, main_cases) -> dict:
+    """The persistent body at PERSISTENT_SHAPES (its own path: its entry's
+    count set to 0 before, read after), each beside ``main_cases``' fused
+    case of its route at that shape (:func:`kernel_phase`); raises if a case
+    disagrees."""
+    from cbas_tpu_torch.ops import attention_persistent as ap
+
+    t = time.perf_counter()
+    ap.launches = 0
+    cases = []
+    for kernel, B, N, H, d, grid in PERSISTENT_SHAPES:
+        route_case, = (c for c in main_cases[f"{kernel}_fused"]
+                       if (c["B"], c["N"], c["H"], c["head_dim"]) == (B, N, H, d))
+        cases.append(persistent_case(torch, fa, ap, cfg, kernel, B, N, H, d, grid, route_case))
+        emit(cases[-1])
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"the persistent body disagrees: {bad}")
+    return {"cases": cases, "launches": ap.launches, "seconds": time.perf_counter() - t}
+
+
+def persistent_kernel_entry(persistent) -> dict:
+    """The ``kernels`` line's entry for the persistent body: its launches
+    over its phase, the headline case (K1 at 256x256, batch 128, with RoPE)
+    and every case's numbers."""
+    head = persistent["cases"][0]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "ms_norope", "one_warpgroup_ms", "one_warpgroup_ms_norope", "floor_ms",
+            "share_of_bound", "bit_equal_one_warpgroup", "blocks")
+    return {
+        "name": "attention_sm90_persistent", "route": "cuda", "source": PERSISTENT_SOURCE,
+        "replaces": PERSISTENT_REPLACES, "sites": list(PERSISTENT_SITES),
+        "launches": persistent["launches"], "routed": False,
+        "shape": head["shape"], "rope": True, **{key: head[key] for key in keys},
+        "cases": [{key: c[key] for key in keys + ("shape", "name", "clocks")}
+                  for c in persistent["cases"]],
+        "ptxas": list(PTXAS.get(PERSISTENT_KERNEL, {}).items()),
+        "seconds": persistent["seconds"],
     }
 
 
@@ -3355,6 +3475,7 @@ def main() -> int:
     cfg = PRESETS[ENCODER]
     floor = floor_phase(torch)
     main_cases = kernel_phase(torch, fa, cfg)
+    persistent = persistent_phase(torch, fa, cfg, main_cases)  # its own path: its entry's count set to 0 before
     tf32 = tf32_phase(torch, fa, cfg)  # its own path: the prologue's counts set to 0 before
     stages = stage_phase(torch, cfg)  # its own path: the variants' counts set to 0 before
     batched = batched_phase(torch, cfg)  # its own path: the two kernels' counts set to 0 before
@@ -3582,7 +3703,8 @@ def main() -> int:
         "launches_mesh": mesh_launches[name],
         "launches_tools": {run: launches[name] for run, launches in tools_line["launches"].items()},
     } for name, replaces in KERNELS.items()]
-        + [ws_kernel_entry(tools_line, wide_runs, wide_cases),
+        + [persistent_kernel_entry(persistent),
+           ws_kernel_entry(tools_line, wide_runs, wide_cases),
            wide_kernel_entry(tools_line, wide_runs, wide_cases),
            staging_kernel_entry(tools_line, wide_runs, wide_cases),
            ln_kernel_entry(ln_cases, route_launches, fp32_runs, mesh_launches, tools_line,
@@ -4885,13 +5007,21 @@ def shell_phase(card, device="cuda") -> dict:
                 from None
         line["exit_s"] = time.perf_counter() - t
         reader.join(timeout=SHELL_EXIT_S)
-        try:
-            os.killpg(proc.pid, 0)
-        except ProcessLookupError:
-            pass
-        else:
-            os.killpg(proc.pid, signal.SIGKILL)
-            raise AssertionError("shell: a process of the backend's group outlived it")
+        # The group's other processes end after the leader and are reaped by
+        # their own parents: wait for the group to empty, not one probe right
+        # after the leader's exit, within SHELL_EXIT_S of the SIGTERM.
+        while True:
+            try:
+                os.killpg(proc.pid, 0)
+            except ProcessLookupError:
+                break
+            if time.perf_counter() - t > SHELL_EXIT_S:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                raise AssertionError(f"shell: a process of the backend's group outlived "
+                                     f"SIGTERM by {SHELL_EXIT_S} s")
+            time.sleep(0.05)
+        line["group_exit_s"] = time.perf_counter() - t
     if line["returncode"] not in (0, -signal.SIGTERM):
         raise AssertionError(f"shell: the backend exited {line['returncode']} on SIGTERM")
     line["card"] = card
@@ -5460,23 +5590,50 @@ def fleet_step(device="cuda", encoder_dir=None, dtype="bfloat16") -> dict:
                     f"{None if by_row is None else np.flatnonzero(by_row)[:20].tolist()}, "
                     f"by up to {None if by_row is None else float(by_row.max())}, "
                     f"{FLEET_THREADS} intra-op threads each side, in-process settings "
-                    f"{pinned}, fleet lines {lines}")
+                    f"{pinned}, the workers' oneDNN {onednn_kernels(proc.stdout)}, "
+                    f"fleet lines {lines}")
             max_diff = max(max_diff, float(np.abs(rows.astype(np.float32) - fleet_rows).max()))
     return {"clips": FLEET_CLIPS, "frames": FLEET_FRAMES, "workers": 1, "device": device,
             "dtype": dtype, "wall_s": fleet_s, "summary": lines[-1],
             "max_abs_diff_vs_in_process": max_diff, "in_process": pinned, "ok": True}
 
 
+# oneDNN's verbose level in the fleet's workers: a line on their standard
+# output for each primitive they create (one write a line, so the lines and
+# the fleet's JSON records do not cut each other), naming the CPU ISA and each
+# matmul's implementation (onednn_kernels).
+FLEET_ONEDNN_VERBOSE = "profile_create"
+
+
 def fleet_env(root) -> dict:
     """The environment of ``encode_fleet``'s workers: this process's without
     PYTHONPATH, the repository at ``root`` on it, FLEET_THREADS intra-op
     threads for OpenMP and MKL and both libraries' dynamic teams off, so no
-    worker picks a smaller team (and another summation order) under load."""
+    worker picks a smaller team (and another summation order) under load;
+    and oneDNN's verbose lines on (FLEET_ONEDNN_VERBOSE), so a run that
+    differs from an in-process encode can say which kernels the workers
+    ran."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = root
     env.update(OMP_NUM_THREADS=str(FLEET_THREADS), MKL_NUM_THREADS=str(FLEET_THREADS),
-               MKL_DYNAMIC="FALSE", OMP_DYNAMIC="FALSE")
+               MKL_DYNAMIC="FALSE", OMP_DYNAMIC="FALSE", ONEDNN_VERBOSE=FLEET_ONEDNN_VERBOSE)
     return env
+
+
+def onednn_kernels(text: str) -> dict:
+    """What oneDNN's verbose lines in ``text`` name: the CPU ISA it
+    dispatches to ("isa") and each matmul implementation it created
+    ("matmul": AMX and AVX-512 kernels round bf16 products differently)."""
+    isa, matmul = set(), set()
+    for line in text.splitlines():
+        if not line.startswith("onednn_verbose"):
+            continue
+        fields = line.split(",")
+        if "isa:" in line:
+            isa.add(line.split("isa:", 1)[1])
+        elif "primitive" in fields and "matmul" in fields[:-1]:
+            matmul.add(fields[fields.index("matmul") + 1])
+    return {"isa": sorted(isa), "matmul": sorted(matmul)}
 
 
 def _omp_dynamic():

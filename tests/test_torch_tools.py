@@ -256,12 +256,14 @@ def test_claim_heartbeat_keeps_live_lease_from_aging_out(tmp_path):
 def _fleet(root, *args):
     """encode_fleet over the project at ``root``, its workers in the fleet
     step's environment (``chip_smoke.fleet_env``: FLEET_THREADS intra-op
-    threads, MKL's and OpenMP's dynamic teams off)."""
+    threads, MKL's and OpenMP's dynamic teams off, oneDNN's verbose lines
+    on); the fleet's JSON records apart from those lines."""
     proc = subprocess.run(
         [sys.executable, "-m", "cbas_tpu_torch.tools.encode_fleet", "--project", root, *args],
         capture_output=True, text=True, timeout=600, env=chip_smoke.fleet_env(ROOT),
     )
-    return proc, [json.loads(line) for line in proc.stdout.strip().splitlines()]
+    return proc, [json.loads(line) for line in proc.stdout.strip().splitlines()
+                  if not line.startswith("onednn_verbose")]
 
 
 def _onednn_matmul(tmp_path):
@@ -343,6 +345,7 @@ def test_two_cpu_workers_drain_the_demo_project(tmp_path):
                                 f"{rows[:20].tolist()} by up to {by_row[rows[:20]].tolist()} "
                                 f"(largest |value| {float(np.abs(want).max())}); this "
                                 f"process's bf16 matmul kernel {_onednn_matmul(tmp_path)}; "
+                                f"the workers' oneDNN {chip_smoke.onednn_kernels(proc.stdout)}; "
                                 f"its settings {pinned}; fleet lines {lines}")
                 assert b.attrs["encoder_model_identifier"] == a.attrs["encoder_model_identifier"]
 
@@ -354,6 +357,24 @@ def test_two_cpu_workers_drain_the_demo_project(tmp_path):
     assert sum(w["classified"] for w in lines if "worker_done" in w) == 8
     assert [f for _, _, fs in os.walk(root) for f in fs
             if f.endswith((".claim", ".csv.tmp")) or f.startswith(".encode_fleet_")] == []
+
+
+def test_fleet_workers_report_their_onednn_kernels():
+    """The fleet's workers run with oneDNN's verbose lines on
+    (``chip_smoke.fleet_env``), and ``chip_smoke.onednn_kernels`` reads the
+    ISA and the matmul implementations from them: here from a process
+    started in that environment, whose own bf16 matmul it names."""
+    env = chip_smoke.fleet_env(ROOT)
+    assert env["ONEDNN_VERBOSE"] == chip_smoke.FLEET_ONEDNN_VERBOSE
+    proc = subprocess.run(
+        [sys.executable, "-c", "import torch; a = torch.ones(64, 64, dtype=torch.bfloat16); "
+                               "a @ a; print('{}')"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = chip_smoke.onednn_kernels(proc.stdout)
+    assert got["isa"] and got["matmul"], proc.stdout[-2000:]
+    assert [x for x in proc.stdout.splitlines() if not x.startswith("onednn_verbose")] == ["{}"]
+    assert chip_smoke.onednn_kernels("{}\nnoise") == {"isa": [], "matmul": []}
 
 
 def test_fleet_threads_pins_this_process_and_restores_it():

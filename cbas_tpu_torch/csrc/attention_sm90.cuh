@@ -33,11 +33,11 @@
 //   accumulator layout of q.k^T is the A layout of p.V); V is read through
 //   a transposed (MN-major) descriptor. The online softmax runs on the
 //   accumulator fragments. A 128-wide head is two 64-column swizzle atoms,
-//   each its own TMA box and its own n = 64 product. (Issuing the next
-//   tile's q.k^T before this tile's softmax, as FA3 does, or right after
-//   this tile's p.V, was measured slower here: the live score registers
-//   cost blocks an SM or spilled, and ptxas serialized the wgmmas; the
-//   variant kPipe below keeps the first form as a timing case.)
+//   each its own TMA box and its own n = 64 product. (FA3's in-warpgroup
+//   overlap, the next tile's q.k^T and this tile's p.V in flight under the
+//   next tile's softmax, is the variant kPipe below, with a register budget
+//   and a ring of its own (Launch); at variant 0's blocks an SM its first
+//   form spilled and had its wgmmas serialized.)
 // - RoPE once per (token, head, image). The query block ropes and scales its
 //   own Q rows as it stages them (each is read by one block only); K, which
 //   every query block of a head reads, is roped by a prologue kernel
@@ -115,7 +115,11 @@
 // pipe_kernel) and probe4.py (vext_kernel), as timing cases of this loop: the
 // producer, the ring and the stores are the same in every variant, and each
 // drops or changes one stage of the consumer (Variant). They are built at
-// d = 64 and 128 only, and no encode route calls them.
+// d = 64 and 128 only, and no encode route calls them. The pipe loop
+// (kPipe) reorders the consumer as FA3 does and so has a ring and register
+// budget of its own (Launch); bit for bit variant 0, it ran 1.18-1.68x its
+// time at the main shapes, at every budget that built without spills
+// (PERF.md), so K1-K3 keep variant 0's loop.
 
 #pragma once
 
@@ -203,8 +207,8 @@ enum Variant : int {
   kQk = 2,           // probe2 qk_kernel: RoPE and q.k^T of every tile; o = bf16 of the
                      // scores of keys 0 .. HD-1 (key tile a into O's atom a)
   kNoSoftmax = 3,    // probe2 nosm_kernel: o = bf16(bf16(s) . V); no mask, max, exp or sum
-  kPipe = 4,         // probe2 pipe_kernel: kFull with tile t+1's q.k^T issued before
-                     // tile t's softmax; bit for bit kFull
+  kPipe = 4,         // probe2 pipe_kernel: kFull with tile t+1's q.k^T and tile t's
+                     // p.V in flight under tile t+1's softmax; bit for bit kFull
   kVext = 5,         // probe4 vext_kernel: row sums from p.[V | 1] on the tensor cores
   kVextBf16Exp = 6,  // the same with p = bf16(2^bf16(x)), two exponentials a MUFU op
 };
@@ -213,6 +217,44 @@ enum Variant : int {
 // kVextBf16Exp: every element is 1, so its layout does not matter, and each
 // 16-key step reads the same 16 x 8 block of it.
 constexpr uint32_t kOnesBytes = 1024;
+
+// How a variant's build is launched: its ring's stages, the blocks an SM
+// its registers are capped for (__launch_bounds__) and its dynamic shared
+// memory; every build runs a consumer warpgroup and a producer warp
+// (Config::kThreads). Every variant but the pipe loop's takes Config's. An
+// SM's registers lie in 4 sub-partitions of 16384, each holding a quarter
+// of the resident warps, rounded up: at 5 warps a block, 4 blocks an SM
+// cap a thread at 96 registers, 3 at 128, 2 at 168, 1 at 255. The pipe
+// loop (kPipe) holds, while tile t + 1's softmax runs, O, the score set and
+// two P sets, one read by p.V(t) (32 + 32 + 2 x 16 registers at d = 64,
+// 64 + 32 + 2 x 16 at 128), and ptxas builds it without spills or
+// serialized wgmmas only at 2 blocks an SM at 64 (141 registers) and 1 at
+// 128 (178; at 3 and 2 it spilled and serialized them, C7512; blocks
+// of 4 warps whose thread 0 loads built clean at 3 and 2 but ran slower,
+// and a producer warpgroup giving its registers away by setmaxnreg left
+// ptxas at 128 a thread, PERF.md). Its producer issues V(t) as soon as V(t - 2)'s
+// stage is free: the loop waits on V(t) right after issuing q.k^T(t + 1),
+// before tile t + 1's softmax could hide V(t)'s load, so a ring of 4 stages
+// holds K and V twice over (load i at stage i % 4); on 2 stages it ran
+// 9-35% slower (PERF.md).
+template <int HD, int kVariant>
+struct Launch {
+  using C = Config<HD>;
+  static constexpr bool kPipeLoop = kVariant == kPipe;
+  static constexpr int kSlots = kPipeLoop ? 4 : C::kSlots;
+  static constexpr int kMinBlocks = !kPipeLoop ? C::kMinBlocks : HD == 64 ? 2 : 1;
+  static constexpr size_t kSmemBytes =
+      1024 + C::kQBytes + kSlots * C::kTileBytes + (2 * kSlots + 1) * 8 +
+      (kVariant == kVext || kVariant == kVextBf16Exp ? kOnesBytes : 0);
+  static_assert(kSmemBytes * kMinBlocks <= 232448, "the blocks an SM fit its shared memory");
+};
+
+// Which key tiles the consumer's softmax masks (by select, keys at or beyond
+// n_valid): the tile that reaches past n_valid, known at run time (the loop
+// of variant 0), or, where the loop knows the last tile when it is
+// compiled (the pipe loop's peeled last step), every tile it is given or
+// none.
+enum Mask : int { kMaskLast, kMaskAlways, kMaskNever };
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -562,7 +604,7 @@ __device__ __forceinline__ void store_rows(const unsigned char* tile, const Plai
 // V's last 32 columns' map and O always goes through `out`, 16 bytes a store
 // where its rows allow; at the other builds it is O's map.
 template <int HD, int kRank, int kVariant = kFull, bool kStagedOut = false>
-__global__ void __launch_bounds__(Config<HD>::kThreads, Config<HD>::kMinBlocks)
+__global__ void __launch_bounds__(Config<HD>::kThreads, Launch<HD, kVariant>::kMinBlocks)
 attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
                const __grid_constant__ CUtensorMap o_or_vhalf_map,
@@ -573,6 +615,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   static_assert(kVariant == kFull || !C::kHalf, "the variants are built at 64 and 128");
   constexpr int kKSteps = HD / 16;
   constexpr bool kRowSumProduct = kVariant == kVext || kVariant == kVextBf16Exp;
+  constexpr int kSlots = Launch<HD, kVariant>::kSlots;
 
   unsigned char* raw = dynamic_smem();
   const uint32_t raw_addr = smem_u32(raw);
@@ -583,12 +626,12 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   const uint32_t ring = q_tile + C::kQBytes;
   // The row-sum variants' ones tile, then the full barriers of the stages,
   // their empty barriers, then Q's.
-  const uint32_t ones = ring + C::kSlots * C::kTileBytes;
+  const uint32_t ones = ring + kSlots * C::kTileBytes;
   const uint32_t bars = ones + (kRowSumProduct ? kOnesBytes : 0);
-  auto full = [&](int i) { return bars + 8u * (i % C::kSlots); };
-  auto empty = [&](int i) { return bars + 8u * (C::kSlots + i % C::kSlots); };
-  auto stage = [&](int i) { return ring + (i % C::kSlots) * C::kTileBytes; };
-  const uint32_t q_full = bars + 8u * 2 * C::kSlots;
+  auto full = [&](int i) { return bars + 8u * (i % kSlots); };
+  auto empty = [&](int i) { return bars + 8u * (kSlots + i % kSlots); };
+  auto stage = [&](int i) { return ring + (i % kSlots) * C::kTileBytes; };
+  const uint32_t q_full = bars + 8u * 2 * kSlots;
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -596,7 +639,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   const int n_tiles = (n_valid + kBlockN - 1) / kBlockN;  // tiles past n_valid add zeros
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < C::kSlots; ++s) {
+    for (int s = 0; s < kSlots; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), kWGThreads / 32);  // one arrival a consumer warp
     }
@@ -616,7 +659,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       for (int i = 0; i < 2 * n_tiles; ++i) {
         const int row = (i / 2) * kBlockN;
         const CUtensorMap* map = i % 2 ? &v_map : &k_map;
-        mbar_wait(empty(i), ((i / C::kSlots) & 1) ^ 1);  // round 0 passes at once
+        mbar_wait(empty(i), ((i / kSlots) & 1) ^ 1);  // round 0 passes at once
         if constexpr (C::kHalf) {
           if (i % 2) {  // V: its whole atoms, then its last 32 columns (Tiles)
             mbar_expect_tx(full(i), C::kVBytes);
@@ -644,7 +687,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   const int g = lane / 4;
   const int t = lane % 4;
 
-  auto wait_full = [&](int i) { mbar_wait(full(i), (i / C::kSlots) & 1); };
+  auto wait_full = [&](int i) { mbar_wait(full(i), (i / kSlots) & 1); };
   // Each consumer warp releases a stage once its share of the wgmma that read
   // it has completed.
   auto release = [&](int i) {
@@ -791,29 +834,31 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
     wgmma_commit();
   };
 
-  // The online softmax of tile kt's scores sc, over rows g (e = 0, 1) and
+  // The online softmax of tile kt's scores s, over rows g (e = 0, 1) and
   // g + 8 (e = 2, 3); a row's 64 scores are spread over the 4 lanes t = 0..3
   // of one quad. exp(x - max) as 2^(x log2 e - max log2 e): one FFMA and one
   // MUFU an element. Updates m and l, writes P (rounded to bf16) as the A
   // fragments of p.V into p, and the factor O must be rescaled by into alpha.
   // The row-sum variants keep no l (p.1 sums P); kVextBf16Exp rounds each
   // x to bf16 and takes 2^x of a pair in one bf16x2 MUFU op, whose result is
-  // P's A fragment as it stands.
-  auto softmax = [&](int kt, uint32_t (&p)[4][4], float (&alpha)[2]) {
-    // Only the last tile can hold dead keys: mask them by select. Their p is
-    // then exactly 0 (every row has a live key, so its max is finite).
+  // P's A fragment as it stands. Only the last tile can hold dead keys:
+  // `mask` (Mask) says whether they are masked (by select: their p is then
+  // exactly 0, since every row has a live key and so a finite max) where the
+  // tile reaches past n_valid (kMaskLast), always, or never.
+  auto softmax = [&](float (&s)[32], int kt, uint32_t (&p)[4][4], float (&alpha)[2], auto mask) {
+    constexpr int kMask = decltype(mask)::value;
     const int k0 = kt * kBlockN;
-    if (k0 + kBlockN > n_valid) {
+    if (kMask == kMaskAlways || (kMask == kMaskLast && k0 + kBlockN > n_valid)) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * j + 2 * t + (e & 1) >= n_valid) sc[4 * j + e] = kMasked;
+          if (k0 + 8 * j + 2 * t + (e & 1) >= n_valid) s[4 * j + e] = kMasked;
     }
     float mxl[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = fmaxf(m[r], row_reduce<true>(sc, r));
+      float mx = fmaxf(m[r], row_reduce<true>(s, r));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       alpha[r] = ex2((m[r] - mx) * kLog2e);  // 0 on the first tile (m = -inf)
@@ -828,15 +873,15 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          p[kk][i] = ex2_bf16x2(pack_bf16(fmaf(sc[8 * kk + 2 * i], kLog2e, -mxl[i % 2]),
-                                          fmaf(sc[8 * kk + 2 * i + 1], kLog2e, -mxl[i % 2])));
+          p[kk][i] = ex2_bf16x2(pack_bf16(fmaf(s[8 * kk + 2 * i], kLog2e, -mxl[i % 2]),
+                                          fmaf(s[8 * kk + 2 * i + 1], kLog2e, -mxl[i % 2])));
     } else {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = ex2(fmaf(sc[i], kLog2e, -mxl[(i % 4) / 2]));
+      for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], kLog2e, -mxl[(i % 4) / 2]));
       if constexpr (!kRowSumProduct) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          float rs = row_reduce<false>(sc, r);
+          float rs = row_reduce<false>(s, r);
           rs += __shfl_xor_sync(0xffffffffu, rs, 1);
           rs += __shfl_xor_sync(0xffffffffu, rs, 2);
           l[r] = l[r] * alpha[r] + rs;
@@ -846,9 +891,10 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          p[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+          p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
     }
   };
+  const std::integral_constant<int, kMaskLast> mask_last{};
 
   // Once the running max settles, alpha is exactly 1 and the rescale is
   // skipped (a warp-uniform branch; a product by 1 changes nothing).
@@ -905,32 +951,70 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
       release(2 * kt + 1);
     }
-  } else if constexpr (kVariant == kPipe) {
-    // Tile kt + 1's q.k^T runs (into sn) during tile kt's softmax. The ring
-    // still loads K(0), V(0), K(1), ...: K(kt + 1), load 2 kt + 2, reuses
-    // the slot of K(kt), which is released before it is waited on, and the
-    // producer has issued V(kt) before it (V(kt - 1) was released), so the
-    // consumer's order K(kt + 1), V(kt) never waits on a load not issued.
-    float sn[32];
+  } else if constexpr (Launch<HD, kVariant>::kPipeLoop) {
+    // FA3's in-warpgroup overlap. A step takes tile kt's P and does, in
+    // this order: issue q.k^T(kt + 1) into the score set; issue p.V(kt);
+    // wait until at most one wgmma group runs (q.k^T(kt + 1) has landed,
+    // p.V(kt) may still run); tile kt + 1's mask and softmax into the other
+    // P set, while p.V(kt) runs on the tensor cores; wait for p.V(kt); O *=
+    // alpha(kt + 1). So O still sees O *= alpha(kt), O += P(kt) V(kt), O *=
+    // alpha(kt + 1), ..., and m and l the same updates in the same order as
+    // in variant 0: bit for bit its result. O is not touched between p.V's
+    // issue and its wait, nor the P set it reads. One score set serves: tile
+    // kt's softmax has read it before q.k^T(kt + 1) is issued. The loop is
+    // unrolled by two, so the P sets swap by name; the last step, whose
+    // softmax masks the last tile, is peeled. (One P set, P(kt + 1) kept in
+    // the score set as fp32 and rounded after p.V(kt)'s wait, took 2 more
+    // registers and ran 1-4% slower, PERF.md.) The ring loads K(0), V(0),
+    // K(1), ...; a step waits on K(kt + 1) (load 2 kt + 2), then V(kt) (load
+    // 2 kt + 1), and the producer has issued both: the stages they reuse,
+    // K(kt - 1)'s and V(kt - 2)'s, were released in earlier steps (Launch).
+    uint32_t p2[4][4];
+    const std::integral_constant<int, kMaskNever> unmasked{};
+    const std::integral_constant<int, kMaskAlways> masked{};
+    auto step = [&](uint32_t (&p_cur)[4][4], uint32_t (&p_next)[4][4], int kt, auto mask) {
+      issue_qk(sc, kt + 1);
+      issue_pv(p_cur, kt);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      release(2 * kt + 2);
+      softmax(sc, kt + 1, p_next, alpha, mask);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+      release(2 * kt + 1);
+      rescale(alpha);
+    };
+    auto last = [&](uint32_t (&p_cur)[4][4], int kt) {
+      issue_pv(p_cur, kt);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
+      release(2 * kt + 1);
+    };
     issue_qk(sc, 0);
     wgmma_wait<0>();
     fence_regs(sc);
     release(0);
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const bool next = kt + 1 < n_tiles;
-      if (next) issue_qk(sn, kt + 1);
-      softmax(kt, p, alpha);
+    if (n_tiles == 1) {
+      softmax(sc, 0, p, alpha, masked);
       rescale(alpha);
-      issue_pv(p, kt);
-      wgmma_wait<0>();
-      fence_regs(sn);
-#pragma unroll
-      for (int a = 0; a < C::kAtoms; ++a) fence_regs(acc[a]);
-      release(2 * kt + 1);
-      if (next) {
-        release(2 * kt + 2);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) sc[i] = sn[i];
+      last(p, 0);
+    } else {
+      softmax(sc, 0, p, alpha, unmasked);
+      rescale(alpha);
+      int kt = 0;
+      for (; kt + 3 < n_tiles; kt += 2) {
+        step(p, p2, kt, unmasked);
+        step(p2, p, kt + 1, unmasked);
+      }
+      if (kt + 2 < n_tiles) {  // three tiles left: an odd count
+        step(p, p2, kt, unmasked);
+        step(p2, p, kt + 1, masked);
+        last(p, kt + 2);
+      } else {
+        step(p, p2, kt, masked);
+        last(p2, kt + 1);
       }
     }
   } else if constexpr (kVariant != kDma) {
@@ -941,7 +1025,7 @@ attention_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       wgmma_wait<0>();
       fence_regs(sc);
       release(2 * kt);
-      softmax(kt, p, alpha);
+      softmax(sc, kt, p, alpha, mask_last);
       rescale(alpha);
       issue_pv(p, kt);
       wgmma_wait<0>();
@@ -1296,7 +1380,7 @@ template <int HD, int kVariant = kFull>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* cos_t,
                    const void* sin_t, void* q_scratch, void* k_scratch, int B, int N, int H, int d,
                    const Layout& L, const Layout& Lo, int n_valid, float scale, void* stream) {
-  using C = Config<HD>;
+  using T = Launch<HD, kVariant>;
   if (kVariant != kFull && d != HD) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   Prepared p;
@@ -1305,14 +1389,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
   if (err != cudaSuccess) return err;
   const auto kernel = p.order.rank == 5 ? attention_sm90<HD, 5, kVariant>
                                         : attention_sm90<HD, 4, kVariant>;
-  constexpr size_t smem =
-      C::kSmemBytes + (kVariant == kVext || kVariant == kVextBf16Exp ? kOnesBytes : 0);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+                             static_cast<int>(T::kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kWGRows - 1) / kWGRows, H, B);
-  kernel<<<grid, C::kThreads, smem, st>>>(p.q_map, p.k_map, p.v_map, p.o_or_vhalf_map, p.cos_t,
-                                          p.sin_t, N, n_valid, p.scale, p.order, p.out);
+  kernel<<<grid, Config<HD>::kThreads, T::kSmemBytes, st>>>(
+      p.q_map, p.k_map, p.v_map, p.o_or_vhalf_map, p.cos_t, p.sin_t, N, n_valid, p.scale, p.order,
+      p.out);
   return cudaGetLastError();
 }
 

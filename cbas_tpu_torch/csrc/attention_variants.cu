@@ -9,16 +9,23 @@
 //   dma_kernel (:63, loads and stores only) as kDma, qk_kernel (:67, RoPE and
 //   q.k^T) as kQk, nosm_kernel (:95, q.k^T then p = bf16(s) then p.V) as
 //   kNoSoftmax, pipe_kernel (:126, the full function with the next pair's
-//   q.k^T issued before this pair's softmax) as kPipe;
+//   q.k^T issued before this pair's softmax) as kPipe, redesigned for Hopper
+//   as FA3's in-warpgroup overlap (q.k^T(t + 1) and p.V(t) in flight under
+//   tile t + 1's softmax, a 4-stage ring, its own register budget: 2 blocks
+//   an SM at d 64, 1 at 128, where ptxas builds it without spills);
 // - probe4.py:46 (make_variant) with vext_kernel (:64): V extended by a
 //   ones column so that p.V also gives the row sums, as kVext, and with its
 //   bf16 exponential (bf16exp=True) as kVextBf16Exp.
 // On the TPU a variant was a kernel of its own; here each is a compile-time
-// branch of the one-warpgroup Hopper body, so the producer warp, the TMA
-// ring, the tensor maps and the store are the same in all and the difference
-// of two variants' times is the cost of the stage one has and the other
-// lacks. They time that body's loop, the one K1-K3 run, and not the
-// persistent body's (attention_sm90_persistent.cuh, a timing case).
+// branch of the one-warpgroup Hopper body, so the producer warp, the tensor
+// maps and the store are the same in all and the difference of two
+// variants' times is the cost of the stage one has and the other lacks
+// (the pipe loop's ring and blocks an SM are its own: attention_sm90.cuh's
+// Launch, which cbas_attention_variant_launch reports). They time that
+// body's loop, the one K1-K3 run, and not the persistent body's
+// (attention_sm90_persistent.cuh, a timing case). The pipe loop ran at
+// 1.18-1.30x variant 0's time at the main shapes at d 64 and 1.43-1.68x at
+// 128 (PERF.md), so no route takes it.
 //
 // What bounds it on this card: what bounds K1-K3 (attention_sm90.cuh): the
 // latency of one warpgroup's chain of wgmma, softmax and wgmma a key tile.
@@ -61,6 +68,45 @@ cudaError_t run(int variant, const void* q, const void* k, const void* v, void* 
 #undef CBAS_VARIANT
 }
 
+// Variant V's build at HD as it is launched (Launch): its threads, its
+// ring's stages, the blocks an SM its registers are capped for, its dynamic
+// shared memory and the blocks of its rank-4 kernel the card keeps resident
+// on an SM.
+template <int HD, int V>
+cudaError_t traits(int* threads, int* stages, int* min_blocks, int* smem_bytes, int* resident) {
+  using namespace cbas_attention::sm90;
+  using T = Launch<HD, V>;
+  *threads = Config<HD>::kThreads, *stages = T::kSlots, *min_blocks = T::kMinBlocks;
+  *smem_bytes = static_cast<int>(T::kSmemBytes);
+  const auto kernel = attention_sm90<HD, 4, V>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         *smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel, Config<HD>::kThreads,
+                                                       T::kSmemBytes);
+}
+
+template <int HD>
+cudaError_t traits_at(int variant, int* threads, int* stages, int* min_blocks, int* smem_bytes,
+                      int* resident) {
+  using namespace cbas_attention::sm90;
+#define CBAS_TRAITS(V) \
+  case V:              \
+    return traits<HD, V>(threads, stages, min_blocks, smem_bytes, resident);
+  switch (variant) {
+    CBAS_TRAITS(kFull)
+    CBAS_TRAITS(kDma)
+    CBAS_TRAITS(kQk)
+    CBAS_TRAITS(kNoSoftmax)
+    CBAS_TRAITS(kPipe)
+    CBAS_TRAITS(kVext)
+    CBAS_TRAITS(kVextBf16Exp)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef CBAS_TRAITS
+}
+
 // out[i] = 2^y by ex2.approx.ftz.bf16x2 for the bf16 bit pattern y = i, every
 // pattern once (two a thread, as kVextBf16Exp takes them).
 __global__ void ex2_bf16x2_table(uint32_t* out) {
@@ -96,6 +142,22 @@ extern "C" int cbas_attention_ws_variant(const void* q, const void* k, const voi
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.order.rank != 4) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(sm90_ws::run_kernel<128, 4, false>(p, B, N, H, n_valid, st));
+}
+
+// C entry, bound with ctypes: how variant `variant` (0, kFull, K1-K3's own
+// loop, to 6) is built and launched at head_dim 64 or 128 (traits).
+// Returns the CUDA error code (cudaErrorInvalidValue for a variant not
+// built at that width).
+extern "C" int cbas_attention_variant_launch(int variant, int head_dim, int* threads,
+                                             int* stages, int* min_blocks, int* smem_bytes,
+                                             int* resident) {
+  if (head_dim == 64)
+    return static_cast<int>(
+        traits_at<64>(variant, threads, stages, min_blocks, smem_bytes, resident));
+  if (head_dim == 128)
+    return static_cast<int>(
+        traits_at<128>(variant, threads, stages, min_blocks, smem_bytes, resident));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // C entry, bound with ctypes: writes the 65536 bf16 results of

@@ -30,8 +30,12 @@ The functions, on each head of q, k and v (rounding points in
   masks nothing and reads every row; at ``n_valid = N`` the two agree.
 - ``nosm``: o = bf16(bf16(s) . V), V's rows at or past ``n_valid`` zero: no
   mask, max, exponential or row sum (the probe's, at ``n_valid = N``).
-- ``pipe``: the full function, as K1-K3 compute it (the next key tile's
-  q.k^T issued before this tile's softmax); bit for bit variant 0.
+- ``pipe``: the full function, as K1-K3 compute it, in FA3's order (the
+  next key tile's q.k^T and this tile's p.V in flight under the next tile's
+  softmax), on a ring and register budget of its own
+  (:func:`launch_config`); bit for bit variant 0. It ran 1.18-1.68x
+  variant 0's time at the main shapes (``PERF.md`` §6), so no route takes
+  it.
 - ``vext``: the full function with the row sums taken from the p.V product:
   o = (bf16(p) . V) / (bf16(p) . 1), fp32 sums, over 64-key tiles against a
   running max as the kernel takes them.
@@ -301,6 +305,49 @@ def _kernel():
         ctypes.c_int, ctypes.c_int,
     ]
     return fn
+
+
+# The threads (a consumer warpgroup and a producer warp), ring stages and
+# blocks an SM the Hopper body's build is compiled for (csrc/
+# attention_sm90.cuh's Config and Launch), by head dim: variant 0 ("full",
+# K1-K3's own loop) and every variant but the pipe loop's, then the pipe
+# loop's.
+BODY_LAUNCH = {64: {"threads": 160, "stages": 2, "min_blocks": 4},
+               128: {"threads": 160, "stages": 2, "min_blocks": 3}}
+PIPE_LAUNCH = {64: {"threads": 160, "stages": 4, "min_blocks": 2},
+               128: {"threads": 160, "stages": 4, "min_blocks": 1}}
+
+
+def launch_config(variant: str, head_dim: int) -> dict:
+    """How ``variant``'s build at ``head_dim`` (64 or 128) is launched, as
+    the wrapper expects it: {"threads", "stages", "min_blocks"}
+    (``"full"``: variant 0). :func:`library_launch_config` reads what the
+    built library says."""
+    if head_dim not in BODY_LAUNCH or variant not in ("full", *_VARIANT_CODES):
+        raise ValueError(f"no variant {variant!r} at head dim {head_dim}")
+    return dict((PIPE_LAUNCH if variant == "pipe" else BODY_LAUNCH)[head_dim])
+
+
+def library_launch_config(variant: str, head_dim: int) -> dict:
+    """What the built library reports for ``variant`` at ``head_dim``
+    (``"full"``: variant 0): {"threads", "stages", "min_blocks",
+    "smem_bytes", "resident_blocks"}, the last the blocks of its rank-4
+    kernel the card keeps on an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Needs the card;
+    raises where the library refuses."""
+    from cbas_tpu_torch.ops import _cuda
+
+    fn = _cuda.load("attention_variants").cbas_attention_variant_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 5
+    vals = [ctypes.c_int(-1) for _ in range(5)]
+    code = 0 if variant == "full" else _VARIANT_CODES[variant]
+    err = fn(code, head_dim, *(ctypes.byref(x) for x in vals))
+    if err:
+        raise RuntimeError(f"attention_variants reports no build of {variant} at {head_dim} "
+                           f"(CUDA error {err})")
+    return dict(zip(("threads", "stages", "min_blocks", "smem_bytes", "resident_blocks"),
+                    (x.value for x in vals)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -544,6 +544,8 @@ def fused_rows(torch, chip_smoke, cfg, wrappers, rng, reads, out, only=None) -> 
                 ap.persistent_attention(*views, d ** -0.5, None, *tables, layout=layout),
                 wrappers[kernel](*views, d ** -0.5, None, *tables)))
             out[f"{prow} gpu_clocks"] = chip_smoke.gpu_clocks()
+        pipe_rows(torch, chip_smoke, av, wrappers[kernel], layouts[kernel], views, tables, reads,
+                  out, f"{B}x{N}x{H}x{d}")
         out[f"{row} contiguous rope=True ms"] = [
             chip_smoke.time_ms(torch, lambda: wrappers[kernel](  # noqa: B023
                 *copies, d ** -0.5, None, *tables)) for _ in range(reads)]
@@ -572,6 +574,24 @@ def fused_rows(torch, chip_smoke, cfg, wrappers, rng, reads, out, only=None) -> 
                 *views, d ** -0.5, variant="dma", layout=layout)) for _ in range(reads)]  # noqa: B023
         out[f"dma variant {layout} {B}x{N}x{H}x{d} gpu_clocks"] = chip_smoke.gpu_clocks()
         del views
+
+
+def pipe_rows(torch, chip_smoke, av, route, layout, views, tables, reads, out, shape) -> None:
+    """The stage variant ``pipe`` on a fused row's views into ``out``, right
+    after the route's reads: ms RoPE on and off, whether it gave the
+    route's bits, and the SM clock after its reads."""
+    d = views[0].shape[-1] // (2 if layout == "packed" else 1)
+    prow = f"pipe {layout} {shape}"
+    for rope in (True, False):
+        pair = tables if rope else (None, None)
+        out[f"{prow} fused views rope={rope} ms"] = [
+            chip_smoke.time_ms(torch, lambda: av.attention_variant(  # noqa: B023
+                *views, d ** -0.5, None, *pair, variant="pipe", layout=layout))  # noqa: B023
+            for _ in range(reads)]
+    out[f"{prow} bit_equal_route"] = bool(torch.equal(
+        av.attention_variant(*views, d ** -0.5, None, *tables, variant="pipe", layout=layout),
+        route(*views, d ** -0.5, None, *tables)))
+    out[f"{prow} gpu_clocks"] = chip_smoke.gpu_clocks()
 
 
 def model_rows(torch, chip_smoke, FrameEncoder, reads, out) -> dict:

@@ -20,10 +20,11 @@ non-zero and prints no final line):
    bound at the peak memory rate and ``out.copy_(q)`` (the card's copy
    rate), its launches counted over this phase alone; every timed case
    below reports the floor at its own bytes ("floor_ms"); then probe15's
-   chained floor (``floor_chain``): the floor, K2 with RoPE and the plain
-   torch sum q + k 1e-3 + v 1e-3, each as a CUDA graph of 1 and of 5
-   data-dependent applications at probe15's (384, 6, 272, 128) blocks (the
-   graphs' results bit for bit the eager chain's), the marginal cost of an
+   chained floor (``floor_chain``): the floor, K2 with RoPE, the plain
+   torch sum q + k 1e-3 + v 1e-3 and SDPA (K2's yardstick), each as a CUDA
+   graph of 1 and of 5 data-dependent applications at probe15's (384, 6,
+   272, 128) blocks (the port's graphs' results bit for bit the eager
+   chain's), the marginal cost of an
    application (t5 - t1) / 4, its GB/s over probe15's bytes and one eager
    call beside it. Then each fused
    attention against its plain PyTorch version on the
@@ -924,8 +925,9 @@ def floor_phase(torch, device="cuda") -> dict:
 # (x = f(x, k, v)), so the marginal cost (tK - t1) / (K - 1) of an application
 # leaves out what a call costs to issue. Here one program is a CUDA graph of
 # the chain, replayed and timed by CUDA events. The functions: the memory
-# floor ("dma"), K2 with RoPE ("prod") and the plain torch sum q + k 1e-3 + v
-# 1e-3 in bf16 ("xlaadd", the probe's non-Pallas baseline), at probe15's
+# floor ("dma"), K2 with RoPE ("prod"), the plain torch sum q + k 1e-3 + v
+# 1e-3 in bf16 ("xlaadd", the probe's non-Pallas baseline) and K2's library
+# yardstick, SDPA without RoPE ("sdpa", FLOOR_CHAIN_LIBRARY), at probe15's
 # (384, 6, 272, 128) bf16 blocks, 261 live keys for K2, standard normal x 0.3
 # inputs and standard normal (N, 64) tables; its bytes total_bytes = 4 BG N
 # 128 2 (q, k, v read, o written).
@@ -934,9 +936,19 @@ FLOOR_CHAIN_NV, FLOOR_CHAIN_K = 261, 5
 FLOOR_CHAIN_SITE = "benchmarks/attn_probes/probe15_marginal_256.py:50"
 
 
+# The chain's library yardstick (its graphs timed like the port's, its
+# eager-equal check recorded but not required: not the port's code).
+FLOOR_CHAIN_LIBRARY = "sdpa"
+
+
 def floor_chain_fns(torch, inputs) -> dict:
     """probe15's three functions x -> f(x, k, v) over ``inputs`` ((B, G, N,
-    128) q, k, v and (N, 64) cos, sin)."""
+    128) q, k, v and (N, 64) cos, sin), and FLOOR_CHAIN_LIBRARY: K2's
+    attention without its RoPE by ``scaled_dot_product_attention`` (keys
+    past FLOOR_CHAIN_NV masked), the one PyTorch call that prices
+    ``prod``: K and V as head-major (B G, 2, N, 64) copies made here, x's
+    bytes read as head-major queries and its output's as the next x, so
+    the chain copies nothing."""
     from cbas_tpu_torch.ops import flash_attention as fa
     from cbas_tpu_torch.ops import memory_floor as mf
 
@@ -944,6 +956,13 @@ def floor_chain_fns(torch, inputs) -> dict:
     B, G, N, dd = q.shape
     scale = (dd // 2) ** -0.5
     milli = torch.tensor(1e-3, dtype=q.dtype, device=q.device)
+    live = (torch.arange(N, device=q.device) < FLOOR_CHAIN_NV)[None, None, None, :]
+    kh, vh = (t.view(B * G, N, 2, dd // 2).transpose(1, 2).contiguous() for t in (k, v))
+
+    def sdpa(x):
+        o = torch.nn.functional.scaled_dot_product_attention(
+            x.view(B * G, 2, N, dd // 2), kh, vh, attn_mask=live, scale=scale)
+        return o.view(B, G, N, dd)
 
     def dma(x):
         return mf.memory_floor(x.view(B * G, N, dd), k.view(B * G, N, dd),
@@ -955,7 +974,7 @@ def floor_chain_fns(torch, inputs) -> dict:
     def xlaadd(x):
         return x + k * milli + v * milli
 
-    return {"dma": dma, "prod": prod, "xlaadd": xlaadd}
+    return {"dma": dma, "prod": prod, "xlaadd": xlaadd, FLOOR_CHAIN_LIBRARY: sdpa}
 
 
 def chain(fn, x, times: int):
@@ -1020,7 +1039,7 @@ def floor_chain(torch, device="cuda") -> dict:
             del graphs, results
         else:
             entry["graph_equals_eager"] = torch.equal(chain(fn, q, K), eager[K])
-        entry["ok"] = entry["graph_equals_eager"]
+        entry["ok"] = entry["graph_equals_eager"] or name == FLOOR_CHAIN_LIBRARY
         out["fns"][name] = entry
     emit(out)
     bad = {name: e for name, e in out["fns"].items() if not e["ok"]}
@@ -1704,7 +1723,11 @@ def variants_kernel_entry(stages) -> dict:
     """The ``kernels`` line's entry for the stage variants: their launches
     over the stage phase, the headline variant's numbers at the headline
     case (STAGE_HEADLINE, with RoPE), every variant's there, and each case's
-    times and split."""
+    times and split; the pipe loop's builds apart: ptxas's registers, spill
+    bytes and serialization notes of each, and the stages, blocks an SM and
+    resident blocks the library reports at 64 and 128."""
+    from cbas_tpu_torch.ops import attention_variants as av
+
     index, headline = STAGE_HEADLINE
     label = STAGE_CASES[index][0]
     case = next(c for c in stages["cases"] if c["what"] == label and c["rope"])
@@ -1732,6 +1755,8 @@ def variants_kernel_entry(stages) -> dict:
                   for c in stages["cases"]],
         "clocks": stages["clocks"], "ex2_bf16x2": stages["ex2"], "seconds": stages["seconds"],
         "ptxas": list(PTXAS.get(VARIANTS_KERNEL, {}).items()),
+        "pipe_ptxas": {k: v for k, v in PTXAS.get(VARIANTS_KERNEL, {}).items() if ", pipe" in k},
+        "pipe_launch": {d: av.library_launch_config("pipe", d) for d in (64, 128)},
     }
 
 

@@ -519,15 +519,15 @@ def test_pvt_attention_swaps_only_inside_the_model_case():
 
 def test_floor_chain_runs_on_cpu(monkeypatch):
     """probe15's chain at a cut size on the CPU: each function's K-fold
-    chain equals K eager calls, and the plain sum and K2 change x (the floor
-    passes q through)."""
+    chain equals K eager calls, and the plain sum, K2 and its library
+    yardstick (SDPA) change x (the floor passes q through)."""
     monkeypatch.setattr(chip_smoke, "FLOOR_CHAIN_SHAPE", (2, 2, 72, 128))
     monkeypatch.setattr(chip_smoke, "FLOOR_CHAIN_NV", 67)
     monkeypatch.setattr(chip_smoke, "emit", lambda obj: None)
     out = chip_smoke.floor_chain(torch, device="cpu")
-    assert set(out["fns"]) == {"dma", "prod", "xlaadd"}
-    assert all(e["ok"] for e in out["fns"].values())
-    assert out["fns"]["xlaadd"]["changes_x"] and out["fns"]["prod"]["changes_x"]
+    assert set(out["fns"]) == {"dma", "prod", "xlaadd", "sdpa"}
+    assert all(e["ok"] and e["graph_equals_eager"] for e in out["fns"].values())
+    assert all(out["fns"][name]["changes_x"] for name in ("xlaadd", "prod", "sdpa"))
     assert not out["fns"]["dma"]["changes_x"]
 
 

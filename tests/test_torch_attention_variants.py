@@ -259,6 +259,58 @@ def test_pipe_is_variant_zero_bit_for_bit(layout, d):
     assert torch.equal(got, default(q, k, v, d ** -0.5, 19, cos, sin))
 
 
+def _register_cap(threads, blocks):
+    """The registers a thread may hold with ``blocks`` blocks of
+    ``threads`` resident on an SM: its 65536 lie in 4 sub-partitions, each
+    holding a quarter of the warps (rounded up), in steps of 8, at most
+    255."""
+    warps = -(-blocks * (threads // 32) // 4)
+    return min(255, 16384 // (32 * warps) // 8 * 8)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_launch_config_gives_the_pipe_loop_its_own_budget(d):
+    """Every build runs a consumer warpgroup and a producer warp. Variant 0
+    and every variant but the pipe loop's take the body's launch: 2 stages,
+    4 blocks an SM at 64 and 3 at 128 (register caps 96 and 128). The pipe
+    loop takes a ring of 4 stages at the most blocks an SM whose cap holds
+    what ptxas took for it on the card without spills (141 registers at 64,
+    178 at 128): 2 at 64, 1 at 128; their shared memory fits an SM."""
+    for variant in ("full",) + av.VARIANTS:
+        want = av.PIPE_LAUNCH[d] if variant == "pipe" else av.BODY_LAUNCH[d]
+        assert av.launch_config(variant, d) == want
+    body = av.launch_config("full", d)
+    assert body == {"threads": 160, "stages": 2, "min_blocks": 4 if d == 64 else 3}
+    assert _register_cap(160, body["min_blocks"]) == {64: 96, 128: 128}[d]
+    pipe = av.launch_config("pipe", d)
+    assert pipe == {"threads": 160, "stages": 4, "min_blocks": 2 if d == 64 else 1}
+    took = {64: 141, 128: 178}[d]
+    assert _register_cap(160, pipe["min_blocks"] + 1) < took <= _register_cap(
+        160, pipe["min_blocks"])
+    tile = 64 * d * 2  # one K or V tile (bf16), and Q's
+    assert pipe["min_blocks"] * (1024 + tile + pipe["stages"] * tile + 72) <= 232448
+    with pytest.raises(ValueError, match="no variant"):
+        av.launch_config("pipe", 96)
+
+
+def test_no_route_runs_the_pipe_loop():
+    """The pipe loop's route table is empty: it met the 0.98x rule at no
+    width (PERF.md §6), so K1-K3's entries and the host launch they call
+    (``sm90::launch``) name no variant but variant 0, at every key-tile
+    count, and only the variants' entry builds the pipe loop; K1-K3's
+    plain versions are pipe's (``test_pipe_is_variant_zero_bit_for_bit``)."""
+    csrc = os.path.join(ROOT, "cbas_tpu_torch", "csrc")
+    for name in ("attention_fat.cu", "attention_packed.cu", "attention_headmajor.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            assert "kPipe" not in f.read(), name
+    with open(os.path.join(csrc, "attention_sm90.cuh")) as f:
+        body = f.read()
+    launch = body[body.index("cudaError_t launch("):body.index("cudaError_t launch_staged(")]
+    assert "kPipe" not in launch and "n_tiles" not in launch
+    with open(os.path.join(csrc, "attention_variants.cu")) as f:
+        assert "CBAS_VARIANT(kPipe)" in f.read()
+
+
 def test_qk_at_head_dim_128_is_the_first_128_keys_scores():
     """At d 128 (K3) the qk output's columns are the scores of keys 0..127,
     zero past N."""
